@@ -1,0 +1,20 @@
+"""geomesa_tpu_torch: the PyTorch/CUDA port of geomesa_tpu for NVIDIA Hopper.
+
+The JAX package `geomesa_tpu` beside it is the reference this package is
+tested against; this package imports nothing of it (nor JAX). This slice
+covers the north-star chain: a BBOX+time+attribute CQL filter over the
+Parquet filesystem DataStore, device-resident partitions, and the fused
+kNN scan whose block-minima kernels are hand-written CUDA
+(`engine/kernels/chord_blockmin.cu`). Entry points run on the card
+unless the caller passes device="cpu".
+"""
+
+from geomesa_tpu_torch.core.columnar import FeatureBatch
+from geomesa_tpu_torch.core.sft import SimpleFeatureType
+from geomesa_tpu_torch.errors import CudaUnavailableError, NotPortedError
+from geomesa_tpu_torch.plan import DataStore, FeatureSource, Query, QueryHints
+
+__all__ = [
+    "CudaUnavailableError", "DataStore", "FeatureBatch", "FeatureSource",
+    "NotPortedError", "Query", "QueryHints", "SimpleFeatureType",
+]

@@ -1,0 +1,78 @@
+"""Device-resident feature batches as dicts of torch tensors.
+
+The counterpart of the reference package's `engine/device.py`: the host
+FeatureBatch maps onto a flat dict of tensors on one `torch.device`, with
+the reference's key names and dtypes (the reference runs JAX with x64 on,
+so its Double columns live on the device as f64):
+
+  <attr>            Double f64, Float f32, Integer i32, Long i64, Boolean
+                    bool, dictionary codes i32, Date/Timestamp i64 millis
+  <attr>__x/__y     point coordinates, f32
+  __valid__         bool validity mask (padding-aware)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryColumn
+from geomesa_tpu_torch.errors import CudaUnavailableError
+
+DeviceBatch = Dict[str, torch.Tensor]
+
+VALID = "__valid__"
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """`None` means the card: entry points run on CUDA unless the caller
+    names another device. No GPU raises typed instead of falling back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise CudaUnavailableError(
+            "no CUDA device is available; pass device='cpu' explicitly "
+            "to run the port on the CPU")
+    return dev
+
+
+def to_device(batch: FeatureBatch, device: torch.device) -> DeviceBatch:
+    """Transfer a FeatureBatch to tensors on `device` (module docstring).
+    Coordinates are cast to f32 on the host before the copy, as the
+    reference does, so both packages see the same f32 values."""
+    out: DeviceBatch = {}
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    for attr in batch.sft.attributes:
+        col = batch.columns[attr.name]
+        if isinstance(col, GeometryColumn):
+            out[f"{attr.name}__x"] = put(col.x.astype(np.float32))
+            out[f"{attr.name}__y"] = put(col.y.astype(np.float32))
+        elif isinstance(col, DictColumn):
+            out[attr.name] = put(np.asarray(col.codes, np.int32))
+        elif col.dtype == object:
+            continue  # Bytes columns stay host-side
+        elif attr.is_temporal:
+            out[attr.name] = put(np.asarray(col, np.int64))
+        else:
+            out[attr.name] = put(np.asarray(col))
+    valid = (
+        batch.valid
+        if batch.valid is not None
+        else np.ones(len(batch), dtype=bool)
+    )
+    out[VALID] = put(np.asarray(valid, bool))
+    return out
+
+
+def fetch(*tensors: torch.Tensor):
+    """Copy device tensors to host NumPy with ONE stream synchronisation:
+    every copy is enqueued asynchronously (into pinned memory) and the
+    stream is synchronised once at the end."""
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    if any(t.is_cuda for t in tensors):
+        torch.cuda.current_stream().synchronize()
+    return tuple(h.numpy() for h in host)

@@ -1,0 +1,23 @@
+"""Typed errors of the port.
+
+`NotPortedError` marks a reference feature that a later slice of the port
+brings: it names that slice, so a caller knows the refusal is deliberate
+and where the feature will land. `CudaUnavailableError` is raised when an
+entry point is asked for the card (the default) and no GPU is present:
+the port never falls back to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+
+class NotPortedError(NotImplementedError):
+    """A reference feature outside this slice of the port."""
+
+    def __init__(self, what: str, later_slice: str):
+        super().__init__(f"{what} is not ported yet (comes with: {later_slice})")
+        self.what = what
+        self.later_slice = later_slice
+
+
+class CudaUnavailableError(RuntimeError):
+    """The card was asked for (device=None or 'cuda') and CUDA is absent."""

@@ -1,0 +1,110 @@
+"""DataStore / FeatureSource: the GeoTools-shaped entry API of the port.
+
+The counterpart of the reference package's `plan/datastore.py`:
+
+    ds = DataStore(catalog_dir, use_device_cache=True)   # on the card
+    src = ds.create_schema(sft)
+    src.write(batch)
+    src.get_count("BBOX(geom, ...) AND dtg > ... AND speed > 5.0")
+    dists, idx, batch = src.knn(cql, qx, qy, k=10)
+
+A catalog is a directory; each schema is a FileSystemStorage
+subdirectory in the reference's on-disk format. `device=None` means the
+card: it raises `CudaUnavailableError` when there is none (pass
+device="cpu" to run on the CPU).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Dict, Optional, Union
+
+import torch
+
+from geomesa_tpu_torch.core.columnar import FeatureBatch
+from geomesa_tpu_torch.core.sft import SimpleFeatureType
+from geomesa_tpu_torch.engine.device import resolve_device
+from geomesa_tpu_torch.errors import NotPortedError
+from geomesa_tpu_torch.plan.explain import Explainer
+from geomesa_tpu_torch.plan.planner import QueryPlanner
+from geomesa_tpu_torch.plan.query import Query
+from geomesa_tpu_torch.store.cache import DeviceCacheManager
+from geomesa_tpu_torch.store.fs import FileSystemStorage
+from geomesa_tpu_torch.store.partition import DateTimeScheme
+
+
+class FeatureSource:
+    def __init__(self, storage: FileSystemStorage, planner: QueryPlanner):
+        self.storage = storage
+        self.planner = planner
+
+    @property
+    def sft(self) -> SimpleFeatureType:
+        return self.storage.sft
+
+    def get_count(self, query: "Query | str" = "INCLUDE") -> int:
+        if isinstance(query, str):
+            query = Query(self.sft.name, query)
+        return self.planner.count(query)
+
+    def write(self, batch: FeatureBatch) -> None:
+        self.storage.write(batch)
+
+    def knn(self, query: "Query | str", qx, qy, k: int = 10,
+            impl: str = "sparse"):
+        """kNN push-down: device mask + fused scan (QueryPlanner.knn).
+        Returns (dists, indices, batch)."""
+        return self.planner.knn(query, qx, qy, k=k, impl=impl)
+
+    def explain(self, query: "Query | str") -> str:
+        if isinstance(query, str):
+            query = Query(self.sft.name, query)
+        e = Explainer()
+        self.planner.plan(query, e)
+        return e.render()
+
+
+class DataStore:
+    """A catalog of feature types over a directory, served on `device`."""
+
+    def __init__(self, catalog: str, use_device_cache: bool = False,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.catalog = catalog
+        self.device = resolve_device(device)
+        self.use_device_cache = use_device_cache
+        os.makedirs(catalog, exist_ok=True)
+        self._sources: Dict[str, FeatureSource] = {}
+        # one planner (and one device cache) per type, even when sources
+        # are resolved from several threads at once
+        self._lock = threading.Lock()
+
+    def _source(self, storage: FileSystemStorage) -> FeatureSource:
+        cache = (DeviceCacheManager(storage, self.device)
+                 if self.use_device_cache else None)
+        return FeatureSource(storage,
+                             QueryPlanner(storage, self.device, cache=cache))
+
+    def create_schema(self, sft: SimpleFeatureType,
+                      scheme: Optional[DateTimeScheme] = None) -> FeatureSource:
+        if scheme is None:
+            if sft.default_dtg is None:
+                raise NotPortedError("spatial partition schemes (no dtg)",
+                                     "the partition-scheme slice (ROADMAP Queue A)")
+            scheme = DateTimeScheme(dtg_attr=sft.default_dtg.name)
+        storage = FileSystemStorage.create(
+            os.path.join(self.catalog, sft.name), sft, scheme)
+        src = self._source(storage)
+        with self._lock:
+            self._sources[sft.name] = src
+        return src
+
+    def get_feature_source(self, name: str) -> FeatureSource:
+        with self._lock:
+            src = self._sources.get(name)
+        if src is not None:
+            return src
+        src = self._source(FileSystemStorage.load(os.path.join(self.catalog, name)))
+        with self._lock:
+            # first builder wins: every caller shares one planner per type
+            return self._sources.setdefault(name, src)

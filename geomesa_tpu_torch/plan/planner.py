@@ -1,0 +1,367 @@
+"""The query planner and executor: counts and kNN.
+
+The counterpart of the reference package's `plan/planner.py` for the
+north-star chain: parse the CQL, extract the primary bbox and interval,
+prune partitions, make them resident (or scan them), evaluate the
+compiled f32 mask on the device with the f64 boundary band scattered in,
+and run the fused kNN scan over the masked rows:
+
+  plan -> _knn_mask_setup -> knn_sparse_launch | knn_fullscan_tiled
+       -> KnnLaunch.sync (one read; overflow falls back to the dense scan)
+       -> _canonical_dists (one f64 recompute of the reported meters)
+
+The exact count is the int64 sum of the same f64-exact mask. Query
+interceptors, the stats estimate, `impl="auto"`, aggregations and the
+mesh and ring routes come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from geomesa_tpu_torch.core.columnar import FeatureBatch
+from geomesa_tpu_torch.cql import ast, compile_filter, extract_bbox, extract_intervals
+from geomesa_tpu_torch.cql.compile import CompiledFilter
+from geomesa_tpu_torch.cql.extract import BBox, Interval
+from geomesa_tpu_torch.engine.device import VALID, fetch, to_device
+from geomesa_tpu_torch.engine.geodesy import haversine_m_np
+from geomesa_tpu_torch.engine.knn_scan import (
+    capacity_bucket, count_match_tiles, knn_fullscan_tiled,
+    knn_sparse_finish, knn_sparse_launch)
+from geomesa_tpu_torch.errors import NotPortedError
+from geomesa_tpu_torch.plan.explain import Explainer
+from geomesa_tpu_torch.plan.query import Query
+from geomesa_tpu_torch.store.cache import DeviceCacheManager, next_pow2
+from geomesa_tpu_torch.store.fs import FileSystemStorage
+
+
+@dataclasses.dataclass
+class QueryPlan:
+    query: Query
+    filter: ast.Filter
+    bbox: BBox
+    interval: Interval
+    partitions: List[str]
+    compiled: Optional[CompiledFilter]
+    # plan-time manifest snapshot: residency loads pin to the same
+    # committed write version the pruning saw
+    manifest: Optional[dict] = None
+
+
+class QueryPlanner:
+    def __init__(self, storage: FileSystemStorage, device: torch.device,
+                 cache: Optional[DeviceCacheManager] = None):
+        if (storage.sft.user_data or {}).get("geomesa.vis.attr"):
+            raise NotPortedError("feature-level visibility (geomesa.vis.attr)",
+                                 "the security slice")
+        self.storage = storage
+        self.device = device
+        self.cache = cache
+        # guards the compiled-filter cache and the kNN capacity cache
+        self._mutex = threading.Lock()
+        self._compiled_filters: dict = {}
+        self._knn_caps: dict = {}
+
+    # -- planning ----------------------------------------------------------
+
+    def plan(self, query: Query, explain: Optional[Explainer] = None) -> QueryPlan:
+        e = explain or Explainer()
+        sft = self.storage.sft
+        f = query.filter_ast
+        e.push(f"Planning '{query.type_name}' {ast.to_cql(f)}")
+        g = sft.default_geometry
+        d = sft.default_dtg
+        bbox = extract_bbox(f, g.name) if g else BBox(-180, -90, 180, 90)
+        interval = extract_intervals(f, d.name) if d else Interval(None, None)
+        e(f"Primary bbox: ({bbox.xmin}, {bbox.ymin}, {bbox.xmax}, {bbox.ymax})")
+        e(f"Primary interval: [{interval.start}, {interval.end}]")
+        manifest = self.storage.manifest_snapshot()
+        partitions = self.storage.prune_partitions(bbox, interval,
+                                                   manifest=manifest)
+        e(f"Partitions: {len(partitions)} of {len(manifest)} after pruning")
+        if query.hints.query_index:
+            e(f"Index override requested: {query.hints.query_index!r} "
+              "(single-strategy partition store; recorded only)")
+        compiled = None
+        if not isinstance(f, ast.Include):
+            compiled = self._compile_cached(f)
+            e(f"Residual predicate: compiled mask over "
+              f"{len(compiled.builders)} param table(s)")
+        else:
+            e("Residual predicate: none (INCLUDE)")
+        e.pop()
+        return QueryPlan(query, f, bbox, interval, partitions, compiled,
+                         manifest=manifest)
+
+    def _compile_cached(self, residual: ast.Filter) -> CompiledFilter:
+        """Reuse CompiledFilter across queries keyed on canonical CQL."""
+        key = ast.to_cql(residual)
+        with self._mutex:
+            got = self._compiled_filters.get(key)
+        if got is not None:
+            return got
+        compiled = compile_filter(residual, self.storage.sft)
+        with self._mutex:
+            if len(self._compiled_filters) > 256:  # bound memory
+                self._compiled_filters.clear()
+            return self._compiled_filters.setdefault(key, compiled)
+
+    # -- the f64-exact mask ------------------------------------------------
+
+    def _knn_mask_setup(self, plan: QueryPlan, query: Query):
+        """Residency (or scan) + the f64-exact filter mask: returns
+        (sb, batch, dev, mask, is_empty); `sb` is None on the scan path.
+        Band corrections are scattered in, ANDed with row validity and,
+        on the cached path, with the partition allowance."""
+        sb = None
+        if self.cache is not None:
+            self.cache.ensure(plan.partitions, manifest=plan.manifest)
+            sb = self.cache.superbatch()
+            if sb is None:
+                return None, None, None, None, True
+            allowed = np.zeros(max(len(sb.ids), 1), bool)
+            for name in plan.partitions:
+                i = sb.ids.get(name)
+                if i is not None:
+                    allowed[i] = True
+            if not allowed.any():
+                return None, None, None, None, True
+            batch, dev = sb.batch, sb.dev
+            mask = (plan.compiled.mask(dev, batch) if plan.compiled is not None
+                    else dev[VALID])
+            mask = mask & torch.from_numpy(allowed).to(self.device)[sb.pids]
+            if plan.compiled is not None and plan.compiled.has_band:
+                bidx, bexact = plan.compiled.band_corrections(dev, batch)
+                if len(bidx):
+                    at = torch.from_numpy(bidx).to(self.device)
+                    (pid_at,) = fetch(sb.pids[at])
+                    bexact = bexact & batch.valid[bidx] & allowed[pid_at]
+                    mask[at] = torch.from_numpy(bexact).to(self.device)
+        else:
+            batches = list(self.storage.scan(plan.bbox, plan.interval))
+            if not batches:
+                return None, None, None, None, True
+            batch = FeatureBatch.concat(batches)
+            batch = batch.pad_to(next_pow2(len(batch)))
+            dev = to_device(batch, self.device)
+            mask = (plan.compiled.mask(dev, batch) if plan.compiled is not None
+                    else dev[VALID])
+            mask = mask & dev[VALID]
+            if plan.compiled is not None and plan.compiled.has_band:
+                bidx, bexact = plan.compiled.band_corrections(dev, batch)
+                if len(bidx):
+                    mask[torch.from_numpy(bidx).to(self.device)] = (
+                        torch.from_numpy(bexact & batch.valid[bidx]).to(self.device))
+        return sb, batch, dev, mask, False
+
+    # -- count -------------------------------------------------------------
+
+    def count(self, query: "Query | str") -> int:
+        """Exact match count: the int64 sum of the f64-exact mask. With
+        exact_count=False and INCLUDE, the manifest row count."""
+        if isinstance(query, str):
+            query = Query(self.storage.sft.name, query)
+        if (not query.hints.exact_count
+                and isinstance(query.filter_ast, ast.Include)):
+            snap = self.storage.manifest_snapshot()
+            n = sum(int(e["count"]) for files in snap.values() for e in files)
+        else:
+            _, _, _, mask, is_empty = self._knn_mask_setup(self.plan(query), query)
+            n = 0 if is_empty else int(mask.sum(dtype=torch.int64))
+        if query.max_features is not None:
+            n = min(n, query.max_features)
+        return n
+
+    # -- kNN ---------------------------------------------------------------
+
+    def knn(self, query: "Query | str", qx, qy, k: int = 10,
+            impl: str = "sparse"):
+        """Serial kNN = launch + sync back to back. Returns (dists [Q, k]
+        meters np, indices [Q, k] np int32 into `batch` rows, batch)."""
+        return self.knn_launch(query, qx, qy, k=k, impl=impl).sync()
+
+    def knn_launch(self, query: "Query | str", qx, qy, k: int = 10,
+                   impl: str = "sparse",
+                   want_mask_count: bool = False) -> "KnnLaunch":
+        """Plan -> prune -> mask -> kernel launch, returning a `KnnLaunch`
+        without reading any result back. `want_mask_count` also reduces
+        the (f64-exact) mask to a count that rides the same read.
+
+        impl: "sparse" scans only match-bearing data tiles, with a
+        capacity calibrated once per (filter, k) and cached; an overflow
+        falls back to the dense scan and drops the cached capacity.
+        "fullscan" runs the dense scan."""
+        if impl not in ("sparse", "fullscan"):
+            if impl == "auto":
+                raise NotPortedError("impl='auto' (stats-driven kernel choice)",
+                                     "the stats slice")
+            raise ValueError(f"unknown kNN impl {impl!r}")
+        if isinstance(query, str):
+            query = Query(self.storage.sft.name, query)
+        plan = self.plan(query)
+        sft = self.storage.sft
+        g = sft.default_geometry
+        if g is None or g.type != "Point":
+            raise ValueError("planner.knn requires a point default geometry")
+
+        sb, batch, dev, mask, is_empty = self._knn_mask_setup(plan, query)
+        if is_empty:
+            return KnnLaunch.ready(
+                self,
+                (np.full((len(qx), k), np.inf),
+                 np.zeros((len(qx), k), np.int32),
+                 FeatureBatch.from_pydict(sft, {a.name: [] for a in sft.attributes})),
+                fused=want_mask_count)
+
+        x = dev[f"{g.name}__x"]
+        y = dev[f"{g.name}__y"]
+        kk = min(k, x.shape[0])
+        mb = max(64, kk)
+        jqx = torch.from_numpy(np.asarray(qx, np.float32).ravel()).to(self.device)
+        jqy = torch.from_numpy(np.asarray(qy, np.float32).ravel()).to(self.device)
+        count_dev = mask.sum(dtype=torch.int64) if want_mask_count else None
+        launch = KnnLaunch(self, k=k, kk=kk, impl=impl, batch=batch,
+                           count_dev=count_dev, hq=_host_q(qx, qy))
+        if impl == "sparse":
+            key = (ast.to_cql(plan.filter), kk)
+            seed_cap = self._caps_seed(key)
+            if seed_cap is None:
+                # calibration: the one scalar read a cold (filter, k) pays
+                seed_cap = capacity_bucket(int(count_match_tiles(mask)))
+            fd, fi, ov, seed_cap = knn_sparse_launch(
+                jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
+                m_blocks=mb)
+            launch.arm_sparse(fd, fi, ov, jqx, jqy, x, y, mask,
+                              cap=seed_cap, caps_key=key, mb=mb)
+        else:
+            fd, fi = knn_fullscan_tiled(jqx, jqy, x, y, mask, k=kk, m_blocks=mb)
+            launch.arm_dense(fd, fi)
+        return launch
+
+    def _caps_seed(self, key):
+        """The cached sparse capacity for `key` (None = cold, calibrate).
+        A miss against an oversized cache clears it (bounded memory)."""
+        with self._mutex:
+            caps = self._knn_caps
+            if key not in caps and len(caps) > 256:
+                caps.clear()
+            return caps.get(key)
+
+
+def _pad_to_k(dists: np.ndarray, idx: np.ndarray, k: int):
+    """Pad a [Q, kk<=k] kNN result to k columns (inf distance, index 0)."""
+    if dists.shape[1] < k:
+        pad = k - dists.shape[1]
+        dists = np.pad(dists, ((0, 0), (0, pad)), constant_values=np.inf)
+        idx = np.pad(idx, ((0, 0), (0, pad)))
+    return dists, idx
+
+
+def _host_q(qx, qy):
+    """Host f64 copies of the query points, for sync's meter recompute."""
+    return (np.asarray(qx, np.float64).ravel(),
+            np.asarray(qy, np.float64).ravel())
+
+
+def _canonical_dists(dists, idx, batch, hq):
+    """Canonical final meters: the device kernels RANK (their f32 refine
+    picks the neighbour set and order); the reported distances are
+    recomputed here in f64 from the f64 host coordinates and rounded ONCE
+    to the result dtype, so every route reports identical bits whenever
+    the neighbour sets agree."""
+    if hq is None or dists.size == 0:
+        return dists
+    fin = np.isfinite(dists)
+    if not fin.any():
+        return dists
+    col = batch.columns[batch.sft.default_geometry.name]
+    cx = np.asarray(col.x, np.float64)
+    cy = np.asarray(col.y, np.float64)
+    qx, qy = hq
+    ii = np.clip(idx, 0, len(cx) - 1)
+    d64 = haversine_m_np(qx[:, None], qy[:, None], cx[ii], cy[ii])
+    return np.where(fin, d64, dists).astype(dists.dtype, copy=False)
+
+
+class KnnLaunch:
+    """One launched-but-unsynced kNN query (planner.knn_launch).
+
+    `sync()` does the single combined read (results + sparse overflow
+    flag + any fused count), runs the overflow -> dense fallback, writes
+    the planner's capacity cache back, and returns what `planner.knn`
+    returns. After a fused-count sync, `mask_count` holds the count."""
+
+    __slots__ = ("planner", "k", "kk", "impl", "batch", "mask_count",
+                 "fused_ok", "_ready", "_fd", "_fi", "_ov", "_cap",
+                 "_caps_key", "_jqx", "_jqy", "_x", "_y", "_mask", "_mb",
+                 "_count_dev", "_hq")
+
+    def __init__(self, planner, k, kk, impl, batch, count_dev=None, hq=None):
+        self.planner = planner
+        self.k = k
+        self.kk = kk
+        self.impl = impl
+        self.batch = batch
+        self.mask_count = None
+        self.fused_ok = count_dev is not None
+        self._count_dev = count_dev
+        self._ready = None
+        self._fd = self._fi = self._ov = None
+        self._jqx = self._jqy = self._x = self._y = self._mask = None
+        self._cap = self._caps_key = self._mb = None
+        self._hq = hq
+
+    @classmethod
+    def ready(cls, planner, result, fused: bool = False) -> "KnnLaunch":
+        """An already-resolved launch (the empty early-out); a fused count
+        resolves to 0."""
+        launch = cls(planner, k=0, kk=0, impl="none", batch=result[2])
+        launch._ready = result
+        launch.fused_ok = fused
+        launch.mask_count = 0 if fused else None
+        return launch
+
+    def arm_sparse(self, fd, fi, ov, jqx, jqy, x, y, mask, cap, caps_key,
+                   mb) -> None:
+        self._fd, self._fi, self._ov = fd, fi, ov
+        self._jqx, self._jqy, self._x, self._y = jqx, jqy, x, y
+        self._mask = mask
+        self._cap, self._caps_key, self._mb = cap, caps_key, mb
+
+    def arm_dense(self, fd, fi) -> None:
+        self._fd, self._fi = fd, fi
+
+    def sync(self):
+        """Block until the query's device work is done; returns (dists
+        [Q, k] np, idx [Q, k] np int32, batch)."""
+        if self._ready is not None:
+            return self._ready
+        extra = (self._count_dev,) if self._count_dev is not None else ()
+        if self._ov is not None:
+            fd, fi, cap, extra_host = knn_sparse_finish(
+                self._fd, self._fi, self._ov, self._jqx, self._jqy,
+                self._x, self._y, self._mask, k=self.kk,
+                tile_capacity=self._cap, m_blocks=self._mb, extra=extra)
+            with self.planner._mutex:
+                caps = self.planner._knn_caps
+                if cap > 0:
+                    caps[self._caps_key] = cap
+                else:
+                    caps.pop(self._caps_key, None)
+        else:
+            fd, fi, *extra_host = fetch(self._fd, self._fi, *extra)
+            fi = fi.astype(np.int32)
+        dists, idx = _pad_to_k(np.asarray(fd), np.asarray(fi), self.k)
+        dists = _canonical_dists(dists, idx, self.batch, self._hq)
+        if extra_host:
+            self.mask_count = int(extra_host[0])
+        # drop the device refs: they are the query's device footprint
+        self._fd = self._fi = self._ov = self._count_dev = None
+        self._jqx = self._jqy = self._x = self._y = self._mask = None
+        self._ready = (dists, idx, self.batch)
+        return self._ready

@@ -1,0 +1,171 @@
+"""Device cache manager: partitions resident on one device.
+
+The counterpart of the reference package's `store/cache.py`, single-GPU
+tier: each partition is loaded from its files, padded to the next power
+of two, uploaded once as its own device segment, and the superbatch is a
+device-side concat of the segments plus a partition-id row column.
+Queries mask pruned-out partitions by lane (`allowed[pids]`) instead of
+launching per partition. Residency follows the storage manifest: a
+partition whose file list changed is reloaded, the rest stay put. The
+mesh tier, delta-tile growth and manifest persistence come later.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
+from geomesa_tpu_torch.engine.device import to_device
+from geomesa_tpu_torch.store.fs import FileSystemStorage
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _locked(fn):
+    """Serialize a DeviceCacheManager method on the instance RLock."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+
+    return wrapper
+
+
+@dataclasses.dataclass
+class CacheEntry:
+    """One resident partition: host copy (padded) + its device segment."""
+
+    files: List[str]
+    count: int  # valid rows
+    padded: int  # padded length (pow2)
+    batch: FeatureBatch
+    dev: dict
+
+
+@dataclasses.dataclass
+class SuperBatch:
+    """All resident partitions as ONE device batch + partition ids."""
+
+    batch: FeatureBatch          # host concat (padded segments)
+    dev: dict                    # device tensors of the concat
+    pids: torch.Tensor           # i32 [N] partition id per row
+    ids: Dict[str, int]          # partition name -> id
+
+
+class DeviceCacheManager:
+    """Keeps partitions of a FileSystemStorage resident on `device`."""
+
+    def __init__(self, storage: FileSystemStorage, device: torch.device):
+        self.storage = storage
+        self.device = device
+        self._lock = threading.RLock()
+        self._entries: Dict[str, CacheEntry] = {}
+        self._super: Optional[SuperBatch] = None
+        self._applied_mversion = -1  # storage commit version last applied
+        # store-level grow-only vocabularies (per dict column) so device
+        # code segments from different partitions stay comparable
+        self._vocab: Dict[str, list] = {}
+
+    def _partition_files(self, name: str, manifest: dict) -> List[str]:
+        return sorted(e["file"] for e in manifest.get(name, []))
+
+    def _shared_vocab_recode(self, batch: FeatureBatch) -> FeatureBatch:
+        """Re-encode dict columns against the store-level vocabularies."""
+        cols = dict(batch.columns)
+        changed = False
+        for name, col in batch.columns.items():
+            if not isinstance(col, DictColumn):
+                continue
+            vocab = self._vocab.setdefault(name, [])
+            lookup = {v: i for i, v in enumerate(vocab)}
+            remap = np.empty(len(col.vocab), np.int32)
+            for i, v in enumerate(col.vocab):
+                if v not in lookup:
+                    lookup[v] = len(vocab)
+                    vocab.append(v)
+                remap[i] = lookup[v]
+            codes = np.where(col.codes >= 0, remap[np.maximum(col.codes, 0)], -1)
+            cols[name] = DictColumn(codes.astype(np.int32), vocab)
+            changed = True
+        if not changed:
+            return batch
+        return FeatureBatch(batch.sft, cols, batch.fids, batch.valid)
+
+    def _load_partition(self, name: str, manifest: dict) -> Optional[CacheEntry]:
+        batches = list(self.storage.scan_partitions([name], manifest=manifest))
+        if not batches:
+            return None
+        batch = FeatureBatch.concat(batches)
+        n = len(batch)
+        padded = self._shared_vocab_recode(batch.pad_to(next_pow2(n)))
+        dev = to_device(padded, self.device)
+        return CacheEntry(files=self._partition_files(name, manifest),
+                          count=n, padded=len(padded), batch=padded, dev=dev)
+
+    @_locked
+    def ensure(self, partitions: Optional[List[str]] = None,
+               manifest: Optional[dict] = None) -> List[str]:
+        """Make the named partitions (default: all) resident, pinned to the
+        `manifest` snapshot; returns the partitions (re)loaded. A stale
+        snapshot (older than one already applied) is replaced by a fresh
+        one, so residency never rolls backward."""
+        mv = getattr(manifest, "version", None)
+        if manifest is None or (mv is not None and mv < self._applied_mversion):
+            manifest = self.storage.manifest_snapshot()
+            mv = manifest.version
+        if mv is not None:
+            self._applied_mversion = max(self._applied_mversion, mv)
+        names = partitions if partitions is not None else sorted(manifest)
+        loaded = []
+        for name in names:
+            cur = self._entries.get(name)
+            if cur is not None and cur.files == self._partition_files(name, manifest):
+                continue
+            entry = self._load_partition(name, manifest)
+            changed = True
+            if entry is None:
+                changed = self._entries.pop(name, None) is not None
+            else:
+                self._entries[name] = entry
+            if changed:
+                loaded.append(name)
+        if loaded:
+            self._super = None
+        return loaded
+
+    @_locked
+    def superbatch_peek(self) -> Optional[SuperBatch]:
+        """The current superbatch if one is built, else None (no work)."""
+        return self._super
+
+    @_locked
+    def superbatch(self) -> Optional[SuperBatch]:
+        """The concatenated device view of every resident partition, in
+        sorted partition order (None when nothing is resident)."""
+        if self._super is not None:
+            return self._super
+        if not self._entries:
+            return None
+        names = sorted(self._entries)
+        entries = [self._entries[n] for n in names]
+        batch = FeatureBatch.concat([e.batch for e in entries])
+        dev = {k: torch.cat([e.dev[k] for e in entries])
+               for k in entries[0].dev}
+        pids = torch.cat([
+            torch.full((e.padded,), i, dtype=torch.int32, device=self.device)
+            for i, e in enumerate(entries)])
+        self._super = SuperBatch(batch=batch, dev=dev, pids=pids,
+                                 ids={n: i for i, n in enumerate(names)})
+        return self._super

@@ -1,0 +1,196 @@
+"""End to end: the port's DataStore against the reference's on one shared
+catalog (written by the reference), both with the device cache on.
+
+For k in {1, 10, 64} x impl in {sparse, fullscan}, plus a forced sparse
+overflow, over 16 queries: the neighbour sets are identical and the
+canonical f64 meters bit-identical; counts are equal, and equal to an
+f64 NumPy count. The store is 3 days of 9000 rows over 4 day partitions,
+each padded to 8192 or 16384 rows: 3 data tiles, so interpret-mode
+Pallas stays cheap.
+"""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from geomesa_tpu.core.columnar import FeatureBatch as RFB
+from geomesa_tpu.core.sft import SimpleFeatureType as RSFT
+from geomesa_tpu.plan import DataStore as RDataStore
+from geomesa_tpu_torch.core.sft import SimpleFeatureType as PSFT
+from geomesa_tpu_torch.errors import CudaUnavailableError, NotPortedError
+from geomesa_tpu_torch.plan import DataStore as PDataStore
+
+REPO = Path(__file__).resolve().parents[1]
+SPEC = "speed:Double,dtg:Date,*geom:Point"
+T0 = 1_600_000_000_000
+DAY = 86400_000
+Q = 16
+
+
+def iso(ms):
+    return str(np.datetime64(ms, "ms")) + "Z"
+
+
+CQL = (f"BBOX(geom, -10.0, 35.0, 12.5, 55.0) AND dtg > {iso(T0 + 3600_000)} "
+       f"AND dtg < {iso(T0 + 2 * DAY + 7200_000)} AND speed > 5.0")
+
+
+@pytest.fixture(scope="module")
+def stores(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("torch_ds"))
+    rng = np.random.default_rng(21)
+    n = 3 * 9000
+    x = rng.uniform(-20, 20, n)
+    y = rng.uniform(30, 60, n)
+    order = np.argsort(np.floor((x + 20) / 2.5) * 64 + np.floor((y - 30) / 2.5),
+                       kind="stable")  # coarse store order: clustered tiles
+    x, y = x[order], y[order]
+    t = T0 + np.repeat(np.arange(3), 9000) * DAY + rng.integers(0, DAY, n)
+    speed = rng.uniform(0, 30, n)
+    ref_ds = RDataStore(root, use_device_cache=True)
+    src = ref_ds.create_schema(RSFT.from_spec("gdelt", SPEC))
+    src.write(RFB.from_pydict(src.sft, {"speed": speed, "dtg": t,
+                                        "geom": np.stack([x, y], 1)}))
+    port_ds = PDataStore(root, use_device_cache=True, device="cpu")
+    qx = rng.uniform(-8, 10, Q)
+    qy = rng.uniform(37, 53, Q)
+    return dict(ref=ref_ds.get_feature_source("gdelt"),
+                port=port_ds.get_feature_source("gdelt"),
+                root=root, x=x, y=y, t=t, speed=speed, qx=qx, qy=qy)
+
+
+def assert_same(ref_out, port_out):
+    rd, ri, _ = ref_out
+    pd, pi, _ = port_out
+    assert pd.shape == rd.shape and pd.dtype == rd.dtype
+    assert pi.dtype == ri.dtype == np.int32
+    for i in range(len(rd)):
+        fin = np.isfinite(rd[i])
+        assert set(ri[i][fin].tolist()) == set(pi[i][np.isfinite(pd[i])].tolist()), i
+    # canonical meters: one f64 recompute in both, so bit-identical
+    np.testing.assert_array_equal(np.sort(pd, 1), np.sort(rd, 1))
+
+
+@pytest.mark.parametrize("impl", ["sparse", "fullscan"])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_knn_matches_reference(stores, k, impl):
+    s = stores
+    ref_out = s["ref"].knn(CQL, s["qx"], s["qy"], k=k, impl=impl)
+    port_out = s["port"].knn(CQL, s["qx"], s["qy"], k=k, impl=impl)
+    assert np.isfinite(port_out[0]).all()
+    assert_same(ref_out, port_out)
+
+
+def test_forced_overflow_matches_reference(stores):
+    s = stores
+    outs = []
+    for src in (s["ref"], s["port"]):
+        src.knn(CQL, s["qx"], s["qy"], k=10)  # calibrates and caches
+        caps = src.planner._knn_caps
+        key = next(k for k in caps if k[1] == 10)
+        caps[key] = 1  # 1 tile of capacity: the query's tiles overflow it
+        outs.append(src.knn(CQL, s["qx"], s["qy"], k=10))
+        assert key not in caps  # the fallback ran and dropped the capacity
+    assert_same(*outs)
+
+
+def test_counts_match_reference_and_f64(stores):
+    s = stores
+    x, y, t, speed = s["x"], s["y"], s["t"], s["speed"]
+    for cql, exp in [
+        (CQL, (x >= -10) & (x <= 12.5) & (y >= 35) & (y <= 55)
+         & (t > T0 + 3600_000) & (t < T0 + 2 * DAY + 7200_000) & (speed > 5)),
+        ("speed BETWEEN 3 AND 4", (speed >= 3) & (speed <= 4)),
+        (f"NOT (BBOX(geom, 0, 40, 5, 45)) AND dtg > {iso(T0 + DAY)}",
+         ~((x >= 0) & (x <= 5) & (y >= 40) & (y <= 45)) & (t > T0 + DAY)),
+        ("INCLUDE", np.ones(len(x), bool)),
+    ]:
+        got = s["port"].get_count(cql)
+        assert got == s["ref"].get_count(cql) == int(exp.sum()), cql
+
+
+def test_fused_count_rides_the_knn_read(stores):
+    s = stores
+    launch = s["port"].planner.knn_launch(CQL, s["qx"], s["qy"], k=5,
+                                          want_mask_count=True)
+    d, i, _ = launch.sync()
+    assert launch.mask_count == s["port"].get_count(CQL)
+    assert_same(s["ref"].knn(CQL, s["qx"], s["qy"], k=5), (d, i, None))
+
+
+def test_empty_window_matches_reference(stores):
+    s = stores
+    cql = f"dtg > {iso(T0 + 30 * DAY)}"
+    r = s["ref"].knn(cql, s["qx"], s["qy"], k=4)
+    p = s["port"].knn(cql, s["qx"], s["qy"], k=4)
+    for a, b in zip(r[:2], p[:2]):
+        np.testing.assert_array_equal(a, b)
+    assert s["port"].get_count(cql) == 0
+
+
+def test_scan_path_matches_cached(stores):
+    s = stores
+    scan = PDataStore(s["root"], use_device_cache=False, device="cpu")
+    src = scan.get_feature_source("gdelt")
+    assert src.get_count(CQL) == s["port"].get_count(CQL)
+    rd = RDataStore(s["root"]).get_feature_source("gdelt")
+    assert_same(rd.knn(CQL, s["qx"], s["qy"], k=10),
+                src.knn(CQL, s["qx"], s["qy"], k=10))
+
+
+def test_explain_agrees_with_reference(stores):
+    def lines(src):
+        return [ln.strip() for ln in src.explain(CQL).splitlines()
+                if ln.strip().startswith(("Planning", "Primary", "Partitions"))]
+
+    assert lines(stores["port"]) == lines(stores["ref"])
+    assert any(ln.startswith("Partitions: 3 of 4") for ln in lines(stores["port"]))
+
+
+def test_later_slice_options_raise_typed(stores, tmp_path):
+    s = stores
+    with pytest.raises(NotPortedError, match="stats"):
+        s["port"].knn(CQL, s["qx"], s["qy"], k=3, impl="auto")
+    ds = PDataStore(str(tmp_path / "vis"), device="cpu")
+    with pytest.raises(NotPortedError, match="visibility"):
+        ds.create_schema(PSFT.from_spec(
+            "v", "vis:String,dtg:Date,*geom:Point;geomesa.vis.attr=vis"))
+
+
+def test_default_device_is_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: DataStore() runs on it")
+    with pytest.raises(CudaUnavailableError):
+        PDataStore(str(tmp_path / "cat"))
+
+
+def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
+    script = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        from geomesa_tpu_torch import DataStore, FeatureBatch, SimpleFeatureType
+        ds = DataStore({str(tmp_path)!r}, use_device_cache=True, device="cpu")
+        sft = SimpleFeatureType.from_spec("t", "speed:Double,dtg:Date,*geom:Point")
+        src = ds.create_schema(sft)
+        rng = np.random.default_rng(0)
+        n = 5000
+        src.write(FeatureBatch.from_pydict(sft, {{
+            "speed": rng.uniform(0, 30, n),
+            "dtg": rng.integers({T0}, {T0 + 2 * DAY}, n),
+            "geom": np.stack([rng.uniform(-5, 5, n), rng.uniform(40, 50, n)], 1)}}))
+        d, i, _ = src.knn("BBOX(geom, -4, 41, 4, 49) AND speed > 5", [0.0], [45.0], k=3)
+        assert np.isfinite(d).all() and src.get_count("speed > 5") > 0
+        bad = [m for m in sys.modules
+               if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
+               or m == "geomesa_tpu"]
+        print("LOADED", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
