@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (geomesa_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # full size: 2^26 rows, 256 queries
-    python3 chip_smoke.py --rows N   # a smaller store, for a quick check
+    python3 chip_smoke.py            # full size: 2^26 rows in each store
+    python3 chip_smoke.py --rows N   # smaller stores, for a quick check
 
 Needs a CUDA card and the CUDA toolkit (nvcc); without a card it exits 1
 and prints no result. Phases, each fatal on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build of every CUDA kernel from the sources in the checkout;
+2. build of every CUDA kernel source in the checkout, one nvcc each, all
+   started together;
 3. kernel check: each kernel against its plain PyTorch version on the card
-   (Q=256, N=2^22, dead sparse slots exactly 1e9);
-4. the main path at full size: DataStore on the card -> write -> get_count
+   (B1/B2 at Q=256, N=2^22, dead sparse slots exactly 1e9; B3 over 2^22
+   Z-ordered points on a 512x512 grid: counts equal, weights within the
+   per-cell bound, dictionary misses add nothing; B4/B5 at N=2^22 against
+   a ~1100-edge zone polygon: identical booleans);
+4. the kNN path at full size: DataStore on the card -> write -> get_count
    and knn (sparse, fullscan, forced overflow) for the north-star CQL
    (BBOX + time + attribute, bench config 3's data shape), with launch
    counts reset before and read after, checked against an f64 NumPy
    oracle (exact count, recall on 16 queries, identical neighbour sets
    across the three routes), and a torch.profiler breakdown of one warm
    call of each route;
-5. each kernel timed at the main path's shapes beside its plain version
-   and its bound, printed as one {"kernels": [...]} line.
+5. the density path at full size (bench config 4: a 512x512 heatmap of
+   NYC-taxi-shaped pickups, monthly partitions): get_features density
+   (weighted, unweighted, scatter route), a zone-polygon get_count and
+   density, and DensityProcess with radius 2, each timed cold and warm,
+   with launch counts reset before and read after, checked against
+   independent oracles (NumPy binning, an f64 crossing count on the card,
+   the scatter route, the exact fallback on a shuffled copy), and a
+   torch.profiler breakdown of one warm density call;
+6. each kernel timed at its path's shapes beside its plain version and
+   its bound, printed as one {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -39,6 +51,7 @@ import numpy as np
 Q = 256
 K = 10
 KERNEL_CHECK_N = 1 << 22
+PIP_CHECK_N = 1 << 22
 TOL = 1e-5  # |key| <= 12, so a few f32 ulps of association-order noise
 BBOX = (-60.0, 20.0, 60.0, 70.0)
 T0, T1 = 1_592_000_000_000, 1_598_000_000_000
@@ -287,7 +300,7 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         return launches, inputs
 
 
-def kernel_rows(torch, ks, launches, inp):
+def kernel_rows(torch, ks, launches, inp, card_s: str):
     """Each kernel at the main path's shapes: time, plain time, error, bound."""
     qx, qy, x, y, maskf = (inp[k] for k in ("qx", "qy", "x", "y", "maskf"))
     n = x.shape[0]
@@ -322,7 +335,358 @@ def kernel_rows(torch, ks, launches, inp):
         })
         log(f"{name}: N={n} Q={Q} slots={slots if 'sparse' in name else n // ks.DATA_TILE} "
             f"live_tiles={live if 'sparse' in name else n // ks.DATA_TILE}: "
-            f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b:.3f} ms by {by})")
+            f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b:.3f} ms by {by}) "
+            f"[{card_s}]")
+    return rows
+
+
+# -- density and polygon path (bench config 4) ----------------------------------
+
+ENV = (-74.3, 40.5, -73.7, 41.0)  # the bench's config-4 envelope (NYC)
+GRID = 512
+D_T0, D_T1 = 1_451_606_400_000, 1_467_331_200_000  # 2016-01-01 .. 2016-07-01
+P_T0, P_T1 = 1_454_284_800_000, 1_462_060_800_000  # 2016-02-01 .. 2016-05-01
+# FP32 operations per point of B3 as written: 2 subtracts, 2 divides,
+# 2 floors, 1 add
+ZS_OPS = 7
+# FP32 operations per (point, edge) pair of B4/B5 as written. Every pair
+# pays the two compares of the half-open test (B4) and, in B5, the 12 of
+# the near-flat term; pairs whose edge straddles the point's y also pay
+# t, xc and the crossing compare (B4: 8 more; B5: 18 more, with the
+# slope-inflated error).
+PIP_ALL, PIP_COND = 2, 8
+BAND_ALL, BAND_COND = 14, 18
+
+
+def zone_polygon(seed: int = 11):
+    """A seeded stand-in for a taxi-zone polygon: a smooth star-shaped
+    shell of 1024 vertices and one 64-vertex hole, ~20% of the envelope.
+    Returns its WKT."""
+    rng = np.random.default_rng(seed)
+
+    def ring(n, cx, cy, rx, ry, amp):
+        th = np.sort(rng.uniform(0, 2 * np.pi, n))
+        r = (1 + amp * np.sin(5 * th + rng.uniform(0, 2 * np.pi))
+             + 0.002 * rng.standard_normal(n))
+        pts = np.stack([cx + rx * r * np.cos(th), cy + ry * r * np.sin(th)], 1)
+        pts = np.concatenate([pts, pts[:1]])
+        return "(" + ", ".join(f"{float(a)!r} {float(b)!r}" for a, b in pts) + ")"
+
+    return (f"POLYGON({ring(1024, -74.0, 40.75, 0.165, 0.135, 0.25)}, "
+            f"{ring(64, -73.98, 40.74, 0.03, 0.025, 0.1)})")
+
+
+def cell_bound(got, exp, cnt):
+    """The reference bench's per-cell bound for weighted grids (f32
+    atomics in no fixed order against an f64 sum)."""
+    tol = 3e-7 * np.sqrt(np.maximum(cnt, 1.0)) * np.abs(exp) + 0.5
+    return bool((np.abs(np.asarray(got, np.float64) - exp) <= tol).all())
+
+
+def pip_pairs(torch, py, y1, y2) -> int:
+    """Pairs (point, edge) whose edge straddles the point's y (half-open):
+    the pairs that need the crossing arithmetic, counted from sorted edge
+    ends (an f32 count on these inputs, for the data-dependent bound)."""
+    lo, _ = torch.sort(torch.minimum(y1, y2))
+    hi, _ = torch.sort(torch.maximum(y1, y2))
+    n = (torch.searchsorted(lo, py, right=True)
+         - torch.searchsorted(hi, py, right=True))
+    return int(n.sum())
+
+
+def pip_inputs(torch, dev, n: int, wkt: str, seed: int):
+    """n f32 points over the envelope, a quarter of them on or within a
+    few ulps of the polygon's edges, and the f32 edge table."""
+    from geomesa_tpu_torch.core.wkt import parse_wkt
+    from geomesa_tpu_torch.engine.pip import polygon_edges
+
+    rng = np.random.default_rng(seed)
+    e64 = polygon_edges(parse_wkt(wkt))
+    x = rng.uniform(ENV[0], ENV[2], n)
+    y = rng.uniform(ENV[1], ENV[3], n)
+    k = n // 4
+    e = rng.integers(0, len(e64[0]), k)
+    t = rng.choice([0.0, 0.5, 0.25], k)
+    x[:k] = e64[0][e] + t * (e64[2][e] - e64[0][e]) + rng.normal(0, 1e-5, k)
+    y[:k] = e64[1][e] + t * (e64[3][e] - e64[1][e]) + rng.normal(0, 1e-5, k)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    return f(x), f(y), [f(a) for a in e64]
+
+
+def density_kernel_check(torch, dev, wkt: str) -> None:
+    """B3 against its plain version over 2^22 Z-ordered points (512x512):
+    unit weights equal, weights within the per-cell bound, cells missing
+    from a dictionary add nothing; B4/B5 at N=2^22: identical booleans."""
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.engine import pip_kernels as pk
+    from geomesa_tpu_torch.engine.pip import BAND_EPS
+
+    rng = np.random.default_rng(5)
+    n = KERNEL_CHECK_N
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    xd = t(rng.uniform(ENV[0], ENV[2], n).astype(np.float32))
+    yd = t(rng.uniform(ENV[1], ENV[3], n).astype(np.float32))
+    order = morton_order(torch, xd.double(), yd.double())
+    x, y = xd[t(order)].contiguous(), yd[t(order)].contiguous()
+    mask = t(rng.random(n) < 0.7)
+    w = t(rng.uniform(0, 5, n).astype(np.float32))
+    calib = dz.calibrate_density(x, y, mask, ENV, GRID, GRID)
+    ids = torch.from_numpy(calib.tile_ids).to(dev)
+    ones = mask.float()
+    lw = torch.where(mask, w, torch.zeros_like(w))
+    cnt = dz.zsparse_counts(x, y, ones, ids, calib.dicts, ENV, GRID, GRID)
+    cnt_p = dz.zsparse_counts_plain(x, y, ones, ids, calib.dicts, ENV, GRID, GRID)
+    wt = dz.zsparse_counts(x, y, lw, ids, calib.dicts, ENV, GRID, GRID)
+    wt_p = dz.zsparse_counts_plain(x, y, lw, ids, calib.dicts, ENV, GRID, GRID)
+    d = calib.dicts
+    big = torch.full_like(d, np.iinfo(np.int32).max)
+    thin = torch.sort(torch.where(
+        (torch.arange(d.shape[1], device=dev) % 2 == 0) & (d >= 0), d, big),
+        dim=1).values
+    thin = torch.where(thin == big, torch.full_like(thin, -1), thin).contiguous()
+    miss = dz.zsparse_counts(x, y, ones, ids, thin, ENV, GRID, GRID)
+    miss_p = dz.zsparse_counts_plain(x, y, ones, ids, thin, ENV, GRID, GRID)
+    ok_w = cell_bound(wt.cpu().numpy(), wt_p.double().cpu().numpy(),
+                      cnt.cpu().numpy())
+    log(f"kernel check B3 N={n} tiles={len(calib.tile_ids)} capd={calib.capd}: "
+        f"counts equal {bool(torch.equal(cnt, cnt_p))}, weighted max_abs_err "
+        f"{float((wt - wt_p).abs().max()):.3g} within bound {ok_w}, "
+        f"dictionary misses equal {bool(torch.equal(miss, miss_p))} "
+        f"(mass {float(miss.sum()):.0f} of {float(cnt.sum()):.0f})")
+    assert len(calib.tile_ids) > 0 and torch.equal(cnt, cnt_p)
+    assert ok_w and torch.equal(miss, miss_p)
+    assert float(miss.sum()) < float(cnt.sum()) and bool((miss[thin < 0] == 0).all())
+
+    n = PIP_CHECK_N
+    px, py, e = pip_inputs(torch, dev, n, wkt, seed=6)
+    inside = pk.pip_crossing(px, py, *e)
+    band = pk.pip_band(px, py, *e, eps=BAND_EPS)
+    same_c = bool(torch.equal(inside, pk.pip_crossing_plain(px, py, *e)))
+    same_b = bool(torch.equal(band, pk.pip_band_plain(px, py, *e, BAND_EPS)))
+    log(f"kernel check B4/B5 N={n} E={e[0].shape[0]}: crossings identical "
+        f"{same_c} ({int(inside.sum())} inside), band flags identical {same_b} "
+        f"({int(band.sum())} flagged)")
+    assert same_c and same_b and 0 < int(inside.sum()) < n and int(band.sum()) > 0
+
+
+def f64_polygon_count(torch, dev, x, y, wkt: str, chunk: int = 1 << 15) -> int:
+    """Exact f64 crossing-number count on the card (the oracle): points
+    outside the polygon's envelope cross no edge or an even number."""
+    from geomesa_tpu_torch.core.wkt import parse_wkt
+    from geomesa_tpu_torch.engine.pip import polygon_edges
+
+    e = [torch.from_numpy(a).to(dev)[None, :] for a in polygon_edges(parse_wkt(wkt))]
+    x1, y1, x2, y2 = e
+    xt = torch.from_numpy(x).to(dev)
+    yt = torch.from_numpy(y).to(dev)
+    keep = ((xt >= x1.min()) & (xt <= x1.max()) & (yt >= y1.min()) & (yt <= y1.max()))
+    xt, yt = xt[keep], yt[keep]
+    den = torch.where(y2 == y1, torch.ones_like(y1), y2 - y1)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(0, xt.shape[0], chunk):
+        px = xt[s:s + chunk, None]
+        py = yt[s:s + chunk, None]
+        cond = (y1 <= py) != (y2 <= py)
+        xc = x1 + (py - y1) / den * (x2 - x1)
+        total += ((cond & (xc > px)).sum(1) % 2).sum()
+    return int(total)
+
+
+def density_path(torch, dev, rows: int, card_s: str, wkt: str):
+    """The density and polygon path at full size (module docstring, 5)."""
+    from geomesa_tpu_torch import DataStore, FeatureBatch, Query, QueryHints, SimpleFeatureType
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.engine import pip_kernels as pk
+    from geomesa_tpu_torch.engine.density import density_grid, grid_consts
+    from geomesa_tpu_torch.process import DensityProcess
+    from geomesa_tpu_torch.store.partition import DateTimeScheme
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(ENV[0], ENV[2], rows)
+    y = rng.uniform(ENV[1], ENV[3], rows)
+    fare = rng.uniform(0, 5, rows)
+    t = rng.integers(D_T0, D_T1, rows)
+    order = morton_order(torch, torch.from_numpy(x).to(dev),
+                         torch.from_numpy(y).to(dev))
+    x, y, fare, t = x[order], y[order], fare[order], t[order]
+    iv6 = f"dtg > {iso(D_T0 - 3600_000)} AND dtg < {iso(D_T1)}"
+    iv3 = f"dtg > {iso(P_T0)} AND dtg < {iso(P_T1)}"
+    cql6 = f"BBOX(geom, {ENV[0]}, {ENV[1]}, {ENV[2]}, {ENV[3]}) AND {iv6}"
+    cqlp = f"INTERSECTS(geom, {wkt}) AND {iv3}"
+
+    def dq(cql, weight=None, zsparse=None):
+        return Query("taxi", cql, hints=QueryHints(
+            density_bbox=ENV, density_width=GRID, density_height=GRID,
+            density_weight=weight, density_zsparse=zsparse))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = DataStore(tmp, use_device_cache=True, device=dev)
+        sft = SimpleFeatureType.from_spec("taxi", "fare:Double,dtg:Date,*geom:Point")
+        src = ds.create_schema(sft, DateTimeScheme("yyyy/MM", "dtg"))
+        t0 = time.perf_counter()
+        src.write(FeatureBatch.from_pydict(
+            sft, {"fare": fare, "dtg": t, "geom": np.stack([x, y], 1)}))
+        log(f"ingest: {rows} rows in {time.perf_counter() - t0:.3f} s [{card_s}]")
+
+        kernels = (dz.zsparse_counts, pk.pip_crossing, pk.pip_band)
+        for w in kernels:
+            w.launches = 0
+        calls = {
+            "density unweighted": lambda: src.get_features(dq(cql6)),
+            "density fare": lambda: src.get_features(dq(cql6, "fare")),
+            "density scatter": lambda: src.get_features(dq(cql6, zsparse=False)),
+            "polygon count": lambda: src.get_count(cqlp),
+            "polygon density": lambda: src.get_features(dq(cqlp)),
+            "DensityProcess r=2": lambda: DensityProcess().execute(
+                src, ENV, GRID, GRID, cqlp, radius_pixels=2),
+        }
+        out, lat = {}, {}
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            out[name] = fn()
+            cold = time.perf_counter() - t0
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                out[name] = fn()
+                times.append(time.perf_counter() - t0)
+            lat[name] = (cold, statistics.median(times))
+            if name == "density unweighted":
+                sb = src.planner.cache.superbatch()
+                log(f"upload + first density: {cold:.3f} s, {len(sb.batch)} "
+                    f"padded rows resident in {len(sb.ids)} partitions [{card_s}]")
+        launches = {w.__name__: w.launches for w in kernels}
+        log(f"density-path launches: {launches} over 6 calls of each of "
+            f"{len(calls)} call types")
+        assert all(launches.values()), "a kernel of the density path never launched"
+        for name, (cold, warm) in lat.items():
+            log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
+                f"{rows / warm:.1f} points/sec [{card_s}]")
+        profile_calls(torch, "density unweighted", calls["density unweighted"], card_s)
+
+        # -- oracles -------------------------------------------------------
+        x32, y32 = x.astype(np.float32), y.astype(np.float32)
+        xmin, dx, ymin, dy = grid_consts(ENV, GRID, GRID)
+        f32 = np.float32
+        m6 = ((x32 >= f32(ENV[0])) & (x32 <= f32(ENV[2])) & (y32 >= f32(ENV[1]))
+              & (y32 <= f32(ENV[3])) & (t > D_T0 - 3600_000) & (t < D_T1))
+        col = np.floor((x32 - xmin) / dx)
+        row = np.floor((y32 - ymin) / dy)
+        inb = m6 & (col >= 0) & (col < GRID) & (row >= 0) & (row < GRID)
+        cell = (row[inb].astype(np.int64) * GRID + col[inb].astype(np.int64))
+        exp_cnt = np.bincount(cell, minlength=GRID * GRID).reshape(GRID, GRID)
+        exp_w = np.bincount(cell, weights=fare[inb].astype(np.float32),
+                            minlength=GRID * GRID).reshape(GRID, GRID)
+        g_cnt = out["density unweighted"].grid
+        assert g_cnt.shape == (GRID, GRID) and np.isfinite(g_cnt).all()
+        assert np.array_equal(g_cnt, exp_cnt), "unweighted grid != NumPy binning"
+        assert out["density unweighted"].count == int(m6.sum())
+        assert cell_bound(out["density fare"].grid, exp_w, exp_cnt), "weighted grid"
+        assert np.array_equal(out["density scatter"].grid, g_cnt), "zsparse != scatter"
+        tm3 = (t > P_T0) & (t < P_T1)
+        exp_poly = f64_polygon_count(torch, dev, x[tm3], y[tm3], wkt)
+        assert out["polygon count"] == exp_poly, (out["polygon count"], exp_poly)
+        # the cached route grids the raw f32 mask: it may differ from the
+        # f64 count only by rows at the polygon's boundary
+        pg = out["polygon density"]
+        flips = abs(pg.count - exp_poly)
+        assert float(pg.grid.sum()) == pg.count and flips <= 1e-3 * exp_poly
+        blur = out["DensityProcess r=2"]
+        assert blur.shape == (GRID, GRID) and np.isfinite(blur).all()
+        assert abs(float(blur.sum(dtype=np.float64)) - pg.count) <= 1e-4 * pg.count
+
+        # the exact scatter fallback inside density_zsparse: a shuffled
+        # copy of the resident arrays overflows the dictionaries
+        sb = src.planner.cache.superbatch()
+        dv = sb.dev
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(12)
+        perm = torch.randperm(dv["geom__x"].shape[0], device=dev, generator=gen)
+        xs, ys, ms = (dv["geom__x"][perm], dv["geom__y"][perm],
+                      dv["__valid__"][perm])
+        ones = torch.ones_like(xs)
+        fb, fcal = dz.density_zsparse(xs, ys, ones, ms, ENV, GRID, GRID)
+        sc = density_grid(xs, ys, ones, ms, ENV, GRID, GRID)
+        assert len(fcal.dense_ids) > 0 and torch.equal(fb, sc), "fallback grid"
+        log(f"correct: unweighted grid == NumPy binning cell for cell "
+            f"({int(m6.sum())} points); weighted grid within the per-cell "
+            f"bound; zsparse == scatter; polygon count {out['polygon count']} "
+            f"== f64 crossing count; polygon density {pg.count} (raw f32 mask, "
+            f"{flips} boundary rows off the f64 count); blur conserves mass; shuffled "
+            f"fallback ({len(fcal.dense_ids)} of {fcal.n_tiles} tiles "
+            f"overflow) == scatter")
+
+        # the path's kernel inputs, for timing at its shapes
+        planner = src.planner
+        mask6 = planner.plan(Query("taxi", cql6)).compiled.mask(sb.dev, sb.batch)
+        calib = dz.calibrate_density(dv["geom__x"], dv["geom__y"], mask6, ENV,
+                                     GRID, GRID)
+        inputs = dict(x=dv["geom__x"], y=dv["geom__y"], lw=mask6.float(),
+                      calib=calib, wkt=wkt)
+        return launches, inputs
+
+
+def density_rows(torch, launches, inp, card_s: str):
+    """B3, B4 and B5 at the density path's shapes: time, plain time,
+    error, bound, and the library call where one exists."""
+    from geomesa_tpu_torch.core.wkt import parse_wkt
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.engine import pip_kernels as pk
+    from geomesa_tpu_torch.engine.density import density_grid
+    from geomesa_tpu_torch.engine.pip import BAND_EPS, polygon_edges
+
+    x, y, lw, calib = inp["x"], inp["y"], inp["lw"], inp["calib"]
+    dev = x.device
+    ids = torch.from_numpy(calib.tile_ids).to(dev)
+    s, capd = calib.dicts.shape
+    live = lambda a: a.reshape(-1, dz.DATA_TILE)[ids.long()].reshape(-1)  # noqa: E731
+    gx, gy, gw = live(x), live(y), live(lw)
+    gm = gw > 0
+    edges = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+             for a in polygon_edges(parse_wkt(inp["wkt"]))]
+    n, e = x.shape[0], edges[0].shape[0]
+    cond = pip_pairs(torch, y, edges[1], edges[3])
+    src_pip = "geomesa_tpu_torch/engine/kernels/pip_crossing.cu"
+    cases = [
+        ("zsparse_counts", "geomesa_tpu/engine/density_zsparse.py:203",
+         "geomesa_tpu_torch/engine/kernels/density_zsparse.cu",
+         lambda: dz.zsparse_counts(x, y, lw, ids, calib.dicts, ENV, GRID, GRID),
+         lambda: dz.zsparse_counts_plain(x, y, lw, ids, calib.dicts, ENV, GRID, GRID),
+         lambda: density_grid(gx, gy, gw, gm, ENV, GRID, GRID),
+         ZS_OPS * s * dz.DATA_TILE, 12 * s * dz.DATA_TILE + 8 * s * capd, 5,
+         f"S={s} live tiles of {n // dz.DATA_TILE}, capd={capd}"),
+        ("pip_crossing", "geomesa_tpu/engine/pip_pallas.py:70", src_pip,
+         lambda: pk.pip_crossing(x, y, *edges),
+         lambda: pk.pip_crossing_plain(x, y, *edges), None,
+         PIP_ALL * n * e + PIP_COND * cond, 8 * n + 16 * e + n, 1,
+         f"N={n} E={e}, {cond} straddling pairs of {n * e}"),
+        ("pip_band", "geomesa_tpu/engine/pip_pallas.py:148", src_pip,
+         lambda: pk.pip_band(x, y, *edges, eps=BAND_EPS),
+         lambda: pk.pip_band_plain(x, y, *edges, BAND_EPS), None,
+         BAND_ALL * n * e + BAND_COND * cond, 8 * n + 16 * e + n, 1,
+         f"N={n} E={e}, {cond} straddling pairs of {n * e}"),
+    ]
+    rows = []
+    for name, replaces, source, kern, plain, lib, ops, nbytes, preps, shape in cases:
+        err = float((kern().float() - plain().float()).abs().max())
+        assert err == 0.0, (name, err)  # unit weights and booleans: exact
+        ms = timed_ms(torch, kern, 10)
+        plain_ms = timed_ms(torch, plain, preps)
+        library_ms = timed_ms(torch, lib, 5) if lib is not None else None
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+        })
+        lib_s = (f", library {library_ms:.3f} ms (density_grid index_add_)"
+                 if library_ms is not None else
+                 ", library null (no PyTorch call computes a crossing count)")
+        log(f"{name}: {shape}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b:.3f} ms by {by}{lib_s}) [{card_s}]")
     return rows
 
 
@@ -353,18 +717,26 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.build("chord_blockmin")
-    log(f"build: chord_blockmin.cu in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_log["chord_blockmin"]["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build.build_all()
+    log(f"build: {', '.join(n + '.cu' for n in build.sources())} in "
+        f"{time.perf_counter() - t0:.2f} s (in parallel)")
+    for name in build.sources():
+        for line in build.build_log[name]["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda")
+    wkt = zone_polygon()
     kernel_check(torch, ks, dev)
+    density_kernel_check(torch, dev, wkt)
     if args.rows != 1 << 26:
-        log(f"main path cut to {args.rows} rows by --rows")
+        log(f"both paths cut to {args.rows} rows by --rows")
     launches, inputs = main_path(torch, ks, dev, args.rows, card_s)
-    rows = kernel_rows(torch, ks, launches, inputs)
+    rows = kernel_rows(torch, ks, launches, inputs, card_s)
+    del inputs
+    torch.cuda.empty_cache()
+    launches, inputs = density_path(torch, dev, args.rows, card_s, wkt)
+    rows += density_rows(torch, launches, inputs, card_s)
     print(json.dumps({"kernels": rows}))
     print(card_s)
     print(json.dumps({"ok": True, "device": {

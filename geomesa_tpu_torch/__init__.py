@@ -1,12 +1,16 @@
 """geomesa_tpu_torch: the PyTorch/CUDA port of geomesa_tpu for NVIDIA Hopper.
 
 The JAX package `geomesa_tpu` beside it is the reference this package is
-tested against; this package imports nothing of it (nor JAX). This slice
-covers the north-star chain: a BBOX+time+attribute CQL filter over the
-Parquet filesystem DataStore, device-resident partitions, and the fused
-kNN scan whose block-minima kernels are hand-written CUDA
-(`engine/kernels/chord_blockmin.cu`). Entry points run on the card
-unless the caller passes device="cpu".
+tested against; this package imports nothing of it (nor JAX). It covers
+the north-star chain (a BBOX+time+attribute CQL filter over the Parquet
+filesystem DataStore, device-resident partitions, and the fused kNN scan
+whose block-minima kernels are hand-written CUDA,
+`engine/kernels/chord_blockmin.cu`), density heatmaps through
+`get_features` and `process.DensityProcess` (the cell-dictionary kernel,
+`engine/kernels/density_zsparse.cu`), and polygon filters on point
+columns (the crossing-number kernel and its band,
+`engine/kernels/pip_crossing.cu`). Entry points run on the card unless
+the caller passes device="cpu".
 """
 
 from geomesa_tpu_torch.core.columnar import FeatureBatch

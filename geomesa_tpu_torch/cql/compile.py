@@ -32,11 +32,12 @@ from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.cql import ast
 from geomesa_tpu_torch.cql.hosteval import eval_filter_host, like_regex
 from geomesa_tpu_torch.engine.device import VALID, DeviceBatch, fetch
+from geomesa_tpu_torch.engine.pip import (
+    points_in_polygon, points_in_polygon_band, polygon_edges)
 from geomesa_tpu_torch.errors import NotPortedError
 
 ParamBuilder = Callable[[FeatureBatch], np.ndarray]
 
-_SPATIAL_SLICE = "the point-in-polygon slice (kernels B4-B9)"
 _DISTANCE_SLICE = "the distance-predicate slice"
 _GEOMETRY_SLICE = "the extended-geometry slice (ROADMAP Queue A)"
 
@@ -340,9 +341,14 @@ def _compile_spatial(f: ast.SpatialPredicate, sft, bands=None):
     if a.type != "Point":
         raise NotPortedError(f"spatial predicates on {a.type} columns",
                              _GEOMETRY_SLICE)
-    if f.op != "BBOX":
-        raise NotPortedError(f"{f.op} on point columns", _SPATIAL_SLICE)
     n = a.name
+    if f.op in ("INTERSECTS", "WITHIN", "DISJOINT"):
+        base = _point_in_polygon(n, f, bands)
+        if f.op == "DISJOINT":
+            return lambda params, dev: ~base(params, dev)
+        return base
+    if f.op != "BBOX":
+        raise NotPortedError(f"{f.op} on point columns", _DISTANCE_SLICE)
     x0, y0, x1, y1 = f.geometry.bbox
 
     def bbox(params, dev):
@@ -366,3 +372,35 @@ def _compile_spatial(f: ast.SpatialPredicate, sft, bands=None):
 
         bands.append(bbox_band)
     return bbox
+
+
+def _point_in_polygon(n: str, f: ast.SpatialPredicate, bands=None):
+    """INTERSECTS/WITHIN of a point column against a Polygon or
+    MultiPolygon literal: the even-odd crossing test over the literal's
+    f32 edge table (kernel B4), with its ambiguity band (kernel B5)
+    appended to `bands` for the f64 host refine."""
+    g = f.geometry
+    if "Polygon" not in g.kind:
+        raise NotPortedError(f"{f.op} against a {g.kind} literal",
+                             _DISTANCE_SLICE)
+    host = [np.ascontiguousarray(e, np.float32) for e in polygon_edges(g)]
+    by_device: Dict[torch.device, List[torch.Tensor]] = {}
+
+    def edges(device: torch.device) -> List[torch.Tensor]:
+        got = by_device.get(device)
+        if got is None:
+            got = by_device[device] = [torch.from_numpy(e).to(device)
+                                       for e in host]
+        return got
+
+    def pip(params, dev):
+        X = dev[f"{n}__x"]
+        return points_in_polygon(X, dev[f"{n}__y"], *edges(X.device))
+
+    if bands is not None:
+        def band(params, dev):
+            X = dev[f"{n}__x"]
+            return points_in_polygon_band(X, dev[f"{n}__y"], *edges(X.device))
+
+        bands.append(band)
+    return pip

@@ -1,9 +1,10 @@
 """Host f64 filter evaluation over a FeatureBatch.
 
 The counterpart of the reference package's `cql/hosteval.py` for the
-predicates this slice compiles: it re-decides, in f64 NumPy, the rows
+predicates the port compiles: it re-decides, in f64 NumPy, the rows
 that the f32 device mask flags inside the boundary band, so counts and
-masks are exact against the f64 data. Polygon, distance and
+masks are exact against the f64 data. Point-in-polygon uses the f64
+crossing-number oracle with the device kernels' edge rule. Distance and
 extended-geometry predicates come with their slices.
 """
 
@@ -15,6 +16,7 @@ import numpy as np
 
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.cql import ast
+from geomesa_tpu_torch.engine.pip import points_in_polygon_np
 from geomesa_tpu_torch.errors import NotPortedError
 
 _OPS = {
@@ -128,8 +130,14 @@ def _eval(f: ast.Filter, b: FeatureBatch) -> np.ndarray:
         col = b.columns[f.prop.name]
         x0, y0, x1, y1 = f.geometry.bbox
         return (col.x >= x0) & (col.x <= x1) & (col.y >= y0) & (col.y <= y1)
+    if (isinstance(f, ast.SpatialPredicate)
+            and f.op in ("INTERSECTS", "WITHIN", "DISJOINT")
+            and "Polygon" in f.geometry.kind):
+        col = b.columns[f.prop.name]
+        m = points_in_polygon_np(col.x, col.y, f.geometry)
+        return ~m if f.op == "DISJOINT" else m
     raise NotPortedError(f"host evaluation of {type(f).__name__}",
-                         "the polygon and distance predicate slice")
+                         "the distance-predicate slice")
 
 
 def _eval_cmp(f: ast.Comparison, b: FeatureBatch) -> np.ndarray:

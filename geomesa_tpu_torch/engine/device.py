@@ -76,3 +76,16 @@ def fetch(*tensors: torch.Tensor):
     if any(t.is_cuda for t in tensors):
         torch.cuda.current_stream().synchronize()
     return tuple(h.numpy() for h in host)
+
+
+def check_kernel_inputs(*tensors: torch.Tensor, dtypes) -> None:
+    """Refuse what a CUDA kernel does not take: tensors on several devices,
+    another dtype than `dtypes` (one per tensor), or a strided layout."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"kernel inputs on {t.device} and {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"kernel input of dtype {t.dtype}, expected {dt}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")

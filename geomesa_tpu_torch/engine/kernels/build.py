@@ -17,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[2] / ".torch_kernels"
@@ -68,6 +69,18 @@ def build(name: str) -> Path:
     build_log[name] = {"seconds": time.perf_counter() - t0, "cached": False,
                        "ptxas": proc.stderr}
     return out
+
+
+def sources() -> List[str]:
+    """Names of every kernel source (`<name>.cu`) beside this file."""
+    return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
+
+
+def build_all() -> List[Path]:
+    """Build every kernel source, one nvcc process each, all at once."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

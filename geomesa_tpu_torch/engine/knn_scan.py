@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from geomesa_tpu_torch.engine.device import fetch
+from geomesa_tpu_torch.engine.device import check_kernel_inputs, fetch
 from geomesa_tpu_torch.engine.geodesy import haversine_m
 from geomesa_tpu_torch.engine.knn import _topk_smallest, _twolevel_smallest, _unit3
 
@@ -113,17 +113,6 @@ def _check_tiling(n: int, blk: int, data_tile: int) -> None:
             "at most 2048)")
 
 
-def _check_cuda(*tensors: torch.Tensor, dtypes) -> None:
-    dev = tensors[0].device
-    for t, dt in zip(tensors, dtypes):
-        if t.device != dev:
-            raise ValueError(f"kernel inputs on {t.device} and {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"kernel input of dtype {t.dtype}, expected {dt}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-
-
 def _lib():
     from geomesa_tpu_torch.engine.kernels.build import load
 
@@ -141,9 +130,9 @@ def _launch(aug, c, x, y, maskf, tile_ids, n_sel, slots, blk, data_tile):
                       device=x.device)
     f32 = torch.float32
     if tile_ids is None:
-        _check_cuda(aug, c, x, y, maskf, out, dtypes=(f32,) * 6)
+        check_kernel_inputs(aug, c, x, y, maskf, out, dtypes=(f32,) * 6)
     else:
-        _check_cuda(aug, c, x, y, maskf, out, tile_ids, n_sel,
+        check_kernel_inputs(aug, c, x, y, maskf, out, tile_ids, n_sel,
                     dtypes=(f32,) * 6 + (torch.int32, torch.int32))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):

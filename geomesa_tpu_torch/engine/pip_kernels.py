@@ -1,0 +1,169 @@
+"""Crossing-number point-in-polygon kernels (B4, B5) and their plain versions.
+
+The counterpart of the reference package's `engine/pip_pallas.py`. Both
+kernels test [N] points against an [E] edge table (x1, y1, x2, y2), f32,
+with the half-open edge rule:
+
+  pip_crossing  (B4): bool [N], odd number of edges crossed by the ray
+                      to the right of the point (even-odd rule)
+  pip_band      (B5): bool [N], the f32 boundary-ambiguity flags that
+                      the caller re-decides in f64 on the host
+
+Each wrapper takes its plain PyTorch version only for tensors on the
+CPU; on a CUDA tensor it launches the kernel (built from
+`kernels/pip_crossing.cu` at first use) or raises. `launches` on each
+wrapper counts its kernel launches. There is no work threshold: the
+reference's `use_pallas_pip` crossover is a TPU figure.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from geomesa_tpu_torch.engine.device import check_kernel_inputs
+
+# elements of one [chunk, E] block in the plain versions (~64 MB f32)
+_PLAIN_CHUNK_ELEMS = 1 << 24
+
+
+def _crossing_x(py, x1, y1, x2, y2):
+    """(cond, xc) [chunk, E]: whether the edge's y-span straddles py
+    (half-open) and the edge's x at py, in f32 with the multiply and the
+    add rounded separately, as the kernel writes them."""
+    cond = (y1 <= py) != (y2 <= py)
+    den = torch.where(y2 == y1, torch.ones_like(y1), y2 - y1)
+    t = (py - y1) / den
+    return cond, x1 + t * (x2 - x1)
+
+
+def _plain(px, py, x1, y1, x2, y2, row_fn):
+    """Apply row_fn(px [c,1], py [c,1], edges [1,E]...) -> [c] over point
+    chunks, so the [chunk, E] temporaries stay bounded."""
+    n, e = px.shape[0], x1.shape[0]
+    out = torch.zeros(n, dtype=torch.bool, device=px.device)
+    if e == 0 or n == 0:
+        return out
+    edges = [a.reshape(1, e) for a in (x1, y1, x2, y2)]
+    step = max(1, _PLAIN_CHUNK_ELEMS // e)
+    for s in range(0, n, step):
+        sl = slice(s, min(s + step, n))
+        out[sl] = row_fn(px[sl, None], py[sl, None], *edges)
+    return out
+
+
+def pip_crossing_plain(px, py, x1, y1, x2, y2):
+    """Plain PyTorch version of `pip_crossing` (same contract)."""
+    def rows(px, py, x1, y1, x2, y2):
+        cond, xc = _crossing_x(py, x1, y1, x2, y2)
+        return ((cond & (xc > px)).sum(dim=1) % 2) == 1
+    return _plain(px, py, x1, y1, x2, y2, rows)
+
+
+def pip_band_plain(px, py, x1, y1, x2, y2, eps: float):
+    """Plain PyTorch version of `pip_band` (same contract)."""
+    e32 = torch.tensor(eps, dtype=torch.float32, device=px.device)
+
+    def rows(px, py, x1, y1, x2, y2):
+        near_flat = ((torch.abs(py - y1) <= e32) & (torch.abs(py - y2) <= e32)
+                     & (px >= torch.minimum(x1, x2) - e32)
+                     & (px <= torch.maximum(x1, x2) + e32))
+        cond, xc = _crossing_x(py, x1, y1, x2, y2)
+        err = e32 * (1.0 + torch.abs(x2 - x1)
+                     / torch.maximum(torch.abs(y2 - y1), e32))
+        return (near_flat | (cond & (torch.abs(xc - px) <= err))).any(dim=1)
+    return _plain(px, py, x1, y1, x2, y2, rows)
+
+
+def _lib():
+    from geomesa_tpu_torch.engine.kernels.build import load
+
+    lib = load("pip_crossing")
+    ptrs = [ctypes.c_void_p] * 7
+    if lib.pip_crossing_launch.argtypes is None:
+        lib.pip_crossing_launch.argtypes = ptrs + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.pip_crossing_launch.restype = ctypes.c_int
+        lib.pip_band_launch.argtypes = ptrs + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        lib.pip_band_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name, px, py, x1, y1, x2, y2, *extra):
+    out = torch.empty(px.shape[0], dtype=torch.bool, device=px.device)
+    f32 = torch.float32
+    check_kernel_inputs(px, py, x1, y1, x2, y2, out,
+                        dtypes=(f32,) * 6 + (torch.bool,))
+    if px.shape != py.shape or not (x1.shape == y1.shape == x2.shape == y2.shape):
+        raise ValueError("points and edge arrays must match in length")
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = getattr(_lib(), f"{name}_launch")
+        err = fn(px.data_ptr(), py.data_ptr(), x1.data_ptr(), y1.data_ptr(),
+                 x2.data_ptr(), y2.data_ptr(), out.data_ptr(), px.shape[0],
+                 x1.shape[0], *extra, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _device_of(px: torch.Tensor, name: str) -> str:
+    if px.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {px.device}")
+    return px.device.type
+
+
+def pip_crossing(px, py, x1, y1, x2, y2):
+    """Even-odd point-in-polygon (B4): [N] points x [E] edges, f32 ->
+    bool [N]. An edge crosses when exactly one endpoint is at or below
+    py (half-open) and its x at py is strictly right of px."""
+    if _device_of(px, "pip_crossing") == "cpu":
+        return pip_crossing_plain(px, py, x1, y1, x2, y2)
+    if px.shape[0] == 0:  # nothing to launch
+        return torch.zeros(0, dtype=torch.bool, device=px.device)
+    out = _launch("pip_crossing", px, py, x1, y1, x2, y2)
+    pip_crossing.launches += 1
+    return out
+
+
+pip_crossing.launches = 0
+
+
+def pip_band(px, py, x1, y1, x2, y2, eps: float):
+    """Boundary-ambiguity flags (B5): bool [N], True where some edge is
+    near-flat within eps of the point, or crosses within the
+    slope-inflated error of px (engine.pip.points_in_polygon_band)."""
+    if _device_of(px, "pip_band") == "cpu":
+        return pip_band_plain(px, py, x1, y1, x2, y2, eps)
+    if px.shape[0] == 0:  # nothing to launch
+        return torch.zeros(0, dtype=torch.bool, device=px.device)
+    out = _launch("pip_band", px, py, x1, y1, x2, y2, float(eps))
+    pip_band.launches += 1
+    return out
+
+
+pip_band.launches = 0
+
+
+def points_in_polygon_np_edges(px, py, x1, y1, x2, y2) -> np.ndarray:
+    """NumPy f64 oracle over an explicit edge table (same edge rule),
+    over point chunks so the [chunk, E] temporaries stay bounded."""
+    px = np.asarray(px, np.float64)
+    py = np.asarray(py, np.float64)
+    x1 = np.asarray(x1, np.float64)[None, :]
+    y1 = np.asarray(y1, np.float64)[None, :]
+    x2 = np.asarray(x2, np.float64)[None, :]
+    y2 = np.asarray(y2, np.float64)[None, :]
+    den = np.where(y2 == y1, 1.0, y2 - y1)
+    out = np.zeros(len(px), bool)
+    step = max(1, _PLAIN_CHUNK_ELEMS // 4 // max(x1.shape[1], 1))
+    for s in range(0, len(px), step):
+        qx = px[s:s + step, None]
+        qy = py[s:s + step, None]
+        cond = (y1 <= qy) != (y2 <= qy)
+        xc = x1 + (qy - y1) / den * (x2 - x1)
+        out[s:s + step] = (np.sum(cond & (xc > qx), axis=1) % 2) == 1
+    return out

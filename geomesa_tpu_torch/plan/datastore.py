@@ -7,6 +7,8 @@ The counterpart of the reference package's `plan/datastore.py`:
     src.write(batch)
     src.get_count("BBOX(geom, ...) AND dtg > ... AND speed > 5.0")
     dists, idx, batch = src.knn(cql, qx, qy, k=10)
+    grid = src.get_features(Query(name, cql, hints=QueryHints(
+        density_bbox=bbox, density_width=512, density_height=512))).grid
 
 A catalog is a directory; each schema is a FileSystemStorage
 subdirectory in the reference's on-disk format. `device=None` means the
@@ -27,7 +29,7 @@ from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.engine.device import resolve_device
 from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.explain import Explainer
-from geomesa_tpu_torch.plan.planner import QueryPlanner
+from geomesa_tpu_torch.plan.planner import QueryPlanner, QueryResult
 from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.store.cache import DeviceCacheManager
 from geomesa_tpu_torch.store.fs import FileSystemStorage
@@ -42,6 +44,13 @@ class FeatureSource:
     @property
     def sft(self) -> SimpleFeatureType:
         return self.storage.sft
+
+    def get_features(self, query: "Query | str" = "INCLUDE") -> QueryResult:
+        """Run a query with an aggregation hint (density only, in the
+        port) and return its QueryResult."""
+        if isinstance(query, str):
+            query = Query(self.sft.name, query)
+        return self.planner.execute(query)
 
     def get_count(self, query: "Query | str" = "INCLUDE") -> int:
         if isinstance(query, str):

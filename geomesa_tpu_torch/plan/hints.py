@@ -2,21 +2,42 @@
 
 Parity: geomesa-index-api QueryHints [upstream, unverified], as the
 reference package's `plan/hints.py` models them, restricted to the hints
-this slice of the port reads. Aggregation hints (density, bin, stats,
-arrow), sampling, approximate answers and authorizations come with their
-slices: a query cannot carry them here, so it cannot silently ignore them.
+the port reads: the density aggregation (DensityScan) and the exact
+count. The bin, stats and arrow aggregations, sampling, loose bbox,
+approximate answers and authorizations come with their slices: a query
+cannot carry them here, so it cannot silently ignore them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
 class QueryHints:
+    # density aggregation (DensityScan): result is a weight grid
+    density_bbox: Optional[Tuple[float, float, float, float]] = None
+    density_width: Optional[int] = None
+    density_height: Optional[int] = None
+    density_weight: Optional[str] = None  # numeric attribute name
+    # fidelity opt-out: with a weight column, pin the f32 scatter path
+    # (the cell-dictionary kernel accumulates weights in another order)
+    density_exact_weights: bool = False
+    # cell-dictionary density kernel (engine.density_zsparse), tri-state:
+    #   None  (default) = AUTO: point layers take the dictionary kernel,
+    #          whose calibration routes each tile dictionary-vs-scatter;
+    #          pinned off by exact_weights + a weight column
+    #   True  = force it (still honours the exact_weights pin)
+    #   False = force the scatter path
+    density_zsparse: Optional[bool] = None
+
     # exact count: force full evaluation for counts instead of estimates
     exact_count: bool = True
 
     # index override (upstream: QUERY_INDEX); recorded by explain only
     query_index: Optional[str] = None
+
+    @property
+    def is_density(self) -> bool:
+        return self.density_bbox is not None

@@ -10,9 +10,12 @@ and run the fused kNN scan over the masked rows:
        -> KnnLaunch.sync (one read; overflow falls back to the dense scan)
        -> _canonical_dists (one f64 recompute of the reported meters)
 
-The exact count is the int64 sum of the same f64-exact mask. Query
-interceptors, the stats estimate, `impl="auto"`, aggregations and the
-mesh and ring routes come with later slices.
+The exact count is the int64 sum of the same f64-exact mask. `execute`
+runs the density aggregation on two routes that mirror the reference's:
+the cached route grids the raw f32 device mask, the scan route grids the
+mask after the f64 band refine (plan.runner). Query interceptors, the
+stats estimate, `impl="auto"`, the other aggregations and the mesh and
+ring routes come with later slices.
 """
 
 from __future__ import annotations
@@ -36,8 +39,23 @@ from geomesa_tpu_torch.engine.knn_scan import (
 from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.explain import Explainer
 from geomesa_tpu_torch.plan.query import Query
+from geomesa_tpu_torch.plan.runner import (
+    CalibCache, density_device_grid, query_mask_token)
 from geomesa_tpu_torch.store.cache import DeviceCacheManager, next_pow2
 from geomesa_tpu_torch.store.fs import FileSystemStorage
+
+
+@dataclasses.dataclass
+class QueryResult:
+    """What `execute` returns: kind "density" carries the [height, width]
+    f32 grid and the match count; kind "count" only the count. The
+    feature, stats, bin and arrow kinds come with their slices."""
+
+    kind: str
+    grid: Optional[np.ndarray] = None
+    count: int = 0
+    # the manifest commit version the result was pinned to
+    version: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -66,6 +84,7 @@ class QueryPlanner:
         self._mutex = threading.Lock()
         self._compiled_filters: dict = {}
         self._knn_caps: dict = {}
+        self._zcalib = CalibCache()
 
     # -- planning ----------------------------------------------------------
 
@@ -113,6 +132,37 @@ class QueryPlanner:
 
     # -- the f64-exact mask ------------------------------------------------
 
+    def _resident(self, plan: QueryPlan):
+        """Make the plan's partitions resident: (superbatch, allowed), with
+        `allowed` a bool per resident partition that the plan keeps, or
+        None when no resident row can match."""
+        self.cache.ensure(plan.partitions, manifest=plan.manifest)
+        sb = self.cache.superbatch()
+        if sb is None:
+            return None, None
+        allowed = np.zeros(max(len(sb.ids), 1), bool)
+        for name in plan.partitions:
+            i = sb.ids.get(name)
+            if i is not None:
+                allowed[i] = True
+        return sb, (allowed if allowed.any() else None)
+
+    def _scan_batch(self, plan: QueryPlan):
+        """The plan's partitions read into one batch padded to a power of
+        two, and its device tensors; (None, None) when nothing is read."""
+        batches = list(self.storage.scan(plan.bbox, plan.interval))
+        if not batches:
+            return None, None
+        batch = FeatureBatch.concat(batches)
+        batch = batch.pad_to(next_pow2(len(batch)))
+        return batch, to_device(batch, self.device)
+
+    @staticmethod
+    def _raw_mask(plan: QueryPlan, dev, batch) -> torch.Tensor:
+        """The compiled f32 device mask (validity when there is no filter)."""
+        return (plan.compiled.mask(dev, batch) if plan.compiled is not None
+                else dev[VALID])
+
     def _knn_mask_setup(self, plan: QueryPlan, query: Query):
         """Residency (or scan) + the f64-exact filter mask: returns
         (sb, batch, dev, mask, is_empty); `sb` is None on the scan path.
@@ -120,21 +170,12 @@ class QueryPlanner:
         on the cached path, with the partition allowance."""
         sb = None
         if self.cache is not None:
-            self.cache.ensure(plan.partitions, manifest=plan.manifest)
-            sb = self.cache.superbatch()
-            if sb is None:
-                return None, None, None, None, True
-            allowed = np.zeros(max(len(sb.ids), 1), bool)
-            for name in plan.partitions:
-                i = sb.ids.get(name)
-                if i is not None:
-                    allowed[i] = True
-            if not allowed.any():
+            sb, allowed = self._resident(plan)
+            if allowed is None:
                 return None, None, None, None, True
             batch, dev = sb.batch, sb.dev
-            mask = (plan.compiled.mask(dev, batch) if plan.compiled is not None
-                    else dev[VALID])
-            mask = mask & torch.from_numpy(allowed).to(self.device)[sb.pids]
+            mask = (self._raw_mask(plan, dev, batch)
+                    & torch.from_numpy(allowed).to(self.device)[sb.pids])
             if plan.compiled is not None and plan.compiled.has_band:
                 bidx, bexact = plan.compiled.band_corrections(dev, batch)
                 if len(bidx):
@@ -143,21 +184,83 @@ class QueryPlanner:
                     bexact = bexact & batch.valid[bidx] & allowed[pid_at]
                     mask[at] = torch.from_numpy(bexact).to(self.device)
         else:
-            batches = list(self.storage.scan(plan.bbox, plan.interval))
-            if not batches:
+            batch, dev = self._scan_batch(plan)
+            if batch is None:
                 return None, None, None, None, True
-            batch = FeatureBatch.concat(batches)
-            batch = batch.pad_to(next_pow2(len(batch)))
-            dev = to_device(batch, self.device)
-            mask = (plan.compiled.mask(dev, batch) if plan.compiled is not None
-                    else dev[VALID])
-            mask = mask & dev[VALID]
+            mask = self._raw_mask(plan, dev, batch) & dev[VALID]
             if plan.compiled is not None and plan.compiled.has_band:
                 bidx, bexact = plan.compiled.band_corrections(dev, batch)
                 if len(bidx):
                     mask[torch.from_numpy(bidx).to(self.device)] = (
                         torch.from_numpy(bexact & batch.valid[bidx]).to(self.device))
         return sb, batch, dev, mask, False
+
+    # -- execute (density) -------------------------------------------------
+
+    def execute(self, query: "Query | str",
+                explain: Optional[Explainer] = None) -> QueryResult:
+        """Plan and run one aggregation query. The cached route (device
+        cache on) grids the raw f32 device mask; the scan route first
+        re-decides band rows in f64 on the host, as the reference's two
+        routes do. Only the density aggregation is ported."""
+        if isinstance(query, str):
+            query = Query(self.storage.sft.name, query)
+        if not query.hints.is_density:
+            raise NotPortedError("feature results of execute()",
+                                 "the feature-results slice (ROADMAP Queue A)")
+        plan = self.plan(query, explain)
+        if self.cache is not None:
+            result = self._execute_cached(plan, query)
+        else:
+            result = self._execute_scan(plan, query)
+        if result.version is None and plan.manifest is not None:
+            result.version = getattr(plan.manifest, "version", None)
+        return result
+
+    def _execute_cached(self, plan: QueryPlan, query: Query) -> QueryResult:
+        """Over the cache's superbatch: one density pass over every
+        resident row, with partition pruning as a lane mask. The grid
+        reads the raw f32 device mask (no band refine: the grid's cells
+        dwarf the ~1e-7 degree band); the count is its sum."""
+        sb, allowed = self._resident(plan)
+        if allowed is None:
+            return self._empty_result(query)
+        dev_mask = (self._raw_mask(plan, sb.dev, sb.batch)
+                    & torch.from_numpy(allowed).to(self.device)[sb.pids])
+        # partition pruning feeds the mask too: a plan scanning other
+        # partitions never reuses the calibration
+        token = query_mask_token(query) + (tuple(sorted(plan.partitions)),)
+        grid = density_device_grid(self.storage.sft, sb.batch, sb.dev,
+                                   dev_mask, query.hints, self._zcalib,
+                                   mask_token=token)
+        grid, total = fetch(grid, dev_mask.sum(dtype=torch.int32))
+        if int(total) == 0:
+            return self._empty_result(query)
+        return QueryResult("density", grid=grid, count=int(total))
+
+    def _execute_scan(self, plan: QueryPlan, query: Query) -> QueryResult:
+        """Scan the pruned partitions into one padded batch, fetch the
+        mask, re-decide its band rows in f64 on the host, then grid."""
+        batch, dev = self._scan_batch(plan)
+        if batch is None:
+            return self._empty_result(query)
+        (mask,) = fetch(self._raw_mask(plan, dev, batch))
+        if plan.compiled is not None and plan.compiled.has_band:
+            bidx, bexact = plan.compiled.band_corrections(dev, batch)
+            if len(bidx):
+                mask = mask.copy()
+                mask[bidx] = bexact
+        grid = density_device_grid(self.storage.sft, batch, dev,
+                                   torch.from_numpy(mask).to(self.device),
+                                   query.hints, self._zcalib,
+                                   mask_token=query_mask_token(query))
+        (grid,) = fetch(grid)
+        return QueryResult("density", grid=grid, count=int(mask.sum()))
+
+    def _empty_result(self, query: Query) -> QueryResult:
+        h = query.hints
+        return QueryResult("density", grid=np.zeros(
+            (h.density_height, h.density_width), np.float32))
 
     # -- count -------------------------------------------------------------
 

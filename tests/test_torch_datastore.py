@@ -185,6 +185,12 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
             "geom": np.stack([rng.uniform(-5, 5, n), rng.uniform(40, 50, n)], 1)}}))
         d, i, _ = src.knn("BBOX(geom, -4, 41, 4, 49) AND speed > 5", [0.0], [45.0], k=3)
         assert np.isfinite(d).all() and src.get_count("speed > 5") > 0
+        from geomesa_tpu_torch.process import DensityProcess
+        poly = "INTERSECTS(geom, POLYGON((-3 42, 3 42, 0 48, -3 42)))"
+        grid = DensityProcess().execute(src, (-5, 40, 5, 50), 32, 32, poly,
+                                        weight_attr="speed", radius_pixels=1)
+        assert grid.shape == (32, 32) and grid.sum() > 0
+        assert src.get_count(poly + " AND speed > 5") > 0
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]
