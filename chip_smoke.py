@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (geomesa_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # full size: 2^26 rows in each store
-    python3 chip_smoke.py --rows N   # smaller stores, for a quick check
+    python3 chip_smoke.py            # full size: 2^26 rows in each store,
+                                     # 2^22 points in the config-2 join
+    python3 chip_smoke.py --rows N   # smaller stores (and at most N
+                                     # config-2 points), for a quick check
 
 Needs a CUDA card and the CUDA toolkit (nvcc); without a card it exits 1
 and prints no result. Phases, each fatal on failure:
@@ -30,7 +32,20 @@ and prints no result. Phases, each fatal on failure:
    independent oracles (NumPy binning, an f64 crossing count on the card,
    the scatter route, the exact fallback on a shuffled copy), and a
    torch.profiler breakdown of one warm density call;
-6. each kernel timed at its path's shapes beside its plain version and
+6. the polygon-layer spatial join (bench config 2: the reference bench's
+   seeded 10,000-polygon admin-style layer x 2^22 Z-ordered points, 1/64
+   of them within 1e-6 degrees of an edge): a kernel check of B6-B9
+   against their plain versions (200 polygons, 2^18 points: identical
+   int32 outputs), then, with launch counts reset before and read after,
+   the host prep and a first query end to end, the warm p50 of
+   pip_layer_grouped (the device pass), pip_layer, pip_layer_assign,
+   pip_layer_join and pip_layer_sparse, a torch.profiler breakdown of
+   one warm pip_layer call, and the gates: zero mismatches against an
+   independent all-edges f64 oracle over 256 sampled covered tiles plus
+   every adversarial point, assignment ids equal to its per-polygon
+   oracle, join pairs == the points inside, pip_layer_sparse ==
+   pip_layer_grouped on covered tiles;
+7. each kernel timed at its path's shapes beside its plain version and
    its bound, printed as one {"kernels": [...]} line.
 
 The last line is {"ok": true, "device": {...}}.
@@ -690,6 +705,388 @@ def density_rows(torch, launches, inp, card_s: str):
     return rows
 
 
+# -- polygon-layer spatial join (bench config 2) ------------------------------
+
+LAYER_POLYS = 10_000  # the bench's config-2 layer
+LAYER_POINTS = 1 << 22  # the bench's config-2 default
+LAYER_CHECK_POLYS = 200
+LAYER_CHECK_N = 1 << 18
+LAYER_SAMPLE_TILES = 256
+LAYER_EPS = 1e-4
+# FP32 operations per (point, edge slot) test, as for B4/B5 above: every
+# test pays the half-open compares (and, with the band, the near-flat
+# term); tests whose edge straddles the point's y also pay the crossing
+# arithmetic. B6/B7 compute the crossing and the band from one xc.
+LAYER_REPLACES = {"pip_grouped": "geomesa_tpu/engine/pip_sparse.py:395",
+                  "pip_assign": "geomesa_tpu/engine/pip_sparse.py:610",
+                  "pip_pairs_count": "geomesa_tpu/engine/pip_sparse.py:994",
+                  "pip_pairs_band": "geomesa_tpu/engine/pip_sparse.py:1006"}
+LAYER_OPS = {"pip_grouped": (BAND_ALL, BAND_COND + 1),
+             "pip_assign": (BAND_ALL, BAND_COND + 1),
+             "pip_pairs_count": (PIP_ALL, PIP_COND),
+             "pip_pairs_band": (BAND_ALL, BAND_COND)}
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def gen_admin_layer(rng, npoly: int):
+    """The reference bench's OSM-admin-style disjoint layer: one polygon
+    per jittered grid cell over the globe, log-mixed edge counts
+    (10..10k), ~10% with a hole. Returns (x1, y1, x2, y2, pol, holes)."""
+    side = int(np.ceil(np.sqrt(npoly)))
+    cw, ch = 360.0 / side, 180.0 / side
+    x1l, y1l, x2l, y2l, pol = [], [], [], [], []
+    n_holes = 0
+    ecounts = np.clip(
+        np.round(10 ** rng.uniform(1, 4, npoly)).astype(int), 10, 10_000)
+    pid = 0
+    for gy in range(side):
+        for gx in range(side):
+            if pid >= npoly:
+                break
+            cx = -180 + (gx + 0.5) * cw + rng.uniform(-0.1, 0.1) * cw
+            cy = -90 + (gy + 0.5) * ch + rng.uniform(-0.1, 0.1) * ch
+            ne = int(ecounts[pid])
+            th = np.sort(rng.uniform(0, 2 * np.pi, ne))
+            # max lobe 0.375 cell < 0.4 cell, half the worst-case centre
+            # separation after the jitter: the layer is disjoint
+            rad = (0.3 * min(cw, ch)
+                   * (1 + 0.25 * np.sin(3 * th + rng.uniform(0, 6))))
+            ring = np.stack([cx + rad * np.cos(th), cy + rad * np.sin(th)], 1)
+            ring = np.concatenate([ring, ring[:1]])
+            x1l.append(ring[:-1, 0]); y1l.append(ring[:-1, 1])  # noqa: E702
+            x2l.append(ring[1:, 0]); y2l.append(ring[1:, 1])  # noqa: E702
+            pol.append(np.full(ne, pid))
+            if rng.random() < 0.1:  # hole: reversed inner ring
+                n_holes += 1
+                nh = max(8, ne // 8)
+                thh = np.sort(rng.uniform(0, 2 * np.pi, nh))[::-1]
+                rh = rad.min() * 0.4
+                hr = np.stack([cx + rh * np.cos(thh), cy + rh * np.sin(thh)], 1)
+                hr = np.concatenate([hr, hr[:1]])
+                x1l.append(hr[:-1, 0]); y1l.append(hr[:-1, 1])  # noqa: E702
+                x2l.append(hr[1:, 0]); y2l.append(hr[1:, 1])  # noqa: E702
+                pol.append(np.full(nh, pid))
+            pid += 1
+    return (np.concatenate(x1l), np.concatenate(y1l), np.concatenate(x2l),
+            np.concatenate(y2l), np.concatenate(pol), n_holes)
+
+
+def layer_points(torch, dev, rng, n: int, layer):
+    """The bench's config-2 points: n uniform over the globe, the first
+    min(n // 64, 100000) within 1e-6 degrees of random edges
+    (adversarial), in Z2-Morton store order. Returns (px, py, adv)."""
+    x1, y1, x2, y2 = layer[:4]
+    px = rng.uniform(-180, 180, n)
+    py = rng.uniform(-90, 90, n)
+    na = min(n // 64, 100_000)
+    ei = rng.integers(0, len(x1), na)
+    tt = rng.uniform(0, 1, na)
+    px[:na] = x1[ei] + tt * (x2[ei] - x1[ei]) + rng.uniform(-1e-6, 1e-6, na)
+    py[:na] = y1[ei] + tt * (y2[ei] - y1[ei]) + rng.uniform(-1e-6, 1e-6, na)
+    py[:na] = np.clip(py[:na], -90, 90)
+    px[:na] = np.clip(px[:na], -180, 180)
+    adv = np.zeros(n, bool)
+    adv[:na] = True
+    zo = morton_order(torch, torch.from_numpy(px).to(dev),
+                      torch.from_numpy(py).to(dev))
+    return px[zo], py[zo], adv[zo]
+
+
+def layer_kernel_inputs(torch, dev, prep, pol):
+    """Device inputs of B6-B9 for a prep: points, edges, the B6 CSR, the
+    B7 CSR with its flush markers, and the pair list."""
+    from geomesa_tpu_torch.engine import pip_sparse as ps
+    from geomesa_tpu_torch.engine.pip_sparse_kernels import pair_csr
+
+    pl = prep.pairs
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)  # noqa: E731
+    rank = ps._poly_of_tile_from(prep, pol)[0]
+    return dict(
+        pts=ps.upload_points(prep.pxp, prep.pyp, dev),
+        edges=ps.upload_edges(prep, dev),
+        grouped=[i32(a) for a in pair_csr(pl.pair_pt, pl.pair_et)[:3]],
+        assign=[i32(a) for a in pair_csr(pl.pair_pt, pl.pair_et, poly_of_tile=rank)],
+        pairs=[i32(pl.pair_pt), i32(pl.pair_et)],
+        n_ptiles=prep.n_ptiles)
+
+
+def layer_kernel_calls(inp):
+    """(name, kernel call, plain call) for B6-B9 on the given inputs."""
+    from geomesa_tpu_torch.engine import pip_sparse_kernels as k
+
+    a = (*inp["pts"], *inp["edges"])
+    n, e = inp["n_ptiles"], LAYER_EPS
+    g, s, p = inp["grouped"], inp["assign"], inp["pairs"]
+    return [
+        ("pip_grouped", lambda: k.pip_grouped(*a, *g, n, e),
+         lambda: k.pip_grouped_plain(*a, *g, n, e)),
+        ("pip_assign", lambda: k.pip_assign(*a, *s, n, e),
+         lambda: k.pip_assign_plain(*a, *s, n, e)),
+        ("pip_pairs_count", lambda: (k.pip_pairs_count(*a, *p, n),),
+         lambda: (k.pip_pairs_count_plain(*a, *p, n),)),
+        ("pip_pairs_band", lambda: (k.pip_pairs_band(*a, *p, n, e),),
+         lambda: (k.pip_pairs_band_plain(*a, *p, n, e),)),
+    ]
+
+
+def max_int_err(got, exp) -> float:
+    return max(float((g.long() - x.long()).abs().max()) for g, x in zip(got, exp))
+
+
+def layer_kernel_check(torch, dev) -> None:
+    """B6-B9 against their plain versions at a 200-polygon layer and
+    2^18 points: identical int32 outputs."""
+    from geomesa_tpu_torch.engine import pip_sparse as ps
+
+    rng = np.random.default_rng(31)
+    layer = gen_admin_layer(rng, LAYER_CHECK_POLYS)
+    px, py, _ = layer_points(torch, dev, rng, LAYER_CHECK_N, layer)
+    prep = ps.prepare_layer(px, py, *layer[:5])
+    inp = layer_kernel_inputs(torch, dev, prep, layer[4])
+    out = []
+    for name, kern, plain in layer_kernel_calls(inp):
+        got = kern()
+        sync(torch, dev)
+        exp = plain()
+        same = all(torch.equal(g, x) for g, x in zip(got, exp))
+        out.append(f"{name} identical {same}")
+        assert same, (name, max_int_err(got, exp))
+        assert int(got[-1].sum()) > 0, name  # the band (or count) is not all zero
+    log(f"kernel check B6-B9: {LAYER_CHECK_POLYS} polygons, "
+        f"{len(layer[0])} edges, N={LAYER_CHECK_N}, {len(prep.pairs.pair_pt)} "
+        f"pairs: {', '.join(out)}")
+
+
+def oracle_all_edges(px, py, layer, ii):
+    """The reference bench's independent f64 oracle: per-polygon crossing
+    parity over the ORIGINAL unpadded edges of every polygon whose raw
+    bbox holds the point (nothing shared with the pair build). Returns
+    (inside the union [len(ii)], containing polygon id or -1, count)."""
+    x1, y1, x2, y2, pol = layer[:5]
+    op = np.argsort(pol, kind="stable")
+    xs1, ys1, xs2, ys2 = x1[op], y1[op], x2[op], y2[op]
+    uids, counts_o = np.unique(pol, return_counts=True)
+    starts_o = np.concatenate([[0], np.cumsum(counts_o)[:-1]])
+    pbx0 = np.minimum.reduceat(np.minimum(xs1, xs2), starts_o)
+    pby0 = np.minimum.reduceat(np.minimum(ys1, ys2), starts_o)
+    pbx1 = np.maximum.reduceat(np.maximum(xs1, xs2), starts_o)
+    pby1 = np.maximum.reduceat(np.maximum(ys1, ys2), starts_o)
+    inside = np.zeros(len(ii), bool)
+    ids = np.full(len(ii), -1, np.int64)
+    cnt = np.zeros(len(ii), np.int64)
+    pxi, pyi = px[ii], py[ii]
+    for c0 in range(0, len(ii), 4096):
+        pc, qc = pxi[c0:c0 + 4096], pyi[c0:c0 + 4096]
+        hitm = ((pc[:, None] >= pbx0[None]) & (pc[:, None] <= pbx1[None])
+                & (qc[:, None] >= pby0[None]) & (qc[:, None] <= pby1[None]))
+        pt_k, po_k = np.nonzero(hitm)
+        for k in np.unique(po_k):
+            es = slice(starts_o[k], starts_o[k] + counts_o[k])
+            a1, b1, a2, b2 = xs1[es], ys1[es], xs2[es], ys2[es]
+            pts = pt_k[po_k == k]
+            pp, qq = pc[pts][:, None], qc[pts][:, None]
+            condx = (b1[None] <= qq) != (b2[None] <= qq)
+            ttt = (qq - b1[None]) / np.where(b2 == b1, 1.0, b2 - b1)[None]
+            xc = a1[None] + ttt * (a2 - a1)[None]
+            ins = (np.sum(condx & (xc > pp), 1) % 2) == 1
+            # XOR of per-polygon parities == total crossing parity
+            inside[c0 + pts] ^= ins
+            ids[c0 + pts[ins]] = uids[k]
+            cnt[c0 + pts] += ins
+    return inside, np.where(cnt == 1, ids, -1), cnt
+
+
+def straddling_tests(torch, inp) -> int:
+    """(point, edge slot) tests of the pair list whose edge straddles the
+    point's y (half-open), counted per pair from the edge tile's sorted
+    y-extents (for the data-dependent bound)."""
+    from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
+
+    qy = inp["pts"][1].reshape(-1, TILE)
+    x1, y1, x2, y2 = (a.reshape(-1, TILE) for a in inp["edges"])
+    lo = torch.sort(torch.minimum(y1, y2), dim=1).values
+    hi = torch.sort(torch.maximum(y1, y2), dim=1).values
+    pt, et = (a.long() for a in inp["pairs"])
+    total = 0
+    for s in range(0, pt.shape[0], 1 << 14):
+        q = qy[pt[s:s + (1 << 14)]].contiguous()
+        e = et[s:s + (1 << 14)]
+        n = (torch.searchsorted(lo[e], q, right=True)
+             - torch.searchsorted(hi[e], q, right=True))
+        total += int(n.sum())
+    return total
+
+
+def layer_path(torch, dev, n: int, card_s: str):
+    """The config-2 join at full width (module docstring, 6)."""
+    from geomesa_tpu_torch.engine import pip_sparse as ps
+    from geomesa_tpu_torch.engine import pip_sparse_kernels as k
+
+    rng = np.random.default_rng(29)
+    t0 = time.perf_counter()
+    layer = gen_admin_layer(rng, LAYER_POLYS)
+    px, py, adv = layer_points(torch, dev, rng, n, layer)
+    x1, y1, x2, y2, pol, n_holes = layer
+    lay = layer[:5]
+    log(f"config 2 layer: {LAYER_POLYS} polygons, {len(x1)} edges, {n_holes} "
+        f"holes; {n} points ({int(adv.sum())} adversarial) in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    kernels = (k.pip_grouped, k.pip_assign, k.pip_pairs_count, k.pip_pairs_band)
+    for w in kernels:
+        w.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    # first query end to end: host prep, uploads, the join, the refine
+    t0 = time.perf_counter()
+    prep = ps.prepare_layer(px, py, *lay)
+    prep_s = time.perf_counter() - t0
+    pts = ps.upload_points(px, py, dev)
+    edges = ps.upload_edges(prep, dev)
+    inside, info = ps.pip_layer(px, py, *lay, device=dev, prep=prep,
+                                points_device=pts, edges_device=edges)
+    first_s = time.perf_counter() - t0
+    pl = prep.pairs
+    per_tile = np.bincount(pl.pair_pt, minlength=prep.n_ptiles)[pl.covered]
+    log(f"config 2 prep: {prep_s:.3f} s on the host; {prep.n_etiles} edge tiles "
+        f"({prep.n_etiles * ps.EDGE_TILE} slots), {len(pl.pair_pt)} pairs over "
+        f"{int(pl.covered.sum())} of {prep.n_ptiles} point tiles (per tile: median "
+        f"{int(np.median(per_tile))}, max {int(per_tile.max())}), "
+        f"{len(pl.pair_pt) * ps.POINT_TILE * ps.EDGE_TILE:.4g} point-edge tests")
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+            if dev.type == "cuda" else "not measured")
+    log(f"config 2 first query e2e (prep + upload + pip_layer): {first_s:.3f} s; "
+        f"flagged {info['flagged']}, refined {info['refined']}, refine "
+        f"{info['refine_s']:.3f} s; peak device memory {peak} [{card_s}]")
+
+    kw = dict(device=dev, prep=prep, points_device=pts, edges_device=edges)
+    arrays = (*pts, *edges)
+    sk = dict(n_ptiles=prep.n_ptiles, n_etiles=prep.n_etiles, device=dev)
+    out = {}
+    calls = {
+        "pip_layer_grouped (device pass)": lambda: ps.fetch(*ps.pip_layer_grouped(
+            *arrays, pl.pair_pt, pl.pair_et, **sk)),
+        "pip_layer": lambda: ps.pip_layer(px, py, *lay, **kw),
+        "pip_layer_assign": lambda: ps.pip_layer_assign(px, py, *lay, **kw),
+        "pip_layer_join": lambda: ps.pip_layer_join(px, py, *lay, **kw),
+        "pip_layer_sparse": lambda: ps.pip_layer_sparse(
+            *arrays, pl.pair_pt, pl.pair_et, **sk),
+    }
+    lat = {}
+    for name, fn in calls.items():
+        out[name] = fn()  # warm
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            times.append(time.perf_counter() - t0)
+        lat[name] = statistics.median(times)
+    launches = {w.__name__: w.launches for w in kernels}
+    log(f"config-2 launches: {launches} over 1 first query and 4 calls of each "
+        f"of {len(calls)} call types")
+    assert all(launches.values()), "a kernel of the config-2 path never launched"
+    for name, t in lat.items():
+        log(f"{name}: warm p50 {t * 1e3:.3f} ms, {n / t:.1f} points/sec, "
+            f"{n * LAYER_POLYS / t:.4g} point*polys/sec [{card_s}]")
+    _, jinfo = out["pip_layer"]
+    _, _, ainfo = out["pip_layer_assign"]
+    log(f"pip_layer warm: flagged {jinfo['flagged']}, refined {jinfo['refined']}, "
+        f"refine_s {jinfo['refine_s']:.3f}; pip_layer_assign: flagged "
+        f"{ainfo['flagged']}, refined {ainfo['refined']}, host_rows "
+        f"{ainfo['host_rows']}")
+    profile_calls(torch, "pip_layer", calls["pip_layer"], card_s, calls=1)
+
+    # -- gates -------------------------------------------------------------
+    cov_tiles = np.nonzero(pl.covered)[0]
+    sub = np.random.default_rng(30).choice(
+        cov_tiles, min(LAYER_SAMPLE_TILES, len(cov_tiles)), replace=False)
+    check = np.unique(np.concatenate(
+        [np.arange(t * ps.POINT_TILE, min((t + 1) * ps.POINT_TILE, n)) for t in sub]
+        + [np.nonzero(adv)[0]]))
+    t0 = time.perf_counter()
+    exp_in, exp_id, exp_n = oracle_all_edges(px, py, lay, check)
+    oracle_s = time.perf_counter() - t0
+    inside, _ = out["pip_layer"]
+    mism = int((inside[check] != exp_in).sum())
+    assert mism == 0, f"{mism} mismatches against the all-edges f64 oracle"
+    ids, count, _ = out["pip_layer_assign"]
+    bad_ids = int((ids[check] != exp_id).sum())
+    assert bad_ids == 0 and np.array_equal(count[check], exp_n), bad_ids
+    rows, polys = out["pip_layer_join"]
+    assert len(rows) == int((count == 1).sum()), (len(rows), int((count == 1).sum()))
+    assert np.array_equal(np.sort(rows), np.nonzero(inside)[0]), "join rows != inside"
+    assert np.array_equal(polys[np.argsort(rows)], ids[np.sort(rows)])
+    g_c, g_b = out["pip_layer_grouped (device pass)"]
+    s_c, s_b = out["pip_layer_sparse"]
+    cov = np.repeat(pl.covered, ps.POINT_TILE)
+    assert np.array_equal(s_c[cov], g_c[cov]) and np.array_equal(s_b[cov], g_b[cov])
+    log(f"correct: pip_layer == all-edges f64 oracle on {len(check)} points "
+        f"({len(sub)} sampled covered tiles + {int(adv.sum())} adversarial; "
+        f"{int(exp_in.sum())} inside; oracle {oracle_s:.1f} s); pip_layer_assign "
+        f"ids == per-polygon oracle; pip_layer_join emits {len(rows)} pairs == "
+        f"(count == 1).sum(), rows == pip_layer inside; pip_layer_sparse == "
+        f"pip_layer_grouped on covered tiles")
+    return launches, layer_kernel_inputs(torch, dev, prep, pol)
+
+
+def layer_rows(torch, launches, inp, card_s: str):
+    """B6-B9 at the config-2 path's shapes: time, plain time, error,
+    bound (operations counted from this run's data, bytes from the
+    tiles the pairs name)."""
+    from geomesa_tpu_torch.engine import pip_sparse_kernels as psk
+    from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
+
+    g, p = inp["grouped"], inp["pairs"]
+    m, k = int(p[0].shape[0]), int(g[0].shape[0])
+    tests = m * TILE * TILE
+    cond = straddling_tests(torch, inp)
+    n_pt = inp["n_ptiles"]
+    etiles = int(torch.unique(p[1]).shape[0])
+    read = 8 * TILE * k + 16 * TILE * etiles  # points of covered tiles, edges named
+    nbytes = {"pip_grouped": read + 4 * (k + 1 + k + m) + 8 * TILE * n_pt,
+              "pip_assign": read + 4 * (k + 1 + k + 2 * m) + 12 * TILE * n_pt,
+              "pip_pairs_count": read + 8 * m + 4 * TILE * (n_pt + 1),
+              "pip_pairs_band": read + 8 * m + 4 * TILE * (n_pt + 1)}
+    # the load-balance tail: the longest row alone, in one block
+    a = (*inp["pts"], *inp["edges"])
+    lens = g[1][1:] - g[1][:-1]
+    j = int(torch.argmax(lens))
+    s0, s1 = int(g[1][j]), int(g[1][j + 1])
+    one = (g[0][j:j + 1], g[1][j:j + 2] - s0, g[2][s0:s1])
+    tail_ms = timed_ms(torch, lambda: psk.pip_grouped(*a, *one, n_pt, LAYER_EPS), 10)
+    log(f"pip_grouped, the longest row alone ({s1 - s0} edge tiles): "
+        f"{tail_ms:.3f} ms [{card_s}]")
+    rows = []
+    for name, kern, plain in layer_kernel_calls(inp):
+        got = kern()
+        exp = plain()
+        err = max_int_err(got, exp)
+        assert err == 0.0, (name, err)  # int32 counts: exact
+        del got, exp
+        ms = timed_ms(torch, kern, 10)
+        plain_ms = timed_ms(torch, plain, 1)
+        n_all, n_cond = LAYER_OPS[name]
+        t_ops = (n_all * tests + n_cond * cond) / FP32_OPS_PER_S * 1e3
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "geomesa_tpu_torch/engine/kernels/pip_layer.cu",
+            "replaces": LAYER_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+        })
+        log(f"{name}: {k} covered tiles, {m} pairs, {tests:.4g} tests of which "
+            f"{cond} straddle: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b:.3f} ms by {by}, library null: no PyTorch call computes a "
+            f"crossing count) [{card_s}]")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
@@ -729,14 +1126,22 @@ def main() -> int:
     wkt = zone_polygon()
     kernel_check(torch, ks, dev)
     density_kernel_check(torch, dev, wkt)
+    layer_kernel_check(torch, dev)
     if args.rows != 1 << 26:
-        log(f"both paths cut to {args.rows} rows by --rows")
+        log(f"kNN and density stores cut to {args.rows} rows by --rows")
     launches, inputs = main_path(torch, ks, dev, args.rows, card_s)
     rows = kernel_rows(torch, ks, launches, inputs, card_s)
     del inputs
     torch.cuda.empty_cache()
     launches, inputs = density_path(torch, dev, args.rows, card_s, wkt)
     rows += density_rows(torch, launches, inputs, card_s)
+    del inputs
+    torch.cuda.empty_cache()
+    n2 = min(args.rows, LAYER_POINTS)
+    if n2 != LAYER_POINTS:
+        log(f"config-2 points cut to {n2} by --rows")
+    launches, inputs = layer_path(torch, dev, n2, card_s)
+    rows += layer_rows(torch, launches, inputs, card_s)
     print(json.dumps({"kernels": rows}))
     print(card_s)
     print(json.dumps({"ok": True, "device": {

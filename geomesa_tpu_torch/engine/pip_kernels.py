@@ -39,6 +39,19 @@ def _crossing_x(py, x1, y1, x2, y2):
     return cond, x1 + t * (x2 - x1)
 
 
+def crossing_and_band(px, py, x1, y1, x2, y2, e32):
+    """(crossing, band) bool [chunk, E]: the shared predicate of the PIP
+    kernels (the reference's `pip_sparse._crossing_and_band`, whose
+    docstring proves the band sufficient). e32: eps as an f32 tensor."""
+    cond, xc = _crossing_x(py, x1, y1, x2, y2)
+    near_flat = ((torch.abs(py - y1) <= e32) & (torch.abs(py - y2) <= e32)
+                 & (px >= torch.minimum(x1, x2) - e32)
+                 & (px <= torch.maximum(x1, x2) + e32))
+    err = e32 * (1.0 + torch.abs(x2 - x1)
+                 / torch.maximum(torch.abs(y2 - y1), e32))
+    return cond & (xc > px), near_flat | (cond & (torch.abs(xc - px) <= err))
+
+
 def _plain(px, py, x1, y1, x2, y2, row_fn):
     """Apply row_fn(px [c,1], py [c,1], edges [1,E]...) -> [c] over point
     chunks, so the [chunk, E] temporaries stay bounded."""
@@ -67,13 +80,7 @@ def pip_band_plain(px, py, x1, y1, x2, y2, eps: float):
     e32 = torch.tensor(eps, dtype=torch.float32, device=px.device)
 
     def rows(px, py, x1, y1, x2, y2):
-        near_flat = ((torch.abs(py - y1) <= e32) & (torch.abs(py - y2) <= e32)
-                     & (px >= torch.minimum(x1, x2) - e32)
-                     & (px <= torch.maximum(x1, x2) + e32))
-        cond, xc = _crossing_x(py, x1, y1, x2, y2)
-        err = e32 * (1.0 + torch.abs(x2 - x1)
-                     / torch.maximum(torch.abs(y2 - y1), e32))
-        return (near_flat | (cond & (torch.abs(xc - px) <= err))).any(dim=1)
+        return crossing_and_band(px, py, x1, y1, x2, y2, e32)[1].any(dim=1)
     return _plain(px, py, x1, y1, x2, y2, rows)
 
 

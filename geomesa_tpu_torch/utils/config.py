@@ -1,0 +1,57 @@
+"""Typed system properties with an environment-variable fallback.
+
+A trimmed copy of the reference package's `utils/config.py`: the
+`SystemProperty` class and the one property the port reads. Property
+"geomesa.spatial.prep.cache.dir" maps to the environment variable
+GEOMESA_TPU_SPATIAL_PREP_CACHE_DIR, as in the reference, so both packages
+read the same setting.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Dict
+
+
+@dataclasses.dataclass
+class SystemProperty:
+    name: str  # dotted, e.g. "geomesa.spatial.prep.cache.dir"
+    default: object
+    parser: Callable[[str], object]
+    description: str = ""
+
+    @property
+    def env_name(self) -> str:
+        return self.name.upper().replace(".", "_").replace("GEOMESA_", "GEOMESA_TPU_", 1)
+
+    def get(self) -> object:
+        override = _overrides.get(self.name)
+        if override is not None:
+            return override
+        raw = os.environ.get(self.env_name)
+        if raw is not None:
+            return self.parser(raw)
+        return self.default
+
+    @property
+    def provenance(self) -> str:
+        if self.name in _overrides:
+            return "override"
+        if self.env_name in os.environ:
+            return f"env:{self.env_name}"
+        return "default"
+
+
+_overrides: Dict[str, object] = {}
+
+
+class SystemProperties:
+    """The properties the port reads."""
+
+    SPATIAL_PREP_CACHE_DIR = SystemProperty(
+        "geomesa.spatial.prep.cache.dir", "", str,
+        "disk cache directory for polygon-layer prep structures (pair "
+        "lists / padded edge tables — the prepared-geometry analog); "
+        "empty = in-process cache only",
+    )

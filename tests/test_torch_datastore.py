@@ -191,6 +191,12 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
                                         weight_attr="speed", radius_pixels=1)
         assert grid.shape == (32, 32) and grid.sum() > 0
         assert src.get_count(poly + " AND speed > 5") > 0
+        from geomesa_tpu_torch.engine import pip_layer
+        ring = np.array([[-3.0, 42.0], [3.0, 42.0], [0.0, 48.0], [-3.0, 42.0]])
+        px, py = np.sort(rng.uniform(-5, 5, 3000)), rng.uniform(40, 50, 3000)
+        inside, info = pip_layer(px, py, ring[:-1, 0], ring[:-1, 1], ring[1:, 0],
+                                 ring[1:, 1], np.zeros(3, np.int64), device="cpu")
+        assert info["pairs"] > 0 and 0 < inside.sum() < 3000
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]
