@@ -15,8 +15,11 @@ and prints no result. Phases, each fatal on failure:
 3. kernel check: each kernel against its plain PyTorch version on the card
    (B1/B2 at Q=256, N=2^22, dead sparse slots exactly 1e9; B3 over 2^22
    Z-ordered points on a 512x512 grid: counts equal, weights within the
-   per-cell bound, dictionary misses add nothing; B4/B5 at N=2^22 against
-   a ~1100-edge zone polygon: identical booleans);
+   per-cell bound, dictionary misses add nothing; B4/B5 against a
+   ~1100-edge zone polygon at N=2^22 in random and Morton order and on
+   the eps-boundary set, points at an edge end's y +- eps and 1-2 ulps
+   either side, and against a ~9000-edge zone at N=2^18: identical
+   booleans);
 4. the kNN path at full size: DataStore on the card -> write -> get_count
    and knn (sparse, fullscan, forced overflow) for the north-star CQL
    (BBOX + time + attribute, bench config 3's data shape), with launch
@@ -30,8 +33,9 @@ and prints no result. Phases, each fatal on failure:
    density, and DensityProcess with radius 2, each timed cold and warm,
    with launch counts reset before and read after, checked against
    independent oracles (NumPy binning, an f64 crossing count on the card,
-   the scatter route, the exact fallback on a shuffled copy), and a
-   torch.profiler breakdown of one warm density call;
+   the scatter route, the exact fallback on a shuffled copy), and
+   torch.profiler breakdowns of warm density, polygon density and
+   polygon count calls;
 6. the polygon-layer spatial join (bench config 2: the reference bench's
    seeded 10,000-polygon admin-style layer x 2^22 Z-ordered points, 1/64
    of them within 1e-6 degrees of an edge): a kernel check of B6-B9
@@ -46,7 +50,9 @@ and prints no result. Phases, each fatal on failure:
    oracle, join pairs == the points inside, pip_layer_sparse ==
    pip_layer_grouped on covered tiles;
 7. each kernel timed at its path's shapes beside its plain version and
-   its bound, printed as one {"kernels": [...]} line.
+   its bound, printed as one {"kernels": [...]} line; before it, B4/B5's
+   registers and spills, what their skip rule leaves per block of the
+   resident rows, and their times on a shuffled copy of those rows.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -92,26 +98,28 @@ def iso(ms: int) -> str:
 
 
 def timed_ms(torch, fn, reps: int) -> float:
-    """Median device time of fn over `reps` runs (CUDA events), warm."""
+    """Device time of one call of fn, warm: CUDA events around `reps`
+    calls made back to back, over reps. The host enqueues the next call
+    while the card runs this one, so a sub-millisecond kernel is not
+    charged the host's launch latency (events around a single call
+    after a synchronize are)."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
     for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
 
 
-def bound_ms(keys: int, nbytes: int):
-    """Least time for the work: the larger of HBM bytes and FP32 operations
-    (4 FMAs = 8 FLOP plus one min per key) over the data-sheet peaks."""
+def roofline_ms(ops: int, nbytes: int):
+    """Least time for the work, (ms, "operations" | "bytes"): the larger of
+    HBM bytes and FP32 operations over the data-sheet peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = keys * 9 / FP32_OPS_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -340,7 +348,7 @@ def kernel_rows(torch, ks, launches, inp, card_s: str):
         assert err <= TOL, (name, err)
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, 3)
-        b, by = bound_ms(keys, nbytes)
+        b, by = roofline_ms(9 * keys, nbytes)  # 4 FMAs and a min a key
         rows.append({
             "name": name, "route": "cuda",
             "source": "geomesa_tpu_torch/engine/kernels/chord_blockmin.cu",
@@ -368,15 +376,17 @@ ZS_OPS = 7
 # pays the two compares of the half-open test (B4) and, in B5, the 12 of
 # the near-flat term; pairs whose edge straddles the point's y also pay
 # t, xc and the crossing compare (B4: 8 more; B5: 18 more, with the
-# slope-inflated error).
+# slope-inflated error). The dense algorithm tests every pair; what the
+# data needs is the straddling pairs (B4) and the pairs within eps of an
+# edge's y-span (B5), whose bound density_rows reports.
 PIP_ALL, PIP_COND = 2, 8
 BAND_ALL, BAND_COND = 14, 18
 
 
-def zone_polygon(seed: int = 11):
+def zone_polygon(seed: int = 11, shell: int = 1024):
     """A seeded stand-in for a taxi-zone polygon: a smooth star-shaped
-    shell of 1024 vertices and one 64-vertex hole, ~20% of the envelope.
-    Returns its WKT."""
+    shell of `shell` vertices and one 64-vertex hole, ~20% of the
+    envelope. Returns its WKT."""
     rng = np.random.default_rng(seed)
 
     def ring(n, cx, cy, rx, ry, amp):
@@ -387,7 +397,7 @@ def zone_polygon(seed: int = 11):
         pts = np.concatenate([pts, pts[:1]])
         return "(" + ", ".join(f"{float(a)!r} {float(b)!r}" for a, b in pts) + ")"
 
-    return (f"POLYGON({ring(1024, -74.0, 40.75, 0.165, 0.135, 0.25)}, "
+    return (f"POLYGON({ring(shell, -74.0, 40.75, 0.165, 0.135, 0.25)}, "
             f"{ring(64, -73.98, 40.74, 0.03, 0.025, 0.1)})")
 
 
@@ -409,6 +419,41 @@ def pip_pairs(torch, py, y1, y2) -> int:
     return int(n.sum())
 
 
+def reach_pairs(torch, py, y1, y2, eps: float, step: int = 1 << 24) -> int:
+    """Pairs (point, edge) whose edge's y-span meets [py - eps, py + eps]:
+    the pairs that can band-flag a point (B5's data-dependent work),
+    counted in f64 from sorted edge ends."""
+    lo, _ = torch.sort(torch.minimum(y1, y2).double())
+    hi, _ = torch.sort(torch.maximum(y1, y2).double())
+    total = 0
+    for s in range(0, py.shape[0], step):
+        q = py[s:s + step].double()
+        total += int((torch.searchsorted(lo, q + eps, right=True)
+                      - torch.searchsorted(hi, q - eps)).sum())
+    return total
+
+
+def ptxas_resources(log_text: str) -> dict:
+    """{entry kernel (mangled): {"registers": r, "spill": (stores, loads)}}
+    from an `nvcc -Xptxas -v` report."""
+    import re
+
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([^'\s]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        r = re.search(r"Used (\d+) registers", line)
+        if cur and r:
+            out.setdefault(cur, {})["registers"] = int(r.group(1))
+        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if cur and s:
+            out.setdefault(cur, {})["spill"] = (int(s.group(1)), int(s.group(2)))
+    return out
+
+
 def pip_inputs(torch, dev, n: int, wkt: str, seed: int):
     """n f32 points over the envelope, a quarter of them on or within a
     few ulps of the polygon's edges, and the f32 edge table."""
@@ -428,10 +473,36 @@ def pip_inputs(torch, dev, n: int, wkt: str, seed: int):
     return f(x), f(y), [f(a) for a in e64]
 
 
+def eps_boundary_points(torch, edges, eps: float, seed: int = 8):
+    """f32 points whose y is exactly an edge end +- eps (in f32) or 1-2 f32
+    ulps either side of it, x across the edge's eps-inflated x-span and on
+    its f32 lower bound, for every edge, sorted by y (the boundary of B5's
+    near-flat term and of the kernels' 2 eps skip margin)."""
+    x1, y1, x2, y2 = (a.cpu().numpy() for a in edges)
+    rng = np.random.default_rng(seed)
+    e32 = np.float32(eps)
+    xlo = np.tile(np.minimum(x1, x2) - e32, 4)
+    xhi = np.tile(np.maximum(x1, x2) + e32, 4)
+    ends = np.concatenate([y1, y2])
+    base = np.concatenate([ends + e32, ends - e32])  # f32 arithmetic
+    xs, ys = [], []
+    for u in (-2, -1, 0, 1, 2):
+        v = base
+        for _ in range(abs(u)):
+            v = np.nextafter(v, np.float32(np.inf if u > 0 else -np.inf))
+        xs += [rng.uniform(xlo - e32, xhi + e32).astype(np.float32), xlo]
+        ys += [v, v]
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    o = np.argsort(y, kind="stable")
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(edges[0].device)  # noqa: E731
+    return f(x[o]), f(y[o])
+
+
 def density_kernel_check(torch, dev, wkt: str) -> None:
     """B3 against its plain version over 2^22 Z-ordered points (512x512):
     unit weights equal, weights within the per-cell bound, cells missing
-    from a dictionary add nothing; B4/B5 at N=2^22: identical booleans."""
+    from a dictionary add nothing; B4/B5 at N=2^22 in random and Morton
+    order and on the eps-boundary set: identical booleans."""
     from geomesa_tpu_torch.engine import density_zsparse as dz
     from geomesa_tpu_torch.engine import pip_kernels as pk
     from geomesa_tpu_torch.engine.pip import BAND_EPS
@@ -474,14 +545,25 @@ def density_kernel_check(torch, dev, wkt: str) -> None:
 
     n = PIP_CHECK_N
     px, py, e = pip_inputs(torch, dev, n, wkt, seed=6)
-    inside = pk.pip_crossing(px, py, *e)
-    band = pk.pip_band(px, py, *e, eps=BAND_EPS)
-    same_c = bool(torch.equal(inside, pk.pip_crossing_plain(px, py, *e)))
-    same_b = bool(torch.equal(band, pk.pip_band_plain(px, py, *e, BAND_EPS)))
-    log(f"kernel check B4/B5 N={n} E={e[0].shape[0]}: crossings identical "
-        f"{same_c} ({int(inside.sum())} inside), band flags identical {same_b} "
-        f"({int(band.sum())} flagged)")
-    assert same_c and same_b and 0 < int(inside.sum()) < n and int(band.sum()) > 0
+    zo = t(morton_order(torch, px.double(), py.double()))
+    # a 9,000-vertex zone: more edges than one block tests in one group
+    big = pip_inputs(torch, dev, 1 << 18, zone_polygon(seed=12, shell=9000), seed=7)
+    zb = t(morton_order(torch, big[0].double(), big[1].double()))
+    sets = {"random": (px, py, e),
+            "Morton": (px[zo].contiguous(), py[zo].contiguous(), e),
+            "eps-boundary": (*eps_boundary_points(torch, e, BAND_EPS), e),
+            "Morton, 9k-edge zone": (big[0][zb].contiguous(), big[1][zb].contiguous(),
+                               big[2])}
+    for name, (qx, qy, e) in sets.items():
+        inside = pk.pip_crossing(qx, qy, *e)
+        band = pk.pip_band(qx, qy, *e, eps=BAND_EPS)
+        same_c = bool(torch.equal(inside, pk.pip_crossing_plain(qx, qy, *e)))
+        same_b = bool(torch.equal(band, pk.pip_band_plain(qx, qy, *e, BAND_EPS)))
+        log(f"kernel check B4/B5 {name} N={qx.shape[0]} E={e[0].shape[0]}: "
+            f"crossings identical {same_c} ({int(inside.sum())} inside), band "
+            f"flags identical {same_b} ({int(band.sum())} flagged)")
+        assert same_c and same_b and int(band.sum()) > 0, name
+        assert 0 < int(inside.sum()) < qx.shape[0], name
 
 
 def f64_polygon_count(torch, dev, x, y, wkt: str, chunk: int = 1 << 15) -> int:
@@ -578,6 +660,8 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
             log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
                 f"{rows / warm:.1f} points/sec [{card_s}]")
         profile_calls(torch, "density unweighted", calls["density unweighted"], card_s)
+        profile_calls(torch, "polygon density", calls["polygon density"], card_s)
+        profile_calls(torch, "polygon count", calls["polygon count"], card_s, calls=1)
 
         # -- oracles -------------------------------------------------------
         x32, y32 = x.astype(np.float32), y.astype(np.float32)
@@ -641,9 +725,49 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
         return launches, inputs
 
 
+def pip_skip_lines(torch, pk, x, y, edges, eps, card_s: str):
+    """Earlier lines of B4/B5's rows: the kernels' registers and spills,
+    what the skip rule leaves per block (counted in torch from the data),
+    and both kernels on a shuffled copy of the rows, where every block
+    spans the polygon (its outputs: the Morton ones, permuted)."""
+    from geomesa_tpu_torch.engine.kernels import build
+
+    for name, res in ptxas_resources(build.build_log["pip_crossing"]["ptxas"]).items():
+        if "pip_kernel" in name:
+            kind = "B4" if "ILb0E" in name else "B5"
+            log(f"ptxas pip_crossing.cu {kind}: {res.get('registers')} registers, "
+                f"spill stores/loads {res.get('spill')}")
+    for kind, rule in (("B4", None), ("B5", eps)):
+        by_chunk, by_edge = pk.kept_edges(y, edges[1], edges[3], rule)
+        log(f"{kind} skip rule over {by_chunk.shape[0]} blocks of "
+            f"{pk.BLOCK_POINTS} Morton-ordered rows, chunks of {pk.CHUNK} of "
+            f"{edges[0].shape[0]} edges: {float(by_chunk.double().mean()):.3f} edges "
+            f"of kept chunks and {float(by_edge.double().mean()):.3f} staged edges "
+            f"a block; {float((by_chunk == 0).double().mean()):.4f} of blocks keep "
+            f"no chunk, {float((by_edge == 0).double().mean()):.4f} stage no edge")
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(13)
+    perm = torch.randperm(x.shape[0], device=x.device, generator=gen)
+    xs, ys = x[perm].contiguous(), y[perm].contiguous()
+    calls = {"pip_crossing": (lambda: pk.pip_crossing(x, y, *edges),
+                              lambda: pk.pip_crossing(xs, ys, *edges)),
+             "pip_band": (lambda: pk.pip_band(x, y, *edges, eps=eps),
+                          lambda: pk.pip_band(xs, ys, *edges, eps=eps))}
+    shuffled = {}
+    for name, (morton, shuf) in calls.items():
+        assert torch.equal(shuf(), morton()[perm]), f"{name} shuffled"
+        shuffled[name] = ms = timed_ms(torch, shuf, 10)
+        log(f"{name} on a shuffled copy of the N={x.shape[0]} rows: {ms:.3f} ms, "
+            f"outputs == the Morton-order outputs permuted [{card_s}]")
+    return shuffled
+
+
 def density_rows(torch, launches, inp, card_s: str):
     """B3, B4 and B5 at the density path's shapes: time, plain time,
-    error, bound, and the library call where one exists."""
+    error, bound, and the library call where one exists. B4/B5's bound
+    counts the pairs that this run's data needs (straddling pairs, pairs
+    within eps of an edge's y-span) and the all-pairs bound of the dense
+    algorithm stands beside it."""
     from geomesa_tpu_torch.core.wkt import parse_wkt
     from geomesa_tpu_torch.engine import density_zsparse as dz
     from geomesa_tpu_torch.engine import pip_kernels as pk
@@ -661,36 +785,42 @@ def density_rows(torch, launches, inp, card_s: str):
              for a in polygon_edges(parse_wkt(inp["wkt"]))]
     n, e = x.shape[0], edges[0].shape[0]
     cond = pip_pairs(torch, y, edges[1], edges[3])
+    reach = reach_pairs(torch, y, edges[1], edges[3], BAND_EPS)
+    shuffled = pip_skip_lines(torch, pk, x, y, edges, BAND_EPS, card_s)
     src_pip = "geomesa_tpu_torch/engine/kernels/pip_crossing.cu"
+    pip_bytes = 8 * n + 16 * e + n
+    # (name, replaces, source, kernel, plain, library call, operations,
+    #  bytes, all-pairs operations, plain reps, shape)
     cases = [
         ("zsparse_counts", "geomesa_tpu/engine/density_zsparse.py:203",
          "geomesa_tpu_torch/engine/kernels/density_zsparse.cu",
          lambda: dz.zsparse_counts(x, y, lw, ids, calib.dicts, ENV, GRID, GRID),
          lambda: dz.zsparse_counts_plain(x, y, lw, ids, calib.dicts, ENV, GRID, GRID),
          lambda: density_grid(gx, gy, gw, gm, ENV, GRID, GRID),
-         ZS_OPS * s * dz.DATA_TILE, 12 * s * dz.DATA_TILE + 8 * s * capd, 5,
+         ZS_OPS * s * dz.DATA_TILE, 12 * s * dz.DATA_TILE + 8 * s * capd, None, 5,
          f"S={s} live tiles of {n // dz.DATA_TILE}, capd={capd}"),
         ("pip_crossing", "geomesa_tpu/engine/pip_pallas.py:70", src_pip,
          lambda: pk.pip_crossing(x, y, *edges),
          lambda: pk.pip_crossing_plain(x, y, *edges), None,
-         PIP_ALL * n * e + PIP_COND * cond, 8 * n + 16 * e + n, 1,
+         PIP_COND * cond, pip_bytes, PIP_ALL * n * e + PIP_COND * cond, 1,
          f"N={n} E={e}, {cond} straddling pairs of {n * e}"),
         ("pip_band", "geomesa_tpu/engine/pip_pallas.py:148", src_pip,
          lambda: pk.pip_band(x, y, *edges, eps=BAND_EPS),
          lambda: pk.pip_band_plain(x, y, *edges, BAND_EPS), None,
-         BAND_ALL * n * e + BAND_COND * cond, 8 * n + 16 * e + n, 1,
-         f"N={n} E={e}, {cond} straddling pairs of {n * e}"),
+         (BAND_ALL + BAND_COND) * reach, pip_bytes,
+         BAND_ALL * n * e + BAND_COND * cond, 1,
+         f"N={n} E={e}, {reach} pairs within eps of an edge's y-span "
+         f"({cond} straddling) of {n * e}"),
     ]
+
     rows = []
-    for name, replaces, source, kern, plain, lib, ops, nbytes, preps, shape in cases:
+    for name, replaces, source, kern, plain, lib, ops, nbytes, ops_all, preps, shape in cases:
         err = float((kern().float() - plain().float()).abs().max())
         assert err == 0.0, (name, err)  # unit weights and booleans: exact
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, preps)
         library_ms = timed_ms(torch, lib, 5) if lib is not None else None
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_OPS_PER_S * 1e3
-        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        b, by = roofline_ms(ops, nbytes)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -700,8 +830,15 @@ def density_rows(torch, launches, inp, card_s: str):
         lib_s = (f", library {library_ms:.3f} ms (density_grid index_add_)"
                  if library_ms is not None else
                  ", library null (no PyTorch call computes a crossing count)")
+        extra = ""
+        if ops_all is not None:
+            b_all, by_all = roofline_ms(ops_all, nbytes)
+            rows[-1]["bound_all_pairs_ms"] = b_all
+            rows[-1]["shuffled_ms"] = shuffled[name]
+            extra = (f"; all-pairs bound {b_all:.3f} ms by {by_all}; shuffled "
+                     f"{shuffled[name]:.3f} ms")
         log(f"{name}: {shape}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b:.3f} ms by {by}{lib_s}) [{card_s}]")
+            f"{b:.3f} ms by {by}{lib_s}{extra}) [{card_s}]")
     return rows
 
 
@@ -1070,9 +1207,7 @@ def layer_rows(torch, launches, inp, card_s: str):
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, 1)
         n_all, n_cond = LAYER_OPS[name]
-        t_ops = (n_all * tests + n_cond * cond) / FP32_OPS_PER_S * 1e3
-        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        b, by = roofline_ms(n_all * tests + n_cond * cond, nbytes[name])
         rows.append({
             "name": name, "route": "cuda",
             "source": "geomesa_tpu_torch/engine/kernels/pip_layer.cu",

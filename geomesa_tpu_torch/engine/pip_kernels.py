@@ -14,6 +14,13 @@ CPU; on a CUDA tensor it launches the kernel (built from
 `kernels/pip_crossing.cu` at first use) or raises. `launches` on each
 wrapper counts its kernel launches. There is no work threshold: the
 reference's `use_pallas_pip` crossover is a TPU figure.
+
+The kernels skip, for each block of `BLOCK_POINTS` consecutive points,
+every chunk of `CHUNK` edges and every edge whose y-span cannot reach
+the block's y-range (`out_of_reach`, the rule the CUDA source proves
+exact). `edge_chunk_bounds`, `block_y_range`, `out_of_reach` and
+`kept_edge_mask` state that rule in PyTorch, for tests and for counting
+what a kernel skips; the plain versions test every pair.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from geomesa_tpu_torch.engine.device import check_kernel_inputs
 
 # elements of one [chunk, E] block in the plain versions (~64 MB f32)
 _PLAIN_CHUNK_ELEMS = 1 << 24
+# kChunk and kThreads * kPerThread of kernels/pip_crossing.cu
+CHUNK = 32
+BLOCK_POINTS = 512
 
 
 def _crossing_x(py, x1, y1, x2, y2):
@@ -84,6 +94,72 @@ def pip_band_plain(px, py, x1, y1, x2, y2, eps: float):
     return _plain(px, py, x1, y1, x2, y2, rows)
 
 
+def edge_chunk_bounds(y1, y2, chunk: int = CHUNK):
+    """(lo, hi) f32 [ceil(E / chunk)]: the least and greatest y-end of each
+    run of `chunk` edges in table order, NaN ends ignored (the prologue
+    kernel's fminf/fmaxf); a chunk of NaN edges gets (+inf, -inf)."""
+    inf = float("inf")
+    lo = torch.fmin(y1, y2)
+    hi = torch.fmax(y1, y2)
+    lo = torch.where(torch.isnan(lo), inf, lo)
+    hi = torch.where(torch.isnan(hi), -inf, hi)
+    pad = (-lo.shape[0]) % chunk
+    lo = torch.nn.functional.pad(lo, (0, pad), value=inf)
+    hi = torch.nn.functional.pad(hi, (0, pad), value=-inf)
+    return lo.reshape(-1, chunk).amin(1), hi.reshape(-1, chunk).amax(1)
+
+
+def block_y_range(py, block: int = BLOCK_POINTS):
+    """(ymin, ymax) f32 [ceil(N / block)]: each block's y-range over its
+    points, NaN ignored; a block of NaN points gets (+inf, -inf)."""
+    inf = float("inf")
+    pad = (-py.shape[0]) % block
+    q = torch.nn.functional.pad(py, (0, pad), value=float("nan")).reshape(-1, block)
+    nan = torch.isnan(q)
+    return (torch.where(nan, inf, q).amin(1), torch.where(nan, -inf, q).amax(1))
+
+
+def out_of_reach(lo, hi, ymin, ymax, eps=None):
+    """bool [B, K]: True where no point of block b (y in [ymin[b],
+    ymax[b]]) can be crossed (eps None: B4) or band-flagged (B5, within
+    eps) by an edge whose y-ends lie in [lo[k], hi[k]]. B4 needs
+    min(y1,y2) <= py < max(y1,y2); B5 widens by 2 eps, in f64 (the
+    kernel's skip rule; a NaN bound skips nothing)."""
+    lo, hi = lo[None, :], hi[None, :]
+    ymin, ymax = ymin[:, None], ymax[:, None]
+    if eps is None:
+        return (lo > ymax) | (hi <= ymin)
+    m = 2.0 * float(np.float32(eps))
+    return ((lo.double() - ymax.double() > m)
+            | (ymin.double() - hi.double() > m))
+
+
+def kept_edge_mask(ymin, ymax, y1, y2, eps=None, chunk: int = CHUNK):
+    """(by_chunk, staged) bool [B, E]: for blocks of points with y-ranges
+    [ymin, ymax], the edges of the chunks that the kernel keeps, and of
+    those the edges that it stages (eps None: B4's rule, else B5's)."""
+    e = y1.shape[0]
+    lo, hi = edge_chunk_bounds(y1, y2, chunk)
+    by_chunk = (~out_of_reach(lo, hi, ymin, ymax, eps)).repeat_interleave(
+        chunk, dim=1)[:, :e]
+    staged = by_chunk & ~out_of_reach(torch.fmin(y1, y2), torch.fmax(y1, y2),
+                                      ymin, ymax, eps)
+    return by_chunk, staged
+
+
+def kept_edges(py, y1, y2, eps=None, block: int = BLOCK_POINTS,
+               chunk: int = CHUNK, step: int = 4096):
+    """(by_chunk, staged) int64 [ceil(N / block)]: per block of points,
+    the counts of `kept_edge_mask`, `step` blocks at a time. Counted from
+    the data; the kernels count nothing."""
+    ymin, ymax = block_y_range(py, block)
+    counts = [torch.stack([m.sum(1) for m in kept_edge_mask(
+        ymin[s:s + step], ymax[s:s + step], y1, y2, eps, chunk)])
+        for s in range(0, ymin.shape[0], step)]
+    by_chunk, staged = torch.cat(counts, dim=1)
+    return by_chunk, staged
+
+
 def _lib():
     from geomesa_tpu_torch.engine.kernels.build import load
 
@@ -91,10 +167,12 @@ def _lib():
     ptrs = [ctypes.c_void_p] * 7
     if lib.pip_crossing_launch.argtypes is None:
         lib.pip_crossing_launch.argtypes = ptrs + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p]
         lib.pip_crossing_launch.restype = ctypes.c_int
         lib.pip_band_launch.argtypes = ptrs + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         lib.pip_band_launch.restype = ctypes.c_int
     return lib
 
@@ -106,12 +184,16 @@ def _launch(name, px, py, x1, y1, x2, y2, *extra):
                         dtypes=(f32,) * 6 + (torch.bool,))
     if px.shape != py.shape or not (x1.shape == y1.shape == x2.shape == y2.shape):
         raise ValueError("points and edge arrays must match in length")
+    e = x1.shape[0]
+    # the prologue kernel's per-chunk (min y, max y), f32 pairs
+    bounds = torch.empty(2 * (-(-e // CHUNK)), dtype=f32, device=px.device)
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream().cuda_stream
         fn = getattr(_lib(), f"{name}_launch")
         err = fn(px.data_ptr(), py.data_ptr(), x1.data_ptr(), y1.data_ptr(),
-                 x2.data_ptr(), y2.data_ptr(), out.data_ptr(), px.shape[0],
-                 x1.shape[0], *extra, stream)
+                 x2.data_ptr(), y2.data_ptr(), out.data_ptr(),
+                 bounds.data_ptr(), bounds.shape[0], px.shape[0], e, *extra,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out

@@ -94,6 +94,41 @@ def points(seed, n, wkt, on_vertices=True):
     return x, y
 
 
+def eps_boundary_points(edges, eps, seed=0, n_edges=64):
+    """f32 points whose y is exactly an edge end +- eps (in f32) or 1-2 f32
+    ulps either side of it, x across the edge's eps-inflated x-span and on
+    its f32 lower bound, for the n_edges flattest edges (near-flat needs
+    both ends within eps), sorted by y so that small blocks of them are
+    thin in y."""
+    x1, y1, x2, y2 = (np.asarray(a, np.float32) for a in edges)
+    rng = np.random.default_rng(seed)
+    e32 = np.float32(eps)
+    xs, ys = [], []
+    for j in np.argsort(np.abs(y2 - y1), kind="stable")[:n_edges]:
+        xlo = np.minimum(x1[j], x2[j]) - e32
+        xhi = np.maximum(x1[j], x2[j]) + e32
+        for yend in (y1[j], y2[j]):
+            for c in (yend + e32, yend - e32):
+                for u in (-2, -1, 0, 1, 2):
+                    v = c
+                    for _ in range(abs(u)):
+                        v = np.nextafter(v, np.float32(np.inf if u > 0 else -np.inf))
+                    xs += [rng.uniform(xlo - e32, xhi + e32), xlo]
+                    ys += [v, v]
+    x = np.asarray(xs, np.float32)
+    y = np.asarray(ys, np.float32)
+    o = np.argsort(y, kind="stable")
+    return x[o], y[o]
+
+
+def morton_sorted(x, y):
+    """The points in Z2-Morton order, as the stores keep them."""
+    from test_torch_density import _morton
+
+    o = np.argsort(_morton(x, y), kind="stable")
+    return np.asarray(x)[o], np.asarray(y)[o]
+
+
 @pytest.fixture(scope="module")
 def pts():
     x, y = points(5, 4096, POLY)
@@ -254,7 +289,33 @@ def test_pip_kernels_match_plain_on_the_card(pts):
     rng = np.random.default_rng(4)
     x = np.concatenate([x, rng.uniform(-74.3, -73.7, 1 << 18)])
     y = np.concatenate([y, rng.uniform(40.5, 41.0, 1 << 18)])
-    args = [torch.from_numpy(a).to(dev) for a in _f32(x, y, *edges_of(POLY))]
-    assert torch.equal(pk.pip_crossing(*args), pk.pip_crossing_plain(*args))
-    assert torch.equal(pk.pip_band(*args, eps=1e-4),
-                       pk.pip_band_plain(*args, eps=1e-4))
+    e = edges_of(POLY)
+    mx, my = morton_sorted(x, y)
+    nx, ny = _f32(mx, my)
+    nx[5::37] = np.nan
+    ny[11::41] = np.nan
+    ny[23::97] = np.inf
+    nx, ny = (np.concatenate([a, np.zeros(700, np.float32)]) for a in (nx, ny))
+    sets = {"shuffled": (x, y), "morton": (mx, my),
+            "eps_boundary": eps_boundary_points(e, port_pip.BAND_EPS, n_edges=600),
+            "nan_pad": (nx, ny)}
+    # NaN edge ends (x of a flat edge, y), E around the kernels' chunk, and
+    # more edges than a block tests in one group of chunks
+    nan_e = [np.array(a, np.float64) for a in e]
+    flat = int(np.argmin(np.abs(nan_e[3] - nan_e[1])))
+    nan_e[0][flat] = np.nan
+    nan_e[1][7] = nan_e[2][11] = np.nan
+    c = pk.CHUNK
+    tables = {"polygon": e, "nan_edges": nan_e,
+              **{f"E={k}": [a[:k] for a in e] for k in (0, 1, c - 1, c, c + 1)},
+              "E=9000": edges_of(star_polygon_wkt(seed=4, n_shell=8936))}
+    for name, (sx, sy) in sets.items():
+        for tname, te in tables.items():
+            if tname != "polygon" and name == "shuffled":
+                continue  # the skip rule is what these cases exercise
+            args = [torch.from_numpy(a).to(dev) for a in _f32(sx, sy, *te)]
+            assert torch.equal(pk.pip_crossing(*args),
+                               pk.pip_crossing_plain(*args)), (name, tname)
+            for eps in (port_pip.BAND_EPS, 1e-3):
+                assert torch.equal(pk.pip_band(*args, eps=eps),
+                                   pk.pip_band_plain(*args, eps=eps)), (name, tname)
