@@ -51,8 +51,10 @@ and prints no result. Phases, each fatal on failure:
    pip_layer_grouped on covered tiles;
 7. each kernel timed at its path's shapes beside its plain version and
    its bound, printed as one {"kernels": [...]} line; before it, B4/B5's
-   registers and spills, what their skip rule leaves per block of the
-   resident rows, and their times on a shuffled copy of those rows.
+   registers and spills, and, for the resident rows in Morton order (as
+   written), in time order and shuffled, what their skip rule leaves per
+   block and their times. B4/B5's "ms" is the Morton-order time: their
+   speed depends on the rows' spatial order, which the caller gives.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -98,21 +100,19 @@ def iso(ms: int) -> str:
 
 
 def timed_ms(torch, fn, reps: int) -> float:
-    """Device time of one call of fn, warm: CUDA events around `reps`
-    calls made back to back, over reps. The host enqueues the next call
-    while the card runs this one, so a sub-millisecond kernel is not
-    charged the host's launch latency (events around a single call
-    after a synchronize are)."""
+    """Median device time of fn over `reps` runs (CUDA events), warm."""
     fn()
     torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
+    times = []
     for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
         fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / reps
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
 
 
 def roofline_ms(ops: int, nbytes: int):
@@ -124,8 +124,10 @@ def roofline_ms(ops: int, nbytes: int):
 
 
 def morton_order(torch, x, y):
-    """Store order: argsort of the Z2 Morton key (31 bits per dimension,
-    lon/lat normalised over the WGS84 envelope), computed on the card."""
+    """The order this script writes rows in, as the reference bench does
+    (the store keeps write order): argsort of the Z2 Morton key (31 bits
+    per dimension, lon/lat normalised over the WGS84 envelope), on the
+    card."""
     def norm(v, lo, hi):
         s = torch.floor((v - lo) / (hi - lo) * float(1 << 31))
         return torch.clamp(s, 0, (1 << 31) - 1).to(torch.int64)
@@ -721,15 +723,19 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
         calib = dz.calibrate_density(dv["geom__x"], dv["geom__y"], mask6, ENV,
                                      GRID, GRID)
         inputs = dict(x=dv["geom__x"], y=dv["geom__y"], lw=mask6.float(),
-                      calib=calib, wkt=wkt)
+                      calib=calib, wkt=wkt, dtg=dv["dtg"], valid=dv["__valid__"])
         return launches, inputs
 
 
-def pip_skip_lines(torch, pk, x, y, edges, eps, card_s: str):
+def pip_skip_lines(torch, pk, x, y, dtg, valid, edges, eps, card_s: str):
     """Earlier lines of B4/B5's rows: the kernels' registers and spills,
-    what the skip rule leaves per block (counted in torch from the data),
-    and both kernels on a shuffled copy of the rows, where every block
-    spans the polygon (its outputs: the Morton ones, permuted)."""
+    and for the resident rows in three orders what the skip rule leaves
+    per block (counted in torch from the data) and both kernels' times.
+    The orders: Morton (the path's own: chip_smoke sorts before it
+    writes, and the store keeps write order within a partition); time
+    order, pad rows last (what a store holds when events are written as
+    they arrive); shuffled. The other orders' outputs must be the Morton
+    ones, permuted. Returns {order: {kernel: ms}} for the other two."""
     from geomesa_tpu_torch.engine.kernels import build
 
     for name, res in ptxas_resources(build.build_log["pip_crossing"]["ptxas"]).items():
@@ -737,29 +743,38 @@ def pip_skip_lines(torch, pk, x, y, edges, eps, card_s: str):
             kind = "B4" if "ILb0E" in name else "B5"
             log(f"ptxas pip_crossing.cu {kind}: {res.get('registers')} registers, "
                 f"spill stores/loads {res.get('spill')}")
-    for kind, rule in (("B4", None), ("B5", eps)):
-        by_chunk, by_edge = pk.kept_edges(y, edges[1], edges[3], rule)
-        log(f"{kind} skip rule over {by_chunk.shape[0]} blocks of "
-            f"{pk.BLOCK_POINTS} Morton-ordered rows, chunks of {pk.CHUNK} of "
-            f"{edges[0].shape[0]} edges: {float(by_chunk.double().mean()):.3f} edges "
-            f"of kept chunks and {float(by_edge.double().mean()):.3f} staged edges "
-            f"a block; {float((by_chunk == 0).double().mean()):.4f} of blocks keep "
-            f"no chunk, {float((by_edge == 0).double().mean()):.4f} stage no edge")
     gen = torch.Generator(device=x.device)
     gen.manual_seed(13)
-    perm = torch.randperm(x.shape[0], device=x.device, generator=gen)
-    xs, ys = x[perm].contiguous(), y[perm].contiguous()
-    calls = {"pip_crossing": (lambda: pk.pip_crossing(x, y, *edges),
-                              lambda: pk.pip_crossing(xs, ys, *edges)),
-             "pip_band": (lambda: pk.pip_band(x, y, *edges, eps=eps),
-                          lambda: pk.pip_band(xs, ys, *edges, eps=eps))}
-    shuffled = {}
-    for name, (morton, shuf) in calls.items():
-        assert torch.equal(shuf(), morton()[perm]), f"{name} shuffled"
-        shuffled[name] = ms = timed_ms(torch, shuf, 10)
-        log(f"{name} on a shuffled copy of the N={x.shape[0]} rows: {ms:.3f} ms, "
-            f"outputs == the Morton-order outputs permuted [{card_s}]")
-    return shuffled
+    last = torch.iinfo(torch.int64).max
+    orders = {
+        "time-ordered": torch.sort(torch.where(valid, dtg, last), stable=True)[1],
+        "shuffled": torch.randperm(x.shape[0], device=x.device, generator=gen),
+    }
+    for order, perm in [("Morton", None), *orders.items()]:
+        qy = y if perm is None else y[perm]
+        for kind, rule in (("B4", None), ("B5", eps)):
+            by_chunk, by_edge = pk.kept_edges(qy, edges[1], edges[3], rule)
+            log(f"{kind} skip rule over {by_chunk.shape[0]} blocks of "
+                f"{pk.BLOCK_POINTS} {order} rows, chunks of {pk.CHUNK} of "
+                f"{edges[0].shape[0]} edges: {float(by_chunk.double().mean()):.3f} "
+                f"edges of kept chunks and {float(by_edge.double().mean()):.3f} "
+                f"staged edges a block; {float((by_chunk == 0).double().mean()):.4f} "
+                f"of blocks keep no chunk, {float((by_edge == 0).double().mean()):.4f} "
+                f"stage no edge")
+    times = {}
+    for order, perm in orders.items():
+        xs, ys = x[perm].contiguous(), y[perm].contiguous()
+        calls = {"pip_crossing": (lambda: pk.pip_crossing(x, y, *edges),
+                                  lambda: pk.pip_crossing(xs, ys, *edges)),
+                 "pip_band": (lambda: pk.pip_band(x, y, *edges, eps=eps),
+                              lambda: pk.pip_band(xs, ys, *edges, eps=eps))}
+        times[order] = {}
+        for name, (morton, other) in calls.items():
+            assert torch.equal(other(), morton()[perm]), f"{name} {order}"
+            times[order][name] = ms = timed_ms(torch, other, 10)
+            log(f"{name} on a {order} copy of the N={x.shape[0]} rows: {ms:.3f} ms, "
+                f"outputs == the Morton-order outputs permuted [{card_s}]")
+    return times
 
 
 def density_rows(torch, launches, inp, card_s: str):
@@ -786,7 +801,8 @@ def density_rows(torch, launches, inp, card_s: str):
     n, e = x.shape[0], edges[0].shape[0]
     cond = pip_pairs(torch, y, edges[1], edges[3])
     reach = reach_pairs(torch, y, edges[1], edges[3], BAND_EPS)
-    shuffled = pip_skip_lines(torch, pk, x, y, edges, BAND_EPS, card_s)
+    other = pip_skip_lines(torch, pk, x, y, inp["dtg"], inp["valid"], edges,
+                           BAND_EPS, card_s)
     src_pip = "geomesa_tpu_torch/engine/kernels/pip_crossing.cu"
     pip_bytes = 8 * n + 16 * e + n
     # (name, replaces, source, kernel, plain, library call, operations,
@@ -834,9 +850,11 @@ def density_rows(torch, launches, inp, card_s: str):
         if ops_all is not None:
             b_all, by_all = roofline_ms(ops_all, nbytes)
             rows[-1]["bound_all_pairs_ms"] = b_all
-            rows[-1]["shuffled_ms"] = shuffled[name]
-            extra = (f"; all-pairs bound {b_all:.3f} ms by {by_all}; shuffled "
-                     f"{shuffled[name]:.3f} ms")
+            rows[-1]["time_ordered_ms"] = other["time-ordered"][name]
+            rows[-1]["shuffled_ms"] = other["shuffled"][name]
+            extra = (f"; all-pairs bound {b_all:.3f} ms by {by_all}; Morton-ordered "
+                     f"rows {ms:.3f} ms, time-ordered {other['time-ordered'][name]:.3f} "
+                     f"ms, shuffled {other['shuffled'][name]:.3f} ms")
         log(f"{name}: {shape}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
             f"{b:.3f} ms by {by}{lib_s}{extra}) [{card_s}]")
     return rows
@@ -915,7 +933,7 @@ def gen_admin_layer(rng, npoly: int):
 def layer_points(torch, dev, rng, n: int, layer):
     """The bench's config-2 points: n uniform over the globe, the first
     min(n // 64, 100000) within 1e-6 degrees of random edges
-    (adversarial), in Z2-Morton store order. Returns (px, py, adv)."""
+    (adversarial), in Z2-Morton order. Returns (px, py, adv)."""
     x1, y1, x2, y2 = layer[:4]
     px = rng.uniform(-180, 180, n)
     py = rng.uniform(-90, 90, n)

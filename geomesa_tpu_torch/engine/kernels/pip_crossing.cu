@@ -22,18 +22,25 @@
 // What bounds it on the H100. Dense, the work is N*E pair tests (1.1e11
 // at the density path's N = 1.007e8, E = 1088): the FP32/ALU pipes. But
 // an edge can change a point's answer only if its y-span reaches the
-// point's y, and the stores keep rows in Z2-Morton order, so a block of
-// consecutive points covers a thin y-strip that few edges reach (pow2 pad
-// rows sit at (0, 0), far from any polygon of the data). So the kernel
-// skips, per block, every edge whose y-span misses the block's y-range:
-// on the density path a block of 512 rows stages ~7 of 1088 edges and
+// point's y. When the caller writes the rows in spatial (Z2-Morton)
+// order, a block of consecutive points covers a thin y-strip that few
+// edges reach (pow2 pad rows sit at (0, 0), far from any polygon of the
+// data). The stores do not sort: they keep rows in write order within a
+// partition, so that order is the caller's. The kernel skips, per block,
+// every edge whose y-span misses the block's y-range: on the density
+// path's Morton-ordered rows a block of 512 stages ~7 of 1088 edges and
 // 57% of blocks stage none. What is left is bound by reading 8 bytes and
 // writing 1 byte a point (0.27 ms at that shape) and, in practice, by
 // the latency of each block's chain of loads and barriers (under 1 ms;
-// PERF.md). In no spatial order every block spans the polygon and the
-// work is dense again; then each shared-memory edge read serves
-// kPerThread points, and B5 pays its near-flat term only on the edges
-// flat enough to be near-flat (a flag computed once an edge).
+// PERF.md). Rows written in time order, or in no spatial order, make
+// every block span the polygon and the work dense again; then each
+// shared-memory edge read serves kPerThread points, and B5 pays its
+// near-flat term only on the edges flat enough to be near-flat (a flag
+// computed once an edge), which takes only 10-20% off the
+// one-thread-a-point kernel's time on the H100 (PERF.md).
+//
+// Each launch is two kernels on the caller's stream: the chunk_bounds
+// prologue and pip_kernel.
 //
 // The skip rule. A chunk (kChunk edges in table order) or an edge with
 // y-ends in [lo, hi] is skipped for a block whose live points have y in
@@ -74,11 +81,10 @@
 //     |y2 - y1| <= 4 eps (in f64), the only ones it can hold for (a
 //     branch on the edge, the same for every thread).
 // kChunk = 32, kPerThread = 4 and kThreads = 128 were fixed by a sweep on
-// the H100 (C in {32, 64}, P in {1, 2, 4, 8}, T in {128, 256};
-// scripts/torch_pip_sweep.py, PERF.md): the lowest Morton-order time
-// whose shuffled times stay below the one-thread-a-point kernel's. Larger
-// blocks span more y and stage more edges; P = 1 pays a shared-memory
-// read per pair.
+// the H100 (C in {32, 64}, P in {1, 2, 4, 8}, T in {128, 256}; its table
+// is in PERF.md): the lowest Morton-order time whose shuffled times stay
+// below the one-thread-a-point kernel's. Larger blocks span more y and
+// stage more edges; P = 1 pays a shared-memory read per pair.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -12,13 +12,17 @@ with the half-open edge rule:
 Each wrapper takes its plain PyTorch version only for tensors on the
 CPU; on a CUDA tensor it launches the kernel (built from
 `kernels/pip_crossing.cu` at first use) or raises. `launches` on each
-wrapper counts its kernel launches. There is no work threshold: the
-reference's `use_pallas_pip` crossover is a TPU figure.
+wrapper counts its kernel launches; one launch is two kernels on one
+stream, the `chunk_bounds` prologue (skipped when E = 0) and the main
+kernel. There is no work threshold: the reference's `use_pallas_pip`
+crossover is a TPU figure.
 
 The kernels skip, for each block of `BLOCK_POINTS` consecutive points,
 every chunk of `CHUNK` edges and every edge whose y-span cannot reach
 the block's y-range (`out_of_reach`, the rule the CUDA source proves
-exact). `edge_chunk_bounds`, `block_y_range`, `out_of_reach` and
+exact). So they are fast only on points in spatial order, which the
+caller must give them: the stores keep rows in write order within a
+partition. `edge_chunk_bounds`, `block_y_range`, `out_of_reach` and
 `kept_edge_mask` state that rule in PyTorch, for tests and for counting
 what a kernel skips; the plain versions test every pair.
 """
@@ -147,14 +151,14 @@ def kept_edge_mask(ymin, ymax, y1, y2, eps=None, chunk: int = CHUNK):
     return by_chunk, staged
 
 
-def kept_edges(py, y1, y2, eps=None, block: int = BLOCK_POINTS,
-               chunk: int = CHUNK, step: int = 4096):
-    """(by_chunk, staged) int64 [ceil(N / block)]: per block of points,
-    the counts of `kept_edge_mask`, `step` blocks at a time. Counted from
-    the data; the kernels count nothing."""
-    ymin, ymax = block_y_range(py, block)
+def kept_edges(py, y1, y2, eps=None):
+    """(by_chunk, staged) int64 [ceil(N / BLOCK_POINTS)]: per block of
+    the kernels' size, the counts of `kept_edge_mask`, 4096 blocks at a
+    time. Counted from the data; the kernels count nothing."""
+    ymin, ymax = block_y_range(py)
+    step = 4096
     counts = [torch.stack([m.sum(1) for m in kept_edge_mask(
-        ymin[s:s + step], ymax[s:s + step], y1, y2, eps, chunk)])
+        ymin[s:s + step], ymax[s:s + step], y1, y2, eps)])
         for s in range(0, ymin.shape[0], step)]
     by_chunk, staged = torch.cat(counts, dim=1)
     return by_chunk, staged

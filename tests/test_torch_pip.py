@@ -122,7 +122,7 @@ def eps_boundary_points(edges, eps, seed=0, n_edges=64):
 
 
 def morton_sorted(x, y):
-    """The points in Z2-Morton order, as the stores keep them."""
+    """The points in Z2-Morton order, as chip_smoke.py writes them."""
     from test_torch_density import _morton
 
     o = np.argsort(_morton(x, y), kind="stable")

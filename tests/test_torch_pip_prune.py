@@ -159,6 +159,8 @@ def test_skip_rule_keeps_every_result(ename, pset, kind):
     for block, chunk in ((pk.BLOCK_POINTS, C), (32, C), (16, 1)):
         got, keep = pruned(kind, t[0], t[1], t[2:], block, chunk)
         assert torch.equal(got, plain), (block, chunk)
+        if block == pk.BLOCK_POINTS:
+            own = keep
     if ename == "1088" and pset in ("morton", "eps_boundary", "vertices"):
         # thin blocks of 16 points keep a small share of the edges
         assert keep.float().mean() < 0.25
@@ -166,9 +168,8 @@ def test_skip_rule_keeps_every_result(ename, pset, kind):
         assert not got[-700:].any()  # pad rows at (0, 0) are far outside
     # the counting helper agrees with the mirror's kept edges
     by_chunk, by_edge = pk.kept_edges(t[1], t[3], t[5],
-                                      None if kind == "crossing" else BAND_EPS,
-                                      block=16, chunk=1)
-    assert torch.equal(by_chunk, by_edge) and torch.equal(by_edge, keep.sum(1))
+                                      None if kind == "crossing" else BAND_EPS)
+    assert torch.equal(by_edge, own.sum(1)) and (by_edge <= by_chunk).all()
 
 
 @pytest.mark.parametrize("kind", ["crossing", "band"])
@@ -199,10 +200,10 @@ def test_kept_edges_counts(kind):
     px, py = point_set("morton", edges)
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (px, py, *edges)]
     eps = None if kind == "crossing" else BAND_EPS
-    _, keep = pruned(kind, t[0], t[1], t[2:], 64, C)
-    by_chunk, by_edge = pk.kept_edges(t[1], t[3], t[5], eps, block=64, step=5)
+    _, keep = pruned(kind, t[0], t[1], t[2:], pk.BLOCK_POINTS, C)
+    by_chunk, by_edge = pk.kept_edges(t[1], t[3], t[5], eps)
     assert torch.equal(by_edge, keep.sum(1))
-    ymin, ymax = pk.block_y_range(t[1], 64)
+    ymin, ymax = pk.block_y_range(t[1])
     lo, hi = pk.edge_chunk_bounds(t[3], t[5])
     ck = ~pk.out_of_reach(lo, hi, ymin, ymax, eps)
     sizes = torch.tensor([min(C, len(edges[0]) - c * C) for c in range(len(lo))])
