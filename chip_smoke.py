@@ -19,7 +19,8 @@ and prints no result. Phases, each fatal on failure:
    ~1100-edge zone polygon at N=2^22 in random and Morton order and on
    the eps-boundary set, points at an edge end's y +- eps and 1-2 ulps
    either side, and against a ~9000-edge zone at N=2^18: identical
-   booleans);
+   booleans; B1/B2 again with 64 NaN rows: NaN block minima where the
+   plain version has them);
 4. the kNN path at full size: DataStore on the card -> write -> get_count
    and knn (sparse, fullscan, forced overflow) for the north-star CQL
    (BBOX + time + attribute, bench config 3's data shape), with launch
@@ -39,7 +40,8 @@ and prints no result. Phases, each fatal on failure:
 6. the polygon-layer spatial join (bench config 2: the reference bench's
    seeded 10,000-polygon admin-style layer x 2^22 Z-ordered points, 1/64
    of them within 1e-6 degrees of an edge): a kernel check of B6-B9
-   against their plain versions (200 polygons, 2^18 points: identical
+   against their plain versions (200 polygons, 2^18 points, and near-flat
+   edges with one NaN x-end beside points within eps of them: identical
    int32 outputs), then, with launch counts reset before and read after,
    the host prep and a first query end to end, the warm p50 of
    pip_layer_grouped (the device pass), pip_layer, pip_layer_assign,
@@ -55,6 +57,10 @@ and prints no result. Phases, each fatal on failure:
    written), in time order and shuffled, what their skip rule leaves per
    block and their times. B4/B5's "ms" is the Morton-order time: their
    speed depends on the rows' spatial order, which the caller gives.
+   Before it too, B6-B9's registers and spills, the chunk-tests B6/B7's
+   warps keep and the heaviest row's share, and B6 on its longest row
+   alone; B6/B7's bound counts the tests within reach, their all-pairs
+   bound stands beside it.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -208,6 +214,21 @@ def kernel_check(torch, ks, dev):
     assert bool((dead == ks.PENALTY).all()), "dead sparse slots must be exactly 1e9"
     # the dense pass sees every tile; exact 1e9 on the all-masked ones
     assert bool((got[:, : 3 * (ks.DATA_TILE // ks.BLK)] == ks.PENALTY).all())
+    # rows with a NaN coordinate make their blocks' minima NaN, as the
+    # plain version's amin (and the reference's min) do
+    xn = x.clone()
+    xn[torch.from_numpy(rng.choice(n, 64, replace=False)).to(dev)] = float("nan")
+    nan_pairs = ((ks.chord_blockmin(qx, qy, xn, y, maskf)[0],
+                  ks.chord_blockmin_plain(qx, qy, xn, y, maskf)[0]),
+                 (ks.chord_blockmin_sparse(qx, qy, xn, y, maskf, tile_ids, n_sel)[0],
+                  ks.chord_blockmin_sparse_plain(qx, qy, xn, y, maskf, tile_ids, n_sel)[0]))
+    for g, e in nan_pairs:
+        nan = torch.isnan(e)
+        assert bool(nan.any()) and torch.equal(torch.isnan(g), nan), "NaN minima"
+        assert float((g[~nan] - e[~nan]).abs().max()) <= TOL
+    log(f"kernel check B1/B2 with 64 NaN rows: NaN minima where the plain "
+        f"version's are ({int(torch.isnan(nan_pairs[0][1]).sum())} dense, "
+        f"{int(torch.isnan(nan_pairs[1][1]).sum())} sparse), the rest within {TOL}")
 
 
 def oracle_knn(x, y, mask, qx, qy, k):
@@ -871,7 +892,10 @@ LAYER_EPS = 1e-4
 # FP32 operations per (point, edge slot) test, as for B4/B5 above: every
 # test pays the half-open compares (and, with the band, the near-flat
 # term); tests whose edge straddles the point's y also pay the crossing
-# arithmetic. B6/B7 compute the crossing and the band from one xc.
+# arithmetic. B6/B7 compute the crossing and the band from one xc. B6/B7
+# skip what cannot decide a point, so their data-dependent bound counts
+# only the tests whose edge's y-span lies within 2 eps of the point's y;
+# B8/B9 test every pair.
 LAYER_REPLACES = {"pip_grouped": "geomesa_tpu/engine/pip_sparse.py:395",
                   "pip_assign": "geomesa_tpu/engine/pip_sparse.py:610",
                   "pip_pairs_count": "geomesa_tpu/engine/pip_sparse.py:994",
@@ -992,28 +1016,78 @@ def max_int_err(got, exp) -> float:
     return max(float((g.long() - x.long()).abs().max()) for g, x in zip(got, exp))
 
 
+def nan_layer_inputs(torch, dev):
+    """Device inputs of B6-B9 (as `layer_kernel_inputs`) for three
+    star-shaped rings whose every other edge is near-flat (dy in {0,
+    3e-5, 9e-5, 1.5e-4}), a third of those with one NaN x-end, and 2048
+    points within eps of the finite ends of those edges or on the rings,
+    every point tile paired with every edge tile. A near-flat x-span
+    that dropped the NaN end would flag points the plain versions do
+    not."""
+    from geomesa_tpu_torch.engine import pip_sparse as ps
+    from geomesa_tpu_torch.engine.pip_sparse_kernels import pair_csr
+
+    rng = np.random.default_rng(43)
+    cols, pol = [[], [], [], []], []
+    for k, (ne, cx) in enumerate(((900, 0.0), (600, 3.0), (40, 6.0))):
+        th = np.sort(rng.uniform(0, 2 * np.pi, ne))
+        x = cx + rng.uniform(0.5, 1.0, ne) * np.cos(th)
+        y = rng.uniform(0.5, 1.0, ne) * np.sin(th)
+        y[1::2] = y[0:-1:2][: len(y[1::2])] + rng.choice(
+            [0.0, 3e-5, 9e-5, 1.5e-4], len(y[1::2]))
+        for c, a in zip(cols, (x, y, np.roll(x, -1), np.roll(y, -1))):
+            c.append(a)
+        pol.append(np.full(ne, k))
+    x1, y1, x2, y2 = (np.concatenate(c).astype(np.float32) for c in cols)
+    flat = np.nonzero(np.abs(y2 - y1) <= 2 * LAYER_EPS)[0][::3]
+    x2[flat[0::2]] = np.nan
+    x1[flat[1::2]] = np.nan
+    xf = np.where(np.isnan(x1[flat]), x2[flat], x1[flat])
+    e = np.float32(LAYER_EPS)
+    j = rng.integers(0, len(flat), 1536)
+    px = (xf[j] + rng.uniform(-1.5, 1.5, 1536).astype(np.float32) * e).astype(np.float32)
+    py = (y1[flat][j] + rng.choice([0.0, 0.5, -0.5, 1.0, -1.0], 1536).astype(np.float32)
+          * e).astype(np.float32)
+    k = rng.integers(0, len(x1), 512)
+    px = np.concatenate([px, np.nan_to_num(x1[k], nan=0.0)])
+    py = np.concatenate([py, y1[k]])
+    *edges, poly = ps.pad_polygon_edges(x1, y1, x2, y2, np.concatenate(pol))
+    n_pt, n_et = len(px) // ps.POINT_TILE, len(poly)
+    pt = np.repeat(np.arange(n_pt), n_et).astype(np.int32)
+    et = np.tile(np.arange(n_et), n_pt).astype(np.int32)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)  # noqa: E731
+    return dict(pts=(f(px), f(py)), edges=tuple(f(a) for a in edges),
+                grouped=[i32(a) for a in pair_csr(pt, et)[:3]],
+                assign=[i32(a) for a in pair_csr(pt, et, poly_of_tile=poly)],
+                pairs=[i32(pt), i32(et)], n_ptiles=n_pt)
+
+
 def layer_kernel_check(torch, dev) -> None:
     """B6-B9 against their plain versions at a 200-polygon layer and
-    2^18 points: identical int32 outputs."""
+    2^18 points, and on the NaN x-end set (`nan_layer_inputs`):
+    identical int32 outputs."""
     from geomesa_tpu_torch.engine import pip_sparse as ps
 
     rng = np.random.default_rng(31)
     layer = gen_admin_layer(rng, LAYER_CHECK_POLYS)
     px, py, _ = layer_points(torch, dev, rng, LAYER_CHECK_N, layer)
     prep = ps.prepare_layer(px, py, *layer[:5])
-    inp = layer_kernel_inputs(torch, dev, prep, layer[4])
-    out = []
-    for name, kern, plain in layer_kernel_calls(inp):
-        got = kern()
-        sync(torch, dev)
-        exp = plain()
-        same = all(torch.equal(g, x) for g, x in zip(got, exp))
-        out.append(f"{name} identical {same}")
-        assert same, (name, max_int_err(got, exp))
-        assert int(got[-1].sum()) > 0, name  # the band (or count) is not all zero
-    log(f"kernel check B6-B9: {LAYER_CHECK_POLYS} polygons, "
-        f"{len(layer[0])} edges, N={LAYER_CHECK_N}, {len(prep.pairs.pair_pt)} "
-        f"pairs: {', '.join(out)}")
+    sets = [(f"{LAYER_CHECK_POLYS} polygons, {len(layer[0])} edges, "
+             f"N={LAYER_CHECK_N}, {len(prep.pairs.pair_pt)} pairs",
+             layer_kernel_inputs(torch, dev, prep, layer[4])),
+            ("NaN x-ends of near-flat edges", nan_layer_inputs(torch, dev))]
+    for what, inp in sets:
+        out = []
+        for name, kern, plain in layer_kernel_calls(inp):
+            got = kern()
+            sync(torch, dev)
+            exp = plain()
+            same = all(torch.equal(g, x) for g, x in zip(got, exp))
+            out.append(f"{name} identical {same}")
+            assert same, (name, what, max_int_err(got, exp))
+            assert int(got[-1].sum()) > 0, name  # the band (or count) is not all zero
+        log(f"kernel check B6-B9, {what}: {', '.join(out)}")
 
 
 def oracle_all_edges(px, py, layer, ii):
@@ -1055,23 +1129,30 @@ def oracle_all_edges(px, py, layer, ii):
     return inside, np.where(cnt == 1, ids, -1), cnt
 
 
-def straddling_tests(torch, inp) -> int:
+def pair_tests(torch, inp, margin=None) -> int:
     """(point, edge slot) tests of the pair list whose edge straddles the
-    point's y (half-open), counted per pair from the edge tile's sorted
-    y-extents (for the data-dependent bound)."""
+    point's y (half-open; margin None) or whose y-span meets [py -
+    margin, py + margin] (in f64), counted per pair from the edge tile's
+    sorted y-extents (for the data-dependent bounds)."""
     from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
 
     qy = inp["pts"][1].reshape(-1, TILE)
     x1, y1, x2, y2 = (a.reshape(-1, TILE) for a in inp["edges"])
     lo = torch.sort(torch.minimum(y1, y2), dim=1).values
     hi = torch.sort(torch.maximum(y1, y2), dim=1).values
+    if margin is not None:
+        qy, lo, hi = qy.double(), lo.double(), hi.double()
     pt, et = (a.long() for a in inp["pairs"])
     total = 0
     for s in range(0, pt.shape[0], 1 << 14):
         q = qy[pt[s:s + (1 << 14)]].contiguous()
         e = et[s:s + (1 << 14)]
-        n = (torch.searchsorted(lo[e], q, right=True)
-             - torch.searchsorted(hi[e], q, right=True))
+        if margin is None:
+            n = (torch.searchsorted(lo[e], q, right=True)
+                 - torch.searchsorted(hi[e], q, right=True))
+        else:
+            n = (torch.searchsorted(lo[e], q + margin, right=True)
+                 - torch.searchsorted(hi[e], q - margin))
         total += int(n.sum())
     return total
 
@@ -1188,17 +1269,63 @@ def layer_path(torch, dev, n: int, card_s: str):
     return launches, layer_kernel_inputs(torch, dev, prep, pol)
 
 
+def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
+    """Earlier lines of B6/B7's rows: the kernels' registers and spills,
+    what their skip leaves (chunk-tests kept by each warp of y-sorted
+    points, counted in torch from the data) and the heaviest row's share,
+    and the longest row alone in one block. Returns that time."""
+    from geomesa_tpu_torch.engine.kernels import build
+
+    names = {"grouped_kernelILb0E": "B6", "grouped_kernelILb1E": "B7",
+             "pairs_kernelILb0E": "B8", "pairs_kernelILb1E": "B9"}
+    for name, res in ptxas_resources(build.build_log["pip_layer"]["ptxas"]).items():
+        kind = [k for n, k in names.items() if n in name]
+        if kind:
+            log(f"ptxas pip_layer.cu {kind[0]}: {res.get('registers')} registers, "
+                f"spill stores/loads {res.get('spill')}")
+    g, (pt, et) = inp["grouped"], inp["pairs"]
+    m, tests = int(pt.shape[0]), int(pt.shape[0]) * psk.TILE * psk.TILE
+    chunks, edges = psk.kept_counts(inp["pts"][1], inp["edges"][1],
+                                    inp["edges"][3], pt, et, LAYER_EPS)
+    wp, warps = psk.WARP_POINTS, psk.TILE // psk.WARP_POINTS
+    in_chunks, kept = int(chunks.sum()) * psk.CHUNK * wp, int(edges.sum()) * wp
+    row = torch.zeros(inp["n_ptiles"], dtype=torch.int64, device=pt.device)
+    row.index_add_(0, pt.long(), edges)
+    log(f"B6/B7 skip over {m} pairs, warps of {wp} y-sorted points, chunks of "
+        f"{psk.CHUNK} edges: {float(chunks.double().mean()) / warps:.3f} of "
+        f"{psk.TILE // psk.CHUNK} chunks and {float(edges.double().mean()) / warps:.3f} "
+        f"edges a warp a pair kept; tests in kept chunks {in_chunks} "
+        f"({in_chunks / tests:.4f} of {tests}), of kept edges {kept} "
+        f"({kept / tests:.4f}); heaviest row {int(row.max()) * wp / psk.TILE ** 2:.3f} "
+        f"pair-equivalents of kept edge-tests, of {kept / psk.TILE ** 2:.1f} in all "
+        f"({int(row.max()) * wp / max(1, kept):.4f})")
+    # the load-balance tail: the longest row alone, in one block
+    a = (*inp["pts"], *inp["edges"])
+    lens = g[1][1:] - g[1][:-1]
+    j = int(torch.argmax(lens))
+    s0, s1 = int(g[1][j]), int(g[1][j + 1])
+    one = (g[0][j:j + 1], g[1][j:j + 2] - s0, g[2][s0:s1])
+    tail_ms = timed_ms(torch, lambda: psk.pip_grouped(*a, *one, inp["n_ptiles"],
+                                                      LAYER_EPS), 10)
+    log(f"pip_grouped, the longest row alone ({s1 - s0} edge tiles): "
+        f"{tail_ms:.3f} ms [{card_s}]")
+    return tail_ms
+
+
 def layer_rows(torch, launches, inp, card_s: str):
     """B6-B9 at the config-2 path's shapes: time, plain time, error,
-    bound (operations counted from this run's data, bytes from the
-    tiles the pairs name)."""
+    bound (bytes from the tiles the pairs name; operations counted from
+    this run's data). B6/B7's bound counts the tests within reach (the
+    edge's y-span within 2 eps of the point's y, the most their skip can
+    keep and still be exact) and the all-pairs bound stands beside it."""
     from geomesa_tpu_torch.engine import pip_sparse_kernels as psk
     from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
 
     g, p = inp["grouped"], inp["pairs"]
     m, k = int(p[0].shape[0]), int(g[0].shape[0])
     tests = m * TILE * TILE
-    cond = straddling_tests(torch, inp)
+    cond = pair_tests(torch, inp)
+    reach = pair_tests(torch, inp, 2.0 * float(np.float32(LAYER_EPS)))
     n_pt = inp["n_ptiles"]
     etiles = int(torch.unique(p[1]).shape[0])
     read = 8 * TILE * k + 16 * TILE * etiles  # points of covered tiles, edges named
@@ -1206,15 +1333,7 @@ def layer_rows(torch, launches, inp, card_s: str):
               "pip_assign": read + 4 * (k + 1 + k + 2 * m) + 12 * TILE * n_pt,
               "pip_pairs_count": read + 8 * m + 4 * TILE * (n_pt + 1),
               "pip_pairs_band": read + 8 * m + 4 * TILE * (n_pt + 1)}
-    # the load-balance tail: the longest row alone, in one block
-    a = (*inp["pts"], *inp["edges"])
-    lens = g[1][1:] - g[1][:-1]
-    j = int(torch.argmax(lens))
-    s0, s1 = int(g[1][j]), int(g[1][j + 1])
-    one = (g[0][j:j + 1], g[1][j:j + 2] - s0, g[2][s0:s1])
-    tail_ms = timed_ms(torch, lambda: psk.pip_grouped(*a, *one, n_pt, LAYER_EPS), 10)
-    log(f"pip_grouped, the longest row alone ({s1 - s0} edge tiles): "
-        f"{tail_ms:.3f} ms [{card_s}]")
+    tail_ms = layer_skip_lines(torch, psk, inp, card_s)
     rows = []
     for name, kern, plain in layer_kernel_calls(inp):
         got = kern()
@@ -1225,7 +1344,13 @@ def layer_rows(torch, launches, inp, card_s: str):
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, 1)
         n_all, n_cond = LAYER_OPS[name]
-        b, by = roofline_ms(n_all * tests + n_cond * cond, nbytes[name])
+        b_all, by_all = roofline_ms(n_all * tests + n_cond * cond, nbytes[name])
+        b, by = b_all, by_all
+        extra = ""
+        if name in ("pip_grouped", "pip_assign"):
+            b, by = roofline_ms(n_all * reach + n_cond * cond, nbytes[name])
+            extra = (f"; {reach} tests within 2 eps of the edge's y-span; "
+                     f"all-pairs bound {b_all:.3f} ms by {by_all}")
         rows.append({
             "name": name, "route": "cuda",
             "source": "geomesa_tpu_torch/engine/kernels/pip_layer.cu",
@@ -1233,10 +1358,14 @@ def layer_rows(torch, launches, inp, card_s: str):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": None,
         })
+        if extra:
+            rows[-1]["bound_all_pairs_ms"] = b_all
+            if name == "pip_grouped":
+                rows[-1]["longest_row_ms"] = tail_ms
         log(f"{name}: {k} covered tiles, {m} pairs, {tests:.4g} tests of which "
             f"{cond} straddle: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b:.3f} ms by {by}, library null: no PyTorch call computes a "
-            f"crossing count) [{card_s}]")
+            f"{b:.3f} ms by {by}{extra}; library null: no PyTorch call "
+            f"computes a crossing count) [{card_s}]")
     return rows
 
 

@@ -29,7 +29,8 @@
 //   - within a chunk, for each blk-lane block, every lane loads its
 //     blk / 32 points and folds them into the QW queries' keys; a warp
 //     shuffle takes each query's minimum, and lane b keeps block b's
-//     minimum so the row segment is written with one coalesced store.
+//     minimum so the row segment is written with one coalesced store;
+//     every minimum propagates NaN (min.NaN.f32), as the plain version's.
 //   - the sparse guard reads n_sel from device memory: no host sync.
 
 #include <cuda_runtime.h>
@@ -44,6 +45,15 @@ constexpr int kQB = kWarps * kQW;      // queries per block
 constexpr int kChunkPts = 2048;        // staged points per chunk (32 KB)
 constexpr float kPenalty = 1e9f;
 constexpr float kDeg2Rad = 0.017453292519943295f;
+
+// The minimum of a and b, NaN if either is NaN, as torch.amin (the plain
+// version) and the reference's jnp.min take it: a row with a NaN
+// coordinate makes its block's minimum NaN. fminf would drop it.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __global__ void __launch_bounds__(kThreads)
 chord_blockmin_kernel(const float* __restrict__ aug_q,    // [q, 4]
@@ -120,7 +130,7 @@ chord_blockmin_kernel(const float* __restrict__ aug_q,    // [q, 4]
           for (int j = 0; j < kQW; ++j) {
             const float4 a = aq[qw0 + j];
             const float key = fmaf(a.x, d.x, fmaf(a.y, d.y, fmaf(a.z, d.z, a.w * d.w)));
-            m[j] = fminf(m[j], key);
+            m[j] = min_nan(m[j], key);
           }
         }
 #pragma unroll
@@ -128,7 +138,7 @@ chord_blockmin_kernel(const float* __restrict__ aug_q,    // [q, 4]
           float v = m[j];
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1)
-            v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+            v = min_nan(v, __shfl_xor_sync(0xffffffffu, v, off));
           if (lane == b) mine[j] = v;
         }
       }

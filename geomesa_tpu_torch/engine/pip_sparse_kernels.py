@@ -19,6 +19,16 @@ on a CUDA tensor it launches the kernel (built from
 `kernels/pip_layer.cu` at first use) or raises. `launches` on each
 wrapper counts its kernel launches. `pair_csr` turns a pair list into the
 CSR input of B6/B7 on the host. Outputs are zero on tiles no pair names.
+
+B6/B7 hand out CSR rows longest first (`row_order`), sort each point
+tile's points by y (`tile_y_order`) and let each warp of `WARP_POINTS`
+sorted points (`warp_ys`) skip every `CHUNK`-edge chunk whose y-span,
+widened by 2 eps, misses all of its points (`kept_chunks`) and, in the
+chunks it keeps, every edge whose y-span misses the warp's y-range
+(`kept_edges`): the rule of `pip_kernels.out_of_reach`, which the CUDA
+source proves exact. These functions state that structure in PyTorch,
+for tests and for counting what the kernels skip; the plain versions
+test every pair.
 """
 
 from __future__ import annotations
@@ -30,9 +40,15 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.engine.device import check_kernel_inputs
-from geomesa_tpu_torch.engine.pip_kernels import _device_of, crossing_and_band
+from geomesa_tpu_torch.engine.pip_kernels import (
+    _device_of, crossing_and_band, edge_chunk_bounds)
 
 TILE = 512  # POINT_TILE == EDGE_TILE
+# kPerThread, kChunk and kThreads of kernels/pip_layer.cu (B6/B7)
+PER_THREAD = 1
+CHUNK = 32
+THREADS = TILE // PER_THREAD
+WARP_POINTS = 32 * PER_THREAD
 # elements of one [pairs, 512, 512] block in the plain versions (~64 MB f32)
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
@@ -73,6 +89,103 @@ def pair_csr(pair_pt, pair_et,
     return PairCSR(pt[starts].astype(np.int32),
                    np.r_[starts, len(pt)].astype(np.int32),
                    et.astype(np.int32), pinfo)
+
+
+def row_order(row_ptr: torch.Tensor) -> torch.Tensor:
+    """The B6/B7 blocks' order of the CSR rows: int32, longest row first,
+    equal lengths in row order. On row_ptr's device, with no host sync."""
+    lens = row_ptr[1:] - row_ptr[:-1]
+    return torch.argsort(lens, descending=True, stable=True).to(torch.int32)
+
+
+def tile_y_order(py: torch.Tensor) -> torch.Tensor:
+    """int64 [n_ptiles, 512]: each point tile's slots in the order B6/B7
+    sort them: the kernel's unique 64-bit keys, y's order-preserving bits
+    (NaN last) and then the slot."""
+    u = py.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    key = torch.where(torch.isnan(py), 0xFFFFFFFF, key).reshape(-1, TILE)
+    slots = torch.arange(TILE, device=py.device)
+    return torch.argsort(key * TILE + slots, dim=1)
+
+
+def warp_ys(py: torch.Tensor, warp_points: int = WARP_POINTS) -> torch.Tensor:
+    """f32 [n_ptiles, 512 // warp_points, warp_points]: each warp's y after
+    the tile's y-sort (ascending, NaN last)."""
+    q = torch.gather(py.reshape(-1, TILE), 1, tile_y_order(py))
+    return q.reshape(-1, TILE // warp_points, warp_points)
+
+
+def warp_y_ranges(ys: torch.Tensor):
+    """(ymin, ymax) f32 [..., warps] of `warp_ys`, NaN ignored (a warp of
+    NaN points gets (+inf, -inf))."""
+    nan = torch.isnan(ys)
+    return (torch.where(nan, float("inf"), ys).amin(-1),
+            torch.where(nan, -float("inf"), ys).amax(-1))
+
+
+def tile_chunk_bounds(y1, y2, chunk: int = CHUNK):
+    """(lo, hi) f32 [n_etiles, 512 // chunk]: the y-bounds of each edge
+    tile's chunks of `chunk` edges (`edge_chunk_bounds`: NaN ends
+    ignored, a chunk of NaN edges gets (+inf, -inf))."""
+    return tuple(a.reshape(-1, TILE // chunk)
+                 for a in edge_chunk_bounds(y1, y2, chunk))
+
+
+def _margin(eps: float) -> float:
+    return 2.0 * float(np.float32(eps))
+
+
+def kept_chunks(ys, bounds, pt, et, eps: float):
+    """bool [M, warps, chunks]: for each pair (point tile pt[m], edge tile
+    et[m]), the chunks that each warp tests. ys: `warp_ys`; bounds:
+    `tile_chunk_bounds`. A chunk is kept when it is not out of reach of
+    one of the warp's points (`pip_kernels.out_of_reach` of a one-point
+    range: its y-span misses y by no more than 2 eps, in f64); NaN points
+    reach nothing."""
+    lo, hi = (b[et.long()].double()[:, None, None, :] for b in bounds)
+    y = ys[pt.long()].double()[..., None]
+    m = _margin(eps)
+    ok = ~((lo - y > m) | (y - hi > m)) & ~torch.isnan(y)
+    return ok.any(2)
+
+
+def kept_edges(ys, bounds, y1, y2, pt, et, eps: float):
+    """bool [M, warps, 512]: the edges of edge tile et[m] that each warp of
+    point tile pt[m] tests: those of its kept chunks (`kept_chunks`) whose
+    own y-span (NaN ends ignored) is not out of reach of the warp's
+    y-range (`warp_y_ranges`)."""
+    chunk = TILE // bounds[0].shape[1]
+    e, p = et.long(), pt.long()
+    y1t, y2t = y1.reshape(-1, TILE)[e], y2.reshape(-1, TILE)[e]
+    ymin, ymax = (a.double()[:, :, None] for a in warp_y_ranges(ys[p]))
+    lo = torch.fmin(y1t, y2t).double()[:, None, :]
+    hi = torch.fmax(y1t, y2t).double()[:, None, :]
+    m = _margin(eps)
+    reach = ~((lo - ymax > m) | (ymin - hi > m))
+    return reach & kept_chunks(ys, bounds, pt, et, eps).repeat_interleave(
+        chunk, dim=2)
+
+
+def kept_counts(py, y1, y2, pt, et, eps: float,
+                warp_points: int = WARP_POINTS, chunk: int = CHUNK,
+                step: int = 1 << 10):
+    """(chunks, edges) int64 [M]: for each pair, the chunks all its warps
+    keep and the edges they test (`kept_chunks`, `kept_edges`), `step`
+    pairs at a time. Times warp_points, the tests B6/B7 make on the pair,
+    chunk by chunk or edge by edge. Counted from the data; the kernels
+    count nothing."""
+    ys = warp_ys(py, warp_points)
+    bounds = tile_chunk_bounds(y1, y2, chunk)
+    chunks, edges = [], []
+    for s in range(0, pt.shape[0], step):
+        p, e = pt[s:s + step], et[s:s + step]
+        chunks.append(kept_chunks(ys, bounds, p, e, eps).sum((1, 2)))
+        edges.append(kept_edges(ys, bounds, y1, y2, p, e, eps).sum((1, 2)))
+    if not chunks:
+        z = torch.zeros(0, dtype=torch.int64, device=py.device)
+        return z, z
+    return torch.cat(chunks), torch.cat(edges)
 
 
 # -- plain versions --------------------------------------------------------
@@ -173,8 +286,8 @@ def _lib():
     lib = load("pip_layer")
     if lib.pip_grouped_launch.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pip_grouped_launch.argtypes = [p] * 11 + [i, f, p]
-        lib.pip_assign_launch.argtypes = [p] * 13 + [i, f, p]
+        lib.pip_grouped_launch.argtypes = [p] * 13 + [i, i, f, p]
+        lib.pip_assign_launch.argtypes = [p] * 15 + [i, i, f, p]
         lib.pip_pairs_count_launch.argtypes = [p] * 9 + [i, p]
         lib.pip_pairs_band_launch.argtypes = [p] * 9 + [i, f, p]
         for fn in (lib.pip_grouped_launch, lib.pip_assign_launch,
@@ -218,13 +331,21 @@ def _in_range(*checks) -> None:
                 raise ValueError(f"tile index out of range [0, {hi})")
 
 
-def _check_csr(rows, row_ptr, ets, pinfo, n_ptiles, x1):
+def _check_csr(rows, row_ptr, ets, pinfo, n_ptiles, x1, y1, x2, y2):
+    if any(a.data_ptr() % 16 for a in (x1, y1, x2, y2)):
+        raise ValueError("edge arrays must be 16-byte aligned (cp.async)")
     if row_ptr.shape[0] != rows.shape[0] + 1:
         raise ValueError("row_ptr must have one entry more than rows")
     if pinfo is not None and pinfo.shape != ets.shape:
         raise ValueError("pinfo must match ets")
     _in_range((rows, n_ptiles), (row_ptr, ets.shape[0] + 1),
               (ets, x1.shape[0] // TILE))
+
+
+def _bounds(x1):
+    """Scratch for B6/B7's prologue: (min y, max y) f32 of every chunk."""
+    return torch.empty(2 * (x1.shape[0] // CHUNK), dtype=torch.float32,
+                       device=x1.device)
 
 
 def pip_grouped(px, py, x1, y1, x2, y2, rows, row_ptr, ets, n_ptiles: int,
@@ -238,10 +359,11 @@ def pip_grouped(px, py, x1, y1, x2, y2, rows, row_ptr, ets, n_ptiles: int,
     outs = [torch.zeros((n_ptiles, TILE), dtype=torch.int32, device=px.device)
             for _ in range(2)]
     _check((px, py), (x1, y1, x2, y2), (rows, row_ptr, ets), outs, n_ptiles)
-    _check_csr(rows, row_ptr, ets, None, n_ptiles, x1)
+    _check_csr(rows, row_ptr, ets, None, n_ptiles, x1, y1, x2, y2)
     if rows.shape[0]:
-        _run("pip_grouped", px, py, x1, y1, x2, y2, rows, row_ptr, ets, *outs,
-             rows.shape[0], float(eps))
+        _run("pip_grouped", px, py, x1, y1, x2, y2, _bounds(x1), row_order(row_ptr),
+             rows, row_ptr, ets, *outs, rows.shape[0], x1.shape[0] // TILE,
+             float(eps))
         pip_grouped.launches += 1
     return tuple(outs)
 
@@ -262,10 +384,11 @@ def pip_assign(px, py, x1, y1, x2, y2, rows, row_ptr, ets, pinfo,
             for _ in range(3)]
     _check((px, py), (x1, y1, x2, y2), (rows, row_ptr, ets, pinfo), outs,
            n_ptiles)
-    _check_csr(rows, row_ptr, ets, pinfo, n_ptiles, x1)
+    _check_csr(rows, row_ptr, ets, pinfo, n_ptiles, x1, y1, x2, y2)
     if rows.shape[0]:
-        _run("pip_assign", px, py, x1, y1, x2, y2, rows, row_ptr, ets, pinfo,
-             *outs, rows.shape[0], float(eps))
+        _run("pip_assign", px, py, x1, y1, x2, y2, _bounds(x1), row_order(row_ptr),
+             rows, row_ptr, ets, pinfo, *outs, rows.shape[0], x1.shape[0] // TILE,
+             float(eps))
         pip_assign.launches += 1
     return tuple(outs)
 

@@ -108,6 +108,27 @@ class TestBlockMinima:
         assert np.abs(pm[:, :16] - rm[:, :16]).max() <= 1e-5
         assert (pm[:, 16:] == 1e9).all() and (rm[:, 16:] == 1e9).all()
 
+    def test_nan_rows_plain_matches_reference(self):
+        """A row with a NaN coordinate makes its block's minimum NaN in the
+        reference (its min propagates NaN) and in the plain version
+        (torch.amin), which the CUDA kernel must equal (min.NaN.f32)."""
+        rng = np.random.default_rng(19)
+        n, q = 2 * 2048, 4
+        x = rng.uniform(-180, 180, n)
+        y = rng.uniform(-90, 90, n)
+        x[[3, 700, 2048 + 511]] = np.nan
+        y[1500] = np.nan
+        mf = (rng.random(n) < 0.5).astype(np.float32)
+        qx = rng.uniform(-30, 30, q)
+        qy = rng.uniform(30, 60, q)
+        rm, _ = ref.chord_blockmin(*jx(qx, qy, x, y, mf), interpret=True, **TINY)
+        pm, _ = port.chord_blockmin(*tx(qx, qy, x, y, mf), **TINY)
+        rm, pm = np.asarray(rm), pm.numpy()
+        nan = np.isnan(rm)
+        assert nan.sum() == 4 * q  # blocks 0, 2, 5 and 9: every query
+        np.testing.assert_array_equal(np.isnan(pm), nan)
+        assert np.abs(pm[~nan] - rm[~nan]).max() <= 1e-5
+
     def test_bad_tiling_is_refused(self):
         qx, qy, x, y, mask = make(3000, 2)
         with pytest.raises(ValueError, match="tiling"):
@@ -304,3 +325,15 @@ def test_kernels_match_plain_on_the_card():
     exp, _ = port.chord_blockmin_sparse_plain(*args, ids, n_sel)
     assert float((got - exp).abs().max()) <= 1e-5
     assert bool((got[:, 3 * 128:] == port.PENALTY).all())
+    # rows with a NaN coordinate: their blocks' minima are NaN, as the
+    # plain version's torch.amin (and the reference's min) take them
+    x_nan = args[2].clone()
+    x_nan[[5, 300, 16384 + 77, 5 * 16384 + 128 * 3]] = float("nan")
+    nan_args = [args[0], args[1], x_nan, *args[3:]]
+    for got, exp in ((port.chord_blockmin(*nan_args)[0],
+                      port.chord_blockmin_plain(*nan_args)[0]),
+                     (port.chord_blockmin_sparse(*nan_args, ids, n_sel)[0],
+                      port.chord_blockmin_sparse_plain(*nan_args, ids, n_sel)[0])):
+        nan = torch.isnan(exp)
+        assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+        assert float((got[~nan] - exp[~nan]).abs().max()) <= 1e-5

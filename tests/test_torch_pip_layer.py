@@ -550,26 +550,36 @@ def test_default_device_is_the_card(holes, entry):
 
 @pytest.mark.cuda
 def test_layer_kernels_match_plain_on_the_card(holes):
+    """B6-B9 against their plain versions on the card, bit for bit: the
+    config-2-shaped layer with holes, and near-flat edges with one NaN
+    x-end beside points within eps of their finite end (the x-span must
+    propagate NaN, as the plain versions' torch.minimum/maximum do)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from test_torch_pip_layer_prune import make_case
+
     dev = torch.device("cuda")
     prep = holes["prep"]
-    pl = prep.pairs
-    args = [a.to(dev) for a in port_args(prep)]
-    rank = P._poly_of_tile_from(prep, holes["layer"][4])[0]
-    g = [torch.from_numpy(a).to(dev) for a in psk.pair_csr(pl.pair_pt, pl.pair_et)[:3]]
-    a = [torch.from_numpy(x).to(dev) for x in psk.pair_csr(
-        pl.pair_pt, pl.pair_et, poly_of_tile=rank)]
-    ids = [torch.from_numpy(np.asarray(x)).to(dev) for x in (pl.pair_pt, pl.pair_et)]
-    n = prep.n_ptiles
-    pairs = [
-        (psk.pip_grouped(*args, *g, n, EPS), psk.pip_grouped_plain(*args, *g, n, EPS)),
-        (psk.pip_assign(*args, *a, n, EPS), psk.pip_assign_plain(*args, *a, n, EPS)),
-        ((psk.pip_pairs_count(*args, *ids, n),), (psk.pip_pairs_count_plain(*args, *ids, n),)),
-        ((psk.pip_pairs_band(*args, *ids, n, EPS),),
-         (psk.pip_pairs_band_plain(*args, *ids, n, EPS),)),
-    ]
-    torch.cuda.synchronize()
-    for got, exp in pairs:
-        for x, y in zip(got, exp):
-            assert torch.equal(x, y)
+    nan = make_case("nan_edges")
+    cases = [(port_args(prep), prep.pairs.pair_pt, prep.pairs.pair_et,
+              P._poly_of_tile_from(prep, holes["layer"][4])[0], prep.n_ptiles),
+             ([torch.from_numpy(a) for a in (nan.px, nan.py, *nan.edges)],
+              nan.pt, nan.et, nan.rank, nan.n_ptiles)]
+    for args, pair_pt, pair_et, rank, n in cases:
+        args = [a.to(dev) for a in args]
+        g = [torch.from_numpy(a).to(dev) for a in psk.pair_csr(pair_pt, pair_et)[:3]]
+        a = [torch.from_numpy(x).to(dev) for x in psk.pair_csr(
+            pair_pt, pair_et, poly_of_tile=rank)]
+        ids = [torch.from_numpy(np.asarray(x)).to(dev) for x in (pair_pt, pair_et)]
+        pairs = [
+            (psk.pip_grouped(*args, *g, n, EPS), psk.pip_grouped_plain(*args, *g, n, EPS)),
+            (psk.pip_assign(*args, *a, n, EPS), psk.pip_assign_plain(*args, *a, n, EPS)),
+            ((psk.pip_pairs_count(*args, *ids, n),),
+             (psk.pip_pairs_count_plain(*args, *ids, n),)),
+            ((psk.pip_pairs_band(*args, *ids, n, EPS),),
+             (psk.pip_pairs_band_plain(*args, *ids, n, EPS),)),
+        ]
+        torch.cuda.synchronize()
+        for got, exp in pairs:
+            for x, y in zip(got, exp):
+                assert torch.equal(x, y)
