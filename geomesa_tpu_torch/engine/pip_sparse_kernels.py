@@ -132,37 +132,34 @@ def tile_chunk_bounds(y1, y2, chunk: int = CHUNK):
                  for a in edge_chunk_bounds(y1, y2, chunk))
 
 
-def _margin(eps: float) -> float:
-    return 2.0 * float(np.float32(eps))
+def _in_reach(lo, hi, ymin, ymax, eps: float):
+    """Not `pip_kernels.out_of_reach`, elementwise with broadcasting: the
+    y-span [lo, hi] is within 2 eps of [ymin, ymax], in f64."""
+    m = 2.0 * float(np.float32(eps))
+    return ~((lo.double() - ymax.double() > m) | (ymin.double() - hi.double() > m))
 
 
 def kept_chunks(ys, bounds, pt, et, eps: float):
     """bool [M, warps, chunks]: for each pair (point tile pt[m], edge tile
     et[m]), the chunks that each warp tests. ys: `warp_ys`; bounds:
-    `tile_chunk_bounds`. A chunk is kept when it is not out of reach of
-    one of the warp's points (`pip_kernels.out_of_reach` of a one-point
-    range: its y-span misses y by no more than 2 eps, in f64); NaN points
-    reach nothing."""
-    lo, hi = (b[et.long()].double()[:, None, None, :] for b in bounds)
-    y = ys[pt.long()].double()[..., None]
-    m = _margin(eps)
-    ok = ~((lo - y > m) | (y - hi > m)) & ~torch.isnan(y)
-    return ok.any(2)
+    `tile_chunk_bounds`. A chunk is kept when it is in reach of one of the
+    warp's points (a one-point range); NaN points reach nothing."""
+    lo, hi = (b[et.long()][:, None, None, :] for b in bounds)
+    y = ys[pt.long()][..., None]
+    return (_in_reach(lo, hi, y, y, eps) & ~torch.isnan(y)).any(2)
 
 
 def kept_edges(ys, bounds, y1, y2, pt, et, eps: float):
     """bool [M, warps, 512]: the edges of edge tile et[m] that each warp of
     point tile pt[m] tests: those of its kept chunks (`kept_chunks`) whose
-    own y-span (NaN ends ignored) is not out of reach of the warp's
-    y-range (`warp_y_ranges`)."""
+    own y-span (NaN ends ignored) is in reach of the warp's y-range
+    (`warp_y_ranges`)."""
     chunk = TILE // bounds[0].shape[1]
     e, p = et.long(), pt.long()
     y1t, y2t = y1.reshape(-1, TILE)[e], y2.reshape(-1, TILE)[e]
-    ymin, ymax = (a.double()[:, :, None] for a in warp_y_ranges(ys[p]))
-    lo = torch.fmin(y1t, y2t).double()[:, None, :]
-    hi = torch.fmax(y1t, y2t).double()[:, None, :]
-    m = _margin(eps)
-    reach = ~((lo - ymax > m) | (ymin - hi > m))
+    ymin, ymax = (a[:, :, None] for a in warp_y_ranges(ys[p]))
+    reach = _in_reach(torch.fmin(y1t, y2t)[:, None, :],
+                      torch.fmax(y1t, y2t)[:, None, :], ymin, ymax, eps)
     return reach & kept_chunks(ys, bounds, pt, et, eps).repeat_interleave(
         chunk, dim=2)
 
