@@ -1307,8 +1307,11 @@ def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
     one = (g[0][j:j + 1], g[1][j:j + 2] - s0, g[2][s0:s1])
     tail_ms = timed_ms(torch, lambda: psk.pip_grouped(*a, *one, inp["n_ptiles"],
                                                       LAYER_EPS), 10)
-    log(f"pip_grouped, the longest row alone ({s1 - s0} edge tiles): "
-        f"{tail_ms:.3f} ms [{card_s}]")
+    ty = inp["pts"][1].reshape(-1, psk.TILE)[int(g[0][j])]
+    gap = float(torch.diff(torch.sort(ty).values).max())
+    log(f"pip_grouped, the longest row alone ({s1 - s0} edge tiles; its points' "
+        f"y from {float(ty.min()):.4f} to {float(ty.max()):.4f}, largest gap "
+        f"{gap:.4f}): {tail_ms:.3f} ms [{card_s}]")
     return tail_ms
 
 

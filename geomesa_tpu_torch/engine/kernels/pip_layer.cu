@@ -60,9 +60,9 @@
 //     tile) and keeps the chunks that reach one of its points (a binary
 //     search over its sorted y). Point by point, not by the warp's
 //     y-range: a tile whose points lie in two clusters far apart in y
-//     (Morton order joins such regions; at config 2 the longest row's
-//     tile spans 0 to 90 degrees) gives one warp a range that reaches
-//     every edge between them;
+//     (Morton order joins such regions; chip_smoke.py prints the longest
+//     config-2 row's span) gives one warp a range that reaches every edge
+//     between them;
 //   - each kept chunk is copied into a stage of the warp's own ring in
 //     shared memory by cp.async (16 bytes a lane): the copies of the next
 //     kStages - 1 kept chunks are in flight while one is tested, and a
