@@ -1157,6 +1157,32 @@ def pair_tests(torch, inp, margin=None) -> int:
     return total
 
 
+def reached_edge_slots(torch, inp, margin: float):
+    """bool [n_etiles, 512]: the edge slots whose y-span meets [py -
+    margin, py + margin] (in f64, as `pair_tests`) for a point py of some
+    tile paired with their tile: the only edges whose x-ends B6/B7 must
+    read; the y-ends rule out every other, and an edge with a NaN y-end
+    decides nothing (for the bytes of their data-dependent bound)."""
+    from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
+
+    inf = float("inf")
+    q = torch.sort(inp["pts"][1].reshape(-1, TILE).double(), dim=1).values
+    q = torch.where(torch.isnan(q), inf, q)  # NaN points reach nothing
+    _, y1, _, y2 = (a.reshape(-1, TILE) for a in inp["edges"])
+    lo, hi = torch.minimum(y1, y2).double(), torch.maximum(y1, y2).double()
+    lo, hi = torch.where(torch.isnan(lo), inf, lo), torch.where(torch.isnan(hi), -inf, hi)
+    hits = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
+    pt, et = (a.long() for a in inp["pairs"])
+    for s in range(0, pt.shape[0], 1 << 14):
+        qs = q[pt[s:s + (1 << 14)]]
+        e = et[s:s + (1 << 14)]
+        # the points with q + margin >= lo and q - margin <= hi, an interval of qs
+        first = torch.searchsorted(qs + margin, lo[e])
+        end = torch.searchsorted(qs - margin, hi[e], right=True)
+        hits.index_add_(0, e, (end > first).to(torch.int32))
+    return hits > 0
+
+
 def layer_path(torch, dev, n: int, card_s: str):
     """The config-2 join at full width (module docstring, 6)."""
     from geomesa_tpu_torch.engine import pip_sparse as ps
@@ -1320,20 +1346,25 @@ def layer_rows(torch, launches, inp, card_s: str):
     bound (bytes from the tiles the pairs name; operations counted from
     this run's data). B6/B7's bound counts the tests within reach (the
     edge's y-span within 2 eps of the point's y, the most their skip can
-    keep and still be exact) and the all-pairs bound stands beside it."""
+    keep and still be exact) and, of the named edge tiles, every y-end
+    but only the x-ends of edges within reach of a paired point; the
+    all-pairs bound stands beside it."""
     from geomesa_tpu_torch.engine import pip_sparse_kernels as psk
     from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
 
     g, p = inp["grouped"], inp["pairs"]
     m, k = int(p[0].shape[0]), int(g[0].shape[0])
     tests = m * TILE * TILE
+    margin = 2.0 * float(np.float32(LAYER_EPS))
     cond = pair_tests(torch, inp)
-    reach = pair_tests(torch, inp, 2.0 * float(np.float32(LAYER_EPS)))
+    reach = pair_tests(torch, inp, margin)
+    x_read = int(reached_edge_slots(torch, inp, margin).sum())
     n_pt = inp["n_ptiles"]
     etiles = int(torch.unique(p[1]).shape[0])
     read = 8 * TILE * k + 16 * TILE * etiles  # points of covered tiles, edges named
-    nbytes = {"pip_grouped": read + 4 * (k + 1 + k + m) + 8 * TILE * n_pt,
-              "pip_assign": read + 4 * (k + 1 + k + 2 * m) + 12 * TILE * n_pt,
+    skip_read = 8 * TILE * k + 8 * TILE * etiles + 8 * x_read  # y-ends; x-ends in reach
+    nbytes = {"pip_grouped": skip_read + 4 * (k + 1 + k + m) + 8 * TILE * n_pt,
+              "pip_assign": skip_read + 4 * (k + 1 + k + 2 * m) + 12 * TILE * n_pt,
               "pip_pairs_count": read + 8 * m + 4 * TILE * (n_pt + 1),
               "pip_pairs_band": read + 8 * m + 4 * TILE * (n_pt + 1)}
     tail_ms = layer_skip_lines(torch, psk, inp, card_s)
@@ -1347,13 +1378,17 @@ def layer_rows(torch, launches, inp, card_s: str):
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, 1)
         n_all, n_cond = LAYER_OPS[name]
-        b_all, by_all = roofline_ms(n_all * tests + n_cond * cond, nbytes[name])
+        skip = name in ("pip_grouped", "pip_assign")
+        b_all, by_all = roofline_ms(n_all * tests + n_cond * cond, nbytes[name]
+                                    + skip * 8 * (TILE * etiles - x_read))
         b, by = b_all, by_all
         extra = ""
-        if name in ("pip_grouped", "pip_assign"):
+        if skip:
             b, by = roofline_ms(n_all * reach + n_cond * cond, nbytes[name])
-            extra = (f"; {reach} tests within 2 eps of the edge's y-span; "
-                     f"all-pairs bound {b_all:.3f} ms by {by_all}")
+            extra = (f"; {reach} tests within 2 eps of the edge's y-span, "
+                     f"{nbytes[name]} bytes with the x-ends of {x_read} of "
+                     f"{TILE * etiles} named edge slots; all-pairs bound "
+                     f"{b_all:.3f} ms by {by_all}")
         rows.append({
             "name": name, "route": "cuda",
             "source": "geomesa_tpu_torch/engine/kernels/pip_layer.cu",

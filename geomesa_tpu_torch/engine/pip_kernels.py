@@ -124,13 +124,11 @@ def block_y_range(py, block: int = BLOCK_POINTS):
 
 
 def out_of_reach(lo, hi, ymin, ymax, eps=None):
-    """bool [B, K]: True where no point of block b (y in [ymin[b],
-    ymax[b]]) can be crossed (eps None: B4) or band-flagged (B5, within
-    eps) by an edge whose y-ends lie in [lo[k], hi[k]]. B4 needs
+    """bool, the four arguments broadcast: True where no point with y in
+    [ymin, ymax] can be crossed (eps None: B4) or band-flagged (B5,
+    within eps) by an edge whose y-ends lie in [lo, hi]. B4 needs
     min(y1,y2) <= py < max(y1,y2); B5 widens by 2 eps, in f64 (the
-    kernel's skip rule; a NaN bound skips nothing)."""
-    lo, hi = lo[None, :], hi[None, :]
-    ymin, ymax = ymin[:, None], ymax[:, None]
+    kernels' skip rule, B4-B7; a NaN bound skips nothing)."""
     if eps is None:
         return (lo > ymax) | (hi <= ymin)
     m = 2.0 * float(np.float32(eps))
@@ -144,10 +142,11 @@ def kept_edge_mask(ymin, ymax, y1, y2, eps=None, chunk: int = CHUNK):
     those the edges that it stages (eps None: B4's rule, else B5's)."""
     e = y1.shape[0]
     lo, hi = edge_chunk_bounds(y1, y2, chunk)
-    by_chunk = (~out_of_reach(lo, hi, ymin, ymax, eps)).repeat_interleave(
-        chunk, dim=1)[:, :e]
-    staged = by_chunk & ~out_of_reach(torch.fmin(y1, y2), torch.fmax(y1, y2),
-                                      ymin, ymax, eps)
+    ymin, ymax = ymin[:, None], ymax[:, None]
+    by_chunk = (~out_of_reach(lo[None, :], hi[None, :], ymin, ymax, eps)
+                ).repeat_interleave(chunk, dim=1)[:, :e]
+    staged = by_chunk & ~out_of_reach(torch.fmin(y1, y2)[None, :],
+                                      torch.fmax(y1, y2)[None, :], ymin, ymax, eps)
     return by_chunk, staged
 
 

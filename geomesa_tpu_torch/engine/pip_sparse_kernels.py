@@ -41,7 +41,7 @@ import torch
 
 from geomesa_tpu_torch.engine.device import check_kernel_inputs
 from geomesa_tpu_torch.engine.pip_kernels import (
-    _device_of, crossing_and_band, edge_chunk_bounds)
+    _device_of, crossing_and_band, edge_chunk_bounds, out_of_reach)
 
 TILE = 512  # POINT_TILE == EDGE_TILE
 # kPerThread, kChunk and kThreads of kernels/pip_layer.cu (B6/B7)
@@ -109,11 +109,11 @@ def tile_y_order(py: torch.Tensor) -> torch.Tensor:
     return torch.argsort(key * TILE + slots, dim=1)
 
 
-def warp_ys(py: torch.Tensor, warp_points: int = WARP_POINTS) -> torch.Tensor:
-    """f32 [n_ptiles, 512 // warp_points, warp_points]: each warp's y after
-    the tile's y-sort (ascending, NaN last)."""
+def warp_ys(py: torch.Tensor) -> torch.Tensor:
+    """f32 [n_ptiles, 512 // WARP_POINTS, WARP_POINTS]: each warp's y
+    after the tile's y-sort (ascending, NaN last)."""
     q = torch.gather(py.reshape(-1, TILE), 1, tile_y_order(py))
-    return q.reshape(-1, TILE // warp_points, warp_points)
+    return q.reshape(-1, TILE // WARP_POINTS, WARP_POINTS)
 
 
 def warp_y_ranges(ys: torch.Tensor):
@@ -124,29 +124,23 @@ def warp_y_ranges(ys: torch.Tensor):
             torch.where(nan, -float("inf"), ys).amax(-1))
 
 
-def tile_chunk_bounds(y1, y2, chunk: int = CHUNK):
-    """(lo, hi) f32 [n_etiles, 512 // chunk]: the y-bounds of each edge
-    tile's chunks of `chunk` edges (`edge_chunk_bounds`: NaN ends
-    ignored, a chunk of NaN edges gets (+inf, -inf))."""
-    return tuple(a.reshape(-1, TILE // chunk)
-                 for a in edge_chunk_bounds(y1, y2, chunk))
-
-
-def _in_reach(lo, hi, ymin, ymax, eps: float):
-    """Not `pip_kernels.out_of_reach`, elementwise with broadcasting: the
-    y-span [lo, hi] is within 2 eps of [ymin, ymax], in f64."""
-    m = 2.0 * float(np.float32(eps))
-    return ~((lo.double() - ymax.double() > m) | (ymin.double() - hi.double() > m))
+def tile_chunk_bounds(y1, y2):
+    """(lo, hi) f32 [n_etiles, 512 // CHUNK]: the y-bounds of each edge
+    tile's chunks (`edge_chunk_bounds`: NaN ends ignored, a chunk of NaN
+    edges gets (+inf, -inf))."""
+    return tuple(a.reshape(-1, TILE // CHUNK)
+                 for a in edge_chunk_bounds(y1, y2, CHUNK))
 
 
 def kept_chunks(ys, bounds, pt, et, eps: float):
     """bool [M, warps, chunks]: for each pair (point tile pt[m], edge tile
     et[m]), the chunks that each warp tests. ys: `warp_ys`; bounds:
     `tile_chunk_bounds`. A chunk is kept when it is in reach of one of the
-    warp's points (a one-point range); NaN points reach nothing."""
+    warp's points (`out_of_reach` of a one-point range); NaN points reach
+    nothing."""
     lo, hi = (b[et.long()][:, None, None, :] for b in bounds)
     y = ys[pt.long()][..., None]
-    return (_in_reach(lo, hi, y, y, eps) & ~torch.isnan(y)).any(2)
+    return (~out_of_reach(lo, hi, y, y, eps) & ~torch.isnan(y)).any(2)
 
 
 def kept_edges(ys, bounds, y1, y2, pt, et, eps: float):
@@ -154,29 +148,26 @@ def kept_edges(ys, bounds, y1, y2, pt, et, eps: float):
     point tile pt[m] tests: those of its kept chunks (`kept_chunks`) whose
     own y-span (NaN ends ignored) is in reach of the warp's y-range
     (`warp_y_ranges`)."""
-    chunk = TILE // bounds[0].shape[1]
     e, p = et.long(), pt.long()
     y1t, y2t = y1.reshape(-1, TILE)[e], y2.reshape(-1, TILE)[e]
     ymin, ymax = (a[:, :, None] for a in warp_y_ranges(ys[p]))
-    reach = _in_reach(torch.fmin(y1t, y2t)[:, None, :],
-                      torch.fmax(y1t, y2t)[:, None, :], ymin, ymax, eps)
+    reach = ~out_of_reach(torch.fmin(y1t, y2t)[:, None, :],
+                          torch.fmax(y1t, y2t)[:, None, :], ymin, ymax, eps)
     return reach & kept_chunks(ys, bounds, pt, et, eps).repeat_interleave(
-        chunk, dim=2)
+        CHUNK, dim=2)
 
 
-def kept_counts(py, y1, y2, pt, et, eps: float,
-                warp_points: int = WARP_POINTS, chunk: int = CHUNK,
-                step: int = 1 << 10):
+def kept_counts(py, y1, y2, pt, et, eps: float):
     """(chunks, edges) int64 [M]: for each pair, the chunks all its warps
-    keep and the edges they test (`kept_chunks`, `kept_edges`), `step`
-    pairs at a time. Times warp_points, the tests B6/B7 make on the pair,
-    chunk by chunk or edge by edge. Counted from the data; the kernels
-    count nothing."""
-    ys = warp_ys(py, warp_points)
-    bounds = tile_chunk_bounds(y1, y2, chunk)
+    keep and the edges they test (`kept_chunks`, `kept_edges`), 1024 pairs
+    at a time. Times WARP_POINTS, the tests B6/B7 make on the pair, chunk
+    by chunk or edge by edge. Counted from the data; the kernels count
+    nothing."""
+    ys = warp_ys(py)
+    bounds = tile_chunk_bounds(y1, y2)
     chunks, edges = [], []
-    for s in range(0, pt.shape[0], step):
-        p, e = pt[s:s + step], et[s:s + step]
+    for s in range(0, pt.shape[0], 1 << 10):
+        p, e = pt[s:s + (1 << 10)], et[s:s + (1 << 10)]
         chunks.append(kept_chunks(ys, bounds, p, e, eps).sum((1, 2)))
         edges.append(kept_edges(ys, bounds, y1, y2, p, e, eps).sum((1, 2)))
     if not chunks:

@@ -12,7 +12,7 @@ from the module's own statement of it (`row_order`, `tile_y_order`,
 edges each warp keeps, the B7
 flush at each polygon's last edge tile, the counts written back to the
 points' slots. The mirror must equal the plain versions, which test
-every pair, bit for bit, at the kernels' P and C and at others; the plain
+every pair, bit for bit, at the kernels' P and C; the plain
 versions must equal the reference's Pallas kernels in interpret mode
 (band flags identical, crossing counts identical outside band-flagged
 points: the reference's CPU run contracts an FMA, as
@@ -24,6 +24,7 @@ one edge tile and of every edge tile, and polygons of one to four edge
 tiles, so B7's runs cross chunks and the kernel's two copy stages.
 """
 
+import importlib.util
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -37,7 +38,7 @@ import jax.numpy as jnp
 from geomesa_tpu.engine import pip_sparse as R
 from geomesa_tpu_torch.engine import pip_sparse as P
 from geomesa_tpu_torch.engine import pip_sparse_kernels as psk
-from geomesa_tpu_torch.engine.pip_kernels import crossing_and_band
+from geomesa_tpu_torch.engine.pip_kernels import crossing_and_band, out_of_reach
 
 from test_torch_pip import eps_boundary_points
 from test_torch_pip_layer import assert_counts, ref_assign_tables
@@ -45,7 +46,6 @@ from test_torch_pip_prune import ring_edges
 
 EPS = 1e-4
 T = psk.TILE
-SIZES = [(psk.PER_THREAD, psk.CHUNK), (1, 16), (1, 32), (4, 16)]
 
 
 # -- cases -------------------------------------------------------------------
@@ -181,14 +181,14 @@ def csr(case, assign):
 # -- the mirror ----------------------------------------------------------------
 
 
-def mirror(args, rows, row_ptr, ets, pinfo, n_ptiles, per_thread, chunk):
+def mirror(args, rows, row_ptr, ets, pinfo, n_ptiles):
     """The B6 (pinfo None) or B7 kernel's structure in PyTorch. Returns
     (outputs as the plain version's, {"chunk": tests in kept chunks,
     "edge": tests of kept edges, "all": all tests})."""
     px, py, *edges = args
-    wp = 32 * per_thread
-    ys = psk.warp_ys(py, wp)
-    bounds = psk.tile_chunk_bounds(edges[1], edges[3], chunk)
+    wp = psk.WARP_POINTS
+    ys = psk.warp_ys(py)
+    bounds = psk.tile_chunk_bounds(edges[1], edges[3])
     order = psk.tile_y_order(py)
     pxt, pyt = px.reshape(-1, T), py.reshape(-1, T)
     et_tiles = [a.reshape(-1, T) for a in edges]
@@ -211,7 +211,7 @@ def mirror(args, rows, row_ptr, ets, pinfo, n_ptiles, per_thread, chunk):
             cross += (c & mask).sum(1, dtype=torch.int32)
             band += (b & mask).sum(1, dtype=torch.int32)
             chunks = psk.kept_chunks(ys, bounds, rows[r:r + 1], et, EPS)[0]
-            kept["chunk"] += int(chunks.sum()) * chunk * wp
+            kept["chunk"] += int(chunks.sum()) * psk.CHUNK * wp
             kept["edge"] += int(keep.sum()) * wp
             kept["all"] += T * T
             if pinfo is not None and int(pinfo[m]) < 0:
@@ -244,20 +244,12 @@ def test_mirror_equals_plain(case, kind):
         plain = psk.pip_assign_plain(*args, *c, case.n_ptiles, EPS)
         pinfo = c[3]
     assert int(plain[-1].sum()) > 0  # band flags exist
-    shares = {}
-    for per_thread, chunk in SIZES:
-        got, kept = mirror(args, *c[:3], pinfo, case.n_ptiles, per_thread, chunk)
-        for g, p in zip(got, plain):
-            assert torch.equal(g, p), (per_thread, chunk)
-        shares[per_thread, chunk] = {k: v / kept["all"] for k, v in kept.items()}
-    # the rule skips: a warp tests a minority of the pairs, fewer with
-    # thinner warps and shorter chunks, and fewer edge by edge
-    assert shares[1, 16]["chunk"] < 0.5
-    assert shares[1, 16]["chunk"] <= shares[4, 16]["chunk"]
-    assert shares[1, 16]["chunk"] <= shares[1, 32]["chunk"]
-    assert shares[1, 16]["edge"] <= shares[1, 32]["edge"]
-    assert shares[1, 16]["edge"] <= shares[4, 16]["edge"]
-    assert all(v["edge"] <= v["chunk"] for v in shares.values())
+    got, kept = mirror(args, *c[:3], pinfo, case.n_ptiles)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    # the rule skips: a warp tests a minority of the pairs, fewer edge by edge
+    assert kept["chunk"] < 0.5 * kept["all"]
+    assert kept["edge"] <= kept["chunk"]
 
 
 def ref_grouped(case):
@@ -409,11 +401,12 @@ def test_tile_y_order_and_warp_ranges():
     assert (q[0, 1:-1] >= q[0, :-2]).all()  # ascending, NaN last
     assert q[1, 0] == 0.5
     assert sorted(order[0].tolist()) == list(range(T))
-    ys = psk.warp_ys(t, 32)
-    assert ys.shape == (2, T // 32, 32)
+    ys = psk.warp_ys(t)
+    w = psk.WARP_POINTS
+    assert ys.shape == (2, T // w, w)
     torch.testing.assert_close(ys.reshape(2, T), q, rtol=0, atol=0, equal_nan=True)
     ymin, ymax = psk.warp_y_ranges(ys)
-    assert ymin.shape == (2, T // 32)
+    assert ymin.shape == (2, T // w)
     assert ymin[0, 0] == q[0, 0] and ymax[0, -1] == np.inf
     assert ymin[1, 0] == ymax[1, 0] == 0.5
     assert ymin[1, 1] == np.inf and ymax[1, 1] == -np.inf
@@ -423,14 +416,44 @@ def test_kept_counts_match_the_mirror():
     case = make_case("eps_boundary")
     args = tensors(case)
     c = csr(case, False)
-    _, kept = mirror(args, *c, None, case.n_ptiles, psk.PER_THREAD, psk.CHUNK)
+    _, kept = mirror(args, *c, None, case.n_ptiles)
     chunks, edges = psk.kept_counts(args[1], args[3], args[5],
                                     torch.from_numpy(case.pt),
-                                    torch.from_numpy(case.et), EPS, step=7)
+                                    torch.from_numpy(case.et), EPS)
     assert chunks.shape == edges.shape == (len(case.pt),)
     assert int(chunks.sum()) * psk.CHUNK * psk.WARP_POINTS == kept["chunk"]
     assert int(edges.sum()) * psk.WARP_POINTS == kept["edge"]
     assert (edges <= chunks * psk.CHUNK).all()
+
+
+def test_reached_edge_slots_hold_every_deciding_edge(case):
+    """`chip_smoke.reached_edge_slots`, the edges whose x-ends B6/B7's
+    data-dependent bound charges: every edge that crosses or flags a
+    point of a paired tile is among them, and they are the edges that the
+    kernels' rule keeps for one of those points, less those with a NaN
+    y-end (whose x at py is NaN)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    args = tensors(case)
+    inp = dict(pts=args[:2], edges=args[2:],
+               pairs=[torch.from_numpy(a) for a in (case.pt, case.et)])
+    got = cs.reached_edge_slots(torch, inp, 2.0 * float(np.float32(EPS)))
+    px, py, *edges = (a.reshape(-1, T) for a in args)
+    y1, y2 = edges[1], edges[3]
+    decides = torch.zeros_like(got)
+    kept = torch.zeros_like(got)
+    e32 = torch.tensor(EPS, dtype=torch.float32)
+    for p, e in zip(case.pt.tolist(), case.et.tolist()):
+        q = py[p][:, None]
+        c, b = crossing_and_band(px[p][:, None], q, *[a[e][None] for a in edges], e32)
+        decides[e] |= (c | b).any(0)
+        kept[e] |= (~out_of_reach(torch.fmin(y1[e], y2[e])[None], torch.fmax(
+            y1[e], y2[e])[None], q, q, EPS) & ~torch.isnan(q)).any(0)
+    assert decides.any() and not (decides & ~got).any()
+    assert torch.equal(got, kept & ~torch.isnan(y1 - y2))
+    assert got.sum() < got[np.unique(case.et)].numel()
 
 
 def test_constants_match_the_cuda_source():

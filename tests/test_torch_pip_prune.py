@@ -187,8 +187,8 @@ def test_every_deciding_pair_is_in_reach(ename, pset, kind):
     e32 = torch.tensor(BAND_EPS, dtype=torch.float32)
     cross, band = pk.crossing_and_band(px[:, None], py[:, None], x1, y1, x2, y2, e32)
     decides = cross if kind == "crossing" else band
-    oor = pk.out_of_reach(torch.fmin(edges[1], edges[3]), torch.fmax(edges[1], edges[3]),
-                          py, py, None if kind == "crossing" else BAND_EPS)
+    oor = pk.out_of_reach(torch.fmin(y1, y2), torch.fmax(y1, y2), py[:, None],
+                          py[:, None], None if kind == "crossing" else BAND_EPS)
     assert not (decides & oor).any()
     if ename == "1088":  # neither side is vacuous: pairs decide, the rule skips
         assert decides.any() and oor.float().mean() > 0.5
@@ -205,7 +205,7 @@ def test_kept_edges_counts(kind):
     assert torch.equal(by_edge, keep.sum(1))
     ymin, ymax = pk.block_y_range(t[1])
     lo, hi = pk.edge_chunk_bounds(t[3], t[5])
-    ck = ~pk.out_of_reach(lo, hi, ymin, ymax, eps)
+    ck = ~pk.out_of_reach(lo[None, :], hi[None, :], ymin[:, None], ymax[:, None], eps)
     sizes = torch.tensor([min(C, len(edges[0]) - c * C) for c in range(len(lo))])
     assert torch.equal(by_chunk, (ck.long() * sizes).sum(1))
     assert (by_edge <= by_chunk).all() and (by_chunk < len(edges[0])).any()
