@@ -15,7 +15,9 @@ and prints no result. Phases, each fatal on failure:
 3. kernel check: each kernel against its plain PyTorch version on the card
    (B1/B2 at Q=256, N=2^22, dead sparse slots exactly 1e9; B3 over 2^22
    Z-ordered points on a 512x512 grid: counts equal, weights within the
-   per-cell bound, dictionary misses add nothing; B4/B5 against a
+   per-cell bound, dictionary misses add nothing, and with 192
+   NaN-coordinate rows binned to row or column 0 as the reference bins
+   them: counts equal, no matching row lost; B4/B5 against a
    ~1100-edge zone polygon at N=2^22 in random and Morton order and on
    the eps-boundary set, points at an edge end's y +- eps and 1-2 ulps
    either side, and against a ~9000-edge zone at N=2^18: identical
@@ -41,8 +43,10 @@ and prints no result. Phases, each fatal on failure:
    seeded 10,000-polygon admin-style layer x 2^22 Z-ordered points, 1/64
    of them within 1e-6 degrees of an edge): a kernel check of B6-B9
    against their plain versions (200 polygons, 2^18 points, and near-flat
-   edges with one NaN x-end beside points within eps of them: identical
-   int32 outputs), then, with launch counts reset before and read after,
+   edges with one NaN x-end beside points within eps of them, and B8/B9
+   over each set's pairs shuffled with a tenth of them twice, B9 also in
+   two launches: identical int32 outputs), then, with launch counts
+   reset before and read after,
    the host prep and a first query end to end, the warm p50 of
    pip_layer_grouped (the device pass), pip_layer, pip_layer_assign,
    pip_layer_join and pip_layer_sparse, a torch.profiler breakdown of
@@ -52,15 +56,17 @@ and prints no result. Phases, each fatal on failure:
    oracle, join pairs == the points inside, pip_layer_sparse ==
    pip_layer_grouped on covered tiles;
 7. each kernel timed at its path's shapes beside its plain version and
-   its bound, printed as one {"kernels": [...]} line; before it, B4/B5's
-   registers and spills, and, for the resident rows in Morton order (as
+   its bound, printed as one {"kernels": [...]} line; before it, B1/B2's
+   registers and spills and B2 without its keys beside B2 (the
+   prelude's share), B4/B5's registers and spills, and, for the resident
+   rows in Morton order (as
    written), in time order and shuffled, what their skip rule leaves per
    block and their times. B4/B5's "ms" is the Morton-order time: their
    speed depends on the rows' spatial order, which the caller gives.
-   Before it too, B6-B9's registers and spills, the chunk-tests B6/B7's
-   warps keep and the heaviest row's share, and B6 on its longest row
-   alone; B6/B7's bound counts the tests within reach, their all-pairs
-   bound stands beside it.
+   Before it too, B6-B9's registers and spills, the chunk-tests the warps
+   of B6/B7/B9 keep and the heaviest row's share, and B6 on its longest
+   row alone; B6/B7/B9's bound counts the tests within reach, their
+   all-pairs bound stands beside it.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -346,13 +352,42 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         return launches, inputs
 
 
+def chord_lines(torch, ks, inp, card_s: str) -> float:
+    """Earlier lines of B1/B2's rows: the kernels' registers and spills,
+    and B2's split: the variant that skips the keys (prelude, barriers
+    and output only) beside the full launch, at the main path's shapes.
+    Returns the variant's time."""
+    from geomesa_tpu_torch.engine.kernels import build
+
+    names = {"chord_blockmin_kernel": "B1",
+             "chord_blockmin_dense_kernelILb1E": "B2",
+             "chord_blockmin_dense_kernelILb0E": "B2 without its keys"}
+    for name, res in ptxas_resources(build.build_log["chord_blockmin"]["ptxas"]).items():
+        kind = [k for n, k in names.items() if n in name]
+        if kind:
+            log(f"ptxas chord_blockmin.cu {kind[0]}: {res.get('registers')} "
+                f"registers, spill stores/loads {res.get('spill')}")
+    aug, c = ks._aug_q(inp["qx"], inp["qy"])
+    x, y, maskf = inp["x"], inp["y"], inp["maskf"]
+    full_ms = timed_ms(torch, lambda: ks._launch_dense(aug, c, x, y, maskf, ks.BLK), 10)
+    pre_ms = timed_ms(torch, lambda: ks._launch_dense(aug, c, x, y, maskf, ks.BLK,
+                                                      prelude_only=True), 10)
+    log(f"chord_blockmin (B2) split at N={x.shape[0]} Q={aug.shape[0]}: the launch "
+        f"{full_ms:.3f} ms, without its keys (prelude, barriers, output) "
+        f"{pre_ms:.3f} ms, share {pre_ms / full_ms:.3f} [{card_s}]")
+    return pre_ms
+
+
 def kernel_rows(torch, ks, launches, inp, card_s: str):
-    """Each kernel at the main path's shapes: time, plain time, error, bound."""
+    """Each kernel at the main path's shapes: time, plain time, error,
+    bound. A key is 3 multiply-adds and a min, 7 FP32 operations
+    (aug_q[q][3] == 1 adds ndm as it is)."""
     qx, qy, x, y, maskf = (inp[k] for k in ("qx", "qy", "x", "y", "maskf"))
     n = x.shape[0]
     tile_ids, n_sel = ks.select_match_tiles(maskf, inp["cap"])
     live = int(n_sel[0])
     slots = tile_ids.shape[0]
+    prelude_ms = chord_lines(torch, ks, inp, card_s)
     cases = [
         ("chord_blockmin", "geomesa_tpu/engine/knn_scan.py:120",
          lambda: ks.chord_blockmin(qx, qy, x, y, maskf)[0],
@@ -371,7 +406,7 @@ def kernel_rows(torch, ks, launches, inp, card_s: str):
         assert err <= TOL, (name, err)
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, 3)
-        b, by = roofline_ms(9 * keys, nbytes)  # 4 FMAs and a min a key
+        b, by = roofline_ms(7 * keys, nbytes)
         rows.append({
             "name": name, "route": "cuda",
             "source": "geomesa_tpu_torch/engine/kernels/chord_blockmin.cu",
@@ -379,6 +414,8 @@ def kernel_rows(torch, ks, launches, inp, card_s: str):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": None,
         })
+        if name == "chord_blockmin":
+            rows[-1]["prelude_only_ms"] = prelude_ms
         log(f"{name}: N={n} Q={Q} slots={slots if 'sparse' in name else n // ks.DATA_TILE} "
             f"live_tiles={live if 'sparse' in name else n // ks.DATA_TILE}: "
             f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b:.3f} ms by {by}) "
@@ -565,6 +602,31 @@ def density_kernel_check(torch, dev, wkt: str) -> None:
     assert len(calib.tile_ids) > 0 and torch.equal(cnt, cnt_p)
     assert ok_w and torch.equal(miss, miss_p)
     assert float(miss.sum()) < float(cnt.sum()) and bool((miss[thin < 0] == 0).all())
+    # rows with a NaN coordinate bin to index 0 (row 0 or column 0), as
+    # the reference's int32 cast makes them
+    xn, yn = x.clone(), y.clone()
+    at = t(rng.choice(n, 192, replace=False))
+    xn[at[:64]] = float("nan")
+    yn[at[64:128]] = float("nan")
+    xn[at[128:]] = yn[at[128:]] = float("nan")
+    calib_n = dz.calibrate_density(xn, yn, mask, ENV, GRID, GRID)
+    ids_n = torch.from_numpy(calib_n.tile_ids).to(dev)
+    cnt_n = dz.zsparse_counts(xn, yn, ones, ids_n, calib_n.dicts, ENV, GRID, GRID)
+    cnt_np = dz.zsparse_counts_plain(xn, yn, ones, ids_n, calib_n.dicts, ENV,
+                                     GRID, GRID)
+    grid_n, _ = dz.density_zsparse(xn, yn, ones, mask, ENV, GRID, GRID)
+    mass_n = float(dz._expected_mass(xn, yn, ones, mask, ENV, GRID, GRID))
+    nan_in = int((mask[at] & (torch.isnan(xn[at]) | torch.isnan(yn[at]))).sum())
+    log(f"kernel check B3 with 192 NaN-coordinate rows ({nan_in} of them "
+        f"matching): counts equal {bool(torch.equal(cnt_n, cnt_np))}, grid mass "
+        f"{float(grid_n.sum()):.0f} == expected {mass_n:.0f} (masked rows, NaN "
+        f"ones binned to row or column 0)")
+    # a NaN coordinate replaces one that may have been out of bounds by an
+    # in-bounds index, so no matching row drops out (dropping them would
+    # lose ~nan_in rows)
+    assert torch.equal(cnt_n, cnt_np) and float(grid_n.sum()) == mass_n
+    assert nan_in > 0 and mass_n >= float(dz._expected_mass(x, y, ones, mask, ENV,
+                                                            GRID, GRID))
 
     n = PIP_CHECK_N
     px, py, e = pip_inputs(torch, dev, n, wkt, seed=6)
@@ -892,10 +954,10 @@ LAYER_EPS = 1e-4
 # FP32 operations per (point, edge slot) test, as for B4/B5 above: every
 # test pays the half-open compares (and, with the band, the near-flat
 # term); tests whose edge straddles the point's y also pay the crossing
-# arithmetic. B6/B7 compute the crossing and the band from one xc. B6/B7
-# skip what cannot decide a point, so their data-dependent bound counts
-# only the tests whose edge's y-span lies within 2 eps of the point's y;
-# B8/B9 test every pair.
+# arithmetic. B6/B7 compute the crossing and the band from one xc, B9 the
+# band alone. B6, B7 and B9 skip what cannot decide a point, so their
+# data-dependent bound counts only the tests whose edge's y-span lies
+# within 2 eps of the point's y; B8 tests every pair.
 LAYER_REPLACES = {"pip_grouped": "geomesa_tpu/engine/pip_sparse.py:395",
                   "pip_assign": "geomesa_tpu/engine/pip_sparse.py:610",
                   "pip_pairs_count": "geomesa_tpu/engine/pip_sparse.py:994",
@@ -1063,11 +1125,21 @@ def nan_layer_inputs(torch, dev):
                 pairs=[i32(pt), i32(et)], n_ptiles=n_pt)
 
 
+def shuffled_pairs(rng, pt, et):
+    """A pair list in random order with a tenth of its pairs twice (B8 and
+    B9 take pairs in any order and count a duplicate pair twice)."""
+    dup = rng.choice(len(pt), max(1, len(pt) // 10), replace=False)
+    o = rng.permutation(len(pt) + len(dup))
+    return np.concatenate([pt, pt[dup]])[o], np.concatenate([et, et[dup]])[o]
+
+
 def layer_kernel_check(torch, dev) -> None:
     """B6-B9 against their plain versions at a 200-polygon layer and
     2^18 points, and on the NaN x-end set (`nan_layer_inputs`):
-    identical int32 outputs."""
+    identical int32 outputs; B8/B9 also over each set's pairs shuffled
+    with a tenth of them twice, and B9 over that list in two launches."""
     from geomesa_tpu_torch.engine import pip_sparse as ps
+    from geomesa_tpu_torch.engine import pip_sparse_kernels as k
 
     rng = np.random.default_rng(31)
     layer = gen_admin_layer(rng, LAYER_CHECK_POLYS)
@@ -1087,6 +1159,22 @@ def layer_kernel_check(torch, dev) -> None:
             out.append(f"{name} identical {same}")
             assert same, (name, what, max_int_err(got, exp))
             assert int(got[-1].sum()) > 0, name  # the band (or count) is not all zero
+        a, n = (*inp["pts"], *inp["edges"]), inp["n_ptiles"]
+        sp = [torch.from_numpy(x).to(dev) for x in shuffled_pairs(
+            rng, *(t.cpu().numpy() for t in inp["pairs"]))]
+        h = sp[0].shape[0] // 2
+        band = k.pip_pairs_band_plain(*a, *sp, n, LAYER_EPS)
+        for name, got, exp in (
+                ("pip_pairs_count", k.pip_pairs_count(*a, *sp, n),
+                 k.pip_pairs_count_plain(*a, *sp, n)),
+                ("pip_pairs_band", k.pip_pairs_band(*a, *sp, n, LAYER_EPS), band),
+                ("pip_pairs_band in two launches",
+                 k.pip_pairs_band(*a, sp[0][:h], sp[1][:h], n, LAYER_EPS)
+                 + k.pip_pairs_band(*a, sp[0][h:], sp[1][h:], n, LAYER_EPS), band)):
+            same = bool(torch.equal(got, exp))
+            out.append(f"{name} over {sp[0].shape[0]} shuffled pairs with "
+                       f"duplicates identical {same}")
+            assert same, (name, what, max_int_err((got,), (exp,)))
         log(f"kernel check B6-B9, {what}: {', '.join(out)}")
 
 
@@ -1302,8 +1390,8 @@ def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
     and the longest row alone in one block. Returns that time."""
     from geomesa_tpu_torch.engine.kernels import build
 
-    names = {"grouped_kernelILb0E": "B6", "grouped_kernelILb1E": "B7",
-             "pairs_kernelILb0E": "B8", "pairs_kernelILb1E": "B9"}
+    names = {"grouped_kernelILb0ELb1E": "B6", "grouped_kernelILb1ELb1E": "B7",
+             "pairs_kernelILb0E": "B8", "grouped_kernelILb0ELb0E": "B9"}
     for name, res in ptxas_resources(build.build_log["pip_layer"]["ptxas"]).items():
         kind = [k for n, k in names.items() if n in name]
         if kind:
@@ -1317,7 +1405,8 @@ def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
     in_chunks, kept = int(chunks.sum()) * psk.CHUNK * wp, int(edges.sum()) * wp
     row = torch.zeros(inp["n_ptiles"], dtype=torch.int64, device=pt.device)
     row.index_add_(0, pt.long(), edges)
-    log(f"B6/B7 skip over {m} pairs, warps of {wp} y-sorted points, chunks of "
+    log(f"B6/B7/B9 skip (B9 walks the same pairs, one row a point tile) over "
+        f"{m} pairs, warps of {wp} y-sorted points, chunks of "
         f"{psk.CHUNK} edges: {float(chunks.double().mean()) / warps:.3f} of "
         f"{psk.TILE // psk.CHUNK} chunks and {float(edges.double().mean()) / warps:.3f} "
         f"edges a warp a pair kept; tests in kept chunks {in_chunks} "
@@ -1344,11 +1433,11 @@ def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
 def layer_rows(torch, launches, inp, card_s: str):
     """B6-B9 at the config-2 path's shapes: time, plain time, error,
     bound (bytes from the tiles the pairs name; operations counted from
-    this run's data). B6/B7's bound counts the tests within reach (the
-    edge's y-span within 2 eps of the point's y, the most their skip can
-    keep and still be exact) and, of the named edge tiles, every y-end
-    but only the x-ends of edges within reach of a paired point; the
-    all-pairs bound stands beside it."""
+    this run's data). B6/B7/B9's bound counts the tests within reach
+    (the edge's y-span within 2 eps of the point's y, the most their skip
+    can keep and still be exact) and, of the named edge tiles, every
+    y-end but only the x-ends of edges within reach of a paired point;
+    the all-pairs bound stands beside it."""
     from geomesa_tpu_torch.engine import pip_sparse_kernels as psk
     from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
 
@@ -1366,7 +1455,7 @@ def layer_rows(torch, launches, inp, card_s: str):
     nbytes = {"pip_grouped": skip_read + 4 * (k + 1 + k + m) + 8 * TILE * n_pt,
               "pip_assign": skip_read + 4 * (k + 1 + k + 2 * m) + 12 * TILE * n_pt,
               "pip_pairs_count": read + 8 * m + 4 * TILE * (n_pt + 1),
-              "pip_pairs_band": read + 8 * m + 4 * TILE * (n_pt + 1)}
+              "pip_pairs_band": skip_read + 8 * m + 4 * TILE * (n_pt + 1)}
     tail_ms = layer_skip_lines(torch, psk, inp, card_s)
     rows = []
     for name, kern, plain in layer_kernel_calls(inp):
@@ -1378,7 +1467,7 @@ def layer_rows(torch, launches, inp, card_s: str):
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, 1)
         n_all, n_cond = LAYER_OPS[name]
-        skip = name in ("pip_grouped", "pip_assign")
+        skip = name in ("pip_grouped", "pip_assign", "pip_pairs_band")
         b_all, by_all = roofline_ms(n_all * tests + n_cond * cond, nbytes[name]
                                     + skip * 8 * (TILE * etiles - x_read))
         b, by = b_all, by_all

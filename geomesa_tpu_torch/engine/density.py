@@ -3,8 +3,9 @@
 The counterpart of the reference package's `engine/density.py`
 (DensityScan / DensityProcess parity): rasterize matching points into a
 width x height f32 weight grid over a query envelope. Points outside the
-envelope or the mask never contribute; the kernel-radius spread of
-DensityProcess is a separable gaussian blur of the final grid.
+envelope or the mask never contribute (a NaN coordinate bins to index 0,
+as the reference's binning makes it: `bin_cells`); the kernel-radius
+spread of DensityProcess is a separable gaussian blur of the final grid.
 
 Binning arithmetic is the reference's: in `(x - xmin) / dx` the envelope
 constants meet an f32 column, so they are rounded to f32 first
@@ -34,13 +35,20 @@ def grid_consts(bbox: BBox, width: int, height: int):
 def bin_cells(x, y, mask, bbox: BBox, width: int, height: int):
     """(raster cell id row*W+col i32, in-bounds-and-masked bool). Cells of
     rows that are out of bounds or masked out are 0: they carry no weight
-    (the reference clips them instead; a zero weight lands nowhere)."""
+    (the reference clips them instead; a zero weight lands nowhere).
+
+    A NaN coordinate bins to index 0, as in the reference, which casts
+    the floor to int32 before its bounds check (XLA converts NaN to 0):
+    a row with a NaN x lands in column 0, one with a NaN y in row 0.
+    Infinite and out-of-range values stay out of bounds."""
     xmin, dx, ymin, dy = (torch.tensor(v, device=x.device)
                           for v in grid_consts(bbox, width, height))
     colf = torch.floor((x - xmin) / dx)
     rowf = torch.floor((y - ymin) / dy)
-    inb = (colf >= 0) & (colf < width) & (rowf >= 0) & (rowf < height) & mask
     zero = torch.zeros((), dtype=colf.dtype, device=x.device)
+    colf = torch.where(torch.isnan(colf), zero, colf)
+    rowf = torch.where(torch.isnan(rowf), zero, rowf)
+    inb = (colf >= 0) & (colf < width) & (rowf >= 0) & (rowf < height) & mask
     col = torch.where(inb, colf, zero).to(torch.int32)
     row = torch.where(inb, rowf, zero).to(torch.int32)
     return row * width + col, inb

@@ -6,7 +6,8 @@
 //
 // What it computes, for selected tile s (data tile t = tile_ids[s]) and
 // dictionary slot j:
-//   col  = floor((x - xmin) / dx), row = floor((y - ymin) / dy)     (f32)
+//   col  = floor((x - xmin) / dx), row = floor((y - ymin) / dy)     (f32;
+//          NaN becomes 0, as the reference's int32 cast makes it)
 //   ok   = 0 <= col < width && 0 <= row < height
 //   cell = clip(row, 0, height-1) * width + clip(col, 0, width-1)
 //   out[s, j] = sum over the tile's points with cell == dicts[s, j] of
@@ -61,10 +62,13 @@ zsparse_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const long long g = base + i;
     const float w = lw[g];
     if (w == 0.0f) continue;  // adding +-0 to the sum changes nothing
-    const float colf = floorf(__fdiv_rn(__fsub_rn(x[g], xmin), dx));
-    const float rowf = floorf(__fdiv_rn(__fsub_rn(y[g], ymin), dy));
-    // out-of-bounds rows (and NaN coordinates) are zeroed through the
-    // weight, exactly as the reference's `where(ok, w, 0)`
+    float colf = floorf(__fdiv_rn(__fsub_rn(x[g], xmin), dx));
+    float rowf = floorf(__fdiv_rn(__fsub_rn(y[g], ymin), dy));
+    // a NaN coordinate bins to index 0, as the reference's int32 cast
+    // (before its bounds check) takes it; out-of-bounds rows are zeroed
+    // through the weight, exactly as the reference's `where(ok, w, 0)`
+    if (colf != colf) colf = 0.0f;
+    if (rowf != rowf) rowf = 0.0f;
     if (!(colf >= 0.0f && colf < (float)width && rowf >= 0.0f
           && rowf < (float)height))
       continue;

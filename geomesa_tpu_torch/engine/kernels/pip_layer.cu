@@ -10,8 +10,8 @@
 //                      and count += parity, plus the band count
 //                                                    -> pip_assign_launch
 //   _pip_sparse_call   (B8, _sparse_kernel; B9, _sparse_band_kernel): the
-//                      same crossing / band counts, walking the pair list
-//                      one pair at a time    -> pip_pairs_{count,band}_launch
+//                      same crossing / band counts over a list of pairs in
+//                      any order        -> pip_pairs_{count,band}_launch
 //
 // Tiles are 512 points and 512 edges (POINT_TILE == EDGE_TILE). Per point p
 // of a tile and edge e (all f32, half-open rule, eps = the band width):
@@ -104,10 +104,19 @@
 // block, 2 or 3 stages; PERF.md): the lowest B6 + B7 time. One point a
 // thread gives the thinnest warps, which keep the fewest chunks.
 //
-// B8/B9 (pairs_kernel): one block per pair, one thread a point, adding its
-// partial counts into the zeroed output with atomicAdd (integers: the sum
-// is exact in any order). The TPU's first-visit zeroing existed because
-// its grid ran in order.
+// B9 is B6's walk without the crossings (grouped_kernel<false, false>): the
+// wrapper turns the pair list into one CSR row per point tile on the
+// device (a stable sort by point tile, row pointers by binary search, the
+// rows longest first), so each block owns its tile's output and writes it
+// with plain stores, and an empty row returns at once. The walk keeps the
+// cond marks, which the near-cross term needs, and drops the crossing
+// compare and its popcount; the skip rule is B6's as it is (a band flag
+// needs the point within eps of the edge's y-span, the reach is 2 eps).
+//
+// B8 (pairs_kernel<false>): one block per pair, one thread a point, adding
+// its partial count into the zeroed output with atomicAdd (integers: the
+// sum is exact in any order), every pair tested in full. The TPU's
+// first-visit zeroing existed because its grid ran in order.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -152,8 +161,8 @@ __device__ __forceinline__ float crossing_x(float4 e, float py) {
   return __fadd_rn(e.x, __fmul_rn(t, __fsub_rn(e.z, e.x)));
 }
 
-// B8/B9: adds edge d's crossing (kCross) and band flag (kBand) for point
-// (qx, qy).
+// pairs_kernel (B8): adds edge d's crossing (kCross) and band flag (kBand)
+// for point (qx, qy).
 template <bool kCross, bool kBand>
 __device__ __forceinline__ void test_edge(float4 d, float qx, float qy,
                                           float eps, int& cross, int& band) {
@@ -307,9 +316,11 @@ chunk_bounds(const float* __restrict__ y1, const float* __restrict__ y2,
   }
 }
 
-// B6 (kAssign false): out0 = crossings, out2 = band.
-// B7 (kAssign true):  out0 = assign, out1 = count, out2 = band.
-template <bool kAssign>
+// B6 (kAssign false, kCross true): out0 = crossings, out2 = band.
+// B7 (kAssign true, kCross true):   out0 = assign, out1 = count, out2 = band.
+// B9 (kAssign false, kCross false): out2 = band; an empty row returns
+//                                   before it sorts (out2 is zeroed).
+template <bool kAssign, bool kCross>
 __global__ void __launch_bounds__(kThreads)
 grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ x1, const float* __restrict__ y1,
@@ -328,6 +339,7 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
   const int r = order[blockIdx.x];
   const long long base = (long long)rows[r] * kTile;
   const int m0 = row_ptr[r], m1 = row_ptr[r + 1];
+  if (!kCross && m0 == m1) return;  // (uniform: the whole block leaves)
 
   // 1. sort the tile's points by y (bitonic, ascending, keys unique)
   for (int i = tid; i < kTile; i += kThreads)
@@ -479,13 +491,13 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
           const Edge e = rec[bit / kPerThread];
           const float x = pick(qx, k);
           const float xc = crossing_x(e.e, pick(qy, k));
-          crossed |= (unsigned long long)(xc > x) << bit;
+          if (kCross) crossed |= (unsigned long long)(xc > x) << bit;
           flags |= (unsigned long long)(fabsf(__fsub_rn(xc, x)) <= e.b.z)
                    << bit;
         }
 #pragma unroll
         for (int k = 0; k < kPerThread; ++k) {
-          cross[k] += __popcll(crossed & point_bits(k));
+          if (kCross) cross[k] += __popcll(crossed & point_bits(k));
           band[k] += __popcll(flags & point_bits(k));
         }
       }
@@ -510,7 +522,7 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
     if (kAssign) {
       out0[i] = assign[k];
       out1[i] = count[k];
-    } else {
+    } else if (kCross) {
       out0[i] = cross[k];
     }
     out2[i] = band[k];
@@ -525,8 +537,9 @@ __device__ __forceinline__ void stage_tile(float4* edges, const float* x1,
   edges[threadIdx.x] = make_float4(x1[j], y1[j], x2[j], y2[j]);
 }
 
-// B8 (kBand false): crossings; B9 (kBand true): band flags. out: int32
-// [n_ptiles + 1, 512], zeroed by the wrapper.
+// B8 (kBand false): crossings; kBand true counts band flags (no caller:
+// B9 walks grouped_kernel). out: int32 [n_ptiles + 1, 512], zeroed by the
+// wrapper.
 template <bool kBand>
 __global__ void __launch_bounds__(kTile)
 pairs_kernel(const float* __restrict__ px, const float* __restrict__ py,
@@ -549,7 +562,7 @@ pairs_kernel(const float* __restrict__ px, const float* __restrict__ py,
   if (c) atomicAdd(out + i, c);
 }
 
-template <bool kAssign>
+template <bool kAssign, bool kCross>
 int launch_grouped(const void* px, const void* py, const void* x1,
                    const void* y1, const void* x2, const void* y2,
                    void* bounds, const void* order, const void* rows,
@@ -565,7 +578,7 @@ int launch_grouped(const void* px, const void* py, const void* x1,
                                          n_etiles, (float2*)bounds);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  grouped_kernel<kAssign><<<k, kThreads, 0, s>>>(
+  grouped_kernel<kAssign, kCross><<<k, kThreads, 0, s>>>(
       (const float*)px, (const float*)py, (const float*)x1, (const float*)y1,
       (const float*)x2, (const float*)y2, (const float2*)bounds,
       (const int*)order, (const int*)rows, (const int*)row_ptr,
@@ -588,9 +601,9 @@ extern "C" int pip_grouped_launch(const void* px, const void* py,
                                   const void* ets, void* counts, void* band,
                                   int k, int n_etiles, float eps,
                                   void* stream) {
-  return launch_grouped<false>(px, py, x1, y1, x2, y2, bounds, order, rows,
-                               row_ptr, ets, nullptr, counts, nullptr, band,
-                               k, n_etiles, eps, stream);
+  return launch_grouped<false, true>(px, py, x1, y1, x2, y2, bounds, order,
+                                     rows, row_ptr, ets, nullptr, counts,
+                                     nullptr, band, k, n_etiles, eps, stream);
 }
 
 // B7. As B6, plus pinfo: int32 [m], the pair's polygon rank + 1, negated on
@@ -604,9 +617,9 @@ extern "C" int pip_assign_launch(const void* px, const void* py,
                                  const void* pinfo, void* assign, void* count,
                                  void* band, int k, int n_etiles, float eps,
                                  void* stream) {
-  return launch_grouped<true>(px, py, x1, y1, x2, y2, bounds, order, rows,
-                              row_ptr, ets, pinfo, assign, count, band, k,
-                              n_etiles, eps, stream);
+  return launch_grouped<true, true>(px, py, x1, y1, x2, y2, bounds, order,
+                                    rows, row_ptr, ets, pinfo, assign, count,
+                                    band, k, n_etiles, eps, stream);
 }
 
 // B8. pair_pt/pair_et: int32 [m]; out: int32 [(n_ptiles + 1) * 512], zeroed.
@@ -623,17 +636,18 @@ extern "C" int pip_pairs_count_launch(const void* px, const void* py,
   return (int)cudaGetLastError();
 }
 
-// B9. As B8, counting band flags.
+// B9. The band counts of B6 over a pair list turned into one CSR row per
+// point tile (rows: every tile 0..k-1; a tile's pairs in any order, a
+// duplicate pair counted twice; row_ptr, ets, order and bounds as B6's);
+// band: int32 [(n_ptiles + 1) * 512], zeroed.
 extern "C" int pip_pairs_band_launch(const void* px, const void* py,
                                      const void* x1, const void* y1,
                                      const void* x2, const void* y2,
-                                     const void* pair_pt, const void* pair_et,
-                                     void* out, int m, float eps,
-                                     void* stream) {
-  if (m <= 0) return 0;
-  pairs_kernel<true><<<m, kTile, 0, (cudaStream_t)stream>>>(
-      (const float*)px, (const float*)py, (const float*)x1, (const float*)y1,
-      (const float*)x2, (const float*)y2, (const int*)pair_pt,
-      (const int*)pair_et, (int*)out, eps);
-  return (int)cudaGetLastError();
+                                     void* bounds, const void* order,
+                                     const void* rows, const void* row_ptr,
+                                     const void* ets, void* band, int k,
+                                     int n_etiles, float eps, void* stream) {
+  return launch_grouped<false, false>(px, py, x1, y1, x2, y2, bounds, order,
+                                      rows, row_ptr, ets, nullptr, nullptr,
+                                      nullptr, band, k, n_etiles, eps, stream);
 }

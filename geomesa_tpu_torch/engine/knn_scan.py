@@ -117,31 +117,48 @@ def _lib():
     from geomesa_tpu_torch.engine.kernels.build import load
 
     lib = load("chord_blockmin")
-    fn = lib.chord_blockmin_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.chord_blockmin_sparse_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.chord_blockmin_sparse_launch.argtypes = [p] * 8 + [i] * 4 + [p]
+        for fn in (lib.chord_blockmin_dense_launch,
+                   lib.chord_blockmin_dense_prelude_launch):
+            fn.argtypes = [p] * 6 + [i, ctypes.c_longlong, i, p]
+        for fn in (lib.chord_blockmin_sparse_launch, lib.chord_blockmin_dense_launch,
+                   lib.chord_blockmin_dense_prelude_launch):
+            fn.restype = ctypes.c_int
+    return lib
 
 
-def _launch(aug, c, x, y, maskf, tile_ids, n_sel, slots, blk, data_tile):
-    q = aug.shape[0]
+def _run(entry: str, *args) -> None:
+    ptr = lambda t: t.data_ptr() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    with torch.cuda.device(args[2].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_lib(), entry)(*map(ptr, args), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+
+
+def _launch_dense(aug, c, x, y, maskf, blk, prelude_only: bool = False):
+    """B2's launch: [Q, N/blk] minima. `prelude_only` launches the variant
+    that skips the keys (its output is not the minima), to time the
+    prelude's share."""
+    q, n = aug.shape[0], x.shape[0]
+    out = torch.empty((q, n // blk), dtype=torch.float32, device=x.device)
+    check_kernel_inputs(aug, c, x, y, maskf, out, dtypes=(torch.float32,) * 6)
+    entry = ("chord_blockmin_dense_prelude_launch" if prelude_only
+             else "chord_blockmin_dense_launch")
+    _run(entry, aug, c, x, y, maskf, out, q, n, blk)
+    return out
+
+
+def _launch_sparse(aug, c, x, y, maskf, tile_ids, n_sel, blk, data_tile):
+    q, slots = aug.shape[0], tile_ids.shape[0]
     out = torch.empty((q, slots * (data_tile // blk)), dtype=torch.float32,
                       device=x.device)
-    f32 = torch.float32
-    if tile_ids is None:
-        check_kernel_inputs(aug, c, x, y, maskf, out, dtypes=(f32,) * 6)
-    else:
-        check_kernel_inputs(aug, c, x, y, maskf, out, tile_ids, n_sel,
-                    dtypes=(f32,) * 6 + (torch.int32, torch.int32))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(ptr(aug), ptr(c), ptr(x), ptr(y), ptr(maskf),
-                     ptr(tile_ids), ptr(n_sel), ptr(out), q, slots, blk,
-                     data_tile, stream)
-    if err != 0:
-        raise RuntimeError(f"chord_blockmin kernel launch failed: CUDA error {err}")
+    check_kernel_inputs(aug, c, x, y, maskf, out, tile_ids, n_sel,
+                        dtypes=(torch.float32,) * 6 + (torch.int32,) * 2)
+    _run("chord_blockmin_sparse_launch", aug, c, x, y, maskf, tile_ids, n_sel,
+         out, q, slots, blk, data_tile)
     return out
 
 
@@ -157,8 +174,7 @@ def chord_blockmin(qx, qy, x, y, maskf, blk: int = BLK,
     if x.device.type != "cuda":
         raise ValueError(f"chord_blockmin runs on cuda or cpu, not {x.device}")
     aug, c = _aug_q(qx, qy)
-    out = _launch(aug, c, x, y, maskf, None, None, n // data_tile, blk,
-                  data_tile)
+    out = _launch_dense(aug, c, x, y, maskf, blk)
     chord_blockmin.launches += 1
     return out, c
 
@@ -180,8 +196,8 @@ def chord_blockmin_sparse(qx, qy, x, y, maskf, tile_ids, n_sel,
     if x.device.type != "cuda":
         raise ValueError(f"chord_blockmin_sparse runs on cuda or cpu, not {x.device}")
     aug, c = _aug_q(qx, qy)
-    out = _launch(aug, c, x, y, maskf, tile_ids, n_sel.reshape(1),
-                  tile_ids.shape[0], blk, data_tile)
+    out = _launch_sparse(aug, c, x, y, maskf, tile_ids, n_sel.reshape(1), blk,
+                         data_tile)
     chord_blockmin_sparse.launches += 1
     return out, c
 

@@ -279,3 +279,23 @@ def test_zsparse_kernel_matches_plain_on_the_card():
     exp = port.zsparse_counts_plain(tx_[0], tx_[1], ones, ids, calib.dicts,
                                     BBOX, 256, 256)
     assert torch.equal(got, exp)
+    # rows with a NaN coordinate bin to index 0 (row 0 or column 0), as
+    # the reference's int32 cast makes them, in the kernel and the plain
+    # version alike
+    xn, yn = x.copy(), y.copy()
+    rng = np.random.default_rng(8)
+    i = rng.choice(len(x), 24, replace=False)
+    xn[i[:8]] = np.nan
+    yn[i[8:16]] = np.nan
+    xn[i[16:]] = yn[i[16:]] = np.nan
+    tn = [t.to(dev) for t in tx(xn, yn)]
+    calib = port.calibrate_density(tn[0], tn[1], tx_[3], BBOX, 256, 256)
+    ids = torch.from_numpy(calib.tile_ids).to(dev)
+    got = port.zsparse_counts(tn[0], tn[1], ones, ids, calib.dicts, BBOX,
+                              256, 256)
+    exp = port.zsparse_counts_plain(tn[0], tn[1], ones, ids, calib.dicts,
+                                    BBOX, 256, 256)
+    assert torch.equal(got, exp)
+    grid, _ = port.density_zsparse(tn[0], tn[1], ones, tx_[3], BBOX, 256, 256)
+    assert float(grid.sum()) == float(
+        port._expected_mass(tn[0], tn[1], ones, tx_[3], BBOX, 256, 256))

@@ -310,30 +310,44 @@ def test_exact_refine_matches_reference():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_on_the_card():
+@pytest.mark.parametrize("blk", [32, 128, 2048])
+@pytest.mark.parametrize("tiles", [1, 16])
+@pytest.mark.parametrize("q", [1, 37, 64, 256])
+def test_kernels_match_plain_on_the_card(q, tiles, blk):
+    """B2 (dense) and B1 (sparse, at 16 tiles) against their plain
+    versions, within 1e-5: Q below, at and off the 32 queries a warp's
+    lanes hold and the 256 a block holds; one data tile and 16; blk at
+    both ends of what `_check_tiling` takes (a chunk of 16 blocks, of 2048
+    points in one block's 8 segments). NaN rows make their blocks' minima
+    NaN in both."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
-    qx, qy, x, y, mask = make(16 * 16384, 64)
+    n = tiles * 16384
+    qx, qy, x, y, mask = make(n, q)
     args = [a.to(dev) for a in tx(qx, qy, x, y, mask.astype(np.float32))]
-    got, _ = port.chord_blockmin(*args)
-    exp, _ = port.chord_blockmin_plain(*args)
+    got, _ = port.chord_blockmin(*args, blk=blk)
+    exp, _ = port.chord_blockmin_plain(*args, blk=blk)
+    assert got.shape == exp.shape == (q, n // blk)
     assert float((got - exp).abs().max()) <= 1e-5
     ids = torch.tensor([2, 5, 9, 0], dtype=torch.int32, device=dev)
     n_sel = torch.tensor([3], dtype=torch.int32, device=dev)
-    got, _ = port.chord_blockmin_sparse(*args, ids, n_sel)
-    exp, _ = port.chord_blockmin_sparse_plain(*args, ids, n_sel)
-    assert float((got - exp).abs().max()) <= 1e-5
-    assert bool((got[:, 3 * 128:] == port.PENALTY).all())
+    if tiles == 16:
+        got, _ = port.chord_blockmin_sparse(*args, ids, n_sel, blk=blk)
+        exp, _ = port.chord_blockmin_sparse_plain(*args, ids, n_sel, blk=blk)
+        assert float((got - exp).abs().max()) <= 1e-5
+        assert bool((got[:, 3 * (16384 // blk):] == port.PENALTY).all())
     # rows with a NaN coordinate: their blocks' minima are NaN, as the
     # plain version's torch.amin (and the reference's min) take them
     x_nan = args[2].clone()
-    x_nan[[5, 300, 16384 + 77, 5 * 16384 + 128 * 3]] = float("nan")
+    x_nan[[i for i in (5, 300, 16384 + 77, 5 * 16384 + 128 * 3) if i < n]] = float("nan")
     nan_args = [args[0], args[1], x_nan, *args[3:]]
-    for got, exp in ((port.chord_blockmin(*nan_args)[0],
-                      port.chord_blockmin_plain(*nan_args)[0]),
-                     (port.chord_blockmin_sparse(*nan_args, ids, n_sel)[0],
-                      port.chord_blockmin_sparse_plain(*nan_args, ids, n_sel)[0])):
+    checks = [(port.chord_blockmin(*nan_args, blk=blk)[0],
+               port.chord_blockmin_plain(*nan_args, blk=blk)[0])]
+    if tiles == 16:
+        checks.append((port.chord_blockmin_sparse(*nan_args, ids, n_sel, blk=blk)[0],
+                       port.chord_blockmin_sparse_plain(*nan_args, ids, n_sel, blk=blk)[0]))
+    for got, exp in checks:
         nan = torch.isnan(exp)
         assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
         assert float((got[~nan] - exp[~nan]).abs().max()) <= 1e-5

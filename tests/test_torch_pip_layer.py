@@ -553,10 +553,12 @@ def test_layer_kernels_match_plain_on_the_card(holes):
     """B6-B9 against their plain versions on the card, bit for bit: the
     config-2-shaped layer with holes, and near-flat edges with one NaN
     x-end beside points within eps of their finite end (the x-span must
-    propagate NaN, as the plain versions' torch.minimum/maximum do)."""
+    propagate NaN, as the plain versions' torch.minimum/maximum do); B8
+    and B9 also over the pairs shuffled with a tenth of them twice, and B9
+    over that list cut into two launches whose outputs add."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
-    from test_torch_pip_layer_prune import make_case
+    from test_torch_pip_layer_prune import make_case, shuffled_pairs
 
     dev = torch.device("cuda")
     prep = holes["prep"]
@@ -578,6 +580,17 @@ def test_layer_kernels_match_plain_on_the_card(holes):
              (psk.pip_pairs_count_plain(*args, *ids, n),)),
             ((psk.pip_pairs_band(*args, *ids, n, EPS),),
              (psk.pip_pairs_band_plain(*args, *ids, n, EPS),)),
+        ]
+        sp = [torch.from_numpy(x).to(dev) for x in shuffled_pairs(
+            np.asarray(pair_pt), np.asarray(pair_et), np.random.default_rng(3))]
+        h = sp[0].shape[0] // 2
+        band_sp = psk.pip_pairs_band_plain(*args, *sp, n, EPS)
+        pairs += [
+            ((psk.pip_pairs_count(*args, *sp, n),),
+             (psk.pip_pairs_count_plain(*args, *sp, n),)),
+            ((psk.pip_pairs_band(*args, *sp, n, EPS),), (band_sp,)),
+            ((psk.pip_pairs_band(*args, sp[0][:h], sp[1][:h], n, EPS)
+              + psk.pip_pairs_band(*args, sp[0][h:], sp[1][h:], n, EPS),), (band_sp,)),
         ]
         torch.cuda.synchronize()
         for got, exp in pairs:

@@ -1,4 +1,4 @@
-"""The skip of the port's polygon-layer kernels (B6, B7) on the CPU.
+"""The skip of the port's polygon-layer kernels (B6, B7, B9) on the CPU.
 
 The CUDA kernels (`engine/kernels/pip_layer.cu`) hand out CSR rows
 longest first, sort each point tile's 512 points by y, and let each warp
@@ -11,7 +11,9 @@ from the module's own statement of it (`row_order`, `tile_y_order`,
 `kept_edges`): per row and edge tile, the shared predicate over only the
 edges each warp keeps, the B7
 flush at each polygon's last edge tile, the counts written back to the
-points' slots. The mirror must equal the plain versions, which test
+points' slots. B9 walks the same way over one CSR row per point tile
+that its wrapper builds from a pair list in any order (`pairs_csr`),
+band counts only. The mirror must equal the plain versions, which test
 every pair, bit for bit, at the kernels' P and C; the plain
 versions must equal the reference's Pallas kernels in interpret mode
 (band flags identical, crossing counts identical outside band-flagged
@@ -159,6 +161,14 @@ CASES = {"eps_boundary": "rings", "vertices": "rings", "nan_pad": "rings",
          "nan_edges": "nan"}
 
 
+def shuffled_pairs(pt, et, rng):
+    """The pair list in random order with a tenth of its pairs twice (B9
+    takes its pairs in any order and counts a duplicate pair twice)."""
+    dup = rng.choice(len(pt), max(1, len(pt) // 10), replace=False)
+    o = rng.permutation(len(pt) + len(dup))
+    return np.concatenate([pt, pt[dup]])[o], np.concatenate([et, et[dup]])[o]
+
+
 def make_case(name):
     rng = np.random.default_rng(sum(map(ord, name)))
     edges, rank = layer_edges(CASES[name])
@@ -233,18 +243,48 @@ def case(request):
     return make_case(request.param)
 
 
-@pytest.mark.parametrize("kind", ["grouped", "assign"])
+def mirror_pairs_band(args, pt, et, n_ptiles, launches=2):
+    """B9's structure: the pair list cut into `launches` consecutive
+    pieces, each turned into one CSR row per point tile (`pairs_csr`) and
+    walked as B6 walks, band counts only; the pieces' outputs add, as
+    `pip_layer_sparse` adds its launches. Returns (band [n_ptiles, 512],
+    kept as `mirror`'s)."""
+    band = torch.zeros((n_ptiles, T), dtype=torch.int32)
+    kept = {"chunk": 0, "edge": 0, "all": 0}
+    cuts = np.linspace(0, len(pt), launches + 1).astype(int)
+    for s0, s1 in zip(cuts[:-1], cuts[1:]):
+        (_, b), k = mirror(args, *psk.pairs_csr(pt[s0:s1], et[s0:s1], n_ptiles),
+                           None, n_ptiles)
+        band += b
+        kept = {key: kept[key] + k[key] for key in kept}
+    return band, kept
+
+
+@pytest.mark.parametrize("kind", ["grouped", "assign", "pairs_band"])
 def test_mirror_equals_plain(case, kind):
+    """The kernels' structure equals the plain versions bit for bit: B6
+    and B7 over the pair CSR, B9 over the pair list shuffled with a tenth
+    of its pairs twice and cut into two launches, so that a point tile's
+    pairs are split between them."""
     args = tensors(case)
-    c = csr(case, kind == "assign")
-    if kind == "grouped":
-        plain = psk.pip_grouped_plain(*args, *c, case.n_ptiles, EPS)
-        pinfo = None
+    if kind == "pairs_band":
+        pt, et = (torch.from_numpy(a) for a in shuffled_pairs(
+            case.pt, case.et, np.random.default_rng(3)))
+        plain = psk.pip_pairs_band_plain(*args, pt, et, case.n_ptiles, EPS)
+        assert not plain[-1].any()  # the reference's scratch tile
+        plain = (plain[:-1],)
+        band, kept = mirror_pairs_band(args, pt, et, case.n_ptiles)
+        got = (band,)
     else:
-        plain = psk.pip_assign_plain(*args, *c, case.n_ptiles, EPS)
-        pinfo = c[3]
+        c = csr(case, kind == "assign")
+        if kind == "grouped":
+            plain = psk.pip_grouped_plain(*args, *c, case.n_ptiles, EPS)
+            pinfo = None
+        else:
+            plain = psk.pip_assign_plain(*args, *c, case.n_ptiles, EPS)
+            pinfo = c[3]
+        got, kept = mirror(args, *c[:3], pinfo, case.n_ptiles)
     assert int(plain[-1].sum()) > 0  # band flags exist
-    got, kept = mirror(args, *c[:3], pinfo, case.n_ptiles)
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
     # the rule skips: a warp tests a minority of the pairs, fewer edge by edge
@@ -376,6 +416,19 @@ def test_nan_x_ends_flag_nothing_near_the_finite_end():
                    & (qx >= torch.fmin(a, c) - e32) & (qx <= torch.fmax(a, c) + e32))
         extra += int((dropped & ~band).any(1).sum())
     assert extra > 0
+
+
+def test_pairs_csr_rows_every_tile_in_list_order():
+    pt = torch.tensor([3, 0, 3, 1, 3, 0, 3], dtype=torch.int32)
+    et = torch.tensor([7, 2, 5, 9, 7, 4, 1], dtype=torch.int32)
+    rows, row_ptr, ets = psk.pairs_csr(pt, et, 5)
+    assert rows.dtype == row_ptr.dtype == ets.dtype == torch.int32
+    assert rows.tolist() == [0, 1, 2, 3, 4]  # empty rows 2 and 4 too
+    assert row_ptr.tolist() == [0, 2, 3, 3, 7, 7]
+    assert ets.tolist() == [2, 4, 9, 7, 5, 7, 1]  # duplicates kept, stable
+    assert psk.row_order(row_ptr).tolist() == [3, 0, 1, 2, 4]
+    empty = psk.pairs_csr(pt[:0], et[:0], 2)
+    assert empty[1].tolist() == [0, 0, 0] and empty[2].numel() == 0
 
 
 def test_row_order_longest_first():
