@@ -49,8 +49,8 @@ and prints no result. Phases, each fatal on failure:
    reset before and read after,
    the host prep and a first query end to end, the warm p50 of
    pip_layer_grouped (the device pass), pip_layer, pip_layer_assign,
-   pip_layer_join and pip_layer_sparse, a torch.profiler breakdown of
-   one warm pip_layer call, and the gates: zero mismatches against an
+   pip_layer_join and pip_layer_sparse, torch.profiler breakdowns of
+   warm pip_layer and pip_layer_sparse calls, and the gates: zero mismatches against an
    independent all-edges f64 oracle over 256 sampled covered tiles plus
    every adversarial point, assignment ids equal to its per-polygon
    oracle, join pairs == the points inside, pip_layer_sparse ==
@@ -1349,6 +1349,7 @@ def layer_path(torch, dev, n: int, card_s: str):
         f"{ainfo['flagged']}, refined {ainfo['refined']}, host_rows "
         f"{ainfo['host_rows']}")
     profile_calls(torch, "pip_layer", calls["pip_layer"], card_s, calls=1)
+    profile_calls(torch, "pip_layer_sparse", calls["pip_layer_sparse"], card_s)
 
     # -- gates -------------------------------------------------------------
     cov_tiles = np.nonzero(pl.covered)[0]

@@ -45,8 +45,13 @@
 //   - a segment's minima go to a shared [query][segment] table (row stride
 //     odd: no bank conflicts), and after the barrier the block writes each
 //     query's row segment of the chunk (cb minima, 64 bytes at blk = 128)
-//     with consecutive threads on consecutive columns, so the [Q, N/blk]
+//     with a half-warp a row, lane b on column b, so the [Q, N/blk]
 //     output is written in whole sectors, not 4 bytes a 32-byte sector.
+// The key loop is 24 FFMA, 8 FMNMX and one LDS.128 a point, and 2048-point
+// chunks (2 blocks an SM, 125 registers), the half-warp row writes and
+// sincosf were each faster than 1024-point chunks (3 blocks an SM), a
+// division per output element, and sinf/cosf, on the H100
+// (scripts/torch_knn_dense_sweep.py; PERF.md).
 //
 // B1 (chord_blockmin_kernel, unchanged since its port): a block owns one
 // data tile (slot p) and QB = 64 queries; 8 warps own QW = 8 queries each,
@@ -197,6 +202,7 @@ constexpr size_t kDSmem = sizeof(float4) * 2 * kDChunkPts
 
 static_assert(kDChunkPts % kDThreads == 0, "whole points a thread");
 static_assert(kDMaxSegs >= kDWarps, "a segment a warp at least");
+static_assert(kDMaxBlocks == 16, "a half-warp writes a row segment");
 
 // [dx, dy, dz, ndm] of one point, as the plain version's _prelude
 __device__ __forceinline__ float4 prelude(float lon, float lat, float m,
@@ -298,16 +304,18 @@ chord_blockmin_dense_kernel(const float* __restrict__ aug_q,  // [q, 4]
     }
     if (more) stage(ch + 1, pts + (buf ^ 1) * kDChunkPts);
     __syncthreads();  // the chunk's minima are in; the next chunk is staged
-    // each query's row segment of this chunk: consecutive threads write
-    // consecutive columns
-    const long long col0 = ch * cb;
-    for (int i = tid; i < kDQB * nb; i += kDThreads) {
-      const int qi = i / nb, b = i - qi * nb;
-      if (q0 + qi >= q) break;  // rows past the last query: nothing left
-      const float* row = mn + qi * kDMinStride + b * r;
-      float v = row[0];
-      for (int k = 1; k < r; ++k) v = min_nan(v, row[k]);
-      out[(long long)(q0 + qi) * ncols + col0 + b] = v;
+    // each query's row segment of this chunk: a half-warp a row, lane b
+    // of it on column b
+    const int b = tid & (kDMaxBlocks - 1);
+    if (b < nb) {
+      float* o = out + (long long)q0 * ncols + ch * cb + b;
+      for (int qi = tid / kDMaxBlocks; qi < kDQB && q0 + qi < q;
+           qi += kDThreads / kDMaxBlocks) {
+        const float* row = mn + qi * kDMinStride + b * r;
+        float v = row[0];
+        for (int k = 1; k < r; ++k) v = min_nan(v, row[k]);
+        o[(long long)qi * ncols] = v;
+      }
     }
   }
 }
