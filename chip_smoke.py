@@ -13,7 +13,8 @@ and prints no result. Phases, each fatal on failure:
 2. build of every CUDA kernel source in the checkout, one nvcc each, all
    started together;
 3. kernel check: each kernel against its plain PyTorch version on the card
-   (B1/B2 at Q=256, N=2^22, dead sparse slots exactly 1e9; B3 over 2^22
+   (B1/B2 at Q=256, N=2^22, B1 with 80 of 96 slots live, none, n_sel past
+   the list and at Q=37, dead sparse slots exactly 1e9; B3 over 2^22
    Z-ordered points on a 512x512 grid: counts equal, weights within the
    per-cell bound, dictionary misses add nothing, and with 192
    NaN-coordinate rows binned to row or column 0 as the reference bins
@@ -44,7 +45,7 @@ and prints no result. Phases, each fatal on failure:
    of them within 1e-6 degrees of an edge): a kernel check of B6-B9
    against their plain versions (200 polygons, 2^18 points, and near-flat
    edges with one NaN x-end beside points within eps of them, and B8/B9
-   over each set's pairs shuffled with a tenth of them twice, B9 also in
+   over each set's pairs shuffled with a tenth of them twice, also in
    two launches: identical int32 outputs), then, with launch counts
    reset before and read after,
    the host prep and a first query end to end, the warm p50 of
@@ -57,16 +58,17 @@ and prints no result. Phases, each fatal on failure:
    pip_layer_grouped on covered tiles;
 7. each kernel timed at its path's shapes beside its plain version and
    its bound, printed as one {"kernels": [...]} line; before it, B1/B2's
-   registers and spills and B2 without its keys beside B2 (the
-   prelude's share), B4/B5's registers and spills, and, for the resident
+   registers and spills (one kernel) and each route without its keys
+   beside its launch (the prelude's share), B4/B5's registers and
+   spills, and, for the resident
    rows in Morton order (as
    written), in time order and shuffled, what their skip rule leaves per
    block and their times. B4/B5's "ms" is the Morton-order time: their
    speed depends on the rows' spatial order, which the caller gives.
    Before it too, B6-B9's registers and spills, the chunk-tests the warps
-   of B6/B7/B9 keep and the heaviest row's share, and B6 on its longest
-   row alone; B6/B7/B9's bound counts the tests within reach, their
-   all-pairs bound stands beside it.
+   of B6/B7/B9 (reach 2 eps) and B8 (reach 0) keep and the heaviest row's
+   share, and B6 on its longest row alone; B6-B9's bound counts the tests
+   within reach, their all-pairs bound stands beside it.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -209,15 +211,23 @@ def kernel_check(torch, ks, dev):
     ids = np.sort(rng.choice(ntiles, 96, replace=False)).astype(np.int32)
     tile_ids = torch.from_numpy(ids).to(dev)
     n_sel = torch.tensor([80], dtype=torch.int32, device=dev)
-    got_s, _ = ks.chord_blockmin_sparse(qx, qy, x, y, maskf, tile_ids, n_sel)
-    exp_s, _ = ks.chord_blockmin_sparse_plain(qx, qy, x, y, maskf, tile_ids, n_sel)
-    err_s = float((got_s - exp_s).abs().max())
-    dead = got_s[:, 80 * (ks.DATA_TILE // ks.BLK):]
-    log(f"kernel check Q={Q} N={n}: dense max_abs_err={err_d:.3g}, "
-        f"sparse max_abs_err={err_s:.3g}, dead slots all 1e9: "
-        f"{bool((dead == ks.PENALTY).all())}")
-    assert err_d <= TOL and err_s <= TOL, (err_d, err_s)
-    assert bool((dead == ks.PENALTY).all()), "dead sparse slots must be exactly 1e9"
+    # B1 with 80 of 96 slots live, none, every slot live with n_sel past
+    # the list (the overflow), and at a Q that leaves lanes empty
+    sparse = []
+    for live, nq in ((80, Q), (0, Q), (96 + 7, Q), (80, 37)):
+        ns = torch.tensor([live], dtype=torch.int32, device=dev)
+        got_s, _ = ks.chord_blockmin_sparse(qx[:nq], qy[:nq], x, y, maskf, tile_ids, ns)
+        exp_s, _ = ks.chord_blockmin_sparse_plain(qx[:nq], qy[:nq], x, y, maskf,
+                                                  tile_ids, ns)
+        err_s = float((got_s - exp_s).abs().max())
+        dead = bool((got_s[:, min(live, 96) * (ks.DATA_TILE // ks.BLK):]
+                     == ks.PENALTY).all())
+        sparse.append(f"n_sel={live} Q={nq} max_abs_err={err_s:.3g} dead all 1e9 {dead}")
+        assert err_s <= TOL, (live, nq, err_s)
+        assert dead, "dead sparse slots must be exactly 1e9"
+    log(f"kernel check Q={Q} N={n}: dense max_abs_err={err_d:.3g}; sparse over "
+        f"96 slots: {'; '.join(sparse)}")
+    assert err_d <= TOL, err_d
     # the dense pass sees every tile; exact 1e9 on the all-masked ones
     assert bool((got[:, : 3 * (ks.DATA_TILE // ks.BLK)] == ks.PENALTY).all())
     # rows with a NaN coordinate make their blocks' minima NaN, as the
@@ -352,16 +362,16 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         return launches, inputs
 
 
-def chord_lines(torch, ks, inp, card_s: str) -> float:
-    """Earlier lines of B1/B2's rows: the kernels' registers and spills,
-    and B2's split: the variant that skips the keys (prelude, barriers
-    and output only) beside the full launch, at the main path's shapes.
-    Returns the variant's time."""
+def chord_lines(torch, ks, inp, tile_ids, n_sel, card_s: str) -> dict:
+    """Earlier lines of B1/B2's rows: their kernel's registers and spills
+    (one kernel: B1 walks a tile list), and each route's split: the
+    variant that skips the keys (prelude, barriers and output only)
+    beside the full launch, at the main path's shapes (B1: the live slots
+    of the capacity). Returns the variants' times by kernel name."""
     from geomesa_tpu_torch.engine.kernels import build
 
-    names = {"chord_blockmin_kernel": "B1",
-             "chord_blockmin_dense_kernelILb1E": "B2",
-             "chord_blockmin_dense_kernelILb0E": "B2 without its keys"}
+    names = {"blockmin_kernelILb1E": "B1/B2",
+             "blockmin_kernelILb0E": "B1/B2 without its keys"}
     for name, res in ptxas_resources(build.build_log["chord_blockmin"]["ptxas"]).items():
         kind = [k for n, k in names.items() if n in name]
         if kind:
@@ -369,13 +379,22 @@ def chord_lines(torch, ks, inp, card_s: str) -> float:
                 f"registers, spill stores/loads {res.get('spill')}")
     aug, c = ks._aug_q(inp["qx"], inp["qy"])
     x, y, maskf = inp["x"], inp["y"], inp["maskf"]
-    full_ms = timed_ms(torch, lambda: ks._launch_dense(aug, c, x, y, maskf, ks.BLK), 10)
-    pre_ms = timed_ms(torch, lambda: ks._launch_dense(aug, c, x, y, maskf, ks.BLK,
-                                                      prelude_only=True), 10)
-    log(f"chord_blockmin (B2) split at N={x.shape[0]} Q={aug.shape[0]}: the launch "
-        f"{full_ms:.3f} ms, without its keys (prelude, barriers, output) "
-        f"{pre_ms:.3f} ms, share {pre_ms / full_ms:.3f} [{card_s}]")
-    return pre_ms
+    launches = {
+        "chord_blockmin": (f"B2 at N={x.shape[0]}", lambda pre: ks._launch_dense(
+            aug, c, x, y, maskf, ks.BLK, prelude_only=pre)),
+        "chord_blockmin_sparse": (
+            f"B1 at {int(n_sel[0])} live of {tile_ids.shape[0]} slots",
+            lambda pre: ks._launch_sparse(aug, c, x, y, maskf, tile_ids, n_sel,
+                                          ks.BLK, ks.DATA_TILE, prelude_only=pre)),
+    }
+    out = {}
+    for name, (what, launch) in launches.items():
+        full_ms = timed_ms(torch, lambda: launch(False), 10)
+        out[name] = pre_ms = timed_ms(torch, lambda: launch(True), 10)
+        log(f"chord_blockmin ({what}, Q={aug.shape[0]}) split: the launch "
+            f"{full_ms:.3f} ms, without its keys (prelude, barriers, output) "
+            f"{pre_ms:.3f} ms, share {pre_ms / full_ms:.3f} [{card_s}]")
+    return out
 
 
 def kernel_rows(torch, ks, launches, inp, card_s: str):
@@ -387,7 +406,7 @@ def kernel_rows(torch, ks, launches, inp, card_s: str):
     tile_ids, n_sel = ks.select_match_tiles(maskf, inp["cap"])
     live = int(n_sel[0])
     slots = tile_ids.shape[0]
-    prelude_ms = chord_lines(torch, ks, inp, card_s)
+    prelude_ms = chord_lines(torch, ks, inp, tile_ids, n_sel, card_s)
     cases = [
         ("chord_blockmin", "geomesa_tpu/engine/knn_scan.py:120",
          lambda: ks.chord_blockmin(qx, qy, x, y, maskf)[0],
@@ -414,8 +433,7 @@ def kernel_rows(torch, ks, launches, inp, card_s: str):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": None,
         })
-        if name == "chord_blockmin":
-            rows[-1]["prelude_only_ms"] = prelude_ms
+        rows[-1]["prelude_only_ms"] = prelude_ms[name]
         log(f"{name}: N={n} Q={Q} slots={slots if 'sparse' in name else n // ks.DATA_TILE} "
             f"live_tiles={live if 'sparse' in name else n // ks.DATA_TILE}: "
             f"{ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b:.3f} ms by {by}) "
@@ -954,10 +972,12 @@ LAYER_EPS = 1e-4
 # FP32 operations per (point, edge slot) test, as for B4/B5 above: every
 # test pays the half-open compares (and, with the band, the near-flat
 # term); tests whose edge straddles the point's y also pay the crossing
-# arithmetic. B6/B7 compute the crossing and the band from one xc, B9 the
-# band alone. B6, B7 and B9 skip what cannot decide a point, so their
-# data-dependent bound counts only the tests whose edge's y-span lies
-# within 2 eps of the point's y; B8 tests every pair.
+# arithmetic. B6/B7 compute the crossing and the band from one xc, B8 the
+# crossing alone, B9 the band alone. They skip what cannot decide a
+# point, so their data-dependent bound counts only the tests whose edge's
+# y-span lies within the reach margin, 2 eps in f64, of the point's y,
+# with eps what the wrapper passes (`LAYER_REACH_EPS`: B8's 0 leaves the
+# spans that hold the point); the all-pairs bound counts every test.
 LAYER_REPLACES = {"pip_grouped": "geomesa_tpu/engine/pip_sparse.py:395",
                   "pip_assign": "geomesa_tpu/engine/pip_sparse.py:610",
                   "pip_pairs_count": "geomesa_tpu/engine/pip_sparse.py:994",
@@ -966,6 +986,8 @@ LAYER_OPS = {"pip_grouped": (BAND_ALL, BAND_COND + 1),
              "pip_assign": (BAND_ALL, BAND_COND + 1),
              "pip_pairs_count": (PIP_ALL, PIP_COND),
              "pip_pairs_band": (BAND_ALL, BAND_COND)}
+LAYER_REACH_EPS = {"pip_grouped": LAYER_EPS, "pip_assign": LAYER_EPS,
+                   "pip_pairs_count": 0.0, "pip_pairs_band": LAYER_EPS}
 
 
 def sync(torch, dev) -> None:
@@ -1137,7 +1159,7 @@ def layer_kernel_check(torch, dev) -> None:
     """B6-B9 against their plain versions at a 200-polygon layer and
     2^18 points, and on the NaN x-end set (`nan_layer_inputs`):
     identical int32 outputs; B8/B9 also over each set's pairs shuffled
-    with a tenth of them twice, and B9 over that list in two launches."""
+    with a tenth of them twice, and over that list in two launches."""
     from geomesa_tpu_torch.engine import pip_sparse as ps
     from geomesa_tpu_torch.engine import pip_sparse_kernels as k
 
@@ -1164,9 +1186,12 @@ def layer_kernel_check(torch, dev) -> None:
             rng, *(t.cpu().numpy() for t in inp["pairs"]))]
         h = sp[0].shape[0] // 2
         band = k.pip_pairs_band_plain(*a, *sp, n, LAYER_EPS)
+        count = k.pip_pairs_count_plain(*a, *sp, n)
         for name, got, exp in (
-                ("pip_pairs_count", k.pip_pairs_count(*a, *sp, n),
-                 k.pip_pairs_count_plain(*a, *sp, n)),
+                ("pip_pairs_count", k.pip_pairs_count(*a, *sp, n), count),
+                ("pip_pairs_count in two launches",
+                 k.pip_pairs_count(*a, sp[0][:h], sp[1][:h], n)
+                 + k.pip_pairs_count(*a, sp[0][h:], sp[1][h:], n), count),
                 ("pip_pairs_band", k.pip_pairs_band(*a, *sp, n, LAYER_EPS), band),
                 ("pip_pairs_band in two launches",
                  k.pip_pairs_band(*a, sp[0][:h], sp[1][:h], n, LAYER_EPS)
@@ -1385,14 +1410,15 @@ def layer_path(torch, dev, n: int, card_s: str):
 
 
 def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
-    """Earlier lines of B6/B7's rows: the kernels' registers and spills,
+    """Earlier lines of B6-B9's rows: the kernels' registers and spills,
     what their skip leaves (chunk-tests kept by each warp of y-sorted
-    points, counted in torch from the data) and the heaviest row's share,
-    and the longest row alone in one block. Returns that time."""
+    points, counted in torch from the data; B6/B7/B9 at the reach margin
+    2 eps, B8 at 0) and the heaviest row's share, and the longest row
+    alone in one block. Returns that time."""
     from geomesa_tpu_torch.engine.kernels import build
 
-    names = {"grouped_kernelILb0ELb1E": "B6", "grouped_kernelILb1ELb1E": "B7",
-             "pairs_kernelILb0E": "B8", "grouped_kernelILb0ELb0E": "B9"}
+    names = {"grouped_kernelILb0ELb1ELb1E": "B6", "grouped_kernelILb1ELb1ELb1E": "B7",
+             "grouped_kernelILb0ELb1ELb0E": "B8", "grouped_kernelILb0ELb0ELb1E": "B9"}
     for name, res in ptxas_resources(build.build_log["pip_layer"]["ptxas"]).items():
         kind = [k for n, k in names.items() if n in name]
         if kind:
@@ -1400,21 +1426,22 @@ def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
                 f"spill stores/loads {res.get('spill')}")
     g, (pt, et) = inp["grouped"], inp["pairs"]
     m, tests = int(pt.shape[0]), int(pt.shape[0]) * psk.TILE * psk.TILE
-    chunks, edges = psk.kept_counts(inp["pts"][1], inp["edges"][1],
-                                    inp["edges"][3], pt, et, LAYER_EPS)
     wp, warps = psk.WARP_POINTS, psk.TILE // psk.WARP_POINTS
-    in_chunks, kept = int(chunks.sum()) * psk.CHUNK * wp, int(edges.sum()) * wp
-    row = torch.zeros(inp["n_ptiles"], dtype=torch.int64, device=pt.device)
-    row.index_add_(0, pt.long(), edges)
-    log(f"B6/B7/B9 skip (B9 walks the same pairs, one row a point tile) over "
-        f"{m} pairs, warps of {wp} y-sorted points, chunks of "
-        f"{psk.CHUNK} edges: {float(chunks.double().mean()) / warps:.3f} of "
-        f"{psk.TILE // psk.CHUNK} chunks and {float(edges.double().mean()) / warps:.3f} "
-        f"edges a warp a pair kept; tests in kept chunks {in_chunks} "
-        f"({in_chunks / tests:.4f} of {tests}), of kept edges {kept} "
-        f"({kept / tests:.4f}); heaviest row {int(row.max()) * wp / psk.TILE ** 2:.3f} "
-        f"pair-equivalents of kept edge-tests, of {kept / psk.TILE ** 2:.1f} in all "
-        f"({int(row.max()) * wp / max(1, kept):.4f})")
+    for what, eps in (("B6/B7/B9 skip (B9 walks the same pairs, one row a point "
+                       "tile)", LAYER_EPS), ("B8 skip (reach margin 0)", 0.0)):
+        chunks, edges = psk.kept_counts(inp["pts"][1], inp["edges"][1],
+                                        inp["edges"][3], pt, et, eps)
+        in_chunks, kept = int(chunks.sum()) * psk.CHUNK * wp, int(edges.sum()) * wp
+        row = torch.zeros(inp["n_ptiles"], dtype=torch.int64, device=pt.device)
+        row.index_add_(0, pt.long(), edges)
+        log(f"{what} over {m} pairs, warps of {wp} y-sorted points, chunks of "
+            f"{psk.CHUNK} edges: {float(chunks.double().mean()) / warps:.3f} of "
+            f"{psk.TILE // psk.CHUNK} chunks and {float(edges.double().mean()) / warps:.3f} "
+            f"edges a warp a pair kept; tests in kept chunks {in_chunks} "
+            f"({in_chunks / tests:.4f} of {tests}), of kept edges {kept} "
+            f"({kept / tests:.4f}); heaviest row {int(row.max()) * wp / psk.TILE ** 2:.3f} "
+            f"pair-equivalents of kept edge-tests, of {kept / psk.TILE ** 2:.1f} in all "
+            f"({int(row.max()) * wp / max(1, kept):.4f})")
     # the load-balance tail: the longest row alone, in one block
     a = (*inp["pts"], *inp["edges"])
     lens = g[1][1:] - g[1][:-1]
@@ -1434,29 +1461,34 @@ def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
 def layer_rows(torch, launches, inp, card_s: str):
     """B6-B9 at the config-2 path's shapes: time, plain time, error,
     bound (bytes from the tiles the pairs name; operations counted from
-    this run's data). B6/B7/B9's bound counts the tests within reach
-    (the edge's y-span within 2 eps of the point's y, the most their skip
-    can keep and still be exact) and, of the named edge tiles, every
-    y-end but only the x-ends of edges within reach of a paired point;
-    the all-pairs bound stands beside it."""
+    this run's data). The bound counts the tests within reach (the edge's
+    y-span within the kernel's reach margin of the point's y,
+    `LAYER_REACH_EPS`: the most its skip can keep and still be exact) and,
+    of the named edge tiles, every y-end but only the x-ends of edges
+    within reach of a paired point; the all-pairs bound stands beside
+    it."""
     from geomesa_tpu_torch.engine import pip_sparse_kernels as psk
     from geomesa_tpu_torch.engine.pip_sparse_kernels import TILE
 
     g, p = inp["grouped"], inp["pairs"]
     m, k = int(p[0].shape[0]), int(g[0].shape[0])
     tests = m * TILE * TILE
-    margin = 2.0 * float(np.float32(LAYER_EPS))
     cond = pair_tests(torch, inp)
-    reach = pair_tests(torch, inp, margin)
-    x_read = int(reached_edge_slots(torch, inp, margin).sum())
+    # per eps, the tests within reach (2 eps in f64 of the f32 eps, as the
+    # kernels take it) and the edge slots whose x-ends must be read
+    reach, x_read = {}, {}
+    for e in set(LAYER_REACH_EPS.values()):
+        reach[e] = pair_tests(torch, inp, 2.0 * float(np.float32(e)))
+        x_read[e] = int(reached_edge_slots(torch, inp, 2.0 * float(np.float32(e))).sum())
     n_pt = inp["n_ptiles"]
     etiles = int(torch.unique(p[1]).shape[0])
-    read = 8 * TILE * k + 16 * TILE * etiles  # points of covered tiles, edges named
-    skip_read = 8 * TILE * k + 8 * TILE * etiles + 8 * x_read  # y-ends; x-ends in reach
-    nbytes = {"pip_grouped": skip_read + 4 * (k + 1 + k + m) + 8 * TILE * n_pt,
-              "pip_assign": skip_read + 4 * (k + 1 + k + 2 * m) + 12 * TILE * n_pt,
-              "pip_pairs_count": read + 8 * m + 4 * TILE * (n_pt + 1),
-              "pip_pairs_band": skip_read + 8 * m + 4 * TILE * (n_pt + 1)}
+    # points of covered tiles, the named edge tiles' y-ends, x-ends in reach
+    read = {name: 8 * TILE * k + 8 * TILE * etiles + 8 * x_read[e]
+            for name, e in LAYER_REACH_EPS.items()}
+    nbytes = {"pip_grouped": read["pip_grouped"] + 4 * (k + 1 + k + m) + 8 * TILE * n_pt,
+              "pip_assign": read["pip_assign"] + 4 * (k + 1 + k + 2 * m) + 12 * TILE * n_pt,
+              "pip_pairs_count": read["pip_pairs_count"] + 8 * m + 4 * TILE * (n_pt + 1),
+              "pip_pairs_band": read["pip_pairs_band"] + 8 * m + 4 * TILE * (n_pt + 1)}
     tail_ms = layer_skip_lines(torch, psk, inp, card_s)
     rows = []
     for name, kern, plain in layer_kernel_calls(inp):
@@ -1468,17 +1500,14 @@ def layer_rows(torch, launches, inp, card_s: str):
         ms = timed_ms(torch, kern, 10)
         plain_ms = timed_ms(torch, plain, 1)
         n_all, n_cond = LAYER_OPS[name]
-        skip = name in ("pip_grouped", "pip_assign", "pip_pairs_band")
+        e = LAYER_REACH_EPS[name]
         b_all, by_all = roofline_ms(n_all * tests + n_cond * cond, nbytes[name]
-                                    + skip * 8 * (TILE * etiles - x_read))
-        b, by = b_all, by_all
-        extra = ""
-        if skip:
-            b, by = roofline_ms(n_all * reach + n_cond * cond, nbytes[name])
-            extra = (f"; {reach} tests within 2 eps of the edge's y-span, "
-                     f"{nbytes[name]} bytes with the x-ends of {x_read} of "
-                     f"{TILE * etiles} named edge slots; all-pairs bound "
-                     f"{b_all:.3f} ms by {by_all}")
+                                    + 8 * (TILE * etiles - x_read[e]))
+        b, by = roofline_ms(n_all * reach[e] + n_cond * cond, nbytes[name])
+        extra = (f"; {reach[e]} tests whose edge's y-span is within 2 eps = "
+                 f"{2 * e:g} of the point, {nbytes[name]} bytes with the x-ends of "
+                 f"{x_read[e]} of {TILE * etiles} named edge slots; all-pairs "
+                 f"bound {b_all:.3f} ms by {by_all}")
         rows.append({
             "name": name, "route": "cuda",
             "source": "geomesa_tpu_torch/engine/kernels/pip_layer.cu",
@@ -1486,10 +1515,9 @@ def layer_rows(torch, launches, inp, card_s: str):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": None,
         })
-        if extra:
-            rows[-1]["bound_all_pairs_ms"] = b_all
-            if name == "pip_grouped":
-                rows[-1]["longest_row_ms"] = tail_ms
+        rows[-1]["bound_all_pairs_ms"] = b_all
+        if name == "pip_grouped":
+            rows[-1]["longest_row_ms"] = tail_ms
         log(f"{name}: {k} covered tiles, {m} pairs, {tests:.4g} tests of which "
             f"{cond} straddle: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
             f"{b:.3f} ms by {by}{extra}; library null: no PyTorch call "

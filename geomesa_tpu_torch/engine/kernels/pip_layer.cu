@@ -86,7 +86,10 @@
 //   lo - ymax > m || ymin - hi > m, in f64, with m = 2 eps.
 // A warp skips a chunk that is out of reach of each of its points (ymin =
 // ymax = y), and, in a chunk it keeps, an edge out of reach of its range.
-// cross and near_cross need cond, i.e. min(y1,y2) <= py < max(y1,y2).
+// cross and near_cross need cond, i.e. min(y1,y2) <= py < max(y1,y2), so
+// lo <= py <= hi: f32 values convert to f64 exactly, so lo - py <= 0 <= m
+// and py - hi <= 0 <= m, and the rule keeps the edge at any m >= 0 (B8's
+// m = 0 too: it keeps a point at an edge's lower y-end, where cond holds).
 // near_flat needs |fl(py - y)| <= eps for both ends; f32 rounding is
 // monotone with relative error 2^-24, so |py - y| <= eps (1 + 2^-23) < m,
 // and the f64 difference of two f32 values rounds monotonically too, so
@@ -104,19 +107,25 @@
 // block, 2 or 3 stages; PERF.md): the lowest B6 + B7 time. One point a
 // thread gives the thinnest warps, which keep the fewest chunks.
 //
-// B9 is B6's walk without the crossings (grouped_kernel<false, false>): the
-// wrapper turns the pair list into one CSR row per point tile on the
-// device (a stable sort by point tile, row pointers by binary search, the
-// rows longest first), so each block owns its tile's output and writes it
-// with plain stores, and an empty row returns at once. The walk keeps the
-// cond marks, which the near-cross term needs, and drops the crossing
-// compare and its popcount; the skip rule is B6's as it is (a band flag
-// needs the point within eps of the edge's y-span, the reach is 2 eps).
-//
-// B8 (pairs_kernel<false>): one block per pair, one thread a point, adding
-// its partial count into the zeroed output with atomicAdd (integers: the
-// sum is exact in any order), every pair tested in full. The TPU's
-// first-visit zeroing existed because its grid ran in order.
+// B8 and B9 walk a pair list in any order the same way: the wrapper turns
+// it into one CSR row per point tile on the device (a stable sort by point
+// tile, row pointers by binary search, the rows longest first), so each
+// block owns its tile's output and writes it with plain stores (a
+// duplicate pair is tested twice), and an empty row returns before it
+// sorts. The TPU's first-visit zeroing existed because its grid ran in
+// order; the pair list's launches add in the caller.
+//   - B9 (grouped_kernel<false, false, true>) is B6's walk without the
+//     crossings: it keeps the cond marks, which the near-cross term needs,
+//     and drops the crossing compare and its popcount; the skip rule is
+//     B6's as it is (a band flag needs the point within eps of the edge's
+//     y-span, the reach is 2 eps).
+//   - B8 (grouped_kernel<false, true, false>) is B6's walk with the
+//     crossings only: the record is the edge's ends (no slope division, no
+//     near-flat flag), pass one marks cond, pass two computes xc and
+//     xc > px, and nothing of the band is computed or stored. Its wrapper
+//     passes eps = 0, so the reach margin 2 eps is 0 and a warp keeps only
+//     the chunks and edges whose y-span holds one of its points (the skip
+//     rule's proof below, the crossing half, holds for any margin >= 0).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -159,32 +168,6 @@ __device__ __forceinline__ float crossing_x(float4 e, float py) {
   const float den = (e.w == e.y) ? 1.0f : __fsub_rn(e.w, e.y);
   const float t = __fdiv_rn(__fsub_rn(py, e.y), den);
   return __fadd_rn(e.x, __fmul_rn(t, __fsub_rn(e.z, e.x)));
-}
-
-// pairs_kernel (B8): adds edge d's crossing (kCross) and band flag (kBand)
-// for point (qx, qy).
-template <bool kCross, bool kBand>
-__device__ __forceinline__ void test_edge(float4 d, float qx, float qy,
-                                          float eps, int& cross, int& band) {
-  const bool cond = (d.y <= qy) != (d.w <= qy);  // d = (x1, y1, x2, y2)
-  if (kBand) {
-    const bool near_flat =
-        fabsf(__fsub_rn(qy, d.y)) <= eps && fabsf(__fsub_rn(qy, d.w)) <= eps
-        && qx >= __fsub_rn(min_nan(d.x, d.z), eps)
-        && qx <= __fadd_rn(max_nan(d.x, d.z), eps);
-    bool near_cross = false;
-    if (cond) {
-      const float xc = crossing_x(d, qy);
-      if (kCross) cross += xc > qx;
-      const float slope = __fdiv_rn(fabsf(__fsub_rn(d.z, d.x)),
-                                    max_nan(fabsf(__fsub_rn(d.w, d.y)), eps));
-      const float err = __fmul_rn(eps, __fadd_rn(1.0f, slope));
-      near_cross = fabsf(__fsub_rn(xc, qx)) <= err;
-    }
-    band += near_flat || near_cross;
-  } else if (cond) {
-    cross += crossing_x(d, qy) > qx;
-  }
 }
 
 // A staged edge: (x1, y1, x2, y2) and (min(x1,x2) - eps, max(x1,x2) + eps,
@@ -316,11 +299,12 @@ chunk_bounds(const float* __restrict__ y1, const float* __restrict__ y2,
   }
 }
 
-// B6 (kAssign false, kCross true): out0 = crossings, out2 = band.
-// B7 (kAssign true, kCross true):   out0 = assign, out1 = count, out2 = band.
-// B9 (kAssign false, kCross false): out2 = band; an empty row returns
-//                                   before it sorts (out2 is zeroed).
-template <bool kAssign, bool kCross>
+// B6 <false, true, true>:  out0 = crossings, out2 = band.
+// B7 <true, true, true>:   out0 = assign, out1 = count, out2 = band.
+// B8 <false, true, false>: out0 = crossings (the band is not computed).
+// B9 <false, false, true>: out2 = band.
+// Outputs are zeroed by the wrapper: an empty row returns before it sorts.
+template <bool kAssign, bool kCross, bool kBand>
 __global__ void __launch_bounds__(kThreads)
 grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
                const float* __restrict__ x1, const float* __restrict__ y1,
@@ -339,7 +323,9 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
   const int r = order[blockIdx.x];
   const long long base = (long long)rows[r] * kTile;
   const int m0 = row_ptr[r], m1 = row_ptr[r + 1];
-  if (!kCross && m0 == m1) return;  // (uniform: the whole block leaves)
+  static_assert(kCross || kBand, "crossings, band flags or both");
+  static_assert(kCross || !kAssign, "parity needs the crossings");
+  if (m0 == m1) return;  // (uniform: the whole block leaves)
 
   // 1. sort the tile's points by y (bitonic, ascending, keys unique)
   for (int i = tid; i < kTile; i += kThreads)
@@ -455,7 +441,10 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
         if (lane < kChunk) {
           const float4 d = make_float4(in[0][lane], in[1][lane], in[2][lane],
                                        in[3][lane]);
-          rec[lane] = make_edge(d, eps);
+          if (kBand)
+            rec[lane] = make_edge(d, eps);
+          else
+            rec[lane].e = d;  // crossings need the ends alone
           reach = !out_of_reach(fminf(d.y, d.w), fmaxf(d.y, d.w), ymin, ymax,
                                 margin);
         }
@@ -467,7 +456,7 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
           const int j = __ffs(edges) - 1;
           edges &= edges - 1;
           const Edge e = rec[j];
-          if (e.b.w != 0.0f) {  // one edge for every lane: no divergence
+          if (kBand && e.b.w != 0.0f) {  // one edge for every lane: no divergence
 #pragma unroll
             for (int k = 0; k < kPerThread; ++k) {
               const bool f = fabsf(__fsub_rn(qy[k], e.e.y)) <= eps
@@ -492,13 +481,14 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
           const float x = pick(qx, k);
           const float xc = crossing_x(e.e, pick(qy, k));
           if (kCross) crossed |= (unsigned long long)(xc > x) << bit;
-          flags |= (unsigned long long)(fabsf(__fsub_rn(xc, x)) <= e.b.z)
-                   << bit;
+          if (kBand)
+            flags |= (unsigned long long)(fabsf(__fsub_rn(xc, x)) <= e.b.z)
+                     << bit;
         }
 #pragma unroll
         for (int k = 0; k < kPerThread; ++k) {
           if (kCross) cross[k] += __popcll(crossed & point_bits(k));
-          band[k] += __popcll(flags & point_bits(k));
+          if (kBand) band[k] += __popcll(flags & point_bits(k));
         }
       }
       if (kAssign) {
@@ -525,44 +515,11 @@ grouped_kernel(const float* __restrict__ px, const float* __restrict__ py,
     } else if (kCross) {
       out0[i] = cross[k];
     }
-    out2[i] = band[k];
+    if (kBand) out2[i] = band[k];
   }
 }
 
-// Stages edge tile `et` into shared memory, one edge a thread.
-__device__ __forceinline__ void stage_tile(float4* edges, const float* x1,
-                                           const float* y1, const float* x2,
-                                           const float* y2, int et) {
-  const long long j = (long long)et * kTile + threadIdx.x;
-  edges[threadIdx.x] = make_float4(x1[j], y1[j], x2[j], y2[j]);
-}
-
-// B8 (kBand false): crossings; kBand true counts band flags (no caller:
-// B9 walks grouped_kernel). out: int32 [n_ptiles + 1, 512], zeroed by the
-// wrapper.
-template <bool kBand>
-__global__ void __launch_bounds__(kTile)
-pairs_kernel(const float* __restrict__ px, const float* __restrict__ py,
-             const float* __restrict__ x1, const float* __restrict__ y1,
-             const float* __restrict__ x2, const float* __restrict__ y2,
-             const int* __restrict__ pair_pt, const int* __restrict__ pair_et,
-             int* __restrict__ out, float eps) {
-  __shared__ float4 edges[kTile];
-  const int m = blockIdx.x;
-  stage_tile(edges, x1, y1, x2, y2, pair_et[m]);
-  const long long i = (long long)pair_pt[m] * kTile + threadIdx.x;
-  const float qx = px[i];
-  const float qy = py[i];
-  __syncthreads();
-  int cross = 0, band = 0;
-#pragma unroll 4
-  for (int j = 0; j < kTile; ++j)
-    test_edge<!kBand, kBand>(edges[j], qx, qy, eps, cross, band);
-  const int c = kBand ? band : cross;
-  if (c) atomicAdd(out + i, c);
-}
-
-template <bool kAssign, bool kCross>
+template <bool kAssign, bool kCross, bool kBand>
 int launch_grouped(const void* px, const void* py, const void* x1,
                    const void* y1, const void* x2, const void* y2,
                    void* bounds, const void* order, const void* rows,
@@ -578,7 +535,7 @@ int launch_grouped(const void* px, const void* py, const void* x1,
                                          n_etiles, (float2*)bounds);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  grouped_kernel<kAssign, kCross><<<k, kThreads, 0, s>>>(
+  grouped_kernel<kAssign, kCross, kBand><<<k, kThreads, 0, s>>>(
       (const float*)px, (const float*)py, (const float*)x1, (const float*)y1,
       (const float*)x2, (const float*)y2, (const float2*)bounds,
       (const int*)order, (const int*)rows, (const int*)row_ptr,
@@ -601,9 +558,10 @@ extern "C" int pip_grouped_launch(const void* px, const void* py,
                                   const void* ets, void* counts, void* band,
                                   int k, int n_etiles, float eps,
                                   void* stream) {
-  return launch_grouped<false, true>(px, py, x1, y1, x2, y2, bounds, order,
-                                     rows, row_ptr, ets, nullptr, counts,
-                                     nullptr, band, k, n_etiles, eps, stream);
+  return launch_grouped<false, true, true>(px, py, x1, y1, x2, y2, bounds,
+                                           order, rows, row_ptr, ets, nullptr,
+                                           counts, nullptr, band, k, n_etiles,
+                                           eps, stream);
 }
 
 // B7. As B6, plus pinfo: int32 [m], the pair's polygon rank + 1, negated on
@@ -617,29 +575,32 @@ extern "C" int pip_assign_launch(const void* px, const void* py,
                                  const void* pinfo, void* assign, void* count,
                                  void* band, int k, int n_etiles, float eps,
                                  void* stream) {
-  return launch_grouped<true, true>(px, py, x1, y1, x2, y2, bounds, order,
-                                    rows, row_ptr, ets, pinfo, assign, count,
-                                    band, k, n_etiles, eps, stream);
+  return launch_grouped<true, true, true>(px, py, x1, y1, x2, y2, bounds,
+                                          order, rows, row_ptr, ets, pinfo,
+                                          assign, count, band, k, n_etiles, eps,
+                                          stream);
 }
 
-// B8. pair_pt/pair_et: int32 [m]; out: int32 [(n_ptiles + 1) * 512], zeroed.
+// B8. The crossing counts of B6 over a pair list turned into one CSR row
+// per point tile (rows: every tile 0..k-1; a tile's pairs in any order, a
+// duplicate pair counted twice; row_ptr, ets, order and bounds as B6's);
+// eps: the reach margin's half (0 from the wrapper); counts: int32
+// [(n_ptiles + 1) * 512], zeroed.
 extern "C" int pip_pairs_count_launch(const void* px, const void* py,
                                       const void* x1, const void* y1,
                                       const void* x2, const void* y2,
-                                      const void* pair_pt, const void* pair_et,
-                                      void* out, int m, void* stream) {
-  if (m <= 0) return 0;
-  pairs_kernel<false><<<m, kTile, 0, (cudaStream_t)stream>>>(
-      (const float*)px, (const float*)py, (const float*)x1, (const float*)y1,
-      (const float*)x2, (const float*)y2, (const int*)pair_pt,
-      (const int*)pair_et, (int*)out, 0.0f);
-  return (int)cudaGetLastError();
+                                      void* bounds, const void* order,
+                                      const void* rows, const void* row_ptr,
+                                      const void* ets, void* counts, int k,
+                                      int n_etiles, float eps, void* stream) {
+  return launch_grouped<false, true, false>(px, py, x1, y1, x2, y2, bounds,
+                                            order, rows, row_ptr, ets, nullptr,
+                                            counts, nullptr, nullptr, k,
+                                            n_etiles, eps, stream);
 }
 
-// B9. The band counts of B6 over a pair list turned into one CSR row per
-// point tile (rows: every tile 0..k-1; a tile's pairs in any order, a
-// duplicate pair counted twice; row_ptr, ets, order and bounds as B6's);
-// band: int32 [(n_ptiles + 1) * 512], zeroed.
+// B9. As B8, the band counts (eps: the band's width); band: int32
+// [(n_ptiles + 1) * 512], zeroed.
 extern "C" int pip_pairs_band_launch(const void* px, const void* py,
                                      const void* x1, const void* y1,
                                      const void* x2, const void* y2,
@@ -647,7 +608,8 @@ extern "C" int pip_pairs_band_launch(const void* px, const void* py,
                                      const void* rows, const void* row_ptr,
                                      const void* ets, void* band, int k,
                                      int n_etiles, float eps, void* stream) {
-  return launch_grouped<false, false>(px, py, x1, y1, x2, y2, bounds, order,
-                                      rows, row_ptr, ets, nullptr, nullptr,
-                                      nullptr, band, k, n_etiles, eps, stream);
+  return launch_grouped<false, false, true>(px, py, x1, y1, x2, y2, bounds,
+                                            order, rows, row_ptr, ets, nullptr,
+                                            nullptr, nullptr, band, k, n_etiles,
+                                            eps, stream);
 }

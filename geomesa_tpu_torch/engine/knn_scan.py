@@ -7,7 +7,8 @@ the smallest minima are then refined with exact f32 haversine over their
 lanes, and the final k come from that pool:
 
   minima = chord_blockmin(x, y, maskf)      # CUDA kernel (B2), or
-         = chord_blockmin_sparse(...)       # over match-bearing tiles (B1)
+         = chord_blockmin_sparse(...)       # over match-bearing tiles (B1:
+                                            # the same kernel, a tile list)
   blocks = two-level top-m over minima      # m winning blocks per query
   refine = exact haversine over m*BLK lanes -> top-k
 
@@ -119,12 +120,15 @@ def _lib():
     lib = load("chord_blockmin")
     if lib.chord_blockmin_sparse_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.chord_blockmin_sparse_launch.argtypes = [p] * 8 + [i] * 4 + [p]
-        for fn in (lib.chord_blockmin_dense_launch,
-                   lib.chord_blockmin_dense_prelude_launch):
+        sparse = (lib.chord_blockmin_sparse_launch,
+                  lib.chord_blockmin_sparse_prelude_launch)
+        dense = (lib.chord_blockmin_dense_launch,
+                 lib.chord_blockmin_dense_prelude_launch)
+        for fn in sparse:
+            fn.argtypes = [p] * 8 + [i] * 4 + [p]
+        for fn in dense:
             fn.argtypes = [p] * 6 + [i, ctypes.c_longlong, i, p]
-        for fn in (lib.chord_blockmin_sparse_launch, lib.chord_blockmin_dense_launch,
-                   lib.chord_blockmin_dense_prelude_launch):
+        for fn in sparse + dense:
             fn.restype = ctypes.c_int
     return lib
 
@@ -151,14 +155,20 @@ def _launch_dense(aug, c, x, y, maskf, blk, prelude_only: bool = False):
     return out
 
 
-def _launch_sparse(aug, c, x, y, maskf, tile_ids, n_sel, blk, data_tile):
+def _launch_sparse(aug, c, x, y, maskf, tile_ids, n_sel, blk, data_tile,
+                   prelude_only: bool = False):
+    """B1's launch: [Q, C * data_tile/blk] minima, B2's kernel over the
+    tile list; `prelude_only` as `_launch_dense`'s (dead columns are
+    PENALTY either way)."""
     q, slots = aug.shape[0], tile_ids.shape[0]
     out = torch.empty((q, slots * (data_tile // blk)), dtype=torch.float32,
                       device=x.device)
     check_kernel_inputs(aug, c, x, y, maskf, out, tile_ids, n_sel,
                         dtypes=(torch.float32,) * 6 + (torch.int32,) * 2)
-    _run("chord_blockmin_sparse_launch", aug, c, x, y, maskf, tile_ids, n_sel,
-         out, q, slots, blk, data_tile)
+    entry = ("chord_blockmin_sparse_prelude_launch" if prelude_only
+             else "chord_blockmin_sparse_launch")
+    _run(entry, aug, c, x, y, maskf, tile_ids, n_sel, out, q, slots, blk,
+         data_tile)
     return out
 
 
@@ -186,8 +196,10 @@ def chord_blockmin_sparse(qx, qy, x, y, maskf, tile_ids, n_sel,
                           blk: int = BLK, data_tile: int = DATA_TILE):
     """Sparse block minima (B1): only the data tiles named by `tile_ids`
     [C] int32 are scanned; slots at or past the device scalar `n_sel` [1]
-    int32 come out as exactly PENALTY. Returns ([Q, C * data_tile/blk]
-    minima over the selected tiles in tile_ids order, [3] centroid)."""
+    int32 come out as exactly PENALTY (n_sel > C, the overflow, leaves
+    every slot live). Returns ([Q, C * data_tile/blk] minima over the
+    selected tiles in tile_ids order, [3] centroid). The kernel is B2's,
+    walking the live slots' chunks."""
     n = x.shape[0]
     _check_tiling(n, blk, data_tile)
     if x.device.type == "cpu":

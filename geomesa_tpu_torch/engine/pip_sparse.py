@@ -17,8 +17,8 @@ The device kernels (`pip_sparse_kernels.py`, built from
 `kernels/pip_layer.cu`) count crossings and f32 ambiguity-band flags over
 the pairs: B6 per covered point tile for the union (`pip_layer`), B7 with
 per-polygon parity for the relation join (`pip_layer_assign`,
-`pip_layer_join`), B8 one pair at a time and B9 per point tile over a
-pair list in any order (`pip_layer_sparse`). Flagged
+`pip_layer_join`), and B8 (crossings) and B9 (band flags) per point tile
+over a pair list in any order (`pip_layer_sparse`). Flagged
 points are re-decided in f64 on the host over the same pair list.
 
 Union semantics: total crossing parity equals point-in-union for
@@ -891,8 +891,8 @@ def pip_layer_sparse(
     device=None,
     max_pairs_per_call: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Sparse-pair crossing counts (B8, one pair at a time) + boundary-band
-    flags (B9, one walk per point tile over its pairs). Returns host
+    """Sparse-pair crossing counts (B8) + boundary-band flags (B9), each
+    one walk per point tile over its pairs. Returns host
     arrays (counts int32 [n_ptiles*POINT_TILE], band int32 same shape),
     zero on tiles no pair names. `max_pairs_per_call` cuts the pair list into launches of at
     most that many pairs (`chunk_pairs`; None: one launch each), with the

@@ -10,16 +10,16 @@ sums int32 counts per point:
                          over the tile's edge tiles (a CSR row)
   pip_assign       (B7): per-polygon parity over a CSR row whose edge
                          tiles are grouped by polygon: assign, count, band
-  pip_pairs_count  (B8): crossings, one pair (point tile, edge tile) at a
-                         time, into [n_ptiles + 1, 512]
-  pip_pairs_band   (B9): band flags over the same pairs, in any order,
-                         into [n_ptiles + 1, 512]
+  pip_pairs_count  (B8): crossings over a list of (point tile, edge tile)
+                         pairs in any order, into [n_ptiles + 1, 512]
+  pip_pairs_band   (B9): band flags over the same pairs, into
+                         [n_ptiles + 1, 512]
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 on a CUDA tensor it launches the kernel (built from
 `kernels/pip_layer.cu` at first use) or raises. `launches` on each
 wrapper counts its kernel launches. `pair_csr` turns a pair list into the
-CSR input of B6/B7 on the host, `pairs_csr` into B9's on the device.
+CSR input of B6/B7 on the host, `pairs_csr` into B8/B9's on the device.
 Outputs are zero on tiles no pair names.
 
 B6/B7 hand out CSR rows longest first (`row_order`), sort each point
@@ -28,8 +28,9 @@ sorted points (`warp_ys`) skip every `CHUNK`-edge chunk whose y-span,
 widened by 2 eps, misses all of its points (`kept_chunks`) and, in the
 chunks it keeps, every edge whose y-span misses the warp's y-range
 (`kept_edges`): the rule of `pip_kernels.out_of_reach`, which the CUDA
-source proves exact. B9 walks B6's way without the crossings, over one
-CSR row per point tile (`pairs_csr`). These functions state that
+source proves exact. B8 and B9 walk B6's way over one CSR row per point
+tile (`pairs_csr`): B8 the crossings alone, with a reach margin of 0
+(eps = 0), B9 the band alone. These functions state that
 structure in PyTorch, for tests and for counting what the kernels skip;
 the plain versions test every pair.
 """
@@ -95,7 +96,7 @@ def pair_csr(pair_pt, pair_et,
 
 
 def pairs_csr(pair_pt: torch.Tensor, pair_et: torch.Tensor, n_ptiles: int):
-    """B9's CSR of a pair list, int32 (rows, row_ptr, ets) on the pairs'
+    """B8/B9's CSR of a pair list, int32 (rows, row_ptr, ets) on the pairs'
     device with no host sync: row t is point tile t (every tile, empty
     rows included) with the edge tiles of its pairs in list order (a
     stable sort by point tile; a duplicate pair stays twice)."""
@@ -292,8 +293,8 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pip_grouped_launch.argtypes = [p] * 13 + [i, i, f, p]
         lib.pip_assign_launch.argtypes = [p] * 15 + [i, i, f, p]
-        lib.pip_pairs_count_launch.argtypes = [p] * 9 + [i, p]
-        lib.pip_pairs_band_launch.argtypes = [p] * 12 + [i, i, f, p]
+        for fn in (lib.pip_pairs_count_launch, lib.pip_pairs_band_launch):
+            fn.argtypes = [p] * 12 + [i, i, f, p]
         for fn in (lib.pip_grouped_launch, lib.pip_assign_launch,
                    lib.pip_pairs_count_launch, lib.pip_pairs_band_launch):
             fn.restype = ctypes.c_int
@@ -351,7 +352,7 @@ def _check_csr(rows, row_ptr, ets, pinfo, n_ptiles, x1, y1, x2, y2):
 
 
 def _bounds(x1):
-    """Scratch for B6/B7/B9's prologue: (min y, max y) f32 of every chunk."""
+    """Scratch for B6-B9's prologue: (min y, max y) f32 of every chunk."""
     return torch.empty(2 * (x1.shape[0] // CHUNK), dtype=torch.float32,
                        device=x1.device)
 
@@ -404,25 +405,37 @@ def pip_assign(px, py, x1, y1, x2, y2, rows, row_ptr, ets, pinfo,
 pip_assign.launches = 0
 
 
-def _check_pairs(px, py, x1, y1, x2, y2, pair_pt, pair_et, out, n_ptiles):
+def _pairs_walk(name, px, py, x1, y1, x2, y2, pair_pt, pair_et, n_ptiles,
+                eps) -> torch.Tensor:
+    """B8/B9's launch over one CSR row per point tile (`pairs_csr`) into a
+    zeroed int32 [n_ptiles + 1, 512] (an empty pair list launches nothing:
+    the zeros are the counts)."""
+    out = torch.zeros((n_ptiles + 1, TILE), dtype=torch.int32, device=px.device)
+    _check_aligned(x1, y1, x2, y2)
     _check((px, py), (x1, y1, x2, y2), (pair_pt, pair_et), (out,), n_ptiles)
     if pair_pt.shape != pair_et.shape:
         raise ValueError("pair_pt and pair_et must match")
     _in_range((pair_pt, n_ptiles), (pair_et, x1.shape[0] // TILE))
+    if pair_pt.shape[0]:
+        rows, row_ptr, ets = pairs_csr(pair_pt, pair_et, n_ptiles)
+        _run(name, px, py, x1, y1, x2, y2, _bounds(x1), row_order(row_ptr),
+             rows, row_ptr, ets, out, n_ptiles, x1.shape[0] // TILE, float(eps))
+    return out
 
 
 def pip_pairs_count(px, py, x1, y1, x2, y2, pair_pt, pair_et, n_ptiles: int):
-    """Crossing counts over the pair walk (B8): int32 [n_ptiles + 1, 512]
-    (the last row is the reference's scratch tile, here always zero).
-    pair_pt, pair_et: int32 [M]."""
+    """Crossing counts over the pairs (B8): int32 [n_ptiles + 1, 512] (the
+    last row is the reference's scratch tile, here always zero).
+    pair_pt, pair_et: int32 [M], in any order, a duplicate pair counted
+    twice. The kernel walks one row per point tile (`pairs_csr`) as B6
+    does, crossings only, with a reach margin of 0; edge arrays must be
+    16-byte aligned (cp.async)."""
     if _device_of(px, "pip_pairs_count") == "cpu":
         return pip_pairs_count_plain(px, py, x1, y1, x2, y2, pair_pt, pair_et,
                                      n_ptiles)
-    out = torch.zeros((n_ptiles + 1, TILE), dtype=torch.int32, device=px.device)
-    _check_pairs(px, py, x1, y1, x2, y2, pair_pt, pair_et, out, n_ptiles)
+    out = _pairs_walk("pip_pairs_count", px, py, x1, y1, x2, y2, pair_pt,
+                      pair_et, n_ptiles, 0.0)
     if pair_pt.shape[0]:
-        _run("pip_pairs_count", px, py, x1, y1, x2, y2, pair_pt, pair_et, out,
-             pair_pt.shape[0])
         pip_pairs_count.launches += 1
     return out
 
@@ -432,21 +445,14 @@ pip_pairs_count.launches = 0
 
 def pip_pairs_band(px, py, x1, y1, x2, y2, pair_pt, pair_et, n_ptiles: int,
                    eps: float):
-    """Band-flag counts over the pairs (B9), as `pip_pairs_count`: the
-    pairs in any order, a duplicate pair counted twice. The kernel walks
-    one row per point tile (`pairs_csr`) as B6 does; edge arrays must be
-    16-byte aligned (cp.async)."""
+    """Band-flag counts over the pairs (B9), as `pip_pairs_count`, band
+    flags only (the reach margin 2 eps, as B6's)."""
     if _device_of(px, "pip_pairs_band") == "cpu":
         return pip_pairs_band_plain(px, py, x1, y1, x2, y2, pair_pt, pair_et,
                                     n_ptiles, eps)
-    out = torch.zeros((n_ptiles + 1, TILE), dtype=torch.int32, device=px.device)
-    _check_aligned(x1, y1, x2, y2)
-    _check_pairs(px, py, x1, y1, x2, y2, pair_pt, pair_et, out, n_ptiles)
+    out = _pairs_walk("pip_pairs_band", px, py, x1, y1, x2, y2, pair_pt,
+                      pair_et, n_ptiles, eps)
     if pair_pt.shape[0]:
-        rows, row_ptr, ets = pairs_csr(pair_pt, pair_et, n_ptiles)
-        _run("pip_pairs_band", px, py, x1, y1, x2, y2, _bounds(x1),
-             row_order(row_ptr), rows, row_ptr, ets, out, n_ptiles,
-             x1.shape[0] // TILE, float(eps))
         pip_pairs_band.launches += 1
     return out
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Sweep variants of the dense kNN block-minima kernel (B2,
+"""Sweep variants of the kNN block-minima kernel (B1/B2,
 geomesa_tpu_torch/engine/kernels/chord_blockmin.cu) on one CUDA card at
-the kNN path's shape.
+the kNN path's shapes.
 
     python3 scripts/torch_knn_dense_sweep.py [--points N] [--rounds R]
-                                             [--sass PATH]
+                                             [--sass PATH] [--baseline CU]
 
 Inputs: N points (default 71 * 2^20, the padded rows chip_smoke.py's kNN
 store keeps resident) uniform over the globe, half of them masked, and
@@ -18,10 +18,20 @@ copy of the source with one change, compiled with build.py's flags:
   chunk 1024      1024 points a chunk, 3 blocks an SM;
   sinf/cosf       the prelude with four trigonometric calls, not two
                   sincosf;
-  B1 kernel       the dense mode of chord_blockmin_kernel (B1's kernel
-                  with no tile list, the design B2 had before its own
-                  kernel: 64 queries a block, a warp shuffle per block
-                  and query, the prelude once per query group).
+  B2 before       with --baseline, a copy of chord_blockmin.cu from
+                  before B1 took B2's kernel (e.g. `git show
+                  9cc0a7e:geomesa_tpu_torch/engine/kernels/chord_blockmin.cu`
+                  saved under a git-ignored path): its B2 kernel;
+  B1 kernel       with --baseline, its chord_blockmin_kernel in its dense
+                  mode (no tile list; the design B2 had before its own
+                  kernel: 64 queries a block, a warp shuffle per block and
+                  query, the prelude once per query group).
+
+The sparse call (B1) is timed too, at the kNN path's 765 live of 1024
+slots (765 data tiles drawn from seed 3, in ascending order, the other
+slots naming tile 0): the as-built kernel with its tile list and its
+variant without keys, and, with --baseline, the old B1 kernel on the
+same call.
 
 For each variant: ptxas's registers and spills, every output against the
 as-built kernel's (within 1e-5, and the as-built kernel against the plain
@@ -50,22 +60,23 @@ import threading
 import time
 from pathlib import Path
 
-import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-OLD_WRITE = '''    const long long col0 = ch * cb;
-    for (int i = tid; i < kDQB * nb; i += kDThreads) {
+OLD_WRITE = '''    const long long col0 = (long long)slot * nbt + (long long)cc * cb;
+    for (int i = tid; i < kQB * nb; i += kThreads) {
       const int qi = i / nb, b = i - qi * nb;
-      if (q0 + qi >= q) break;
-      const float* row = mn + qi * kDMinStride + b * r;
+      if (qi >= nq) break;
+      const float* row = mn + qi * kMinStride + b * r;
       float v = row[0];
       for (int k = 1; k < r; ++k) v = min_nan(v, row[k]);
-      out[(long long)(q0 + qi) * ncols + col0 + b] = v;
+      out[(long long)(q0 + qi) * cols + col0 + b] = v;
     }
+    slot = ns;
+    cc = nc;
   }
 }'''
 
@@ -76,21 +87,25 @@ def sub(src: str, pattern: str, repl: str) -> str:
     return out
 
 
-def variants(src: str) -> dict:
-    write = re.search(r"    const int b = tid & \(kDMaxBlocks - 1\);.*?\n  \}\n\}", src, re.S)
+def variants(src: str, baseline: str = None) -> dict:
+    write = re.search(r"    const int b = tid & \(kMaxBlocks - 1\);.*?\n  \}\n\}", src, re.S)
     assert write, "the write-out block"
-    return {
+    out = {
         "as built": src,
         "division": src.replace(write.group(0), OLD_WRITE),
-        "chunk 1024": sub(sub(src, r"constexpr int kDChunkPts = 2048;",
-                              "constexpr int kDChunkPts = 1024;"),
-                          r"__launch_bounds__\(kDThreads, 2\)",
-                          "__launch_bounds__(kDThreads, 3)"),
+        "chunk 1024": sub(sub(src, r"constexpr int kChunkPts = 2048;",
+                              "constexpr int kChunkPts = 1024;"),
+                          r"__launch_bounds__\(kThreads, 2\)",
+                          "__launch_bounds__(kThreads, 3)"),
         "sinf/cosf": sub(src, r"  float slon, clon, slat, clat;\n.*?sincosf\(lat \* kDeg2Rad, &slat, &clat\);",
                          "  const float slon = sinf(lon * kDeg2Rad), clon = cosf(lon * kDeg2Rad);\n"
                          "  const float slat = sinf(lat * kDeg2Rad), clat = cosf(lat * kDeg2Rad);"),
-        "B1 kernel": sub(src, r"  if \(tile_ids == nullptr \|\| n_sel == nullptr\) return \(int\)cudaErrorInvalidValue;\n", ""),
     }
+    if baseline is not None:  # and the old B1 kernel, its null tile list let through
+        out["B2 before"] = baseline
+        out["B1 kernel"] = sub(baseline, r"  if \(tile_ids == nullptr \|\| n_sel == nullptr\) "
+                               r"return \(int\)cudaErrorInvalidValue;\n", "")
+    return out
 
 
 def compile_variant(build, src: str, tag: str):
@@ -105,7 +120,9 @@ def compile_variant(build, src: str, tag: str):
         raise RuntimeError(proc.stderr)
     regs = {}
     for name, res in cs.ptxas_resources(proc.stderr).items():
-        for key, kind in (("dense_kernelILb1E", "B2"), ("dense_kernelILb0E", "no keys"),
+        for key, kind in (("blockmin_kernelILb1E", "B1/B2"), ("blockmin_kernelILb0E", "no keys"),
+                          ("dense_kernelILb1E", "B2 before"),
+                          ("dense_kernelILb0E", "B2 before, no keys"),
                           ("chord_blockmin_kernel", "B1 kernel")):
             if key in name:
                 regs[kind] = (res.get("registers"), res.get("spill"))
@@ -114,13 +131,16 @@ def compile_variant(build, src: str, tag: str):
     for fn in (handle.chord_blockmin_dense_launch, handle.chord_blockmin_dense_prelude_launch):
         fn.argtypes = [p] * 6 + [i, ctypes.c_longlong, i, p]
         fn.restype = ctypes.c_int
-    handle.chord_blockmin_sparse_launch.argtypes = [p] * 8 + [i] * 4 + [p]
-    handle.chord_blockmin_sparse_launch.restype = ctypes.c_int
+    for name in ("chord_blockmin_sparse_launch", "chord_blockmin_sparse_prelude_launch"):
+        fn = getattr(handle, name, None)  # the old source has no prelude variant
+        if fn is not None:
+            fn.argtypes = [p] * 8 + [i] * 4 + [p]
+            fn.restype = ctypes.c_int
     return handle, regs, lib
 
 
 def sass_loop(lib: Path, dump: Path = None) -> dict:
-    """B2's key loop in its SASS (cuobjdump): the shortest span from an
+    """The key loop in its SASS (cuobjdump): the shortest span from an
     instruction to a branch back to it that holds LDS.128 and FMNMX; its
     instruction counts by opcode, all of them, and the keys it computes
     (8 a broadcast LDS.128: the queries a lane holds)."""
@@ -131,7 +151,7 @@ def sass_loop(lib: Path, dump: Path = None) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            on = "dense_kernelILb1E" in m.group(1)
+            on = "blockmin_kernelILb1E" in m.group(1)
         elif on:
             body.append(line)
     if dump is not None:
@@ -175,7 +195,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--points", type=int, default=71 << 20)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--sass", help="write B2's SASS listing to this file")
+    ap.add_argument("--sass", help="write the kernel's SASS listing to this file")
+    ap.add_argument("--baseline", help="chord_blockmin.cu from before B1 took B2's "
+                    "kernel: times its B2 kernel, and its B1 kernel on the dense and "
+                    "the sparse call")
     args = ap.parse_args()
     import torch
 
@@ -209,28 +232,44 @@ def main() -> int:
             return out
         return call
 
-    def old(handle):
+    # the sparse call: 765 live of 1024 slots, as on the kNN path
+    ntiles, slots, live = n // ks.DATA_TILE, 1024, 765
+    pick = torch.randperm(ntiles, device=dev, generator=gen)[:min(live, ntiles)]
+    tile_ids = torch.zeros(slots, dtype=torch.int32, device=dev)
+    tile_ids[:pick.shape[0]] = torch.sort(pick).values.to(torch.int32)
+    n_sel = torch.tensor([pick.shape[0]], dtype=torch.int32, device=dev)
+
+    def sparse(fn, ids=tile_ids, sel=n_sel, nslots=slots):
         def call():
-            slots = n // ks.DATA_TILE
-            out = torch.empty((q, n // ks.BLK), dtype=torch.float32, device=dev)
-            err = handle.chord_blockmin_sparse_launch(
-                aug.data_ptr(), c.data_ptr(), x.data_ptr(), y.data_ptr(),
-                maskf.data_ptr(), None, None, out.data_ptr(), q, slots, ks.BLK,
-                ks.DATA_TILE, stream())
+            out = torch.empty((q, nslots * (ks.DATA_TILE // ks.BLK)),
+                              dtype=torch.float32, device=dev)
+            err = fn(aug.data_ptr(), c.data_ptr(), x.data_ptr(), y.data_ptr(),
+                     maskf.data_ptr(), None if ids is None else ids.data_ptr(),
+                     None if sel is None else sel.data_ptr(), out.data_ptr(), q,
+                     nslots, ks.BLK, ks.DATA_TILE, stream())
             assert err == 0, err
             return out
         return call
 
     src = (ROOT / "geomesa_tpu_torch/engine/kernels/chord_blockmin.cu").read_text()
+    baseline = Path(args.baseline).read_text() if args.baseline else None
     calls, rows, libs = {}, {}, {}
+    sparse_calls = {}
     ref = None
-    for tag, v in variants(src).items():
+    for tag, v in variants(src, baseline).items():
         handle, regs, libs[tag] = compile_variant(build, v, tag.replace(" ", "_").replace("/", "_"))
-        if tag == "B1 kernel":
-            calls[tag] = (old(handle), None)
+        if tag == "B1 kernel":  # dense mode: no tile list, every tile a slot
+            calls[tag] = (sparse(handle.chord_blockmin_sparse_launch, None, None,
+                                 ntiles), None)
+            sparse_calls["B1 before (old kernel)"] = (
+                sparse(handle.chord_blockmin_sparse_launch), None)
         else:
             calls[tag] = (dense(handle.chord_blockmin_dense_launch),
                           dense(handle.chord_blockmin_dense_prelude_launch))
+        if tag == "as built":
+            sparse_calls["B1 as built"] = (
+                sparse(handle.chord_blockmin_sparse_launch),
+                sparse(handle.chord_blockmin_sparse_prelude_launch))
         got = calls[tag][0]()
         if ref is None:
             ref = got
@@ -244,6 +283,16 @@ def main() -> int:
                      "ms": [], "no_keys_ms": []}
         print(f"{tag}: registers/spills {regs}, max |out - as built| {err:.3g}", flush=True)
     print(f"as built vs plain: max_abs_err {err_plain:.3g}", flush=True)
+    plain = ks.chord_blockmin_sparse_plain(qx, qy, x, y, maskf, tile_ids, n_sel)[0]
+    for tag, (full, _) in sparse_calls.items():
+        got = full()
+        err = float((got - plain).abs().max())
+        dead = bool((got[:, int(n_sel[0]) * (ks.DATA_TILE // ks.BLK):] == ks.PENALTY).all())
+        assert err <= cs.TOL and dead, (tag, err, dead)
+        rows[tag] = {"variant": tag, "err_vs_plain": err, "ms": [], "no_keys_ms": []}
+        print(f"{tag}: max |out - plain| {err:.3g}, dead columns all 1e9", flush=True)
+    del plain
+    calls.update(sparse_calls)
     for r in range(args.rounds):
         for tag, (full, pre) in calls.items():
             rows[tag]["ms"].append(cs.timed_ms(torch, full, 10))
@@ -254,8 +303,9 @@ def main() -> int:
         ms = statistics.mean(row["ms"])
         pre = statistics.mean(row["no_keys_ms"]) if row["no_keys_ms"] else None
         pre_s = f", without keys {pre:.3f} ms (share {pre / ms:.3f})" if pre else ""
+        nk = q * int(n_sel[0]) * ks.DATA_TILE if tag in sparse_calls else keys
         print(f"{tag}: {ms:.3f} ms (rounds {', '.join(f'{t:.3f}' for t in row['ms'])})"
-              f"{pre_s}, {keys / ms / 1e9:.2f} Gkeys/ms [{card}]", flush=True)
+              f"{pre_s}, {nk / ms / 1e9:.2f} Gkeys/ms [{card}]", flush=True)
 
     # the SM clock while the as-built kernel runs, and its SASS
     stop, samples = threading.Event(), []

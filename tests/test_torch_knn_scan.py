@@ -11,6 +11,9 @@ packages' f32 trig may differ in the last ulp), neighbour sets identical
 up to equal-distance swaps.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -233,6 +236,87 @@ def test_sparse_dead_slots_never_duplicate_tile0():
     assert_same_knn(rd, ri, pd, pi)
 
 
+# -- B1's schedule ------------------------------------------------------------
+
+KERNEL_SRC = Path(port.__file__).parent / "kernels" / "chord_blockmin.cu"
+
+
+def kernel_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", KERNEL_SRC.read_text())[1])
+
+
+def blockmin_chunks(slots, nbt, live, grid, blk):
+    """The schedule of `kernels/chord_blockmin.cu`'s kernel: chunks of cb
+    <= kMaxBlocks blk-blocks and at most kChunkPts points, cpt of them a
+    slot of nbt blocks; the live slots' chunks, min(live, slots) * cpt of
+    them, cut into `grid` contiguous near-equal runs. Returns each block's
+    chunks as (slot, first block in the slot, blocks)."""
+    cb = max(1, min(kernel_constant("kMaxBlocks"), kernel_constant("kChunkPts") // blk))
+    cpt = -(-nbt // cb)
+    n = max(0, min(live, slots)) * cpt
+    return [[(ch // cpt, ch % cpt * cb, min(cb, nbt - ch % cpt * cb))
+             for ch in range(n * b // grid, n * (b + 1) // grid)]
+            for b in range(grid)]
+
+
+def mirror_sparse(args, tile_ids, n_sel, blk, data_tile, grid):
+    """B1 as the kernel walks it: each block's chunks read their points
+    from the slot's data tile and write their minima to the slot's
+    columns; the dead slots' columns are set to PENALTY. Returns (out,
+    points read per data tile, writes per column, chunks per block)."""
+    qx, qy, x, y, maskf = args
+    aug, c = port._aug_q(qx, qy)
+    nbt, slots = data_tile // blk, tile_ids.shape[0]
+    out = torch.full((qx.shape[0], slots * nbt), float("nan"))
+    reads = torch.zeros(x.shape[0] // data_tile, dtype=torch.int64)
+    writes = torch.zeros(slots * nbt, dtype=torch.int64)
+    schedule = blockmin_chunks(slots, nbt, n_sel, grid, blk)
+    for chunks in schedule:
+        for slot, b0, nb in chunks:
+            tile = int(tile_ids[slot])
+            sl = slice(tile * data_tile + b0 * blk, tile * data_tile + (b0 + nb) * blk)
+            col = slot * nbt + b0
+            out[:, col:col + nb] = port._blockmin_plain(aug, c, x[sl], y[sl], maskf[sl], blk)
+            reads[tile] += nb * blk
+            writes[col:col + nb] += 1
+    dead = min(n_sel, slots) * nbt
+    out[:, dead:] = port.PENALTY
+    writes[dead:] += 1
+    return out, reads, writes, [len(ch) for ch in schedule]
+
+
+@pytest.mark.parametrize("blk", [32, 128, 2048])
+@pytest.mark.parametrize("n_sel", [0, 1, 5, 6, 11])
+def test_sparse_schedule_mirror_equals_plain(n_sel, blk):
+    """B1's schedule over C = 6 slots of 4096-point tiles (n_sel 0, 1,
+    C - 1, C and the overflow C + 5, which leaves every slot live and must
+    not walk past the list), shared by 5 blocks, Q = 37: every live
+    column is written once with the plain version's minima (within 1e-5),
+    the dead columns are exactly 1e9, and the points read are the live
+    slots' tiles, once each; tile 0, which the dead slots alias, is never
+    read."""
+    data_tile, slots, ntiles, grid = 4096, 6, 9, 5
+    qx, qy, x, y, mask = make(ntiles * data_tile, 37, seed=blk + n_sel)
+    rng = np.random.default_rng(n_sel)
+    ids = np.zeros(slots, np.int32)
+    listed = min(n_sel, slots)
+    ids[:listed] = np.sort(rng.choice(np.arange(1, ntiles), listed, replace=False))
+    args = tx(qx, qy, x, y, mask.astype(np.float32))
+    tile_ids = torch.from_numpy(ids)
+    got, reads, writes, shares = mirror_sparse(args, tile_ids, n_sel, blk, data_tile, grid)
+    exp, _ = port.chord_blockmin_sparse_plain(
+        *args, tile_ids, torch.tensor([n_sel], dtype=torch.int32), blk=blk,
+        data_tile=data_tile)
+    assert got.shape == exp.shape == (37, slots * data_tile // blk)
+    assert float((got - exp).abs().max()) <= 1e-5
+    assert bool((got[:, listed * data_tile // blk:] == port.PENALTY).all())
+    assert bool((writes == 1).all())
+    expect = torch.zeros(ntiles, dtype=torch.int64)
+    expect[ids[:listed]] = data_tile
+    assert torch.equal(reads, expect) and int(reads[0]) == 0
+    assert max(shares) - min(shares) <= 1
+
+
 class TestCapacity:
     @pytest.mark.parametrize("hit", [0, 1, 7, 51, 52, 64, 100, 1000, 4097])
     def test_capacity_bucket(self, hit):
@@ -314,8 +398,9 @@ def test_exact_refine_matches_reference():
 @pytest.mark.parametrize("tiles", [1, 16])
 @pytest.mark.parametrize("q", [1, 37, 64, 256])
 def test_kernels_match_plain_on_the_card(q, tiles, blk):
-    """B2 (dense) and B1 (sparse, at 16 tiles) against their plain
-    versions, within 1e-5: Q below, at and off the 32 queries a warp's
+    """B2 (dense) and B1 (sparse, at 16 tiles, with 3 of 4 slots live, none
+    and n_sel past the list) against their plain versions, within 1e-5,
+    dead columns exactly 1e9: Q below, at and off the 32 queries a warp's
     lanes hold and the 256 a block holds; one data tile and 16; blk at
     both ends of what `_check_tiling` takes (a chunk of 16 blocks, of 2048
     points in one block's 8 segments). NaN rows make their blocks' minima
@@ -332,11 +417,15 @@ def test_kernels_match_plain_on_the_card(q, tiles, blk):
     assert float((got - exp).abs().max()) <= 1e-5
     ids = torch.tensor([2, 5, 9, 0], dtype=torch.int32, device=dev)
     n_sel = torch.tensor([3], dtype=torch.int32, device=dev)
-    if tiles == 16:
-        got, _ = port.chord_blockmin_sparse(*args, ids, n_sel, blk=blk)
-        exp, _ = port.chord_blockmin_sparse_plain(*args, ids, n_sel, blk=blk)
+    # 3 live slots (the dead one aliases tile 0), none, and the overflow
+    # (n_sel past the list: every slot live)
+    for live in ((3, 0, len(ids) + 3) if tiles == 16 else ()):
+        ns = torch.tensor([live], dtype=torch.int32, device=dev)
+        got, _ = port.chord_blockmin_sparse(*args, ids, ns, blk=blk)
+        exp, _ = port.chord_blockmin_sparse_plain(*args, ids, ns, blk=blk)
         assert float((got - exp).abs().max()) <= 1e-5
-        assert bool((got[:, 3 * (16384 // blk):] == port.PENALTY).all())
+        dead = got[:, min(live, len(ids)) * (16384 // blk):]
+        assert bool((dead == port.PENALTY).all())
     # rows with a NaN coordinate: their blocks' minima are NaN, as the
     # plain version's torch.amin (and the reference's min) take them
     x_nan = args[2].clone()

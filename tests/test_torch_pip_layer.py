@@ -554,7 +554,7 @@ def test_layer_kernels_match_plain_on_the_card(holes):
     config-2-shaped layer with holes, and near-flat edges with one NaN
     x-end beside points within eps of their finite end (the x-span must
     propagate NaN, as the plain versions' torch.minimum/maximum do); B8
-    and B9 also over the pairs shuffled with a tenth of them twice, and B9
+    and B9 also over the pairs shuffled with a tenth of them twice, and
     over that list cut into two launches whose outputs add."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
@@ -585,9 +585,11 @@ def test_layer_kernels_match_plain_on_the_card(holes):
             np.asarray(pair_pt), np.asarray(pair_et), np.random.default_rng(3))]
         h = sp[0].shape[0] // 2
         band_sp = psk.pip_pairs_band_plain(*args, *sp, n, EPS)
+        count_sp = psk.pip_pairs_count_plain(*args, *sp, n)
         pairs += [
-            ((psk.pip_pairs_count(*args, *sp, n),),
-             (psk.pip_pairs_count_plain(*args, *sp, n),)),
+            ((psk.pip_pairs_count(*args, *sp, n),), (count_sp,)),
+            ((psk.pip_pairs_count(*args, sp[0][:h], sp[1][:h], n)
+              + psk.pip_pairs_count(*args, sp[0][h:], sp[1][h:], n),), (count_sp,)),
             ((psk.pip_pairs_band(*args, *sp, n, EPS),), (band_sp,)),
             ((psk.pip_pairs_band(*args, sp[0][:h], sp[1][:h], n, EPS)
               + psk.pip_pairs_band(*args, sp[0][h:], sp[1][h:], n, EPS),), (band_sp,)),

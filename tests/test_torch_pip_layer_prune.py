@@ -1,4 +1,4 @@
-"""The skip of the port's polygon-layer kernels (B6, B7, B9) on the CPU.
+"""The skip of the port's polygon-layer kernels (B6-B9) on the CPU.
 
 The CUDA kernels (`engine/kernels/pip_layer.cu`) hand out CSR rows
 longest first, sort each point tile's 512 points by y, and let each warp
@@ -11,9 +11,10 @@ from the module's own statement of it (`row_order`, `tile_y_order`,
 `kept_edges`): per row and edge tile, the shared predicate over only the
 edges each warp keeps, the B7
 flush at each polygon's last edge tile, the counts written back to the
-points' slots. B9 walks the same way over one CSR row per point tile
-that its wrapper builds from a pair list in any order (`pairs_csr`),
-band counts only. The mirror must equal the plain versions, which test
+points' slots. B8 and B9 walk the same way over one CSR row per point
+tile that their wrappers build from a pair list in any order
+(`pairs_csr`): B8 crossings only, with a reach margin of 0 (eps = 0),
+B9 band counts only. The mirror must equal the plain versions, which test
 every pair, bit for bit, at the kernels' P and C; the plain
 versions must equal the reference's Pallas kernels in interpret mode
 (band flags identical, crossing counts identical outside band-flagged
@@ -191,10 +192,11 @@ def csr(case, assign):
 # -- the mirror ----------------------------------------------------------------
 
 
-def mirror(args, rows, row_ptr, ets, pinfo, n_ptiles):
-    """The B6 (pinfo None) or B7 kernel's structure in PyTorch. Returns
-    (outputs as the plain version's, {"chunk": tests in kept chunks,
-    "edge": tests of kept edges, "all": all tests})."""
+def mirror(args, rows, row_ptr, ets, pinfo, n_ptiles, eps=EPS):
+    """The B6 (pinfo None) or B7 kernel's structure in PyTorch, the
+    reach margin 2 eps. Returns (outputs as the plain version's, {"chunk":
+    tests in kept chunks, "edge": tests of kept edges, "all": all
+    tests})."""
     px, py, *edges = args
     wp = psk.WARP_POINTS
     ys = psk.warp_ys(py)
@@ -202,7 +204,7 @@ def mirror(args, rows, row_ptr, ets, pinfo, n_ptiles):
     order = psk.tile_y_order(py)
     pxt, pyt = px.reshape(-1, T), py.reshape(-1, T)
     et_tiles = [a.reshape(-1, T) for a in edges]
-    e32 = torch.tensor(EPS, dtype=torch.float32)
+    e32 = torch.tensor(eps, dtype=torch.float32)
     outs = [torch.zeros((n_ptiles, T), dtype=torch.int32)
             for _ in range(2 if pinfo is None else 3)]
     kept = {"chunk": 0, "edge": 0, "all": 0}
@@ -215,12 +217,12 @@ def mirror(args, rows, row_ptr, ets, pinfo, n_ptiles):
         for m in range(int(row_ptr[r]), int(row_ptr[r + 1])):
             et = ets[m:m + 1]
             keep = psk.kept_edges(ys, bounds, edges[1], edges[3],
-                                  rows[r:r + 1], et, EPS)[0]
+                                  rows[r:r + 1], et, eps)[0]
             mask = keep.repeat_interleave(wp, 0)
             c, b = crossing_and_band(qx, qy, *[a[et] for a in et_tiles], e32)
             cross += (c & mask).sum(1, dtype=torch.int32)
             band += (b & mask).sum(1, dtype=torch.int32)
-            chunks = psk.kept_chunks(ys, bounds, rows[r:r + 1], et, EPS)[0]
+            chunks = psk.kept_chunks(ys, bounds, rows[r:r + 1], et, eps)[0]
             kept["chunk"] += int(chunks.sum()) * psk.CHUNK * wp
             kept["edge"] += int(keep.sum()) * wp
             kept["all"] += T * T
@@ -243,38 +245,43 @@ def case(request):
     return make_case(request.param)
 
 
-def mirror_pairs_band(args, pt, et, n_ptiles, launches=2):
-    """B9's structure: the pair list cut into `launches` consecutive
-    pieces, each turned into one CSR row per point tile (`pairs_csr`) and
-    walked as B6 walks, band counts only; the pieces' outputs add, as
-    `pip_layer_sparse` adds its launches. Returns (band [n_ptiles, 512],
-    kept as `mirror`'s)."""
-    band = torch.zeros((n_ptiles, T), dtype=torch.int32)
+def mirror_pairs(args, pt, et, n_ptiles, eps, launches=2):
+    """B8's (eps = 0, crossings) and B9's (eps, band) structure: the pair
+    list cut into `launches` consecutive pieces, each turned into one CSR
+    row per point tile (`pairs_csr`) and walked as B6 walks with the reach
+    margin 2 eps; the pieces' outputs add, as `pip_layer_sparse` adds its
+    launches. Returns ((crossings, band) [n_ptiles, 512], kept as
+    `mirror`'s)."""
+    outs = [torch.zeros((n_ptiles, T), dtype=torch.int32) for _ in range(2)]
     kept = {"chunk": 0, "edge": 0, "all": 0}
     cuts = np.linspace(0, len(pt), launches + 1).astype(int)
     for s0, s1 in zip(cuts[:-1], cuts[1:]):
-        (_, b), k = mirror(args, *psk.pairs_csr(pt[s0:s1], et[s0:s1], n_ptiles),
-                           None, n_ptiles)
-        band += b
+        got, k = mirror(args, *psk.pairs_csr(pt[s0:s1], et[s0:s1], n_ptiles),
+                        None, n_ptiles, eps)
+        for o, g in zip(outs, got):
+            o += g
         kept = {key: kept[key] + k[key] for key in kept}
-    return band, kept
+    return tuple(outs), kept
 
 
-@pytest.mark.parametrize("kind", ["grouped", "assign", "pairs_band"])
+@pytest.mark.parametrize("kind", ["grouped", "assign", "pairs_count", "pairs_band"])
 def test_mirror_equals_plain(case, kind):
     """The kernels' structure equals the plain versions bit for bit: B6
-    and B7 over the pair CSR, B9 over the pair list shuffled with a tenth
-    of its pairs twice and cut into two launches, so that a point tile's
-    pairs are split between them."""
+    and B7 over the pair CSR, B8 (reach margin 0) and B9 over the pair
+    list shuffled with a tenth of its pairs twice and cut into two
+    launches, so that a point tile's pairs are split between them."""
     args = tensors(case)
-    if kind == "pairs_band":
+    if kind.startswith("pairs"):
         pt, et = (torch.from_numpy(a) for a in shuffled_pairs(
             case.pt, case.et, np.random.default_rng(3)))
-        plain = psk.pip_pairs_band_plain(*args, pt, et, case.n_ptiles, EPS)
+        if kind == "pairs_count":
+            plain = psk.pip_pairs_count_plain(*args, pt, et, case.n_ptiles)
+            (got, _), kept = mirror_pairs(args, pt, et, case.n_ptiles, 0.0)
+        else:
+            plain = psk.pip_pairs_band_plain(*args, pt, et, case.n_ptiles, EPS)
+            (_, got), kept = mirror_pairs(args, pt, et, case.n_ptiles, EPS)
         assert not plain[-1].any()  # the reference's scratch tile
-        plain = (plain[:-1],)
-        band, kept = mirror_pairs_band(args, pt, et, case.n_ptiles)
-        got = (band,)
+        plain, got = (plain[:-1],), (got,)
     else:
         c = csr(case, kind == "assign")
         if kind == "grouped":
@@ -284,7 +291,7 @@ def test_mirror_equals_plain(case, kind):
             plain = psk.pip_assign_plain(*args, *c, case.n_ptiles, EPS)
             pinfo = c[3]
         got, kept = mirror(args, *c[:3], pinfo, case.n_ptiles)
-    assert int(plain[-1].sum()) > 0  # band flags exist
+    assert int(plain[-1].sum()) > 0  # band flags (B8: crossings) exist
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
     # the rule skips: a warp tests a minority of the pairs, fewer edge by edge
