@@ -15,10 +15,14 @@ and prints no result. Phases, each fatal on failure:
 3. kernel check: each kernel against its plain PyTorch version on the card
    (B1/B2 at Q=256, N=2^22, B1 with 80 of 96 slots live, none, n_sel past
    the list and at Q=37, dead sparse slots exactly 1e9; B3 over 2^22
-   Z-ordered points on a 512x512 grid: counts equal, weights within the
-   per-cell bound, dictionary misses add nothing, and with 192
-   NaN-coordinate rows binned to row or column 0 as the reference bins
-   them: counts equal, no matching row lost; B4/B5 against a
+   Z-ordered points on a 512x512 grid: counts equal and weights within
+   the per-cell bound on the Morton rows (more tiles than the persistent
+   grid has blocks), 5 of their tiles, a copy shuffled inside each tile,
+   a tile whose points share one cell, data_tile 2048, dictionaries with
+   every other cell dropped (misses add nothing), and 192 NaN-coordinate
+   rows binned to row or column 0 as the reference bins them (no
+   matching row lost); the fold's per-slot sinks equal to the single
+   sink for unit weights; B4/B5 against a
    ~1100-edge zone polygon at N=2^22 in random and Morton order and on
    the eps-boundary set, points at an edge end's y +- eps and 1-2 ulps
    either side, and against a ~9000-edge zone at N=2^18: identical
@@ -57,7 +61,10 @@ and prints no result. Phases, each fatal on failure:
    oracle, join pairs == the points inside, pip_layer_sparse ==
    pip_layer_grouped on covered tiles;
 7. each kernel timed at its path's shapes beside its plain version and
-   its bound, printed as one {"kernels": [...]} line; before it, B1/B2's
+   its bound, printed as one {"kernels": [...]} line; before it, B3's
+   registers, the cell groups a warp meets on the path's live tiles
+   (counted in torch) against the old kernel's one atomic a point, and
+   B3's time on a copy shuffled inside each tile; B1/B2's
    registers and spills (one kernel) and each route without its keys
    beside its launch (the prelude's share), B4/B5's registers and
    spills, and, for the resident
@@ -157,11 +164,13 @@ def morton_order(torch, x, y):
     return torch.argsort(z).cpu().numpy()
 
 
-def profile_calls(torch, name, fn, card_s: str, calls: int = 3) -> None:
+def profile_calls(torch, name, fn, card_s: str, calls: int = 3,
+                  watch=()) -> None:
     """Where one warm call's time goes: torch.profiler over `calls` calls,
     device busy time (sum of kernel self times) against the host wall,
-    and the top device operations. The profiler's own overhead inflates
-    the wall it reports, so the latency lines above stay the metric."""
+    the top device operations, and any other kernel whose name holds one
+    of the `watch` strings. The profiler's own overhead inflates the wall
+    it reports, so the latency lines above stay the metric."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -181,9 +190,11 @@ def profile_calls(torch, name, fn, card_s: str, calls: int = 3) -> None:
     log(f"profile {name}: wall {wall_ms:.3f} ms/call under the profiler, "
         f"device busy {busy_ms:.3f} ms/call, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f} [{card_s}]")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        log(f"  device {dev_us(e) / 1e3 / calls:9.3f} ms/call  "
-            f"x{e.count / calls:g}  {e.key[:90]}")
+    ranked = sorted(events, key=dev_us, reverse=True)
+    for i, e in enumerate(ranked):
+        if i < 8 or any(w in e.key for w in watch):
+            log(f"  device {dev_us(e) / 1e3 / calls:9.3f} ms/call  "
+                f"x{e.count / calls:g}  {e.key[:90]}")
     host = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
@@ -447,8 +458,10 @@ ENV = (-74.3, 40.5, -73.7, 41.0)  # the bench's config-4 envelope (NYC)
 GRID = 512
 D_T0, D_T1 = 1_451_606_400_000, 1_467_331_200_000  # 2016-01-01 .. 2016-07-01
 P_T0, P_T1 = 1_454_284_800_000, 1_462_060_800_000  # 2016-02-01 .. 2016-05-01
-# FP32 operations per point of B3 as written: 2 subtracts, 2 divides,
-# 2 floors, 1 add
+# FP32 operations per point that B3's function needs: 2 subtracts, 2
+# divides, 2 floors and 1 add (n weights sum in n - 1 adds in any order;
+# the extra adds of the kernel's segmented scan are its own choice, not
+# the work). The bound is by bytes either way.
 ZS_OPS = 7
 # FP32 operations per (point, edge) pair of B4/B5 as written. Every pair
 # pays the two compares of the half-open test (B4) and, in B5, the 12 of
@@ -576,11 +589,47 @@ def eps_boundary_points(torch, edges, eps: float, seed: int = 8):
     return f(x[o]), f(y[o])
 
 
+def within_tile_perm(torch, n: int, data_tile: int, seed: int, dev):
+    """A permutation of n rows that shuffles each data tile's rows among
+    themselves: every tile keeps its set of cells (its dictionary stays
+    valid), but a warp's 32 points fall into as many cells as they can."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    keys = torch.rand((n // data_tile, data_tile), device=dev, generator=gen)
+    perm = torch.argsort(keys, dim=1)
+    perm += torch.arange(0, n, data_tile, device=dev)[:, None]
+    return perm.reshape(-1)
+
+
+def zsparse_case(torch, dz, name, x, y, mask, w, ids, dicts,
+                 data_tile: int = 4096):
+    """B3 against its plain version on one input: unit weights equal,
+    weights within the per-cell bound. Returns the counts."""
+    ones = mask.float()
+    lw = torch.where(mask, w, torch.zeros_like(w))
+    args = (ENV, GRID, GRID, data_tile)
+    cnt = dz.zsparse_counts(x, y, ones, ids, dicts, *args)
+    cnt_p = dz.zsparse_counts_plain(x, y, ones, ids, dicts, *args)
+    wt = dz.zsparse_counts(x, y, lw, ids, dicts, *args)
+    wt_p = dz.zsparse_counts_plain(x, y, lw, ids, dicts, *args)
+    same = bool(torch.equal(cnt, cnt_p))
+    ok_w = cell_bound(wt.cpu().numpy(), wt_p.double().cpu().numpy(),
+                      cnt.cpu().numpy())
+    log(f"kernel check B3 {name}: S={ids.shape[0]} capd={dicts.shape[1]} "
+        f"data_tile={data_tile}: counts equal {same}, weighted max_abs_err "
+        f"{float((wt - wt_p).abs().max()):.3g} within bound {ok_w}")
+    assert same and ok_w, name
+    return cnt
+
+
 def density_kernel_check(torch, dev, wkt: str) -> None:
     """B3 against its plain version over 2^22 Z-ordered points (512x512):
-    unit weights equal, weights within the per-cell bound, cells missing
-    from a dictionary add nothing; B4/B5 at N=2^22 in random and Morton
-    order and on the eps-boundary set: identical booleans."""
+    unit weights equal and weights within the per-cell bound on the
+    Morton rows, a within-tile shuffled copy, a tile of one cell,
+    data_tile 2048, S below and above the persistent grid, dictionary
+    misses and NaN coordinates; the fold against the single-sink formula;
+    B4/B5 at N=2^22 in random and Morton order and on the eps-boundary
+    set: identical booleans."""
     from geomesa_tpu_torch.engine import density_zsparse as dz
     from geomesa_tpu_torch.engine import pip_kernels as pk
     from geomesa_tpu_torch.engine.pip import BAND_EPS
@@ -596,32 +645,55 @@ def density_kernel_check(torch, dev, wkt: str) -> None:
     w = t(rng.uniform(0, 5, n).astype(np.float32))
     calib = dz.calibrate_density(x, y, mask, ENV, GRID, GRID)
     ids = torch.from_numpy(calib.tile_ids).to(dev)
-    ones = mask.float()
-    lw = torch.where(mask, w, torch.zeros_like(w))
-    cnt = dz.zsparse_counts(x, y, ones, ids, calib.dicts, ENV, GRID, GRID)
-    cnt_p = dz.zsparse_counts_plain(x, y, ones, ids, calib.dicts, ENV, GRID, GRID)
-    wt = dz.zsparse_counts(x, y, lw, ids, calib.dicts, ENV, GRID, GRID)
-    wt_p = dz.zsparse_counts_plain(x, y, lw, ids, calib.dicts, ENV, GRID, GRID)
+    blocks = dz.grid_blocks(calib.capd)
+    assert 5 < blocks < len(calib.tile_ids), (blocks, len(calib.tile_ids))
+    log(f"kernel check B3: persistent grid {blocks} blocks at capd={calib.capd}")
+    cnt = zsparse_case(torch, dz, "Morton (S above the grid)", x, y, mask, w,
+                       ids, calib.dicts)
+    zsparse_case(torch, dz, "Morton, S=5 (below the grid)", x, y, mask, w,
+                 ids[:5].contiguous(), calib.dicts[:5].contiguous())
+    perm = within_tile_perm(torch, n, dz.DATA_TILE, 21, dev)
+    shuf = zsparse_case(torch, dz, "within-tile shuffled", x[perm], y[perm],
+                        mask[perm], w[perm], ids, calib.dicts)
+    assert torch.equal(shuf, cnt), "shuffled counts != Morton counts"
+    # one tile's 4096 points all in the centre of one cell
+    x1, y1 = x.clone(), y.clone()
+    t0 = int(calib.tile_ids[len(calib.tile_ids) // 2])
+    rows = slice(t0 * dz.DATA_TILE, (t0 + 1) * dz.DATA_TILE)
+    x1[rows] = ENV[0] + 100.5 * (ENV[2] - ENV[0]) / GRID
+    y1[rows] = ENV[1] + 200.5 * (ENV[3] - ENV[1]) / GRID
+    calib1 = dz.calibrate_density(x1, y1, mask, ENV, GRID, GRID)
+    ids1 = torch.from_numpy(calib1.tile_ids).to(dev)
+    one = zsparse_case(torch, dz, "a tile of one cell", x1, y1, mask, w, ids1,
+                       calib1.dicts)
+    at = int(np.nonzero(calib1.tile_ids == t0)[0][0])
+    assert int((calib1.dicts[at] >= 0).sum()) == 1
+    assert float(one[at, 0]) == float(mask[rows].sum())
+    calib2 = dz.calibrate_density(x, y, mask, ENV, GRID, GRID, data_tile=2048)
+    zsparse_case(torch, dz, "data_tile 2048", x, y, mask, w,
+                 torch.from_numpy(calib2.tile_ids).to(dev), calib2.dicts, 2048)
     d = calib.dicts
     big = torch.full_like(d, np.iinfo(np.int32).max)
     thin = torch.sort(torch.where(
         (torch.arange(d.shape[1], device=dev) % 2 == 0) & (d >= 0), d, big),
         dim=1).values
     thin = torch.where(thin == big, torch.full_like(thin, -1), thin).contiguous()
-    miss = dz.zsparse_counts(x, y, ones, ids, thin, ENV, GRID, GRID)
-    miss_p = dz.zsparse_counts_plain(x, y, ones, ids, thin, ENV, GRID, GRID)
-    ok_w = cell_bound(wt.cpu().numpy(), wt_p.double().cpu().numpy(),
-                      cnt.cpu().numpy())
-    log(f"kernel check B3 N={n} tiles={len(calib.tile_ids)} capd={calib.capd}: "
-        f"counts equal {bool(torch.equal(cnt, cnt_p))}, weighted max_abs_err "
-        f"{float((wt - wt_p).abs().max()):.3g} within bound {ok_w}, "
-        f"dictionary misses equal {bool(torch.equal(miss, miss_p))} "
-        f"(mass {float(miss.sum()):.0f} of {float(cnt.sum()):.0f})")
-    assert len(calib.tile_ids) > 0 and torch.equal(cnt, cnt_p)
-    assert ok_w and torch.equal(miss, miss_p)
+    miss = zsparse_case(torch, dz, "dictionary misses", x, y, mask, w, ids, thin)
+    log(f"kernel check B3 dictionary misses: mass {float(miss.sum()):.0f} of "
+        f"{float(cnt.sum()):.0f}")
     assert float(miss.sum()) < float(cnt.sum()) and bool((miss[thin < 0] == 0).all())
+    # the fold's per-slot sinks against the reference's single sink
+    cells = GRID * GRID
+    sink = torch.where(d < 0, torch.full_like(d, cells), d)
+    single = torch.zeros(cells + 1, device=dev).index_add_(
+        0, sink.reshape(-1), cnt.reshape(-1))[:cells].reshape(GRID, GRID)
+    folded = dz._fold_counts(cnt, d, GRID, GRID)
+    log(f"kernel check fold: per-slot sinks == single sink "
+        f"{bool(torch.equal(folded, single))} (unit weights)")
+    assert torch.equal(folded, single)
     # rows with a NaN coordinate bin to index 0 (row 0 or column 0), as
     # the reference's int32 cast makes them
+    ones = mask.float()
     xn, yn = x.clone(), y.clone()
     at = t(rng.choice(n, 192, replace=False))
     xn[at[:64]] = float("nan")
@@ -629,20 +701,18 @@ def density_kernel_check(torch, dev, wkt: str) -> None:
     xn[at[128:]] = yn[at[128:]] = float("nan")
     calib_n = dz.calibrate_density(xn, yn, mask, ENV, GRID, GRID)
     ids_n = torch.from_numpy(calib_n.tile_ids).to(dev)
-    cnt_n = dz.zsparse_counts(xn, yn, ones, ids_n, calib_n.dicts, ENV, GRID, GRID)
-    cnt_np = dz.zsparse_counts_plain(xn, yn, ones, ids_n, calib_n.dicts, ENV,
-                                     GRID, GRID)
+    zsparse_case(torch, dz, "192 NaN-coordinate rows", xn, yn, mask, w, ids_n,
+                 calib_n.dicts)
     grid_n, _ = dz.density_zsparse(xn, yn, ones, mask, ENV, GRID, GRID)
     mass_n = float(dz._expected_mass(xn, yn, ones, mask, ENV, GRID, GRID))
     nan_in = int((mask[at] & (torch.isnan(xn[at]) | torch.isnan(yn[at]))).sum())
     log(f"kernel check B3 with 192 NaN-coordinate rows ({nan_in} of them "
-        f"matching): counts equal {bool(torch.equal(cnt_n, cnt_np))}, grid mass "
-        f"{float(grid_n.sum()):.0f} == expected {mass_n:.0f} (masked rows, NaN "
-        f"ones binned to row or column 0)")
+        f"matching): grid mass {float(grid_n.sum()):.0f} == expected "
+        f"{mass_n:.0f} (masked rows, NaN ones binned to row or column 0)")
     # a NaN coordinate replaces one that may have been out of bounds by an
     # in-bounds index, so no matching row drops out (dropping them would
     # lose ~nan_in rows)
-    assert torch.equal(cnt_n, cnt_np) and float(grid_n.sum()) == mass_n
+    assert float(grid_n.sum()) == mass_n
     assert nan_in > 0 and mass_n >= float(dz._expected_mass(x, y, ones, mask, ENV,
                                                             GRID, GRID))
 
@@ -762,8 +832,12 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
         for name, (cold, warm) in lat.items():
             log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
                 f"{rows / warm:.1f} points/sec [{card_s}]")
-        profile_calls(torch, "density unweighted", calls["density unweighted"], card_s)
-        profile_calls(torch, "polygon density", calls["polygon density"], card_s)
+        # B3 and the fold's scatter (index_add_) by name, wherever they rank
+        watch = ("zsparse_kernel", "indexFunc")
+        profile_calls(torch, "density unweighted", calls["density unweighted"], card_s,
+                      watch=watch)
+        profile_calls(torch, "polygon density", calls["polygon density"], card_s,
+                      watch=watch)
         profile_calls(torch, "polygon count", calls["polygon count"], card_s, calls=1)
 
         # -- oracles -------------------------------------------------------
@@ -824,6 +898,8 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
         calib = dz.calibrate_density(dv["geom__x"], dv["geom__y"], mask6, ENV,
                                      GRID, GRID)
         inputs = dict(x=dv["geom__x"], y=dv["geom__y"], lw=mask6.float(),
+                      fare=torch.where(mask6, dv["fare"].float(),
+                                       torch.zeros_like(dv["geom__x"])),
                       calib=calib, wkt=wkt, dtg=dv["dtg"], valid=dv["__valid__"])
         return launches, inputs
 
@@ -878,6 +954,67 @@ def pip_skip_lines(torch, pk, x, y, dtg, valid, edges, eps, card_s: str):
     return times
 
 
+def warp_groups(torch, dz, x, y, lw, ids) -> dict:
+    """What B3's warps meet on the selected tiles, counted in torch: per
+    32 consecutive points, the cell groups (one search and one atomic
+    each), the runs of equal keys, and the points in bounds with a
+    nonzero weight (the old kernel's one search and atomic a point). A
+    lane out of bounds or of weight 0 takes the kernel's sentinel key."""
+    from geomesa_tpu_torch.engine.density import bin_cells
+
+    live = lambda a: a.reshape(-1, dz.DATA_TILE)[ids.long()].reshape(-1, 32)  # noqa: E731
+    cells, ok = bin_cells(live(x), live(y), True, ENV, GRID, GRID)
+    w = live(lw)
+    key = torch.where(ok & (w != 0), cells, torch.full_like(cells, -2))
+    srt = torch.sort(key, dim=1).values
+    groups = 1 + (srt[:, 1:] != srt[:, :-1]).sum(1) - (srt[:, 0] < 0).long()
+    runs = 1 + (key[:, 1:] != key[:, :-1]).sum(1)
+    points = (key >= 0).sum(1)
+    q = lambda v: float(torch.quantile(v.double()[:1 << 24], 0.99))  # noqa: E731
+    return {"groups": float(groups.double().mean()), "groups_p99": q(groups),
+            "runs": float(runs.double().mean()),
+            "points": float(points.double().mean()), "warps": key.shape[0]}
+
+
+def zsparse_lines(torch, dz, x, y, lw, fare, ids, dicts, card_s: str) -> dict:
+    """Earlier lines of B3's row: its registers and spills, the cell
+    groups per warp of the path's live tiles in Morton order and on a
+    within-tile shuffled copy, B3's time on that copy (its counts must
+    equal the Morton ones) and with the path's fare weights (the weighted
+    grid's call, within the per-cell bound of the plain version). Returns
+    those times."""
+    from geomesa_tpu_torch.engine.kernels import build
+
+    for name, res in ptxas_resources(build.build_log["density_zsparse"]["ptxas"]).items():
+        if "zsparse_kernel" in name:
+            log(f"ptxas density_zsparse.cu B3: {res.get('registers')} registers, "
+                f"spill stores/loads {res.get('spill')}; persistent grid "
+                f"{dz.grid_blocks(dicts.shape[1])} blocks at capd={dicts.shape[1]}")
+    perm = within_tile_perm(torch, x.shape[0], dz.DATA_TILE, 23, x.device)
+    xs, ys, ws = x[perm], y[perm], lw[perm]
+    for order, (a, b, c) in (("Morton", (x, y, lw)), ("within-tile shuffled", (xs, ys, ws))):
+        g = warp_groups(torch, dz, a, b, c, ids)
+        log(f"B3 warps over {g['warps']} steps of 32 {order} points: "
+            f"{g['groups']:.3f} cell groups a warp (p99 {g['groups_p99']:.0f}; one "
+            f"lookup and one atomic each), {g['runs']:.3f} runs, against "
+            f"{g['points']:.3f} in-bounds weighted points (the old kernel's one "
+            f"search and atomic a point)")
+    kern = lambda: dz.zsparse_counts(x, y, lw, ids, dicts, ENV, GRID, GRID)  # noqa: E731
+    shuf = lambda: dz.zsparse_counts(xs, ys, ws, ids, dicts, ENV, GRID, GRID)  # noqa: E731
+    fared = lambda: dz.zsparse_counts(x, y, fare, ids, dicts, ENV, GRID, GRID)  # noqa: E731
+    assert torch.equal(shuf(), kern()), "B3 within-tile shuffled != Morton"
+    plain_w = dz.zsparse_counts_plain(x, y, fare, ids, dicts, ENV, GRID, GRID)
+    assert cell_bound(fared().cpu().numpy(), plain_w.double().cpu().numpy(),
+                      kern().cpu().numpy()), "B3 weighted"
+    out = {"within_tile_shuffled_ms": timed_ms(torch, shuf, 10),
+           "weighted_ms": timed_ms(torch, fared, 10)}
+    log(f"zsparse_counts on a within-tile shuffled copy: "
+        f"{out['within_tile_shuffled_ms']:.3f} ms, counts == the Morton counts; "
+        f"with the fare weights: {out['weighted_ms']:.3f} ms, within the per-cell "
+        f"bound [{card_s}]")
+    return out
+
+
 def density_rows(torch, launches, inp, card_s: str):
     """B3, B4 and B5 at the density path's shapes: time, plain time,
     error, bound, and the library call where one exists. B4/B5's bound
@@ -904,6 +1041,8 @@ def density_rows(torch, launches, inp, card_s: str):
     reach = reach_pairs(torch, y, edges[1], edges[3], BAND_EPS)
     other = pip_skip_lines(torch, pk, x, y, inp["dtg"], inp["valid"], edges,
                            BAND_EPS, card_s)
+    zs_more = zsparse_lines(torch, dz, x, y, lw, inp["fare"], ids, calib.dicts,
+                            card_s)
     src_pip = "geomesa_tpu_torch/engine/kernels/pip_crossing.cu"
     pip_bytes = 8 * n + 16 * e + n
     # (name, replaces, source, kernel, plain, library call, operations,
@@ -948,6 +1087,10 @@ def density_rows(torch, launches, inp, card_s: str):
                  if library_ms is not None else
                  ", library null (no PyTorch call computes a crossing count)")
         extra = ""
+        if name == "zsparse_counts":
+            rows[-1].update(zs_more)
+            extra = (f"; within-tile shuffled {zs_more['within_tile_shuffled_ms']:.3f} "
+                     f"ms, fare-weighted {zs_more['weighted_ms']:.3f} ms")
         if ops_all is not None:
             b_all, by_all = roofline_ms(ops_all, nbytes)
             rows[-1]["bound_all_pairs_ms"] = b_all

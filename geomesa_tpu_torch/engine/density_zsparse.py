@@ -137,13 +137,26 @@ def zsparse_counts_plain(x, y, lw, tile_ids, dicts, bbox: BBox, width: int,
 def _lib():
     from geomesa_tpu_torch.engine.kernels.build import load
 
-    fn = load("density_zsparse").zsparse_launch
+    lib = load("density_zsparse")
+    fn = lib.zsparse_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                        + [ctypes.c_float] * 4 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.zsparse_grid_blocks.argtypes = [ctypes.c_int]
+        lib.zsparse_grid_blocks.restype = ctypes.c_int
+    return lib
+
+
+def grid_blocks(capd: int) -> int:
+    """Blocks of B3's persistent grid for a dictionary of width `capd`
+    (rounded up to a multiple of 4) on the current CUDA device: a launch
+    over S selected tiles runs min(S, grid_blocks) blocks."""
+    n = _lib().zsparse_grid_blocks(capd + (-capd) % 4)
+    if n < 0:
+        raise RuntimeError(f"zsparse grid query failed: CUDA error {-n}")
+    return n
 
 
 def zsparse_counts(x, y, lw, tile_ids, dicts, bbox: BBox, width: int,
@@ -152,7 +165,11 @@ def zsparse_counts(x, y, lw, tile_ids, dicts, bbox: BBox, width: int,
     data_tile; lw is the weight with the mask folded in), tile_ids i32
     [S], dicts i32 [S, capd] (sorted, -1 pads at the end, capd <= 512)
     -> f32 [S, capd]: for each selected tile and slot, the sum of lw over
-    the tile's in-bounds points whose raster cell is that slot's."""
+    the tile's in-bounds points whose raster cell is that slot's.
+
+    On the card, data_tile must be a multiple of 32 and x, y, lw and
+    dicts must start on 16 bytes (the kernel's TMA copies); a capd that
+    is not a multiple of 4 is padded with -1 slots for the launch."""
     if x.shape[0] % data_tile:
         raise ValueError(f"n={x.shape[0]} is not a multiple of "
                          f"data_tile={data_tile}")
@@ -167,21 +184,31 @@ def zsparse_counts(x, y, lw, tile_ids, dicts, bbox: BBox, width: int,
     if capd > MAX_CAPD or tile_ids.shape != (s,):
         raise ValueError(f"dicts {tuple(dicts.shape)} and tile_ids "
                          f"{tuple(tile_ids.shape)} do not fit the kernel")
-    out = torch.empty((s, capd), dtype=torch.float32, device=x.device)
+    if data_tile <= 0 or data_tile % 32:
+        raise ValueError(f"data_tile={data_tile}: the kernel takes a "
+                         f"positive multiple of 32")
     f32, i32 = torch.float32, torch.int32
-    check_kernel_inputs(x, y, lw, tile_ids, dicts, out,
-                        dtypes=(f32, f32, f32, i32, i32, f32))
+    check_kernel_inputs(x, y, lw, tile_ids, dicts,
+                        dtypes=(f32, f32, f32, i32, i32))
+    if capd % 4:
+        dicts = torch.cat([dicts, torch.full((s, (-capd) % 4), -1, dtype=i32,
+                                             device=x.device)], 1)
+    for name, t in (("x", x), ("y", y), ("lw", lw), ("dicts", dicts)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on 16 bytes, as the "
+                             f"kernel's TMA copies need")
+    out = torch.empty(dicts.shape, dtype=f32, device=x.device)
     xmin, dx, ymin, dy = (float(v) for v in grid_consts(bbox, width, height))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(x.data_ptr(), y.data_ptr(), lw.data_ptr(),
-                     tile_ids.data_ptr(), dicts.data_ptr(), out.data_ptr(),
-                     s, capd, data_tile, xmin, dx, ymin, dy, width, height,
-                     stream)
+        err = _lib().zsparse_launch(
+            x.data_ptr(), y.data_ptr(), lw.data_ptr(), tile_ids.data_ptr(),
+            dicts.data_ptr(), out.data_ptr(), s, dicts.shape[1], data_tile,
+            xmin, dx, ymin, dy, width, height, stream)
     if err != 0:
         raise RuntimeError(f"zsparse kernel launch failed: CUDA error {err}")
     zsparse_counts.launches += 1
-    return out
+    return out[:, :capd].contiguous()
 
 
 zsparse_counts.launches = 0
@@ -190,14 +217,24 @@ zsparse_counts.launches = 0
 # -- driver ---------------------------------------------------------------------
 
 
+def _fold_index(dicts, width: int, height: int):
+    """(flat grid index of each dictionary slot, grid size): a slot's
+    cell, or for a -1 pad in slot j the sink width*height + j, so that no
+    sink takes more than one add per row (one sink for every pad would
+    serialise its atomic adds)."""
+    cells = width * height
+    sinks = cells + torch.arange(dicts.shape[1], dtype=dicts.dtype,
+                                 device=dicts.device)
+    return torch.where(dicts < 0, sinks, dicts), cells + dicts.shape[1]
+
+
 def _fold_counts(counts, dicts, width: int, height: int) -> torch.Tensor:
     """Scatter per-tile count rows into the raster grid via their cell
-    dictionaries (-1 pads route to a sink slot)."""
-    sink = width * height
-    idx = torch.where(dicts < 0, torch.full_like(dicts, sink), dicts)
-    grid = torch.zeros(sink + 1, dtype=torch.float32, device=counts.device)
+    dictionaries (`_fold_index`)."""
+    idx, size = _fold_index(dicts, width, height)
+    grid = torch.zeros(size, dtype=torch.float32, device=counts.device)
     grid.index_add_(0, idx.reshape(-1), counts.reshape(-1))
-    return grid[:sink].reshape(height, width)
+    return grid[:width * height].reshape(height, width)
 
 
 def _expected_mass(x, y, w, mask, bbox: BBox, width: int, height: int):

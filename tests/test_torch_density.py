@@ -264,21 +264,82 @@ def test_gaussian_blur_matches_reference(radius):
                                exp.sum(dtype=np.float64), rtol=1e-5)
 
 
+def _shuffle_within_tiles(seed, dt, *arrays):
+    """The arrays with each data tile's points permuted (one permutation
+    for all arrays): every tile keeps its set of cells, so its dictionary
+    stays valid, but a warp's 32 points fall into as many cells as they
+    can."""
+    rng = np.random.default_rng(seed)
+    n = len(arrays[0])
+    perm = np.argsort(rng.random((n // dt, dt)), axis=1)
+    perm = (perm + np.arange(0, n, dt)[:, None]).reshape(-1)
+    return [np.ascontiguousarray(a[perm]) for a in arrays]
+
+
+def _card_case(dev, x, y, w, mask, dt, bbox, wh, ids=None, dicts=None):
+    """B3 on the card against its plain version: unit weights equal,
+    weights within the per-cell bound."""
+    x_, y_, w_, m_ = (t.to(dev) for t in tx(x, y, w, mask))
+    if dicts is None:
+        calib = port.calibrate_density(x_, y_, m_, bbox, wh, wh, data_tile=dt)
+        ids, dicts = calib.tile_ids, calib.dicts
+    ids = torch.from_numpy(np.asarray(ids, np.int32)).to(dev)
+    dicts = dicts.to(dev)
+    ones = m_.float()
+    lw = torch.where(m_, w_, torch.zeros_like(w_))
+    got = port.zsparse_counts(x_, y_, ones, ids, dicts, bbox, wh, wh, dt)
+    exp = port.zsparse_counts_plain(x_, y_, ones, ids, dicts, bbox, wh, wh, dt)
+    assert torch.equal(got, exp)
+    got_w = port.zsparse_counts(x_, y_, lw, ids, dicts, bbox, wh, wh, dt)
+    exp_w = port.zsparse_counts_plain(x_, y_, lw, ids, dicts, bbox, wh, wh, dt)
+    assert_weighted_close(got_w.cpu().numpy(), exp_w.double().cpu().numpy(),
+                          got.cpu().numpy())
+    return got, ids, dicts
+
+
 @pytest.mark.cuda
 def test_zsparse_kernel_matches_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     dev = torch.device("cuda")
     x, y, w, mask = make(1 << 18, seed=7)
-    tx_ = [t.to(dev) for t in tx(x, y, w, mask)]
-    calib = port.calibrate_density(tx_[0], tx_[1], tx_[3], BBOX, 256, 256)
-    ids = torch.from_numpy(calib.tile_ids).to(dev)
-    ones = tx_[3].float()
-    got = port.zsparse_counts(tx_[0], tx_[1], ones, ids, calib.dicts, BBOX,
-                              256, 256)
-    exp = port.zsparse_counts_plain(tx_[0], tx_[1], ones, ids, calib.dicts,
-                                    BBOX, 256, 256)
-    assert torch.equal(got, exp)
+    # Morton order, data_tile 4096 and 2048
+    got, ids, dicts = _card_case(dev, x, y, w, mask, 4096, BBOX, 256)
+    _card_case(dev, x, y, w, mask, 2048, BBOX, 256)
+    # shuffled inside each tile: every lane its own group
+    xs, ys, ws, ms = _shuffle_within_tiles(3, 4096, x, y, w, mask)
+    shuf, _, _ = _card_case(dev, xs, ys, ws, ms, 4096, BBOX, 256, ids.cpu(), dicts)
+    assert torch.equal(shuf, got)
+    # a tile whose 4096 points all share one cell (inside BBOX, off its
+    # cell's edges)
+    x1, y1 = x.copy(), y.copy()
+    x1[4096:8192], y1[4096:8192] = np.float32(0.3), np.float32(0.3)
+    one_cell, ids1, dicts1 = _card_case(dev, x1, y1, w, mask, 4096, BBOX, 256)
+    at = int((ids1 == 1).nonzero()[0, 0])
+    assert int((dicts1[at] >= 0).sum()) == 1
+    assert float(one_cell[at, 0]) == float(mask[4096:8192].sum())
+    # S below and above the persistent grid (repeated tiles: the kernel
+    # takes any tile list)
+    blocks = port.grid_blocks(dicts.shape[1])
+    _card_case(dev, x, y, w, mask, 4096, BBOX, 256, ids[:3].cpu(), dicts[:3])
+    reps = blocks // len(ids) + 2
+    big, _, _ = _card_case(dev, x, y, w, mask, 4096, BBOX, 256,
+                           ids.repeat(reps).cpu(), dicts.repeat(reps, 1))
+    assert big.shape[0] > blocks and torch.equal(big[:len(ids)], got)
+    # cells missing from a dictionary add nothing
+    d = dicts.cpu().numpy()
+    thin = np.where(np.arange(d.shape[1]) % 2 == 0, d, -1)
+    thin = np.sort(np.where(thin < 0, np.iinfo(np.int32).max, thin), 1)
+    thin = np.where(thin == np.iinfo(np.int32).max, -1, thin).astype(np.int32)
+    miss, _, _ = _card_case(dev, x, y, w, mask, 4096, BBOX, 256, ids.cpu(),
+                            torch.from_numpy(thin))
+    assert float(miss.sum()) < float(got.sum())
+    # the fold's own sinks against the single-sink formula, unit weights
+    grid = port._fold_counts(got, dicts, 256, 256)
+    sink = torch.where(dicts < 0, torch.full_like(dicts, 256 * 256), dicts)
+    one = torch.zeros(256 * 256 + 1, device=dev).index_add_(
+        0, sink.reshape(-1), got.reshape(-1))[:-1].reshape(256, 256)
+    assert torch.equal(grid, one)
     # rows with a NaN coordinate bin to index 0 (row 0 or column 0), as
     # the reference's int32 cast makes them, in the kernel and the plain
     # version alike
@@ -288,14 +349,31 @@ def test_zsparse_kernel_matches_plain_on_the_card():
     xn[i[:8]] = np.nan
     yn[i[8:16]] = np.nan
     xn[i[16:]] = yn[i[16:]] = np.nan
-    tn = [t.to(dev) for t in tx(xn, yn)]
-    calib = port.calibrate_density(tn[0], tn[1], tx_[3], BBOX, 256, 256)
-    ids = torch.from_numpy(calib.tile_ids).to(dev)
-    got = port.zsparse_counts(tn[0], tn[1], ones, ids, calib.dicts, BBOX,
-                              256, 256)
-    exp = port.zsparse_counts_plain(tn[0], tn[1], ones, ids, calib.dicts,
-                                    BBOX, 256, 256)
-    assert torch.equal(got, exp)
-    grid, _ = port.density_zsparse(tn[0], tn[1], ones, tx_[3], BBOX, 256, 256)
+    _card_case(dev, xn, yn, w, mask, 4096, BBOX, 256)
+    tn = [t.to(dev) for t in tx(xn, yn, mask)]
+    ones = tn[2].float()
+    grid, _ = port.density_zsparse(tn[0], tn[1], ones, tn[2], BBOX, 256, 256)
     assert float(grid.sum()) == float(
-        port._expected_mass(tn[0], tn[1], ones, tx_[3], BBOX, 256, 256))
+        port._expected_mass(tn[0], tn[1], ones, tn[2], BBOX, 256, 256))
+
+
+@pytest.mark.cuda
+def test_zsparse_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    x, y, w, mask = (t.to(dev) for t in tx(*make(1 << 13, seed=4)))
+    calib = port.calibrate_density(x, y, mask, BBOX, W, H, data_tile=64)
+    ids = torch.from_numpy(calib.tile_ids).to(dev)
+    ones = mask.float()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        port.zsparse_counts(x[:8160], y[:8160], ones[:8160], ids[:1] * 0,
+                            calib.dicts[:1], BBOX, W, H, data_tile=48)
+    xa = torch.cat([torch.zeros(1, device=dev), x])[1:]  # 4 bytes off
+    with pytest.raises(ValueError, match="16 bytes"):
+        port.zsparse_counts(xa, y, ones, ids, calib.dicts, BBOX, W, H, 64)
+    # a capd that is not a multiple of 4 is padded for the launch
+    d5 = calib.dicts[:, :5].contiguous()
+    got = port.zsparse_counts(x, y, ones, ids, d5, BBOX, W, H, 64)
+    assert got.shape == d5.shape and torch.equal(
+        got, port.zsparse_counts_plain(x, y, ones, ids, d5, BBOX, W, H, 64))
