@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (geomesa_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # full size: 2^26 rows in each store,
-                                     # 2^22 points in the config-2 join
-    python3 chip_smoke.py --rows N   # smaller stores (and at most N
-                                     # config-2 points), for a quick check
+    python3 chip_smoke.py            # full size: 2^26 rows in the kNN and
+                                     # density stores, 2^22 points in the
+                                     # config-2 join and the tube engine,
+                                     # 2^24 rows in the TubeSelect store
+    python3 chip_smoke.py --rows N   # smaller stores (at most N config-2
+                                     # points, N/4 TubeSelect rows), for
+                                     # a quick check
 
 Needs a CUDA card and the CUDA toolkit (nvcc); without a card it exits 1
 and prints no result. Phases, each fatal on failure:
@@ -60,7 +63,30 @@ and prints no result. Phases, each fatal on failure:
    every adversarial point, assignment ids equal to its per-polygon
    oracle, join pairs == the points inside, pip_layer_sparse ==
    pip_layer_grouped on covered tiles;
-7. each kernel timed at its path's shapes beside its plain version and
+7. the feature route (inside phases 4 and 5, on their stores): on the
+   kNN store, BBOX(geom, 10, 40, 12, 42) AND the 69-day window (DURING)
+   AND speed > 5.0 as features projected to speed, dtg, geom, sorted by
+   dtg descending, with max_features 10,000 and without, on the cached
+   route and the scan route; on the density store the zone polygon AND
+   March 2016 as features, with B4/B5's launches reset before and read
+   after; each cold and warm, with the mask fetch, the f64 refine and
+   the select split out of one synchronised call, gated: rows equal an
+   f64 NumPy evaluation (polygon: the f64 crossing oracle) of the
+   written rows, the order holds, the count equals get_count;
+8. TubeSelect (bench config 5): tube_select_pruned (capacity calibrated
+   once) and the dense tube_select over 2^22 Morton-ordered f32 points
+   against the bench's 256-sample, 20 km, 1 h track, with the dense
+   chunk and the pruning tile timed at three sizes each; then
+   TubeSelectProcess over a cached 2^24-row vessel:String,dtg:Date,
+   *geom:Point store (one day, 10,000 vessels) with NoGapFill (cold and
+   warm) and LineGapFill(10 km), its split (window_query, f64 upload,
+   device pass) and a torch.profiler breakdown; gated: pruned == dense,
+   and every hit set equals an f64 haversine oracle over the written
+   rows but for samples at the radius +- 1 m within the window (the
+   bench's rule); the passes' times and bounds print as one
+   {"device_ops": [...]} line and phases 7-8's numbers as one
+   {"phases": {...}} line;
+9. each kernel timed at its path's shapes beside its plain version and
    its bound, printed as one {"kernels": [...]} line; before it, B3's
    registers, the cell groups a warp meets on the path's live tiles
    (counted in torch) against the old kernel's one atomic a point, and
@@ -103,6 +129,8 @@ OVERFLOW_CAP = 64  # seeded sparse capacity, below the query's match tiles
 # NVIDIA H100 SXM data sheet: HBM3 rate and FP32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# what phases 7 and 8 measured, printed as one JSON line at the end
+PHASES: dict = {}
 
 
 def card() -> str:
@@ -359,6 +387,9 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         for impl in ("sparse", "fullscan"):
             log(f"knn {impl}: warm p50 {lat[impl] * 1e3:.3f} ms per call "
                 f"(Q={Q}, k={K}), {rows / lat[impl]:.1f} points/sec [{card_s}]")
+
+        PHASES["features knn store"] = feature_phase_knn(
+            torch, src, tmp, dev, x, y, t, speed, card_s)
 
         # the main path's kernel inputs, for timing at its shapes
         plan = planner.plan(Query("gdelt", cql))
@@ -739,27 +770,9 @@ def density_kernel_check(torch, dev, wkt: str) -> None:
         assert 0 < int(inside.sum()) < qx.shape[0], name
 
 
-def f64_polygon_count(torch, dev, x, y, wkt: str, chunk: int = 1 << 15) -> int:
-    """Exact f64 crossing-number count on the card (the oracle): points
-    outside the polygon's envelope cross no edge or an even number."""
-    from geomesa_tpu_torch.core.wkt import parse_wkt
-    from geomesa_tpu_torch.engine.pip import polygon_edges
-
-    e = [torch.from_numpy(a).to(dev)[None, :] for a in polygon_edges(parse_wkt(wkt))]
-    x1, y1, x2, y2 = e
-    xt = torch.from_numpy(x).to(dev)
-    yt = torch.from_numpy(y).to(dev)
-    keep = ((xt >= x1.min()) & (xt <= x1.max()) & (yt >= y1.min()) & (yt <= y1.max()))
-    xt, yt = xt[keep], yt[keep]
-    den = torch.where(y2 == y1, torch.ones_like(y1), y2 - y1)
-    total = torch.zeros((), dtype=torch.int64, device=dev)
-    for s in range(0, xt.shape[0], chunk):
-        px = xt[s:s + chunk, None]
-        py = yt[s:s + chunk, None]
-        cond = (y1 <= py) != (y2 <= py)
-        xc = x1 + (py - y1) / den * (x2 - x1)
-        total += ((cond & (xc > px)).sum(1) % 2).sum()
-    return int(total)
+def f64_polygon_count(torch, dev, x, y, wkt: str) -> int:
+    """Exact f64 crossing-number count on the card (the oracle)."""
+    return int(f64_polygon_mask(torch, dev, x, y, wkt).sum())
 
 
 def density_path(torch, dev, rows: int, card_s: str, wkt: str):
@@ -891,6 +904,9 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
             f"{flips} boundary rows off the f64 count); blur conserves mass; shuffled "
             f"fallback ({len(fcal.dense_ids)} of {fcal.n_tiles} tiles "
             f"overflow) == scatter")
+
+        PHASES["features density store"] = feature_phase_density(
+            torch, src, dev, x, y, t, fare, wkt, card_s)
 
         # the path's kernel inputs, for timing at its shapes
         planner = src.planner
@@ -1668,6 +1684,483 @@ def layer_rows(torch, launches, inp, card_s: str):
     return rows
 
 
+# -- feature route (phase 7) and TubeSelect (phase 8, bench config 5) ---------
+
+FEATURE_BBOX = (10.0, 40.0, 12.0, 42.0)
+FEATURE_LIMIT = 10_000
+M_T0, M_T1 = 1_456_790_400_000, 1_459_468_800_000  # 2016-03-01 .. 2016-04-01
+# NVIDIA H100 SXM data sheet: FP64 (non-tensor) peak
+FP64_OPS_PER_S = 34e12
+# FP32 operations per (point, sample) pair of the tube test: 3 subtracts,
+# 3 multiplies, 2 adds and 1 compare for the chord, 2 compares for the
+# time window and 1 AND
+TUBE_OPS = 12
+TUBE_N = 1 << 22  # the reference bench's config-5 size
+TUBE_STORE_N = 1 << 24
+TUBE_T = 256
+TUBE_RADIUS = 20_000.0
+TUBE_WIN = 3_600_000
+TUBE_DAY0 = 1_600_041_600_000  # 2020-09-14T00:00:00Z
+DAY_MS = 86_400_000
+
+
+def time_calls(calls: dict, warm: int = 5):
+    """Each call once cold and `warm` times more: (results, {name: (cold
+    s, warm p50 s)})."""
+    out, lat = {}, {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        out[name] = fn()
+        cold = time.perf_counter() - t0
+        times = []
+        for _ in range(warm):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            times.append(time.perf_counter() - t0)
+        lat[name] = (cold, statistics.median(times))
+    return out, lat
+
+
+class Spans:
+    """Seconds spent in named functions of the port during one call, and
+    the calls made: each wrapper synchronises the card before it starts
+    and before it stops its clock, so a span holds its own device work.
+    Used for one instrumented call beside the uninstrumented latencies."""
+
+    def __init__(self, torch, targets):
+        self.torch = torch
+        self.targets = targets  # [(owner, attribute, label)]
+        self.seconds = {label: 0.0 for _, _, label in targets}
+        self.calls = {label: 0 for _, _, label in targets}
+        self.results = {}
+        self._saved = []
+
+    def __enter__(self):
+        for owner, attr, label in self.targets:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(fn, label))
+        return self
+
+    def _wrap(self, fn, label):
+        def wrapped(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds[label] += time.perf_counter() - t0
+            self.calls[label] += 1
+            self.results[label] = out
+            return out
+        return wrapped
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        return False
+
+
+def rows_equal(feats, t, x, y, cols=()) -> bool:
+    """The returned rows, as a set, against the expected rows: both sides
+    ordered by (dtg, x), then dtg, x, y and any (name, values) in `cols`
+    compared exactly (the written f64 values survive the store)."""
+    if feats is None:
+        return len(t) == 0
+    ft = np.asarray(feats.columns["dtg"])
+    fx = np.asarray(feats.columns["geom"].x)
+    fy = np.asarray(feats.columns["geom"].y)
+    if len(ft) != len(t):
+        return False
+    a, b = np.lexsort((fx, ft)), np.lexsort((x, t))
+    ok = (np.array_equal(ft[a], t[b]) and np.array_equal(fx[a], x[b])
+          and np.array_equal(fy[a], y[b]))
+    for name, vals in cols:
+        ok = ok and np.array_equal(np.asarray(feats.columns[name])[a], vals[b])
+    return bool(ok)
+
+
+def feature_spans(torch, card_s: str, what: str, fn) -> dict:
+    """One instrumented warm call: the mask fetch, the f64 refine and the
+    select-sort-project tail, in seconds."""
+    import geomesa_tpu_torch.plan.planner as planner_mod
+    from geomesa_tpu_torch.cql.compile import CompiledFilter
+
+    with Spans(torch, [(planner_mod, "fetch", "mask fetch"),
+                       (CompiledFilter, "refine", "refine"),
+                       (planner_mod, "aggregate", "select + finish")]) as sp:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    log(f"{what} split: mask fetch {sp.seconds['mask fetch'] * 1e3:.3f} ms, "
+        f"refine {sp.seconds['refine'] * 1e3:.3f} ms, select + sort + "
+        f"project {sp.seconds['select + finish'] * 1e3:.3f} ms of "
+        f"{wall * 1e3:.3f} ms (synchronised spans) [{card_s}]")
+    return dict(sp.seconds, wall=wall)
+
+
+def feature_phase_knn(torch, src, tmp: str, dev, x, y, t, speed, card_s: str):
+    """Phase 7 on the kNN store: a BBOX + 69-day DURING + attribute query
+    as features, with projection, sort and limit, on the cached route
+    (with and without the limit) and the scan route."""
+    from geomesa_tpu_torch import DataStore, Query
+
+    bx = FEATURE_BBOX
+    cql = (f"BBOX(geom, {bx[0]}, {bx[1]}, {bx[2]}, {bx[3]}) AND dtg DURING "
+           f"{iso(T0)}/{iso(T1)} AND speed > 5.0")
+    attrs = ["speed", "dtg", "geom"]
+    order = [("dtg", False)]
+    q_lim = Query("gdelt", cql, attributes=attrs, sort_by=order,
+                  max_features=FEATURE_LIMIT)
+    q_all = Query("gdelt", cql, attributes=attrs, sort_by=order)
+    scan = DataStore(tmp, device=dev).get_feature_source("gdelt")
+    calls = {"features cached, limit": lambda: src.get_features(q_lim),
+             "features cached": lambda: src.get_features(q_all),
+             "features scan": lambda: scan.get_features(q_all)}
+    out, lat = time_calls(calls)
+    count = src.get_count(cql)
+    m = ((x >= bx[0]) & (x <= bx[2]) & (y >= bx[1]) & (y <= bx[3])
+         & (t > T0) & (t < T1) & (speed > 5.0))
+    for name, r in out.items():
+        assert r.kind == "features" and r.features is not None, name
+        f = r.features
+        assert f.sft.attribute_names == attrs, name
+        d = np.asarray(f.columns["dtg"])
+        assert np.all(d[:-1] >= d[1:]), f"{name}: not sorted by dtg descending"
+        if name.endswith("limit"):
+            assert len(f) == r.count == min(FEATURE_LIMIT, int(m.sum())), name
+            full = out["features cached"].features
+            assert np.array_equal(d, np.asarray(full.columns["dtg"])[:len(f)])
+        else:
+            assert r.count == count == int(m.sum()), (name, r.count, count)
+            assert rows_equal(f, t[m], x[m], y[m], [("speed", speed[m])]), name
+    log(f"correct: feature rows == f64 NumPy evaluation of the written rows "
+        f"({int(m.sum())} rows, cached and scan), sorted by dtg descending, "
+        f"projected to {attrs}, limit {FEATURE_LIMIT} keeps the first "
+        f"{len(out['features cached, limit'].features)}; count == get_count")
+    for name, (cold, warm) in lat.items():
+        log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
+            f"{out[name].count} rows returned [{card_s}]")
+    res = {name: {"cold_s": c, "warm_p50_s": w, "rows": out[name].count}
+           for name, (c, w) in lat.items()}
+    res["features cached"]["split"] = feature_spans(
+        torch, card_s, "features cached", calls["features cached"])
+    res["features scan"]["split"] = feature_spans(
+        torch, card_s, "features scan", calls["features scan"])
+    profile_calls(torch, "features cached", calls["features cached"], card_s,
+                  calls=1)
+    return res
+
+
+def f64_polygon_mask(torch, dev, x, y, wkt: str, chunk: int = 1 << 15):
+    """Exact f64 crossing-number membership on the card (the oracle), as a
+    host bool mask: points outside the polygon's envelope cross no edge
+    or an even number."""
+    from geomesa_tpu_torch.core.wkt import parse_wkt
+    from geomesa_tpu_torch.engine.pip import polygon_edges
+
+    e = [torch.from_numpy(a).to(dev)[None, :] for a in polygon_edges(parse_wkt(wkt))]
+    x1, y1, x2, y2 = e
+    xt = torch.from_numpy(x).to(dev)
+    yt = torch.from_numpy(y).to(dev)
+    keep = ((xt >= x1.min()) & (xt <= x1.max()) & (yt >= y1.min()) & (yt <= y1.max()))
+    at = torch.nonzero(keep).flatten()
+    xt, yt = xt[at], yt[at]
+    den = torch.where(y2 == y1, torch.ones_like(y1), y2 - y1)
+    inside = torch.zeros(xt.shape[0], dtype=torch.bool, device=dev)
+    for s in range(0, xt.shape[0], chunk):
+        px = xt[s:s + chunk, None]
+        py = yt[s:s + chunk, None]
+        cond = (y1 <= py) != (y2 <= py)
+        xc = x1 + (py - y1) / den * (x2 - x1)
+        inside[s:s + chunk] = ((cond & (xc > px)).sum(1) % 2) == 1
+    out = torch.zeros(len(x), dtype=torch.bool, device=dev)
+    out[at] = inside
+    return out.cpu().numpy()
+
+
+def feature_phase_density(torch, src, dev, x, y, t, fare, wkt: str,
+                          card_s: str):
+    """Phase 7 on the density store: the zone polygon AND one month as
+    features (B4 and B5 on the cached route), against the f64 crossing
+    oracle restricted to the month."""
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.engine import pip_kernels as pk
+
+    cql = f"INTERSECTS(geom, {wkt}) AND dtg > {iso(M_T0)} AND dtg < {iso(M_T1)}"
+    q = Query("taxi", cql)
+    for w in (pk.pip_crossing, pk.pip_band):
+        w.launches = 0
+    out, lat = time_calls({"polygon features": lambda: src.get_features(q)}, warm=3)
+    launches = {w.__name__: w.launches for w in (pk.pip_crossing, pk.pip_band)}
+    log(f"feature-route launches: {launches} over 4 polygon feature calls")
+    assert all(launches.values()), "B4 or B5 never launched on the feature route"
+    r = out["polygon features"]
+    tm = (t > M_T0) & (t < M_T1)
+    exp = np.zeros(len(x), bool)
+    exp[tm] = f64_polygon_mask(torch, dev, x[tm], y[tm], wkt)
+    assert r.kind == "features" and r.count == int(exp.sum()), (r.count, int(exp.sum()))
+    assert rows_equal(r.features, t[exp], x[exp], y[exp], [("fare", fare[exp])])
+    cold, warm = lat["polygon features"]
+    log(f"correct: polygon feature rows == the f64 crossing oracle over the "
+        f"month ({r.count} rows)")
+    log(f"polygon features: cold {cold * 1e3:.3f} ms, warm p50 "
+        f"{warm * 1e3:.3f} ms, {r.count} rows returned [{card_s}]")
+    split = feature_spans(torch, card_s, "polygon features",
+                          lambda: src.get_features(q))
+    return {"cold_s": cold, "warm_p50_s": warm, "rows": r.count,
+            "launches": launches, "split": split}
+
+
+def tube_track(rng):
+    """The reference bench's 256-sample track over one day (config 5)."""
+    tx = np.linspace(-8, 8, TUBE_T)
+    ty = np.linspace(51, 59, TUBE_T) + rng.normal(0, 0.05, TUBE_T)
+    tt = np.linspace(0, DAY_MS, TUBE_T).astype(np.int64)
+    return tx, ty, tt
+
+
+def tube_points(torch, dev, rng, n: int):
+    """The bench's config-5 points: x U(-10, 10), y U(50, 60) in Morton
+    order, t U(0, 1 day)."""
+    x = rng.uniform(-10, 10, n)
+    y = rng.uniform(50, 60, n)
+    o = morton_order(torch, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    x, y = x[o], y[o]
+    t = rng.integers(0, DAY_MS, n)
+    return x, y, t
+
+
+def tube_oracle(torch, dev, x, y, t, tx, ty, tt, radius, win,
+                chunk: int = 1 << 14) -> np.ndarray:
+    """f64 haversine membership on the card: within `radius` metres and
+    `win` ms of any sample (written here, apart from the port)."""
+    R = 6_371_008.8
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float64)).to(dev)  # noqa: E731
+    plon, plat = torch.deg2rad(f(x)), torch.deg2rad(f(y))
+    slon, slat = torch.deg2rad(f(tx))[None], torch.deg2rad(f(ty))[None]
+    pc, sc = torch.cos(plat), torch.cos(slat)
+    pt = torch.from_numpy(np.asarray(t, np.int64)).to(dev)
+    st = torch.from_numpy(np.asarray(tt, np.int64)).to(dev)[None]
+    out = torch.zeros(len(x), dtype=torch.bool, device=dev)
+    for s in range(0, len(x), chunk):
+        e = slice(s, s + chunk)
+        a = (torch.sin((slat - plat[e, None]) / 2) ** 2
+             + pc[e, None] * sc * torch.sin((slon - plon[e, None]) / 2) ** 2)
+        d = 2.0 * R * torch.asin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+        hit = (d <= radius) & ((pt[e, None] - st).abs() <= win)
+        out[e] = hit.any(1)
+    return out.cpu().numpy()
+
+
+def off_radius_edge(got, exp, x, y, t, tx, ty, tt, radius, win) -> int:
+    """Mismatches that are NOT a sample within the window at the radius
+    +- 1 m (the reference bench's rule): the count that must be 0."""
+    from geomesa_tpu_torch.engine.geodesy import haversine_m_np
+
+    bad = 0
+    for i in np.nonzero(got != exp)[0]:
+        d = haversine_m_np(x[i], y[i], tx, ty)
+        if not ((np.abs(t[i] - tt) <= win) & (np.abs(d - radius) <= 1.0)).any():
+            bad += 1
+    return bad
+
+
+def tube_engine(torch, dev, card_s: str):
+    """Phase 8, engine: tube_select_pruned (capacity calibrated once) and
+    the dense tube_select at the bench's config-5 shape, in f32; the
+    chunk and tile sizes timed; gated pruned == dense and against the
+    f64 oracle under the 1 m rule."""
+    import geomesa_tpu_torch.engine.tube as tb
+
+    rng = np.random.default_rng(13)
+    x, y, t = tube_points(torch, dev, rng, TUBE_N)
+    tx, ty, tt = tube_track(rng)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    i64 = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # noqa: E731
+    args = (f32(x), f32(y), i64(t), torch.ones(TUBE_N, dtype=torch.bool, device=dev),
+            f32(tx), f32(ty), i64(tt),
+            torch.tensor(TUBE_RADIUS, dtype=torch.float32, device=dev),
+            torch.tensor(TUBE_WIN, dtype=torch.int64, device=dev))
+    margins = tb.tube_margins(ty, TUBE_RADIUS)
+    with Spans(torch, [(tb, "tube_select", "tube_select"),
+                       (tb, "_tube_pruned_call", "_tube_pruned_call")]) as sp:
+        _, cap = tb.tube_select_pruned(*args)  # calibration: one scalar read
+        pruned = tb.tube_select_pruned(*args, tile_capacity=cap)[0]
+        dense = tb.tube_select(*args)
+    launches = dict(sp.calls)
+    log(f"tube engine launches: {launches} over 1 calibration, 1 pruned and "
+        "1 dense call (plain PyTorch; a launch is a call of the function)")
+    got = pruned.cpu().numpy()
+    assert np.array_equal(got, dense.cpu().numpy()), "pruned != dense"
+    exp = tube_oracle(torch, dev, x, y, t, tx, ty, tt, TUBE_RADIUS, TUBE_WIN)
+    mism = int((got != exp).sum())
+    bad = off_radius_edge(got, exp, x, y, t, tx, ty, tt, TUBE_RADIUS, TUBE_WIN)
+    assert bad == 0, f"{bad} tube mismatches away from the radius edge"
+    assert cap > 0, "the calibrated capacity overflowed"
+    tiles = (512, tb.PRUNE_TILE, 2048, 8192)
+    sel = {}
+    for dt in tiles:
+        sel[dt] = int(tb.tube_tile_hits(args[0], args[1], args[2], args[4], args[5],
+                                        args[6], args[8], *margins, data_tile=dt).sum())
+    log(f"correct: tube pruned == dense ({int(got.sum())} hits of {TUBE_N}); "
+        f"{mism} mismatches against the f64 haversine oracle, all within 1 m "
+        f"of the radius")
+    # sizes: the dense pass's chunk, and the pruning tile
+    dense_ms = {}
+    for dc in (16384, tb.DATA_CHUNK, 262144):
+        dense_ms[dc] = timed_ms(torch, lambda: tb.tube_select(*args, data_tile=dc), 5)
+    pruned_ms, caps = {}, {}
+    for dt in tiles:
+        _, caps[dt] = tb.tube_select_pruned(*args, data_tile=dt)
+        pruned_ms[dt] = timed_ms(torch, lambda: tb.tube_select_pruned(
+            *args, data_tile=dt, tile_capacity=caps[dt]), 10)
+    for dc, ms in dense_ms.items():
+        log(f"tube_select dense, chunk {dc} x {tb.TUBE_CHUNK}: {ms:.3f} ms [{card_s}]")
+    for dt, ms in pruned_ms.items():
+        log(f"tube_select_pruned, data_tile {dt}: {ms:.3f} ms, {sel[dt]} of "
+            f"{-(-TUBE_N // dt)} tiles selected, capacity {caps[dt]} [{card_s}]")
+    d_ms = timed_ms(torch, lambda: tb.tube_select(*args), 10)
+    p_ms = timed_ms(torch, lambda: tb.tube_select_pruned(*args, tile_capacity=cap), 10)
+    nbytes = TUBE_N * (4 + 4 + 8 + 1 + 1)
+    pairs_dense = TUBE_N * TUBE_T
+    pt_ = tb.PRUNE_TILE
+    pairs_pruned = sel[pt_] * pt_ * TUBE_T
+    bd, byd = roofline_ms(TUBE_OPS * pairs_dense, nbytes)
+    bp, byp = roofline_ms(TUBE_OPS * pairs_pruned, nbytes)
+    log(f"tube_select dense: warm p50 {d_ms:.3f} ms, {TUBE_N / d_ms * 1e3:.1f} "
+        f"points/sec, {pairs_dense} pairs, bound {bd:.3f} ms by {byd} [{card_s}]")
+    log(f"tube_select_pruned: warm p50 {p_ms:.3f} ms, {TUBE_N / p_ms * 1e3:.1f} "
+        f"points/sec, {sel[pt_]} of {-(-TUBE_N // pt_)} tiles selected, capacity "
+        f"{cap}, {pairs_pruned} pairs tested, bound {bp:.3f} ms by {byp} [{card_s}]")
+    return [
+        {"name": "tube_select", "replaces": "geomesa_tpu/engine/tube.py:31",
+         "source": "geomesa_tpu_torch/engine/tube.py", "route": "torch",
+         "launches": launches["tube_select"], "ms": d_ms, "bound_ms": bd,
+         "bound_by": byd, "pairs": pairs_dense, "chunk_ms": dense_ms},
+        {"name": "_tube_pruned_call", "replaces": "geomesa_tpu/engine/tube.py:142",
+         "source": "geomesa_tpu_torch/engine/tube.py", "route": "torch",
+         "launches": launches["_tube_pruned_call"], "ms": p_ms, "bound_ms": bp,
+         "bound_by": byp, "pairs": pairs_pruned, "tiles": sel[pt_],
+         "capacity": cap, "data_tile_ms": pruned_ms},
+    ]
+
+
+def hit_rows(feats, x, y, t, by_x):
+    """The written rows a result batch holds, as a bool mask over them
+    (found by their f64 x through `by_x`, an argsort of x, and checked on
+    y and dtg); None if a returned row is not a written one."""
+    fx = np.asarray(feats.geometry.x)
+    pos = np.minimum(np.searchsorted(x[by_x], fx), len(x) - 1)
+    idx = by_x[pos]
+    if not (np.array_equal(x[idx], fx) and np.array_equal(y[idx], feats.geometry.y)
+            and np.array_equal(t[idx], np.asarray(feats.dtg))):
+        return None
+    got = np.zeros(len(x), bool)
+    got[idx] = True
+    return got if int(got.sum()) == len(feats) else None
+
+
+def tube_process(torch, dev, rows: int, card_s: str):
+    """Phase 8, process: TubeSelectProcess over a cached DataStore of
+    `rows` AIS-shaped rows (vessel, dtg, geom; one day, Morton order,
+    10,000 vessel names), cold, warm and with LineGapFill; gated against
+    the f64 haversine oracle over the written rows under the 1 m rule."""
+    import geomesa_tpu_torch.process.tube as pt
+    from geomesa_tpu_torch import DataStore, FeatureBatch, SimpleFeatureType
+    from geomesa_tpu_torch.core.columnar import DictColumn, GeometryColumn
+    from geomesa_tpu_torch.process import LineGapFill, NoGapFill, TubeSelectProcess
+
+    rng = np.random.default_rng(14)
+    x, y, t = tube_points(torch, dev, rng, rows)
+    t = t + TUBE_DAY0
+    codes = rng.integers(0, 10_000, rows).astype(np.int32)
+    vocab = [f"vessel{i:05d}" for i in range(10_000)]
+    tx, ty, tt = tube_track(np.random.default_rng(13))
+    tt = tt + TUBE_DAY0
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = DataStore(tmp, use_device_cache=True, device=dev)
+        sft = SimpleFeatureType.from_spec("ais", "vessel:String,dtg:Date,*geom:Point")
+        src = ds.create_schema(sft)
+        t0 = time.perf_counter()
+        src.write(FeatureBatch(sft, {"vessel": DictColumn(codes, vocab), "dtg": t,
+                                     "geom": GeometryColumn.from_points(x, y)}))
+        log(f"ingest: {rows} rows in {time.perf_counter() - t0:.3f} s [{card_s}]")
+        track = FeatureBatch(sft, {
+            "vessel": DictColumn(np.zeros(TUBE_T, np.int32), ["track"]), "dtg": tt,
+            "geom": GeometryColumn.from_points(tx, ty)})
+        kw = dict(buffer_m=TUBE_RADIUS, max_time_window_ms=TUBE_WIN)
+        fills = {"TubeSelectProcess": NoGapFill(),
+                 "TubeSelectProcess LineGapFill(10 km)": LineGapFill(10_000.0)}
+        calls = {name: (lambda f=f: TubeSelectProcess().execute(track, src, f, **kw))
+                 for name, f in fills.items()}
+        import geomesa_tpu_torch.engine.tube as tb
+        with Spans(torch, [(tb, "tube_select", "tube_select"),
+                           (tb, "_tube_pruned_call", "_tube_pruned_call")]) as cnt:
+            out, lat = time_calls(calls, warm=3)
+        launches = dict(cnt.calls)
+        log(f"tube process launches: {launches} over 4 calls of each of "
+            f"{len(calls)} call types")
+        assert launches["_tube_pruned_call"] > 0, "the pruned pass never ran"
+        with Spans(torch, [(pt, "candidates_for", "window_query"),
+                           (pt, "to_device", "f64 upload"),
+                           (pt, "tube_select_pruned", "device pass")]) as sp:
+            t0 = time.perf_counter()
+            calls["TubeSelectProcess"]()
+            wall = time.perf_counter() - t0
+        n_cand = len(sp.results["window_query"])
+        cap = sp.results["device pass"][1]
+        log(f"TubeSelectProcess split: window_query {sp.seconds['window_query'] * 1e3:.3f} "
+            f"ms ({n_cand} candidates fetched), f64 upload "
+            f"{sp.seconds['f64 upload'] * 1e3:.3f} ms, device pass "
+            f"{sp.seconds['device pass'] * 1e3:.3f} ms (capacity {cap}) of "
+            f"{wall * 1e3:.3f} ms (synchronised spans) [{card_s}]")
+        profile_calls(torch, "TubeSelectProcess", calls["TubeSelectProcess"],
+                      card_s, calls=1)
+        by_x = np.argsort(x, kind="stable")
+        for name, r in out.items():
+            # the oracle over the fill's own samples (LineGapFill adds
+            # samples on the track's longer segments)
+            tube = fills[name].build(track, TUBE_RADIUS, TUBE_WIN)
+            sx, sy, st = tube.x, tube.y, tube.t
+            exp = tube_oracle(torch, dev, x, y, t, sx, sy, st, TUBE_RADIUS, TUBE_WIN)
+            got = hit_rows(r, x, y, t, by_x)
+            assert got is not None, f"{name}: a hit is not a written row"
+            bad = off_radius_edge(got, exp, x, y, t, sx, sy, st, TUBE_RADIUS, TUBE_WIN)
+            assert bad == 0, f"{name}: {bad} mismatches away from the radius edge"
+            log(f"correct: {name} hits ({len(r)}) == the f64 haversine oracle "
+                f"over its {len(sx)} samples ({int(exp.sum())}) within the 1 m "
+                f"rule ({int((got != exp).sum())} at the radius edge)")
+        for name, (cold, warm) in lat.items():
+            log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
+                f"{rows / warm:.1f} points/sec, {len(out[name])} hits [{card_s}]")
+        # the f64 pass alone at the process's shapes, for its bound
+        g = sp.results["window_query"]
+        dv = pt.to_device(g, dev, coord_dtype=torch.float64)
+        pargs = (dv["geom__x"], dv["geom__y"], dv["dtg"], dv["__valid__"],
+                 torch.from_numpy(tx).to(dev), torch.from_numpy(ty).to(dev),
+                 torch.from_numpy(tt).to(dev), TUBE_RADIUS, TUBE_WIN)
+        f64_ms = timed_ms(torch, lambda: tb.tube_select_pruned(
+            *pargs, tile_capacity=cap if cap > 0 else None), 5)
+        margins = tb.tube_margins(ty, TUBE_RADIUS)
+        nsel = int(tb.tube_tile_hits(pargs[0], pargs[1], pargs[2], pargs[4], pargs[5],
+                                     pargs[6], pargs[8], *margins,
+                                     data_tile=tb.PRUNE_TILE).sum())
+        pairs = nsel * tb.PRUNE_TILE * TUBE_T
+        t_ops = TUBE_OPS * pairs / FP64_OPS_PER_S * 1e3
+        t_bytes = n_cand * (8 + 8 + 8 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        log(f"tube_select_pruned f64 (process shapes): {f64_ms:.3f} ms over "
+            f"{n_cand} candidates, {nsel} tiles selected, {pairs} pairs, bound "
+            f"{b:.3f} ms by {by} (FP64) [{card_s}]")
+        return {"name": "tube_select_pruned f64 (process)",
+                "replaces": "geomesa_tpu/engine/tube.py:260",
+                "source": "geomesa_tpu_torch/engine/tube.py", "route": "torch",
+                "launches": launches["_tube_pruned_call"], "ms": f64_ms,
+                "bound_ms": b, "bound_by": by, "pairs": pairs,
+                "candidates": n_cand,
+                "process_ms": {k: v[1] * 1e3 for k, v in lat.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
@@ -1723,6 +2216,15 @@ def main() -> int:
         log(f"config-2 points cut to {n2} by --rows")
     launches, inputs = layer_path(torch, dev, n2, card_s)
     rows += layer_rows(torch, launches, inputs, card_s)
+    del inputs
+    torch.cuda.empty_cache()
+    ops = tube_engine(torch, dev, card_s)
+    n5 = min(TUBE_STORE_N, max(args.rows // 4, 1 << 16))
+    if n5 != TUBE_STORE_N:
+        log(f"TubeSelect store cut to {n5} rows by --rows")
+    ops.append(tube_process(torch, dev, n5, card_s))
+    print(json.dumps({"phases": PHASES}))
+    print(json.dumps({"device_ops": ops}))
     print(json.dumps({"kernels": rows}))
     print(card_s)
     print(json.dumps({"ok": True, "device": {

@@ -142,6 +142,16 @@ class FeatureBatch:
             return 0
         return len(next(iter(self.columns.values())))
 
+    @property
+    def geometry(self) -> Optional[GeometryColumn]:
+        g = self.sft.default_geometry
+        return self.columns[g.name] if g is not None else None  # type: ignore[return-value]
+
+    @property
+    def dtg(self) -> Optional[np.ndarray]:
+        d = self.sft.default_dtg
+        return self.columns[d.name] if d is not None else None  # type: ignore[return-value]
+
     def select(self, mask_or_idx) -> "FeatureBatch":
         arr = np.asarray(mask_or_idx)
         idx = np.nonzero(arr)[0] if arr.dtype == bool else arr

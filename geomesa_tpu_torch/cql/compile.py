@@ -14,10 +14,14 @@ weak-typed scalars under x64).
 Null semantics: dictionary code -1 = null; any comparison on null is
 False. NaN counts as null for IS NULL on floating columns.
 
-Rows whose f32 coordinates sit within the ulp band of a BBOX edge can
-land on the other side of the edge than their f64 values: `band_corrections`
-returns those rows with their exact f64 membership, for the caller to
-scatter into the device mask.
+Rows whose f32 coordinates sit within the ulp band of a BBOX edge (or the
+ambiguity band of a polygon's edges) can land on the other side of the
+edge than their f64 values. Three routes re-decide them in f64 on the
+host: `band_corrections` returns them with their exact membership, for
+the caller to scatter into a device mask; `refine` patches a fetched host
+mask; `band_count_correction` corrects a device count. Each takes an
+`extra` device mask (the partition allowance) that is ANDed into the band
+before anything is fetched.
 """
 
 from __future__ import annotations
@@ -79,15 +83,62 @@ class CompiledFilter:
             raise ValueError("filter has no boundary band")
         return self._band_fn(self.params(dev, batch), dev)
 
-    def band_corrections(self, dev: DeviceBatch, batch: FeatureBatch):
-        """Exact f64 membership of the rows inside the f32 boundary band,
-        as (idx int64 [m] ascending, exact bool [m]). The caller scatters
-        `exact` (ANDed with any per-row components it owns) into its
-        device mask at `idx`."""
+    def _band_rows(self, dev: DeviceBatch, batch: FeatureBatch, extra=None):
+        """The band's row indices on the device (ascending), with `extra`
+        ANDed into the band first: one device pass, no fetch."""
+        b = self.band(dev, batch)
+        if extra is not None:
+            b = b & extra
+        return torch.nonzero(b).flatten()
+
+    def refine(self, mask: np.ndarray, dev: DeviceBatch, batch: FeatureBatch,
+               extra=None) -> np.ndarray:
+        """Patch an already-fetched host mask: the rows of the f32 boundary
+        band are re-evaluated in f64 on the host. `extra` (a device bool
+        mask the caller already ANDed into `mask`, such as the partition
+        allowance) is ANDed into the band first, so rows outside it keep
+        their value and are never re-evaluated. No-op without a band."""
+        if self._band_fn is None or self.filter_ast is None:
+            return mask
+        (idx,) = fetch(self._band_rows(dev, batch, extra))
+        if not len(idx):
+            return mask
+        mask = mask.copy()
+        mask[idx] = eval_filter_host(self.filter_ast, batch.select(idx))
+        return mask
+
+    def band_count_correction(self, dev: DeviceBatch, batch: FeatureBatch,
+                              m=None, extra=None) -> int:
+        """(exact - approximate) match count over the band rows: add it to
+        the device count of `m` (the filter mask ANDed with `extra`;
+        computed here when None) to make that count f64-exact. `extra` is
+        ANDed into the band on the device before anything is fetched, so
+        only its rows are re-evaluated on the host. One device pass and
+        one small fetch (the band rows and their approximate count)."""
+        if self._band_fn is None or self.filter_ast is None:
+            return 0
+        if m is None:
+            m = self.mask(dev, batch)
+            if extra is not None:
+                m = m & extra
+        at = self._band_rows(dev, batch, extra)
+        idx, approx = fetch(at, m[at].sum(dtype=torch.int64))
+        if not len(idx):
+            return 0
+        exact = int(eval_filter_host(self.filter_ast, batch.select(idx)).sum())
+        return exact - int(approx)
+
+    def band_corrections(self, dev: DeviceBatch, batch: FeatureBatch,
+                         extra=None):
+        """Exact f64 membership of the rows inside the f32 boundary band
+        (ANDed with `extra` on the device when given), as (idx int64 [m]
+        ascending, exact bool [m]). The caller scatters `exact` (ANDed
+        with any per-row components it owns) into its device mask at
+        `idx`."""
         empty = (np.zeros(0, np.int64), np.zeros(0, bool))
         if self._band_fn is None or self.filter_ast is None:
             return empty
-        (idx,) = fetch(torch.nonzero(self.band(dev, batch)).flatten())
+        (idx,) = fetch(self._band_rows(dev, batch, extra))
         if not len(idx):
             return empty
         idx = idx.astype(np.int64)

@@ -7,7 +7,7 @@ so its Double columns live on the device as f64):
 
   <attr>            Double f64, Float f32, Integer i32, Long i64, Boolean
                     bool, dictionary codes i32, Date/Timestamp i64 millis
-  <attr>__x/__y     point coordinates, f32
+  <attr>__x/__y     point coordinates, `coord_dtype` (default f32)
   __valid__         bool validity mask (padding-aware)
 """
 
@@ -37,11 +37,14 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return dev
 
 
-def to_device(batch: FeatureBatch, device: torch.device) -> DeviceBatch:
+def to_device(batch: FeatureBatch, device: torch.device,
+              coord_dtype: torch.dtype = torch.float32) -> DeviceBatch:
     """Transfer a FeatureBatch to tensors on `device` (module docstring).
-    Coordinates are cast to f32 on the host before the copy, as the
-    reference does, so both packages see the same f32 values."""
+    Coordinates are cast to `coord_dtype` on the host before the copy, as
+    the reference does, so both packages see the same values (f32 by
+    default; the process paths pass torch.float64)."""
     out: DeviceBatch = {}
+    np_coord = torch.empty(0, dtype=coord_dtype).numpy().dtype
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -49,8 +52,8 @@ def to_device(batch: FeatureBatch, device: torch.device) -> DeviceBatch:
     for attr in batch.sft.attributes:
         col = batch.columns[attr.name]
         if isinstance(col, GeometryColumn):
-            out[f"{attr.name}__x"] = put(col.x.astype(np.float32))
-            out[f"{attr.name}__y"] = put(col.y.astype(np.float32))
+            out[f"{attr.name}__x"] = put(col.x.astype(np_coord))
+            out[f"{attr.name}__y"] = put(col.y.astype(np_coord))
         elif isinstance(col, DictColumn):
             out[attr.name] = put(np.asarray(col.codes, np.int32))
         elif col.dtype == object:

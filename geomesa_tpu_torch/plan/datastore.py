@@ -7,6 +7,8 @@ The counterpart of the reference package's `plan/datastore.py`:
     src.write(batch)
     src.get_count("BBOX(geom, ...) AND dtg > ... AND speed > 5.0")
     dists, idx, batch = src.knn(cql, qx, qy, k=10)
+    rows = src.get_features(Query(name, cql, attributes=["speed", "geom"],
+                                  sort_by=[("dtg", False)])).features
     grid = src.get_features(Query(name, cql, hints=QueryHints(
         density_bbox=bbox, density_width=512, density_height=512))).grid
 
@@ -46,8 +48,10 @@ class FeatureSource:
         return self.storage.sft
 
     def get_features(self, query: "Query | str" = "INCLUDE") -> QueryResult:
-        """Run a query with an aggregation hint (density only, in the
-        port) and return its QueryResult."""
+        """Run a query and return its QueryResult: kind "features" (the
+        matching rows, sorted, limited and projected as the query asks;
+        None when no row matched) or, with a density hint, kind
+        "density"."""
         if isinstance(query, str):
             query = Query(self.sft.name, query)
         return self.planner.execute(query)

@@ -2,8 +2,8 @@
 
 Parity: geomesa-index-api QueryHints [upstream, unverified], as the
 reference package's `plan/hints.py` models them, restricted to the hints
-the port reads: the density aggregation (DensityScan) and the exact
-count. The bin, stats and arrow aggregations, sampling, loose bbox,
+the port reads: the density aggregation (DensityScan), sampling, loose
+bbox and the exact count. The bin, stats and arrow aggregations,
 approximate answers and authorizations come with their slices: a query
 cannot carry them here, so it cannot silently ignore them.
 """
@@ -32,11 +32,24 @@ class QueryHints:
     #   False = force the scatter path
     density_zsparse: Optional[bool] = None
 
+    # sampling: keep roughly 1-in-n (None = off); optional per-attribute
+    sampling: Optional[int] = None
+    sample_by: Optional[str] = None
+
+    # loose bbox: skip the residual exact predicate, accept the covering
+    # index result (upstream: LOOSE_BBOX / the XZ "non-strict" mode)
+    loose_bbox: bool = False
+
     # exact count: force full evaluation for counts instead of estimates
     exact_count: bool = True
 
     # index override (upstream: QUERY_INDEX); recorded by explain only
     query_index: Optional[str] = None
+
+    # internal: the caller only needs a match count, so execution keeps
+    # every mask on the device and fetches a reduced scalar (set by
+    # QueryPlanner.count)
+    count_only: bool = False
 
     @property
     def is_density(self) -> bool:

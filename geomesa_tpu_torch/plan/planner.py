@@ -1,20 +1,28 @@
-"""The query planner and executor: counts and kNN.
+"""The query planner and executor: counts, features, density and kNN.
 
-The counterpart of the reference package's `plan/planner.py` for the
-north-star chain: parse the CQL, extract the primary bbox and interval,
-prune partitions, make them resident (or scan them), evaluate the
-compiled f32 mask on the device with the f64 boundary band scattered in,
-and run the fused kNN scan over the masked rows:
+The counterpart of the reference package's `plan/planner.py`: parse the
+CQL, extract the primary bbox and interval, prune partitions, make them
+resident (or scan them), evaluate the compiled f32 mask on the device
+and re-decide the rows of its f32 boundary band in f64 on the host.
+
+`execute` has the reference's two routes. The cached route (device cache
+on, and neither sampling nor loose bbox) masks every resident row with
+partition pruning as a lane mask; the scan route reads the pruned
+partitions into one batch. On both, a count-only query sums the mask on
+the device and corrects the sum over the band rows of the query's
+partitions (`band_count_correction`); density grids the device mask
+(cached) or the refined mask (scan); features fetch the mask, `refine`
+it, sample it (scan route) and finish the matching rows (plan.runner).
+`count` is `execute` with `count_only`.
+
+kNN masks the rows the same way and runs the fused scan:
 
   plan -> _knn_mask_setup -> knn_sparse_launch | knn_fullscan_tiled
        -> KnnLaunch.sync (one read; overflow falls back to the dense scan)
        -> _canonical_dists (one f64 recompute of the reported meters)
 
-The exact count is the int64 sum of the same f64-exact mask. `execute`
-runs the density aggregation on two routes that mirror the reference's:
-the cached route grids the raw f32 device mask, the scan route grids the
-mask after the f64 band refine (plan.runner). Query interceptors, the
-stats estimate, `impl="auto"`, the other aggregations and the mesh and
+Query interceptors, the stats estimate, `impl="auto"`, the stats, bin
+and arrow aggregations, approximate answers, timeouts and the mesh and
 ring routes come with later slices.
 """
 
@@ -27,7 +35,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.core.columnar import FeatureBatch
+from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.cql import ast, compile_filter, extract_bbox, extract_intervals
 from geomesa_tpu_torch.cql.compile import CompiledFilter
 from geomesa_tpu_torch.cql.extract import BBox, Interval
@@ -40,18 +48,20 @@ from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.explain import Explainer
 from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.plan.runner import (
-    CalibCache, density_device_grid, query_mask_token)
+    CalibCache, aggregate, density_device_grid, query_mask_token, sample_mask)
 from geomesa_tpu_torch.store.cache import DeviceCacheManager, next_pow2
 from geomesa_tpu_torch.store.fs import FileSystemStorage
 
 
 @dataclasses.dataclass
 class QueryResult:
-    """What `execute` returns: kind "density" carries the [height, width]
-    f32 grid and the match count; kind "count" only the count. The
-    feature, stats, bin and arrow kinds come with their slices."""
+    """What `execute` returns: kind "features" carries the matching rows
+    (None when no row matched) and their count, kind "density" the
+    [height, width] f32 grid and the match count, kind "count" only the
+    count. The stats, bin and arrow kinds come with their slices."""
 
     kind: str
+    features: Optional[FeatureBatch] = None
     grid: Optional[np.ndarray] = None
     count: int = 0
     # the manifest commit version the result was pinned to
@@ -106,13 +116,20 @@ class QueryPlanner:
         if query.hints.query_index:
             e(f"Index override requested: {query.hints.query_index!r} "
               "(single-strategy partition store; recorded only)")
+        residual = f
+        if query.hints.loose_bbox and g is not None:
+            residual = _loosen_bbox(residual, g.name)
+            e("Loose bbox: default-geometry BBOX predicates dropped from residual")
         compiled = None
-        if not isinstance(f, ast.Include):
-            compiled = self._compile_cached(f)
+        if not isinstance(residual, ast.Include):
+            compiled = self._compile_cached(residual)
             e(f"Residual predicate: compiled mask over "
               f"{len(compiled.builders)} param table(s)")
         else:
             e("Residual predicate: none (INCLUDE)")
+        if query.hints.is_density:
+            e(f"Aggregation: density {query.hints.density_width}x"
+              f"{query.hints.density_height} over {query.hints.density_bbox}")
         e.pop()
         return QueryPlan(query, f, bbox, interval, partitions, compiled,
                          manifest=manifest)
@@ -149,8 +166,11 @@ class QueryPlanner:
 
     def _scan_batch(self, plan: QueryPlan):
         """The plan's partitions read into one batch padded to a power of
-        two, and its device tensors; (None, None) when nothing is read."""
-        batches = list(self.storage.scan(plan.bbox, plan.interval))
+        two (only the columns the query needs), and its device tensors;
+        (None, None) when nothing is read."""
+        batches = list(self.storage.scan(
+            plan.bbox, plan.interval,
+            columns=_needed_columns(plan, self.storage.sft)))
         if not batches:
             return None, None
         batch = FeatureBatch.concat(batches)
@@ -195,21 +215,22 @@ class QueryPlanner:
                         torch.from_numpy(bexact & batch.valid[bidx]).to(self.device))
         return sb, batch, dev, mask, False
 
-    # -- execute (density) -------------------------------------------------
+    # -- execute -----------------------------------------------------------
 
     def execute(self, query: "Query | str",
                 explain: Optional[Explainer] = None) -> QueryResult:
-        """Plan and run one aggregation query. The cached route (device
-        cache on) grids the raw f32 device mask; the scan route first
-        re-decides band rows in f64 on the host, as the reference's two
-        routes do. Only the density aggregation is ported."""
+        """Plan and run one query: the cached route when the device cache
+        is on, except with sampling (every n-th is defined over the global
+        match order, not per partition) or loose bbox (the scan route
+        re-applies the bbox by parquet pushdown, which resident whole
+        partitions cannot), which take the scan route, as in the
+        reference."""
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
-        if not query.hints.is_density:
-            raise NotPortedError("feature results of execute()",
-                                 "the feature-results slice (ROADMAP Queue A)")
         plan = self.plan(query, explain)
-        if self.cache is not None:
+        hints = query.hints
+        if (self.cache is not None and not hints.sampling
+                and not hints.loose_bbox):
             result = self._execute_cached(plan, query)
         else:
             result = self._execute_scan(plan, query)
@@ -218,55 +239,100 @@ class QueryPlanner:
         return result
 
     def _execute_cached(self, plan: QueryPlan, query: Query) -> QueryResult:
-        """Over the cache's superbatch: one density pass over every
-        resident row, with partition pruning as a lane mask. The grid
-        reads the raw f32 device mask (no band refine: the grid's cells
-        dwarf the ~1e-7 degree band); the count is its sum."""
+        """Over the cache's superbatch: one mask over every resident row,
+        with partition pruning as a lane mask (allowed[pid]). A count is
+        the device sum corrected over the band rows of the allowed
+        partitions; density grids the raw f32 device mask (its cells dwarf
+        the ~1e-7 degree band); features fetch the mask once and refine
+        its band rows in f64 within the allowance."""
+        hints = query.hints
         sb, allowed = self._resident(plan)
         if allowed is None:
             return self._empty_result(query)
-        dev_mask = (self._raw_mask(plan, sb.dev, sb.batch)
-                    & torch.from_numpy(allowed).to(self.device)[sb.pids])
-        # partition pruning feeds the mask too: a plan scanning other
-        # partitions never reuses the calibration
-        token = query_mask_token(query) + (tuple(sorted(plan.partitions)),)
-        grid = density_device_grid(self.storage.sft, sb.batch, sb.dev,
-                                   dev_mask, query.hints, self._zcalib,
-                                   mask_token=token)
-        grid, total = fetch(grid, dev_mask.sum(dtype=torch.int32))
-        if int(total) == 0:
+        allowed_rows = torch.from_numpy(allowed).to(self.device)[sb.pids]
+        dev_mask = self._raw_mask(plan, sb.dev, sb.batch) & allowed_rows
+        has_band = plan.compiled is not None and plan.compiled.has_band
+
+        if hints.count_only and not hints.sampling:
+            return self._count_result(plan, sb.dev, sb.batch, dev_mask,
+                                      extra=allowed_rows)
+
+        if hints.is_density:
+            # partition pruning feeds the mask too: a plan scanning other
+            # partitions never reuses the calibration
+            token = query_mask_token(query) + (tuple(sorted(plan.partitions)),)
+            grid = density_device_grid(self.storage.sft, sb.batch, sb.dev,
+                                       dev_mask, hints, self._zcalib,
+                                       mask_token=token)
+            grid, total = fetch(grid, dev_mask.sum(dtype=torch.int32))
+            if int(total) == 0:
+                return self._empty_result(query)
+            return QueryResult("density", grid=grid, count=int(total))
+
+        # features: one mask fetch; the band rows of the allowed
+        # partitions take their f64 value (the rest keep the device
+        # mask, which already holds the allowance)
+        (mask,) = fetch(dev_mask)
+        if has_band:
+            mask = plan.compiled.refine(mask, sb.dev, sb.batch,
+                                        extra=allowed_rows)
+        if not mask.any():
             return self._empty_result(query)
-        return QueryResult("density", grid=grid, count=int(total))
+        return aggregate(self.storage.sft, sb.batch, sb.dev, mask, query,
+                         self._zcalib)
 
     def _execute_scan(self, plan: QueryPlan, query: Query) -> QueryResult:
-        """Scan the pruned partitions into one padded batch, fetch the
-        mask, re-decide its band rows in f64 on the host, then grid."""
+        """Scan the pruned partitions into one padded batch. A count is the
+        device sum corrected over the band rows; otherwise fetch the mask,
+        re-decide its band rows in f64 on the host, sample it, then grid
+        or select."""
+        hints = query.hints
         batch, dev = self._scan_batch(plan)
         if batch is None:
             return self._empty_result(query)
-        (mask,) = fetch(self._raw_mask(plan, dev, batch))
+        dev_mask = self._raw_mask(plan, dev, batch)
+        if hints.count_only and not hints.sampling:
+            return self._count_result(plan, dev, batch, dev_mask)
+        (mask,) = fetch(dev_mask)
         if plan.compiled is not None and plan.compiled.has_band:
-            bidx, bexact = plan.compiled.band_corrections(dev, batch)
-            if len(bidx):
-                mask = mask.copy()
-                mask[bidx] = bexact
-        grid = density_device_grid(self.storage.sft, batch, dev,
-                                   torch.from_numpy(mask).to(self.device),
-                                   query.hints, self._zcalib,
-                                   mask_token=query_mask_token(query))
-        (grid,) = fetch(grid)
-        return QueryResult("density", grid=grid, count=int(mask.sum()))
+            mask = plan.compiled.refine(mask, dev, batch)
+        if hints.sampling:
+            groups = None
+            if hints.sample_by:
+                col = batch.columns[hints.sample_by]
+                groups = (np.asarray(col.codes) if isinstance(col, DictColumn)
+                          else np.asarray(col))
+            mask = sample_mask(mask, hints.sampling, groups)
+        return aggregate(self.storage.sft, batch, dev, mask, query, self._zcalib)
+
+    @staticmethod
+    def _count_result(plan: QueryPlan, dev, batch, dev_mask,
+                      extra=None) -> QueryResult:
+        """The device sum of `dev_mask` (which holds `extra`), corrected
+        in f64 over the band rows within `extra`: one scalar read and
+        one small fetch instead of the mask."""
+        (total,) = fetch(dev_mask.sum(dtype=torch.int64))
+        total = int(total)
+        if plan.compiled is not None and plan.compiled.has_band:
+            total += plan.compiled.band_count_correction(
+                dev, batch, dev_mask, extra=extra)
+        return QueryResult("count", count=total)
 
     def _empty_result(self, query: Query) -> QueryResult:
+        """No row can match: a zero grid for density, else kind features
+        with no batch; the kind never depends on whether rows matched."""
         h = query.hints
-        return QueryResult("density", grid=np.zeros(
-            (h.density_height, h.density_width), np.float32))
+        if h.is_density:
+            return QueryResult("density", grid=np.zeros(
+                (h.density_height, h.density_width), np.float32))
+        return QueryResult("features", features=None, count=0)
 
     # -- count -------------------------------------------------------------
 
     def count(self, query: "Query | str") -> int:
-        """Exact match count: the int64 sum of the f64-exact mask. With
-        exact_count=False and INCLUDE, the manifest row count."""
+        """Exact match count: `execute` with count_only, capped by
+        max_features. With exact_count=False and INCLUDE, the manifest
+        row count."""
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
         if (not query.hints.exact_count
@@ -274,8 +340,12 @@ class QueryPlanner:
             snap = self.storage.manifest_snapshot()
             n = sum(int(e["count"]) for files in snap.values() for e in files)
         else:
-            _, _, _, mask, is_empty = self._knn_mask_setup(self.plan(query), query)
-            n = 0 if is_empty else int(mask.sum(dtype=torch.int64))
+            r = self.execute(dataclasses.replace(
+                query, hints=dataclasses.replace(query.hints, count_only=True)))
+            if r.kind == "features":
+                n = len(r.features) if r.features is not None else 0
+            else:
+                n = r.count
         if query.max_features is not None:
             n = min(n, query.max_features)
         return n
@@ -468,3 +538,47 @@ class KnnLaunch:
         self._jqx = self._jqy = self._x = self._y = self._mask = None
         self._ready = (dists, idx, self.batch)
         return self._ready
+
+
+def _loosen_bbox(f: ast.Filter, geom_name: str) -> ast.Filter:
+    """LOOSE_BBOX semantics: drop default-geometry BBOX predicates from the
+    residual; the covering pushdown result is accepted as-is for the
+    spatial primary (attribute and temporal predicates stay exact)."""
+    if (isinstance(f, ast.SpatialPredicate) and f.op == "BBOX"
+            and f.prop.name == geom_name):
+        return ast.Include()
+    if isinstance(f, ast.And):
+        kids = tuple(_loosen_bbox(c, geom_name) for c in f.children)
+        kids = tuple(c for c in kids if not isinstance(c, ast.Include))
+        if not kids:
+            return ast.Include()
+        return kids[0] if len(kids) == 1 else ast.And(kids)
+    # do not descend through OR/NOT: dropping a disjunct would change results
+    return f
+
+
+def _needed_columns(plan: QueryPlan, sft):
+    """The scan's column projection: the filter's attributes, the hints'
+    and the requested projection's (None = every column, for full
+    feature results)."""
+    query = plan.query
+    hints = query.hints
+    needed = set()
+    for node in ast.walk(plan.filter):
+        for field in ("prop", "left", "right"):
+            v = getattr(node, field, None)
+            if isinstance(v, ast.Property):
+                needed.add(v.name)
+    if hints.sample_by:
+        needed.add(hints.sample_by)
+    if hints.is_density:
+        needed.add(sft.default_geometry.name)
+        if hints.density_weight:
+            needed.add(hints.density_weight)
+    elif query.attributes is None:
+        return None
+    else:
+        needed.update(query.attributes)
+        for attr, _ in query.sort_by or []:
+            needed.add(attr)
+    return sorted(needed)

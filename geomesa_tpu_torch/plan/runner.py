@@ -1,12 +1,15 @@
 """Aggregation push-down shared by the planner's cached and scan routes.
 
 The counterpart of the reference package's `plan/runner.py`, restricted
-to the density aggregation over point layers: the device grid from a
-batch, its device arrays and a row mask (`density_device_grid`), the
-cell-dictionary route with its cross-query calibration cache
-(`_zsparse_grid`), and the token that keys that cache on the query's
-mask (`query_mask_token`). Feature results, stats, bin and arrow
-aggregations come with their slices.
+to density over point layers and feature results: `aggregate` dispatches
+a batch, its device arrays and a host row mask to the device density
+grid (`density_device_grid`, with the cell-dictionary route and its
+cross-query calibration cache, `_zsparse_grid`) or to the matching
+features, finished by `finish_features` (sort, max features, projection).
+`sample_mask` thins a mask for the sampling hint, and `query_mask_token`
+keys mask-dependent caches on the query. Stats, bin and arrow
+aggregations, attribute redaction and reprojection come with their
+slices.
 """
 
 from __future__ import annotations
@@ -15,12 +18,15 @@ import threading
 import weakref
 from typing import TYPE_CHECKING, Optional
 
+import numpy as np
 import torch
 
+from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.cql import ast
 from geomesa_tpu_torch.engine.density import density_grid_auto
 from geomesa_tpu_torch.engine.density_zsparse import density_zsparse
+from geomesa_tpu_torch.engine.device import VALID, fetch
 from geomesa_tpu_torch.errors import NotPortedError
 
 if TYPE_CHECKING:
@@ -121,8 +127,74 @@ def density_device_grid(sft: SimpleFeatureType, batch, dev, dev_mask, hints,
 
 def query_mask_token(query: "Query") -> tuple:
     """Everything that shapes the result mask for FIXED resident arrays:
-    the type and the canonical filter text (the port has no auths,
-    sampling or loose-bbox hints). Keys mask-dependent plan caches such as
-    the zsparse calibration: equal tokens over the same arrays give
-    identical masks."""
-    return (query.type_name, ast.to_cql(query.filter_ast))
+    the type, the canonical filter text, sampling and loose bbox (the
+    port has no auths). Keys mask-dependent plan caches such as the
+    zsparse calibration: equal tokens over the same arrays give identical
+    masks."""
+    h = query.hints
+    return (query.type_name, ast.to_cql(query.filter_ast), h.sampling,
+            h.sample_by, h.loose_bbox)
+
+
+def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
+              mask: np.ndarray, query: "Query", cache: CalibCache):
+    """A host row mask over `batch` to the query's result: the density
+    grid when the hints ask for one, else the matching features."""
+    from geomesa_tpu_torch.plan.planner import QueryResult
+
+    hints = query.hints
+    if hints.is_density:
+        grid = density_device_grid(
+            sft, batch, dev, torch.from_numpy(mask).to(dev[VALID].device),
+            hints, cache, mask_token=query_mask_token(query))
+        (grid,) = fetch(grid)
+        return QueryResult("density", grid=grid, count=int(mask.sum()))
+    sel = finish_features(batch.select(np.nonzero(mask)[0]), query)
+    return QueryResult("features", features=sel, count=len(sel))
+
+
+def finish_features(sel: FeatureBatch, query: "Query") -> FeatureBatch:
+    """The LocalQueryRunner tail: sort, max features, projection."""
+    if query.sort_by:
+        sel = sel.select(sort_order(sel, query.sort_by))
+    if query.max_features is not None and len(sel) > query.max_features:
+        sel = sel.select(np.arange(query.max_features))
+    if query.attributes is not None:
+        sel = project(sel, query.attributes)
+    return sel
+
+
+def sort_order(batch: FeatureBatch, sort_by) -> np.ndarray:
+    """Row order for `sort_by` [(attr, ascending)], first key first. A
+    string column sorts by its text (codes ranked by vocabulary), nulls
+    (code -1) first ascending; np.lexsort takes its keys last-first."""
+    keys = []
+    for attr, ascending in reversed(list(sort_by)):
+        col = batch.columns[attr]
+        v = np.asarray(col.codes) if isinstance(col, DictColumn) else np.asarray(col)
+        if isinstance(col, DictColumn):
+            rank = np.argsort(np.argsort(np.asarray(col.vocab, dtype=object)))
+            v = np.where(v >= 0, rank[np.clip(v, 0, None)], -1)
+        keys.append(v if ascending else -v)
+    return np.lexsort(keys) if keys else np.arange(len(batch))
+
+
+def project(batch: FeatureBatch, attributes) -> FeatureBatch:
+    attrs = [batch.sft.attribute(a) for a in attributes]
+    sft = SimpleFeatureType(batch.sft.name, attrs, batch.sft.user_data)
+    cols = {a.name: batch.columns[a.name] for a in attrs}
+    return FeatureBatch(sft, cols, batch.fids, batch.valid)
+
+
+def sample_mask(mask: np.ndarray, n: int, groups=None) -> np.ndarray:
+    """Keep every n-th matching feature; with `groups`, every n-th within
+    each group (SAMPLE_BY semantics: per-track thinning)."""
+    out = np.zeros_like(mask)
+    if groups is None:
+        idx = np.nonzero(mask)[0]
+        out[idx[::n]] = True
+        return out
+    for gval in np.unique(groups[mask]):
+        idx = np.nonzero(mask & (groups == gval))[0]
+        out[idx[::n]] = True
+    return out

@@ -197,6 +197,20 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         inside, info = pip_layer(px, py, ring[:-1, 0], ring[:-1, 1], ring[1:, 0],
                                  ring[1:, 1], np.zeros(3, np.int64), device="cpu")
         assert info["pairs"] > 0 and 0 < inside.sum() < 3000
+        from geomesa_tpu_torch import Query
+        r = src.get_features(Query("t", "BBOX(geom, -4, 41, 4, 49) AND speed > 5",
+                                   attributes=["speed", "geom"],
+                                   sort_by=[("speed", False)], max_features=50))
+        assert r.kind == "features" and len(r.features) == 50
+        assert (r.features.columns["speed"][:-1] >= r.features.columns["speed"][1:]).all()
+        from geomesa_tpu_torch.process.tube import LineGapFill, TubeSelectProcess
+        trk = FeatureBatch.from_pydict(sft, {{
+            "speed": [1.0, 1.0], "dtg": [{T0}, {T0 + DAY}],
+            "geom": np.array([[-3.0, 43.0], [3.0, 47.0]])}})
+        hits = TubeSelectProcess().execute(trk, src, LineGapFill(20_000),
+                                           buffer_m=50_000,
+                                           max_time_window_ms={DAY})
+        assert 0 < len(hits) < n
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]

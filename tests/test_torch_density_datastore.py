@@ -27,7 +27,6 @@ from geomesa_tpu.plan.hints import QueryHints as RHints
 from geomesa_tpu.plan.query import Query as RQuery
 from geomesa_tpu.process.density import DensityProcess as RDensityProcess
 from geomesa_tpu.store.partition import DateTimeScheme as RScheme
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan import DataStore as PDataStore
 from geomesa_tpu_torch.plan.hints import QueryHints as PHints
 from geomesa_tpu_torch.plan.query import Query as PQuery
@@ -173,7 +172,8 @@ def test_calibration_is_cached_per_filter(stores):
     np.testing.assert_array_equal(first, again)
     assert dict(src.planner._zcalib._entries).keys() == entries.keys()
     token = query_mask_token(q)
-    assert any(k[-1][:2] == token for k in entries)  # keyed on the filter
+    # keyed on the query's mask token, then the partitions
+    assert any(k[-1][:len(token)] == token for k in entries)
 
 
 def test_empty_window_matches_reference(stores):
@@ -188,8 +188,19 @@ def test_empty_window_matches_reference(stores):
 
 
 def test_execute_without_density_raises_typed(stores):
-    with pytest.raises(NotPortedError, match="feature-results"):
-        stores["port"]["cached"].get_features("fare > 1.0")
+    # the feature route is ported: a query without a density hint now
+    # returns kind "features", row for row the reference's, on both routes
+    for route in ("cached", "scan"):
+        r = stores["ref"][route].get_features(RQuery("taxi", "fare > 1.0"))
+        p = stores["port"][route].get_features(PQuery("taxi", "fare > 1.0"))
+        assert p.kind == r.kind == "features"
+        assert (p.count == r.count == len(p.features)
+                == int((stores["fare"] > 1.0).sum()))
+        for name in ("fare", "dtg"):
+            np.testing.assert_array_equal(p.features.columns[name],
+                                          r.features.columns[name])
+        np.testing.assert_array_equal(p.features.columns["geom"].x,
+                                      r.features.columns["geom"].x)
 
 
 def test_exact_weights_pin_the_scatter_path(stores, monkeypatch):
