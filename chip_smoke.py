@@ -86,7 +86,23 @@ and prints no result. Phases, each fatal on failure:
    bench's rule); the passes' times and bounds print as one
    {"device_ops": [...]} line and phases 7-8's numbers as one
    {"phases": {...}} line;
-9. each kernel timed at its path's shapes beside its plain version and
+9. KNearestNeighborSearchProcess (bench config 3, inside phase 4, on its
+   store and arrays), with B1's and B2's launch counts reset before and
+   read after: over the 2^26 rows as a materialized FeatureBatch with
+   impl sparse, fullscan and auto (which resolves to sparse), over the
+   store with impl auto from a 1 km estimate (the widen loop: its rounds,
+   radii and the kernel the stats sketches chose, and the sketch's
+   estimate of the north-star window beside its true count), over a
+   2^19-row store (the window path and the f64 knn), and the engine
+   routes knn, knn_mxu, knn_compact and knn_indexed at the bench's
+   config-3 shape (f32, the north-star mask, Q=256, k=10; the queries
+   each certificate flags; knn's data tile at 2^25 and 2^27 lanes); each
+   cold once and warm p50 of 5; gated: every route within the bench rule
+   of the f64 oracle on 16 queries, the batch routes' neighbour rows ==
+   src.knn's, the haversine route == an f64 NumPy haversine over its
+   candidates within 1e-6 m, the store route's k-th neighbours within its
+   final radius and no partial recall; the ingest's stats-update seconds;
+10. each kernel timed at its path's shapes beside its plain version and
    its bound, printed as one {"kernels": [...]} line; before it, B3's
    registers, the cell groups a warp meets on the path's live tiles
    (counted in torch) against the old kernel's one atomic a point, and
@@ -329,10 +345,14 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         sft = SimpleFeatureType.from_spec("gdelt", "speed:Double,dtg:Date,*geom:Point")
         src = ds.create_schema(sft)
         t0 = time.perf_counter()
-        src.write(FeatureBatch.from_pydict(
-            sft, {"speed": speed, "dtg": t, "geom": np.stack([x, y], 1)}))
+        with Spans(torch, [(src.planner, "update_stats", "stats")]) as st:
+            src.write(FeatureBatch.from_pydict(
+                sft, {"speed": speed, "dtg": t, "geom": np.stack([x, y], 1)}))
         ingest_s = time.perf_counter() - t0
-        log(f"ingest: {rows} rows in {ingest_s:.3f} s [{card_s}]")
+        stats_s = st.seconds["stats"]
+        log(f"ingest: {rows} rows in {ingest_s:.3f} s, of which the stats "
+            f"sketches' update {stats_s:.3f} s ({ingest_s - stats_s:.3f} s "
+            f"without it) [{card_s}]")
 
         kernels = (ks.chord_blockmin, ks.chord_blockmin_sparse)
         for w in kernels:
@@ -390,6 +410,10 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
 
         PHASES["features knn store"] = feature_phase_knn(
             torch, src, tmp, dev, x, y, t, speed, card_s)
+        knn_ops = knn_process_phase(
+            torch, ks, dev, src, tmp, dict(x=x, y=y, t=t, speed=speed, qx=qx,
+                                           qy=qy, cql=cql, mask=m, exp=exp),
+            runs["sparse"], dict(ingest_s=ingest_s, stats_s=stats_s), card_s)
 
         # the main path's kernel inputs, for timing at its shapes
         plan = planner.plan(Query("gdelt", cql))
@@ -401,7 +425,7 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
             qy=torch.from_numpy(qy.astype(np.float32)).to(dev),
             x=pad(dv["geom__x"]), y=pad(dv["geom__y"]), maskf=pad(mask.float()),
             cap=cap)
-        return launches, inputs
+        return launches, inputs, knn_ops
 
 
 def chord_lines(torch, ks, inp, tile_ids, n_sel, card_s: str) -> dict:
@@ -2161,6 +2185,316 @@ def tube_process(torch, dev, rows: int, card_s: str):
                 "process_ms": {k: v[1] * 1e3 for k, v in lat.items()}}
 
 
+# -- KNearestNeighborSearchProcess (phase 9, bench config 3) -------------------
+
+# Operations a (query, point) pair costs, each transcendental counted as
+# one (so the bound is a lower bound): the haversine as written
+# (engine/geodesy.py) takes 2 subtracts, 2 halvings, 2 sines, 2 squares,
+# 2 multiplies (cos * cos * sin^2), 1 add, 2 clamp compares, 1 sqrt, 1 asin
+# and 1 scale = 16; knn_mxu's ranking key takes the [Q,4]x[4,N] product's
+# 4 multiplies and 3 adds and the block-minimum compare = 8.
+KNN_HAV_OPS = 16
+KNN_KEY_OPS = 8
+KNN_SMALL_STORE = 1 << 19  # below the process's 2^20 planner threshold
+KNN_EST_M = 1000.0  # the store route's estimated distance: the loop widens
+
+
+def neighbour_keys(batch, idx):
+    """Each neighbour row's (x, y) as one complex key (row identity that
+    does not depend on the batch's row order)."""
+    col = batch.columns[batch.sft.default_geometry.name]
+    return np.asarray(col.x)[idx] + 1j * np.asarray(col.y)[idx]
+
+
+def same_rows(ka, kb, qx, qy, tol) -> bool:
+    """Identical neighbour rows per query, swaps allowed between rows whose
+    f64 distances agree within tol(d) meters."""
+    from geomesa_tpu_torch.engine.geodesy import haversine_m_np
+
+    for i in range(len(ka)):
+        if set(ka[i].tolist()) == set(kb[i].tolist()):
+            continue
+        da = np.sort(haversine_m_np(qx[i], qy[i], ka[i].real, ka[i].imag))
+        db = np.sort(haversine_m_np(qx[i], qy[i], kb[i].real, kb[i].imag))
+        if not np.all(np.abs(da - db) <= tol(np.maximum(da, db))):
+            return False
+    return True
+
+
+def within_oracle(d, exp) -> bool:
+    """The first queries' sorted distances against the f64 oracle's, under
+    the bench's recall rule max(1 m, 1e-4 d64)."""
+    got = np.sort(d[:len(exp)], 1)
+    return bool(np.all(np.abs(got - exp) <= np.maximum(1.0, 1e-4 * exp)))
+
+
+def gathered_lanes(torch, gi, index, qx, qy, ring: int, slots: int) -> int:
+    """Candidates knn_grid tests over all queries: min(count, slots) of
+    every in-grid cell of each query's (2 ring + 1)^2 neighbourhood."""
+    g = index.g
+    cx, cy = gi._cells(qx, qy, g)
+    offs = torch.arange(-ring, ring + 1, device=qx.device)
+    ccx = cx[:, None, None] + offs[None, None, :]
+    ccy = cy[:, None, None] + offs[None, :, None]
+    inside = (ccx >= 0) & (ccx < g) & (ccy >= 0) & (ccy < g)
+    cells = torch.where(inside, ccy * g + ccx, torch.zeros_like(ccx)).long()
+    cnt = torch.where(inside, index.counts[cells], torch.zeros_like(cells))
+    return int(torch.clamp(cnt, max=slots).sum())
+
+
+def knn_store_route(proc, qb, src, cql, dev):
+    """The process over a FeatureSource with impl="auto" from a 1 km
+    estimate: (results, latencies, rounds a call, the impls the stats
+    chose, the searched radii), with a spy on the planner."""
+    planner = src.planner
+    chosen, windows = [], []
+    choose, pknn = planner._knn_impl_from_stats, planner.knn
+
+    def spy_choose(plan):
+        chosen.append(choose(plan))
+        return chosen[-1]
+
+    def spy_knn(query, qx, qy, k=10, impl="sparse"):
+        windows.append(query)
+        return pknn(query, qx, qy, k=k, impl=impl)
+
+    planner._knn_impl_from_stats, planner.knn = spy_choose, spy_knn
+    try:
+        out, lat = time_calls({"process store auto": lambda: proc.execute(
+            qb, src, num_desired=K, estimated_distance_m=KNN_EST_M,
+            cql_filter=cql, impl="auto", device=dev)})
+    finally:
+        del planner._knn_impl_from_stats, planner.knn
+    rounds = len(windows) // 6  # 6 calls (1 cold, 5 warm), one knn a round
+    radii = [min(KNN_EST_M * 2 ** i, 1e6) for i in range(rounds)]
+    return out["process store auto"], lat, rounds, chosen[-rounds:], radii
+
+
+def knn_engine_routes(torch, dev, x, y, mask, qx, qy, exp, card_s: str):
+    """knn, knn_mxu, knn_compact and knn_indexed at the reference bench's
+    config-3 shape (f32 coordinates, the north-star mask, Q queries),
+    each cold once and warm p50 of 5 (host wall of a synchronised call),
+    gated against the f64 oracle; rows for the device_ops line."""
+    import geomesa_tpu_torch.engine.grid_index as gi
+    import geomesa_tpu_torch.engine.knn as pk
+    from geomesa_tpu_torch.store.cache import next_pow2
+
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    dx, dy, tqx, tqy = f32(x), f32(y), f32(qx), f32(qy)
+    dm = torch.from_numpy(mask).to(dev)
+    n, count = len(x), int(mask.sum())
+    cap = max(next_pow2(max(count, 1)), 1024)
+    g_edge, slots = gi.auto_grid_params(count)
+    res, launches = {}, {}
+
+    def call(name, fn):
+        def run():
+            out = fn()
+            torch.cuda.synchronize()
+            res[name] = out
+            launches[name] = launches.get(name, 0) + 1
+            return out
+        return run
+
+    calls = {
+        "knn": call("knn", lambda: pk.knn(tqx, tqy, dx, dy, dm, k=K, query_tile=Q)),
+        "knn_mxu": call("knn_mxu", lambda: pk.knn_mxu(tqx, tqy, dx, dy, dm, k=K,
+                                                      with_flags=True)),
+        "knn_compact": call("knn_compact", lambda: pk.knn_compact(
+            tqx, tqy, dx, dy, dm, k=K, capacity=cap)),
+        "knn_indexed": call("knn_indexed", lambda: gi.knn_indexed(
+            tqx, tqy, dx, dy, dm, k=K, g=g_edge, ring_radius=2, cell_slots=slots)),
+    }
+    _, lat = time_calls(calls)
+    index = gi.build_grid_index(dx, dy, dm, g=g_edge)
+    grid_flags = int(gi.knn_grid(tqx, tqy, index, K, 2, slots)[2].sum())
+    mxu_flags = int(res["knn_mxu"][2].sum())
+    overflow = bool(res["knn_compact"][2])
+    assert not overflow, "knn_compact overflowed a capacity above the count"
+    for name, r in res.items():
+        d = r[0].cpu().numpy().astype(np.float64)
+        assert d.shape == (Q, K) and np.isfinite(d).all(), name
+        assert within_oracle(d, exp), f"{name}: recall outside the bench rule"
+    # knn's data tile: the port's block of 2^25 lanes against the
+    # reference's 2^27 (sized for a TPU)
+    tile_ms = {lanes: timed_ms(torch, lambda: pk.knn(
+        tqx, tqy, dx, dy, dm, k=K, query_tile=Q, data_tile=lanes // Q), 1)
+        for lanes in (pk.KNN_BLOCK_LANES, 1 << 27)}
+    launches["knn"] += 2 * len(tile_ms)  # timed_ms: a warm-up and one run
+    lanes_g = gathered_lanes(torch, gi, index, tqx, tqy, 2, slots)
+    pairs = {"knn": Q * n, "knn_mxu": Q * n, "knn_compact": Q * count,
+             "knn_indexed": lanes_g + grid_flags * n}
+    ops = {"knn": KNN_HAV_OPS * pairs["knn"], "knn_mxu": KNN_KEY_OPS * pairs["knn_mxu"],
+           "knn_compact": KNN_KEY_OPS * pairs["knn_compact"],
+           "knn_indexed": KNN_HAV_OPS * pairs["knn_indexed"]}
+    nbytes = {"knn": n * 9, "knn_mxu": n * 9, "knn_compact": n + count * 8,
+              "knn_indexed": n * (9 + 12)}
+    replaces = {"knn": "geomesa_tpu/engine/knn.py:93",
+                "knn_mxu": "geomesa_tpu/engine/knn.py:202",
+                "knn_compact": "geomesa_tpu/engine/knn.py:408",
+                "knn_indexed": "geomesa_tpu/engine/grid_index.py:264"}
+    log(f"correct: knn, knn_mxu, knn_compact and knn_indexed (f32, N={n}, "
+        f"{count} matches, Q={Q}, k={K}) within the bench rule of the f64 "
+        f"oracle on 16 queries; knn_mxu flagged {mxu_flags} of {Q} queries "
+        f"uncertain, knn_grid {grid_flags} (g={g_edge}, {slots} slots, ring 2, "
+        f"{lanes_g} candidates gathered); knn_compact capacity {cap}, no overflow")
+    for lanes, ms in tile_ms.items():
+        log(f"knn data tile {lanes // Q} ({lanes} lanes a block): {ms:.3f} ms "
+            f"[{card_s}]")
+    rows = []
+    for name, (cold, warm) in lat.items():
+        b, by = roofline_ms(ops[name], nbytes[name])
+        log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
+            f"{n / warm:.1f} points/sec, {pairs[name]} pairs, bound {b:.3f} ms "
+            f"by {by} [{card_s}]")
+        src = ("geomesa_tpu_torch/engine/grid_index.py" if name == "knn_indexed"
+               else "geomesa_tpu_torch/engine/knn.py")
+        rows.append({"name": name, "replaces": replaces[name], "source": src,
+                     "route": "torch", "launches": launches[name], "ms": warm * 1e3,
+                     "cold_ms": cold * 1e3, "bound_ms": b, "bound_by": by,
+                     "pairs": pairs[name]})
+    rows[0]["data_tile_ms"] = {str(k // Q): v for k, v in tile_ms.items()}
+    rows[1]["flagged"] = mxu_flags
+    rows[3]["flagged"] = grid_flags
+    return rows
+
+
+def small_store(torch, dev, tmp: str, rows: int, seed: int):
+    """A cached store of `rows` rows from phase 4's distributions."""
+    from geomesa_tpu_torch import DataStore, FeatureBatch, SimpleFeatureType
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-180, 180, rows)
+    y = rng.uniform(-90, 90, rows)
+    order = morton_order(torch, torch.from_numpy(x).to(dev),
+                         torch.from_numpy(y).to(dev))
+    x, y = x[order], y[order]
+    t = rng.integers(1_590_000_000_000, 1_600_000_000_000, rows)
+    speed = rng.uniform(0, 30, rows)
+    ds = DataStore(tmp, use_device_cache=True, device=dev)
+    sft = SimpleFeatureType.from_spec("gdelt", "speed:Double,dtg:Date,*geom:Point")
+    src = ds.create_schema(sft)
+    src.write(FeatureBatch.from_pydict(
+        sft, {"speed": speed, "dtg": t, "geom": np.stack([x, y], 1)}))
+    return src, x, y, t, speed
+
+
+def knn_process_phase(torch, ks, dev, src, tmp: str, a: dict, planner_run,
+                      ingest: dict, card_s: str):
+    """Phase 9: KNearestNeighborSearchProcess over phase 4's arrays as a
+    materialized batch (sparse, fullscan, auto) and over phase 4's store
+    (auto, widening from 1 km), the haversine route over a 2^19-row store,
+    and the engine routes; gated; returns the engine rows."""
+    import geomesa_tpu_torch.process.knn as pknn
+    from geomesa_tpu_torch import FeatureBatch, Query, SimpleFeatureType
+    from geomesa_tpu_torch.engine.geodesy import haversine_m_np
+    from geomesa_tpu_torch.process import KNearestNeighborSearchProcess
+
+    x, y, qx, qy, cql, exp = a["x"], a["y"], a["qx"], a["qy"], a["cql"], a["exp"]
+    rows = len(x)
+    kernels = (ks.chord_blockmin, ks.chord_blockmin_sparse)
+    for w in kernels:
+        w.launches = 0
+    sft = SimpleFeatureType.from_spec("gdelt", "speed:Double,dtg:Date,*geom:Point")
+    batch = FeatureBatch.from_pydict(
+        sft, {"speed": a["speed"], "dtg": a["t"], "geom": np.stack([x, y], 1)})
+    qb = FeatureBatch.from_pydict(SimpleFeatureType.from_spec("q", "*geom:Point"),
+                                  {"geom": np.stack([qx, qy], 1)})
+    proc = KNearestNeighborSearchProcess()
+    calls = {f"process batch {impl}": (lambda impl=impl: proc.execute(
+        qb, batch, num_desired=K, cql_filter=cql, impl=impl, device=dev))
+        for impl in ("sparse", "fullscan", "auto")}
+    with Spans(torch, [(pknn, "knn_sparse_auto", "sparse"),
+                       (pknn, "knn_fullscan_tiled", "fullscan")]) as sp:
+        out, lat = time_calls(calls)
+    assert sp.calls == {"sparse": 12, "fullscan": 6}, (
+        f"auto did not resolve to sparse: {sp.calls}")
+    pd, pi, pbatch = planner_run
+    pkeys = neighbour_keys(pbatch, pi)
+    for name, r in out.items():
+        d = r.distances_m
+        assert d.shape == (Q, K) and np.isfinite(d).all(), name
+        assert not r.partial_recall, name
+        assert within_oracle(d, exp), f"{name}: recall outside the bench rule"
+        assert same_rows(neighbour_keys(r.features, r.indices), pkeys, qx, qy,
+                         ks.knn_f32_err_m), f"{name}: rows differ from src.knn"
+
+    # the store route: the widen loop over phase 4's store, auto
+    res, slat, rounds, chosen, radii = knn_store_route(proc, qb, src, cql, dev)
+    out["process store auto"] = res
+    lat.update(slat)
+    kth = res.distances_m[:, -1]
+    assert not res.partial_recall, "the store route flagged partial recall"
+    assert np.all(kth <= radii[-1]), "a k-th neighbour beyond the final radius"
+    assert within_oracle(res.distances_m, exp), "store route: recall"
+    assert same_rows(neighbour_keys(res.features, res.indices), pkeys, qx, qy,
+                     lambda d: np.full_like(d, 1e-6)), "store route rows differ"
+    plan = src.planner.plan(Query("gdelt", cql))
+    est = src.planner._stats_estimate(plan.bbox, plan.interval)
+    bx = BBOX
+    true_win = int(((x >= bx[0]) & (x <= bx[2]) & (y >= bx[1]) & (y <= bx[3])
+                    & (a["t"] > T0) & (a["t"] < T1)).sum())
+    assert est is not None and est >= true_win, (est, true_win)
+    launches = {w.__name__: w.launches for w in kernels}
+    log(f"knn process launches: {launches} over 6 calls of each batch route "
+        "and 6 store-route calls")
+    assert all(launches.values()), "B1 or B2 never launched in phase 9"
+    log(f"knn process store route: {rounds} rounds a call, radii "
+        f"{[f'{r:.0f}' for r in radii]} m, the stats chose {chosen}; "
+        f"north-star window: sketch estimate {est} >= true count {true_win}")
+
+    # the haversine route: a 2^19-row store takes the window path, f64 knn
+    small, sx, sy, st, sspeed = small_store(torch, dev, tmp + "/small",
+                                            KNN_SMALL_STORE, 43)
+    with Spans(torch, [(pknn, "window_query", "window_query"),
+                       (pknn, "knn", "knn")]) as hs:
+        hout, hlat = time_calls({"process store haversine": lambda: proc.execute(
+            qb, small, num_desired=K, cql_filter=cql, impl="auto", device=dev)})
+    hres = hout["process store haversine"]
+    out.update(hout)
+    lat.update(hlat)
+    assert hs.calls["knn"] >= 6, f"the f64 knn did not run: {hs.calls}"
+    feats = hres.features
+    fx = np.asarray(feats.geometry.x)
+    fy = np.asarray(feats.geometry.y)
+    for i in range(Q):
+        d64 = haversine_m_np(qx[i], qy[i], fx, fy)
+        top = np.argsort(d64, kind="stable")[:K]
+        assert np.all(np.abs(hres.distances_m[i] - d64[top]) <= 1e-6), i
+        assert set(hres.indices[i].tolist()) == set(top.tolist()), i
+    sm = ((sx >= bx[0]) & (sx <= bx[2]) & (sy >= bx[1]) & (sy <= bx[3])
+          & (st > T0) & (st < T1) & (sspeed > 5.0))
+    assert within_oracle(hres.distances_m, oracle_knn(sx, sy, sm, qx[:16],
+                                                      qy[:16], K)), "haversine"
+    log(f"correct: process batch sparse, fullscan and auto (-> sparse) and the "
+        f"store route return src.knn's neighbour rows, all within the bench "
+        f"rule on 16 queries; the haversine route ({hs.calls['window_query'] // 6} "
+        f"rounds a call, {len(feats)} candidates in the last window) equals an "
+        f"f64 NumPy haversine over its candidates within 1e-6 m, same rows")
+
+    for name, (cold, warm) in lat.items():
+        n = KNN_SMALL_STORE if name.endswith("haversine") else rows
+        log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
+            f"{n / warm:.1f} points/sec (Q={Q}, k={K}) [{card_s}]")
+    profile_calls(torch, "process batch sparse", calls["process batch sparse"],
+                  card_s)
+    profile_calls(torch, "process store auto", lambda: proc.execute(
+        qb, src, num_desired=K, estimated_distance_m=KNN_EST_M, cql_filter=cql,
+        impl="auto", device=dev), card_s, calls=1)
+    engine = knn_engine_routes(torch, dev, x, y, a["mask"], qx, qy, exp, card_s)
+    PHASES["knn process"] = {
+        "calls": {name: {"cold_s": c, "warm_p50_s": w,
+                         "points_per_s": (KNN_SMALL_STORE if name.endswith(
+                             "haversine") else rows) / w}
+                  for name, (c, w) in lat.items()},
+        "ingest_s": ingest["ingest_s"], "stats_update_s": ingest["stats_s"],
+        "store_rounds": rounds, "store_radii_m": radii, "stats_chose": chosen,
+        "sketch_estimate": est, "window_true_count": true_win,
+        "launches": launches,
+        "engine_ms": {r["name"]: r["ms"] for r in engine}}
+    return engine
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
@@ -2203,7 +2537,7 @@ def main() -> int:
     layer_kernel_check(torch, dev)
     if args.rows != 1 << 26:
         log(f"kNN and density stores cut to {args.rows} rows by --rows")
-    launches, inputs = main_path(torch, ks, dev, args.rows, card_s)
+    launches, inputs, knn_ops = main_path(torch, ks, dev, args.rows, card_s)
     rows = kernel_rows(torch, ks, launches, inputs, card_s)
     del inputs
     torch.cuda.empty_cache()
@@ -2218,7 +2552,7 @@ def main() -> int:
     rows += layer_rows(torch, launches, inputs, card_s)
     del inputs
     torch.cuda.empty_cache()
-    ops = tube_engine(torch, dev, card_s)
+    ops = knn_ops + tube_engine(torch, dev, card_s)
     n5 = min(TUBE_STORE_N, max(args.rows // 4, 1 << 16))
     if n5 != TUBE_STORE_N:
         log(f"TubeSelect store cut to {n5} rows by --rows")

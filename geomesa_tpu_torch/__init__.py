@@ -9,8 +9,11 @@ whose block-minima kernels are hand-written CUDA,
 `get_features` and `process.DensityProcess` (the cell-dictionary kernel,
 `engine/kernels/density_zsparse.cu`), and polygon filters on point
 columns (the crossing-number kernel and its band,
-`engine/kernels/pip_crossing.cu`). Entry points run on the card unless
-the caller passes device="cpu".
+`engine/kernels/pip_crossing.cu`), the polygon-layer join, feature
+results, TubeSelect, and `process.KNearestNeighborSearchProcess` on every
+route, with the write-path stats sketches (`stats/`) that resolve its
+default `impl="auto"`. Entry points run on the card unless the caller
+passes device="cpu".
 """
 
 from geomesa_tpu_torch.core.columnar import FeatureBatch

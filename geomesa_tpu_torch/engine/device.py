@@ -13,6 +13,7 @@ so its Double columns live on the device as f64):
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -69,6 +70,29 @@ def to_device(batch: FeatureBatch, device: torch.device,
     )
     out[VALID] = put(np.asarray(valid, bool))
     return out
+
+
+# batch-identity device cache: repeat analytics over one materialized batch
+# (the kNN process's steady state) must not re-upload it per call. Keyed by
+# object identity, then by coordinate dtype and device; an entry is dropped
+# when its batch is collected (FeatureBatch is an unhashable dataclass, so
+# id() keying with a weakref.finalize eviction hook).
+_BATCH_CACHE: Dict[int, Dict[str, DeviceBatch]] = {}
+
+
+def to_device_cached(batch: FeatureBatch, device: torch.device,
+                     coord_dtype: torch.dtype = torch.float32) -> DeviceBatch:
+    """`to_device` memoized on the batch OBJECT (not its value): batches
+    are treated as immutable (every mutation builds a new batch)."""
+    key = id(batch)
+    slot = _BATCH_CACHE.get(key)
+    if slot is None:
+        slot = _BATCH_CACHE[key] = {}
+        weakref.finalize(batch, _BATCH_CACHE.pop, key, None)
+    dkey = f"{coord_dtype}|{device}"
+    if dkey not in slot:
+        slot[dkey] = to_device(batch, device, coord_dtype=coord_dtype)
+    return slot[dkey]
 
 
 def fetch(*tensors: torch.Tensor):

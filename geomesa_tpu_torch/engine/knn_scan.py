@@ -365,6 +365,22 @@ def knn_sparse_finish(fd, fi, ov, qx, qy, x, y, mask, k: int,
     return fd, fi.astype(np.int32), tile_capacity, tuple(extra_host)
 
 
+def knn_sparse_auto(qx, qy, x, y, mask, k: int,
+                    tile_capacity: Optional[int] = None, m_blocks: int = 64):
+    """The framework-facing sparse kNN: calibrate the capacity if the
+    caller has none, run the sparse scan and, on overflow, the dense
+    fullscan. Returns (dists np, idx np int32, capacity_used), -1 after
+    the fallback so the caller recalibrates. Composed from the launch
+    and finish halves, as the planner's path is."""
+    fd, fi, ov, tile_capacity = knn_sparse_launch(
+        qx, qy, x, y, mask, k=k, tile_capacity=tile_capacity,
+        m_blocks=m_blocks)
+    fd, fi, cap, _ = knn_sparse_finish(
+        fd, fi, ov, qx, qy, x, y, mask, k=k, tile_capacity=tile_capacity,
+        m_blocks=m_blocks)
+    return fd, fi, cap
+
+
 def knn_fullscan_tiled(qx, qy, x, y, mask, k: int, m_blocks: int = 64,
                        query_tile: int = 256):
     """knn_fullscan for arbitrary Q: queries in tiles of `query_tile`

@@ -62,12 +62,16 @@ class FeatureSource:
         return self.planner.count(query)
 
     def write(self, batch: FeatureBatch) -> None:
+        """Append the batch, then fold it into the stats sketches (the
+        write-path StatUpdater), so estimates are live with no analyze."""
         self.storage.write(batch)
+        self.planner.update_stats(batch)
 
     def knn(self, query: "Query | str", qx, qy, k: int = 10,
             impl: str = "sparse"):
-        """kNN push-down: device mask + fused scan (QueryPlanner.knn).
-        Returns (dists, indices, batch)."""
+        """kNN push-down: device mask + fused scan (QueryPlanner.knn);
+        impl "sparse", "fullscan" or "auto" (chosen from the stats
+        sketches). Returns (dists, indices, batch)."""
         return self.planner.knn(query, qx, qy, k=k, impl=impl)
 
     def explain(self, query: "Query | str") -> str:

@@ -21,9 +21,12 @@ kNN masks the rows the same way and runs the fused scan:
        -> KnnLaunch.sync (one read; overflow falls back to the dense scan)
        -> _canonical_dists (one f64 recompute of the reported meters)
 
-Query interceptors, the stats estimate, `impl="auto"`, the stats, bin
-and arrow aggregations, approximate answers, timeouts and the mesh and
-ring routes come with later slices.
+The write-path stats sketches (`plan/stats_manager.py`, updated by
+`FeatureSource.write`) give `explain` its estimate and resolve kNN's
+`impl="auto"` between the sparse and the dense scan.
+
+Query interceptors, the stats, bin and arrow aggregations, approximate
+answers, timeouts and the mesh and ring routes come with later slices.
 """
 
 from __future__ import annotations
@@ -49,8 +52,10 @@ from geomesa_tpu_torch.plan.explain import Explainer
 from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.plan.runner import (
     CalibCache, aggregate, density_device_grid, query_mask_token, sample_mask)
+from geomesa_tpu_torch.plan.stats_manager import StatsManager
 from geomesa_tpu_torch.store.cache import DeviceCacheManager, next_pow2
 from geomesa_tpu_torch.store.fs import FileSystemStorage
+from geomesa_tpu_torch.utils.config import SystemProperties
 
 
 @dataclasses.dataclass
@@ -90,11 +95,13 @@ class QueryPlanner:
         self.storage = storage
         self.device = device
         self.cache = cache
-        # guards the compiled-filter cache and the kNN capacity cache
+        # guards the compiled-filter cache, the kNN capacity cache and the
+        # stats-manager singleton
         self._mutex = threading.Lock()
         self._compiled_filters: dict = {}
         self._knn_caps: dict = {}
         self._zcalib = CalibCache()
+        self._stats_mgr: Optional[StatsManager] = None
 
     # -- planning ----------------------------------------------------------
 
@@ -113,6 +120,9 @@ class QueryPlanner:
         partitions = self.storage.prune_partitions(bbox, interval,
                                                    manifest=manifest)
         e(f"Partitions: {len(partitions)} of {len(manifest)} after pruning")
+        est = self._stats_estimate(bbox, interval)
+        if est is not None:
+            e(f"Estimated matches (stats sketches): ~{est}")
         if query.hints.query_index:
             e(f"Index override requested: {query.hints.query_index!r} "
               "(single-strategy partition store; recorded only)")
@@ -146,6 +156,78 @@ class QueryPlanner:
             if len(self._compiled_filters) > 256:  # bound memory
                 self._compiled_filters.clear()
             return self._compiled_filters.setdefault(key, compiled)
+
+    # -- stats --------------------------------------------------------------
+
+    def stats_manager(self) -> StatsManager:
+        with self._mutex:
+            if self._stats_mgr is None:
+                self._stats_mgr = StatsManager(self.storage)
+            return self._stats_mgr
+
+    def _stats_estimate(self, bbox: BBox, interval: Interval):
+        """Sketch-based selectivity (StatsBasedEstimator analog); None when
+        no stats exist (neither analyzed nor write-path updated)."""
+        mgr = self.stats_manager()
+        mgr.refresh()
+        if not mgr.stats:
+            return None
+        return mgr.estimate_count(bbox, interval)
+
+    def update_stats(self, batch) -> None:
+        """Write-path stats hook (StatUpdater analog): called by
+        FeatureSource.write after the storage append."""
+        self.stats_manager().update(batch)
+
+    def _knn_impl_from_stats(self, plan: QueryPlan) -> str:
+        """kNN `impl="auto"`: the dense fullscan when the sketches estimate
+        that at least KNN_FULLSCAN_SELECTIVITY (default 0.5) of the store
+        matches the plan's bbox and interval (nearly every tile bears a
+        match, so the sparse scan cannot prune), else the sparse scan. The
+        Z3 sketch is an upper bound, so a high estimate only forfeits
+        pruning, never correctness. Sparse also when no spatial sketch
+        exists (the estimate would be the bbox-blind store count) and when
+        the filter has predicates the sketches cannot see."""
+        total = getattr(self.storage, "count", 0) or 0
+        if total <= 0:
+            return "sparse"
+        mgr = self.stats_manager()
+        mgr.refresh()
+        if "z3" not in mgr.stats and "z2" not in mgr.stats:
+            return "sparse"
+        if self._has_attribute_predicates(plan.filter):
+            return "sparse"
+        est = mgr.estimate_count(plan.bbox, plan.interval)
+        if est is None:
+            return "sparse"
+        thresh = float(SystemProperties.KNN_FULLSCAN_SELECTIVITY.get())
+        return "fullscan" if est >= thresh * total else "sparse"
+
+    def _has_attribute_predicates(self, f) -> bool:
+        """True if the filter references anything the spatial/temporal
+        sketches cannot estimate: comparisons, IN/LIKE/BETWEEN/IsNull on
+        attributes, or spatial/temporal predicates on non-default columns."""
+        sft = self.storage.sft
+        g = sft.default_geometry
+        d = sft.default_dtg
+        gname = g.name if g is not None else None
+        dname = d.name if d is not None else None
+        for node in ast.walk(f):
+            if isinstance(node, (ast.SpatialPredicate, ast.DistancePredicate)):
+                if node.prop.name != gname:
+                    return True
+            elif isinstance(node, ast.TemporalPredicate):
+                if node.prop.name != dname:
+                    return True
+            elif isinstance(node, ast.Comparison):
+                # dtg range comparisons are sketch-visible
+                names = [e.name for e in (node.left, node.right)
+                         if isinstance(e, ast.Property)]
+                if any(nm != dname for nm in names):
+                    return True
+            elif isinstance(node, (ast.Between, ast.Like, ast.In, ast.IsNull)):
+                return True
+        return False
 
     # -- the f64-exact mask ------------------------------------------------
 
@@ -368,11 +450,9 @@ class QueryPlanner:
         impl: "sparse" scans only match-bearing data tiles, with a
         capacity calibrated once per (filter, k) and cached; an overflow
         falls back to the dense scan and drops the cached capacity.
-        "fullscan" runs the dense scan."""
-        if impl not in ("sparse", "fullscan"):
-            if impl == "auto":
-                raise NotPortedError("impl='auto' (stats-driven kernel choice)",
-                                     "the stats slice")
+        "fullscan" runs the dense scan. "auto" picks one of the two from
+        the stats sketches (`_knn_impl_from_stats`)."""
+        if impl not in ("sparse", "fullscan", "auto"):
             raise ValueError(f"unknown kNN impl {impl!r}")
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
@@ -400,6 +480,8 @@ class QueryPlanner:
         count_dev = mask.sum(dtype=torch.int64) if want_mask_count else None
         launch = KnnLaunch(self, k=k, kk=kk, impl=impl, batch=batch,
                            count_dev=count_dev, hq=_host_q(qx, qy))
+        if impl == "auto":
+            impl = launch.impl = self._knn_impl_from_stats(plan)
         if impl == "sparse":
             key = (ast.to_cql(plan.filter), kk)
             seed_cap = self._caps_seed(key)

@@ -1,8 +1,8 @@
 """Typed system properties with an environment-variable fallback.
 
 A trimmed copy of the reference package's `utils/config.py`: the
-`SystemProperty` class and the one property the port reads. Property
-"geomesa.spatial.prep.cache.dir" maps to the environment variable
+`SystemProperty` class and the properties the port reads. A property
+such as "geomesa.spatial.prep.cache.dir" maps to the environment variable
 GEOMESA_TPU_SPATIAL_PREP_CACHE_DIR, as in the reference, so both packages
 read the same setting.
 """
@@ -55,3 +55,11 @@ class SystemProperties:
         "lists / padded edge tables — the prepared-geometry analog); "
         "empty = in-process cache only",
     )
+    KNN_FULLSCAN_SELECTIVITY = SystemProperty(
+        "geomesa.knn.fullscan.selectivity", 0.5, float,
+        "kNN auto kernel choice: estimated filter selectivity at or above "
+        "which the dense fullscan replaces the sparse tile scan (stats-"
+        "driven StrategyDecider analog; sparse pruning cannot win when "
+        "nearly every data tile bears a match)",
+    )
+

@@ -154,8 +154,10 @@ def test_explain_agrees_with_reference(stores):
 
 def test_later_slice_options_raise_typed(stores, tmp_path):
     s = stores
-    with pytest.raises(NotPortedError, match="stats"):
-        s["port"].knn(CQL, s["qx"], s["qy"], k=3, impl="auto")
+    # impl="auto" is ported (the stats sketches choose the scan): it now
+    # answers as the reference's does
+    assert_same(s["ref"].knn(CQL, s["qx"], s["qy"], k=3, impl="auto"),
+                s["port"].knn(CQL, s["qx"], s["qy"], k=3, impl="auto"))
     ds = PDataStore(str(tmp_path / "vis"), device="cpu")
     with pytest.raises(NotPortedError, match="visibility"):
         ds.create_schema(PSFT.from_spec(
@@ -211,6 +213,17 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
                                            buffer_m=50_000,
                                            max_time_window_ms={DAY})
         assert 0 < len(hits) < n
+        import os
+        import geomesa_tpu_torch.engine.grid_index  # noqa: F401
+        from geomesa_tpu_torch.plan.stats_manager import StatsManager
+        from geomesa_tpu_torch.process.knn import KNearestNeighborSearchProcess
+        assert os.path.exists(os.path.join(src.storage.root, "stats.json"))
+        assert StatsManager(src.storage).count == n
+        qb = FeatureBatch.from_pydict(SimpleFeatureType.from_spec("q", "*geom:Point"),
+                                      {{"geom": np.array([[0.0, 45.0], [1.0, 44.0]])}})
+        res = KNearestNeighborSearchProcess().execute(
+            qb, src, num_desired=3, cql_filter="speed > 5", device="cpu")
+        assert np.isfinite(res.distances_m).all() and not res.partial_recall
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]
