@@ -117,7 +117,29 @@ and prints no result. Phases, each fatal on failure:
    Before it too, B6-B9's registers and spills, the chunk-tests the warps
    of B6/B7/B9 (reach 2 eps) and B8 (reach 0) keep and the heaviest row's
    share, and B6 on its longest row alone; B6-B9's bound counts the tests
-   within reach, their all-pairs bound stands beside it.
+   within reach, their all-pairs bound stands beside it;
+11. config 2 as users write it (at phase 6's width: its 10,000 polygons
+   and 2^22 points): a fresh catalog on the card holds regions
+   (name:String,*geom:Polygon, the polygons with their holes as rings,
+   under the default XZ2 scheme) and events (val:Double,dtg:Date,
+   *geom:Point, phase 6's points in one day), the WKT encode on write,
+   the WKT parse on read and edge_table() timed apart; then SqlContext
+   runs SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN
+   regions r ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY
+   region once cold and as a warm p50 of 5, with B6-B9's launch counts
+   reset before and read after (B7 must launch), and two calls split
+   into the store reads, the WKT parse, edge_table(), the layer prep,
+   the join (B7 plus the f64 refine) and the grouped aggregate; gated:
+   the per-region counts equal the bincount of phase 6's gated
+   pip_layer_assign ids. On the events store, a stats query
+   (Count();MinMax(dtg);Histogram(val,32,0,10);DescriptiveStats(val);
+   Cardinality(val)) under the north-star BBOX and a DURING window and
+   StatsProcess with the same expression, each cold and warm p50 of 5,
+   gated against a NumPy evaluation of the written rows (the HLL
+   registers against torch's over the matching values); and the points
+   under Z2Scheme, whose north-star BBOX count must equal the date-
+   partitioned store's. grouped_*, hll_registers and z3_histogram (plain
+   PyTorch) are timed at the path's shapes into the {"device_ops"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1181,10 +1203,13 @@ def sync(torch, dev) -> None:
 def gen_admin_layer(rng, npoly: int):
     """The reference bench's OSM-admin-style disjoint layer: one polygon
     per jittered grid cell over the globe, log-mixed edge counts
-    (10..10k), ~10% with a hole. Returns (x1, y1, x2, y2, pol, holes)."""
+    (10..10k), ~10% with a hole. Returns (x1, y1, x2, y2, pol, holes,
+    rings): rings[pid] lists polygon pid's closed rings, shell first (the
+    bench's keep_rings)."""
     side = int(np.ceil(np.sqrt(npoly)))
     cw, ch = 360.0 / side, 180.0 / side
     x1l, y1l, x2l, y2l, pol = [], [], [], [], []
+    rings = []
     n_holes = 0
     ecounts = np.clip(
         np.round(10 ** rng.uniform(1, 4, npoly)).astype(int), 10, 10_000)
@@ -1206,6 +1231,7 @@ def gen_admin_layer(rng, npoly: int):
             x1l.append(ring[:-1, 0]); y1l.append(ring[:-1, 1])  # noqa: E702
             x2l.append(ring[1:, 0]); y2l.append(ring[1:, 1])  # noqa: E702
             pol.append(np.full(ne, pid))
+            rings.append([ring])
             if rng.random() < 0.1:  # hole: reversed inner ring
                 n_holes += 1
                 nh = max(8, ne // 8)
@@ -1216,9 +1242,10 @@ def gen_admin_layer(rng, npoly: int):
                 x1l.append(hr[:-1, 0]); y1l.append(hr[:-1, 1])  # noqa: E702
                 x2l.append(hr[1:, 0]); y2l.append(hr[1:, 1])  # noqa: E702
                 pol.append(np.full(nh, pid))
+                rings[-1].append(hr)
             pid += 1
     return (np.concatenate(x1l), np.concatenate(y1l), np.concatenate(x2l),
-            np.concatenate(y2l), np.concatenate(pol), n_holes)
+            np.concatenate(y2l), np.concatenate(pol), n_holes, rings)
 
 
 def layer_points(torch, dev, rng, n: int, layer):
@@ -1488,7 +1515,7 @@ def layer_path(torch, dev, n: int, card_s: str):
     t0 = time.perf_counter()
     layer = gen_admin_layer(rng, LAYER_POLYS)
     px, py, adv = layer_points(torch, dev, rng, n, layer)
-    x1, y1, x2, y2, pol, n_holes = layer
+    x1, y1, x2, y2, pol, n_holes, _ = layer
     lay = layer[:5]
     log(f"config 2 layer: {LAYER_POLYS} polygons, {len(x1)} edges, {n_holes} "
         f"holes; {n} points ({int(adv.sum())} adversarial) in "
@@ -1589,7 +1616,9 @@ def layer_path(torch, dev, n: int, card_s: str):
         f"ids == per-polygon oracle; pip_layer_join emits {len(rows)} pairs == "
         f"(count == 1).sum(), rows == pip_layer inside; pip_layer_sparse == "
         f"pip_layer_grouped on covered tiles")
-    return launches, layer_kernel_inputs(torch, dev, prep, pol)
+    # phase 11 holds the SQL join's per-region counts to these gated ids
+    counts = np.bincount(ids[ids >= 0], minlength=LAYER_POLYS)
+    return launches, layer_kernel_inputs(torch, dev, prep, pol), counts
 
 
 def layer_skip_lines(torch, psk, inp, card_s: str) -> float:
@@ -2277,7 +2306,7 @@ def knn_engine_routes(torch, dev, x, y, mask, qx, qy, exp, card_s: str):
     gated against the f64 oracle; rows for the device_ops line."""
     import geomesa_tpu_torch.engine.grid_index as gi
     import geomesa_tpu_torch.engine.knn as pk
-    from geomesa_tpu_torch.store.cache import next_pow2
+    from geomesa_tpu_torch.utils.padding import next_pow2
 
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
     dx, dy, tqx, tqy = f32(x), f32(y), f32(qx), f32(qy)
@@ -2495,6 +2524,275 @@ def knn_process_phase(torch, ks, dev, src, tmp: str, a: dict, planner_run,
     return engine
 
 
+# -- config 2 as users write it (phase 11) -------------------------------------
+
+SQL_JOIN = ("SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN regions r "
+            "ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY region")
+STATS_EXPR = ("Count();MinMax(dtg);Histogram(val,32,0,10);DescriptiveStats(val);"
+              "Cardinality(val)")
+EVENTS_DAY0 = TUBE_DAY0  # one day of events: one partition keeps Morton order
+STATS_WIN = (EVENTS_DAY0 + 2 * 3_600_000, EVENTS_DAY0 + 20 * 3_600_000)
+# 32-bit operations a row (counted against the FP32 peak: the card's INT32
+# rate is not above it, so the bound is a lower one): the HLL hash is
+# 2 fmix32 (5 operations each) + 2 xors + 2 shifts for h1, the same for
+# h2, then the index, the two halves' shifts and ors, two bit lengths
+# (convert, shift, and) and the rank selects: ~40; the Z3 cell is 2 x
+# (add, multiply, floor, clamp) + 2 multiply-adds for the flat index: 12;
+# a grouped reduction is the select and the scatter: 2
+HLL_OPS = 40
+Z3_OPS = 12
+GROUPED_OPS = 2
+
+
+def region_name(pid: int) -> str:
+    return f"region-{pid:05d}"
+
+
+def stats_oracle(torch, dev, px, py, val, dtg):
+    """The stats expression over the written rows in NumPy f64 (the HLL
+    registers in torch on the card): count, dtg min/max, the 32-bin
+    histogram (f32 binning, as the Histogram stat), the f64 sum, and the
+    registers of the matching values."""
+    from geomesa_tpu_torch.engine import stats as est
+
+    x0, y0, x1, y1 = BBOX
+    m = ((px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+         & (dtg > STATS_WIN[0]) & (dtg < STATS_WIN[1]))
+    v = val[m]
+    w = np.float32(10.0 / 32)
+    h = np.clip(np.floor((v.astype(np.float32) - np.float32(0.0)) / w), 0, 31)
+    regs = est.hll_registers(torch.from_numpy(v).to(dev),
+                             torch.ones(len(v), dtype=torch.bool, device=dev), 12)
+    return dict(count=int(m.sum()), dtg=(int(dtg[m].min()), int(dtg[m].max())),
+                hist=np.bincount(h.astype(np.int64), minlength=32),
+                sum=float(v.sum()), regs=regs.cpu().numpy())
+
+
+def check_stats(seq, exp) -> None:
+    """The stats against `stats_oracle`: exact but the f64 sum (its order
+    differs: 1e-9 relative) and the HLL estimate (from the registers)."""
+    from geomesa_tpu_torch.stats.sketches import Cardinality
+
+    count, minmax, hist, desc, card = seq.stats
+    assert count.result()["count"] == exp["count"] > 0, count.result()
+    assert tuple(int(t) for t in minmax.result()) == exp["dtg"], minmax.result()
+    assert np.array_equal(np.asarray(hist.counts), exp["hist"]), "histogram"
+    d = desc.to_json()
+    assert d["count"] == exp["count"] and abs(d["sum"] - exp["sum"]) <= 1e-9 * abs(exp["sum"])
+    assert np.array_equal(np.asarray(card.registers), exp["regs"]), "HLL registers"
+    ref = Cardinality("val")
+    ref.observe_registers(exp["regs"])
+    assert card.result() == ref.result() > 0
+
+
+def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
+    """Phase 11 (module docstring): config 2 as users write it, through
+    SqlContext over two stores of a fresh catalog, the stats query and
+    StatsProcess on the events store, and a Z2-partitioned copy. Returns
+    (phase numbers, B7 launches, device-op rows)."""
+    from geomesa_tpu_torch import DataStore, FeatureBatch, Query, SimpleFeatureType
+    from geomesa_tpu_torch.core.columnar import GeometryColumn
+    from geomesa_tpu_torch.core.wkt import Geometry
+    from geomesa_tpu_torch.curve.binned_time import TimePeriod, to_binned_time
+    from geomesa_tpu_torch.engine import pip_sparse as ps
+    from geomesa_tpu_torch.engine import pip_sparse_kernels as k
+    from geomesa_tpu_torch.engine import stats as est
+    from geomesa_tpu_torch.plan.hints import QueryHints
+    from geomesa_tpu_torch.process import StatsProcess
+    from geomesa_tpu_torch.sql import SqlContext
+    from geomesa_tpu_torch.store import fs
+    from geomesa_tpu_torch.store.partition import Z2Scheme
+    from geomesa_tpu_torch.utils.padding import next_pow2
+
+    out = {}
+    rng = np.random.default_rng(29)  # phase 6's layer and points
+    layer = gen_admin_layer(rng, LAYER_POLYS)
+    px, py, _ = layer_points(torch, dev, rng, n, layer)
+    val = rng.uniform(0, 10, n)
+    dtg = EVENTS_DAY0 + rng.integers(0, DAY_MS, n)
+    rsft = SimpleFeatureType.from_spec("regions", "name:String,*geom:Polygon")
+    espec = "val:Double,dtg:Date,*geom:Point"
+    esft = SimpleFeatureType.from_spec("events", espec)
+    rb = FeatureBatch.from_pydict(rsft, {
+        "name": [region_name(i) for i in range(LAYER_POLYS)],
+        "geom": [Geometry("Polygon", rings) for rings in layer[6]]})
+    t0 = time.perf_counter()
+    et = rb.columns["geom"].edge_table()
+    out["edge_table_s"] = time.perf_counter() - t0
+    # the stored layer is phase 6's: its edge table gives the same edges
+    assert all(np.array_equal(a, b) for a, b in zip(
+        (et.x1, et.y1, et.x2, et.y2, et.efeat), layer[:5]))
+    eb = FeatureBatch.from_pydict(esft, {"val": val, "dtg": dtg,
+                                         "geom": np.stack([px, py], 1)})
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = DataStore(tmp, use_device_cache=True, device=dev)
+        regions = ds.create_schema(rsft)  # no dtg: the default XZ2 scheme
+        events = ds.create_schema(esft)   # the dtg's days
+        assert regions.storage.scheme.to_config()["scheme"] == "xz2"
+        with Spans(torch, [(fs, "to_wkt", "wkt encode")]) as sp:
+            t0 = time.perf_counter()
+            regions.write(rb)
+            out["regions_write_s"] = time.perf_counter() - t0
+        out["wkt_encode_s"] = sp.seconds["wkt encode"]
+        t0 = time.perf_counter()
+        events.write(eb)
+        out["events_write_s"] = time.perf_counter() - t0
+        log(f"config-2 stores: regions ({LAYER_POLYS} polygons, {len(et.x1)} "
+            f"edges, {len(regions.storage.partitions())} XZ2 partitions) written in "
+            f"{out['regions_write_s']:.3f} s, of which WKT encode "
+            f"{out['wkt_encode_s']:.3f} s; events ({n} points, one day) in "
+            f"{out['events_write_s']:.3f} s; edge_table() of the layer "
+            f"{out['edge_table_s']:.3f} s")
+
+        # -- the SQL join: cold with its split, warm p50 of 5, then one split;
+        # the plain PyTorch reductions' calls are counted through the stats
+        op_names = ("grouped_count", "grouped_sum", "grouped_min",
+                    "grouped_max", "hll_registers", "z3_histogram")
+        exp = stats_oracle(torch, dev, px, py, val, dtg)  # before the count
+        op_calls = Spans(torch, [(est, name, name) for name in op_names])
+        op_calls.__enter__()
+        ctx = SqlContext(ds)
+        kernels = (k.pip_grouped, k.pip_assign, k.pip_pairs_count, k.pip_pairs_band)
+        for w in kernels:
+            w.launches = 0
+        split = [(regions, "get_features", "read regions"),
+                 (events, "get_features", "read events"),
+                 (fs, "parse_wkt", "wkt parse"),
+                 (GeometryColumn, "edge_table", "edge table"),
+                 (ps, "prepare_layer_cached", "layer prep"),
+                 (ps, "pip_layer_join", "join (B7 + f64 refine)"),
+                 (SqlContext, "_aggregate", "grouped aggregate")]
+        splits = {}
+        results = []
+        for what in ("cold", "warm"):
+            with Spans(torch, split) as sp:
+                t0 = time.perf_counter()
+                results.append(ctx.sql(SQL_JOIN))
+                wall = time.perf_counter() - t0
+            splits[what] = dict(sp.seconds, wall=wall)
+            if what == "cold":
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    results.append(ctx.sql(SQL_JOIN))
+                    times.append(time.perf_counter() - t0)
+                out["sql_warm_p50_s"] = statistics.median(times)
+        launches = {w.__name__: w.launches for w in kernels}
+        out["launches"] = launches
+        out["sql_cold_s"] = splits["cold"]["wall"]
+        out["split_cold_s"] = splits["cold"]
+        out["split_warm_s"] = splits["warm"]
+        log(f"config-2 SQL join: cold {out['sql_cold_s']:.3f} s, warm p50 "
+            f"{out['sql_warm_p50_s'] * 1e3:.3f} ms over 5, "
+            f"{n / out['sql_warm_p50_s']:.1f} points/sec; launches over 7 "
+            f"queries {launches} [{card_s}]")
+        for what, sp in splits.items():
+            log(f"config-2 SQL {what} split (synchronised spans): " + ", ".join(
+                f"{name} {sec:.3f} s" for name, sec in sp.items()))
+        assert launches["pip_assign"] > 0, "the SQL join never launched B7"
+        # -- gate: the per-region counts == phase 6's gated assignment ids
+        feats = results[0].features
+        got = dict(zip(feats.columns["region"].decode(),
+                       np.asarray(feats.columns["n"]).tolist()))
+        bad = [pid for pid in range(LAYER_POLYS)
+               if got.get(region_name(pid), 0) != int(exp_counts[pid])]
+        assert not bad, f"{len(bad)} regions differ from phase 6, e.g. {bad[:5]}"
+        for r in results[1:]:
+            assert np.array_equal(np.asarray(r.features.columns["n"]),
+                                  np.asarray(feats.columns["n"]))
+        out["regions_matched"] = len(got)
+        out["pairs"] = int(sum(got.values()))
+        log(f"correct: per-region counts of {len(got)} regions ({out['pairs']} "
+            f"pairs) == phase 6's pip_layer_assign bincount; 7 results equal")
+
+        # -- stats query and StatsProcess on the events store
+        cql = (f"BBOX(geom, {BBOX[0]}, {BBOX[1]}, {BBOX[2]}, {BBOX[3]}) AND dtg "
+               f"DURING {iso(STATS_WIN[0])}/{iso(STATS_WIN[1])}")
+        q = Query("events", cql, hints=QueryHints(stats_string=STATS_EXPR))
+        res, lat = time_calls({
+            "stats query": lambda: events.get_features(q).stats,
+            "StatsProcess": lambda: StatsProcess().execute(events, STATS_EXPR, cql)})
+        for name, seq in res.items():
+            check_stats(seq, exp)
+            out[f"{name} cold_s"], out[f"{name} warm_p50_s"] = lat[name]
+            log(f"{name}: cold {lat[name][0] * 1e3:.3f} ms, warm p50 "
+                f"{lat[name][1] * 1e3:.3f} ms over {exp['count']} matching of {n} "
+                f"rows [{card_s}]")
+        op_calls.__exit__(None, None, None)
+        log(f"correct: stats == NumPy over the written rows (count "
+            f"{exp['count']}, dtg min/max, 32-bin histogram, f64 sum within "
+            f"1e-9), HLL registers == torch's; StatsProcess the same")
+
+        # -- the same points under Z2Scheme against the date scheme
+        z2 = ds.create_schema(SimpleFeatureType.from_spec("events_z2", espec),
+                              scheme=Z2Scheme())
+        t0 = time.perf_counter()
+        z2.write(FeatureBatch.from_pydict(z2.sft, {"val": val, "dtg": dtg,
+                                                   "geom": np.stack([px, py], 1)}))
+        out["z2_write_s"] = time.perf_counter() - t0
+        bbox_cql = f"BBOX(geom, {BBOX[0]}, {BBOX[1]}, {BBOX[2]}, {BBOX[3]})"
+        counts, lat = time_calls({"z2": lambda: z2.get_count(bbox_cql),
+                                  "datetime": lambda: events.get_count(bbox_cql)})
+        exp_n = int(((px >= BBOX[0]) & (px <= BBOX[2]) & (py >= BBOX[1])
+                     & (py <= BBOX[3])).sum())
+        assert counts["z2"] == counts["datetime"] == exp_n, (counts, exp_n)
+        out["z2_partitions"] = len(z2.storage.partitions())
+        out["z2_count_warm_p50_s"] = lat["z2"][1]
+        out["datetime_count_warm_p50_s"] = lat["datetime"][1]
+        log(f"Z2Scheme store: {out['z2_partitions']} partitions written in "
+            f"{out['z2_write_s']:.3f} s; north-star BBOX count {counts['z2']} == "
+            f"the date-partitioned store's == f64 NumPy; warm p50 "
+            f"{lat['z2'][1] * 1e3:.3f} ms (date scheme {lat['datetime'][1] * 1e3:.3f} "
+            f"ms) [{card_s}]")
+
+    # -- the non-Pallas device operations at this path's shapes
+    ops = []
+    line = {"grouped_count": 196, "grouped_sum": 203, "grouped_min": 211,
+            "grouped_max": 219, "hll_registers": 137, "z3_histogram": 227}
+
+    def op_row(name, ms, b, by, **kw):
+        return dict({"name": name, "replaces": f"geomesa_tpu/engine/stats.py:{line[name]}",
+                     "source": "geomesa_tpu_torch/engine/stats.py", "route": "torch",
+                     "launches": op_calls.calls[name], "ms": ms, "bound_ms": b,
+                     "bound_by": by}, **kw)
+
+    m_rows = out["pairs"]
+    mr = next_pow2(max(m_rows, 1))
+    G = next_pow2(max(out["regions_matched"], 1))
+    g = torch.from_numpy(rng.integers(0, out["regions_matched"], mr)).to(
+        torch.int32).to(dev)
+    gm = torch.arange(mr, device=dev) < m_rows
+    gv = torch.from_numpy(rng.uniform(0, 10, mr)).to(dev)
+    calls = {"grouped_count": lambda: est.grouped_count(g, gm, G),
+             "grouped_sum": lambda: est.grouped_sum(gv, g, gm, G),
+             "grouped_min": lambda: est.grouped_min(gv, g, gm, G),
+             "grouped_max": lambda: est.grouped_max(gv, g, gm, G)}
+    for name, fn in calls.items():
+        ms = timed_ms(torch, fn, 10)
+        nb = 5 * mr + 8 * G + (0 if name == "grouped_count" else 8 * mr)
+        b, by = roofline_ms(GROUPED_OPS * mr, nb)
+        ops.append(op_row(name, ms, b, by, rows=mr, groups=G))
+    vt = torch.from_numpy(val).to(dev)
+    mt = torch.ones(n, dtype=torch.bool, device=dev)
+    ms = timed_ms(torch, lambda: est.hll_registers(vt, mt, 12), 10)
+    b, by = roofline_ms(HLL_OPS * n, 9 * n + 4 * 4096)
+    ops.append(op_row("hll_registers", ms, b, by, rows=n))
+    bins, _ = to_binned_time(dtg, TimePeriod.parse("week"))
+    tb = torch.from_numpy((bins - bins.min()).astype(np.int32)).to(dev)
+    xf = torch.from_numpy(px.astype(np.float32)).to(dev)
+    yf = torch.from_numpy(py.astype(np.float32)).to(dev)
+    nt = next_pow2(int(bins.max() - bins.min()) + 1)
+    ms = timed_ms(torch, lambda: est.z3_histogram(xf, yf, tb, mt, nt, 16), 10)
+    b, by = roofline_ms(Z3_OPS * n, 13 * n + 4 * nt * 256)
+    ops.append(op_row("z3_histogram", ms, b, by, rows=n))
+    for o in ops:
+        log(f"{o['name']} ({o['rows']} rows): {o['ms']:.3f} ms, bound "
+            f"{o['bound_ms']:.3f} ms by {o['bound_by']}, {o['launches']} calls "
+            f"on the path [{card_s}]")
+    return out, launches["pip_assign"], ops
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
@@ -2548,7 +2846,7 @@ def main() -> int:
     n2 = min(args.rows, LAYER_POINTS)
     if n2 != LAYER_POINTS:
         log(f"config-2 points cut to {n2} by --rows")
-    launches, inputs = layer_path(torch, dev, n2, card_s)
+    launches, inputs, region_counts = layer_path(torch, dev, n2, card_s)
     rows += layer_rows(torch, launches, inputs, card_s)
     del inputs
     torch.cuda.empty_cache()
@@ -2557,6 +2855,14 @@ def main() -> int:
     if n5 != TUBE_STORE_N:
         log(f"TubeSelect store cut to {n5} rows by --rows")
     ops.append(tube_process(torch, dev, n5, card_s))
+    torch.cuda.empty_cache()
+    PHASES["config2 sql"], b7, sql_ops = config2_sql(torch, dev, n2, card_s,
+                                                     region_counts)
+    ops += sql_ops
+    for row in rows:
+        if row["name"] == "pip_assign":  # phase 6's launches, then phase 11's
+            row["launches_by_phase"] = {"6": row["launches"], "11": b7}
+            row["launches"] += b7
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"kernels": rows}))

@@ -8,8 +8,8 @@ tiny tagged union over NumPy coordinate arrays, because the device-side model
 Supported: POINT, LINESTRING, POLYGON (with holes), MULTIPOINT,
 MULTILINESTRING, MULTIPOLYGON, GEOMETRYCOLLECTION (parse only), EMPTY forms.
 
-A copy of the reference package's `core/wkt.py` (parse and WKT render; the
-GeoJSON and WKB codecs are not needed by this package yet).
+A copy of the reference package's `core/wkt.py`: parse and render WKT, the
+GeoJSON geometry object and ISO WKB.
 """
 
 from __future__ import annotations
@@ -207,7 +207,23 @@ _KINDS = {
 }
 
 
+# The canonical text `to_wkt` writes for a polygon (every number matched
+# whole by the token rule, a single space between x and y, ", " between
+# points and rings): such text parses to the same Geometry as `_Parser`
+# gives (nothing to skip, no Z/M ordinates), but with one C-level scan and
+# one float conversion per ring instead of a Python step per token. Any
+# other text takes `_Parser`.
+_NUM = r"-?\d+(?:\.\d+)?(?:[eE][+-]?\d+)?"
+_PAIR = f"{_NUM} {_NUM}"
+_RING = rf"\({_PAIR}(?:, {_PAIR})*\)"
+_CANONICAL_POLYGON = re.compile(rf"POLYGON \({_RING}(?:, {_RING})*\)")
+
+
 def parse_wkt(text: str) -> Geometry:
+    if text.startswith("POLYGON ((") and _CANONICAL_POLYGON.fullmatch(text):
+        rings = [np.array(r.replace(",", "").split(), np.float64).reshape(-1, 2)
+                 for r in text[10:-2].split("), (")]
+        return Geometry("Polygon", rings)
     return _Parser(text).geometry()
 
 
@@ -217,7 +233,13 @@ def to_wkt(g: Geometry) -> str:
         return repr(float(v))
 
     def ring(r: np.ndarray) -> str:
-        return "(" + ", ".join(f"{num(x)} {num(y)}" for x, y in r) + ")"
+        a = np.asarray(r, np.float64)
+        if a.ndim != 2 or a.shape[1] != 2:
+            return "(" + ", ".join(f"{num(x)} {num(y)}" for x, y in r) + ")"
+        # the same text as the per-pair loop, joined at C speed: repr of
+        # each f64 as a Python float, pairs joined by a space
+        it = iter(list(map(repr, a.ravel().tolist())))
+        return "(" + ", ".join(map(" ".join, zip(it, it))) + ")"
 
     if g.kind == "Point":
         x, y = g.point
@@ -237,3 +259,147 @@ def to_wkt(g: Geometry) -> str:
             i += n
         return "MULTIPOLYGON (" + ", ".join(out) + ")"
     raise ValueError(f"cannot encode {g.kind}")
+
+
+def to_geojson(g: Geometry) -> dict:
+    """GeoJSON geometry object; Geometry.parts groups MultiPolygon rings."""
+
+    def ring(r) -> list:
+        return np.asarray(r, np.float64).tolist()
+
+    if g.kind == "Point":
+        x, y = g.point
+        return {"type": "Point", "coordinates": [float(x), float(y)]}
+    if g.kind == "MultiPoint":
+        pts = np.concatenate([np.asarray(r, np.float64) for r in g.rings], axis=0)
+        return {"type": "MultiPoint", "coordinates": pts.tolist()}
+    if g.kind == "LineString" and len(g.rings) == 1:
+        return {"type": "LineString", "coordinates": ring(g.rings[0])}
+    if g.kind in ("MultiLineString", "LineString"):
+        return {"type": "MultiLineString", "coordinates": [ring(r) for r in g.rings]}
+    if g.kind == "Polygon":
+        return {"type": "Polygon", "coordinates": [ring(r) for r in g.rings]}
+    if g.kind == "MultiPolygon":
+        polys, i = [], 0
+        for n in g.parts:
+            polys.append([ring(r) for r in g.rings[i : i + n]])
+            i += n
+        return {"type": "MultiPolygon", "coordinates": polys}
+    # GeometryCollection-ish fallback: emit each part as a polygon ring list
+    return {"type": "MultiLineString", "coordinates": [ring(r) for r in g.rings]}
+
+
+# -- WKB ---------------------------------------------------------------------
+# ISO WKB, little-endian, 2-D (the WKBUtils role: geomesa-utils
+# o.l.g.utils.text.WKBUtils [upstream, unverified]).
+
+import struct as _struct
+
+_WKB_KIND = {
+    "Point": 1, "LineString": 2, "Polygon": 3,
+    "MultiPoint": 4, "MultiLineString": 5, "MultiPolygon": 6,
+}
+_WKB_NAME = {v: k for k, v in _WKB_KIND.items()}
+
+
+def to_wkb(g: Geometry) -> bytes:
+    """Encode little-endian ISO WKB."""
+    out = bytearray()
+
+    def header(kind_code: int):
+        out.append(1)  # little-endian
+        out.extend(_struct.pack("<I", kind_code))
+
+    def ring(r: np.ndarray):
+        out.extend(_struct.pack("<I", len(r)))
+        out.extend(np.ascontiguousarray(r, "<f8").tobytes())
+
+    k = g.kind
+    header(_WKB_KIND[k])
+    if k == "Point":
+        x, y = g.point
+        out.extend(_struct.pack("<dd", float(x), float(y)))
+    elif k == "LineString":
+        ring(g.rings[0])
+    elif k == "Polygon":
+        out.extend(_struct.pack("<I", len(g.rings)))
+        for r in g.rings:
+            ring(r)
+    elif k == "MultiPoint":
+        pts = np.concatenate([np.asarray(r, np.float64) for r in g.rings], 0)
+        out.extend(_struct.pack("<I", len(pts)))
+        for x, y in pts:
+            header(1)
+            out.extend(_struct.pack("<dd", float(x), float(y)))
+    elif k == "MultiLineString":
+        out.extend(_struct.pack("<I", len(g.rings)))
+        for r in g.rings:
+            header(2)
+            ring(r)
+    elif k == "MultiPolygon":
+        out.extend(_struct.pack("<I", len(g.parts)))
+        i = 0
+        for n in g.parts:
+            header(3)
+            out.extend(_struct.pack("<I", n))
+            for r in g.rings[i: i + n]:
+                ring(r)
+            i += n
+    else:
+        raise ValueError(f"cannot WKB-encode {k}")
+    return bytes(out)
+
+
+def parse_wkb(buf: bytes) -> Geometry:
+    """Decode (a prefix of) WKB; both byte orders accepted."""
+    pos = [0]
+
+    def take(n):
+        s = buf[pos[0]: pos[0] + n]
+        if len(s) < n:
+            raise ValueError("truncated WKB")
+        pos[0] += n
+        return s
+
+    def geometry() -> Geometry:
+        bo = "<" if take(1)[0] == 1 else ">"
+        code = _struct.unpack(bo + "I", take(4))[0]
+        if code > 1000:
+            # Z/M/ZM variants change the per-point stride; reading them
+            # as 2-D would silently produce garbage coordinates
+            raise ValueError(
+                f"WKB geometry code {code}: Z/M dimensions unsupported"
+            )
+        kind = _WKB_NAME.get(code)
+        if kind is None:
+            raise ValueError(f"unsupported WKB geometry code {code}")
+
+        def ring():
+            n = _struct.unpack(bo + "I", take(4))[0]
+            return np.frombuffer(
+                take(16 * n), dtype=bo + "f8"
+            ).reshape(n, 2).astype(np.float64)
+
+        if kind == "Point":
+            x, y = _struct.unpack(bo + "dd", take(16))
+            return point(x, y)
+        if kind == "LineString":
+            return Geometry("LineString", [ring()])
+        if kind == "Polygon":
+            n = _struct.unpack(bo + "I", take(4))[0]
+            return Geometry("Polygon", [ring() for _ in range(n)])
+        n = _struct.unpack(bo + "I", take(4))[0]
+        subs = [geometry() for _ in range(n)]
+        if kind == "MultiPoint":
+            pts = np.concatenate([s.rings[0] for s in subs], 0)
+            return Geometry("MultiPoint", [pts[i:i + 1] for i in range(len(pts))])
+        if kind == "MultiLineString":
+            return Geometry("MultiLineString", [s.rings[0] for s in subs])
+        rings: List[np.ndarray] = []
+        parts: List[int] = []
+        for s in subs:
+            rings.extend(s.rings)
+            parts.append(len(s.rings))
+        return Geometry("MultiPolygon", rings, parts)
+
+    return geometry()

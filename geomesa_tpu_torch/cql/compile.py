@@ -43,7 +43,7 @@ from geomesa_tpu_torch.errors import NotPortedError
 ParamBuilder = Callable[[FeatureBatch], np.ndarray]
 
 _DISTANCE_SLICE = "the distance-predicate slice"
-_GEOMETRY_SLICE = "the extended-geometry slice (ROADMAP Queue A)"
+_GEOMETRY_SLICE = "the non-point geometry slice (ROADMAP Queue A, A4)"
 
 
 def f32_ulp_band(bound: float) -> np.float32:

@@ -7,7 +7,14 @@ so its Double columns live on the device as f64):
 
   <attr>            Double f64, Float f32, Integer i32, Long i64, Boolean
                     bool, dictionary codes i32, Date/Timestamp i64 millis
-  <attr>__x/__y     point coordinates, `coord_dtype` (default f32)
+  <attr>__x/__y     point coordinates (an extended geometry's first
+                    vertex), `coord_dtype` (default f32)
+  <attr>__bbox      extended geometries: [N, 4] bbox, `coord_dtype`;
+  <attr>__verts     [V, 2] vertices, `coord_dtype`;
+  <attr>__rings     [R+1] ring offsets i32; <attr>__featr [N+1] i32;
+  <attr>__vfeat     the edge table (`GeometryColumn.edge_table`): i32
+  <attr>__ex1..ey2  vertex owners, edge ends in `coord_dtype` and
+  <attr>__efeat     i32 edge owners
   __valid__         bool validity mask (padding-aware)
 """
 
@@ -55,6 +62,18 @@ def to_device(batch: FeatureBatch, device: torch.device,
         if isinstance(col, GeometryColumn):
             out[f"{attr.name}__x"] = put(col.x.astype(np_coord))
             out[f"{attr.name}__y"] = put(col.y.astype(np_coord))
+            if not col.is_point:
+                n = attr.name
+                out[f"{n}__bbox"] = put(col.bbox.astype(np_coord))
+                out[f"{n}__verts"] = put(col.vertices.astype(np_coord))
+                out[f"{n}__rings"] = put(col.ring_offsets.astype(np.int32))
+                out[f"{n}__featr"] = put(col.feature_rings.astype(np.int32))
+                et = col.edge_table()
+                out[f"{n}__vfeat"] = put(et.vfeat.astype(np.int32))
+                for key, a in (("ex1", et.x1), ("ey1", et.y1),
+                               ("ex2", et.x2), ("ey2", et.y2)):
+                    out[f"{n}__{key}"] = put(a.astype(np_coord))
+                out[f"{n}__efeat"] = put(et.efeat.astype(np.int32))
         elif isinstance(col, DictColumn):
             out[attr.name] = put(np.asarray(col.codes, np.int32))
         elif col.dtype == object:

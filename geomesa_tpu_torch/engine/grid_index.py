@@ -30,7 +30,8 @@ import torch
 
 from geomesa_tpu_torch.engine.device import fetch
 from geomesa_tpu_torch.engine.geodesy import EARTH_RADIUS_M, haversine_m
-from geomesa_tpu_torch.engine.knn import _div_mul, _topk_smallest, knn
+from geomesa_tpu_torch.engine.knn import (_div_mul, _nan_back, _nan_first,
+                                          _topk_smallest, knn)
 
 
 def auto_grid_params(match_count: int,
@@ -111,7 +112,9 @@ def knn_grid(qx: torch.Tensor, qy: torch.Tensor, index: GridIndex, k: int,
                         index.sx.shape[0] - 1).long()
     d = haversine_m(qx[:, None], qy[:, None], index.sx[lanes], index.sy[lanes])
     d = d.masked_fill(~valid, float("inf"))
-    kd, sel = _topk_smallest(d, k)
+    # NaN first, as the reference's fused top_k(-d) ranks it (knn.py)
+    kd, sel = _topk_smallest(_nan_first(d), k)
+    kd = _nan_back(kd)
     ki = torch.take_along_dim(index.sidx[lanes], sel, dim=1)
 
     # certificate: margins to the square's outer edges, in degrees

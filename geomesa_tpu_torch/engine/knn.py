@@ -16,6 +16,15 @@ Pallas kernel; here they are plain PyTorch (loops over the same tiles).
 The selection primitives `_topk_smallest` and `_twolevel_smallest` also
 serve the fused scan (`knn_scan.py`).
 
+NaN order: a stable sort ranks NaN last, and so does the fused scan in
+both packages. Inside the reference's jitted haversine fold (and the
+grid's gather) XLA folds the negation of `top_k(-d)` into the distance's
+constant, so a NaN distance reaches `top_k` with the sign that ranks it
+AHEAD of every finite one. `knn` and `knn_grid` mirror that through
+`_nan_first`/`_nan_back`: NaN distances rank first, lower index first
+among them, and come back as NaN. `knn_mxu`'s chord selection ranks a
+NaN key last in the reference as here (no folded negation there).
+
 Tie order: `lax.top_k` breaks ties toward the lower index, and
 `torch.topk` promises no order on CUDA. Both selections here take the
 first k of a STABLE ascending sort instead, which gives exactly the
@@ -53,6 +62,17 @@ def _topk_smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
         vals = torch.cat([vals, vals.new_full(pad, float("inf"))], -1)
         idx = torch.cat([idx, idx.new_zeros(pad)], -1)
     return vals, idx
+
+
+def _nan_first(d: torch.Tensor) -> torch.Tensor:
+    """Selection key that ranks NaN distances first: NaN -> -inf (a
+    distance is never -inf, so `_nan_back` restores them), in one pass."""
+    inf = float("inf")
+    return torch.nan_to_num(d, nan=-inf, posinf=inf, neginf=-inf)
+
+
+def _nan_back(v: torch.Tensor) -> torch.Tensor:
+    return v.masked_fill(v == -float("inf"), float("nan"))
 
 
 def _twolevel_smallest(
@@ -99,7 +119,9 @@ def knn(qx: torch.Tensor, qy: torch.Tensor, dx: torch.Tensor,
     candidate wins, as in the reference. Distances are in the promoted
     dtype of the inputs, at least f32. Each query's result is independent
     of the others, so a query tile holds min(query_tile, Q) rows; the
-    default data_tile is sized from query_tile (`KNN_BLOCK_LANES`)."""
+    default data_tile is sized from query_tile (`KNN_BLOCK_LANES`). A NaN
+    distance ranks ahead of every finite one and is returned as NaN, as
+    the reference's jitted fold ranks it (module docstring)."""
     q = qx.shape[0]
     n = dx.shape[0]
     if data_tile is None:
@@ -126,13 +148,14 @@ def knn(qx: torch.Tensor, qy: torch.Tensor, dx: torch.Tensor,
                 mt = torch.nn.functional.pad(mt, (0, pad))
             d = haversine_m(tx, ty, dxt[None, :], dyt[None, :]).masked_fill(
                 ~mt[None, :], float("inf"))
-            ld, li = _twolevel_smallest(d, k)
+            # bd and ld stay in _nan_first's key form until the output
+            ld, li = _twolevel_smallest(_nan_first(d), k)
             # padded lanes carry +inf, but the contract is "index in range"
             gi = torch.clamp(li + base, max=n - 1).to(torch.int32)
             nd, sel = _topk_smallest(torch.cat([bd, ld], 1), k)
             bi = torch.take_along_dim(torch.cat([bi, gi], 1), sel, dim=1)
             bd = nd
-        out_d.append(bd)
+        out_d.append(_nan_back(bd))
         out_i.append(bi)
     if not out_d:
         return (torch.full((0, k), float("inf"), dtype=dist_dtype, device=dev),

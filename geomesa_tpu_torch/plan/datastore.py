@@ -13,7 +13,9 @@ The counterpart of the reference package's `plan/datastore.py`:
         density_bbox=bbox, density_width=512, density_height=512))).grid
 
 A catalog is a directory; each schema is a FileSystemStorage
-subdirectory in the reference's on-disk format. `device=None` means the
+subdirectory in the reference's on-disk format, partitioned by date when
+the schema has a dtg and else by its geometry (Z2 for points, XZ2
+otherwise), as the reference partitions it. `device=None` means the
 card: it raises `CudaUnavailableError` when there is none (pass
 device="cpu" to run on the CPU).
 """
@@ -22,20 +24,20 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
 from geomesa_tpu_torch.core.columnar import FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.engine.device import resolve_device
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.explain import Explainer
 from geomesa_tpu_torch.plan.planner import QueryPlanner, QueryResult
 from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.store.cache import DeviceCacheManager
-from geomesa_tpu_torch.store.fs import FileSystemStorage
-from geomesa_tpu_torch.store.partition import DateTimeScheme
+from geomesa_tpu_torch.store.fs import METADATA, FileSystemStorage
+from geomesa_tpu_torch.store.partition import (
+    DateTimeScheme, PartitionScheme, XZ2Scheme, Z2Scheme)
 
 
 class FeatureSource:
@@ -102,15 +104,22 @@ class DataStore:
         return FeatureSource(storage,
                              QueryPlanner(storage, self.device, cache=cache))
 
+    def get_type_names(self) -> List[str]:
+        return [name for name in sorted(os.listdir(self.catalog))
+                if os.path.exists(os.path.join(self.catalog, name, METADATA))]
+
     def create_schema(self, sft: SimpleFeatureType,
-                      scheme: Optional[DateTimeScheme] = None) -> FeatureSource:
+                      scheme: Optional[PartitionScheme] = None,
+                      encoding: str = "parquet") -> FeatureSource:
+        """A new schema's store: `scheme` defaults to the dtg's days, or
+        without a dtg to `_default_spatial_scheme`; `encoding` "parquet"
+        (ORC files raise NotPortedError)."""
         if scheme is None:
-            if sft.default_dtg is None:
-                raise NotPortedError("spatial partition schemes (no dtg)",
-                                     "the partition-scheme slice (ROADMAP Queue A)")
-            scheme = DateTimeScheme(dtg_attr=sft.default_dtg.name)
+            scheme = (DateTimeScheme(dtg_attr=sft.default_dtg.name)
+                      if sft.default_dtg is not None
+                      else _default_spatial_scheme(sft))
         storage = FileSystemStorage.create(
-            os.path.join(self.catalog, sft.name), sft, scheme)
+            os.path.join(self.catalog, sft.name), sft, scheme, encoding)
         src = self._source(storage)
         with self._lock:
             self._sources[sft.name] = src
@@ -125,3 +134,16 @@ class DataStore:
         with self._lock:
             # first builder wins: every caller shares one planner per type
             return self._sources.setdefault(name, src)
+
+    def get_schema(self, name: str) -> SimpleFeatureType:
+        return self.get_feature_source(name).sft
+
+
+def _default_spatial_scheme(sft: SimpleFeatureType) -> PartitionScheme:
+    """Z2 (2 bits) for a point default geometry, XZ2 (g=2) otherwise."""
+    g = sft.default_geometry
+    if g is not None and g.type == "Point":
+        return Z2Scheme(bits=2, geom_attr=g.name)
+    if g is not None:
+        return XZ2Scheme(g=2, geom_attr=g.name)
+    raise ValueError("schema has neither dtg nor geometry; supply a scheme")

@@ -2,10 +2,11 @@
 
 Parity: geomesa-index-api QueryHints [upstream, unverified], as the
 reference package's `plan/hints.py` models them, restricted to the hints
-the port reads: the density aggregation (DensityScan), sampling, loose
-bbox and the exact count. The bin, stats and arrow aggregations,
-approximate answers and authorizations come with their slices: a query
-cannot carry them here, so it cannot silently ignore them.
+the port reads: the density and stats aggregations (DensityScan,
+StatsScan), sampling, loose bbox and the exact count. The bin and arrow
+aggregations, approximate answers and authorizations come with their
+slices: a query cannot carry them here, so it cannot silently ignore
+them.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ class QueryHints:
     #   False = force the scatter path
     density_zsparse: Optional[bool] = None
 
+    # stats aggregation (StatsScan): Stat DSL expression
+    stats_string: Optional[str] = None
+
     # sampling: keep roughly 1-in-n (None = off); optional per-attribute
     sampling: Optional[int] = None
     sample_by: Optional[str] = None
@@ -54,3 +58,7 @@ class QueryHints:
     @property
     def is_density(self) -> bool:
         return self.density_bbox is not None
+
+    @property
+    def is_stats(self) -> bool:
+        return self.stats_string is not None

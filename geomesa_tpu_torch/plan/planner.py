@@ -23,10 +23,12 @@ kNN masks the rows the same way and runs the fused scan:
 
 The write-path stats sketches (`plan/stats_manager.py`, updated by
 `FeatureSource.write`) give `explain` its estimate and resolve kNN's
-`impl="auto"` between the sparse and the dense scan.
+`impl="auto"` between the sparse and the dense scan. A `stats_string`
+hint makes `execute` return kind "stats": the Stat DSL evaluated over the
+f64-exact mask (`plan.runner.run_stats`).
 
-Query interceptors, the stats, bin and arrow aggregations, approximate
-answers, timeouts and the mesh and ring routes come with later slices.
+Query interceptors, the bin and arrow aggregations, approximate answers,
+timeouts and the mesh and ring routes come with later slices.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.plan.runner import (
     CalibCache, aggregate, density_device_grid, query_mask_token, sample_mask)
 from geomesa_tpu_torch.plan.stats_manager import StatsManager
-from geomesa_tpu_torch.store.cache import DeviceCacheManager, next_pow2
+from geomesa_tpu_torch.store.cache import DeviceCacheManager
+from geomesa_tpu_torch.utils.padding import next_pow2
 from geomesa_tpu_torch.store.fs import FileSystemStorage
 from geomesa_tpu_torch.utils.config import SystemProperties
 
@@ -62,13 +65,15 @@ from geomesa_tpu_torch.utils.config import SystemProperties
 class QueryResult:
     """What `execute` returns: kind "features" carries the matching rows
     (None when no row matched) and their count, kind "density" the
-    [height, width] f32 grid and the match count, kind "count" only the
-    count. The stats, bin and arrow kinds come with their slices."""
+    [height, width] f32 grid and the match count, kind "stats" the
+    evaluated Stat sequence and the match count, kind "count" only the
+    count. The bin and arrow kinds come with their slices."""
 
     kind: str
     features: Optional[FeatureBatch] = None
     grid: Optional[np.ndarray] = None
     count: int = 0
+    stats: object = None
     # the manifest commit version the result was pinned to
     version: Optional[int] = None
 
@@ -140,6 +145,8 @@ class QueryPlanner:
         if query.hints.is_density:
             e(f"Aggregation: density {query.hints.density_width}x"
               f"{query.hints.density_height} over {query.hints.density_bbox}")
+        elif query.hints.is_stats:
+            e(f"Aggregation: stats {query.hints.stats_string!r}")
         e.pop()
         return QueryPlan(query, f, bbox, interval, partitions, compiled,
                          manifest=manifest)
@@ -351,9 +358,9 @@ class QueryPlanner:
                 return self._empty_result(query)
             return QueryResult("density", grid=grid, count=int(total))
 
-        # features: one mask fetch; the band rows of the allowed
-        # partitions take their f64 value (the rest keep the device
-        # mask, which already holds the allowance)
+        # stats and features: one mask fetch; the band rows of the
+        # allowed partitions take their f64 value (the rest keep the
+        # device mask, which already holds the allowance)
         (mask,) = fetch(dev_mask)
         if has_band:
             mask = plan.compiled.refine(mask, sb.dev, sb.batch,
@@ -401,12 +408,17 @@ class QueryPlanner:
         return QueryResult("count", count=total)
 
     def _empty_result(self, query: Query) -> QueryResult:
-        """No row can match: a zero grid for density, else kind features
-        with no batch; the kind never depends on whether rows matched."""
+        """No row can match: a zero grid for density, the unobserved
+        stats for a stats query, else kind features with no batch; the
+        kind never depends on whether rows matched."""
         h = query.hints
         if h.is_density:
             return QueryResult("density", grid=np.zeros(
                 (h.density_height, h.density_width), np.float32))
+        if h.is_stats:
+            from geomesa_tpu_torch.stats import parse_stats
+
+            return QueryResult("stats", stats=parse_stats(h.stats_string))
         return QueryResult("features", features=None, count=0)
 
     # -- count -------------------------------------------------------------
@@ -657,6 +669,16 @@ def _needed_columns(plan: QueryPlan, sft):
         needed.add(sft.default_geometry.name)
         if hints.density_weight:
             needed.add(hints.density_weight)
+    elif hints.is_stats:
+        from geomesa_tpu_torch.stats import parse_stats
+        from geomesa_tpu_torch.stats.sketches import Z3HistogramStat
+
+        for s in parse_stats(hints.stats_string).stats:
+            if isinstance(s, Z3HistogramStat):
+                needed.add(s.geom)
+                needed.add(s.dtg)
+            elif s.attribute:
+                needed.add(s.attribute)
     elif query.attributes is None:
         return None
     else:

@@ -1,14 +1,15 @@
 """Aggregation push-down shared by the planner's cached and scan routes.
 
 The counterpart of the reference package's `plan/runner.py`, restricted
-to density over point layers and feature results: `aggregate` dispatches
-a batch, its device arrays and a host row mask to the device density
-grid (`density_device_grid`, with the cell-dictionary route and its
-cross-query calibration cache, `_zsparse_grid`) or to the matching
-features, finished by `finish_features` (sort, max features, projection).
-`sample_mask` thins a mask for the sampling hint, and `query_mask_token`
-keys mask-dependent caches on the query. Stats, bin and arrow
-aggregations, attribute redaction and reprojection come with their
+to density over point layers, stats and feature results: `aggregate`
+dispatches a batch, its device arrays and a host row mask to the device
+density grid (`density_device_grid`, with the cell-dictionary route and
+its cross-query calibration cache, `_zsparse_grid`), to `run_stats` (the
+Stat DSL over the masked rows, its reductions in `engine/stats.py`) or
+to the matching features, finished by `finish_features` (sort, max
+features, projection). `sample_mask` thins a mask for the sampling hint,
+and `query_mask_token` keys mask-dependent caches on the query. Bin and
+arrow aggregations, attribute redaction and reprojection come with their
 slices.
 """
 
@@ -24,10 +25,12 @@ import torch
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.cql import ast
+from geomesa_tpu_torch.curve.binned_time import TimePeriod, to_binned_time
 from geomesa_tpu_torch.engine.density import density_grid_auto
 from geomesa_tpu_torch.engine.density_zsparse import density_zsparse
 from geomesa_tpu_torch.engine.device import VALID, fetch
 from geomesa_tpu_torch.errors import NotPortedError
+from geomesa_tpu_torch.utils.padding import next_pow2
 
 if TYPE_CHECKING:
     from geomesa_tpu_torch.plan.query import Query
@@ -97,7 +100,7 @@ def density_device_grid(sft: SimpleFeatureType, batch, dev, dev_mask, hints,
     g = sft.default_geometry
     if not batch.columns[g.name].is_point:
         raise NotPortedError("density over non-point geometries",
-                             "the extended-geometry slice (engine/raster.py)")
+                             "the non-point geometry slice (ROADMAP Queue A, A4)")
     x = dev[f"{g.name}__x"]
     y = dev[f"{g.name}__y"]
     w = (dev[hints.density_weight].to(torch.float32) if hints.density_weight
@@ -139,7 +142,8 @@ def query_mask_token(query: "Query") -> tuple:
 def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
               mask: np.ndarray, query: "Query", cache: CalibCache):
     """A host row mask over `batch` to the query's result: the density
-    grid when the hints ask for one, else the matching features."""
+    grid or the stats when the hints ask for one, else the matching
+    features."""
     from geomesa_tpu_torch.plan.planner import QueryResult
 
     hints = query.hints
@@ -149,8 +153,87 @@ def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
             hints, cache, mask_token=query_mask_token(query))
         (grid,) = fetch(grid)
         return QueryResult("density", grid=grid, count=int(mask.sum()))
+    if hints.is_stats:
+        stats = run_stats(batch, dev, mask, hints.stats_string)
+        return QueryResult("stats", stats=stats, count=int(mask.sum()))
     sel = finish_features(batch.select(np.nonzero(mask)[0]), query)
     return QueryResult("features", features=sel, count=len(sel))
+
+
+def run_stats(batch: FeatureBatch, dev, mask: np.ndarray, expression: str):
+    """Evaluate a Stat DSL expression over the masked rows: each sketch's
+    reduction runs on the device of `dev` (`engine/stats.py`) over the
+    batch's host columns, and folds into the sketch objects on the host.
+    A Z3 histogram reads the device coordinates; vocabulary and time-bin
+    sizes are padded to powers of two, as in the reference."""
+    from geomesa_tpu_torch.engine import stats as est
+    from geomesa_tpu_torch.stats import parse_stats
+    from geomesa_tpu_torch.stats.sketches import (
+        Cardinality, DescriptiveStats, EnumerationStat, Frequency, Histogram,
+        MinMax, TopK, Z3HistogramStat)
+
+    device = dev[VALID].device
+    seq = parse_stats(expression)
+    tmask = torch.from_numpy(np.ascontiguousarray(mask, bool)).to(device)
+
+    def tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def value_counts(col: DictColumn) -> np.ndarray:
+        (counts,) = fetch(est.masked_value_counts(
+            tensor(col.codes), tmask, next_pow2(max(len(col.vocab), 1))))
+        return counts
+
+    for s in seq.stats:
+        if isinstance(s, Z3HistogramStat):
+            bins, _ = to_binned_time(np.asarray(batch.columns[s.dtg]),
+                                     TimePeriod.parse(s.period))
+            ub, tb = np.unique(bins, return_inverse=True)
+            (grids,) = fetch(est.z3_histogram(
+                dev[f"{s.geom}__x"], dev[f"{s.geom}__y"],
+                tensor(tb.astype(np.int32)), tmask,
+                next_pow2(max(len(ub), 1)), s.bins_per_dim))
+            for i, b in enumerate(ub):
+                s.observe_grid(int(b), grids[i])
+            continue
+        col = batch.columns.get(s.attribute) if s.attribute else None
+        is_dict = isinstance(col, DictColumn)
+        if isinstance(s, (TopK, EnumerationStat, Frequency)) and is_dict:
+            s.observe_counts(col.vocab, value_counts(col)[: len(col.vocab)])
+        elif isinstance(s, MinMax) and col is not None and not is_dict:
+            if mask.any():
+                mn, mx = fetch(*est.masked_minmax(tensor(col), tmask))
+                s.observe(np.array([float(mn), float(mx)]))
+        elif isinstance(s, Histogram) and col is not None:
+            (h,) = fetch(est.masked_histogram(tensor(col), tmask, s.lo, s.hi,
+                                              s.bins))
+            s.observe_counts(h)
+        elif isinstance(s, DescriptiveStats):
+            if s.attribute and col is not None and not is_dict:
+                c, sm, ssq = fetch(*est.masked_moments(tensor(col), tmask))
+                s.observe_moments(int(c), float(sm), float(ssq))
+            else:  # Count()
+                s.observe_moments(int(mask.sum()), 0.0, 0.0)
+        elif isinstance(s, Cardinality) and is_dict:
+            # distinct codes present under the mask: exact for dict columns
+            present = [v for v, c in zip(col.vocab, value_counts(col)) if c > 0]
+            s.observe(np.asarray(present, dtype=object))
+        elif isinstance(s, Cardinality) and col is not None:
+            (regs,) = fetch(est.hll_registers(tensor(col), tmask, s.p))
+            s.observe_registers(regs)
+        elif (isinstance(s, Frequency) and getattr(s, "numeric_keys", False)
+              and col is not None and not is_dict):
+            (table,) = fetch(est.cms_table(tensor(col), tmask, s.width,
+                                           s.depth))
+            s.observe_table(table)
+        else:  # host fallback (e.g. MinMax over strings)
+            if is_dict:
+                vals = np.asarray(col.decode(), dtype=object)
+                sel = vals[mask]
+                s.observe(sel[sel != None])  # noqa: E711
+            elif col is not None:
+                s.observe(np.asarray(col), mask)
+    return seq
 
 
 def finish_features(sel: FeatureBatch, query: "Query") -> FeatureBatch:

@@ -3,7 +3,11 @@
 The counterpart of the reference package's `store/cache.py`, single-GPU
 tier: each partition is loaded from its files, padded to the next power
 of two, uploaded once as its own device segment, and the superbatch is a
-device-side concat of the segments plus a partition-id row column.
+device-side concat of the segments plus a partition-id row column. A
+store with a non-point geometry column is not flat: its CSR ring tables
+need offset rewrites on concat, so (as in the reference) its partitions
+stay host-side and the superbatch is the full host concat, uploaded
+whole whenever residency changes.
 Queries mask pruned-out partitions by lane (`allowed[pids]`) instead of
 launching per partition. Residency follows the storage manifest: a
 partition whose file list changed is reloaded, the rest stay put. The
@@ -23,13 +27,7 @@ import torch
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.engine.device import to_device
 from geomesa_tpu_torch.store.fs import FileSystemStorage
-
-
-def next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p <<= 1
-    return p
+from geomesa_tpu_torch.utils.padding import next_pow2
 
 
 def _locked(fn):
@@ -51,7 +49,7 @@ class CacheEntry:
     count: int  # valid rows
     padded: int  # padded length (pow2)
     batch: FeatureBatch
-    dev: dict
+    dev: Optional[dict]  # None for a non-flat store (see the module docstring)
 
 
 @dataclasses.dataclass
@@ -77,6 +75,8 @@ class DeviceCacheManager:
         # store-level grow-only vocabularies (per dict column) so device
         # code segments from different partitions stay comparable
         self._vocab: Dict[str, list] = {}
+        self._flat = all((not a.is_geometry) or a.type == "Point"
+                         for a in storage.sft.attributes)
 
     def _partition_files(self, name: str, manifest: dict) -> List[str]:
         return sorted(e["file"] for e in manifest.get(name, []))
@@ -109,8 +109,11 @@ class DeviceCacheManager:
             return None
         batch = FeatureBatch.concat(batches)
         n = len(batch)
-        padded = self._shared_vocab_recode(batch.pad_to(next_pow2(n)))
-        dev = to_device(padded, self.device)
+        padded = batch.pad_to(next_pow2(n))
+        dev = None
+        if self._flat:
+            padded = self._shared_vocab_recode(padded)
+            dev = to_device(padded, self.device)
         return CacheEntry(files=self._partition_files(name, manifest),
                           count=n, padded=len(padded), batch=padded, dev=dev)
 
@@ -161,8 +164,11 @@ class DeviceCacheManager:
         names = sorted(self._entries)
         entries = [self._entries[n] for n in names]
         batch = FeatureBatch.concat([e.batch for e in entries])
-        dev = {k: torch.cat([e.dev[k] for e in entries])
-               for k in entries[0].dev}
+        if self._flat:
+            dev = {k: torch.cat([e.dev[k] for e in entries])
+                   for k in entries[0].dev}
+        else:
+            dev = to_device(batch, self.device)
         pids = torch.cat([
             torch.full((e.padded,), i, dtype=torch.int32, device=self.device)
             for i, e in enumerate(entries)])

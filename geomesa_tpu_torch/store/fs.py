@@ -7,9 +7,11 @@ on-disk format, so either package loads a catalog the other wrote:
     <root>/<partition>/<uuid>.parquet
 
 Point geometry is stored as x/y float64 columns named <attr>__x/__y (so
-row-group statistics prune on bbox), strings as dictionary columns, dates
-as int64 epoch millis. Compaction, deletes, age-off, ORC files and the
-fault-injection/retry hooks come with a later slice.
+row-group statistics prune on bbox); other geometries as WKT text plus
+per-feature bbox columns <attr>__xmin/__ymin/__xmax/__ymax; strings as
+dictionary columns, dates as int64 epoch millis. Compaction, deletes,
+age-off, ORC files and the fault-injection/retry hooks come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -28,16 +30,17 @@ import pyarrow.parquet as pq
 
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryColumn
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
+from geomesa_tpu_torch.core.wkt import parse_wkt, to_wkt
 from geomesa_tpu_torch.cql.extract import BBox, Interval
 from geomesa_tpu_torch.errors import NotPortedError
-from geomesa_tpu_torch.store.partition import DateTimeScheme, scheme_from_config
+from geomesa_tpu_torch.store.partition import PartitionScheme, scheme_from_config
 
 METADATA = "metadata.json"
 FID = "__fid__"
 # rows per scanned batch (the reference's geomesa.scan.batch.size default)
 SCAN_BATCH_SIZE = 1 << 20
 
-_STORE_SLICE = "the storage-maintenance slice (ROADMAP Queue A)"
+_STORE_SLICE = "the storage slice (ROADMAP Queue A, A5)"
 
 
 class ManifestSnapshot(Dict[str, List[dict]]):
@@ -51,8 +54,16 @@ def _batch_to_table(batch: FeatureBatch) -> pa.Table:
     for a in batch.sft.attributes:
         col = batch.columns[a.name]
         if isinstance(col, GeometryColumn):
-            arrays[f"{a.name}__x"] = pa.array(col.x, pa.float64())
-            arrays[f"{a.name}__y"] = pa.array(col.y, pa.float64())
+            if col.is_point:
+                arrays[f"{a.name}__x"] = pa.array(col.x, pa.float64())
+                arrays[f"{a.name}__y"] = pa.array(col.y, pa.float64())
+            else:
+                arrays[a.name] = pa.array(
+                    [to_wkt(col.geometry(i)) for i in range(len(col))],
+                    pa.string())
+                bb = col.bbox
+                for j, suffix in enumerate(("xmin", "ymin", "xmax", "ymax")):
+                    arrays[f"{a.name}__{suffix}"] = pa.array(bb[:, j], pa.float64())
         elif isinstance(col, DictColumn):
             codes = np.asarray(col.codes, np.int64)
             arrays[a.name] = pa.DictionaryArray.from_arrays(
@@ -97,12 +108,13 @@ def _table_to_batch(t: pa.Table, sft: SimpleFeatureType) -> FeatureBatch:
     cols: Dict[str, object] = {}
     for a in sft.attributes:
         if a.is_geometry:
-            if a.type != "Point":
-                raise NotPortedError(f"{a.type} geometry columns",
-                                     "the extended-geometry slice (ROADMAP Queue A)")
-            cols[a.name] = GeometryColumn.from_points(
-                t.column(f"{a.name}__x").to_numpy(),
-                t.column(f"{a.name}__y").to_numpy())
+            if a.type == "Point":
+                cols[a.name] = GeometryColumn.from_points(
+                    t.column(f"{a.name}__x").to_numpy(),
+                    t.column(f"{a.name}__y").to_numpy())
+            else:
+                cols[a.name] = GeometryColumn.from_geometries(
+                    [parse_wkt(w) for w in t.column(a.name).to_pylist()])
         elif a.type in ("String", "UUID"):
             cols[a.name] = _dict_column(t.column(a.name))
         elif a.type == "Bytes":
@@ -117,9 +129,11 @@ class FileSystemStorage:
     """A partitioned Parquet feature store."""
 
     def __init__(self, root: str, sft: SimpleFeatureType,
-                 scheme: DateTimeScheme, encoding: str = "parquet"):
+                 scheme: PartitionScheme, encoding: str = "parquet"):
+        if encoding == "orc":
+            raise NotPortedError("'orc' data files", _STORE_SLICE)
         if encoding != "parquet":
-            raise NotPortedError(f"{encoding!r} data files", _STORE_SLICE)
+            raise ValueError(f"unknown encoding {encoding!r}")
         self.root = root
         self.sft = sft
         self.scheme = scheme
@@ -135,7 +149,7 @@ class FileSystemStorage:
 
     @classmethod
     def create(cls, root: str, sft: SimpleFeatureType,
-               scheme: DateTimeScheme, encoding: str = "parquet"
+               scheme: PartitionScheme, encoding: str = "parquet"
                ) -> "FileSystemStorage":
         os.makedirs(root, exist_ok=True)
         if os.path.exists(os.path.join(root, METADATA)):
@@ -185,8 +199,7 @@ class FileSystemStorage:
         within each partition file."""
         if batch.valid is not None and not batch.valid.all():
             batch = batch.select(batch.valid)
-        names, codes = self.scheme.partition_codes(
-            batch.columns[self.scheme.dtg_attr])
+        names, codes = self.scheme.group(batch)
         # stable grouping by partition code (radix sort on small codes)
         key = codes.astype(np.uint16) if len(names) <= 1 << 16 else codes
         order = np.argsort(key, kind="stable")
@@ -260,12 +273,17 @@ class FileSystemStorage:
             return b if a is None else (a if b is None else a & b)
 
         if g is not None and not bbox.is_whole_world:
-            expr = AND(expr, (
-                (pc.field(f"{g.name}__x") >= bbox.xmin)
-                & (pc.field(f"{g.name}__x") <= bbox.xmax)
-                & (pc.field(f"{g.name}__y") >= bbox.ymin)
-                & (pc.field(f"{g.name}__y") <= bbox.ymax)
-            ))
+            if g.type == "Point":
+                e = ((pc.field(f"{g.name}__x") >= bbox.xmin)
+                     & (pc.field(f"{g.name}__x") <= bbox.xmax)
+                     & (pc.field(f"{g.name}__y") >= bbox.ymin)
+                     & (pc.field(f"{g.name}__y") <= bbox.ymax))
+            else:
+                e = ((pc.field(f"{g.name}__xmin") <= bbox.xmax)
+                     & (pc.field(f"{g.name}__xmax") >= bbox.xmin)
+                     & (pc.field(f"{g.name}__ymin") <= bbox.ymax)
+                     & (pc.field(f"{g.name}__ymax") >= bbox.ymin))
+            expr = AND(expr, e)
         if d is not None and not interval.is_unbounded:
             if interval.start is not None:
                 expr = AND(expr, pc.field(d.name) >= int(interval.start))
@@ -287,7 +305,13 @@ class FileSystemStorage:
             phys_cols = []
             for c in columns:
                 a = self.sft.attribute(c)
-                phys_cols += ([f"{c}__x", f"{c}__y"] if a.is_geometry else [c])
+                if a.is_geometry and a.type == "Point":
+                    phys_cols += [f"{c}__x", f"{c}__y"]
+                elif a.is_geometry:
+                    phys_cols += [c, f"{c}__xmin", f"{c}__ymin",
+                                  f"{c}__xmax", f"{c}__ymax"]
+                else:
+                    phys_cols.append(c)
         snap = self.manifest_snapshot()
         for name in self.prune_partitions(bbox, interval, manifest=snap):
             for entry in snap.get(name, []):

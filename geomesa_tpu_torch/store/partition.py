@@ -1,28 +1,62 @@
 """Partition schemes: feature -> partition name; query bounds -> partitions.
 
-The counterpart of the reference package's `store/partition.py` for the
-time-bucketed `DateTimeScheme`, the default scheme of a schema with a
-date attribute. Partition names are byte-identical to the reference's.
-The spatial, attribute and composite schemes come with a later slice.
+The counterpart of the reference package's `store/partition.py`: the
+time-bucketed `DateTimeScheme` (the default of a schema with a date
+attribute), `Z2Scheme` (points), `XZ2Scheme` (extended geometries, the
+default without a date), `AttributeScheme`, `CompositeScheme` and
+`scheme_from_config`. Partition names and pruned sets are byte-identical
+to the reference's.
 
-The reference formats one Python `datetime` per row; at tens of millions
-of rows that is minutes of ingest. Here each row is floored to its time
-bucket with `numpy.datetime64`, and only the DISTINCT buckets are
-formatted, by the reference's own per-value formatter, so every name is
-the reference's string by construction.
+The reference formats one name per row (a Python `datetime` or f-string
+each); at tens of millions of rows that is minutes of ingest. Here each
+scheme's `group(batch)` gives (names, codes): the DISTINCT names, made by
+the reference's own per-value formatter, and each row's code, so every
+name is the reference's string by construction. `partitions_for` expands
+them to the reference's per-row list.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
-from geomesa_tpu_torch.core.columnar import FeatureBatch
+from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryColumn
 from geomesa_tpu_torch.cql.extract import BBox, Interval
-from geomesa_tpu_torch.errors import NotPortedError
+from geomesa_tpu_torch.curve.xz import XZ2SFC
+from geomesa_tpu_torch.curve.z2 import Z2SFC
+
+
+def _merge_names(names: Sequence[str], codes: np.ndarray
+                 ) -> Tuple[List[str], np.ndarray]:
+    """(names, codes) with equal names merged and the names sorted."""
+    uniq, inv = np.unique(np.asarray(list(names), dtype=object).astype(str),
+                          return_inverse=True)
+    remap = inv.astype(np.int32)
+    return [str(u) for u in uniq], (remap[codes] if len(codes)
+                                     else np.zeros(0, np.int32))
+
+
+class PartitionScheme:
+    def group(self, batch: FeatureBatch) -> Tuple[List[str], np.ndarray]:
+        """(names, codes): row i lies in partition names[codes[i]]; the
+        names are distinct and sorted."""
+        raise NotImplementedError
+
+    def partitions_for(self, batch: FeatureBatch) -> List[str]:
+        """Partition name per feature (len == len(batch))."""
+        names, codes = self.group(batch)
+        return [names[c] for c in codes]
+
+    def prune(self, bbox: BBox, interval: Interval) -> Optional[Set[str]]:
+        """Covering partition set for the bounds, or None (= all)."""
+        raise NotImplementedError
+
+    def to_config(self) -> dict:
+        raise NotImplementedError
+
 
 _DT_PATTERNS: Dict[str, str] = {
     "yyyy": "%Y",
@@ -46,7 +80,7 @@ _LUT_SPAN = 1 << 22
 
 
 @dataclasses.dataclass
-class DateTimeScheme:
+class DateTimeScheme(PartitionScheme):
     """Time-bucketed directories, e.g. 2020/06/01 (pattern yyyy/MM/dd)."""
 
     pattern: str = "yyyy/MM/dd"
@@ -88,10 +122,8 @@ class DateTimeScheme:
                   .astype("datetime64[ms]").astype(np.int64))
         return [self._name(m) for m in starts], codes
 
-    def partitions_for(self, batch: FeatureBatch) -> List[str]:
-        """Partition name per feature (len == len(batch))."""
-        names, codes = self.partition_codes(batch.columns[self.dtg_attr])
-        return [names[c] for c in codes]
+    def group(self, batch: FeatureBatch) -> Tuple[List[str], np.ndarray]:
+        return self.partition_codes(batch.columns[self.dtg_attr])
 
     def prune(self, bbox: BBox, interval: Interval) -> Optional[Set[str]]:
         """Covering partition set for the bounds, or None (= all)."""
@@ -108,11 +140,160 @@ class DateTimeScheme:
         return {"scheme": "datetime", "pattern": self.pattern, "dtg": self.dtg_attr}
 
 
-def scheme_from_config(cfg: dict) -> DateTimeScheme:
+@dataclasses.dataclass
+class Z2Scheme(PartitionScheme):
+    """Z2-prefix directories: the top `bits` bits per dimension of the Z2
+    curve, e.g. z2/0213 for bits=2 (4^2 cells). Points only."""
+
+    bits: int = 4
+    geom_attr: str = "geom"
+
+    def __post_init__(self):
+        self._sfc = Z2SFC(self.bits)
+        self._digits = max(1, (2 * self.bits + 3) // 4)
+
+    def _name(self, z: int) -> str:
+        return f"z2/{int(z):0{self._digits}x}"
+
+    def group(self, batch: FeatureBatch) -> Tuple[List[str], np.ndarray]:
+        col = batch.columns[self.geom_attr]
+        assert isinstance(col, GeometryColumn)
+        z = np.asarray(self._sfc.index(col.x, col.y), np.int64).ravel()
+        uz, codes = np.unique(z, return_inverse=True)
+        return [self._name(v) for v in uz], codes.astype(np.int32)
+
+    def prune(self, bbox: BBox, interval: Interval) -> Optional[Set[str]]:
+        if bbox.is_whole_world:
+            return None
+        out: Set[str] = set()
+        for r in self._sfc.ranges(bbox.xmin, bbox.ymin, bbox.xmax, bbox.ymax,
+                                  max_ranges=4 ** self.bits):
+            for z in range(r.lower, r.upper + 1):
+                out.add(self._name(z))
+        return out
+
+    def to_config(self):
+        return {"scheme": "z2", "bits": self.bits, "geom": self.geom_attr}
+
+
+@dataclasses.dataclass
+class XZ2Scheme(PartitionScheme):
+    """XZ2 sequence-code directories for extended geometries: one code per
+    distinct bounding box (a point's box is the point)."""
+
+    g: int = 4
+    geom_attr: str = "geom"
+
+    def __post_init__(self):
+        self._sfc = XZ2SFC(self.g)
+
+    def group(self, batch: FeatureBatch) -> Tuple[List[str], np.ndarray]:
+        col = batch.columns[self.geom_attr]
+        assert isinstance(col, GeometryColumn)
+        if col.is_point:
+            boxes = np.stack([col.x, col.y, col.x, col.y], 1)
+        else:
+            boxes = np.asarray(col.bbox, np.float64)
+        if not len(boxes):
+            return [], np.zeros(0, np.int32)
+        ub, inv = np.unique(boxes, axis=0, return_inverse=True)
+        seq = np.array([self._sfc.index(*b) for b in ub.tolist()], np.int64)
+        uc, codes = np.unique(seq[inv.ravel()], return_inverse=True)
+        return _merge_names([f"xz2/{int(c)}" for c in uc], codes.astype(np.int32))
+
+    def prune(self, bbox: BBox, interval: Interval) -> Optional[Set[str]]:
+        if bbox.is_whole_world:
+            return None
+        from geomesa_tpu_torch.utils.config import SystemProperties
+
+        out: Set[str] = set()
+        budget = int(SystemProperties.SCAN_RANGES_TARGET.get())
+        for r in self._sfc.ranges(bbox.xmin, bbox.ymin, bbox.xmax, bbox.ymax,
+                                  max_ranges=budget):
+            for c in range(r.lower, r.upper + 1):
+                out.add(f"xz2/{c}")
+        return out
+
+    def to_config(self):
+        return {"scheme": "xz2", "g": self.g, "geom": self.geom_attr}
+
+
+@dataclasses.dataclass
+class AttributeScheme(PartitionScheme):
+    """One directory per attribute value (dictionary columns only); a null
+    value goes to __null__."""
+
+    attr: str = "type"
+
+    def group(self, batch: FeatureBatch) -> Tuple[List[str], np.ndarray]:
+        col = batch.columns[self.attr]
+        assert isinstance(col, DictColumn)
+        # code -1 (null) indexes the trailing "__null__" slot
+        names = list(col.vocab) + ["__null__"]
+        codes = np.where(col.codes >= 0, col.codes, len(col.vocab))
+        used, codes = np.unique(codes, return_inverse=True)
+        return _merge_names([names[c] for c in used], codes.astype(np.int32))
+
+    def prune(self, bbox: BBox, interval: Interval) -> Optional[Set[str]]:
+        return None  # attribute bounds do not flow through BBox/Interval
+
+    def to_config(self):
+        return {"scheme": "attribute", "attr": self.attr}
+
+
+@dataclasses.dataclass
+class CompositeScheme(PartitionScheme):
+    """Hierarchical composition: parent/child paths (upstream: composite
+    schemes such as datetime,z2)."""
+
+    schemes: Sequence[PartitionScheme] = ()
+
+    def group(self, batch: FeatureBatch) -> Tuple[List[str], np.ndarray]:
+        levels = [s.group(batch) for s in self.schemes]
+        combined = np.zeros(len(batch), np.int64)
+        for names, codes in levels:
+            combined = combined * max(len(names), 1) + codes
+        uc, inv = np.unique(combined, return_inverse=True)
+        paths = []
+        for c in uc.tolist():
+            parts = []
+            for names, _ in reversed(levels):
+                n = max(len(names), 1)
+                parts.append(names[c % n])
+                c //= n
+            paths.append("/".join(reversed(parts)))
+        return _merge_names(paths, inv.astype(np.int32))
+
+    def prune(self, bbox: BBox, interval: Interval) -> Optional[Set[str]]:
+        pruned = [s.prune(bbox, interval) for s in self.schemes]
+        if all(p is None for p in pruned):
+            return None
+        # cartesian product of the per-level sets; a None level is a
+        # wildcard, which cannot be enumerated, so the levels before it
+        # become prefixes (prune_partitions matches name == p or p + "/")
+        out: Set[str] = {""}
+        for p in pruned:
+            if p is None:
+                return set(out)
+            out = {(f"{prefix}/{name}" if prefix else name)
+                   for prefix in out for name in p}
+        return out
+
+    def to_config(self):
+        return {"scheme": "composite",
+                "schemes": [s.to_config() for s in self.schemes]}
+
+
+def scheme_from_config(cfg: dict) -> PartitionScheme:
     kind = cfg["scheme"]
     if kind == "datetime":
         return DateTimeScheme(cfg.get("pattern", "yyyy/MM/dd"), cfg.get("dtg", "dtg"))
-    if kind in ("z2", "xz2", "attribute", "composite"):
-        raise NotPortedError(f"the {kind!r} partition scheme",
-                             "the partition-scheme slice (ROADMAP Queue A)")
+    if kind == "z2":
+        return Z2Scheme(cfg.get("bits", 4), cfg.get("geom", "geom"))
+    if kind == "xz2":
+        return XZ2Scheme(cfg.get("g", 4), cfg.get("geom", "geom"))
+    if kind == "attribute":
+        return AttributeScheme(cfg.get("attr", "type"))
+    if kind == "composite":
+        return CompositeScheme([scheme_from_config(s) for s in cfg["schemes"]])
     raise ValueError(f"unknown partition scheme {kind!r}")

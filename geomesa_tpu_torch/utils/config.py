@@ -62,4 +62,14 @@ class SystemProperties:
         "driven StrategyDecider analog; sparse pruning cannot win when "
         "nearly every data tile bears a match)",
     )
-
+    SCAN_RANGES_TARGET = SystemProperty(
+        "geomesa.scan.ranges.target", 2000, int,
+        "z-range decomposition budget (more ranges = tighter covering)",
+    )
+    SQL_JOIN_MAX_ROWS = SystemProperty(
+        "geomesa.sql.join.max.rows", 1 << 25, int,
+        "per-side row cap for SQL joins (the join itself is a host-side "
+        "hash/kernel join over materialized sides; a silent 67M-row "
+        "materialization would exhaust host memory — push filters into "
+        "the WHERE clause or raise the cap deliberately)",
+    )

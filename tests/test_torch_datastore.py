@@ -224,6 +224,24 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         res = KNearestNeighborSearchProcess().execute(
             qb, src, num_desired=3, cql_filter="speed > 5", device="cpu")
         assert np.isfinite(res.distances_m).all() and not res.partial_recall
+        from geomesa_tpu_torch.core.wkt import Geometry
+        from geomesa_tpu_torch.plan.runner import run_stats  # noqa: F401
+        from geomesa_tpu_torch.process.misc import StatsProcess, UniqueProcess
+        from geomesa_tpu_torch.sql import SqlContext
+        rs = SimpleFeatureType.from_spec("zones", "name:String,*geom:Polygon")
+        ds.create_schema(rs).write(FeatureBatch.from_pydict(rs, {{
+            "name": ["z0", "z1"],
+            "geom": [Geometry("Polygon", [ring]),
+                     Geometry("Polygon", [ring + [0.0, 3.0]])]}}))
+        r = SqlContext(ds).sql(
+            "SELECT z.name AS zone, COUNT(*) AS n FROM t e "
+            "JOIN zones z ON st_contains(z.geom, e.geom) GROUP BY z.name")
+        assert r.kind == "features" and int(r.features.columns["n"].sum()) > 0
+        st = StatsProcess().execute(src, "Count();MinMax(speed);Cardinality(speed)",
+                                    "speed > 5")
+        assert st.stats[0].result()["count"] > 0
+        zones = ds.get_feature_source("zones")
+        assert UniqueProcess().execute(zones, "name") == [("z0", 1), ("z1", 1)]
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]

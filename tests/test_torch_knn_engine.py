@@ -257,3 +257,79 @@ class TestGridIndex:
     @pytest.mark.parametrize("count", [0, 1000, 3_100_000, 10**9])
     def test_auto_grid_params(self, count):
         assert port_grid.auto_grid_params(count) == ref_grid.auto_grid_params(count)
+
+
+def nan_probe(name, dtype, q):
+    """ROADMAP C1's probes: A, 4,000 rows with a NaN x in rows 0-2; B,
+    5,000 rows with 15 NaN x and 15 NaN y, a tenth masked out, and 50 rows
+    in the grid's corner cell (where a NaN row's cell lands) with a query
+    beside them. Queries: (0, 45) or (0, 0), then seeded ones."""
+    rng = np.random.default_rng({"A": 1, "B": 2}[name])
+    n = 4000 if name == "A" else 5000
+    x = rng.uniform(-20, 20, n)
+    y = rng.uniform(30, 60, n)
+    if name == "A":
+        x[:3] = np.nan
+        mask = np.ones(n, bool)
+    else:
+        x[rng.choice(n, 15, replace=False)] = np.nan
+        y[rng.choice(n, 15, replace=False)] = np.nan
+        x[4000:4050] = rng.uniform(-180, -179.5, 50)
+        y[4000:4050] = rng.uniform(-90, -89.5, 50)
+        mask = rng.random(n) < 0.9
+    qx = rng.uniform(-15, 15, q)
+    qy = rng.uniform(35, 55, q)
+    qx[0], qy[0] = 0.0, (45.0 if name == "A" else 0.0)
+    if name == "B":
+        qx[1], qy[1] = -179.9, -89.9
+    return [np.asarray(a, dtype) for a in (qx, qy, x, y)] + [mask]
+
+
+NAN_ROUTES = {
+    "knn": lambda m, a: m.knn(*a, k=K, query_tile=16, data_tile=512),
+    "knn_default_tile": lambda m, a: m.knn(*a, k=K),
+    "knn_mxu": lambda m, a: m.knn_mxu(*a, k=K),
+    "knn_compact": lambda m, a: m.knn_compact(*a, k=K, capacity=8192)[:2],
+    "knn_compact_haversine": lambda m, a: m.knn_compact(
+        *a, k=K, capacity=8192, impl="haversine")[:2],
+}
+
+
+def assert_same_nan_ranking(rd, ri, pd, pi, dtype):
+    rd, pd = np.asarray(rd, np.float64), np.asarray(pd, np.float64)
+    np.testing.assert_array_equal(np.asarray(pi), np.asarray(ri))
+    np.testing.assert_array_equal(np.isnan(pd), np.isnan(rd))
+    fin = np.isfinite(rd)
+    np.testing.assert_array_equal(np.isfinite(pd), fin)
+    tol = f64_tol if dtype == np.float64 else f32_tol
+    assert np.all(np.abs(pd[fin] - rd[fin]) <= tol(rd[fin]))
+
+
+@pytest.mark.parametrize("q", [3, 200])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("probe", ["A", "B"])
+@pytest.mark.parametrize("route", sorted(NAN_ROUTES) + ["knn_indexed"])
+def test_nan_rows_rank_as_the_reference(route, probe, dtype, q):
+    """C1: the haversine fold (knn, knn_mxu below 128 queries, knn_compact
+    on either impl, knn_indexed's grid and fallback) ranks a masked-in NaN
+    distance ahead of every finite one and returns NaN there, lower row
+    first; knn_mxu's chord selection (200 queries) ranks it last, as the
+    reference does. Indices identical, NaN slots identical."""
+    a = nan_probe(probe, dtype, q)
+    if route == "knn_indexed":
+        rd, ri = ref_grid.knn_indexed(*as_ref(*a), k=K, g=32)
+        pd, pi = port_grid.knn_indexed(*as_port(*a), k=K, g=32)
+    else:
+        rd, ri = NAN_ROUTES[route](ref_knn, as_ref(*a))
+        pd, pi = NAN_ROUTES[route](port_knn, as_port(*a))
+    assert_same_nan_ranking(rd, ri, pd.numpy(), pi.numpy(), dtype)
+    if route.startswith("knn_compact_h") or route in ("knn", "knn_default_tile"):
+        assert np.isnan(pd.numpy()).any(1).all()  # the probe reaches the rule
+
+
+def test_shared_selection_still_ranks_nan_last():
+    """The fused scan's primitives are unchanged: a stable ascending sort
+    ranks NaN last (knn_scan.py's selections match the reference's)."""
+    d = torch.tensor([[3.0, float("nan"), 1.0, 2.0]])
+    vals, idx = port_knn._topk_smallest(d, 4)
+    assert idx.tolist() == [[2, 3, 0, 1]] and torch.isnan(vals[0, 3])

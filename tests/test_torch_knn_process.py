@@ -259,3 +259,36 @@ def test_batch_routes_on_the_card_match_the_cpu(data, impl):
     c = PProc().execute(pq, data["port_batch"], device="cpu", **kw)
     g = PProc().execute(pq, data["port_batch"], device="cuda", **kw)
     assert_same(c, g, "sparse")
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("impl", ["haversine", "mxu", "grid"])
+def test_nan_rows_report_no_neighbour_as_the_reference(impl, dtype):
+    """C1 through the process: a batch of 5,000 rows with 30 NaN x or y
+    (ROADMAP C1's probe B; the f32 case rounds the coordinates to f32
+    first) under INCLUDE. The engine ranks the NaN rows first on these
+    routes; the process's `dists <= max_dist` turns them into +inf, so
+    those slots report no neighbour, in both packages. On the grid route
+    the NaN rows sit in the corner cell, out of these queries' rings, and
+    the certificate proves their finite neighbours, in both packages."""
+    rng = np.random.default_rng(2)
+    n = 5000
+    x = rng.uniform(-20, 20, n)
+    y = rng.uniform(30, 60, n)
+    x[rng.choice(n, 15, replace=False)] = np.nan
+    y[rng.choice(n, 15, replace=False)] = np.nan
+    pts = np.stack([x, y], 1).astype(dtype).astype(np.float64)
+    c = {"speed": rng.uniform(0, 30, n), "dtg": T0 + rng.integers(0, DAY, n),
+         "geom": pts}
+    rb = RFB.from_pydict(RSFT.from_spec("ais", SPEC), c)
+    pb = PFB.from_pydict(PSFT.from_spec("ais", SPEC), c)
+    rq, pq = queries(35, 3)
+    r = ref_proc_mod.KNearestNeighborSearchProcess().execute(
+        rq, rb, num_desired=K, impl=impl)
+    p = PProc().execute(pq, pb, num_desired=K, impl=impl, device="cpu")
+    assert not np.isnan(p.distances_m).any()
+    # the NaN slots: no neighbour
+    assert np.isinf(p.distances_m).any() == (impl != "grid")
+    assert_same(r, p, impl)
+    np.testing.assert_array_equal(p.indices[~np.isfinite(p.distances_m)],
+                                  r.indices[~np.isfinite(r.distances_m)])
