@@ -126,7 +126,7 @@ and prints no result. Phases, each fatal on failure:
    the WKT parse on read and edge_table() timed apart; then SqlContext
    runs SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN
    regions r ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY
-   region once cold and as a warm p50 of 5, with B6-B9's launch counts
+   region once cold and as a warm p50 of 3, with B6-B9's launch counts
    reset before and read after (B7 must launch), and two calls split
    into the store reads, the WKT parse, edge_table(), the layer prep,
    the join (B7 plus the f64 refine) and the grouped aggregate; gated:
@@ -139,7 +139,33 @@ and prints no result. Phases, each fatal on failure:
    registers against torch's over the matching values); and the points
    under Z2Scheme, whose north-star BBOX count must equal the date-
    partitioned store's. grouped_*, hll_registers and z3_histogram (plain
-   PyTorch) are timed at the path's shapes into the {"device_ops"} line.
+   PyTorch) are timed at the path's shapes into the {"device_ops"} line;
+12. the serve stack (inside phase 4, on its store), through
+   geomesa_tpu_torch.serve's QueryService on the serial route
+   (max_batch 64, max_wait_ms 2, max_queue 1024 so that the 320 requests
+   can queue), built after the kernels are loaded, with
+   B1's, B2's and B3's launches reset before and read after: 256
+   single-point kNN requests of the north-star filter (k=10, seed 0) and
+   64 impl="fullscan" ones, queued and then released (exactly 4 B1
+   launches, one a window of 64, and 1 B2 launch; calibration adds no B1
+   launch), each gated against src.knn on its own point (neighbour
+   rows, equal-distance swaps allowed, meters bit-identical); 64 identical
+   counts (one dispatch, == src.count == the f64 count) and phase 7's
+   feature query 8 times (one dispatch, phase 7's rows); the JSON-lines
+   wire (serve_lines) with a count, an 8-point kNN, a 100-row query, a
+   512x512 density over the filter's BBOX (B3 must launch; the grid ==
+   a NumPy binning) and a kNN with timeoutMs 1 (must answer timeout),
+   each == the direct call; then run_closed_loop with 8 clients and
+   run_sustained with 64 outstanding, 5 s each, reporting served qps,
+   p50/p99, windows, mean window size, B1 launches per request, the
+   device's idle share (torch.profiler over 1 s more of each) and points/s
+   (resident rows x served qps); serve.oom.halved, serve.oom.hosteval,
+   serve.oom.failed and the services' failed counts must stay 0. Then an
+   injected OOM (knn_launch raising torch.OutOfMemoryError for a window of
+   8) must halve 7 times and fail all 8 with a typed DeviceOOM, with
+   serve.oom.hosteval at 0. Printed as one {"serve": ...}
+   line before the kernels line; B1's, B2's and B3's rows carry the phase's
+   launches under "launches_by_phase".
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -147,6 +173,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -436,6 +463,8 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
             torch, ks, dev, src, tmp, dict(x=x, y=y, t=t, speed=speed, qx=qx,
                                            qy=qy, cql=cql, mask=m, exp=exp),
             runs["sparse"], dict(ingest_s=ingest_s, stats_s=stats_s), card_s)
+        serve = serve_phase(torch, ks, dev, ds, src, dict(
+            x=x, y=y, t=t, speed=speed, cql=cql), card_s)
 
         # the main path's kernel inputs, for timing at its shapes
         plan = planner.plan(Query("gdelt", cql))
@@ -447,7 +476,7 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
             qy=torch.from_numpy(qy.astype(np.float32)).to(dev),
             x=pad(dv["geom__x"]), y=pad(dv["geom__y"]), maskf=pad(mask.float()),
             cap=cap)
-        return launches, inputs, knn_ops
+        return launches, inputs, knn_ops, serve
 
 
 def chord_lines(torch, ks, inp, tile_ids, n_sel, card_s: str) -> dict:
@@ -2524,10 +2553,333 @@ def knn_process_phase(torch, ks, dev, src, tmp: str, a: dict, planner_run,
     return engine
 
 
+# -- the serve stack (phase 12) -----------------------------------------------
+
+SERVE_KNN = 256  # deterministic single-point kNN requests (4 windows of 64)
+SERVE_FULL = 64  # impl="fullscan" requests (one window)
+# B1 launches a (filter, k) spends on calibration: a key with no cached
+# sparse capacity counts its match tiles in torch (count_match_tiles)
+# before its first launch, so calibration adds no B1 launch. The phase
+# counts the keys it calibrated (phase 4 has already cached this one).
+CALIBRATION_B1 = 0
+SERVE_OOM = 8  # requests of the injected-OOM window (halved down to 1 each)
+SERVE_LOAD_S = 5.0
+SERVE_PROFILE_S = 1.0
+OOM_COUNTERS = ("serve.oom.halved", "serve.oom.hosteval", "serve.oom.failed")
+
+
+def serve_requests(make, n, impl="sparse"):
+    reqs = [make(i) for i in range(n)]
+    for r in reqs:
+        r.impl = impl
+    return reqs
+
+
+def device_busy(torch, fn):
+    """(wall ms, device busy ms) of one call of fn under torch.profiler:
+    the kernels' device self times summed (phase 4's idle-share rule)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy_us = sum(dev_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall_ms, busy_us / 1e3
+
+
+def serve_phase(torch, ks, dev, ds, src, a: dict, card_s: str) -> dict:
+    """Phase 12: the serve stack over phase 4's store (module docstring,
+    12). Returns the {"serve": ...} numbers; B1's, B2's and B3's launches
+    in the phase ride along under "launches"."""
+    from geomesa_tpu_torch import Query, QueryHints
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.engine.density import grid_consts
+    from geomesa_tpu_torch.serve import (
+        QueryService, ServeConfig, ServeRequest, knn_request_factory,
+        run_closed_loop, run_sustained, serve_lines)
+    from geomesa_tpu_torch.serve.protocol import _rows_json
+    from geomesa_tpu_torch.utils.metrics import metrics
+
+    x, y, t, speed, cql = a["x"], a["y"], a["t"], a["speed"], a["cql"]
+    kernels = {"chord_blockmin_sparse": ks.chord_blockmin_sparse,
+               "chord_blockmin": ks.chord_blockmin,
+               "zsparse_counts": dz.zsparse_counts}
+    used = {n: 0 for n in kernels}
+
+    def reset():
+        for w in kernels.values():
+            w.launches = 0
+
+    def read():
+        got = {n: w.launches for n, w in kernels.items()}
+        for n, v in got.items():
+            used[n] += v
+        return got
+
+    def oom():
+        with metrics._lock:
+            return {k: metrics.counters.get(k, 0) for k in OOM_COUNTERS}
+
+    oom0 = oom()
+    # max_queue holds the 320 requests queued before the first release
+    cfg = dict(pipeline=False, ring=False, max_batch=64, max_wait_ms=2.0,
+               max_queue=1024)
+    services = []
+
+    def service():
+        svc = QueryService(ds, ServeConfig(**cfg), autostart=False)
+        services.append(svc)
+        return svc
+
+    make = knn_request_factory("gdelt", cql, extent=(20.0, 60.0), k=K, seed=0)
+    resident = len(src.planner.cache.superbatch().batch)
+    out = {"card": card_s, "resident_rows": resident}
+    try:
+        # -- deterministic windows: queued, then released ------------------
+        svc = service()
+        reqs = serve_requests(make, SERVE_KNN) + serve_requests(
+            make, SERVE_FULL, "fullscan")
+        reset()
+        audit0 = len(ds.audit.events)
+        caps0 = set(src.planner._knn_caps)
+        futs = [svc.submit(r) for r in reqs]
+        t0 = time.perf_counter()
+        svc.start()
+        served = [f.result(timeout=300) for f in futs]
+        torch.cuda.synchronize()
+        win_s = time.perf_counter() - t0
+        wl = read()
+        calibrated = len(set(src.planner._knn_caps) - caps0)
+        st = svc.stats()
+        n = len(reqs)
+        log(f"serve windows: {n} kNN requests ({SERVE_KNN} sparse, {SERVE_FULL} "
+            f"fullscan) in {st['dispatches']} dispatches, {win_s * 1e3:.3f} ms; "
+            f"launches {wl}; {calibrated} (filter, k) calibrated [{card_s}]")
+        assert st["dispatches"] == SERVE_KNN // 64 + SERVE_FULL // 64, st
+        # one B1 launch a sparse window of 64 and one B2 launch for the
+        # fullscan window: an overflow's fallback would add a B2 launch
+        assert wl["chord_blockmin_sparse"] == (
+            SERVE_KNN // 64 + CALIBRATION_B1 * calibrated), wl
+        assert wl["chord_blockmin"] == SERVE_FULL // 64, wl
+        spans = sorted({e.exec_ms for e in ds.audit.events[audit0:]
+                        if type(e).__name__ == "ServeEvent"})
+        # serial == served: each request against src.knn on its own point
+        t0 = time.perf_counter()
+        for r, (d, i, batch) in zip(reqs, served):
+            sd, si, _ = src.knn(cql, r.qx, r.qy, k=K, impl=r.impl)
+            assert d.shape == (1, K) and np.isfinite(d).all()
+            assert same_neighbours(i, d, si, sd), "served kNN != src.knn"
+            assert np.array_equal(np.sort(d, 1), np.sort(sd, 1)), "meters differ"
+        serial_s = time.perf_counter() - t0
+        log(f"correct: {n} served kNN results == src.knn on the same point "
+            f"(neighbour rows, meters bit-identical); {n} serial calls took "
+            f"{serial_s * 1e3:.3f} ms, the served windows {win_s * 1e3:.3f} ms "
+            f"[{card_s}]")
+        out["windows"] = {"requests": n, "dispatches": st["dispatches"],
+                          "wall_ms": win_s * 1e3, "serial_wall_ms": serial_s * 1e3,
+                          "dispatch_span_ms": spans, "launches": wl,
+                          "calibrated": calibrated}
+
+        # -- dedup: 64 identical counts, 8 identical feature executes -------
+        m = ((x >= BBOX[0]) & (x <= BBOX[2]) & (y >= BBOX[1]) & (y <= BBOX[3])
+             & (t > T0) & (t < T1) & (speed > 5.0))
+        exp_count = int(m.sum())
+        bx = FEATURE_BBOX
+        fcql = (f"BBOX(geom, {bx[0]}, {bx[1]}, {bx[2]}, {bx[3]}) AND dtg DURING "
+                f"{iso(T0)}/{iso(T1)} AND speed > 5.0")
+        q_lim = Query("gdelt", fcql, attributes=["speed", "dtg", "geom"],
+                      sort_by=[("dtg", False)], max_features=FEATURE_LIMIT)
+        svc = service()
+        cf = [svc.count("gdelt", cql) for _ in range(64)]
+        ef = [svc.submit(ServeRequest(kind="execute", query=q_lim))
+              for _ in range(8)]
+        svc.start()
+        counts = [f.result(timeout=300) for f in cf]
+        execs = [f.result(timeout=300) for f in ef]
+        st = svc.stats()
+        assert st["dispatches"] == 2, st
+        assert counts == [src.get_count(cql)] * 64 == [exp_count] * 64, counts[:2]
+        direct = src.get_features(q_lim).features
+        for r in execs:
+            assert r is execs[0]
+            f = r.features
+            for col in ("speed", "dtg"):
+                assert np.array_equal(np.asarray(f.columns[col]),
+                                      np.asarray(direct.columns[col])), col
+            assert np.array_equal(f.geometry.x, direct.geometry.x)
+        log(f"correct: 64 counts in one dispatch == src.count == f64 count "
+            f"{exp_count}; 8 feature executes in one dispatch == phase 7's "
+            f"{len(direct)} rows")
+
+        # -- the JSON-lines wire ------------------------------------------
+        pts = np.random.default_rng(12).uniform(20.0, 60.0, (8, 2))
+        dens = {"bbox": list(BBOX), "width": GRID, "height": GRID}
+        docs = [{"id": "c", "op": "count", "typeName": "gdelt", "cql": cql},
+                {"id": "k", "op": "knn", "typeName": "gdelt", "cql": cql,
+                 "x": pts[:, 0].tolist(), "y": pts[:, 1].tolist(), "k": K},
+                {"id": "q", "op": "query", "typeName": "gdelt", "cql": fcql,
+                 "maxFeatures": 100},
+                {"id": "d", "op": "query", "typeName": "gdelt", "cql": cql,
+                 "density": dens},
+                {"id": "t", "op": "knn", "typeName": "gdelt", "cql": cql,
+                 "x": [30.0], "y": [40.0], "k": K, "timeoutMs": 1}]
+        wsvc = service()
+
+        def lines():
+            for d in docs:
+                yield json.dumps(d)
+            time.sleep(0.01)  # the 1 ms budget expires while queued
+            wsvc.start()
+
+        reset()
+        wire_out = []
+        t0 = time.perf_counter()
+        serve_lines(ds, lines(), wire_out.append, service=wsvc)
+        wire_s = time.perf_counter() - t0
+        wwl = read()
+        resp = {d["id"]: d for d in map(json.loads, wire_out)}
+        assert wwl["zsparse_counts"] >= 1, f"the wire's density never launched B3: {wwl}"
+        assert resp["c"]["count"] == exp_count
+        kd, ki, _ = src.knn(cql, pts[:, 0], pts[:, 1], k=K)
+        assert resp["k"]["dists"] == kd.tolist() and resp["k"]["indices"] == ki.tolist()
+        qd = src.get_features(Query("gdelt", fcql, max_features=100)).features
+        assert resp["q"]["features"] == _rows_json(qd, 100)
+        assert resp["t"]["error"] == "timeout", resp["t"]
+        gq = Query("gdelt", cql, hints=QueryHints(
+            density_bbox=BBOX, density_width=GRID, density_height=GRID))
+        grid = src.get_features(gq).grid
+        x32, y32 = x.astype(np.float32), y.astype(np.float32)
+        f32 = np.float32
+        m32 = ((x32 >= f32(BBOX[0])) & (x32 <= f32(BBOX[2])) & (y32 >= f32(BBOX[1]))
+               & (y32 <= f32(BBOX[3])) & (t > T0) & (t < T1) & (speed > 5.0))
+        xmin, dx, ymin, dy = grid_consts(BBOX, GRID, GRID)
+        col = np.floor((x32 - xmin) / dx)
+        row = np.floor((y32 - ymin) / dy)
+        inb = m32 & (col >= 0) & (col < GRID) & (row >= 0) & (row < GRID)
+        exp_grid = np.bincount(row[inb].astype(np.int64) * GRID
+                               + col[inb].astype(np.int64),
+                               minlength=GRID * GRID).reshape(GRID, GRID)
+        assert np.array_equal(grid, exp_grid), "density grid != NumPy binning"
+        assert resp["d"]["shape"] == [GRID, GRID]
+        assert resp["d"]["total"] == float(grid.sum())
+        assert resp["d"]["count"] == int(m32.sum())
+        log(f"correct: the wire's count, kNN (8 points), query (100 rows) and "
+            f"density ({GRID}x{GRID}, B3 launched {wwl['zsparse_counts']}x; grid "
+            f"== NumPy binning) answers == the direct calls; timeoutMs 1 "
+            f"answered {resp['t']['error']} ({resp['t']['phase']}); "
+            f"{len(docs)} lines in {wire_s * 1e3:.3f} ms [{card_s}]")
+        out["wire"] = {"lines": len(docs), "wall_ms": wire_s * 1e3,
+                       "timeout_phase": resp["t"]["phase"], "launches": wwl}
+
+        # -- load: closed loop (8 clients), then 64 outstanding -------------
+        lsvc = service()
+        lsvc.start()
+        reset()
+        audit0 = len(ds.audit.events)
+        load = {}
+        for mode, run in (
+                ("closed_8", lambda: run_closed_loop(
+                    lsvc, make, concurrency=8, duration_s=SERVE_LOAD_S)),
+                ("sustained_64", lambda: run_sustained(
+                    lsvc, make, duration_s=SERVE_LOAD_S, max_outstanding=64,
+                    points_per_query=resident))):
+            b1 = ks.chord_blockmin_sparse.launches
+            rep = run()
+            b1 = ks.chord_blockmin_sparse.launches - b1
+            assert rep.ok > 0 and rep.errors == 0 and rep.timeouts == 0, rep
+            assert rep.dispatches < rep.ok, rep
+            win = (rep.coalesced + rep.dispatches) / rep.dispatches
+            load[mode] = {
+                "served_qps": rep.throughput_qps, "ok": rep.ok,
+                "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms, "max_ms": rep.max_ms,
+                "windows": rep.dispatches, "mean_window": win,
+                "b1_launches_per_request": b1 / rep.ok,
+                "points_per_s": resident * rep.throughput_qps,
+                # serve.device.ops a window (run_sustained counts it)
+                "device_ops_per_window": (rep.dispatches_per_window
+                                          if mode == "sustained_64" else None)}
+            log(f"serve {mode}: {rep.throughput_qps:.1f} served qps, p50 "
+                f"{rep.p50_ms:.3f} ms, p99 {rep.p99_ms:.3f} ms, {rep.dispatches} "
+                f"windows of {win:.2f} on average, {b1 / rep.ok:.4f} B1 launches "
+                f"a request, {resident * rep.throughput_qps:.4g} points/s "
+                f"({resident} resident rows x served qps) [{card_s}]")
+        for mode, outstanding in (("closed_8", None), ("sustained_64", 64)):
+            if outstanding is None:
+                fn = lambda: run_closed_loop(  # noqa: E731
+                    lsvc, make, concurrency=8, duration_s=SERVE_PROFILE_S)
+            else:
+                fn = lambda: run_sustained(  # noqa: E731
+                    lsvc, make, duration_s=SERVE_PROFILE_S,
+                    max_outstanding=outstanding)
+            wall_ms, busy_ms = device_busy(torch, fn)
+            load[mode]["idle_share"] = max(0.0, 1 - busy_ms / wall_ms)
+            log(f"serve {mode} under torch.profiler ({SERVE_PROFILE_S:g} s): "
+                f"device busy {busy_ms:.3f} of {wall_ms:.3f} ms, idle share "
+                f"{load[mode]['idle_share']:.3f} [{card_s}]")
+        out["load"] = load
+        read()
+    finally:
+        for svc in services:  # each has answered all it admitted
+            svc.close(drain=False, timeout_s=5.0)
+    failed = sum(svc.stats().get("failed", 0) for svc in services)
+    oom1 = oom()
+    delta = {k: oom1[k] - oom0[k] for k in oom0}
+    out["oom"] = delta
+    out["failed"] = failed
+    assert failed == 0 and not any(delta.values()), (failed, delta)
+    out["launches"] = used
+    log(f"serve phase: launches {used}, serve.oom.* {delta}, errors {failed}")
+    out["oom_injected"] = injected_oom(torch, ds, src, make, oom, card_s)
+    return out
+
+
+def injected_oom(torch, ds, src, make, oom, card_s: str) -> dict:
+    """An OOM on the card, injected: the planner's knn_launch raises
+    torch.OutOfMemoryError for one window of SERVE_OOM requests. The
+    ladder halves it down to single requests, and each then fails with a
+    typed DeviceOOM: no request is evaluated on the host."""
+    from geomesa_tpu_torch.faults import DeviceOOM, classify
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+
+    def launch_oom(*a, **kw):
+        raise torch.OutOfMemoryError("injected: CUDA out of memory")
+
+    svc = QueryService(ds, ServeConfig(max_batch=64, max_wait_ms=2.0),
+                       autostart=False)
+    before = oom()
+    src.planner.knn_launch = launch_oom  # the instance's, over the class's
+    try:
+        futs = [svc.submit(r) for r in serve_requests(make, SERVE_OOM)]
+        svc.start()
+        typed = sum(isinstance(e, DeviceOOM) and classify(e) == "oom"
+                    for e in (f.exception(timeout=60) for f in futs))
+    finally:
+        del src.planner.knn_launch
+        svc.close(drain=False, timeout_s=5.0)
+    after = oom()
+    got = {k: after[k] - before[k] for k in before}
+    log(f"serve injected OOM: {SERVE_OOM} requests, {typed} failed with a "
+        f"typed DeviceOOM; serve.oom.* {got} [{card_s}]")
+    assert typed == SERVE_OOM, typed
+    assert got == {"serve.oom.halved": SERVE_OOM - 1, "serve.oom.hosteval": 0,
+                   "serve.oom.failed": SERVE_OOM}, got
+    # the failed futures' tracebacks hold the store in a reference cycle:
+    # collect it now, so that phase 4's store does not outlive its phase
+    del futs
+    gc.collect()
+    return dict(got, requests=SERVE_OOM, device_oom=typed)
+
+
 # -- config 2 as users write it (phase 11) -------------------------------------
 
 SQL_JOIN = ("SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN regions r "
             "ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY region")
+SQL_WARM = 3  # warm calls of the join (~16 s each on the card)
 STATS_EXPR = ("Count();MinMax(dtg);Histogram(val,32,0,10);DescriptiveStats(val);"
               "Cardinality(val)")
 EVENTS_DAY0 = TUBE_DAY0  # one day of events: one partition keeps Morton order
@@ -2644,7 +2996,7 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
             f"{out['events_write_s']:.3f} s; edge_table() of the layer "
             f"{out['edge_table_s']:.3f} s")
 
-        # -- the SQL join: cold with its split, warm p50 of 5, then one split;
+        # -- the SQL join: cold with its split, warm p50 of SQL_WARM, then one split;
         # the plain PyTorch reductions' calls are counted through the stats
         op_names = ("grouped_count", "grouped_sum", "grouped_min",
                     "grouped_max", "hll_registers", "z3_histogram")
@@ -2672,7 +3024,7 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
             splits[what] = dict(sp.seconds, wall=wall)
             if what == "cold":
                 times = []
-                for _ in range(5):
+                for _ in range(SQL_WARM):
                     t0 = time.perf_counter()
                     results.append(ctx.sql(SQL_JOIN))
                     times.append(time.perf_counter() - t0)
@@ -2683,9 +3035,9 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
         out["split_cold_s"] = splits["cold"]
         out["split_warm_s"] = splits["warm"]
         log(f"config-2 SQL join: cold {out['sql_cold_s']:.3f} s, warm p50 "
-            f"{out['sql_warm_p50_s'] * 1e3:.3f} ms over 5, "
-            f"{n / out['sql_warm_p50_s']:.1f} points/sec; launches over 7 "
-            f"queries {launches} [{card_s}]")
+            f"{out['sql_warm_p50_s'] * 1e3:.3f} ms over {SQL_WARM}, "
+            f"{n / out['sql_warm_p50_s']:.1f} points/sec; launches over "
+            f"{SQL_WARM + 2} queries {launches} [{card_s}]")
         for what, sp in splits.items():
             log(f"config-2 SQL {what} split (synchronised spans): " + ", ".join(
                 f"{name} {sec:.3f} s" for name, sec in sp.items()))
@@ -2703,7 +3055,8 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
         out["regions_matched"] = len(got)
         out["pairs"] = int(sum(got.values()))
         log(f"correct: per-region counts of {len(got)} regions ({out['pairs']} "
-            f"pairs) == phase 6's pip_layer_assign bincount; 7 results equal")
+            f"pairs) == phase 6's pip_layer_assign bincount; {len(results)} "
+            f"results equal")
 
         # -- stats query and StatsProcess on the events store
         cql = (f"BBOX(geom, {BBOX[0]}, {BBOX[1]}, {BBOX[2]}, {BBOX[3]}) AND dtg "
@@ -2835,7 +3188,8 @@ def main() -> int:
     layer_kernel_check(torch, dev)
     if args.rows != 1 << 26:
         log(f"kNN and density stores cut to {args.rows} rows by --rows")
-    launches, inputs, knn_ops = main_path(torch, ks, dev, args.rows, card_s)
+    launches, inputs, knn_ops, serve = main_path(torch, ks, dev, args.rows,
+                                                 card_s)
     rows = kernel_rows(torch, ks, launches, inputs, card_s)
     del inputs
     torch.cuda.empty_cache()
@@ -2863,8 +3217,14 @@ def main() -> int:
         if row["name"] == "pip_assign":  # phase 6's launches, then phase 11's
             row["launches_by_phase"] = {"6": row["launches"], "11": b7}
             row["launches"] += b7
+        served = serve["launches"].get(row["name"])
+        if served is not None:  # phase 4's or 5's launches, then phase 12's
+            first = "5" if row["name"] == "zsparse_counts" else "4"
+            row["launches_by_phase"] = {first: row["launches"], "12": served}
+            row["launches"] += served
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
+    print(json.dumps({"serve": serve}))
     print(json.dumps({"kernels": rows}))
     print(card_s)
     print(json.dumps({"ok": True, "device": {

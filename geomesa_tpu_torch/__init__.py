@@ -12,8 +12,10 @@ columns (the crossing-number kernel and its band,
 `engine/kernels/pip_crossing.cu`), the polygon-layer join, feature
 results, TubeSelect, and `process.KNearestNeighborSearchProcess` on every
 route, with the write-path stats sketches (`stats/`) that resolve its
-default `impl="auto"`. Entry points run on the card unless the caller
-passes device="cpu".
+default `impl="auto"`, and the serve stack's host half (`serve/`:
+`QueryService` futures with coalesced kNN windows, deadlines and the
+JSON-lines wire, on the serial route). Entry points run on the card
+unless the caller passes device="cpu".
 """
 
 from geomesa_tpu_torch.core.columnar import FeatureBatch

@@ -17,7 +17,9 @@ subdirectory in the reference's on-disk format, partitioned by date when
 the schema has a dtg and else by its geometry (Z2 for points, XZ2
 otherwise), as the reference partitions it. `device=None` means the
 card: it raises `CudaUnavailableError` when there is none (pass
-device="cpu" to run on the CPU).
+device="cpu" to run on the CPU). `audit` collects a QueryEvent per
+executed query and, under `serve.QueryService`, a ServeEvent per served
+request (an in-memory `AuditWriter` by default, as in the reference).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from geomesa_tpu_torch.core.columnar import FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.engine.device import resolve_device
+from geomesa_tpu_torch.plan.audit import AuditWriter
 from geomesa_tpu_torch.plan.explain import Explainer
 from geomesa_tpu_torch.plan.planner import QueryPlanner, QueryResult
 from geomesa_tpu_torch.plan.query import Query
@@ -88,9 +91,11 @@ class DataStore:
     """A catalog of feature types over a directory, served on `device`."""
 
     def __init__(self, catalog: str, use_device_cache: bool = False,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 audit: Optional[AuditWriter] = None):
         self.catalog = catalog
         self.device = resolve_device(device)
+        self.audit = audit if audit is not None else AuditWriter()
         self.use_device_cache = use_device_cache
         os.makedirs(catalog, exist_ok=True)
         self._sources: Dict[str, FeatureSource] = {}
@@ -101,8 +106,8 @@ class DataStore:
     def _source(self, storage: FileSystemStorage) -> FeatureSource:
         cache = (DeviceCacheManager(storage, self.device)
                  if self.use_device_cache else None)
-        return FeatureSource(storage,
-                             QueryPlanner(storage, self.device, cache=cache))
+        return FeatureSource(storage, QueryPlanner(
+            storage, self.device, cache=cache, audit=self.audit))
 
     def get_type_names(self) -> List[str]:
         return [name for name in sorted(os.listdir(self.catalog))

@@ -27,14 +27,23 @@ The write-path stats sketches (`plan/stats_manager.py`, updated by
 hint makes `execute` return kind "stats": the Stat DSL evaluated over the
 f64-exact mask (`plan.runner.run_stats`).
 
-Query interceptors, the bin and arrow aggregations, approximate answers,
-timeouts and the mesh and ring routes come with later slices.
+`execute`, `count`, `knn` and `knn_launch` take the reference's
+`timeout_ms` deadline: cooperative checks after planning ("planning")
+and after the scan or the kNN mask ("scan") raise the typed
+`QueryTimeout`, and the call runs inside `faults.deadline_scope`.
+`execute` and `count` read `geomesa.query.timeout` when no timeout is
+given; `knn` and `knn_launch` do not, as in the reference. Every
+`execute` writes a `QueryEvent` into the store's audit writer.
+
+Query interceptors, the bin and arrow aggregations, approximate answers
+and the mesh and ring routes come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -50,6 +59,8 @@ from geomesa_tpu_torch.engine.knn_scan import (
     capacity_bucket, count_match_tiles, knn_fullscan_tiled,
     knn_sparse_finish, knn_sparse_launch)
 from geomesa_tpu_torch.errors import NotPortedError
+from geomesa_tpu_torch.faults import deadline_scope
+from geomesa_tpu_torch.plan.audit import AuditWriter, QueryEvent
 from geomesa_tpu_torch.plan.explain import Explainer
 from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.plan.runner import (
@@ -59,6 +70,42 @@ from geomesa_tpu_torch.store.cache import DeviceCacheManager
 from geomesa_tpu_torch.utils.padding import next_pow2
 from geomesa_tpu_torch.store.fs import FileSystemStorage
 from geomesa_tpu_torch.utils.config import SystemProperties
+from geomesa_tpu_torch.utils.metrics import metrics, note_device_op
+
+
+class QueryTimeout(TimeoutError):
+    """Typed deadline expiry carrying the phase that blew the budget and
+    the elapsed wall time. Subclasses TimeoutError so every caller that
+    catches the bare type keeps working; the serve scheduler needs the
+    distinction between deadline expiry, shed load
+    (serve.scheduler.QueryRejected), and real errors."""
+
+    def __init__(self, phase: str, elapsed_ms: float, timeout_ms: float):
+        super().__init__(
+            f"query exceeded timeout={timeout_ms:.0f}ms during {phase} "
+            f"(elapsed {elapsed_ms:.0f}ms)"
+        )
+        self.phase = phase
+        self.elapsed_ms = elapsed_ms
+        self.timeout_ms = timeout_ms
+
+
+def _deadline(timeout_ms: Optional[int]) -> Optional[float]:
+    """The absolute time.monotonic() deadline of a budget (None = none)."""
+    return time.monotonic() + timeout_ms / 1000.0 if timeout_ms else None
+
+
+def _timeout_check(timeout_ms: Optional[int]):
+    """A `check(phase)` that raises QueryTimeout once more than
+    `timeout_ms` has passed since this call (never when it is 0/None)."""
+    t0 = time.perf_counter()
+
+    def check(phase: str) -> None:
+        elapsed_ms = (time.perf_counter() - t0) * 1000
+        if timeout_ms and elapsed_ms > timeout_ms:
+            raise QueryTimeout(phase, elapsed_ms, timeout_ms)
+
+    return check
 
 
 @dataclasses.dataclass
@@ -67,13 +114,19 @@ class QueryResult:
     (None when no row matched) and their count, kind "density" the
     [height, width] f32 grid and the match count, kind "stats" the
     evaluated Stat sequence and the match count, kind "count" only the
-    count. The bin and arrow kinds come with their slices."""
+    count. The bin and arrow kinds come with their slices. `approx`,
+    `bound` and `confidence` are the reference's sketch-tier fields; the
+    port has no sketch tier yet (ROADMAP A4), so they stay False, 0.0 and
+    1.0."""
 
     kind: str
     features: Optional[FeatureBatch] = None
     grid: Optional[np.ndarray] = None
     count: int = 0
     stats: object = None
+    approx: bool = False
+    bound: float = 0.0
+    confidence: float = 1.0
     # the manifest commit version the result was pinned to
     version: Optional[int] = None
 
@@ -89,17 +142,22 @@ class QueryPlan:
     # plan-time manifest snapshot: residency loads pin to the same
     # committed write version the pruning saw
     manifest: Optional[dict] = None
+    # the filter as canonical CQL, serialised once a plan: the text of a
+    # polygon literal costs milliseconds
+    cql: str = ""
 
 
 class QueryPlanner:
     def __init__(self, storage: FileSystemStorage, device: torch.device,
-                 cache: Optional[DeviceCacheManager] = None):
+                 cache: Optional[DeviceCacheManager] = None,
+                 audit: Optional[AuditWriter] = None):
         if (storage.sft.user_data or {}).get("geomesa.vis.attr"):
             raise NotPortedError("feature-level visibility (geomesa.vis.attr)",
                                  "the security slice")
         self.storage = storage
         self.device = device
         self.cache = cache
+        self.audit = audit
         # guards the compiled-filter cache, the kNN capacity cache and the
         # stats-manager singleton
         self._mutex = threading.Lock()
@@ -114,7 +172,8 @@ class QueryPlanner:
         e = explain or Explainer()
         sft = self.storage.sft
         f = query.filter_ast
-        e.push(f"Planning '{query.type_name}' {ast.to_cql(f)}")
+        cql = ast.to_cql(f)
+        e.push(f"Planning '{query.type_name}' {cql}")
         g = sft.default_geometry
         d = sft.default_dtg
         bbox = extract_bbox(f, g.name) if g else BBox(-180, -90, 180, 90)
@@ -131,13 +190,14 @@ class QueryPlanner:
         if query.hints.query_index:
             e(f"Index override requested: {query.hints.query_index!r} "
               "(single-strategy partition store; recorded only)")
-        residual = f
+        residual, residual_cql = f, cql
         if query.hints.loose_bbox and g is not None:
             residual = _loosen_bbox(residual, g.name)
+            residual_cql = ast.to_cql(residual)
             e("Loose bbox: default-geometry BBOX predicates dropped from residual")
         compiled = None
         if not isinstance(residual, ast.Include):
-            compiled = self._compile_cached(residual)
+            compiled = self._compile_cached(residual, residual_cql)
             e(f"Residual predicate: compiled mask over "
               f"{len(compiled.builders)} param table(s)")
         else:
@@ -149,11 +209,11 @@ class QueryPlanner:
             e(f"Aggregation: stats {query.hints.stats_string!r}")
         e.pop()
         return QueryPlan(query, f, bbox, interval, partitions, compiled,
-                         manifest=manifest)
+                         manifest=manifest, cql=cql)
 
-    def _compile_cached(self, residual: ast.Filter) -> CompiledFilter:
-        """Reuse CompiledFilter across queries keyed on canonical CQL."""
-        key = ast.to_cql(residual)
+    def _compile_cached(self, residual: ast.Filter, key: str) -> CompiledFilter:
+        """Reuse CompiledFilter across queries keyed on canonical CQL
+        (`key`, the residual's)."""
         with self._mutex:
             got = self._compiled_filters.get(key)
         if got is not None:
@@ -285,11 +345,13 @@ class QueryPlanner:
             batch, dev = sb.batch, sb.dev
             mask = (self._raw_mask(plan, dev, batch)
                     & torch.from_numpy(allowed).to(self.device)[sb.pids])
+            note_device_op()
             if plan.compiled is not None and plan.compiled.has_band:
                 bidx, bexact = plan.compiled.band_corrections(dev, batch)
                 if len(bidx):
                     at = torch.from_numpy(bidx).to(self.device)
                     (pid_at,) = fetch(sb.pids[at])
+                    note_device_op()
                     bexact = bexact & batch.valid[bidx] & allowed[pid_at]
                     mask[at] = torch.from_numpy(bexact).to(self.device)
         else:
@@ -297,6 +359,7 @@ class QueryPlanner:
             if batch is None:
                 return None, None, None, None, True
             mask = self._raw_mask(plan, dev, batch) & dev[VALID]
+            note_device_op()
             if plan.compiled is not None and plan.compiled.has_band:
                 bidx, bexact = plan.compiled.band_corrections(dev, batch)
                 if len(bidx):
@@ -307,44 +370,83 @@ class QueryPlanner:
     # -- execute -----------------------------------------------------------
 
     def execute(self, query: "Query | str",
-                explain: Optional[Explainer] = None) -> QueryResult:
+                explain: Optional[Explainer] = None,
+                timeout_ms: Optional[int] = None) -> QueryResult:
         """Plan and run one query: the cached route when the device cache
         is on, except with sampling (every n-th is defined over the global
         match order, not per partition) or loose bbox (the scan route
         re-applies the bbox by parquet pushdown, which resident whole
         partitions cannot), which take the scan route, as in the
-        reference."""
+        reference. `timeout_ms` overrides geomesa.query.timeout for this
+        query (0 = none): the planner raises QueryTimeout after planning
+        and, on the scan route, after the scan, once it has passed."""
+        if timeout_ms is None:
+            timeout_ms = int(SystemProperties.QUERY_TIMEOUT_MS.get())
+        with deadline_scope(_deadline(timeout_ms)):
+            return self._execute_deadlined(query, explain, timeout_ms)
+
+    def _execute_deadlined(self, query, explain, timeout_ms) -> QueryResult:
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
+        t0 = time.perf_counter()
+        check_timeout = _timeout_check(timeout_ms)
         plan = self.plan(query, explain)
+        t_plan = time.perf_counter()
+        check_timeout("planning")
         hints = query.hints
         if (self.cache is not None and not hints.sampling
                 and not hints.loose_bbox):
-            result = self._execute_cached(plan, query)
+            result, mask_count, t_scan = self._execute_cached(plan, query)
         else:
-            result = self._execute_scan(plan, query)
+            result, mask_count, t_scan = self._execute_scan(
+                plan, query, check_timeout)
+        self._record(query, plan, mask_count, t0, t_plan, t_scan,
+                     time.perf_counter())
         if result.version is None and plan.manifest is not None:
             result.version = getattr(plan.manifest, "version", None)
         return result
 
-    def _execute_cached(self, plan: QueryPlan, query: Query) -> QueryResult:
+    def _record(self, query, plan, mask_count, t0, t_plan, t_scan, t_done):
+        """The query's metrics and its QueryEvent in the audit writer."""
+        metrics.counter("query.count")
+        metrics.counter("query.features.matched", mask_count)
+        metrics.timer("query.plan").timer.update(t_plan - t0)
+        metrics.timer("query.scan").timer.update(t_scan - t_plan)
+        metrics.timer("query.compute").timer.update(t_done - t_scan)
+        if self.audit is not None:
+            self.audit.write(QueryEvent(
+                type_name=query.type_name,
+                filter=plan.cql,
+                hints=str(query.hints),
+                plan_time_ms=(t_plan - t0) * 1000,
+                scan_time_ms=(t_scan - t_plan) * 1000,
+                compute_time_ms=(t_done - t_scan) * 1000,
+                result_count=mask_count,
+                partitions_scanned=len(plan.partitions),
+                partitions_total=len(plan.manifest or ()),
+            ))
+
+    def _execute_cached(self, plan: QueryPlan, query: Query):
         """Over the cache's superbatch: one mask over every resident row,
         with partition pruning as a lane mask (allowed[pid]). A count is
         the device sum corrected over the band rows of the allowed
         partitions; density grids the raw f32 device mask (its cells dwarf
         the ~1e-7 degree band); features fetch the mask once and refine
-        its band rows in f64 within the allowance."""
+        its band rows in f64 within the allowance. Returns (result,
+        matching rows, the time residency ended)."""
         hints = query.hints
         sb, allowed = self._resident(plan)
+        t_scan = time.perf_counter()
         if allowed is None:
-            return self._empty_result(query)
+            return self._empty_result(query), 0, t_scan
         allowed_rows = torch.from_numpy(allowed).to(self.device)[sb.pids]
         dev_mask = self._raw_mask(plan, sb.dev, sb.batch) & allowed_rows
         has_band = plan.compiled is not None and plan.compiled.has_band
 
         if hints.count_only and not hints.sampling:
-            return self._count_result(plan, sb.dev, sb.batch, dev_mask,
-                                      extra=allowed_rows)
+            r = self._count_result(plan, sb.dev, sb.batch, dev_mask,
+                                   extra=allowed_rows)
+            return r, r.count, t_scan
 
         if hints.is_density:
             # partition pruning feeds the mask too: a plan scanning other
@@ -355,8 +457,9 @@ class QueryPlanner:
                                        mask_token=token)
             grid, total = fetch(grid, dev_mask.sum(dtype=torch.int32))
             if int(total) == 0:
-                return self._empty_result(query)
-            return QueryResult("density", grid=grid, count=int(total))
+                return self._empty_result(query), 0, t_scan
+            return (QueryResult("density", grid=grid, count=int(total)),
+                    int(total), t_scan)
 
         # stats and features: one mask fetch; the band rows of the
         # allowed partitions take their f64 value (the rest keep the
@@ -366,22 +469,27 @@ class QueryPlanner:
             mask = plan.compiled.refine(mask, sb.dev, sb.batch,
                                         extra=allowed_rows)
         if not mask.any():
-            return self._empty_result(query)
-        return aggregate(self.storage.sft, sb.batch, sb.dev, mask, query,
-                         self._zcalib)
+            return self._empty_result(query), 0, t_scan
+        result, matched = aggregate(self.storage.sft, sb.batch, sb.dev, mask,
+                                    query, self._zcalib)
+        return result, matched, t_scan
 
-    def _execute_scan(self, plan: QueryPlan, query: Query) -> QueryResult:
+    def _execute_scan(self, plan: QueryPlan, query: Query, check_timeout):
         """Scan the pruned partitions into one padded batch. A count is the
         device sum corrected over the band rows; otherwise fetch the mask,
         re-decide its band rows in f64 on the host, sample it, then grid
-        or select."""
+        or select. Returns (result, matching rows, the time the scan
+        ended); raises QueryTimeout ("scan") past the deadline."""
         hints = query.hints
         batch, dev = self._scan_batch(plan)
+        t_scan = time.perf_counter()
+        check_timeout("scan")
         if batch is None:
-            return self._empty_result(query)
+            return self._empty_result(query), 0, t_scan
         dev_mask = self._raw_mask(plan, dev, batch)
         if hints.count_only and not hints.sampling:
-            return self._count_result(plan, dev, batch, dev_mask)
+            r = self._count_result(plan, dev, batch, dev_mask)
+            return r, r.count, t_scan
         (mask,) = fetch(dev_mask)
         if plan.compiled is not None and plan.compiled.has_band:
             mask = plan.compiled.refine(mask, dev, batch)
@@ -392,7 +500,9 @@ class QueryPlanner:
                 groups = (np.asarray(col.codes) if isinstance(col, DictColumn)
                           else np.asarray(col))
             mask = sample_mask(mask, hints.sampling, groups)
-        return aggregate(self.storage.sft, batch, dev, mask, query, self._zcalib)
+        result, matched = aggregate(self.storage.sft, batch, dev, mask, query,
+                                    self._zcalib)
+        return result, matched, t_scan
 
     @staticmethod
     def _count_result(plan: QueryPlan, dev, batch, dev_mask,
@@ -423,52 +533,80 @@ class QueryPlanner:
 
     # -- count -------------------------------------------------------------
 
-    def count(self, query: "Query | str") -> int:
+    def count(self, query: "Query | str",
+              timeout_ms: Optional[int] = None) -> int:
         """Exact match count: `execute` with count_only, capped by
         max_features. With exact_count=False and INCLUDE, the manifest
-        row count."""
+        row count. `timeout_ms` propagates into the nested execute."""
+        return int(self.count_result(query, timeout_ms=timeout_ms).count)
+
+    def count_result(self, query: "Query | str",
+                     timeout_ms: Optional[int] = None) -> QueryResult:
+        """`count` with provenance: a QueryResult(kind="count") carrying
+        the committed manifest version the answer was pinned to (the
+        serve result cache's key, approx/cache.py). The serve batcher
+        calls this."""
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
         if (not query.hints.exact_count
                 and isinstance(query.filter_ast, ast.Include)):
+            # one snapshot pins count AND version atomically
             snap = self.storage.manifest_snapshot()
             n = sum(int(e["count"]) for files in snap.values() for e in files)
+            version = snap.version
         else:
             r = self.execute(dataclasses.replace(
-                query, hints=dataclasses.replace(query.hints, count_only=True)))
+                query, hints=dataclasses.replace(query.hints, count_only=True)),
+                timeout_ms=timeout_ms)
             if r.kind == "features":
                 n = len(r.features) if r.features is not None else 0
             else:
                 n = r.count
+            version = r.version
         if query.max_features is not None:
             n = min(n, query.max_features)
-        return n
+        return QueryResult("count", count=n, version=version)
 
     # -- kNN ---------------------------------------------------------------
 
     def knn(self, query: "Query | str", qx, qy, k: int = 10,
-            impl: str = "sparse"):
-        """Serial kNN = launch + sync back to back. Returns (dists [Q, k]
-        meters np, indices [Q, k] np int32 into `batch` rows, batch)."""
-        return self.knn_launch(query, qx, qy, k=k, impl=impl).sync()
+            impl: str = "sparse", timeout_ms: Optional[int] = None):
+        """Serial kNN = launch + sync back to back, inside the request's
+        deadline scope. Returns (dists [Q, k] meters np, indices [Q, k]
+        np int32 into `batch` rows, batch)."""
+        with deadline_scope(_deadline(timeout_ms)):
+            return self._knn_launch(query, qx, qy, k=k, impl=impl,
+                                    timeout_ms=timeout_ms).sync()
 
     def knn_launch(self, query: "Query | str", qx, qy, k: int = 10,
-                   impl: str = "sparse",
+                   impl: str = "sparse", timeout_ms: Optional[int] = None,
                    want_mask_count: bool = False) -> "KnnLaunch":
         """Plan -> prune -> mask -> kernel launch, returning a `KnnLaunch`
         without reading any result back. `want_mask_count` also reduces
         the (f64-exact) mask to a count that rides the same read.
+        `timeout_ms` (None or 0 = none; geomesa.query.timeout is not read
+        here, as in the reference) raises QueryTimeout after planning
+        ("planning") or after the mask ("scan") once it has passed.
 
         impl: "sparse" scans only match-bearing data tiles, with a
         capacity calibrated once per (filter, k) and cached; an overflow
         falls back to the dense scan and drops the cached capacity.
         "fullscan" runs the dense scan. "auto" picks one of the two from
         the stats sketches (`_knn_impl_from_stats`)."""
+        with deadline_scope(_deadline(timeout_ms)):
+            return self._knn_launch(query, qx, qy, k=k, impl=impl,
+                                    timeout_ms=timeout_ms,
+                                    want_mask_count=want_mask_count)
+
+    def _knn_launch(self, query, qx, qy, k, impl, timeout_ms,
+                    want_mask_count: bool = False) -> "KnnLaunch":
         if impl not in ("sparse", "fullscan", "auto"):
             raise ValueError(f"unknown kNN impl {impl!r}")
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
+        check_timeout = _timeout_check(timeout_ms)
         plan = self.plan(query)
+        check_timeout("planning")
         sft = self.storage.sft
         g = sft.default_geometry
         if g is None or g.type != "Point":
@@ -482,6 +620,7 @@ class QueryPlanner:
                  np.zeros((len(qx), k), np.int32),
                  FeatureBatch.from_pydict(sft, {a.name: [] for a in sft.attributes})),
                 fused=want_mask_count)
+        check_timeout("scan")
 
         x = dev[f"{g.name}__x"]
         y = dev[f"{g.name}__y"]
@@ -495,7 +634,7 @@ class QueryPlanner:
         if impl == "auto":
             impl = launch.impl = self._knn_impl_from_stats(plan)
         if impl == "sparse":
-            key = (ast.to_cql(plan.filter), kk)
+            key = (plan.cql, kk)
             seed_cap = self._caps_seed(key)
             if seed_cap is None:
                 # calibration: the one scalar read a cold (filter, k) pays
@@ -503,10 +642,12 @@ class QueryPlanner:
             fd, fi, ov, seed_cap = knn_sparse_launch(
                 jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
                 m_blocks=mb)
+            note_device_op()
             launch.arm_sparse(fd, fi, ov, jqx, jqy, x, y, mask,
                               cap=seed_cap, caps_key=key, mb=mb)
         else:
             fd, fi = knn_fullscan_tiled(jqx, jqy, x, y, mask, k=kk, m_blocks=mb)
+            note_device_op()
             launch.arm_dense(fd, fi)
         return launch
 
@@ -609,6 +750,7 @@ class KnnLaunch:
         if self._ready is not None:
             return self._ready
         extra = (self._count_dev,) if self._count_dev is not None else ()
+        note_device_op()  # the one combined read
         if self._ov is not None:
             fd, fi, cap, extra_host = knn_sparse_finish(
                 self._fd, self._fi, self._ov, self._jqx, self._jqy,

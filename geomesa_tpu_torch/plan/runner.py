@@ -143,7 +143,7 @@ def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
               mask: np.ndarray, query: "Query", cache: CalibCache):
     """A host row mask over `batch` to the query's result: the density
     grid or the stats when the hints ask for one, else the matching
-    features."""
+    features. Returns (result, the mask's matching rows)."""
     from geomesa_tpu_torch.plan.planner import QueryResult
 
     hints = query.hints
@@ -152,12 +152,15 @@ def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
             sft, batch, dev, torch.from_numpy(mask).to(dev[VALID].device),
             hints, cache, mask_token=query_mask_token(query))
         (grid,) = fetch(grid)
-        return QueryResult("density", grid=grid, count=int(mask.sum()))
+        n = int(mask.sum())
+        return QueryResult("density", grid=grid, count=n), n
     if hints.is_stats:
         stats = run_stats(batch, dev, mask, hints.stats_string)
-        return QueryResult("stats", stats=stats, count=int(mask.sum()))
-    sel = finish_features(batch.select(np.nonzero(mask)[0]), query)
-    return QueryResult("features", features=sel, count=len(sel))
+        n = int(mask.sum())
+        return QueryResult("stats", stats=stats, count=n), n
+    rows = np.nonzero(mask)[0]
+    sel = finish_features(batch.select(rows), query)
+    return QueryResult("features", features=sel, count=len(sel)), len(rows)
 
 
 def run_stats(batch: FeatureBatch, dev, mask: np.ndarray, expression: str):

@@ -1,0 +1,31 @@
+"""Concurrent query serving: admission control, request coalescing,
+deadlines and the JSON-lines wire, on the serial dispatch route.
+
+The port of the reference package's `serve/`: `QueryService` futures
+over a DataStore (`service.py`), admission and deadlines
+(`scheduler.py`), coalescing (`batcher.py`: N concurrent kNN requests
+with one (filter, k) stack into ONE launch of B1 or B2), the JSON-lines
+wire (`protocol.serve_lines`) and the closed-loop, open-loop and
+sustained load generators (`loadgen.py`). The pipelined dispatch, the
+ring and warm-up (ROADMAP A3 (b)), the columnar wire (A4), standing
+queries (A6), sharded serving and fleets (A7) come later.
+"""
+
+from geomesa_tpu_torch.serve.scheduler import (
+    PRIORITIES, AdmissionQueue, QueryRejected, RateLimiter, ServeRequest,
+    TokenBucket)
+from geomesa_tpu_torch.serve.batcher import compat_key, execute_batch
+from geomesa_tpu_torch.serve.service import QueryService, ServeConfig, self_check
+from geomesa_tpu_torch.serve.protocol import serve_connection, serve_lines
+from geomesa_tpu_torch.serve.loadgen import (
+    LoadReport, count_request_factory, knn_request_factory,
+    run_closed_loop, run_open_loop, run_sustained)
+
+__all__ = [
+    "PRIORITIES", "AdmissionQueue", "QueryRejected", "RateLimiter",
+    "ServeRequest", "TokenBucket", "compat_key", "execute_batch",
+    "QueryService", "ServeConfig", "self_check",
+    "serve_connection", "serve_lines", "LoadReport",
+    "knn_request_factory", "count_request_factory",
+    "run_closed_loop", "run_open_loop", "run_sustained",
+]

@@ -243,6 +243,13 @@ class FileSystemStorage:
             snap.version = self._mversion
             return snap
 
+    def manifest_version(self) -> int:
+        """The current committed write version (monotonic per
+        instance) without copying the manifest — the serve result
+        cache's peek-time key component (approx/cache.py)."""
+        with self._lock:
+            return self._mversion
+
     def partitions(self) -> List[str]:
         with self._lock:
             return sorted(self.manifest)

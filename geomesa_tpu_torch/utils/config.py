@@ -62,6 +62,9 @@ class SystemProperties:
         "driven StrategyDecider analog; sparse pruning cannot win when "
         "nearly every data tile bears a match)",
     )
+    QUERY_TIMEOUT_MS = SystemProperty(
+        "geomesa.query.timeout", 0, int, "per-query timeout in ms; 0 = none"
+    )
     SCAN_RANGES_TARGET = SystemProperty(
         "geomesa.scan.ranges.target", 2000, int,
         "z-range decomposition budget (more ranges = tighter covering)",

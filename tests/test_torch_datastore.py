@@ -242,6 +242,16 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         assert st.stats[0].result()["count"] > 0
         zones = ds.get_feature_source("zones")
         assert UniqueProcess().execute(zones, "name") == [("z0", 1), ("z1", 1)]
+        import geomesa_tpu_torch.approx.cache  # noqa: F401
+        import geomesa_tpu_torch.faults  # noqa: F401
+        import geomesa_tpu_torch.telemetry  # noqa: F401
+        from geomesa_tpu_torch.serve import QueryService, self_check
+        assert self_check(verbose=False, device="cpu") == 0
+        svc = QueryService(ds, autostart=False)
+        fut = svc.knn("t", "speed > 5", [0.0], [45.0], k=3)
+        svc.start()
+        assert np.isfinite(fut.result(timeout=120)[0]).all()
+        svc.close(drain=True)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]
