@@ -166,6 +166,39 @@ and prints no result. Phases, each fatal on failure:
    serve.oom.hosteval at 0. Printed as one {"serve": ...}
    line before the kernels line; B1's, B2's and B3's rows carry the phase's
    launches under "launches_by_phase".
+13. the serve stack's device half (inside phase 4, on its store, after
+   phase 12), with B1's and B2's launches reset before each part and
+   read after: 1,024 single-point kNN requests of the north-star filter
+   (k=10, seed 0: 16 windows of 64) and 64 impl="fullscan" ones, queued
+   and then released through three services over the store: serial
+   (pipeline=False, ring=False), pipelined (ring=False) and ring (the
+   defaults); gated: the answers bit-identical across the routes
+   (indices and meters), 64 of them == src.knn on their own point,
+   exactly 16 B1 and 1 B2 window launches on each route (on the ring
+   counted per graph replay; the arm's warm-up run and captures are
+   printed apart), the ring with 2 programs armed (the sparse and the
+   fullscan class, their captures over one frozen mask; the bytes the
+   captures hold are printed) and no fallback. 64 counts released with a pipelined
+   kNN window resolve from its mask (one dispatch, == src.count). The
+   ring service records a warm-up manifest over its traffic; with the
+   captures dropped, a new service built with warmup_manifest replays it
+   and warmup(check=True) must report ok with no new build or capture,
+   and its first window no stall (compile_ms 0). On phase 9's
+   small_store shape (2^20 rows) a write moves manifest_version: the
+   next ring window falls back "stale", sees the new rows and equals
+   src.knn, the one after re-arms. Then run_closed_loop with 8 clients
+   and run_sustained with 64 outstanding, 5 s each, on the pipelined and
+   the ring route: served qps, p50/p99, windows, mean window size, B1
+   launches a request, device ops a window, windows in flight at most,
+   the dispatch thread's and the completer's host ms a window, the idle
+   share over 1 s more (torch.profiler on the pipelined route; on the
+   ring, CUDA events around each graph replay, since a replay under the
+   profiler can segfault) and points/s, beside phase 12's
+   serial numbers. serve.oom.* and the services' failed counts stay 0;
+   an injected OOM on the pipelined route halves 7 times and fails all 8
+   typed with DeviceOOM (hosteval 0). Printed as one {"serve_device":
+   ...} line before the kernels line; B1's and B2's rows carry the
+   phase's launches under "launches_by_phase" "13".
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -173,6 +206,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import gc
 import json
 import statistics
@@ -465,6 +499,8 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
             runs["sparse"], dict(ingest_s=ingest_s, stats_s=stats_s), card_s)
         serve = serve_phase(torch, ks, dev, ds, src, dict(
             x=x, y=y, t=t, speed=speed, cql=cql), card_s)
+        serve_dev = serve_device_phase(torch, ks, dev, ds, src, dict(cql=cql),
+                                       serve["load"], tmp, card_s)
 
         # the main path's kernel inputs, for timing at its shapes
         plan = planner.plan(Query("gdelt", cql))
@@ -476,7 +512,7 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
             qy=torch.from_numpy(qy.astype(np.float32)).to(dev),
             x=pad(dv["geom__x"]), y=pad(dv["geom__y"]), maskf=pad(mask.float()),
             cap=cap)
-        return launches, inputs, knn_ops, serve
+        return launches, inputs, knn_ops, serve, serve_dev
 
 
 def chord_lines(torch, ks, inp, tile_ids, n_sel, card_s: str) -> dict:
@@ -2838,18 +2874,21 @@ def serve_phase(torch, ks, dev, ds, src, a: dict, card_s: str) -> dict:
     return out
 
 
-def injected_oom(torch, ds, src, make, oom, card_s: str) -> dict:
+def injected_oom(torch, ds, src, make, oom, card_s: str,
+                 pipelined: bool = False) -> dict:
     """An OOM on the card, injected: the planner's knn_launch raises
-    torch.OutOfMemoryError for one window of SERVE_OOM requests. The
-    ladder halves it down to single requests, and each then fails with a
-    typed DeviceOOM: no request is evaluated on the host."""
+    torch.OutOfMemoryError for one window of SERVE_OOM requests, on the
+    serial route or the pipelined one. The ladder halves it down to
+    single requests, and each then fails with a typed DeviceOOM: no
+    request is evaluated on the host."""
     from geomesa_tpu_torch.faults import DeviceOOM, classify
     from geomesa_tpu_torch.serve import QueryService, ServeConfig
 
     def launch_oom(*a, **kw):
         raise torch.OutOfMemoryError("injected: CUDA out of memory")
 
-    svc = QueryService(ds, ServeConfig(max_batch=64, max_wait_ms=2.0),
+    svc = QueryService(ds, ServeConfig(max_batch=64, max_wait_ms=2.0,
+                                       pipeline=pipelined, ring=False),
                        autostart=False)
     before = oom()
     src.planner.knn_launch = launch_oom  # the instance's, over the class's
@@ -2863,8 +2902,9 @@ def injected_oom(torch, ds, src, make, oom, card_s: str) -> dict:
         svc.close(drain=False, timeout_s=5.0)
     after = oom()
     got = {k: after[k] - before[k] for k in before}
-    log(f"serve injected OOM: {SERVE_OOM} requests, {typed} failed with a "
-        f"typed DeviceOOM; serve.oom.* {got} [{card_s}]")
+    route = "pipelined" if pipelined else "serial"
+    log(f"serve injected OOM ({route}): {SERVE_OOM} requests, {typed} failed "
+        f"with a typed DeviceOOM; serve.oom.* {got} [{card_s}]")
     assert typed == SERVE_OOM, typed
     assert got == {"serve.oom.halved": SERVE_OOM - 1, "serve.oom.hosteval": 0,
                    "serve.oom.failed": SERVE_OOM}, got
@@ -2873,6 +2913,383 @@ def injected_oom(torch, ds, src, make, oom, card_s: str) -> dict:
     del futs
     gc.collect()
     return dict(got, requests=SERVE_OOM, device_oom=typed)
+
+
+# -- the serve stack's device half (phase 13) ---------------------------------
+
+DEV_KNN = 1024  # single-point kNN requests of the north-star filter (16 windows)
+DEV_FULL = 64  # impl="fullscan" requests (one window)
+DEV_COUNTS = 64  # counts fused onto one pipelined kNN window
+DEV_WINDOW = 64
+DEV_STALE_ROWS = 1 << 20  # rows of the staleness store (phase 9's small_store)
+DEV_STALE_WRITE = 4096  # rows the write adds
+DEV_LOAD_S = 5.0
+DEV_ROUTES = {"serial": dict(pipeline=False, ring=False),
+              "pipelined": dict(ring=False), "ring": {}}
+
+
+def serve_device_phase(torch, ks, dev, ds, src, a: dict, serial_load: dict,
+                       tmp: str, card_s: str) -> dict:
+    """Phase 13: the serve stack's device half over phase 4's store (module
+    docstring, 13). Returns the {"serve_device": ...} numbers; B1's and
+    B2's window launches in the phase ride along under "launches"."""
+    from geomesa_tpu_torch.compilecache.manifest import QueryEntry, WarmupManifest
+    from geomesa_tpu_torch.compilecache.registry import registry
+    from geomesa_tpu_torch.compilecache.warmup import compile_counts
+    from geomesa_tpu_torch.plan.audit import ServeEvent
+    from geomesa_tpu_torch.serve import (
+        QueryService, ServeConfig, knn_request_factory, run_closed_loop,
+        run_sustained)
+    from geomesa_tpu_torch.serve.loadgen import device_ops_count
+    from geomesa_tpu_torch.utils.metrics import metrics
+
+    cql = a["cql"]
+    kernels = {"chord_blockmin_sparse": ks.chord_blockmin_sparse,
+               "chord_blockmin": ks.chord_blockmin}
+    used = {n: 0 for n in kernels}
+
+    def reset():
+        for w in kernels.values():
+            w.launches = 0
+
+    def read():
+        got = {n: w.launches for n, w in kernels.items()}
+        for n, v in got.items():
+            used[n] += v
+        return got
+
+    def oom():
+        with metrics._lock:
+            return {k: metrics.counters.get(k, 0) for k in OOM_COUNTERS}
+
+    oom0 = oom()
+    base = dict(max_batch=DEV_WINDOW, max_wait_ms=2.0, max_queue=2048)
+    services = []
+
+    def service(**cfg):
+        svc = QueryService(ds, ServeConfig(**{**base, **cfg}), autostart=False)
+        services.append(svc)
+        return svc
+
+    make = knn_request_factory("gdelt", cql, extent=(20.0, 60.0), k=K, seed=0)
+    resident = len(src.planner.cache.superbatch().batch)
+    out = {"card": card_s, "resident_rows": resident}
+    t_phase = time.perf_counter()
+    try:
+        # -- the three routes over 16 windows of 64, then one fullscan -----
+        routes, answers, rec = {}, {}, None
+        for route, cfg in DEV_ROUTES.items():
+            svc = service(**cfg)
+            if route == "ring":
+                rec = svc.record_warmup()
+            arm0 = dict(registry.stats()["arm_launches"])
+            got, wl = {}, {}
+            for impl, n in (("sparse", DEV_KNN), ("fullscan", DEV_FULL)):
+                reqs = serve_requests(make, n, impl)
+                reset()
+                audit0 = len(ds.audit.events)
+                futs = [svc.submit(r) for r in reqs]
+                t0 = time.perf_counter()
+                if not svc._worker:
+                    svc.start()
+                got[impl] = (reqs, [f.result(timeout=300) for f in futs])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                wl[impl] = read()
+                ev = [e for e in ds.audit.events[audit0:]
+                      if isinstance(e, ServeEvent)]
+                # a window's span (its members share it): first and median
+                spans = list(dict.fromkeys(e.exec_ms for e in ev))
+                routes.setdefault(route, {})[impl] = {
+                    "requests": n, "wall_ms": wall_ms, "launches": wl[impl],
+                    "window_exec_ms_first": spans[0],
+                    "window_exec_ms_p50": statistics.median(spans),
+                    "compile_ms": max(e.compile_ms for e in ev)}
+            st = svc.stats()
+            arm = {k: v - arm0.get(k, 0)
+                   for k, v in registry.stats()["arm_launches"].items()}
+            routes[route]["dispatches"] = st["dispatches"]
+            routes[route]["arm_launches"] = arm
+            routes[route]["pipeline"] = st.get("pipeline")
+            sp = routes[route]["sparse"]
+            log(f"serve route {route}: {DEV_KNN} sparse + {DEV_FULL} fullscan "
+                f"kNN requests in {st['dispatches']} windows "
+                f"({sp['wall_ms']:.3f} + {routes[route]['fullscan']['wall_ms']:.3f} "
+                f"ms; a sparse window's span first {sp['window_exec_ms_first']:.3f}, "
+                f"p50 {sp['window_exec_ms_p50']:.3f} ms, stall {sp['compile_ms']:.3f} "
+                f"ms); window launches {wl}; arm launches {arm} [{card_s}]")
+            assert st["dispatches"] == DEV_KNN // DEV_WINDOW + DEV_FULL // DEV_WINDOW, st
+            # exactly one B1 launch a sparse window and one B2 launch for
+            # the fullscan window: counted per replay on the ring, and the
+            # ring's arm (warm-up run and captures) counted apart
+            assert wl["sparse"] == {"chord_blockmin_sparse": DEV_KNN // DEV_WINDOW,
+                                    "chord_blockmin": 0}, wl
+            assert wl["fullscan"] == {"chord_blockmin_sparse": 0,
+                                      "chord_blockmin": DEV_FULL // DEV_WINDOW}, wl
+            if route == "ring":
+                ring = st["pipeline"]["ring"]
+                assert ring["armed"] == 2 and ring["programs"] == 2, ring
+                assert ring["fallbacks"] == {}, ring
+                assert ring["windows"] == st["dispatches"], ring
+                # the sparse and the fullscan class of one filter share one
+                # frozen mask and its padded columns
+                mine = [c for c in registry.held()
+                        if c.owner_id == id(src.planner)]
+                assert len(mine) == 2, [c.name for c in mine]
+                assert len({id(c.frozen) for c in mine}) == 1
+                routes[route]["held_bytes"] = registry.stats()["held_bytes"]
+                log(f"ring captures held: {len(mine)} over one frozen mask, "
+                    f"{routes[route]['held_bytes']} bytes held [{card_s}]")
+            answers[route] = got
+        # bit-identical across the three routes (indices and meters)
+        for impl in ("sparse", "fullscan"):
+            base_res = answers["serial"][impl][1]
+            for route in ("pipelined", "ring"):
+                for (d, i, _), (sd, si, _) in zip(answers[route][impl][1], base_res):
+                    assert np.array_equal(i, si) and np.array_equal(d, sd), (route, impl)
+        # every 16th request against src.knn on its own point
+        reqs, res = answers["ring"]["sparse"]
+        for j in range(0, DEV_KNN, DEV_KNN // 64):
+            d, i, _ = res[j]
+            sd, si, _ = src.knn(cql, reqs[j].qx, reqs[j].qy, k=K)
+            assert d.shape == (1, K) and np.isfinite(d).all()
+            assert same_neighbours(i, d, si, sd), "served kNN != src.knn"
+            assert np.array_equal(np.sort(d, 1), np.sort(sd, 1)), "meters differ"
+        log(f"correct: {DEV_KNN + DEV_FULL} kNN answers bit-identical over the "
+            f"serial, pipelined and ring routes; 64 == src.knn on their own "
+            f"point (neighbour rows, meters bit-identical); ring: 2 programs "
+            f"armed, 0 fallbacks [{card_s}]")
+        out["routes"] = routes
+
+        # -- counts fused onto a pipelined kNN window ----------------------
+        svc = service(ring=False)
+        kf = [svc.submit(r) for r in serve_requests(make, DEV_WINDOW)]
+        cf = [svc.count("gdelt", cql) for _ in range(DEV_COUNTS)]
+        svc.start()
+        for f in kf:
+            f.result(timeout=300)
+        counts = [f.result(timeout=300) for f in cf]
+        st = svc.stats()
+        exp_count = src.get_count(cql)
+        assert counts == [exp_count] * DEV_COUNTS, counts[:2]
+        assert st["pipeline"]["fused_counts"] == DEV_COUNTS, st["pipeline"]
+        assert st["dispatches"] == 1, st
+        log(f"correct: {DEV_COUNTS} counts fused onto one pipelined kNN window "
+            f"== src.count {exp_count}, no dispatch of their own")
+        out["fused"] = {"counts": DEV_COUNTS, "dispatches": st["dispatches"],
+                        "count": exp_count}
+
+        # -- warm-up: record, save, replay on a new service, check ---------
+        path = f"{tmp}/serve_warmup.json"
+        manifest = rec.manifest()
+        manifest.save(path)
+        kinds = {}
+        for e in manifest.kernel_entries:
+            kinds[e.kind_of] = kinds.get(e.kind_of, 0) + 1
+        registry.clear()  # a fresh process holds no capture
+        b0, c0 = compile_counts()
+        t0 = time.perf_counter()
+        wsvc = service(warmup_manifest=path)
+        replay_s = time.perf_counter() - t0
+        b1, c1 = compile_counts()
+        report = wsvc.warmup(path, check=True)
+        assert report.ok and report.residual_recompiles == 0, report
+        audit0 = len(ds.audit.events)
+        first = [wsvc.submit(r) for r in serve_requests(make, DEV_WINDOW)]
+        wsvc.start()
+        for f in first:
+            f.result(timeout=300)
+        ev = [e for e in ds.audit.events[audit0:] if isinstance(e, ServeEvent)]
+        assert ev and all(e.compile_ms == 0 and not e.compiled for e in ev), [
+            (e.compiled, e.compile_ms) for e in ev[:2]]
+        log(f"warm-up: manifest of {len(manifest)} entries ({kinds} kernel, "
+            f"{len(manifest.query_entries)} query); replay on a new service "
+            f"{replay_s:.3f} s ({b1 - b0} builds, {c1 - c0} captures); "
+            f"check: ok, {report.residual_recompiles} new builds + captures; "
+            f"first window after it compiled={ev[0].compiled!r} "
+            f"compile_ms={ev[0].compile_ms} [{card_s}]")
+        out["warmup"] = {"entries": len(manifest), "kernel_entries": kinds,
+                         "replay_s": replay_s, "replay_builds": b1 - b0,
+                         "replay_captures": c1 - c0,
+                         "residual": report.residual_recompiles,
+                         "first_window_compile_ms": ev[0].compile_ms}
+
+        # -- staleness on a small store --------------------------------------
+        small_store(torch, dev, f"{tmp}/stale", DEV_STALE_ROWS, seed=13)
+        out["stale"] = stale_check(dev, f"{tmp}/stale", cql, base, card_s)
+
+        # -- load: pipelined and ring, closed loop and sustained ----------
+        load = {}
+        # every Q bucket a load window can pad to, warmed through the
+        # warm-up contract: no capture runs under load (or the profiler)
+        buckets = WarmupManifest([
+            QueryEntry("knn", "gdelt", cql, q=q, k=K, impl="sparse")
+            for q in (8, 16, 32, 64)])
+        for route in ("pipelined", "ring"):
+            lsvc = service(**DEV_ROUTES[route])
+            assert lsvc.warmup(buckets).ok
+            captures0 = registry.stats()["captures"]
+            lsvc.start()
+            for mode in ("closed_8", "sustained_64"):
+                pipe = lsvc.pipeline
+                pipe.reset_max_inflight()
+                st0 = lsvc.stats()
+                ops0 = device_ops_count()
+                b1 = ks.chord_blockmin_sparse.launches
+                if mode == "closed_8":
+                    rep = run_closed_loop(lsvc, make, concurrency=8,
+                                          duration_s=DEV_LOAD_S)
+                else:
+                    rep = run_sustained(lsvc, make, duration_s=DEV_LOAD_S,
+                                        max_outstanding=64,
+                                        points_per_query=resident)
+                b1 = ks.chord_blockmin_sparse.launches - b1
+                st1 = lsvc.stats()
+                assert rep.ok > 0 and rep.errors == 0 and rep.timeouts == 0, rep
+                windows = (st1.get("pipelined_windows", 0)
+                           - st0.get("pipelined_windows", 0))
+                p0, p1 = st0["pipeline"], st1["pipeline"]
+                ring0 = (p0.get("ring") or {}).get("windows", 0)
+                ring1 = (p1.get("ring") or {}).get("windows", 0)
+                row = {
+                    "served_qps": rep.throughput_qps, "ok": rep.ok,
+                    "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+                    "max_ms": rep.max_ms, "windows": windows,
+                    "mean_window": rep.ok / max(windows, 1),
+                    "ring_windows": ring1 - ring0,
+                    "b1_launches_per_request": b1 / rep.ok,
+                    "dispatches_per_window": (device_ops_count() - ops0) / max(windows, 1),
+                    "windows_in_flight_max": p1["max_inflight"],
+                    "dispatch_ms_per_window": (p1["dispatch_ms"] - p0["dispatch_ms"]) / max(windows, 1),
+                    "complete_ms_per_window": (p1["complete_ms"] - p0["complete_ms"]) / max(windows, 1),
+                    "points_per_s": resident * rep.throughput_qps}
+                if route == "ring":
+                    assert row["ring_windows"] == windows, row
+                load[f"{route}_{mode}"] = row
+                log(f"serve {route} {mode}: {rep.throughput_qps:.1f} served qps, "
+                    f"p50 {rep.p50_ms:.3f} ms, p99 {rep.p99_ms:.3f} ms, {windows} "
+                    f"windows of {row['mean_window']:.2f}, {row['b1_launches_per_request']:.4f} "
+                    f"B1 launches a request, {row['dispatches_per_window']:.3f} "
+                    f"device ops a window, {p1['max_inflight']} windows in flight "
+                    f"at most, host {row['dispatch_ms_per_window']:.3f} ms dispatch + "
+                    f"{row['complete_ms_per_window']:.3f} ms completer a window, "
+                    f"{row['points_per_s']:.4g} points/s [{card_s}]")
+            assert registry.stats()["captures"] == captures0, registry.stats()
+            # the ring's busy time comes from CUDA events around each graph
+            # replay: under torch.profiler a replay segfaulted in three of
+            # four full runs (with 2 windows in flight)
+            busy_of = replay_busy if route == "ring" else device_busy
+            how = "CUDA events around each replay" if route == "ring" else "torch.profiler"
+            for mode in ("closed_8", "sustained_64"):
+                if mode == "closed_8":
+                    fn = lambda: run_closed_loop(  # noqa: E731
+                        lsvc, make, concurrency=8, duration_s=SERVE_PROFILE_S)
+                else:
+                    fn = lambda: run_sustained(  # noqa: E731
+                        lsvc, make, duration_s=SERVE_PROFILE_S, max_outstanding=64)
+                wall_ms, busy_ms = busy_of(torch, fn)
+                load[f"{route}_{mode}"]["idle_share"] = max(0.0, 1 - busy_ms / wall_ms)
+                load[f"{route}_{mode}"]["idle_share_by"] = how
+                log(f"serve {route} {mode}, busy by {how} ({SERVE_PROFILE_S:g} s): "
+                    f"device busy {busy_ms:.3f} of {wall_ms:.3f} ms, idle share "
+                    f"{load[f'{route}_{mode}']['idle_share']:.3f} [{card_s}]")
+        for mode in ("closed_8", "sustained_64"):
+            load[f"serial_{mode}"] = serial_load[mode]  # phase 12, this run
+        out["load"] = load
+        read()
+    finally:
+        for svc in services:
+            svc.close(drain=False, timeout_s=5.0)
+    failed = sum(svc.stats().get("failed", 0) for svc in services)
+    oom1 = oom()
+    delta = {k: oom1[k] - oom0[k] for k in oom0}
+    out["oom"] = delta
+    out["failed"] = failed
+    assert failed == 0 and not any(delta.values()), (failed, delta)
+    out["launches"] = used
+    out["oom_injected"] = injected_oom(torch, ds, src, make, oom, card_s,
+                                       pipelined=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serve device phase: window launches {used}, serve.oom.* {delta}, "
+        f"errors {failed}, {out['seconds']:.3f} s")
+    return out
+
+
+def replay_busy(torch, fn):
+    """(wall ms, device busy ms) of one call of fn on the ring route: the
+    device time between CUDA events recorded on the replaying stream just
+    before and just after each graph replay, summed (replays serialise on
+    that stream; the slot copies and readbacks of a few KB are left out,
+    as the profiler's kernel sum leaves copies out)."""
+    from geomesa_tpu_torch.compilecache.registry import RingCapture
+
+    real = RingCapture.replay
+    marks = []
+
+    def timed(self, slot):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(self, slot)
+        b.record()
+        marks.append((a, b))
+        return out
+
+    RingCapture.replay = timed
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        RingCapture.replay = real
+    return wall_ms, sum(a.elapsed_time(b) for a, b in marks)
+
+
+def stale_check(dev, path: str, cql: str, cfg: dict, card_s: str) -> dict:
+    """A write moves the manifest version under an armed ring program: the
+    next window falls back (stale) to the pipelined route and sees the new
+    rows, the window after re-arms; each answer == src.knn after the
+    write, bit for bit."""
+    from geomesa_tpu_torch import DataStore, FeatureBatch
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+
+    ds = DataStore(path, use_device_cache=True, device=dev)
+    src = ds.get_feature_source("gdelt")
+    rng = np.random.default_rng(17)
+    n = DEV_STALE_WRITE
+    nx = rng.uniform(BBOX[0], BBOX[2], n)
+    ny = rng.uniform(BBOX[1], BBOX[3], n)
+    svc = QueryService(ds, ServeConfig(**cfg))
+    try:
+        for i in range(2):
+            svc.knn("gdelt", cql, [nx[i]], [ny[i]], k=K).result(timeout=300)
+        st0 = svc.stats()["pipeline"]["ring"]
+        v0 = src.storage.manifest_version()
+        src.write(FeatureBatch.from_pydict(src.sft, {
+            "speed": np.full(n, 10.0),
+            "dtg": rng.integers(T0 + 1, T1, n),
+            "geom": np.stack([nx, ny], 1)}))
+        v1 = src.storage.manifest_version()
+        got, stats = [], []
+        for i in range(2, 4):
+            got.append(svc.knn("gdelt", cql, [nx[i]], [ny[i]], k=K).result(timeout=300))
+            stats.append(svc.stats()["pipeline"]["ring"])
+    finally:
+        svc.close(drain=True)
+    assert v1 > v0 and st0["windows"] == 2 and st0["armed"] == 1, st0
+    assert stats[0]["fallbacks"] == {"stale": 1} and stats[0]["windows"] == 2, stats[0]
+    assert stats[1]["armed"] == 2 and stats[1]["windows"] == 3, stats[1]
+    for j, i in enumerate(range(2, 4)):
+        d, ix, _ = got[j]
+        sd, six, _ = src.knn(cql, [nx[i]], [ny[i]], k=K)
+        assert np.array_equal(d, sd) and np.array_equal(ix, six)
+        assert d[0, 0] == 0.0, "the written row is not the nearest"
+    log(f"staleness: a write moved the manifest version {v0} -> {v1}; the next "
+        f"window fell back {stats[0]['fallbacks']} and saw the new rows, the one "
+        f"after re-armed (armed {stats[1]['armed']}); both == src.knn [{card_s}]")
+    return {"version": [v0, v1], "fallbacks": stats[0]["fallbacks"],
+            "armed_after": stats[1]["armed"]}
 
 
 # -- config 2 as users write it (phase 11) -------------------------------------
@@ -3147,6 +3564,8 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
 
 
 def main() -> int:
+    # a crash in native code prints every thread's Python stack
+    faulthandler.enable()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
                     help="rows written to the store (default 2^26)")
@@ -3188,8 +3607,8 @@ def main() -> int:
     layer_kernel_check(torch, dev)
     if args.rows != 1 << 26:
         log(f"kNN and density stores cut to {args.rows} rows by --rows")
-    launches, inputs, knn_ops, serve = main_path(torch, ks, dev, args.rows,
-                                                 card_s)
+    launches, inputs, knn_ops, serve, serve_dev = main_path(
+        torch, ks, dev, args.rows, card_s)
     rows = kernel_rows(torch, ks, launches, inputs, card_s)
     del inputs
     torch.cuda.empty_cache()
@@ -3218,13 +3637,18 @@ def main() -> int:
             row["launches_by_phase"] = {"6": row["launches"], "11": b7}
             row["launches"] += b7
         served = serve["launches"].get(row["name"])
-        if served is not None:  # phase 4's or 5's launches, then phase 12's
+        if served is not None:  # phase 4's or 5's launches, then 12's and 13's
             first = "5" if row["name"] == "zsparse_counts" else "4"
             row["launches_by_phase"] = {first: row["launches"], "12": served}
             row["launches"] += served
+            dev_served = serve_dev["launches"].get(row["name"])
+            if dev_served is not None:
+                row["launches_by_phase"]["13"] = dev_served
+                row["launches"] += dev_served
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"serve_device": serve_dev}))
     print(json.dumps({"kernels": rows}))
     print(card_s)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.cql import ast
 from geomesa_tpu_torch.cql.hosteval import eval_filter_host, like_regex
-from geomesa_tpu_torch.engine.device import VALID, DeviceBatch, fetch
+from geomesa_tpu_torch.engine.device import VALID, DeviceBatch, fetch, upload
 from geomesa_tpu_torch.engine.pip import (
     points_in_polygon, points_in_polygon_band, polygon_edges)
 from geomesa_tpu_torch.errors import NotPortedError
@@ -67,8 +67,7 @@ class CompiledFilter:
     def params(self, dev: DeviceBatch, batch: FeatureBatch
                ) -> Dict[str, torch.Tensor]:
         device = dev[VALID].device
-        return {k: torch.from_numpy(b(batch)).to(device)
-                for k, b in self.builders.items()}
+        return {k: upload(b(batch), device) for k, b in self.builders.items()}
 
     def mask(self, dev: DeviceBatch, batch: FeatureBatch) -> torch.Tensor:
         return self._fn(self.params(dev, batch), dev)

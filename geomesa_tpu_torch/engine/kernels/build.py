@@ -6,6 +6,10 @@ loaded with `ctypes` (no PyTorch headers, so a build takes seconds). The
 library lands in `.torch_kernels/` at the root of the checkout, keyed by
 a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. Importing this module builds nothing.
+
+A build on first use is a compile stall: it is noted through
+`compilecache.tracker.note_build` (the serve window that paid it carries
+it; a warm-up manifest records the library and its entry points).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,6 +25,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
+
+from geomesa_tpu_torch.errors import KernelBuildError
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parents[2] / ".torch_kernels"
@@ -64,11 +71,27 @@ def build(name: str) -> Path:
         [nvcc(), *FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")],
         capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        raise KernelBuildError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    build_log[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+    seconds = time.perf_counter() - t0
+    build_log[name] = {"seconds": seconds, "cached": False,
                        "ptxas": proc.stderr}
+    from geomesa_tpu_torch.compilecache.tracker import note_build
+
+    note_build(name, seconds, entry_points(name))
     return out
+
+
+def entry_points(name: str) -> List[str]:
+    """The C entry points (`extern "C"` functions) of `<name>.cu`."""
+    src = (SRC_DIR / f"{name}.cu").read_text()
+    return re.findall(r'extern "C"\s+\w+\s+(\w+)\s*\(', src)
+
+
+def loaded() -> List[str]:
+    """Names of the libraries this process has loaded."""
+    with _lock:
+        return sorted(_libs)
 
 
 def sources() -> List[str]:

@@ -91,6 +91,7 @@ constexpr int kChunkPts = 2048;            // most points a chunk
 constexpr int kMaxBlocks = 16;             // most blk-blocks a chunk
 constexpr int kMaxSegs = 16;               // most segments a chunk
 constexpr int kPtsPerThread = kChunkPts / kThreads;
+constexpr int kMaxDevices = 64;            // devices the launch caches
 constexpr int kMinStride = kMaxSegs + 1;   // odd: no bank conflicts
 constexpr size_t kSmem = sizeof(float4) * 2 * kChunkPts
                          + sizeof(float) * 2 * kQB * kMinStride;
@@ -257,20 +258,30 @@ int launch(const void* aug_q, const void* c, const void* x, const void* y,
   int r = 1;
   while (cb * r < kWarps) r *= 2;
   auto kernel = blockmin_kernel<kFold>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  // the shared-memory attribute and the resident blocks a device are set
+  // and read once per device, so that a launch under CUDA graph capture
+  // (the serve ring) makes no other runtime call than the launch
+  static int resident[kMaxDevices] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
-      != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, kSmem)) != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem))
+        != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+        != cudaSuccess) return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, kSmem)) != cudaSuccess) return (int)err;
+    resident[dev] = std::max(1, sms * per_sm);
+  }
   // sized against every chunk the slots could hold: the live count is
   // known only on the device
   const long long nchunks = slots * ((nbt + cb - 1) / cb);
   if ((nbt + cb - 1) / cb > INT_MAX) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)std::min(nchunks, (long long)std::max(1, sms * per_sm)),
+  const dim3 grid((unsigned)std::min(nchunks, (long long)resident[dev]),
                   (q + kQB - 1) / kQB);
   kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
       (const float*)aug_q, (const float*)c, (const float*)x, (const float*)y,

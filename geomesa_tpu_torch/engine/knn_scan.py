@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from geomesa_tpu_torch.engine.device import check_kernel_inputs, fetch
 from geomesa_tpu_torch.engine.geodesy import haversine_m
 from geomesa_tpu_torch.engine.knn import _topk_smallest, _twolevel_smallest, _unit3
+from geomesa_tpu_torch.errors import KernelLaunchError
 
 BLK = 128  # minima granularity: one minimum per BLK data lanes
 DATA_TILE = 16384  # points per data tile (the sparse scan's selection unit)
@@ -139,7 +140,7 @@ def _run(entry: str, *args) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), entry)(*map(ptr, args), stream)
     if err != 0:
-        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+        raise KernelLaunchError(f"{entry} failed: CUDA error {err}")
 
 
 def _launch_dense(aug, c, x, y, maskf, blk, prelude_only: bool = False):
@@ -257,15 +258,30 @@ def knn_fullscan(qx, qy, x, y, mask, k: int, m_blocks: int = 64,
     """Exact kNN over the masked batch in one dense scan: (dists [Q, k]
     meters f32, indices [Q, k] into the original arrays). m_blocks >= k
     required; N is padded to data_tile internally (padding masked out)."""
-    n = x.shape[0]
     _check_k(k, m_blocks)
-    pad = (-n) % data_tile
-    xf = _pad(x.float(), pad)
-    yf = _pad(y.float(), pad)
-    maskf = _pad(mask.float(), pad)
+    xf, yf, maskf = pad_scan_inputs(x, y, mask, data_tile)
+    return knn_fullscan_body(qx, qy, xf, yf, maskf, x.shape[0], k,
+                             m_blocks, blk, data_tile)
+
+
+def pad_scan_inputs(x, y, mask, data_tile: int = DATA_TILE):
+    """(xf, yf, maskf): the points and the mask as f32, padded to whole
+    data tiles (padding masked out). A copy of every column whenever N is
+    not a multiple of data_tile, so the ring serve loop does it once at
+    arm time."""
+    pad = (-x.shape[0]) % data_tile
+    return _pad(x.float(), pad), _pad(y.float(), pad), _pad(mask.float(), pad)
+
+
+def knn_fullscan_body(qx, qy, xf, yf, maskf, n: int, k: int,
+                      m_blocks: int = 64, blk: int = BLK,
+                      data_tile: int = DATA_TILE):
+    """`knn_fullscan` over inputs already padded (`pad_scan_inputs`): B2,
+    the two-level block selection and the refine. No host sync, so a
+    CUDA graph can capture it."""
     minima, _ = chord_blockmin(qx, qy, xf, yf, maskf, blk=blk,
                                data_tile=data_tile)
-    mb = min(m_blocks, (n + pad) // blk)
+    mb = min(m_blocks, xf.shape[0] // blk)
     _, blkid = _twolevel_smallest(minima, mb)
     return _refine(qx, qy, xf, yf, maskf, blkid, n, k, blk)
 
@@ -298,14 +314,21 @@ def knn_sparse_scan(qx, qy, x, y, mask, k: int, tile_capacity: int,
     than `tile_capacity` tiles match, `overflow` is set, the top-k ignored
     the highest-id matching tiles, and the caller MUST fall back to
     `knn_fullscan`. Nothing here reads the device back."""
-    n = x.shape[0]
     _check_k(k, m_blocks)
-    pad = (-n) % data_tile
-    xf = _pad(x.float(), pad)
-    yf = _pad(y.float(), pad)
-    maskf = _pad(mask.float(), pad)
+    xf, yf, maskf = pad_scan_inputs(x, y, mask, data_tile)
     tile_ids, n_sel = select_match_tiles(maskf, tile_capacity, data_tile)
     overflow = n_sel[0] > tile_ids.shape[0]
+    fd, fi = knn_sparse_body(qx, qy, xf, yf, maskf, tile_ids, n_sel,
+                             x.shape[0], k, m_blocks, blk, data_tile)
+    return fd, fi, overflow
+
+
+def knn_sparse_body(qx, qy, xf, yf, maskf, tile_ids, n_sel, n: int, k: int,
+                    m_blocks: int = 64, blk: int = BLK,
+                    data_tile: int = DATA_TILE):
+    """`knn_sparse_scan` over padded inputs and a selected tile list: B1,
+    the two-level block selection and the refine -> (dists [Q, k],
+    indices [Q, k]). No host sync, so a CUDA graph can capture it."""
     minima, _ = chord_blockmin_sparse(qx, qy, xf, yf, maskf, tile_ids, n_sel,
                                       blk=blk, data_tile=data_tile)
     bpt = data_tile // blk  # blocks per tile
@@ -315,9 +338,7 @@ def knn_sparse_scan(qx, qy, x, y, mask, k: int, tile_capacity: int,
     # selected block is real only if its minimum is below the penalty
     blk_ok = vals < PENALTY / 2
     orig_blk = tile_ids.long()[selblk // bpt] * bpt + selblk % bpt
-    fd, fi = _refine(qx, qy, xf, yf, maskf, orig_blk, n, k, blk,
-                     blk_ok=blk_ok)
-    return fd, fi, overflow
+    return _refine(qx, qy, xf, yf, maskf, orig_blk, n, k, blk, blk_ok=blk_ok)
 
 
 def count_match_tiles(mask: torch.Tensor, data_tile: int = DATA_TILE
@@ -386,14 +407,24 @@ def knn_fullscan_tiled(qx, qy, x, y, mask, k: int, m_blocks: int = 64,
     """knn_fullscan for arbitrary Q: queries in tiles of `query_tile`
     (each tile centres its own key and re-scans the batch). The last
     tile is padded with its edge query, as the reference does."""
+    _check_k(k, m_blocks)
+    xf, yf, maskf = pad_scan_inputs(x, y, mask)
+    return knn_fullscan_tiled_body(qx, qy, xf, yf, maskf, x.shape[0], k,
+                                   m_blocks, query_tile)
+
+
+def knn_fullscan_tiled_body(qx, qy, xf, yf, maskf, n: int, k: int,
+                            m_blocks: int = 64, query_tile: int = 256):
+    """`knn_fullscan_tiled` over padded inputs (`pad_scan_inputs`): one B2
+    launch per query tile, no host sync."""
     q = qx.shape[0]
     if q <= query_tile:
-        return knn_fullscan(qx, qy, x, y, mask, k=k, m_blocks=m_blocks)
+        return knn_fullscan_body(qx, qy, xf, yf, maskf, n, k, m_blocks)
     pad = (-q) % query_tile
     qxp = torch.cat([qx, qx[-1:].expand(pad)])
     qyp = torch.cat([qy, qy[-1:].expand(pad)])
-    parts = [knn_fullscan(qxp[s:s + query_tile], qyp[s:s + query_tile],
-                          x, y, mask, k=k, m_blocks=m_blocks)
+    parts = [knn_fullscan_body(qxp[s:s + query_tile], qyp[s:s + query_tile],
+                               xf, yf, maskf, n, k, m_blocks)
              for s in range(0, q + pad, query_tile)]
     fd = torch.cat([p[0] for p in parts])[:q]
     fi = torch.cat([p[1] for p in parts])[:q]

@@ -5,6 +5,11 @@ brings: it names that slice, so a caller knows the refusal is deliberate
 and where the feature will land. `CudaUnavailableError` is raised when an
 entry point is asked for the card (the default) and no GPU is present:
 the port never falls back to the CPU on its own.
+
+`KernelBuildError`, `KernelLaunchError` and `GraphCaptureError` are what
+a card store raises when a kernel library fails to build, a launch is
+refused, or a ring window class fails to capture: the serve stack fails
+the window with them and never answers it from another route.
 """
 
 from __future__ import annotations
@@ -21,3 +26,15 @@ class NotPortedError(NotImplementedError):
 
 class CudaUnavailableError(RuntimeError):
     """The card was asked for (device=None or 'cuda') and CUDA is absent."""
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc could not build a kernel library."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+class GraphCaptureError(RuntimeError):
+    """A ring window class could not be captured as CUDA graphs."""

@@ -14,7 +14,7 @@ reference package's fault fabric.
 
 The injection harness and its plans, bounded retry, circuit breakers and
 the recovery meter come with the slices that give them a caller (ROADMAP
-A3 (b) and A8); `chaos.py` with A8.
+A5 and A8); `chaos.py` with A8.
 """
 
 from geomesa_tpu_torch.faults.context import current_deadline, deadline_scope

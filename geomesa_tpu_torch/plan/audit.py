@@ -43,9 +43,9 @@ class ServeEvent:
     starts from. Written by serve.service.QueryService per request.
 
     The fields are the reference's. In the port these keep their
-    defaults until the ROADMAP item that fills them: `compile_ms`,
-    `compiled` and `pipelined` (A3 (b)), `retries`, `fault_injected` and
-    `breaker_state` (A5), `mesh_shape` and `shards` (A7)."""
+    defaults until the ROADMAP item that fills them: `retries`,
+    `fault_injected` and `breaker_state` (A5), `mesh_shape` and `shards`
+    (A7)."""
 
     type_name: str
     kind: str  # execute | count | knn

@@ -18,8 +18,15 @@ it, sample it (scan route) and finish the matching rows (plan.runner).
 kNN masks the rows the same way and runs the fused scan:
 
   plan -> _knn_mask_setup -> knn_sparse_launch | knn_fullscan_tiled
-       -> KnnLaunch.sync (one read; overflow falls back to the dense scan)
+       -> the results' readback, enqueued behind the launch (one event)
+       -> KnnLaunch.sync (waits on that event; overflow falls back to
+          the dense scan)
        -> _canonical_dists (one f64 recompute of the reported meters)
+
+`ring_arm` freezes one window class for the serve ring (the plan, the
+mask, the tile list, the capacity, the fused count) and captures its
+body as CUDA graphs (`compilecache/registry.py`); `RingProgram.launch`
+replays one per window, with the same sync.
 
 The write-path stats sketches (`plan/stats_manager.py`, updated by
 `FeatureSource.write`) give `explain` its estimate and resolve kNN's
@@ -42,6 +49,7 @@ and the mesh and ring routes come with later slices.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
 from typing import List, Optional
@@ -53,11 +61,13 @@ from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.cql import ast, compile_filter, extract_bbox, extract_intervals
 from geomesa_tpu_torch.cql.compile import CompiledFilter
 from geomesa_tpu_torch.cql.extract import BBox, Interval
-from geomesa_tpu_torch.engine.device import VALID, fetch, to_device
+from geomesa_tpu_torch.engine.device import (
+    VALID, Readback, fetch, side_stream, to_device, upload)
 from geomesa_tpu_torch.engine.geodesy import haversine_m_np
 from geomesa_tpu_torch.engine.knn_scan import (
-    capacity_bucket, count_match_tiles, knn_fullscan_tiled,
-    knn_sparse_finish, knn_sparse_launch)
+    capacity_bucket, count_match_tiles, knn_fullscan, knn_fullscan_tiled,
+    knn_fullscan_tiled_body, knn_sparse_body, knn_sparse_launch,
+    pad_scan_inputs, select_match_tiles)
 from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.faults import deadline_scope
 from geomesa_tpu_torch.plan.audit import AuditWriter, QueryEvent
@@ -145,6 +155,9 @@ class QueryPlan:
     # the filter as canonical CQL, serialised once a plan: the text of a
     # polygon literal costs milliseconds
     cql: str = ""
+    # the residual's canonical CQL (what `compiled` evaluates): differs
+    # from `cql` under loose bbox, which drops the BBOX from the residual
+    residual_cql: str = ""
 
 
 class QueryPlanner:
@@ -209,7 +222,7 @@ class QueryPlanner:
             e(f"Aggregation: stats {query.hints.stats_string!r}")
         e.pop()
         return QueryPlan(query, f, bbox, interval, partitions, compiled,
-                         manifest=manifest, cql=cql)
+                         manifest=manifest, cql=cql, residual_cql=residual_cql)
 
     def _compile_cached(self, residual: ast.Filter, key: str) -> CompiledFilter:
         """Reuse CompiledFilter across queries keyed on canonical CQL
@@ -332,28 +345,37 @@ class QueryPlanner:
         return (plan.compiled.mask(dev, batch) if plan.compiled is not None
                 else dev[VALID])
 
-    def _knn_mask_setup(self, plan: QueryPlan, query: Query):
+    def _knn_mask_setup(self, plan: QueryPlan, query: Query, resident=None):
         """Residency (or scan) + the f64-exact filter mask: returns
         (sb, batch, dev, mask, is_empty); `sb` is None on the scan path.
         Band corrections are scattered in, ANDed with row validity and,
-        on the cached path, with the partition allowance."""
+        on the cached path, with the partition allowance. `resident`: the
+        caller's `_resident(plan)`, when it already has it.
+
+        On the cached path the mask is built on a side stream ordered
+        after the superbatch's build alone (`engine.device.side_stream`):
+        its uploads are pinned and non_blocking, the band rows' partition
+        ids are looked up on the host, and the one host read it needs (the
+        band rows) waits for the mask's own passes, not for a previous
+        window's kernels still queued on the caller's stream."""
         sb = None
         if self.cache is not None:
-            sb, allowed = self._resident(plan)
+            sb, allowed = resident if resident is not None else self._resident(plan)
             if allowed is None:
                 return None, None, None, None, True
             batch, dev = sb.batch, sb.dev
-            mask = (self._raw_mask(plan, dev, batch)
-                    & torch.from_numpy(allowed).to(self.device)[sb.pids])
-            note_device_op()
-            if plan.compiled is not None and plan.compiled.has_band:
-                bidx, bexact = plan.compiled.band_corrections(dev, batch)
-                if len(bidx):
-                    at = torch.from_numpy(bidx).to(self.device)
-                    (pid_at,) = fetch(sb.pids[at])
-                    note_device_op()
-                    bexact = bexact & batch.valid[bidx] & allowed[pid_at]
-                    mask[at] = torch.from_numpy(bexact).to(self.device)
+            with side_stream(self.device, after=sb.ready) as keep:
+                mask = (self._raw_mask(plan, dev, batch)
+                        & upload(allowed, self.device)[sb.pids])
+                note_device_op()
+                if plan.compiled is not None and plan.compiled.has_band:
+                    bidx, bexact = plan.compiled.band_corrections(dev, batch)
+                    if len(bidx):
+                        bexact = (bexact & batch.valid[bidx]
+                                  & allowed[sb.host_pids(bidx)])
+                        mask[upload(bidx, self.device)] = upload(
+                            bexact, self.device)
+                keep(mask)
         else:
             batch, dev = self._scan_batch(plan)
             if batch is None:
@@ -580,13 +602,21 @@ class QueryPlanner:
 
     def knn_launch(self, query: "Query | str", qx, qy, k: int = 10,
                    impl: str = "sparse", timeout_ms: Optional[int] = None,
-                   want_mask_count: bool = False) -> "KnnLaunch":
+                   staged=None, want_mask_count: bool = False) -> "KnnLaunch":
         """Plan -> prune -> mask -> kernel launch, returning a `KnnLaunch`
-        without reading any result back. `want_mask_count` also reduces
-        the (f64-exact) mask to a count that rides the same read.
-        `timeout_ms` (None or 0 = none; geomesa.query.timeout is not read
-        here, as in the reference) raises QueryTimeout after planning
-        ("planning") or after the mask ("scan") once it has passed.
+        without waiting for any result: the results' device-to-host
+        copies are enqueued behind the launch and one CUDA event marks
+        them done (`KnnLaunch.sync` waits on it alone). `want_mask_count`
+        also reduces the (f64-exact) mask to a count that rides the same
+        read. `timeout_ms` (None or 0 = none; geomesa.query.timeout is
+        not read here, as in the reference) raises QueryTimeout after
+        planning ("planning") or after the mask ("scan") once it has
+        passed.
+
+        `staged`: the (qx, qy) device pair a `QueryStager` slot already
+        holds (the same f32 values as the planner's own upload); `qx`/`qy`
+        stay the HOST copies, from which an overflow fallback re-uploads
+        (the slot may be written again before the window syncs).
 
         impl: "sparse" scans only match-bearing data tiles, with a
         capacity calibrated once per (filter, k) and cached; an overflow
@@ -595,10 +625,10 @@ class QueryPlanner:
         the stats sketches (`_knn_impl_from_stats`)."""
         with deadline_scope(_deadline(timeout_ms)):
             return self._knn_launch(query, qx, qy, k=k, impl=impl,
-                                    timeout_ms=timeout_ms,
+                                    timeout_ms=timeout_ms, staged=staged,
                                     want_mask_count=want_mask_count)
 
-    def _knn_launch(self, query, qx, qy, k, impl, timeout_ms,
+    def _knn_launch(self, query, qx, qy, k, impl, timeout_ms, staged=None,
                     want_mask_count: bool = False) -> "KnnLaunch":
         if impl not in ("sparse", "fullscan", "auto"):
             raise ValueError(f"unknown kNN impl {impl!r}")
@@ -626,8 +656,11 @@ class QueryPlanner:
         y = dev[f"{g.name}__y"]
         kk = min(k, x.shape[0])
         mb = max(64, kk)
-        jqx = torch.from_numpy(np.asarray(qx, np.float32).ravel()).to(self.device)
-        jqy = torch.from_numpy(np.asarray(qy, np.float32).ravel()).to(self.device)
+        if staged is not None:
+            jqx, jqy = staged
+        else:
+            jqx = torch.from_numpy(np.asarray(qx, np.float32).ravel()).to(self.device)
+            jqy = torch.from_numpy(np.asarray(qy, np.float32).ravel()).to(self.device)
         count_dev = mask.sum(dtype=torch.int64) if want_mask_count else None
         launch = KnnLaunch(self, k=k, kk=kk, impl=impl, batch=batch,
                            count_dev=count_dev, hq=_host_q(qx, qy))
@@ -643,13 +676,119 @@ class QueryPlanner:
                 jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
                 m_blocks=mb)
             note_device_op()
-            launch.arm_sparse(fd, fi, ov, jqx, jqy, x, y, mask,
-                              cap=seed_cap, caps_key=key, mb=mb)
+            launch.arm_sparse(fd, fi, ov, x, y, mask, cap=seed_cap,
+                              caps_key=key, mb=mb)
         else:
             fd, fi = knn_fullscan_tiled(jqx, jqy, x, y, mask, k=kk, m_blocks=mb)
             note_device_op()
             launch.arm_dense(fd, fi)
         return launch
+
+    def ring_arm(self, query: "Query | str", q_padded: int, k: int = 10,
+                 impl: str = "sparse", depth: int = 4) -> "RingProgram":
+        """Arm ONE persistent serve program for a (type, canonical CQL,
+        hints, k, impl, Q bucket) window class: plan -> residency -> the
+        f64-exact filter mask -> the padded columns, the tile list and
+        the capacity calibrated from that mask -> the fused-count scalar
+        -> the capture (`compilecache.registry`: one CUDA graph per ring
+        slot on a card), all exactly once. A window then pays a slot
+        write, one replay and the harvest read.
+
+        The capture is keyed by what shapes what it reads: this planner,
+        the superbatch, the manifest version, the mask's class
+        (`ring_class`: the type, the CQL and the residual CQL, which loose
+        bbox makes differ), the impl, Q bucket, k, capacity and top-m
+        width. The mask and padded columns are frozen once per (planner,
+        superbatch, version, class) and shared by that class's captures
+        (`registry.frozen_for`).
+
+        Raises RingIneligible (typed: the serve loop keeps the pipelined
+        route) for storage without committed manifest versions
+        ("no_version": staleness would be undetectable), no device cache
+        ("no_device_cache"), a non-point geometry ("non_point") or no
+        resident matching rows ("empty"). The port has no query
+        interceptors yet (ROADMAP A4), so "interceptors" never applies;
+        the mesh reason comes with ROADMAP A7. A failed capture raises
+        GraphCaptureError (an OOM stays an OOM)."""
+        from geomesa_tpu_torch.compilecache.registry import registry
+        from geomesa_tpu_torch.engine import knn_scan
+
+        if isinstance(query, str):
+            query = Query(self.storage.sft.name, query)
+        mv_fn = getattr(self.storage, "manifest_version", None)
+        if mv_fn is None:
+            raise RingIneligible("no_version")
+        if self.cache is None:
+            raise RingIneligible("no_device_cache")
+        plan = self.plan(query)
+        g = self.storage.sft.default_geometry
+        if g is None or g.type != "Point":
+            raise RingIneligible("non_point")
+        mversion = int(mv_fn())
+        sb, allowed = self._resident(plan)
+        if allowed is None:
+            raise RingIneligible("empty")
+        cls = ring_class(query.type_name, plan.cql, plan.residual_cql)
+        frozen = registry.frozen_for(self, cls, sb, mversion)
+        if frozen is None:
+            _, _, dev, mask, _ = self._knn_mask_setup(
+                plan, query, resident=(sb, allowed))
+            x = dev[f"{g.name}__x"]
+            y = dev[f"{g.name}__y"]
+            # the fused-count rider's answer, frozen with the mask: the
+            # one deliberate host read the arm pays
+            (mask_count,) = fetch(mask.sum(dtype=torch.int64))
+            xf, yf, maskf = pad_scan_inputs(x, y, mask)
+            frozen = dict(sb=sb, mversion=mversion, x=x, y=y, mask=mask,
+                          xf=xf, yf=yf, maskf=maskf,
+                          mask_count=int(mask_count), tiles={})
+        xf, yf, maskf = frozen["xf"], frozen["yf"], frozen["maskf"]
+        n = frozen["x"].shape[0]
+        kk = min(k, n)
+        mb = max(64, kk)
+        if impl == "auto":
+            impl = self._knn_impl_from_stats(plan)
+        caps_key, cap, ov = None, 0, None
+        if impl == "sparse":
+            caps_key = (plan.cql, kk)
+            cap = self._caps_seed(caps_key)
+            if cap is None:
+                cap = capacity_bucket(int(count_match_tiles(frozen["mask"])))
+            tile_ids, n_sel, live = _frozen_tiles(frozen, cap)
+            if live > tile_ids.shape[0]:
+                # a cached capacity below this mask's tiles: calibrate
+                # from the frozen mask, so the armed overflow cannot fire
+                cap = capacity_bucket(live)
+                tile_ids, n_sel, live = _frozen_tiles(frozen, cap)
+            ov = n_sel[0] > tile_ids.shape[0]
+            kernel = "chord_blockmin_sparse"
+
+            def body(qx, qy):
+                return knn_sparse_body(qx, qy, xf, yf, maskf, tile_ids,
+                                       n_sel, n, kk, mb)
+        elif impl == "fullscan":
+            kernel = "chord_blockmin"
+
+            def body(qx, qy):
+                return knn_fullscan_tiled_body(qx, qy, xf, yf, maskf, n, kk,
+                                               mb)
+        else:
+            raise ValueError(f"unknown kNN impl {impl!r}")
+        key = (id(sb), mversion, impl, int(q_padded), kk, cap, mb)
+        capture = registry.ring_capture(
+            kernel, key, depth, body, frozen,
+            (knn_scan.chord_blockmin_sparse, knn_scan.chord_blockmin),
+            self.device, q=int(q_padded), k=kk, capacity=cap, owner=self,
+            cls=cls,
+            stale=lambda c: (c.owner_id == id(self)
+                             and (c.frozen.get("sb") is not sb
+                                  or c.frozen.get("mversion") != mversion)))
+        metrics.counter("serve.ring.armed")
+        return RingProgram(self, plan, sb, sb.batch, capture, k=k,
+                           kk=kk, impl=impl, mb=mb, depth=depth,
+                           mversion=mversion,
+                           mask_count=frozen["mask_count"], cap=cap,
+                           caps_key=caps_key, ov=ov)
 
     def _caps_seed(self, key):
         """The cached sparse capacity for `key` (None = cold, calibrate).
@@ -659,6 +798,25 @@ class QueryPlanner:
             if key not in caps and len(caps) > 256:
                 caps.clear()
             return caps.get(key)
+
+
+def ring_class(type_name: str, cql: str, residual_cql: str) -> str:
+    """The digest of a ring window class's mask identity: the type, the
+    filter's CQL (which prunes partitions) and the residual's (which the
+    mask evaluates; loose bbox drops the BBOX from it)."""
+    text = "\x1f".join((type_name, cql, residual_cql))
+    return hashlib.sha1(text.encode("utf-8")).hexdigest()[:16]
+
+
+def _frozen_tiles(frozen: dict, cap: int):
+    """(tile_ids, n_sel, live tiles) of the frozen mask at capacity `cap`,
+    selected once per capacity and shared by the class's captures."""
+    got = frozen["tiles"].get(cap)
+    if got is None:
+        tile_ids, n_sel = select_match_tiles(frozen["maskf"], cap)
+        (live,) = fetch(n_sel)
+        got = frozen["tiles"][cap] = (tile_ids, n_sel, int(live[0]))
+    return got
 
 
 def _pad_to_k(dists: np.ndarray, idx: np.ndarray, k: int):
@@ -697,17 +855,23 @@ def _canonical_dists(dists, idx, batch, hq):
 
 
 class KnnLaunch:
-    """One launched-but-unsynced kNN query (planner.knn_launch).
+    """One launched-but-unsynced kNN window (planner.knn_launch, or a ring
+    program's replay).
 
-    `sync()` does the single combined read (results + sparse overflow
-    flag + any fused count), runs the overflow -> dense fallback, writes
-    the planner's capacity cache back, and returns what `planner.knn`
-    returns. After a fused-count sync, `mask_count` holds the count."""
+    The launch enqueued the kernels and, behind them, the device-to-host
+    copies of the results (+ the sparse overflow flag + any fused count)
+    with one CUDA event after them (`engine.device.Readback`). `sync()`
+    waits on that event alone (never on the whole stream, which would
+    also wait for windows launched since), runs the overflow -> dense
+    fallback, writes the planner's capacity cache back, and returns what
+    `planner.knn` returns. After a fused-count sync, `mask_count` holds
+    the count. `event` (None on the CPU) marks the window's device work
+    done: a staging slot the launch read may be written again after it."""
 
     __slots__ = ("planner", "k", "kk", "impl", "batch", "mask_count",
-                 "fused_ok", "_ready", "_fd", "_fi", "_ov", "_cap",
-                 "_caps_key", "_jqx", "_jqy", "_x", "_y", "_mask", "_mb",
-                 "_count_dev", "_hq")
+                 "fused_ok", "ring", "_ready", "_rb", "_ov", "_cap",
+                 "_caps_key", "_x", "_y", "_mask", "_mb",
+                 "_count_dev", "_hq", "_out")
 
     def __init__(self, planner, k, kk, impl, batch, count_dev=None, hq=None):
         self.planner = planner
@@ -717,12 +881,14 @@ class KnnLaunch:
         self.batch = batch
         self.mask_count = None
         self.fused_ok = count_dev is not None
+        self.ring = False  # replayed by a ring program
         self._count_dev = count_dev
         self._ready = None
-        self._fd = self._fi = self._ov = None
-        self._jqx = self._jqy = self._x = self._y = self._mask = None
+        self._rb = None
+        self._ov = self._x = self._y = self._mask = None
         self._cap = self._caps_key = self._mb = None
         self._hq = hq
+        self._out = None
 
     @classmethod
     def ready(cls, planner, result, fused: bool = False) -> "KnnLaunch":
@@ -734,46 +900,160 @@ class KnnLaunch:
         launch.mask_count = 0 if fused else None
         return launch
 
-    def arm_sparse(self, fd, fi, ov, jqx, jqy, x, y, mask, cap, caps_key,
-                   mb) -> None:
-        self._fd, self._fi, self._ov = fd, fi, ov
-        self._jqx, self._jqy, self._x, self._y = jqx, jqy, x, y
-        self._mask = mask
+    @property
+    def event(self):
+        """The CUDA event after the window's kernels and readback (None on
+        the CPU or for an early-out)."""
+        return self._rb.event if self._rb is not None else None
+
+    def arm_sparse(self, fd, fi, ov, x, y, mask, cap, caps_key, mb) -> None:
+        """The sparse scan's outputs and what its overflow fallback (the
+        dense scan, re-uploading the host query copies) reads."""
+        self._ov = ov
+        self._x, self._y, self._mask = x, y, mask
         self._cap, self._caps_key, self._mb = cap, caps_key, mb
+        self._readback(fd, fi, ov)
 
     def arm_dense(self, fd, fi) -> None:
-        self._fd, self._fi = fd, fi
+        self._readback(fd, fi)
+
+    def _readback(self, *out) -> None:
+        extra = (self._count_dev,) if self._count_dev is not None else ()
+        self._out = len(out)
+        self._rb = Readback(out + extra)
 
     def sync(self):
-        """Block until the query's device work is done; returns (dists
-        [Q, k] np, idx [Q, k] np int32, batch)."""
+        """Wait for the window's readback; returns (dists [Q, k] np, idx
+        [Q, k] np int32, batch)."""
         if self._ready is not None:
             return self._ready
-        extra = (self._count_dev,) if self._count_dev is not None else ()
         note_device_op()  # the one combined read
+        got = self._rb.wait()
+        fd, fi = got[0], got[1]
+        extra_host = got[self._out:]
         if self._ov is not None:
-            fd, fi, cap, extra_host = knn_sparse_finish(
-                self._fd, self._fi, self._ov, self._jqx, self._jqy,
-                self._x, self._y, self._mask, k=self.kk,
-                tile_capacity=self._cap, m_blocks=self._mb, extra=extra)
+            cap = self._cap
+            if bool(got[2]):
+                # the host f64 copies cast as the stager casts them: the
+                # staged f32 values, without re-reading a slot that may
+                # have been written since
+                dev = self._x.device
+                qx, qy = (upload(h.astype(np.float32), dev) for h in self._hq)
+                fd, fi = fetch(*knn_fullscan(qx, qy, self._x, self._y,
+                                             self._mask, k=self.kk,
+                                             m_blocks=self._mb))
+                cap = -1
             with self.planner._mutex:
                 caps = self.planner._knn_caps
                 if cap > 0:
                     caps[self._caps_key] = cap
                 else:
                     caps.pop(self._caps_key, None)
-        else:
-            fd, fi, *extra_host = fetch(self._fd, self._fi, *extra)
-            fi = fi.astype(np.int32)
+        fi = fi.astype(np.int32)
         dists, idx = _pad_to_k(np.asarray(fd), np.asarray(fi), self.k)
         dists = _canonical_dists(dists, idx, self.batch, self._hq)
         if extra_host:
             self.mask_count = int(extra_host[0])
-        # drop the device refs: they are the query's device footprint
-        self._fd = self._fi = self._ov = self._count_dev = None
-        self._jqx = self._jqy = self._x = self._y = self._mask = None
+        # drop the device refs: they are the window's device footprint
+        self._rb = self._ov = self._count_dev = None
+        self._x = self._y = self._mask = None
         self._ready = (dists, idx, self.batch)
         return self._ready
+
+
+class RingIneligible(RuntimeError):
+    """Typed refusal: this window class cannot take the persistent ring
+    route. Carries the metered reason; the serve loop falls back to the
+    pipelined dispatch — slower per window, never wrong."""
+
+    def __init__(self, reason: str):
+        super().__init__(f"ring-ineligible: {reason}")
+        self.reason = reason
+
+
+class RingProgram:
+    """One armed persistent serve program (planner.ring_arm).
+
+    Everything a window would otherwise recompute per dispatch is frozen
+    here: the plan, the resident superbatch, the f64-exact filter mask
+    and its padded columns, the tile list and the calibrated capacity,
+    the fused-count scalar, and the capture (one CUDA graph per ring
+    slot on a card). `launch()` is the whole per-window device
+    interaction: one replay over the staged slot plus the readback.
+    `fresh()` is the per-window staleness gate: a lock-peek plus an int
+    compare, never residency work; False sends the window back to the
+    pipelined route, whose plan/ensure rebuilds residency, and the ring
+    loop re-arms against the new version.
+
+    Bit-identity holds by construction: the body is the serial route's
+    kernels over the same mask, tile list and capacity, the slot carries
+    the same host f64->f32 cast, and sync runs the same overflow ladder
+    and `_canonical_dists`."""
+
+    __slots__ = ("planner", "plan", "sb", "batch", "capture", "k", "kk",
+                 "impl", "mb", "depth", "mversion", "mask_count", "cap",
+                 "caps_key", "ov")
+
+    def __init__(self, planner, plan, sb, batch, capture, k, kk, impl, mb,
+                 depth, mversion, mask_count, cap, caps_key, ov=None):
+        self.planner = planner
+        self.plan = plan
+        self.sb = sb
+        self.batch = batch
+        self.capture = capture
+        self.k = k
+        self.kk = kk
+        self.impl = impl
+        self.mb = mb
+        self.depth = depth
+        self.mversion = mversion
+        self.mask_count = mask_count
+        self.cap = cap
+        self.caps_key = caps_key
+        self.ov = ov  # the sparse overflow flag over the frozen tiles
+
+    @property
+    def slots(self):
+        """The capture's slot ring (its graphs read these device pairs)."""
+        return self.capture.slots
+
+    def fresh(self) -> bool:
+        """The superbatch is still the cache's current one and the storage
+        commit version is the armed one."""
+        cache = self.planner.cache
+        if cache is None or cache.superbatch_peek() is not self.sb:
+            return False
+        try:
+            return int(self.planner.storage.manifest_version()) == self.mversion
+        except Exception:  # noqa: BLE001 — an unreadable version is stale
+            return False
+
+    def launch(self, slot, qx, qy, want_mask_count: bool = False
+               ) -> KnnLaunch:
+        """Replay the slot's graph (or, on the CPU, call the frozen body)
+        and enqueue the readback; the caller holds `capture.lock` from the
+        slot write through this call. The fused count resolves from the
+        arm-time scalar: no per-window device work for count riders."""
+        f = self.capture.frozen
+        launch = KnnLaunch(self.planner, k=self.k, kk=self.kk, impl=self.impl,
+                           batch=self.batch, hq=_host_q(qx, qy))
+        launch.ring = True
+        if want_mask_count:
+            launch.fused_ok = True
+            launch.mask_count = self.mask_count
+        fd, fi = self.capture.replay(slot)
+        note_device_op()
+        if self.impl == "sparse":
+            # the overflow is unreachable (the capacity was calibrated
+            # from this frozen mask) but stays armed
+            launch.arm_sparse(fd, fi, self.ov, f["x"], f["y"],
+                              f["mask"], cap=self.cap,
+                              caps_key=self.caps_key, mb=self.mb)
+        else:
+            launch.arm_dense(fd, fi)
+        slot.consumed = launch.event
+        metrics.counter("serve.ring.windows")
+        return launch
 
 
 def _loosen_bbox(f: ast.Filter, geom_name: str) -> ast.Filter:

@@ -1,14 +1,16 @@
 """Concurrent query serving: admission control, request coalescing,
-deadlines and the JSON-lines wire, on the serial dispatch route.
+deadlines, pipelined dispatch, the persistent ring and the JSON-lines
+wire.
 
 The port of the reference package's `serve/`: `QueryService` futures
 over a DataStore (`service.py`), admission and deadlines
 (`scheduler.py`), coalescing (`batcher.py`: N concurrent kNN requests
-with one (filter, k) stack into ONE launch of B1 or B2), the JSON-lines
-wire (`protocol.serve_lines`) and the closed-loop, open-loop and
-sustained load generators (`loadgen.py`). The pipelined dispatch, the
-ring and warm-up (ROADMAP A3 (b)), the columnar wire (A4), standing
-queries (A6), sharded serving and fleets (A7) come later.
+with one (filter, k) stack into ONE launch of B1 or B2), the pipelined
+dispatch on CUDA streams and events (`pipeline.py`), the ring of
+captured CUDA graphs (`ringloop.py`), the JSON-lines wire
+(`protocol.serve_lines`) and the closed-loop, open-loop and sustained
+load generators (`loadgen.py`). The columnar wire (A4), standing queries
+(A6), sharded serving and fleets (A7) come later.
 """
 
 from geomesa_tpu_torch.serve.scheduler import (

@@ -5,10 +5,11 @@ A copy of the reference package's `serve/batcher.py` over the port's
 planner: a coalesced kNN window is one `planner.knn_launch(...).sync()`,
 which launches B1 (`chord_blockmin_sparse`) or B2 (`chord_blockmin`) once
 for the whole stacked query axis. The pipelined route's cross-kind
-count fusion (`fused_count_key`) and the ring and mesh attributions
-(`ring_key`, `note_launch_route`) come with ROADMAP A3 (b) and A7, and
-the port's planner never returns a sketch answer, so the approximate
-branch raises NotPortedError naming A4.
+count fusion (`fused_count_key`), the ring's window-class key
+(`ring_key`) and the launch attribution (`note_launch_route`; its mesh
+fields stay empty until ROADMAP A7) are here; the port's planner never
+returns a sketch answer, so the approximate branch raises
+NotPortedError naming A4.
 
 The engine kernels are already batched over query sets — `knn_sparse_scan`
 / `knn_fullscan_tiled` take [Q] query-point arrays and compute every row
@@ -70,6 +71,60 @@ def compat_key(req: ServeRequest) -> Optional[tuple]:
     sort = tuple(q.sort_by) if q.sort_by else None
     return ("execute", q.type_name, cql, hints, attrs, sort,
             q.max_features)
+
+
+def ring_key(req: ServeRequest, q_padded: int) -> Optional[tuple]:
+    """Ring-program window-class key: the kNN compat key extended with the
+    padded stacked-query bucket (a captured graph is shape-specific, so
+    windows that pad to different pow2 buckets arm separate programs).
+    None = this request never rides the ring."""
+    if req.kind != "knn":
+        return None
+    base = compat_key(req)
+    if base is None:
+        return None
+    return base + (int(q_padded),)
+
+
+def fused_count_key(req: ServeRequest) -> Optional[tuple]:
+    """Cross-kind fusion: the compat key of a COUNT request that may ride
+    this kNN request's window, or None when fusion is unsafe. A count
+    against the same (type, canonical CQL, hints) is one reduction over
+    the filter mask the kNN launch computes anyway.
+
+    Gates (each a case where the fused mask count could diverge from
+    `planner.count`): INCLUDE filters (`count` answers them from the
+    manifest), sampling / loose_bbox / aggregation hints (the count path
+    treats the mask differently), and max_features (the fused key pins
+    None: a bounded count clamps)."""
+    if req.kind != "knn":
+        return None
+    q = req.query
+    try:
+        if isinstance(q.filter_ast, ast.Include):
+            return None
+        cql = ast.to_cql(q.filter_ast)
+    except Exception:
+        return None
+    h = q.hints
+    if h.sampling or h.loose_bbox or h.is_density or h.is_stats:
+        return None
+    return ("count", q.type_name, cql, str(h), None)
+
+
+def note_launch_route(reqs: List[ServeRequest], launch) -> None:
+    """Stamp the launch's routing attribution (mesh topology + owning
+    shards) onto every member so ServeEvents report where the window ran.
+    One card runs no mesh until ROADMAP A7, so this stamps nothing yet."""
+    mesh_shape = getattr(launch, "mesh_shape", ()) or ()
+    shards = getattr(launch, "shards", ()) or ()
+    if not mesh_shape and not shards:
+        return
+    ms = str(tuple(mesh_shape)) if mesh_shape else ""
+    sh = ",".join(map(str, shards))
+    for r in reqs:
+        r.mesh_shape = ms
+        r.shards = sh
 
 
 def stack_queries(reqs: List[ServeRequest]):
@@ -309,5 +364,6 @@ def _execute_knn(source, reqs: List[ServeRequest],
         lead.query, qx, qy, k=lead.k, impl=lead.impl,
         timeout_ms=timeout_ms,
     )
+    note_launch_route(reqs, launch)
     dists, idx, batch = launch.sync()
     split_knn_results(reqs, offsets, dists, idx, batch)

@@ -58,11 +58,18 @@ class LoadReport:
     dispatches: int
     coalesced: int
     # sustained mode: the headline pts/s (store points scanned x served
-    # queries / wall) and the per-window device-interaction count
-    # (`serve.device.ops` delta / windows). The pipeline's and the
-    # ring's fields (windows in flight, pipelined and ring windows,
-    # fused counts) come with ROADMAP A3 (b); the mesh's with A7
+    # queries / wall) and how deep the dispatch pipeline actually ran
     pts_per_s: float = 0.0
+    windows_in_flight_max: int = 0
+    pipelined_windows: int = 0
+    fused_counts: int = 0
+    # persistent serve loop: how many windows rode a ring program, how
+    # many fell back typed, and the per-window device-interaction count
+    # (`serve.device.ops` delta / windows) — the number that compares the
+    # ring with the pipelined route on identical work. The mesh's fields
+    # come with ROADMAP A7
+    ring_windows: int = 0
+    ring_fallbacks: int = 0
     dispatches_per_window: float = 0.0
     # a bounded sample of the raw end-to-end latencies, evenly strided
     # from the sorted samples (order statistics, so two runs of the
@@ -247,12 +254,16 @@ def run_sustained(
     from future callbacks, not by per-client turnarounds — and reports
     points/sec, not just latency percentiles: `pts_per_s =
     points_per_query * served_qps` (each served query scans the whole
-    resident store). `requests` caps total submissions for deterministic
-    test runs. The port's service has no pipeline yet (ROADMAP A3 (b)),
-    so every window is a serial dispatch."""
+    resident store), and the pipeline's windows in flight. `requests`
+    caps total submissions for deterministic test runs."""
     tally = _Tally()
     base = service.stats()
     ops_base = device_ops_count()
+    pipe = getattr(service, "pipeline", None)
+    if pipe is not None:
+        # the in-flight high-water must be THIS run's, not the service
+        # lifetime's
+        pipe.reset_max_inflight()
     gate = threading.Semaphore(max_outstanding)
     deadline = time.monotonic() + duration_s
     inflight = []
@@ -314,11 +325,26 @@ def run_sustained(
     rep = _report("sustained", wall, tally.lat_s, tally.sent,
                   tally.rejected, tally.timeouts, tally.errors, delta)
     rep.pts_per_s = rep.throughput_qps * points_per_query
+    p = stats.get("pipeline") or {}
+    pbase = base.get("pipeline") or {}
+    rep.windows_in_flight_max = int(p.get("max_inflight", 0))
+    rep.pipelined_windows = (stats.get("pipelined_windows", 0)
+                             - base.get("pipelined_windows", 0))
+    # deltas against the pre-run snapshot, like dispatches/coalesced
+    rep.fused_counts = int(p.get("fused_counts", 0)
+                           - pbase.get("fused_counts", 0))
+    ring = p.get("ring") or {}
+    ring_base = pbase.get("ring") or {}
+    rep.ring_windows = int(ring.get("windows", 0) - ring_base.get("windows", 0))
+    rep.ring_fallbacks = (sum((ring.get("fallbacks") or {}).values())
+                          - sum((ring_base.get("fallbacks") or {}).values()))
     # per-window device interactions: the run's serve.device.ops delta
-    # over its dispatch count
-    if rep.dispatches > 0:
+    # over its window count (pipelined windows when the pipeline ran, the
+    # dispatch count on the serial stack)
+    windows = rep.pipelined_windows or rep.dispatches
+    if windows > 0:
         rep.dispatches_per_window = round(
-            (device_ops_count() - ops_base) / rep.dispatches, 3)
+            (device_ops_count() - ops_base) / windows, 3)
     return rep
 
 

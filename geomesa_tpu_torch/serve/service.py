@@ -16,10 +16,16 @@ Lifecycle:
     dists, idx, batch = fut.result(timeout=60)
     svc.close(drain=True)                     # graceful: finish queue
 
-The service runs on whatever device its store runs on; it has no device
-logic of its own. Build the store (and so its kernels' extensions, on
-the first query) before the service starts, so no first build runs on
-the dispatch thread. A window's one host sync is `KnnLaunch.sync`.
+The service runs on whatever device its store runs on. kNN windows take
+the pipelined route by default (`serve/pipeline.py`: prepare, transfer
+and launch on the dispatch thread, the sync on a completer thread, up to
+`pipeline_depth` windows in flight) and, where the window class allows,
+the persistent ring (`serve/ringloop.py`: one captured CUDA graph per
+ring slot); `pipeline=False` restores the fully serial dispatch, whose
+one host sync a window is `KnnLaunch.sync`. A first-use kernel build or
+graph capture on the dispatch path is a compile stall, charged to its
+window's ServeEvents (`compile_ms`, `compiled`); `record_warmup()` and
+`warmup()` (or `warmup_manifest`) move them ahead of traffic.
 
 Degradation ladder (opt-in per request via allow_degraded, master switch
 ServeConfig.degrade): as queue occupancy crosses the watermarks the
@@ -36,9 +42,8 @@ Prometheus export), dispatch/coalesce/shed counters — all through
 `geomesa_tpu_torch.utils.metrics` plus a per-instance `stats()` snapshot.
 
 Not here yet, each a NotPortedError naming its ROADMAP item when asked
-for: the pipelined dispatch and the ring (`pipeline`, `ring`), warm-up
-manifests and compile tracking (A3 (b)); a serving mesh (A7); SLOs and
-the continuous profiler's switch (A8).
+for: a serving mesh and the mesh ring route (A7); SLOs and the
+continuous profiler's switch (A8).
 """
 
 from __future__ import annotations
@@ -53,28 +58,26 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from geomesa_tpu_torch.approx.cache import ResultCache, result_key
+from geomesa_tpu_torch.compilecache.stall import STALLS
 from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.faults import QuarantineRegistry, classify
 from geomesa_tpu_torch.plan.audit import ServeEvent
 from geomesa_tpu_torch.plan.planner import QueryTimeout
 from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.serve.batcher import (
-    compat_key, execute_batch, fail_expired, split_expired)
+    MIN_KNN_BATCH, _next_pow2, compat_key, execute_batch, fail_expired,
+    fused_count_key, split_expired)
 from geomesa_tpu_torch.serve.scheduler import (
     PRIORITIES, AdmissionQueue, QueryRejected, RateLimiter, ServeRequest)
 from geomesa_tpu_torch.telemetry.recorder import RECORDER
 from geomesa_tpu_torch.telemetry.trace import TRACER
 from geomesa_tpu_torch.utils.metrics import metrics
 
-_SERVE_DEVICE_HALF = "the serve stack's device half (ROADMAP A3 (b))"
-
-
 @dataclasses.dataclass
 class ServeConfig:
-    """The reference's fields and defaults, but `pipeline` and `ring`,
-    which default to False until ROADMAP A3 (b) ports them. A field of a
-    later route (`_LATER_FIELDS`) raises NotPortedError at construction
-    unless it keeps its default."""
+    """The reference's fields and defaults. A field of a later route
+    (`_LATER_FIELDS`) raises NotPortedError at construction unless it
+    keeps its default."""
 
     max_queue: int = 128        # admission bound (backpressure, not buffer)
     max_batch: int = 64         # coalescing cap per dispatch
@@ -91,8 +94,11 @@ class ServeConfig:
     degrade_watermark: float = 0.75  # queue occupancy -> hint downgrades
     shed_watermark: float = 0.90     # queue occupancy -> shed batch class
     drain_timeout_s: float = 30.0
-    # cold-start management: a warm-up manifest replayed before traffic
-    # and compile tracking (A3 (b))
+    # cold-start management: a warm-up manifest path replays BEFORE the
+    # dispatcher takes traffic; track_compiles attaches the compile
+    # tracker (extension builds and graph captures are counted, and
+    # ServeEvents carry the stalls; warmup()/record_warmup() attach it
+    # on demand too)
     warmup_manifest: Optional[str] = None
     track_compiles: bool = False
     # telemetry: trace=True enables the PROCESS-WIDE span tracer at
@@ -103,12 +109,21 @@ class ServeConfig:
     # SLO engine and the continuous profiler's switch (A8)
     slo: object = None
     profile: bool = False
-    # pipelined dispatch and the persistent ring (A3 (b)); False is the
-    # serial dispatch this slice runs
-    pipeline: bool = False
+    # pipelined dispatch: kNN windows run prepare/transfer/launch on the
+    # dispatch thread and the sync on a completer thread, up to
+    # `pipeline_depth` windows in flight. pipeline=False restores the
+    # fully serial dispatch. pipeline_donate is the reference's switch
+    # for donating the staged query buffers: the port never re-reads a
+    # staged slot (its overflow fallback re-uploads the host copies), so
+    # every value (None, True, False) runs the same; others are refused.
+    pipeline: bool = True
     pipeline_depth: int = 2
     pipeline_donate: Optional[bool] = None
-    ring: bool = False
+    # persistent serve loop: eligible kNN window classes replay one
+    # captured program (frozen plan/mask/capacity, one CUDA graph per
+    # slot of a `ring_depth` ring); ineligible or stale windows fall back
+    # typed to the pipeline; ring=False disables the tier
+    ring: bool = True
     ring_depth: int = 4
     # sharded serving: None/"off" = one card (A7 brings a mesh)
     mesh: object = None
@@ -131,15 +146,8 @@ class ServeConfig:
 # Fields the reference reads on routes this slice does not run, with the
 # ROADMAP item that brings each: any value but the default raises.
 _LATER_FIELDS = {
-    "warmup_manifest": _SERVE_DEVICE_HALF,
-    "track_compiles": _SERVE_DEVICE_HALF,
     "slo": "ROADMAP A8",
     "profile": "ROADMAP A8",
-    "pipeline": _SERVE_DEVICE_HALF,
-    "pipeline_depth": _SERVE_DEVICE_HALF,
-    "pipeline_donate": _SERVE_DEVICE_HALF,
-    "ring": _SERVE_DEVICE_HALF,
-    "ring_depth": _SERVE_DEVICE_HALF,
     "subscribe_max": "ROADMAP A6",
     "subscribe_outbox": "ROADMAP A6",
     "subscribe_rate": "ROADMAP A6",
@@ -156,9 +164,18 @@ def _check_ported(config: ServeConfig) -> None:
         if item is not None and getattr(config, f.name) != f.default:
             raise NotPortedError(
                 f"ServeConfig.{f.name}={getattr(config, f.name)!r}", item)
+    if not (config.pipeline_donate is None
+            or isinstance(config.pipeline_donate, bool)):
+        raise ValueError(f"ServeConfig.pipeline_donate="
+                         f"{config.pipeline_donate!r}: None, True or False")
     if config.mesh not in (None, "off"):
         raise NotPortedError("ServeConfig.mesh (sharded serving)",
                              "ROADMAP A7")
+
+
+def _count_compat_key(req: ServeRequest):
+    """compat_key for count requests, None for any other kind."""
+    return compat_key(req) if req.kind == "count" else None
 
 
 def _quarantine_key(req: ServeRequest):
@@ -199,6 +216,28 @@ class QueryService:
         self._state_lock = threading.Lock()
         self._counters: Dict[str, int] = {}
         self._worker: Optional[threading.Thread] = None
+        # pipelined dispatch path (serve/pipeline.py): the default for
+        # kNN windows; its completer thread starts on the first window
+        self.pipeline = None
+        if self.config.pipeline:
+            from geomesa_tpu_torch.serve.pipeline import DispatchPipeline
+
+            self.pipeline = DispatchPipeline(
+                self, depth=self.config.pipeline_depth, ring=self.config.ring,
+                ring_depth=self.config.ring_depth)
+        self.tracker = None          # the compile tracker, when attached
+        self._recorder = None        # WarmupRecorder, when recording
+        try:
+            if self.config.track_compiles:
+                self._ensure_tracker()
+            if self.config.warmup_manifest:
+                # startup hook: replay before the dispatcher takes traffic
+                self.warmup(self.config.warmup_manifest)
+        except BaseException:
+            # a failed constructor (a missing manifest) must not keep the
+            # process-wide tracker attached: close() is unreachable
+            self._release_tracker()
+            raise
         if autostart:
             self.start()
 
@@ -236,14 +275,70 @@ class QueryService:
         self._stop.set()
         if self._worker is not None:
             self._worker.join(timeout=5.0)
+        if self.pipeline is not None:
+            # windows already launched still sync (no torn responses);
+            # runs after the dispatch thread stopped submitting
+            self.pipeline.close()
+        self._release_tracker()
 
     # -- warmup / compile management ---------------------------------------
 
+    def _ensure_tracker(self):
+        """Attach the process-wide compile tracker to this service
+        (refcounted: services share one, detached with the last)."""
+        if self.tracker is None:
+            from geomesa_tpu_torch.compilecache.tracker import acquire_tracker
+
+            self.tracker = acquire_tracker(recorder=self._recorder)
+        return self.tracker
+
+    def _release_tracker(self) -> None:
+        if self.tracker is not None and self.tracker.is_installed():
+            from geomesa_tpu_torch.compilecache.tracker import release_tracker
+
+            release_tracker(self.tracker)
+
     def record_warmup(self):
-        raise NotPortedError("QueryService.record_warmup", _SERVE_DEVICE_HALF)
+        """Start recording a warm-up manifest from live traffic: every
+        kernel library this process has loaded (with its entry points),
+        every library built and ring class captured from now on, and every
+        dispatched query shape land in the returned WarmupRecorder. Call
+        `.manifest().save(path)` on it when the workload is
+        representative."""
+        from geomesa_tpu_torch.compilecache.manifest import WarmupRecorder
+        from geomesa_tpu_torch.engine.kernels import build
+
+        self._recorder = WarmupRecorder()
+        for name in build.loaded():
+            secs = build.build_log.get(name, {}).get("seconds", 0.0)
+            for entry in build.entry_points(name):
+                self._recorder.record_library(name, entry, secs)
+        tracker = self._ensure_tracker()
+        tracker.recorder = self._recorder
+        return self._recorder
 
     def warmup(self, manifest, check: bool = False):
-        raise NotPortedError("QueryService.warmup", _SERVE_DEVICE_HALF)
+        """Replay a warm-up manifest (a path, or a WarmupManifest): build
+        every kernel library it names and run its query entries through
+        the planner, which arms this service's ring window classes and so
+        captures their graphs before traffic. With `check=True` a second
+        pass must build and capture NOTHING (`report.residual_recompiles
+        == 0`). Returns the WarmupReport."""
+        from geomesa_tpu_torch.compilecache import warmup as _warmup
+        from geomesa_tpu_torch.compilecache.manifest import WarmupManifest
+
+        if isinstance(manifest, str):
+            manifest = WarmupManifest.load(manifest)
+        self._ensure_tracker()
+        ring = self.pipeline.ring if self.pipeline is not None else None
+        t0 = time.monotonic()
+        run = _warmup.check if check else _warmup.replay
+        report = run(manifest, store=self.store,
+                     ring_depth=ring.depth if ring is not None else None)
+        metrics.gauge("serve.warmup.seconds", time.monotonic() - t0)
+        metrics.gauge("serve.warmup.ok", 1.0 if report.ok else 0.0)
+        self._bump("warmups")
+        return report
 
     # -- submission API ----------------------------------------------------
 
@@ -529,13 +624,29 @@ class QueryService:
             execute_batch(source, live)
 
     def _dispatch(self, first: ServeRequest) -> None:
-        """One serial window: gather, fail the expired members typed,
-        answer from the result cache when a twin filled it, else run the
-        window and finish its bookkeeping."""
+        """One window: gather (and, for a pipelined kNN window, the count
+        riders it can answer), fail the expired members typed, answer
+        from the result cache when a twin filled it, else hand the window
+        to the pipeline or run it serially and finish its bookkeeping."""
         g0_ns = time.perf_counter_ns()
         reqs = self._gather(first)
         g1_ns = time.perf_counter_ns()
         live, dead = split_expired(reqs)
+        lead = live[0] if live else None
+        pipelined = (self.pipeline is not None and lead is not None
+                     and lead.kind == "knn")
+        counts: List[ServeRequest] = []
+        if pipelined:
+            # cross-kind fusion: COUNT requests against the same (type,
+            # CQL, hints) resolve from this window's mask reduction
+            fkey = fused_count_key(lead)
+            if fkey is not None:
+                # only counts can match: skip the canonical CQL of every
+                # other queued request (the drain scans the whole queue)
+                got = self.queue.drain_compatible(
+                    fkey, _count_compat_key, self.config.max_batch)
+                counts, cdead = split_expired(got)
+                dead = dead + cdead
         fail_expired(dead)
         for r in dead:
             self._bump("timeout")
@@ -545,7 +656,6 @@ class QueryService:
                 RECORDER.record(r.trace.finish(status="timeout"))
         if not live:
             return
-        lead = live[0]
         if lead.kind in ("count", "execute") and self.result_cache is not None:
             # second-chance peek: a twin that dispatched while this
             # request queued may have populated the cache — resolve the
@@ -561,7 +671,7 @@ class QueryService:
                 return
         t0 = time.monotonic()
         now_ns = time.perf_counter_ns()
-        for r in live:
+        for r in live + counts:
             metrics.histogram("serve.queue.wait").update(t0 - r.enqueued_at)
             if r.trace is not None:
                 r.trace.record("queue.wait", r.enqueued_ns, now_ns)
@@ -571,7 +681,14 @@ class QueryService:
                       if lead.trace is not None else 0)
         if lead.trace is not None:
             lead.trace.record("coalesce", g0_ns, g1_ns,
-                              gathered=len(reqs), fused=0)
+                              gathered=len(reqs), fused=len(counts))
+        if self._recorder is not None:
+            self._record_queries(live, counts)
+        if pipelined:
+            self._dispatch_pipelined(live, counts, lead, t0, g0_ns,
+                                     adopt_from)
+            return
+        stall_token = STALLS.token()
         if lead.trace is not None:
             with TRACER.scope(lead.trace):
                 with TRACER.span("dispatch", batch=len(live)):
@@ -579,27 +696,85 @@ class QueryService:
         else:
             self._run_window(live)
         t1 = time.monotonic()
-        self._finish_window(live, lead, t0, t1, adopt_from)
+        # compile-stall attribution: what THIS thread noted during the
+        # window (a first-use build runs on the dispatch thread)
+        stalls = STALLS.since(stall_token, thread_ident=threading.get_ident())
+        self._finish_window(live, [], lead, t0, t1, adopt_from, stalls)
 
-    def _finish_window(self, live, lead, t0, t1, adopt_from) -> None:
-        """Everything that happens after a window's futures are
-        resolved: counters, metrics, quarantine accounting, rider trace
-        adoption, audit events. The reference also charges the window's
-        compile stalls and recovery events (retries, injected faults,
-        breaker states) to its requests; nothing in the port notes them
-        until ROADMAP A3 (b) (extension builds) and A5 (the storage
-        retry and breakers), so those ServeEvent fields keep their
-        defaults."""
+    def _dispatch_pipelined(self, live, counts, lead, t0, g0_ns,
+                            adopt_from) -> None:
+        """Hand a kNN window to the pipeline. It stays in flight past this
+        method: it owns one inflight token until _window_complete releases
+        it, so close(drain=True) waits for the completer too."""
+        try:
+            # the source lookup error fans out HERE (the serial path does
+            # it inside _run_window)
+            source = self.store.get_feature_source(lead.query.type_name)
+        except BaseException as e:  # noqa: BLE001 — fan out typed
+            for r in live + counts:
+                if r.future.set_running_or_notify_cancel():
+                    r.future.set_exception(e)
+            self._finish_window(live, counts, lead, t0, time.monotonic(),
+                                adopt_from, [], pipelined=True)
+            return
+        with self._state_lock:
+            self._inflight += 1
+        try:
+            self.pipeline.submit(source, live, counts, lead, t0, g0_ns,
+                                 adopt_from)
+        except BaseException as e:
+            # submit resolves all futures on its internal failure paths;
+            # an exception HERE means the window never got a slot
+            # (completer dead): fail whatever is still pending, then let
+            # _loop log it
+            with self._state_lock:
+                self._inflight -= 1
+            for r in live + counts:
+                if not r.future.done() and \
+                        r.future.set_running_or_notify_cancel():
+                    r.future.set_exception(e)
+            raise
+
+    def _window_complete(self, win, t1: float, end_ns: int) -> None:
+        """Pipeline completion callback (completer thread): the shared
+        finish bookkeeping, then release the window's inflight token."""
+        try:
+            self._finish_window(win.live, win.counts, win.lead, win.t0, t1,
+                                win.adopt_from, win.stalls, pipelined=True)
+        finally:
+            with self._state_lock:
+                self._inflight -= 1
+
+    def _finish_window(self, live, counts, lead, t0, t1, adopt_from,
+                       stalls, pipelined: bool = False) -> None:
+        """Everything that happens after a window's futures are resolved:
+        stall attribution, counters, metrics, quarantine accounting, rider
+        trace adoption, audit events. Shared by the serial path (dispatch
+        thread) and the pipeline (completer thread). The reference also
+        charges recovery events (retries, injected faults, breaker
+        states) to its requests; nothing in the port notes them until
+        ROADMAP A5, so those ServeEvent fields keep their defaults."""
+        compile_ms = sum(s for _, s in stalls) * 1000.0
+        labels = list(dict.fromkeys(lbl for lbl, _ in stalls))
+        compiled = ",".join(labels[:5])
+        if len(labels) > 5:
+            compiled += f",+{len(labels) - 5}"
+        if stalls:
+            self._bump("compile_stalled_dispatches")
+            metrics.counter("serve.compile.stalled")
         self._bump("dispatches")
-        members = len(live)
+        members = len(live) + len(counts)
         self._bump("coalesced", members - 1)
         metrics.counter("serve.dispatch")
+        if pipelined:
+            self._bump("pipelined_windows")
+            metrics.counter("serve.pipeline.windows")
         if members > 1:
             metrics.counter("serve.coalesced", members - 1)
         metrics.gauge("serve.queue.depth", float(len(self.queue)))
         struck: set = set()
         adopted: Optional[list] = None
-        for r in live:
+        for r in live + counts:
             if r.future.cancelled():
                 # cancelled between queue pop and execute: .exception()
                 # would raise CancelledError and kill the dispatcher
@@ -663,11 +838,45 @@ class QueryService:
                     queue_ms=(t0 - r.enqueued_at) * 1000.0,
                     exec_ms=(t1 - t0) * 1000.0,
                     batch_size=members,
+                    pipelined=pipelined,
                     status=status,
                     degraded=r.degraded,
+                    compile_ms=compile_ms,
+                    compiled=compiled,
+                    mesh_shape=r.mesh_shape or lead.mesh_shape,
+                    shards=r.shards or lead.shards,
                     approx=r.approx,
                     cache_hit=r.cache_hit,
                 ))
+
+    def _record_queries(self, live: List[ServeRequest],
+                        counts: List[ServeRequest] = ()) -> None:
+        """Record this dispatch's query shape into the warm-up recorder:
+        one entry per dispatch (members share a compat key); the kNN
+        bucket is the PADDED stacked-query axis the batcher builds, the
+        shape a ring class is captured for. Fused count riders record
+        their own count entry. Only default-hint queries are recorded:
+        the replay runs with default hints."""
+        from geomesa_tpu_torch.cql import ast
+        from geomesa_tpu_torch.plan.hints import QueryHints
+
+        lead = live[0]
+        try:
+            cql = ast.to_cql(lead.query.filter_ast)
+        except Exception:  # noqa: BLE001 — an unkeyable filter records nothing
+            return
+        if lead.query.hints != QueryHints():
+            return
+        if lead.kind == "knn":
+            total = sum(len(np.asarray(r.qx).ravel()) for r in live)
+            padded = max(MIN_KNN_BATCH, _next_pow2(max(total, 1)))
+            self._recorder.record_query(
+                "knn", lead.query.type_name, cql,
+                q=padded, k=lead.k, impl=lead.impl)
+        else:
+            self._recorder.record_query(lead.kind, lead.query.type_name, cql)
+        if counts:
+            self._recorder.record_query("count", lead.query.type_name, cql)
 
     # -- introspection -----------------------------------------------------
 
@@ -697,6 +906,10 @@ class QueryService:
         }
         if self.result_cache is not None:
             out["cache"] = self.result_cache.stats()
+        if self.pipeline is not None:
+            out["pipeline"] = self.pipeline.stats()
+        if self.tracker is not None:
+            out["recompiles"] = self.tracker.total_recompiles()
         return out
 
     def export_gauges(self) -> None:
@@ -713,6 +926,14 @@ class QueryService:
         with self._state_lock:
             inflight = self._inflight
         metrics.gauge("serve.inflight", float(inflight))
+        if self.pipeline is not None:
+            p = self.pipeline.stats()
+            metrics.gauge("serve.pipeline.inflight", float(p["inflight"]))
+            metrics.gauge("serve.pipeline.max_inflight",
+                          float(p["max_inflight"]))
+            ring = p.get("ring")
+            if ring is not None:
+                metrics.gauge("serve.ring.programs", float(ring["programs"]))
         if self.result_cache is not None:
             c = self.result_cache.stats()
             metrics.gauge("serve.cache.entries", float(c["entries"]))

@@ -10,16 +10,27 @@ stay host-side and the superbatch is the full host concat, uploaded
 whole whenever residency changes.
 Queries mask pruned-out partitions by lane (`allowed[pids]`) instead of
 launching per partition. Residency follows the storage manifest: a
-partition whose file list changed is reloaded, the rest stay put. The
-mesh tier, delta-tile growth and manifest persistence come later.
+partition whose file list changed is reloaded, the rest stay put.
+
+The reference's lifecycle is here too: `refresh` (re-sync with the
+storage manifest, dropping removed partitions), `invalidate`, `get`,
+`resident`, `stats` (with the upload counters), the residency version
+(`_version`, bumped by every residency change and stamped on each
+superbatch) and the residency manifest (`save_manifest` / `resume`:
+a restarted server rebuilds identical residency, or reports the
+partitions whose files drifted). On one GPU this process is always the
+coordinator that writes the manifest. The mesh tier and its delta-tile
+growth come with the multi-GPU tier (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +40,8 @@ from geomesa_tpu_torch.engine.device import to_device
 from geomesa_tpu_torch.store.fs import FileSystemStorage
 from geomesa_tpu_torch.utils.padding import next_pow2
 
+LAYOUT_VERSION = 1
+MANIFEST = ".device_cache.json"
 
 def _locked(fn):
     """Serialize a DeviceCacheManager method on the instance RLock."""
@@ -60,6 +73,17 @@ class SuperBatch:
     dev: dict                    # device tensors of the concat
     pids: torch.Tensor           # i32 [N] partition id per row
     ids: Dict[str, int]          # partition name -> id
+    version: int = 0             # the cache's residency version at build
+    # host row offsets of the partitions' segments ([P + 1]): a row's
+    # partition id without a device read (`host_pids`)
+    starts: Optional[np.ndarray] = None
+    # on a card, the event after the superbatch's device build: work on
+    # another stream reading `dev`/`pids` waits on it alone
+    ready: Optional[object] = None
+
+    def host_pids(self, rows: np.ndarray) -> np.ndarray:
+        """The partition id of each row in `rows`, from `starts`."""
+        return np.searchsorted(self.starts, rows, side="right") - 1
 
 
 class DeviceCacheManager:
@@ -71,15 +95,20 @@ class DeviceCacheManager:
         self._lock = threading.RLock()
         self._entries: Dict[str, CacheEntry] = {}
         self._super: Optional[SuperBatch] = None
+        self._version = 0  # bumped by every residency change
         self._applied_mversion = -1  # storage commit version last applied
+        self.upload_count = 0  # host -> device uploads (partitions or wholes)
+        self.upload_rows = 0   # rows those uploads carried
         # store-level grow-only vocabularies (per dict column) so device
         # code segments from different partitions stay comparable
         self._vocab: Dict[str, list] = {}
         self._flat = all((not a.is_geometry) or a.type == "Point"
                          for a in storage.sft.attributes)
 
-    def _partition_files(self, name: str, manifest: dict) -> List[str]:
-        return sorted(e["file"] for e in manifest.get(name, []))
+    def _partition_files(self, name: str,
+                         manifest: Optional[dict] = None) -> List[str]:
+        src = manifest if manifest is not None else self.storage.manifest
+        return sorted(e["file"] for e in src.get(name, []))
 
     def _shared_vocab_recode(self, batch: FeatureBatch) -> FeatureBatch:
         """Re-encode dict columns against the store-level vocabularies."""
@@ -114,6 +143,8 @@ class DeviceCacheManager:
         if self._flat:
             padded = self._shared_vocab_recode(padded)
             dev = to_device(padded, self.device)
+            self.upload_count += 1
+            self.upload_rows += len(padded)
         return CacheEntry(files=self._partition_files(name, manifest),
                           count=n, padded=len(padded), batch=padded, dev=dev)
 
@@ -146,7 +177,107 @@ class DeviceCacheManager:
                 loaded.append(name)
         if loaded:
             self._super = None
+            self._version += 1
         return loaded
+
+    @_locked
+    def refresh(self) -> List[str]:
+        """Re-sync with the storage manifest: load new and changed
+        partitions, drop removed ones. Returns the changed names."""
+        manifest = self.storage.manifest_snapshot()
+        dropped = [n for n in self._entries if n not in manifest]
+        for n in dropped:
+            del self._entries[n]
+        if dropped:
+            self._super = None
+            self._version += 1
+        return self.ensure(manifest=manifest) + dropped
+
+    @_locked
+    def invalidate(self, partition: Optional[str] = None) -> None:
+        """Drop one partition's residency (every partition's with None)."""
+        if partition is None:
+            self._entries.clear()
+        else:
+            self._entries.pop(partition, None)
+        self._super = None
+        self._version += 1
+
+    @_locked
+    def get(self, partition: str) -> Optional[CacheEntry]:
+        return self._entries.get(partition)
+
+    @_locked
+    def resident(self) -> List[str]:
+        return sorted(self._entries)
+
+    @_locked
+    def stats(self) -> dict:
+        return {
+            "partitions": len(self._entries),
+            "rows": sum(e.count for e in self._entries.values()),
+            "padded_rows": sum(e.padded for e in self._entries.values()),
+            "uploads": self.upload_count,
+            "upload_rows": self.upload_rows,
+            "layout_version": LAYOUT_VERSION,
+        }
+
+    # -- manifest persistence (restart determinism) ------------------------
+
+    @property
+    def manifest_path(self) -> str:
+        return os.path.join(self.storage.root, MANIFEST)
+
+    @_locked
+    def save_manifest(self) -> None:
+        """Write which partition files are resident, under which layout,
+        atomically, in the reference's format (one GPU: this process is
+        always the coordinator)."""
+        doc = {
+            "layout_version": LAYOUT_VERSION,
+            "coord_dtype": None,
+            "partitions": {
+                name: {"files": e.files, "count": e.count, "padded": e.padded}
+                for name, e in self._entries.items()
+            },
+        }
+        tmp = self.manifest_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+        os.replace(tmp, self.manifest_path)
+
+    @_locked
+    def resume(self) -> Tuple[List[str], List[str]]:
+        """Rebuild residency from the saved manifest: reload every
+        partition it names whose files still match. Returns (restored,
+        stale); stale = layout drift or file-list drift, for the caller to
+        `ensure()` afresh if wanted."""
+        if not os.path.exists(self.manifest_path):
+            return [], []
+        with open(self.manifest_path) as f:
+            doc = json.load(f)
+        if doc.get("layout_version") != LAYOUT_VERSION:
+            return [], sorted(doc.get("partitions", {}))
+        restored, stale = [], []
+        snap = self.storage.manifest_snapshot()
+        for name, meta in sorted(doc.get("partitions", {}).items()):
+            if self._partition_files(name, snap) != meta["files"]:
+                stale.append(name)
+                continue
+            entry = self._load_partition(name, snap)
+            if entry is None:
+                stale.append(name)
+                continue
+            if entry.padded != meta["padded"]:
+                raise RuntimeError(
+                    f"non-deterministic rebuild for {name}: "
+                    f"{entry.padded} != {meta['padded']}")
+            self._entries[name] = entry
+            restored.append(name)
+        if restored:
+            self._super = None
+            self._version += 1
+        return restored, stale
 
     @_locked
     def superbatch_peek(self) -> Optional[SuperBatch]:
@@ -169,9 +300,19 @@ class DeviceCacheManager:
                    for k in entries[0].dev}
         else:
             dev = to_device(batch, self.device)
+            self.upload_count += 1
+            self.upload_rows += len(batch)
         pids = torch.cat([
             torch.full((e.padded,), i, dtype=torch.int32, device=self.device)
             for i, e in enumerate(entries)])
-        self._super = SuperBatch(batch=batch, dev=dev, pids=pids,
-                                 ids={n: i for i, n in enumerate(names)})
+        ready = None
+        if pids.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(pids.device))
+        self._super = SuperBatch(
+            batch=batch, dev=dev, pids=pids,
+            ids={n: i for i, n in enumerate(names)}, version=self._version,
+            starts=np.concatenate(
+                [[0], np.cumsum([e.padded for e in entries])]).astype(np.int64),
+            ready=ready)
         return self._super

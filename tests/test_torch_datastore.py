@@ -245,9 +245,14 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         import geomesa_tpu_torch.approx.cache  # noqa: F401
         import geomesa_tpu_torch.faults  # noqa: F401
         import geomesa_tpu_torch.telemetry  # noqa: F401
-        from geomesa_tpu_torch.serve import QueryService, self_check
+        from geomesa_tpu_torch.serve import QueryService, ServeConfig, self_check
+        import geomesa_tpu_torch.compilecache  # noqa: F401
+        import geomesa_tpu_torch.serve.pipeline  # noqa: F401
+        import geomesa_tpu_torch.serve.ringloop  # noqa: F401
         assert self_check(verbose=False, device="cpu") == 0
-        svc = QueryService(ds, autostart=False)
+        cfg = ServeConfig()
+        assert cfg.pipeline and cfg.ring
+        svc = QueryService(ds, cfg, autostart=False)
         fut = svc.knn("t", "speed > 5", [0.0], [45.0], k=3)
         svc.start()
         assert np.isfinite(fut.result(timeout=120)[0]).all()

@@ -72,7 +72,9 @@ def services():
     made = []
 
     def make(store, **cfg):
-        svc = QueryService(store, ServeConfig(**cfg), autostart=False)
+        # the serial route: the ladder's cases patch planner.knn_launch
+        svc = QueryService(store, ServeConfig(pipeline=False, ring=False,
+                                              **cfg), autostart=False)
         made.append(svc)
         return svc
 
