@@ -199,6 +199,38 @@ and prints no result. Phases, each fatal on failure:
    typed with DeviceOOM (hosteval 0). Printed as one {"serve_device":
    ...} line before the kernels line; B1's and B2's rows carry the
    phase's launches under "launches_by_phase" "13".
+14. geometry predicates, non-point density and codecs, with B4's and
+   B5's launches reset before each part and read after, each query cold
+   once and as a warm p50 of 5: (a) inside phase 4, on its store,
+   DWITHIN and BEYOND of POINT(10 45), 500 km with phase 4's window,
+   DWITHIN of the config-5 track (256 samples, 20 km) and of phase 5's
+   zone polygon (10 km; B4 must launch), each as get_count and
+   features, gated against an f64 oracle of the written rows (haversine,
+   the equirectangular segment distance, crossing parity): exact but for
+   rows within max(1 m, 1e-5 d) of d, which print; (b) inside phase 11,
+   on its regions store, BBOX, INTERSECTS, WITHIN and DISJOINT of a
+   seeded 1,024-vertex star of radius 8-12 degrees at (10, 45),
+   CONTAINS(geom, POINT(10 45)) and DWITHIN(geom, POINT(10 45), 300 km):
+   the card's masks identical to the CPU path's over the regions near
+   the literal and 64 others, eval_filter_host (f64) on 16 of them with
+   mismatches only on regions with a vertex in the literal's f32 band
+   (printed), B4 on INTERSECTS, and a torch.profiler breakdown of one
+   warm INTERSECTS count; the regions' 512x512 cell-centre coverage
+   through DensityProcess, equal to the CPU path and to an f64 parity
+   oracle on 4,096 sampled cells (profiled); a new XZ2 line layer
+   (vessel:String,sog:Double,dtg:Date,*geom:LineString: 65,536 seeded
+   AIS-shaped tracks of 128 vertices), its 512x512 line density unit and
+   sog-weighted, equal to the CPU path within f32 summation noise and
+   totalling each track's inside fraction; (c) inside phase 8, on its
+   store, a BBOX + dtg query as BIN records (with and without a label)
+   and Arrow IPC (sorted by dtg and not), BinConversionProcess and
+   ArrowConversionProcess, gated: decoded records == the f64-selected
+   written rows, read_ipc of each payload == get_features' rows in
+   order. Numbers under "geometry" in the {"phases"} line; the plain
+   PyTorch operations (point_to_segments_m, edge_crossings,
+   literal_vertex_parity, polygon_density, line_density, bin_pack) with
+   their bounds in the {"device_ops"} line; B4's and B5's rows gain
+   "14" under "launches_by_phase".
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -512,6 +544,10 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
             qy=torch.from_numpy(qy.astype(np.float32)).to(dev),
             x=pad(dv["geom__x"]), y=pad(dv["geom__y"]), maskf=pad(mask.float()),
             cap=cap)
+        # phase 14 last: its queries without a window make every partition
+        # resident, which would change the kernels' shapes above
+        geometry_points_phase(torch, dev, src, dict(x=x, y=y, t=t, speed=speed),
+                              card_s)
         return launches, inputs, knn_ops, serve, serve_dev
 
 
@@ -2251,6 +2287,7 @@ def tube_process(torch, dev, rows: int, card_s: str):
         for name, (cold, warm) in lat.items():
             log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
                 f"{rows / warm:.1f} points/sec, {len(out[name])} hits [{card_s}]")
+        codec_phase(torch, dev, src, x, y, t, codes, vocab, card_s)
         # the f64 pass alone at the process's shapes, for its bound
         g = sp.results["window_query"]
         dv = pt.to_device(g, dev, coord_dtype=torch.float64)
@@ -3514,6 +3551,7 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
             f"the date-partitioned store's == f64 NumPy; warm p50 "
             f"{lat['z2'][1] * 1e3:.3f} ms (date scheme {lat['datetime'][1] * 1e3:.3f} "
             f"ms) [{card_s}]")
+        geometry_layer_phase(torch, dev, ds, regions, layer[6], card_s)
 
     # -- the non-Pallas device operations at this path's shapes
     ops = []
@@ -3561,6 +3599,684 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
             f"on the path [{card_s}]")
     return out, launches["pip_assign"], ops
 
+
+
+# -- geometry predicates, non-point density and codecs (phase 14) -------------
+
+GEO_WARM = 5
+GEO_CENTER = (10.0, 45.0)
+# FP64 operations per (row, segment) pair of point_to_segments_m as written:
+# 4 subtracts and 6 scalings (ax, ay, bx, by), 2 differences, 2 squares and
+# an add (the squared length), 2 products, an add, a negation, a clamp and a
+# divide (t), a clamp, 2 multiply-adds (cx, cy), 2 squares, an add and the
+# running minimum
+SEG_OPS = 30
+# per (data edge, literal edge) pair of edge_crossings: four orientations
+# of 7 each, 4 sign tests, 2 inequalities and an AND
+CROSS_OPS = 35
+# per (data edge, literal vertex) pair of literal_vertex_parity: the
+# straddle test (3), t (3), xc (3), the compare, the AND and the count's add
+PARITY_OPS = 12
+# FP32 operations per (segment, slot) of line_density: the crossing's t
+# (4), the clamp (2), the sort's share (log2 of the row, ~5), dt, the
+# midpoint (2), its x and y (4), the cell (4), the bounds (5) and the
+# weight; per (edge, row) of polygon_density: the row's centre (2), t (2),
+# xc (2), the column (3), the bounds (3), the signed weight and the add
+LINE_OPS = 30
+POLY_OPS = 14
+LINE_TRACKS = 65_536
+LINE_VERTS = 128
+LINE_ENV = (-12.0, 33.0, 32.0, 67.0)
+LAYER_DENSITY_ENV = (-180.0, -90.0, 180.0, 90.0)
+GEO_HOST_FEATURES = 16  # regions re-evaluated by eval_filter_host (f64)
+GEO_OTHER_FEATURES = 64  # far regions beside the candidates in the CPU check
+GEO_ORACLE_CELLS = 4096
+CODEC_BBOX = (-2.0, 54.0, 2.0, 56.0)
+CODEC_WIN = (TUBE_DAY0 + 6 * 3_600_000, TUBE_DAY0 + 18 * 3_600_000)
+# what phase 14 measured: its device-op rows and B4's and B5's launches
+GEO_OPS: list = []
+GEO_LAUNCHES = {"pip_crossing": 0, "pip_band": 0}
+
+
+def geo_record(part: str, res: dict, ops, launches=None) -> None:
+    PHASES.setdefault("geometry", {})[part] = res
+    GEO_OPS.extend(ops)
+    for k, v in (launches or {}).items():
+        GEO_LAUNCHES[k] += v
+
+
+class Calls:
+    """Calls made to named functions of the port during a block: a count
+    only, no synchronisation (the timings around it stay undisturbed)."""
+
+    def __init__(self, targets):
+        self.targets = targets  # [(owner, attribute, label)]
+        self.calls = {label: 0 for _, _, label in targets}
+        self._saved = []
+
+    def __enter__(self):
+        for owner, attr, label in self.targets:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+
+            def wrapped(*args, _fn=fn, _label=label, **kwargs):
+                self.calls[_label] += 1
+                return _fn(*args, **kwargs)
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        return False
+
+
+class Laps:
+    """Wall seconds of a phase's consecutive sections: `lap(name)` closes
+    the section that ran since the previous lap (or since creation)."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+
+def geo_wkt_ring(pts) -> str:
+    return "(" + ", ".join(f"{float(a)!r} {float(b)!r}" for a, b in pts) + ")"
+
+
+def star_literal(seed: int = 41, n: int = 1024) -> str:
+    """The seeded 1,024-vertex star polygon of radius 8-12 degrees centred
+    at (10, 45)."""
+    rng = np.random.default_rng(seed)
+    th = np.sort(rng.uniform(0, 2 * np.pi, n))
+    r = rng.uniform(8.0, 12.0, n)
+    pts = np.stack([GEO_CENTER[0] + r * np.cos(th), GEO_CENTER[1] + r * np.sin(th)], 1)
+    return f"POLYGON({geo_wkt_ring(np.concatenate([pts, pts[:1]]))})"
+
+
+def geo_oracle(torch, dev, kind: str, lit, x, y, d: float, chunk: int = 1 << 15):
+    """(f64 distance, f64 inside) of written rows on the card, written here
+    apart from the port: the haversine to a point literal, else the
+    reference's equirectangular distance to the literal's segments (rows
+    farther than 2 d in latitude from every segment are set to +inf), and
+    for a polygon the f64 crossing parity."""
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float64)).to(dev)  # noqa: E731
+    xt, yt = f(x), f(y)
+    if kind == "point":
+        R = 6_371_008.8
+        px, py = (np.radians(v) for v in lit)
+        rlat = torch.deg2rad(yt)
+        a = (torch.sin((py - rlat) / 2) ** 2 + torch.cos(rlat) * np.cos(py)
+             * torch.sin((px - torch.deg2rad(xt)) / 2) ** 2)
+        dist = 2.0 * R * torch.asin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+        return dist.cpu().numpy(), np.zeros(len(x), bool)
+    from geomesa_tpu_torch.core.wkt import parse_wkt
+    from geomesa_tpu_torch.engine.pip import polygon_edges
+
+    g = parse_wkt(lit)
+    s = [f(a)[None, :] for a in polygon_edges(g)]
+    deg = 111_194.9
+    dist = torch.full((len(x),), float("inf"), dtype=torch.float64, device=dev)
+    lo = min(float(s[1].min()), float(s[3].min())) - 2 * d / deg
+    hi = max(float(s[1].max()), float(s[3].max())) + 2 * d / deg
+    rows = torch.nonzero((yt >= lo) & (yt <= hi)).flatten()
+    for i in range(0, rows.shape[0], chunk):
+        r = rows[i:i + chunk]
+        px, py = xt[r][:, None], yt[r][:, None]
+        c = torch.cos(torch.deg2rad(py))
+        ax, ay = (s[0] - px) * deg * c, (s[1] - py) * deg
+        bx, by = (s[2] - px) * deg * c, (s[3] - py) * deg
+        dx, dy = bx - ax, by - ay
+        tt = torch.clamp(-(ax * dx + ay * dy) / torch.clamp(dx * dx + dy * dy, min=1e-12),
+                         0.0, 1.0)
+        cx, cy = ax + tt * dx, ay + tt * dy
+        dist[r] = torch.sqrt((cx * cx + cy * cy).min(1).values)
+    inside = (f64_polygon_mask(torch, dev, np.asarray(x, np.float64),
+                               np.asarray(y, np.float64), lit)
+              if "Polygon" in g.kind else np.zeros(len(x), bool))
+    return dist.cpu().numpy(), inside
+
+
+def geometry_points_phase(torch, dev, src, a: dict, card_s: str) -> None:
+    """Phase 14, point stores (inside phase 4, on its store): DWITHIN and
+    BEYOND of a point with the north-star window, DWITHIN of the config-5
+    track and of phase 5's zone polygon, each as get_count and features,
+    cold and warm p50; gated against the f64 oracle of the written rows,
+    exact outside the ring max(1 m, 1e-5 d)."""
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.core.wkt import parse_wkt
+    from geomesa_tpu_torch.engine import geodesy
+    from geomesa_tpu_torch.engine import pip_kernels as pk
+    from geomesa_tpu_torch.engine.pip import polygon_edges
+
+    x, y, t, speed = a["x"], a["y"], a["t"], a["speed"]
+    win = f"dtg > {iso(T0)} AND dtg < {iso(T1)} AND speed > 5.0"
+    tx, ty, _ = tube_track(np.random.default_rng(13))
+    track = f"LINESTRING{geo_wkt_ring(np.stack([tx, ty], 1))}"
+    zone = zone_polygon()
+    cases = {  # name: (cql, oracle kind, literal, distance m, windowed, beyond)
+        "dwithin point": (f"DWITHIN(geom, POINT(10 45), 500, kilometers) AND {win}",
+                          "point", GEO_CENTER, 500e3, True, False),
+        "beyond point": (f"BEYOND(geom, POINT(10 45), 500, kilometers) AND {win}",
+                         "point", GEO_CENTER, 500e3, True, True),
+        "dwithin track": (f"DWITHIN(geom, {track}, 20, kilometers)", "segments",
+                          track, 20e3, False, False),
+        "dwithin zone": (f"DWITHIN(geom, {zone}, 10, kilometers)", "segments",
+                         zone, 10e3, False, False),
+    }
+
+    def window(tt, ss):
+        return (tt > T0) & (tt < T1) & (ss > 5.0)
+
+    def truth(case, xs, ys, tt, ss):
+        _, kind, lit, d, windowed, beyond = case
+        dist, inside = geo_oracle(torch, dev, kind, lit, xs, ys, d)
+        near = (dist <= d) | inside
+        ring = (np.abs(dist - d) <= max(1.0, 1e-5 * d)) & ~inside
+        m = ~near if beyond else near
+        if windowed:
+            w = window(tt, ss)
+            m, ring = m & w, ring & w
+        return m, ring
+
+    lap = Laps()
+    kernels = (pk.pip_crossing, pk.pip_band)
+    res, b45 = {}, {}
+    for w in kernels:
+        w.launches = 0
+    with Calls([(geodesy, "point_to_segments_m", "point_to_segments_m")]) as cnt:
+        for name, case in cases.items():
+            q = Query("gdelt", case[0])
+            out, lat = time_calls({"count": lambda: src.get_count(q),
+                                   "features": lambda: src.get_features(q)},
+                                  warm=GEO_WARM)
+            exp, ring = truth(case, x, y, t, speed)
+            n_exact, n_ring = int((exp & ~ring).sum()), int(ring.sum())
+            count, r = out["count"], out["features"]
+            assert n_exact <= count <= n_exact + n_ring, (name, count, n_exact, n_ring)
+            f = r.features
+            assert len(f) == count == r.count, (name, len(f), count)
+            fx, fy = np.asarray(f.geometry.x), np.asarray(f.geometry.y)
+            fm, fring = truth(case, fx, fy, np.asarray(f.dtg), np.asarray(f.columns["speed"]))
+            bad = int((~fm & ~fring).sum())
+            assert bad == 0, f"{name}: {bad} returned rows fail the f64 oracle"
+            res[name] = {"count": count, "exact": n_exact, "ring_rows": n_ring,
+                         "count_cold_s": lat["count"][0],
+                         "count_warm_p50_s": lat["count"][1],
+                         "features_cold_s": lat["features"][0],
+                         "features_warm_p50_s": lat["features"][1]}
+            log(f"correct: {name} count {count} == the f64 oracle over the "
+                f"written rows ({n_exact} outside the ring, {n_ring} within "
+                f"max(1 m, 1e-5 d) of d); {len(f)} feature rows all pass it")
+            log(f"{name}: count cold {lat['count'][0] * 1e3:.3f} ms, warm p50 "
+                f"{lat['count'][1] * 1e3:.3f} ms; features cold "
+                f"{lat['features'][0] * 1e3:.3f} ms, warm p50 "
+                f"{lat['features'][1] * 1e3:.3f} ms [{card_s}]")
+    b45 = {w.__name__: w.launches for w in kernels}
+    log(f"phase-14 point launches: {b45}; point_to_segments_m calls {cnt.calls}")
+    assert b45["pip_crossing"] > 0, "the zone DWITHIN never launched B4"
+
+    lap("queries and gates")
+    # point_to_segments_m at the track query's shapes (the rows of its band)
+    sb = src.planner.cache.superbatch()
+    segs = [torch.from_numpy(e).to(dev) for e in polygon_edges(parse_wkt(track))]
+    reach = 20e3 / geodesy.DEG_M_LAT * (1 + 1e-6) + 1e-9
+    gy = sb.dev["geom__y"].double()
+    band = torch.nonzero((gy >= float(min(segs[1].min(), segs[3].min())) - reach)
+                         & (gy <= float(max(segs[1].max(), segs[3].max())) + reach)).flatten()
+    bx, by = sb.dev["geom__x"][band], sb.dev["geom__y"][band]
+    ms = timed_ms(torch, lambda: geodesy.point_to_segments_m(bx, by, *segs), 5)
+    nb, ns = int(band.shape[0]), int(segs[0].shape[0])
+    t_ops = SEG_OPS * nb * ns / FP64_OPS_PER_S * 1e3
+    t_bytes = (nb * (4 + 4 + 8) + ns * 32) / HBM_BYTES_PER_S * 1e3
+    b, by_ = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"point_to_segments_m (track band: {nb} rows x {ns} segments, f64): "
+        f"{ms:.3f} ms, bound {b:.3f} ms by {by_} (FP64) [{card_s}]")
+    op = {"name": "point_to_segments_m", "replaces": "geomesa_tpu/engine/geodesy.py:49",
+          "source": "geomesa_tpu_torch/engine/geodesy.py", "route": "torch",
+          "launches": cnt.calls["point_to_segments_m"], "ms": ms, "bound_ms": b,
+          "bound_by": by_, "pairs": nb * ns, "rows": nb}
+    lap("point_to_segments_m timed")
+    log("phase 14 points split: " + ", ".join(
+        f"{n} {s:.3f} s" for n, s in lap.seconds.items()) + f" [{card_s}]")
+    geo_record("points", dict(res, launches=b45, split_s=lap.seconds), [op], b45)
+
+
+def layer_oracle_cells(rings_of, grid, env, n_cells: int, seed: int = 43):
+    """(bad cells, sampled) of a cell-centre coverage grid against an f64
+    crossing-parity oracle over the layer's rings (each sampled centre
+    tested against the polygons whose envelope holds it). A mismatch
+    counts as bad unless the centre lies within 1e-4 degrees of an edge."""
+    h, w = grid.shape
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(h * w, n_cells, replace=False)
+    rr, cc = cells // w, cells % w
+    dx, dy = (env[2] - env[0]) / w, (env[3] - env[1]) / h
+    cx, cy = env[0] + (cc + 0.5) * dx, env[1] + (rr + 0.5) * dy
+    boxes = np.array([[min(r[:, 0].min() for r in rs), min(r[:, 1].min() for r in rs),
+                       max(r[:, 0].max() for r in rs), max(r[:, 1].max() for r in rs)]
+                      for rs in rings_of])
+    bad = 0
+    for k in range(n_cells):
+        hold = np.nonzero((boxes[:, 0] <= cx[k]) & (boxes[:, 2] >= cx[k])
+                          & (boxes[:, 1] <= cy[k]) & (boxes[:, 3] >= cy[k]))[0]
+        exp, near = 0, False
+        for pid in hold:
+            cross = 0
+            for r in rings_of[pid]:
+                x1, y1, x2, y2 = r[:-1, 0], r[:-1, 1], r[1:, 0], r[1:, 1]
+                cond = (y1 <= cy[k]) != (y2 <= cy[k])
+                xc = x1 + (cy[k] - y1) / np.where(y2 == y1, 1.0, y2 - y1) * (x2 - x1)
+                cross += int((cond & (xc > cx[k])).sum())
+                near = near or bool((cond & (np.abs(xc - cx[k]) <= 1e-4)).any())
+            exp += cross % 2
+        if grid[rr[k], cc[k]] != exp and not near:
+            bad += 1
+    return bad, n_cells
+
+
+def geometry_layer_phase(torch, dev, ds, regions, rings_of, card_s: str) -> None:
+    """Phase 14, the polygon layer (inside phase 11, on its regions store)
+    and density over non-point layers (the regions and a new AIS-shaped
+    line layer)."""
+    from geomesa_tpu_torch import FeatureBatch, Query, QueryHints, SimpleFeatureType
+    from geomesa_tpu_torch.core.wkt import Geometry, parse_wkt
+    from geomesa_tpu_torch.cql import compile_filter, parse_cql
+    from geomesa_tpu_torch.cql.hosteval import eval_filter_host
+    from geomesa_tpu_torch.engine import geometry as eg
+    from geomesa_tpu_torch.engine import pip_kernels as pk
+    from geomesa_tpu_torch.engine import raster
+    from geomesa_tpu_torch.engine.device import VALID, DeviceTables, to_device
+    from geomesa_tpu_torch.engine.pip import points_in_polygon_band, polygon_edges
+    from geomesa_tpu_torch.plan.runner import CalibCache, density_device_grid
+    from geomesa_tpu_torch.process import DensityProcess
+    from geomesa_tpu_torch.store.partition import XZ2Scheme
+
+    lap = Laps()
+    cpu = torch.device("cpu")
+    out = {}
+    star = star_literal()
+    g = parse_wkt(star)
+    x0, y0, x1, y1 = g.bbox
+    cases = {
+        "BBOX": f"BBOX(geom, {x0!r}, {y0!r}, {x1!r}, {y1!r})",
+        "INTERSECTS": f"INTERSECTS(geom, {star})",
+        "WITHIN": f"WITHIN(geom, {star})",
+        "DISJOINT": f"DISJOINT(geom, {star})",
+        "CONTAINS point": "CONTAINS(geom, POINT(10 45))",
+        "DWITHIN point": "DWITHIN(geom, POINT(10 45), 300, kilometers)",
+    }
+    kernels = (pk.pip_crossing, pk.pip_band)
+    b45 = {w.__name__: 0 for w in kernels}
+    counts = {}
+    targets = [(eg, "edge_crossings", "edge_crossings"),
+               (eg, "literal_vertex_parity", "literal_vertex_parity")]
+    with Calls(targets) as cnt:
+        for name, cql in cases.items():
+            for w in kernels:
+                w.launches = 0
+            q = Query("regions", cql)
+            res, lat = time_calls({"count": lambda: regions.get_count(q),
+                                   "features": lambda: regions.get_features(q)},
+                                  warm=GEO_WARM)
+            launched = {w.__name__: w.launches for w in kernels}
+            for k, v in launched.items():
+                b45[k] += v
+            fcount = 0 if res["features"].features is None else len(res["features"].features)
+            assert fcount == res["count"], (name, fcount, res["count"])
+            counts[name] = res["count"]
+            out[name] = {"count": res["count"], "count_cold_s": lat["count"][0],
+                         "count_warm_p50_s": lat["count"][1],
+                         "features_cold_s": lat["features"][0],
+                         "features_warm_p50_s": lat["features"][1],
+                         "launches": launched}
+            log(f"regions {name}: {res['count']} of {LAYER_POLYS}; count cold "
+                f"{lat['count'][0] * 1e3:.3f} ms, warm p50 {lat['count'][1] * 1e3:.3f} "
+                f"ms; features cold {lat['features'][0] * 1e3:.3f} ms, warm p50 "
+                f"{lat['features'][1] * 1e3:.3f} ms; launches {launched} [{card_s}]")
+            if name == "INTERSECTS":
+                assert launched["pip_crossing"] > 0, "INTERSECTS never launched B4"
+    geo_calls = dict(cnt.calls)
+    assert counts["INTERSECTS"] + counts["DISJOINT"] == LAYER_POLYS
+    assert 0 < counts["WITHIN"] < counts["INTERSECTS"] <= counts["BBOX"]
+    profile_calls(torch, "regions INTERSECTS count",
+                  lambda: regions.get_count(Query("regions", cases["INTERSECTS"])),
+                  card_s, calls=1)
+
+    lap("predicates, counts and features")
+    # -- gates: the card's masks == the CPU path's over the candidate regions
+    # (envelopes within 3 degrees of the literal's, which holds the 300 km
+    # DWITHIN's reach) and GEO_OTHER_FEATURES others; eval_filter_host (f64)
+    # on GEO_HOST_FEATURES of them: mismatches only on regions with a vertex
+    # in the literal's f32 band
+    sb = regions.planner.cache.superbatch()
+    batch = sb.batch
+    col = batch.columns["geom"]
+    bb = col.bbox
+    valid = batch.valid if batch.valid is not None else np.ones(len(batch), bool)
+    cand = np.nonzero(valid & (bb[:, 0] <= x1 + 3) & (bb[:, 2] >= x0 - 3)
+                      & (bb[:, 1] <= y1 + 3) & (bb[:, 3] >= y0 - 3))[0]
+    rng = np.random.default_rng(44)
+    others = np.setdiff1d(np.nonzero(valid)[0], cand)
+    idx = np.sort(np.concatenate([cand, rng.choice(others, min(
+        GEO_OTHER_FEATURES, len(others)), replace=False)]))
+    sub = batch.select(idx)
+    sub_dev = to_device(sub, cpu)
+    sft = regions.sft
+    masks = {}
+    for name, cql in cases.items():
+        cf = compile_filter(parse_cql(cql), sft)
+        card = cf.mask(sb.dev, batch).cpu().numpy()
+        masks[name] = card
+        host = cf.mask(sub_dev, sub).numpy()
+        assert np.array_equal(card[idx], host), f"{name}: card != CPU path"
+    # the regions whose vertices sit in the literal's f32 band
+    lit_e = [torch.from_numpy(e.astype(np.float32)).to(dev) for e in polygon_edges(g)]
+    verts = sb.dev["geom__verts"]
+    vband = points_in_polygon_band(verts[:, 0], verts[:, 1], *lit_e).cpu().numpy()
+    flagged = np.zeros(len(batch), bool)
+    flagged[col.edge_table().vfeat[vband]] = True
+    straddle = np.nonzero(masks["INTERSECTS"] & ~masks["WITHIN"])[0]
+    pick = np.concatenate([straddle[:GEO_HOST_FEATURES // 2],
+                           np.nonzero(masks["WITHIN"])[0][:GEO_HOST_FEATURES // 4],
+                           cand[~masks["INTERSECTS"][cand]][:GEO_HOST_FEATURES // 4]])
+    hsub = batch.select(pick)
+    mism = 0
+    for name, cql in cases.items():
+        exact = eval_filter_host(parse_cql(cql), hsub)
+        diff = exact != masks[name][pick]
+        if name == "DWITHIN point":
+            assert not diff.any(), f"{name}: card != f64 host evaluation"
+        assert not (diff & ~flagged[pick]).any(), f"{name}: a mismatch off the band"
+        mism += int(diff.sum())
+    out["cpu_checked"] = int(len(idx))
+    out["host_checked"] = int(len(pick))
+    out["host_mismatches"] = mism
+    out["band_regions"] = int(flagged.sum())
+    out["geometry_calls"] = geo_calls
+    log(f"correct: the card's masks == the CPU path's on {len(idx)} regions "
+        f"({len(cand)} near the literal) for {len(cases)} predicates; "
+        f"eval_filter_host (f64) on {len(pick)} regions: {mism} mismatches, all "
+        f"on regions with a vertex in the literal's f32 band ({int(flagged.sum())} "
+        f"such regions); B4 on INTERSECTS")
+
+    lap("masks on the CPU and in f64")
+    # -- the geometry passes at INTERSECTS' shapes
+    n = len(batch)
+    ed = [sb.dev[f"geom__{k}"] for k in ("ex1", "ey1", "ex2", "ey2")]
+    ef = sb.dev["geom__efeat"]
+    (e1, e2, e3, e4), vx_, vy_ = eg._literal_arrays(g)
+    lx1, ly1, lx2, ly2, lvx, lvy = DeviceTables((e1, e2, e3, e4, vx_, vy_)).on(dev)
+    ops = []
+    ms = timed_ms(torch, lambda: eg.edge_crossings(*ed, ef, n, (lx1, ly1, lx2, ly2)), 3)
+    f64 = torch.float64
+    kept = int((((torch.maximum(ed[0], ed[2]).to(f64) >= x0 - eg.PRUNE_PAD)
+                 & (torch.minimum(ed[0], ed[2]).to(f64) <= x1 + eg.PRUNE_PAD)
+                 & (torch.maximum(ed[1], ed[3]).to(f64) >= y0 - eg.PRUNE_PAD)
+                 & (torch.minimum(ed[1], ed[3]).to(f64) <= y1 + eg.PRUNE_PAD))).sum())
+    L = int(lx1.shape[0])
+    E = int(ed[0].shape[0])
+    for nm, ms_, pairs, per in (("edge_crossings", ms, kept * L, CROSS_OPS),):
+        t_ops = per * pairs / FP64_OPS_PER_S * 1e3
+        t_bytes = (E * 20 + n * 4 + L * 32) / HBM_BYTES_PER_S * 1e3
+        b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        ops.append({"name": nm, "replaces": "geomesa_tpu/engine/geometry.py:119",
+                    "source": "geomesa_tpu_torch/engine/geometry.py", "route": "torch",
+                    "launches": geo_calls[nm], "ms": ms_, "bound_ms": b,
+                    "bound_by": by, "pairs": pairs, "edges_kept": kept, "edges": E})
+    ms = timed_ms(torch, lambda: eg.literal_vertex_parity(*ed, ef, n, lvx, lvy, False), 3)
+    lo = torch.minimum(ed[1], ed[3]).to(f64)
+    hi = torch.maximum(ed[1], ed[3]).to(f64)
+    pkept = int(((hi > lvy.min()) & (lo <= lvy.max())
+                 & (torch.maximum(ed[0], ed[2]).to(f64) >= float(lvx.min()) - eg.PRUNE_PAD)).sum())
+    Lv = int(lvx.shape[0])
+    t_ops = PARITY_OPS * pkept * Lv / FP64_OPS_PER_S * 1e3
+    t_bytes = (E * 20 + n * Lv * 4 * 2 + Lv * 16) / HBM_BYTES_PER_S * 1e3
+    b, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    ops.append({"name": "literal_vertex_parity", "replaces": "geomesa_tpu/engine/geometry.py:101",
+                "source": "geomesa_tpu_torch/engine/geometry.py", "route": "torch",
+                "launches": geo_calls["literal_vertex_parity"], "ms": ms, "bound_ms": b,
+                "bound_by": by, "pairs": pkept * Lv, "edges_kept": pkept, "edges": E})
+    for o in ops:
+        log(f"{o['name']} (regions x the star: {o['edges_kept']} of {o['edges']} "
+            f"edges kept, {o['pairs']} pairs, f64): {o['ms']:.3f} ms, bound "
+            f"{o['bound_ms']:.3f} ms by {o['bound_by']} (FP64), {o['launches']} "
+            f"calls on the path [{card_s}]")
+
+    lap("geometry passes timed")
+    # -- density over the regions (cell-centre coverage, unit weight)
+    dens, dlat = {}, {}
+    with Calls([(raster, "polygon_density", "polygon_density"),
+                (raster, "line_density", "line_density")]) as rc:
+        dres, dl = time_calls({"regions DensityProcess": lambda: DensityProcess().execute(
+            regions, LAYER_DENSITY_ENV, GRID, GRID)}, warm=GEO_WARM)
+        dens.update(dres)
+        dlat.update(dl)
+        hints = QueryHints(density_bbox=LAYER_DENSITY_ENV, density_width=GRID,
+                           density_height=GRID)
+        lap("regions density")
+        cdev = to_device(batch, cpu)
+        cpu_grid = density_device_grid(sft, batch, cdev, cdev[VALID], hints,
+                                       CalibCache()).numpy()
+        grid = dens["regions DensityProcess"]
+        assert np.array_equal(grid, cpu_grid), "regions density: card != CPU path"
+        lap("regions density CPU path")
+        bad, sampled = layer_oracle_cells(rings_of, grid, LAYER_DENSITY_ENV,
+                                          GEO_ORACLE_CELLS)
+        assert bad == 0, f"regions density: {bad} of {sampled} cells off the f64 oracle"
+        out["regions_density"] = {"cold_s": dlat["regions DensityProcess"][0],
+                                  "warm_p50_s": dlat["regions DensityProcess"][1],
+                                  "covered_cells": int((grid > 0).sum())}
+        log(f"correct: regions 512x512 coverage == the CPU path cell for cell and "
+            f"== the f64 parity oracle on {sampled} sampled cells; "
+            f"{int((grid > 0).sum())} cells covered")
+        log(f"regions DensityProcess: cold {dlat['regions DensityProcess'][0] * 1e3:.3f} "
+            f"ms, warm p50 {dlat['regions DensityProcess'][1] * 1e3:.3f} ms [{card_s}]")
+        profile_calls(torch, "regions polygon density", lambda: DensityProcess().execute(
+            regions, LAYER_DENSITY_ENV, GRID, GRID), card_s, calls=1)
+
+        lap("regions density oracle and profile")
+        # -- the AIS-shaped line layer, written as users write it
+        lrng = np.random.default_rng(45)
+        start = np.stack([lrng.uniform(LINE_ENV[0] - 2, LINE_ENV[2] + 2, LINE_TRACKS),
+                          lrng.uniform(LINE_ENV[1] - 2, LINE_ENV[3] + 2, LINE_TRACKS)], 1)
+        steps = lrng.normal(0, 0.02, (LINE_TRACKS, LINE_VERTS - 1, 2))
+        paths = start[:, None, :] + np.concatenate(
+            [np.zeros((LINE_TRACKS, 1, 2)), np.cumsum(steps, 1)], 1)
+        sog = lrng.uniform(0.5, 20.0, LINE_TRACKS)
+        lsft = SimpleFeatureType.from_spec(
+            "tracks", "vessel:String,sog:Double,dtg:Date,*geom:LineString")
+        lines = ds.create_schema(lsft, scheme=XZ2Scheme())
+        t0 = time.perf_counter()
+        lines.write(FeatureBatch.from_pydict(lsft, {
+            "vessel": [f"vessel{i:05d}" for i in range(LINE_TRACKS)], "sog": sog,
+            "dtg": TUBE_DAY0 + lrng.integers(0, DAY_MS, LINE_TRACKS),
+            "geom": [Geometry("LineString", [p]) for p in paths]}))
+        out["lines_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines.get_count("INCLUDE")
+        out["lines_resident_s"] = time.perf_counter() - t0
+        log(f"line layer: {LINE_TRACKS} tracks of {LINE_VERTS} vertices written "
+            f"(XZ2, {len(lines.storage.partitions())} partitions) in "
+            f"{out['lines_write_s']:.3f} s, resident (read, WKT parse, upload) in "
+            f"{out['lines_resident_s']:.3f} s")
+        lres, ll = time_calls({
+            "lines DensityProcess": lambda: DensityProcess().execute(
+                lines, LINE_ENV, GRID, GRID),
+            "lines DensityProcess sog": lambda: DensityProcess().execute(
+                lines, LINE_ENV, GRID, GRID, weight_attr="sog")}, warm=GEO_WARM)
+    lap("line layer write, residency and density")
+    rcalls = dict(rc.calls)
+    lsb = lines.planner.cache.superbatch()
+    lbatch = lsb.batch
+    lhints = QueryHints(density_bbox=LINE_ENV, density_width=GRID, density_height=GRID)
+    ldev = to_device(lbatch, cpu)
+    lcpu = density_device_grid(lsft, lbatch, ldev, ldev[VALID], lhints, CalibCache()).numpy()
+    unit, wgt = lres["lines DensityProcess"], lres["lines DensityProcess sog"]
+    np.testing.assert_allclose(unit, lcpu, rtol=1e-5, atol=1e-5 * float(lcpu.max()))
+    # each track's inside fraction: its length clipped to the envelope over
+    # its length, f64 on the written vertices
+    a_, b_ = paths[:, :-1], paths[:, 1:]
+    t0_, t1_, ok = raster._clip_np(a_[..., 0].ravel(), a_[..., 1].ravel(),
+                                   b_[..., 0].ravel(), b_[..., 1].ravel(), LINE_ENV)
+    seg = np.hypot(*(b_ - a_).reshape(-1, 2).T)
+    inside = (np.where(ok, t1_ - t0_, 0.0) * seg).reshape(LINE_TRACKS, -1).sum(1)
+    frac = inside / seg.reshape(LINE_TRACKS, -1).sum(1)
+    for grid_, w_ in ((unit, np.ones(LINE_TRACKS)), (wgt, sog)):
+        exp = float((w_ * frac).sum())
+        got = float(grid_.sum(dtype=np.float64))
+        assert abs(got - exp) <= 1e-5 * exp, (got, exp)
+    out["lines_density"] = {k: {"cold_s": v[0], "warm_p50_s": v[1]} for k, v in ll.items()}
+    out["lines_inside_weight"] = float(frac.sum())
+    log(f"correct: line density unit grid == the CPU path within f32 summation "
+        f"noise; totals == sum of inside fractions ({float(frac.sum()):.3f} "
+        f"unweighted, {float((sog * frac).sum()):.3f} by sog) within 1e-5")
+    for k, (cold, warm) in ll.items():
+        log(f"{k}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms "
+            f"({LINE_TRACKS * (LINE_VERTS - 1)} segments) [{card_s}]")
+
+    lap("line density CPU path and fractions")
+    # -- the rasterizers at the path's shapes
+    et = col.edge_table()
+    k = raster._pow2(raster.polygon_rowspan_bound(et.y1, et.y2, LAYER_DENSITY_ENV, GRID) + 1)
+    w1 = torch.ones(len(batch), dtype=torch.float32, device=dev)
+    eff = ef.long()
+    wedge, medge = w1[eff], sb.dev[VALID][eff]
+    ms = timed_ms(torch, lambda: raster.polygon_density(
+        *ed, wedge, medge, LAYER_DENSITY_ENV, GRID, GRID, k,
+        seg_tile=raster._seg_tile(k)), 3)
+    b, by = roofline_ms(POLY_OPS * E * k, E * 21 + 4 * GRID * (GRID + 1))
+    ops.append({"name": "polygon_density", "replaces": "geomesa_tpu/engine/raster.py:240",
+                "source": "geomesa_tpu_torch/engine/raster.py", "route": "torch",
+                "launches": rcalls["polygon_density"], "ms": ms, "bound_ms": b,
+                "bound_by": by, "edges": E, "k": k})
+    let = lbatch.columns["geom"].edge_table()
+    kx, ky = raster.line_crossing_bounds(let.x1, let.y1, let.x2, let.y2, LINE_ENV,
+                                         GRID, GRID)
+    kx, ky = raster._pow2(kx + 1), raster._pow2(ky + 1)
+    led = [lsb.dev[f"geom__{k_}"] for k_ in ("ex1", "ey1", "ex2", "ey2")]
+    Ls = int(led[0].shape[0])
+    wseg = torch.ones(Ls, dtype=torch.float32, device=dev)
+    mseg = torch.ones(Ls, dtype=torch.bool, device=dev)
+    ms = timed_ms(torch, lambda: raster.line_density(
+        *led, wseg, mseg, LINE_ENV, GRID, GRID, kx, ky,
+        seg_tile=raster._seg_tile(kx + ky + 2)), 3)
+    b, by = roofline_ms(LINE_OPS * Ls * (kx + ky + 2), Ls * 21 + 4 * GRID * GRID)
+    ops.append({"name": "line_density", "replaces": "geomesa_tpu/engine/raster.py:129",
+                "source": "geomesa_tpu_torch/engine/raster.py", "route": "torch",
+                "launches": rcalls["line_density"], "ms": ms, "bound_ms": b,
+                "bound_by": by, "segments": Ls, "kx": kx, "ky": ky})
+    for o in ops[-2:]:
+        log(f"{o['name']}: {o['ms']:.3f} ms, bound {o['bound_ms']:.3f} ms by "
+            f"{o['bound_by']}, {o['launches']} calls on the path [{card_s}]")
+    lap("rasterizers timed")
+    out["split_s"] = lap.seconds
+    log("phase 14 layer split: " + ", ".join(
+        f"{n} {s:.3f} s" for n, s in lap.seconds.items()) + f" [{card_s}]")
+    geo_record("layer", dict(out, launches=b45), ops, b45)
+
+
+def codec_phase(torch, dev, src, x, y, t, codes, vocab, card_s: str) -> None:
+    """Phase 14, codecs (inside phase 8, on its TubeSelect store): a BBOX +
+    dtg query as BIN records (with and without a label) and Arrow IPC
+    (sorted by dtg and not), and the two conversion processes; gated
+    against the f64-selected written rows and get_features' rows."""
+    import os
+
+    from geomesa_tpu_torch import Query, QueryHints
+    from geomesa_tpu_torch.core.arrow_io import read_ipc
+    from geomesa_tpu_torch.engine import bin as eb
+    from geomesa_tpu_torch.process import ArrowConversionProcess, BinConversionProcess
+
+    bx = CODEC_BBOX
+    cql = (f"BBOX(geom, {bx[0]}, {bx[1]}, {bx[2]}, {bx[3]}) AND dtg DURING "
+           f"{iso(CODEC_WIN[0])}/{iso(CODEC_WIN[1])}")
+    m = ((x >= bx[0]) & (x <= bx[2]) & (y >= bx[1]) & (y <= bx[3])
+         & (t > CODEC_WIN[0]) & (t < CODEC_WIN[1]))
+    names = np.asarray(vocab, dtype=object)
+
+    def q(**h):
+        return Query("ais", cql, hints=QueryHints(**h))
+
+    calls = {
+        "bin": lambda: src.get_features(q(bin_track="vessel")),
+        "bin labelled": lambda: src.get_features(q(bin_track="vessel", bin_label="vessel")),
+        "arrow": lambda: src.get_features(q(arrow_encode=True)),
+        "arrow sorted dtg": lambda: src.get_features(q(arrow_encode=True,
+                                                       arrow_sort_field="dtg")),
+        "BinConversionProcess": lambda: BinConversionProcess().execute(src, "vessel", cql),
+        "ArrowConversionProcess": lambda: ArrowConversionProcess().execute(src, cql),
+        "features": lambda: src.get_features(Query("ais", cql)),
+    }
+    lap = Laps()
+    with Calls([(eb, "bin_pack", "bin_pack")]) as cnt:
+        out, lat = time_calls(calls, warm=GEO_WARM)
+    lap("queries")
+    sb = src.planner.cache.superbatch()
+    svocab = np.asarray(sb.batch.columns["vessel"].vocab, dtype=object)
+    exp = np.sort(np.rec.fromarrays([
+        names[codes[m]].astype(str), np.floor_divide(t[m], 1000).astype(np.int32),
+        y[m].astype(np.float32).view(np.int32), x[m].astype(np.float32).view(np.int32)]))
+
+    def bin_rows(buf, labeled):
+        d = eb.decode_bin(buf, labeled=labeled)
+        if labeled:
+            assert np.array_equal(d["label"], d["track"].astype(np.int64))
+        return np.sort(np.rec.fromarrays([
+            svocab[d["track"]].astype(str), d["dtg_s"], d["lat"].view(np.int32),
+            d["lon"].view(np.int32)]))
+
+    for name, labeled in (("bin", False), ("bin labelled", True)):
+        r = out[name]
+        assert r.kind == "bin" and r.count == int(m.sum()), (name, r.count)
+        assert np.array_equal(bin_rows(r.bin_bytes, labeled), exp), name
+    assert out["BinConversionProcess"] == out["bin"].bin_bytes
+    feats = out["features"].features
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("arrow", "arrow sorted dtg", "ArrowConversionProcess"):
+            buf = out[name] if isinstance(out[name], bytes) else out[name].arrow_bytes
+            path = os.path.join(tmp, f"{name}.arrow")
+            with open(path, "wb") as fh:
+                fh.write(buf)
+            (back,) = read_ipc(path)
+            ref = feats
+            if name == "arrow sorted dtg":
+                ref = feats.select(np.argsort(np.asarray(feats.dtg), kind="stable"))
+            assert len(back) == len(ref) == int(m.sum()), name
+            assert back.columns["vessel"].decode() == ref.columns["vessel"].decode(), name
+            for a_, b_ in ((back.dtg, ref.dtg), (back.geometry.x, ref.geometry.x),
+                           (back.geometry.y, ref.geometry.y)):
+                assert np.array_equal(np.asarray(a_), np.asarray(b_)), name
+    log(f"correct: BIN records (16 and 24 bytes) == the f64-selected written rows "
+        f"({int(m.sum())}: vessel, dtg seconds, f32 lat/lon); BinConversionProcess "
+        f"== the bin query; read_ipc of each Arrow payload == get_features' rows in "
+        f"order (sorted by dtg where asked)")
+    lap("gates")
+    res = {name: {"cold_s": c, "warm_p50_s": w} for name, (c, w) in lat.items()}
+    for name, (c, w) in lat.items():
+        log(f"{name}: cold {c * 1e3:.3f} ms, warm p50 {w * 1e3:.3f} ms, "
+            f"{int(m.sum())} rows [{card_s}]")
+    # bin_pack at the path's shapes (every resident row)
+    dv = sb.dev
+    tc = torch.from_numpy(np.asarray(sb.batch.columns["vessel"].codes)).to(dev)
+    ms = timed_ms(torch, lambda: eb.bin_pack(tc, dv["dtg"], dv["geom__y"], dv["geom__x"]), 10)
+    n = int(tc.shape[0])
+    b, by = roofline_ms(4 * n, n * (4 + 8 + 4 + 4) + n * 16)
+    log(f"bin_pack ({n} rows): {ms:.3f} ms, bound {b:.3f} ms by {by}, "
+        f"{cnt.calls['bin_pack']} calls on the path [{card_s}]")
+    op = {"name": "bin_pack", "replaces": "geomesa_tpu/engine/bin.py:24",
+          "source": "geomesa_tpu_torch/engine/bin.py", "route": "torch",
+          "launches": cnt.calls["bin_pack"], "ms": ms, "bound_ms": b, "bound_by": by,
+          "rows": n}
+    lap("bin_pack timed")
+    log("phase 14 codecs split: " + ", ".join(
+        f"{n} {s:.3f} s" for n, s in lap.seconds.items()) + f" [{card_s}]")
+    geo_record("codecs", dict(res, split_s=lap.seconds), [op])
 
 
 def main() -> int:
@@ -3645,6 +4361,12 @@ def main() -> int:
             if dev_served is not None:
                 row["launches_by_phase"]["13"] = dev_served
                 row["launches"] += dev_served
+    ops += GEO_OPS
+    for row in rows:
+        if row["name"] in GEO_LAUNCHES:  # phase 5's launches, then phase 14's
+            row["launches_by_phase"] = {"5": row["launches"],
+                                        "14": GEO_LAUNCHES[row["name"]]}
+            row["launches"] += GEO_LAUNCHES[row["name"]]
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))

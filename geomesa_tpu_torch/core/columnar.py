@@ -136,6 +136,9 @@ class GeometryColumn:
     _edges: Optional[EdgeTable] = dataclasses.field(
         default=None, init=False, repr=False, compare=False
     )
+    _memo: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False
+    )
 
     def __len__(self) -> int:
         return len(self.x)
@@ -146,6 +149,14 @@ class GeometryColumn:
             "Geometry",
             "GeometryCollection",
         )
+
+    def memo(self, key, compute):
+        """A value derived from this column's geometry (which never
+        changes), computed once per key: the rasterizers' static budgets."""
+        got = self._memo.get(key)
+        if got is None:
+            got = self._memo[key] = compute()
+        return got
 
     def edge_table(self) -> EdgeTable:
         """Vectorized (memoized) edge-table build — see EdgeTable.

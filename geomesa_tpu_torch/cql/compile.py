@@ -35,15 +35,13 @@ from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.cql import ast
 from geomesa_tpu_torch.cql.hosteval import eval_filter_host, like_regex
-from geomesa_tpu_torch.engine.device import VALID, DeviceBatch, fetch, upload
+from geomesa_tpu_torch.engine.device import (
+    VALID, DeviceBatch, DeviceTables, fetch, upload)
+from geomesa_tpu_torch.engine.geodesy import haversine_m, within_segments_m
 from geomesa_tpu_torch.engine.pip import (
     points_in_polygon, points_in_polygon_band, polygon_edges)
-from geomesa_tpu_torch.errors import NotPortedError
 
 ParamBuilder = Callable[[FeatureBatch], np.ndarray]
-
-_DISTANCE_SLICE = "the distance-predicate slice"
-_GEOMETRY_SLICE = "the non-point geometry slice (ROADMAP Queue A, A4)"
 
 
 def f32_ulp_band(bound: float) -> np.float32:
@@ -341,7 +339,7 @@ def _compile(f: ast.Filter, sft, builders, counter, bands=None):
     if isinstance(f, ast.SpatialPredicate):
         return _compile_spatial(f, sft, bands)
     if isinstance(f, ast.DistancePredicate):
-        raise NotPortedError(f"{f.op} predicates", _DISTANCE_SLICE)
+        return _compile_distance(f, sft)
     raise NotImplementedError(f"cannot compile {type(f).__name__}")
 
 
@@ -389,17 +387,39 @@ def _compile_spatial(f: ast.SpatialPredicate, sft, bands=None):
     if not a.is_geometry:
         raise ValueError(f"spatial predicate on non-geometry {a.name!r}")
     if a.type != "Point":
-        raise NotPortedError(f"spatial predicates on {a.type} columns",
-                             _GEOMETRY_SLICE)
+        from geomesa_tpu_torch.engine.geometry import compile_extended_spatial
+
+        return compile_extended_spatial(f, a.name, a.type)
     n = a.name
-    if f.op in ("INTERSECTS", "WITHIN", "DISJOINT"):
-        base = _point_in_polygon(n, f, bands)
-        if f.op == "DISJOINT":
+    g = f.geometry
+    op = f.op
+    if op == "BBOX":
+        return _bbox(n, g.bbox, bands)
+    if op in ("INTERSECTS", "WITHIN", "DISJOINT"):
+        base = _point_intersects(n, g, bands)
+        if op == "DISJOINT":
             return lambda params, dev: ~base(params, dev)
         return base
-    if f.op != "BBOX":
-        raise NotPortedError(f"{f.op} on point columns", _DISTANCE_SLICE)
-    x0, y0, x1, y1 = f.geometry.bbox
+    if op in ("EQUALS", "CONTAINS"):
+        # a point can only equal/contain a coincident point literal
+        if g.kind in ("Point", "MultiPoint"):
+            return _coincident(n, np.concatenate(g.rings, axis=0))
+        return lambda params, dev: _zeros(dev)
+    if op == "TOUCHES":
+        # a point touches an area/line iff it lies on the boundary; a point
+        # literal has no boundary, so nothing can touch it (DE-9IM)
+        segs = DeviceTables(polygon_edges(g))
+        if len(segs.host[0]) == 0:
+            return lambda params, dev: _zeros(dev)
+        return _near_segments(n, segs, 0.5)  # half a meter (f32 floor)
+    if op in ("OVERLAPS", "CROSSES"):
+        # DE-9IM: a point can never overlap or cross anything
+        return lambda params, dev: _zeros(dev)
+    raise NotImplementedError(f"spatial op {op}")
+
+
+def _bbox(n: str, box, bands=None):
+    x0, y0, x1, y1 = box
 
     def bbox(params, dev):
         X = dev[f"{n}__x"]
@@ -424,33 +444,90 @@ def _compile_spatial(f: ast.SpatialPredicate, sft, bands=None):
     return bbox
 
 
-def _point_in_polygon(n: str, f: ast.SpatialPredicate, bands=None):
-    """INTERSECTS/WITHIN of a point column against a Polygon or
-    MultiPolygon literal: the even-odd crossing test over the literal's
-    f32 edge table (kernel B4), with its ambiguity band (kernel B5)
-    appended to `bands` for the f64 host refine."""
-    g = f.geometry
-    if "Polygon" not in g.kind:
-        raise NotPortedError(f"{f.op} against a {g.kind} literal",
-                             _DISTANCE_SLICE)
-    host = [np.ascontiguousarray(e, np.float32) for e in polygon_edges(g)]
-    by_device: Dict[torch.device, List[torch.Tensor]] = {}
+def _coincident(n: str, pts: np.ndarray):
+    """Rows whose point equals one of `pts` (compared in the column's
+    dtype, the literal rounded to it as the reference's weak scalars)."""
+    pts = [(float(px), float(py)) for px, py in pts]
 
-    def edges(device: torch.device) -> List[torch.Tensor]:
-        got = by_device.get(device)
-        if got is None:
-            got = by_device[device] = [torch.from_numpy(e).to(device)
-                                       for e in host]
-        return got
+    def eq(params, dev):
+        X = dev[f"{n}__x"]
+        Y = dev[f"{n}__y"]
+        m = _zeros(dev)
+        for px, py in pts:
+            m = m | ((X == px) & (Y == py))
+        return m
+    return eq
+
+
+def _near_segments(n: str, segs: DeviceTables, d: float):
+    """Rows within `d` meters of the segment table (equirectangular)."""
+    def near(params, dev):
+        X = dev[f"{n}__x"]
+        return within_segments_m(X, dev[f"{n}__y"], *segs.on(X.device), d)
+    return near
+
+
+def _point_intersects(n: str, g, bands=None):
+    """INTERSECTS/WITHIN of a point column against a geometry literal:
+    coincidence with a Point or MultiPoint, within half a meter of a
+    LineString, else the even-odd crossing test over the polygon's f32
+    edge table (kernel B4), with its ambiguity band (kernel B5) appended
+    to `bands` for the f64 host refine."""
+    if g.kind in ("Point", "MultiPoint"):
+        pts = np.concatenate(g.rings, axis=0) if g.rings else np.zeros((0, 2))
+        return _coincident(n, pts)
+    if g.kind in ("LineString", "MultiLineString"):
+        return _near_segments(n, DeviceTables(polygon_edges(g)), 0.5)
+    edges = DeviceTables(polygon_edges(g), np.float32)
 
     def pip(params, dev):
         X = dev[f"{n}__x"]
-        return points_in_polygon(X, dev[f"{n}__y"], *edges(X.device))
+        return points_in_polygon(X, dev[f"{n}__y"], *edges.on(X.device))
 
     if bands is not None:
         def band(params, dev):
             X = dev[f"{n}__x"]
-            return points_in_polygon_band(X, dev[f"{n}__y"], *edges(X.device))
+            return points_in_polygon_band(X, dev[f"{n}__y"], *edges.on(X.device))
 
         bands.append(band)
     return pip
+
+
+def _compile_distance(f: ast.DistancePredicate, sft):
+    """DWITHIN/BEYOND: the haversine for a single point literal, else the
+    equirectangular distance to the literal's segments (a point cloud's
+    points as degenerate segments), ORed with the polygon test for a
+    polygon literal. No f32 band, as in the reference."""
+    a = _attr(sft, f.prop.name)
+    if a.type != "Point":
+        from geomesa_tpu_torch.engine.geometry import compile_extended_spatial
+
+        return compile_extended_spatial(f, a.name, a.type)
+    n = a.name
+    g = f.geometry
+    d = float(f.distance_m)
+
+    if g.kind in ("Point", "MultiPoint") and sum(len(r) for r in g.rings) == 1:
+        px, py = (float(v) for v in g.point)
+
+        def base(params, dev):
+            return haversine_m(dev[f"{n}__x"], dev[f"{n}__y"], px, py) <= d
+    else:
+        x1e, y1e, x2e, y2e = polygon_edges(g)
+        if len(x1e) == 0:  # point-cloud literal: degenerate segments
+            pts = np.concatenate(g.rings, axis=0)
+            x1e = x2e = pts[:, 0]
+            y1e = y2e = pts[:, 1]
+        near = _near_segments(n, DeviceTables((x1e, y1e, x2e, y2e)), d)
+        inside = (_point_intersects(n, g)
+                  if g.kind in ("Polygon", "MultiPolygon") else None)
+
+        def base(params, dev):
+            m = near(params, dev)
+            if inside is not None:
+                m = m | inside(params, dev)
+            return m
+
+    if f.op == "BEYOND":
+        return lambda params, dev: ~base(params, dev)
+    return base

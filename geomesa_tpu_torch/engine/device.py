@@ -31,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import weakref
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -122,6 +122,24 @@ def to_device_cached(batch: FeatureBatch, device: torch.device,
     if dkey not in slot:
         slot[dkey] = to_device(batch, device, coord_dtype=coord_dtype)
     return slot[dkey]
+
+
+class DeviceTables:
+    """Host arrays (a filter literal's edge or vertex table) as tensors,
+    made once per device. They keep their dtype (f64 unless `dtype` says
+    otherwise, as the reference's literals are), so they promote an f32
+    column's arithmetic as the reference's do."""
+
+    def __init__(self, arrays, dtype=None):
+        self.host = [np.ascontiguousarray(a, dtype) for a in arrays]
+        self._by_device: Dict[torch.device, List[torch.Tensor]] = {}
+
+    def on(self, device: torch.device) -> List[torch.Tensor]:
+        got = self._by_device.get(device)
+        if got is None:
+            got = self._by_device[device] = [torch.from_numpy(a).to(device)
+                                             for a in self.host]
+        return got
 
 
 class Readback:

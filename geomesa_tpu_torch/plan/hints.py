@@ -2,11 +2,11 @@
 
 Parity: geomesa-index-api QueryHints [upstream, unverified], as the
 reference package's `plan/hints.py` models them, restricted to the hints
-the port reads: the density and stats aggregations (DensityScan,
-StatsScan), sampling, loose bbox and the exact count. The bin and arrow
-aggregations, approximate answers and authorizations come with their
-slices: a query cannot carry them here, so it cannot silently ignore
-them.
+the port reads: the density, stats, bin and arrow aggregations
+(DensityScan, StatsScan, BinAggregatingScan, ArrowScan), sampling, loose
+bbox and the exact count. Approximate answers and authorizations come
+with their slices: a query cannot carry them here, so it cannot silently
+ignore them.
 """
 
 from __future__ import annotations
@@ -33,8 +33,23 @@ class QueryHints:
     #   False = force the scatter path
     density_zsparse: Optional[bool] = None
 
+    # bin aggregation (BinAggregatingScan): compact dot-map records
+    bin_track: Optional[str] = None  # attribute used as track id
+    bin_label: Optional[str] = None
+
     # stats aggregation (StatsScan): Stat DSL expression
     stats_string: Optional[str] = None
+
+    # arrow aggregation (ArrowScan): results as Arrow IPC stream bytes with
+    # dictionary-encoded strings. include_fid pins the schema (fids
+    # synthesized when the store kept none, stripped when False) so empty
+    # and non-empty shard results always merge
+    arrow_encode: bool = False
+    arrow_include_fid: bool = True
+    # sorted-delta protocol: each shard's batch pre-sorted by this field,
+    # the sort stamped in the schema metadata for merge_sorted_ipc
+    arrow_sort_field: Optional[str] = None
+    arrow_sort_reverse: bool = False
 
     # sampling: keep roughly 1-in-n (None = off); optional per-attribute
     sampling: Optional[int] = None
@@ -62,3 +77,11 @@ class QueryHints:
     @property
     def is_stats(self) -> bool:
         return self.stats_string is not None
+
+    @property
+    def is_bin(self) -> bool:
+        return self.bin_track is not None
+
+    @property
+    def is_arrow(self) -> bool:
+        return self.arrow_encode

@@ -42,8 +42,8 @@ and after the scan or the kNN mask ("scan") raise the typed
 given; `knn` and `knn_launch` do not, as in the reference. Every
 `execute` writes a `QueryEvent` into the store's audit writer.
 
-Query interceptors, the bin and arrow aggregations, approximate answers
-and the mesh and ring routes come with later slices.
+Query interceptors, approximate answers and the mesh route come with
+later slices.
 """
 
 from __future__ import annotations
@@ -123,8 +123,9 @@ class QueryResult:
     """What `execute` returns: kind "features" carries the matching rows
     (None when no row matched) and their count, kind "density" the
     [height, width] f32 grid and the match count, kind "stats" the
-    evaluated Stat sequence and the match count, kind "count" only the
-    count. The bin and arrow kinds come with their slices. `approx`,
+    evaluated Stat sequence and the match count, kind "arrow" the Arrow
+    IPC bytes and kind "bin" the BIN records (each with the match count),
+    kind "count" only the count. `approx`,
     `bound` and `confidence` are the reference's sketch-tier fields; the
     port has no sketch tier yet (ROADMAP A4), so they stay False, 0.0 and
     1.0."""
@@ -134,6 +135,8 @@ class QueryResult:
     grid: Optional[np.ndarray] = None
     count: int = 0
     stats: object = None
+    bin_bytes: Optional[bytes] = None
+    arrow_bytes: Optional[bytes] = None
     approx: bool = False
     bound: float = 0.0
     confidence: float = 1.0
@@ -220,6 +223,8 @@ class QueryPlanner:
               f"{query.hints.density_height} over {query.hints.density_bbox}")
         elif query.hints.is_stats:
             e(f"Aggregation: stats {query.hints.stats_string!r}")
+        elif query.hints.is_bin:
+            e(f"Aggregation: bin track={query.hints.bin_track}")
         e.pop()
         return QueryPlan(query, f, bbox, interval, partitions, compiled,
                          manifest=manifest, cql=cql, residual_cql=residual_cql)
@@ -541,8 +546,10 @@ class QueryPlanner:
 
     def _empty_result(self, query: Query) -> QueryResult:
         """No row can match: a zero grid for density, the unobserved
-        stats for a stats query, else kind features with no batch; the
-        kind never depends on whether rows matched."""
+        stats for a stats query, an empty IPC stream with the result's
+        schema (sort metadata included) for arrow, no records for bin,
+        else kind features with no batch; the kind never depends on
+        whether rows matched (arrow before bin, as in `aggregate`)."""
         h = query.hints
         if h.is_density:
             return QueryResult("density", grid=np.zeros(
@@ -551,6 +558,16 @@ class QueryPlanner:
             from geomesa_tpu_torch.stats import parse_stats
 
             return QueryResult("stats", stats=parse_stats(h.stats_string))
+        if h.is_arrow:
+            from geomesa_tpu_torch.plan.runner import arrow_payload, finish_features
+
+            sft = self.storage.sft
+            empty = FeatureBatch.from_pydict(
+                sft, {a.name: [] for a in sft.attributes})
+            return QueryResult("arrow", arrow_bytes=arrow_payload(
+                finish_features(empty, query), h))
+        if h.is_bin:
+            return QueryResult("bin", bin_bytes=b"")
         return QueryResult("features", features=None, count=0)
 
     # -- count -------------------------------------------------------------
@@ -1087,10 +1104,19 @@ def _needed_columns(plan: QueryPlan, sft):
                 needed.add(v.name)
     if hints.sample_by:
         needed.add(hints.sample_by)
+    if hints.arrow_sort_field:
+        needed.add(hints.arrow_sort_field)
     if hints.is_density:
         needed.add(sft.default_geometry.name)
         if hints.density_weight:
             needed.add(hints.density_weight)
+    elif hints.is_bin:
+        needed.add(sft.default_geometry.name)
+        needed.add(hints.bin_track)
+        if hints.bin_label:
+            needed.add(hints.bin_label)
+        if sft.default_dtg is not None:
+            needed.add(sft.default_dtg.name)
     elif hints.is_stats:
         from geomesa_tpu_torch.stats import parse_stats
         from geomesa_tpu_torch.stats.sketches import Z3HistogramStat

@@ -1,20 +1,24 @@
 """Aggregation push-down shared by the planner's cached and scan routes.
 
-The counterpart of the reference package's `plan/runner.py`, restricted
-to density over point layers, stats and feature results: `aggregate`
+The counterpart of the reference package's `plan/runner.py`: `aggregate`
 dispatches a batch, its device arrays and a host row mask to the device
-density grid (`density_device_grid`, with the cell-dictionary route and
-its cross-query calibration cache, `_zsparse_grid`), to `run_stats` (the
-Stat DSL over the masked rows, its reductions in `engine/stats.py`) or
-to the matching features, finished by `finish_features` (sort, max
-features, projection). `sample_mask` thins a mask for the sampling hint,
-and `query_mask_token` keys mask-dependent caches on the query. Bin and
-arrow aggregations, attribute redaction and reprojection come with their
-slices.
+density grid (`density_device_grid`: point layers with the
+cell-dictionary route and its cross-query calibration cache,
+`_zsparse_grid`; line, polygon and multipoint layers rasterized by
+`engine/raster.py`), to `run_stats` (the Stat DSL over the masked rows,
+its reductions in `engine/stats.py`), to Arrow IPC bytes (`arrow_encode`,
+optionally a sorted DELTA batch), to BIN records (`bin_track`, packed on
+the device by `engine/bin.py`) or to the matching features, finished by
+`finish_features` (sort, max features, projection). `sample_mask` thins a
+mask for the sampling hint, and `query_mask_token` keys mask-dependent
+caches on the query. Attribute redaction and reprojection come with
+their slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import threading
 import weakref
 from typing import TYPE_CHECKING, Optional
@@ -29,7 +33,6 @@ from geomesa_tpu_torch.curve.binned_time import TimePeriod, to_binned_time
 from geomesa_tpu_torch.engine.density import density_grid_auto
 from geomesa_tpu_torch.engine.density_zsparse import density_zsparse
 from geomesa_tpu_torch.engine.device import VALID, fetch
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.utils.padding import next_pow2
 
 if TYPE_CHECKING:
@@ -95,17 +98,23 @@ def density_device_grid(sft: SimpleFeatureType, batch, dev, dev_mask, hints,
                         cache: CalibCache, mask_token=None) -> torch.Tensor:
     """Device density grid for one batch (weight column or ones), shared
     by the planner's cached and scan routes so weighting semantics cannot
-    diverge between them. Point layers only; the mesh and non-point
-    routes come with their slices."""
+    diverge between them. Point layers scatter per feature; extended
+    geometries rasterize (`engine.raster.density_grid_geometry`): lines
+    by in-cell length, polygons by cell-center coverage. The ones weight
+    is sized off the staged coordinates, as in the reference. The mesh
+    route comes with its slice."""
     g = sft.default_geometry
-    if not batch.columns[g.name].is_point:
-        raise NotPortedError("density over non-point geometries",
-                             "the non-point geometry slice (ROADMAP Queue A, A4)")
     x = dev[f"{g.name}__x"]
     y = dev[f"{g.name}__y"]
     w = (dev[hints.density_weight].to(torch.float32) if hints.density_weight
          else torch.ones_like(x, dtype=torch.float32))
     bbox = tuple(hints.density_bbox)
+    geom_col = batch.columns[g.name]
+    if not geom_col.is_point:
+        from geomesa_tpu_torch.engine.raster import density_grid_geometry
+
+        return density_grid_geometry(geom_col, dev, g.name, w, dev_mask, bbox,
+                                     hints.density_width, hints.density_height)
     # exact_weights + a weight column pins the f32 scatter path: the
     # dictionary kernel must not override the fidelity opt-in
     exact_pin = bool(hints.density_exact_weights and hints.density_weight)
@@ -128,6 +137,68 @@ def density_device_grid(sft: SimpleFeatureType, batch, dev, dev_mask, hints,
                              exact_weights=hints.density_exact_weights)
 
 
+_FID_BATCH_SEQ = itertools.count()
+
+
+def apply_fid_policy(batch: FeatureBatch, include_fid: bool) -> FeatureBatch:
+    """Deterministic __fid__ presence for wire formats: fids synthesized
+    when requested but absent (the store may have kept none), stripped
+    when not, so a result's schema never depends on which rows matched.
+    Synthesized fids carry a process-unique batch tag (`b<seq>.<row>`):
+    results of different shards merge client-side at the IPC level."""
+    if include_fid and batch.fids is None:
+        tag = f"b{next(_FID_BATCH_SEQ)}"
+        return dataclasses.replace(batch, fids=DictColumn.encode(
+            [f"{tag}.{i}" for i in range(len(batch))]))
+    if not include_fid and batch.fids is not None:
+        return dataclasses.replace(batch, fids=None)
+    return batch
+
+
+def arrow_payload(sel: FeatureBatch, hints) -> bytes:
+    """The ArrowScan encoding of finished features: one IPC stream, or a
+    sorted DELTA batch (the sort stamped in its schema metadata) when
+    `arrow_sort_field` is set."""
+    from geomesa_tpu_torch.core.arrow_io import to_ipc_bytes, to_sorted_ipc_bytes
+
+    sel = apply_fid_policy(sel, hints.arrow_include_fid)
+    if hints.arrow_sort_field:
+        if hints.arrow_sort_field not in sel.columns:
+            raise ValueError(
+                f"arrow_sort_field {hints.arrow_sort_field!r} is not in the "
+                "result columns: include it in the query's projection (the "
+                "delta merge needs the key client-side)")
+        return to_sorted_ipc_bytes(sel, hints.arrow_sort_field,
+                                   hints.arrow_sort_reverse)
+    return to_ipc_bytes(sel)
+
+
+def bin_bytes(sft: SimpleFeatureType, batch: FeatureBatch, dev,
+              mask: np.ndarray, hints) -> bytes:
+    """BIN records of the masked rows: the lanes packed on the device over
+    every staged row (track codes, dtg, lat, lon, optional label), one
+    fetch, then the selected rows serialized on the host."""
+    from geomesa_tpu_torch.engine.bin import bin_pack, encode_bin
+
+    device = dev[VALID].device
+
+    def track_codes(name):
+        col = batch.columns[name]
+        codes = (np.asarray(col.codes) if isinstance(col, DictColumn)
+                 else np.asarray(col).astype(np.int32))
+        return torch.from_numpy(np.ascontiguousarray(codes)).to(device)
+
+    g, d = sft.default_geometry, sft.default_dtg
+    x = dev[f"{g.name}__x"]
+    dtg = (dev[d.name] if d is not None
+           else torch.zeros_like(x, dtype=torch.int64))
+    label = track_codes(hints.bin_label) if hints.bin_label else None
+    packed = bin_pack(track_codes(hints.bin_track), dtg, dev[f"{g.name}__y"],
+                      x, label=label)
+    (packed,) = fetch(packed)
+    return encode_bin(packed, np.nonzero(mask)[0])
+
+
 def query_mask_token(query: "Query") -> tuple:
     """Everything that shapes the result mask for FIXED resident arrays:
     the type, the canonical filter text, sampling and loose bbox (the
@@ -142,8 +213,16 @@ def query_mask_token(query: "Query") -> tuple:
 def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
               mask: np.ndarray, query: "Query", cache: CalibCache):
     """A host row mask over `batch` to the query's result: the density
-    grid or the stats when the hints ask for one, else the matching
-    features. Returns (result, the mask's matching rows)."""
+    grid, the stats, Arrow IPC bytes or BIN records when the hints ask for
+    one (arrow before bin, as in the reference), else the matching
+    features. Returns (result, the mask's matching rows).
+
+    The reference first refuses aggregations over attributes that the
+    query's authorizations cannot see (`_check_attr_auth`). That check
+    comes with visibility (ROADMAP A4 b): the port has no auths hint, a
+    store with feature-level visibility is refused when its planner is
+    built, and per-attribute visibility options are not read yet (no
+    feature result redacts them either)."""
     from geomesa_tpu_torch.plan.planner import QueryResult
 
     hints = query.hints
@@ -159,6 +238,14 @@ def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
         n = int(mask.sum())
         return QueryResult("stats", stats=stats, count=n), n
     rows = np.nonzero(mask)[0]
+    if hints.is_arrow:
+        sel = finish_features(batch.select(rows), query)
+        return (QueryResult("arrow", arrow_bytes=arrow_payload(sel, hints),
+                            count=len(sel)), len(rows))
+    if hints.is_bin:
+        return (QueryResult("bin", bin_bytes=bin_bytes(sft, batch, dev, mask,
+                                                       hints),
+                            count=len(rows)), len(rows))
     sel = finish_features(batch.select(rows), query)
     return QueryResult("features", features=sel, count=len(sel)), len(rows)
 

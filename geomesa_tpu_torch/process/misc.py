@@ -5,9 +5,10 @@ ProximitySearchProcess (the 1-NN haversine of `engine/knn.py`, in f64 on
 `device`), QueryProcess, SamplingProcess, StatsProcess (a stats query:
 `plan.runner.run_stats`), UniqueProcess, JoinProcess, Point2PointProcess,
 DateOffsetProcess, HashAttributeProcess and RouteSearchProcess (host
-NumPy, as in the reference). ArrowConversionProcess and
-BinConversionProcess need the Arrow codec and the BIN records, which come
-with a later slice: they raise `NotPortedError`.
+NumPy, as in the reference), ArrowConversionProcess (the matching
+features as Arrow IPC bytes, `core/arrow_io.py`) and BinConversionProcess
+(a `bin_track` query: BIN records packed on the source's device,
+`engine/bin.py`).
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import torch
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryColumn
 from geomesa_tpu_torch.core.sft import AttributeDescriptor, SimpleFeatureType
 from geomesa_tpu_torch.engine.device import fetch, resolve_device, to_device
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.datastore import FeatureSource
 from geomesa_tpu_torch.plan.hints import QueryHints
 from geomesa_tpu_torch.plan.query import Query
@@ -297,26 +297,36 @@ class RouteSearchProcess:
         return data.select(ok & valid)
 
 
-_CODEC_SLICE = "the Arrow and BIN codecs (ROADMAP Queue A, A4)"
-
-
 class ArrowConversionProcess:
-    """Encode matching features as Arrow IPC bytes (needs
-    `core/arrow_io.py`, which a later slice brings)."""
+    """Encode matching features as Arrow IPC bytes (empty bytes when no
+    feature matches, as in the reference)."""
 
     name = "ArrowConversionProcess"
 
     def execute(self, data: FeatureSource, cql_filter: str = "INCLUDE") -> bytes:
-        raise NotPortedError("ArrowConversionProcess", _CODEC_SLICE)
+        import io
+
+        import pyarrow as pa
+
+        from geomesa_tpu_torch.core.arrow_io import to_arrow
+
+        r = data.get_features(Query(data.sft.name, cql_filter))
+        if r.features is None or len(r.features) == 0:
+            return b""
+        rb = to_arrow(r.features)
+        sink = io.BytesIO()
+        with pa.ipc.new_stream(sink, rb.schema) as w:
+            w.write_batch(rb)
+        return sink.getvalue()
 
 
 class BinConversionProcess:
-    """Encode matching features as BIN records (needs `engine/bin.py`,
-    which a later slice brings)."""
+    """Encode matching features as BIN records."""
 
     name = "BinConversionProcess"
 
     def execute(
         self, data: FeatureSource, track_attr: str, cql_filter: str = "INCLUDE"
     ) -> bytes:
-        raise NotPortedError("BinConversionProcess", _CODEC_SLICE)
+        q = Query(data.sft.name, cql_filter, hints=QueryHints(bin_track=track_attr))
+        return data.get_features(q).bin_bytes

@@ -215,6 +215,11 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         assert 0 < len(hits) < n
         import os
         import geomesa_tpu_torch.engine.grid_index  # noqa: F401
+        import geomesa_tpu_torch.core.arrow_io  # noqa: F401
+        import geomesa_tpu_torch.engine.bin  # noqa: F401
+        import geomesa_tpu_torch.engine.geometry  # noqa: F401
+        import geomesa_tpu_torch.engine.raster  # noqa: F401
+        assert src.get_count("DWITHIN(geom, POINT(0 45), 300, kilometers)") > 0
         from geomesa_tpu_torch.plan.stats_manager import StatsManager
         from geomesa_tpu_torch.process.knn import KNearestNeighborSearchProcess
         assert os.path.exists(os.path.join(src.storage.root, "stats.json"))

@@ -24,7 +24,6 @@ from geomesa_tpu_torch.cql import compile_filter as port_compile, parse_cql as p
 from geomesa_tpu_torch.cql.ast import to_cql as port_to_cql
 from geomesa_tpu_torch.cql.compile import f32_ulp_band as port_band
 from geomesa_tpu_torch.engine.device import to_device as port_to_device
-from geomesa_tpu_torch.errors import NotPortedError
 
 SPEC = "name:String,speed:Double,count:Integer,dtg:Date,*geom:Point"
 T0 = 1_600_000_000_000
@@ -137,9 +136,14 @@ def test_ulp_band_width(bound):
     "DWITHIN(geom, POINT(0 0), 10, kilometers)",
 ])
 def test_later_slice_predicates_raise_typed(data, cql):
-    pb = data[2]
-    with pytest.raises(NotPortedError):
-        port_compile(port_parse(cql), pb.sft)
+    """Predicates an earlier slice refused (point literals, TOUCHES on a
+    point column, DWITHIN) now compile: raw mask == the reference's ==
+    its f64 host evaluation."""
+    rb, rdev, pb, pdev = data
+    got = port_compile(port_parse(cql), pb.sft).mask(pdev, pb).numpy()
+    ref = np.asarray(ref_compile(ref_parse(cql), rb.sft).mask(rdev, rb))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, ref_host(ref_parse(cql), rb))
 
 
 def test_parser_copies_agree():

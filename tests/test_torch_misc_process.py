@@ -6,7 +6,7 @@ Held exactly: the returned rows (every column; geometry by its CSR
 arrays), the stats, the unique counts and the hashes. ProximitySearch
 runs the f64 haversine of both packages' `knn`; its rows are held equal
 (no row of this data lies within a nanometre of the distance). Arrow and
-BIN conversion raise NotPortedError until their codecs are ported.
+BIN conversion return the reference's bytes.
 """
 
 import numpy as np
@@ -18,7 +18,6 @@ from geomesa_tpu.plan import DataStore as RDataStore
 from geomesa_tpu.process import misc as rmisc
 from geomesa_tpu_torch.core.columnar import FeatureBatch as PFB
 from geomesa_tpu_torch.core.sft import SimpleFeatureType as PSFT
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan import DataStore as PDataStore
 from geomesa_tpu_torch.process import misc as pmisc
 
@@ -137,7 +136,13 @@ def test_route_search_equal(cat, bidirectional):
 
 
 def test_codec_processes_raise_typed(cat):
-    with pytest.raises(NotPortedError, match="A4"):
-        pmisc.ArrowConversionProcess().execute(cat["port"])
-    with pytest.raises(NotPortedError, match="A4"):
-        pmisc.BinConversionProcess().execute(cat["port"], "vessel")
+    """The codec processes (refused by an earlier slice) return the
+    reference's bytes: Arrow IPC and BIN records, filtered and not."""
+    for cql in ("INCLUDE", "heading > 180 AND BBOX(geom, -3, 51, 3, 55)",
+                "heading > 1000"):
+        p = pmisc.ArrowConversionProcess().execute(cat["port"], cql)
+        assert p == rmisc.ArrowConversionProcess().execute(cat["ref"], cql), cql
+        assert (p == b"") == (cql == "heading > 1000")
+        p = pmisc.BinConversionProcess().execute(cat["port"], "vessel", cql)
+        assert p == rmisc.BinConversionProcess().execute(cat["ref"], "vessel", cql), cql
+        assert len(p) % 16 == 0 and (len(p) == 0) == (cql == "heading > 1000")

@@ -31,7 +31,6 @@ from geomesa_tpu_torch.core.columnar import FeatureBatch as PFB
 from geomesa_tpu_torch.core.sft import SimpleFeatureType as PSFT
 from geomesa_tpu_torch.cql.extract import BBox as PBBox, Interval as PInterval
 from geomesa_tpu_torch.engine.device import to_device as port_to_device
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.interop import device_batch_from_numpy, feature_batch_from
 from geomesa_tpu_torch.plan import DataStore as PDataStore
 from geomesa_tpu_torch.store import partition
@@ -181,11 +180,6 @@ def test_catalog_loads_across_packages(tmp_path, writer):
             rds.planner.stats_manager().count == lr.count, layout
         assert stats_json(lp) == sj, layout  # loading rewrote nothing
         for cql in ("INCLUDE", "BBOX(geom, -30, -20, 40, 50)", "name = 'a'"):
-            if "BBOX" in cql and "Polygon" in LAYOUTS[layout][0]:
-                # spatial predicates on non-point columns: ROADMAP A4
-                with pytest.raises(NotPortedError, match="Polygon"):
-                    pds.get_count(cql)
-                continue
             assert pds.get_count(cql) == rds.get_count(cql), (layout, cql)
     # pushed-down scans return the same covering rows
     bb, iv = (-5.0, 35.0, 5.0, 50.0), (T0 + DAY // 2, T0 + 2 * DAY)
