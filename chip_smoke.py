@@ -231,6 +231,48 @@ and prints no result. Phases, each fatal on failure:
    literal_vertex_parity, polygon_density, line_density, bin_pack) with
    their bounds in the {"device_ops"} line; B4's and B5's rows gain
    "14" under "launches_by_phase".
+15. A4 (b), with B1-B5's launches reset before each part and read after
+   (their rows gain "15" under "launches_by_phase"): (a) inside phase 4,
+   on its store, a count of BBOX(geom, -60, 20, 60, 70) AND the 69-day
+   window with "tolerance": 0.3 over the wire (the sketch build's
+   seconds over the pruned partitions, then a fresh planner over the
+   catalog answering from the sidecar with no build) and its warm p50
+   beside the exact count's, gated: approx with |count - exact| <= bound;
+   "topkCells": 10 with no tolerance (the exact fallback on B3 or the
+   scatter route, printed), gated equal to a NumPy 64x64 world binning
+   of the written rows; the columnar wire (hello ["json", "columnar"],
+   phase 7's feature query as an Arrow frame == its JSON rows, a topk
+   frame, a 256-query kNN as x/y sections == its JSON request on B1,
+   op=ingest of a 2^20-row Arrow IPC frame into a scratch store whose
+   count then sees the rows), with bytes and encode seconds; phase 7's
+   features with crs 3857 (== the closed-form mercator) and the UTM zone
+   of (10, 45), bit for bit the CPU transform; geomesa.force.count (the
+   INCLUDE count runs on the card, == the manifest count); a second
+   DataStore under geomesa.coord.dtype=float64 (its north-star count and
+   sparse kNN == the f32 store's, its resident bytes printed); (b)
+   inside phase 5, the 512x512 density as one columnar f64 frame ==
+   the direct grid, and density_grid_slotted timed beside density_grid
+   and equal to it over a tile-aligned envelope;
+   (c) inside phase 8, distinct vessels with tolerance 0.1 (HLL) and
+   without (exact), under INCLUDE and a filter, gated against NumPy;
+   (d) after phase 11, a 2^24-row store of vis:String,speed:Double:
+   visibility=admin,dtg:Date,*geom:Point with geomesa.vis.attr=vis
+   (phase 4's shapes, Morton order; six expressions and null): under
+   auths ("user",) and ("admin", "user") the north-star count and the
+   zone-polygon count (B4/B5) f64-exact against the oracle AND the
+   written truth table, sparse and fullscan kNN (Q=256, k=10) within the
+   bench rule of the oracle over visible rows, speed redacted without
+   admin, a stats query and a density weighted by speed (the cached
+   route) refused with PermissionError, a density under auths, the
+   allow table's gather timed, and one ring serving both auths classes
+   of one CQL (2 programs, each window == its serial answer, the classes
+   differ); then on its catalog the geomesa.scan.block.full.table guard
+   (an INCLUDE count, exact or with a tolerance, answers a typed error
+   on the wire, a sampled one passes) and a rewrite interceptor ANDing
+   a 7-day window (count and kNN == the rewritten query's oracle,
+   ring_arm refuses "interceptors", served kNN on the pipelined route ==
+   direct). Numbers under "a4b" in the {"phases"} line, the new device
+   operations in the {"device_ops"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -548,6 +590,8 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         # resident, which would change the kernels' shapes above
         geometry_points_phase(torch, dev, src, dict(x=x, y=y, t=t, speed=speed),
                               card_s)
+        a4b_knn_store(torch, dev, ds, src, tmp, dict(
+            x=x, y=y, t=t, speed=speed, qx=qx, qy=qy, cql=cql), card_s)
         return launches, inputs, knn_ops, serve, serve_dev
 
 
@@ -1054,6 +1098,7 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
 
         PHASES["features density store"] = feature_phase_density(
             torch, src, dev, x, y, t, fare, wkt, card_s)
+        a4b_density_store(torch, dev, ds, src, cql6, dq, card_s)
 
         # the path's kernel inputs, for timing at its shapes
         planner = src.planner
@@ -2288,6 +2333,7 @@ def tube_process(torch, dev, rows: int, card_s: str):
             log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
                 f"{rows / warm:.1f} points/sec, {len(out[name])} hits [{card_s}]")
         codec_phase(torch, dev, src, x, y, t, codes, vocab, card_s)
+        a4b_distinct(torch, src, x, y, t, codes, card_s)
         # the f64 pass alone at the process's shapes, for its bound
         g = sp.results["window_query"]
         dv = pt.to_device(g, dev, coord_dtype=torch.float64)
@@ -4279,6 +4325,721 @@ def codec_phase(torch, dev, src, x, y, t, codes, vocab, card_s: str) -> None:
     geo_record("codecs", dict(res, split_s=lap.seconds), [op])
 
 
+# -- phase 15: A4 (b) -------------------------------------------------------------
+
+A4B_WARM = 5
+A4B_TOL = 0.3  # the approximate count's tolerance
+A4B_TOPK = 10
+A4B_KERNELS = ("chord_blockmin", "chord_blockmin_sparse", "zsparse_counts",
+               "pip_crossing", "pip_band")
+A4B_LAUNCHES = {name: 0 for name in A4B_KERNELS}
+A4B_OPS: list = []
+VIS_ROWS = 1 << 24  # the visibility store (cut from 2^26 for time)
+VIS_VOCAB = ["", "user", "admin", "admin&user", "admin|ops", "(admin|ops)&user",
+             None]
+VIS_AUTHS = (("user",), ("admin", "user"))
+# each expression's truth under VIS_AUTHS, written out (null is public)
+VIS_TRUTH = {"": (True, True), "user": (True, True), "admin": (False, True),
+             "admin&user": (False, True), "admin|ops": (False, True),
+             "(admin|ops)&user": (False, True), None: (True, True)}
+VIS_SPEC = ("vis:String,speed:Double:visibility=admin,dtg:Date,*geom:Point;"
+            "geomesa.vis.attr=vis")
+VIS_RING_WINDOWS = 4  # single-point windows a class through the ring
+INGEST_ROWS = 1 << 20
+WEEK_MS = 7 * 86_400_000
+
+
+class Launches:
+    """B1-B5's launch counts over a block: each reset on entry and read on
+    exit into `counts`, which phase 15's totals gather. Blocks nest: an
+    inner block hands its launches back to the outer one's counters, and
+    only the outermost adds to the totals."""
+
+    depth = 0
+
+    def __enter__(self):
+        from geomesa_tpu_torch.engine import density_zsparse as dz
+        from geomesa_tpu_torch.engine import knn_scan as ks
+        from geomesa_tpu_torch.engine import pip_kernels as pk
+
+        self.fns = (ks.chord_blockmin, ks.chord_blockmin_sparse,
+                    dz.zsparse_counts, pk.pip_crossing, pk.pip_band)
+        self.saved = [f.launches for f in self.fns]
+        for f in self.fns:
+            f.launches = 0
+        Launches.depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        Launches.depth -= 1
+        self.counts = {f.__name__: f.launches for f in self.fns}
+        for f, before in zip(self.fns, self.saved):
+            f.launches += before
+        if Launches.depth == 0:
+            for k, v in self.counts.items():
+                A4B_LAUNCHES[k] += v
+        return False
+
+
+def a4b_record(part: str, res: dict) -> None:
+    PHASES.setdefault("a4b", {})[part] = res
+
+
+def wire_drive(svc_store, requests, payloads=None, binary=True, config=None):
+    """One conversation through the protocol over a MemoryWire and a fresh
+    QueryService (drained before the output is parsed): {id: (doc,
+    payload)}, and the response stream's bytes."""
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+    from geomesa_tpu_torch.serve import columnar as colwire
+    from geomesa_tpu_torch.serve.protocol import serve_connection
+
+    svc = QueryService(svc_store, config or ServeConfig(max_wait_ms=0.0))
+    mem = colwire.MemoryWire()
+    for doc in requests:
+        mem.add(doc, (payloads or {}).get(doc.get("id")))
+    out = bytearray()
+    kw = dict(write_bytes=out.extend, read_bytes=mem.read_exact) if binary else {}
+    try:
+        serve_connection(svc_store, svc, mem.lines(),
+                         lambda s: out.extend(s.encode()), **kw)
+    finally:
+        svc.close(drain=True)
+    return ({d.get("id"): (d, p) for d, p in colwire.parse_stream(bytes(out))},
+            len(out))
+
+
+def world_topk(x, y, m, k: int, b: int = 64):
+    """The top-k cells of a NumPy b x b world binning of the rows in `m`,
+    binned as the card bins f32 coordinates (f32 constants, IEEE
+    division), ranked by (-count, row, col)."""
+    x32, y32 = x[m].astype(np.float32), y[m].astype(np.float32)
+    col = np.floor((x32 - np.float32(-180.0)) / np.float32(360.0 / b)).astype(np.int64)
+    row = np.floor((y32 - np.float32(-90.0)) / np.float32(180.0 / b)).astype(np.int64)
+    ok = (col >= 0) & (col < b) & (row >= 0) & (row < b)
+    grid = np.bincount(row[ok] * b + col[ok], minlength=b * b)
+    cells = sorted((-int(c), int(i // b), int(i % b))
+                   for i, c in enumerate(grid) if c)
+    return [(r, c, -n) for n, r, c in cells[:k]]
+
+
+def a4b_knn_store(torch, dev, ds, src, tmp: str, a: dict, card_s: str) -> None:
+    """Phase 15 on phase 4's store: approximate answers (1), the columnar
+    wire's feature, topk, kNN and ingest frames (4), reprojection and the
+    two properties (5)."""
+    from geomesa_tpu_torch import DataStore, Query, QueryHints, SimpleFeatureType
+    from geomesa_tpu_torch.approx import ApproxCount
+    from geomesa_tpu_torch.core import crs
+    from geomesa_tpu_torch.core.arrow_io import to_ipc_bytes
+    from geomesa_tpu_torch.core.columnar import FeatureBatch
+    from geomesa_tpu_torch.serve import columnar as colwire
+    from geomesa_tpu_torch.utils.config import SystemProperties
+
+    x, y, t, speed = a["x"], a["y"], a["t"], a["speed"]
+    lap = Laps()
+    cql = (f"BBOX(geom, {BBOX[0]}, {BBOX[1]}, {BBOX[2]}, {BBOX[3]}) "
+           f"AND dtg > {iso(T0)} AND dtg < {iso(T1)}")
+    m = ((x >= BBOX[0]) & (x <= BBOX[2]) & (y >= BBOX[1]) & (y <= BBOX[3])
+         & (t > T0) & (t < T1))
+    qa = Query("gdelt", cql, hints=QueryHints(tolerance=A4B_TOL))
+
+    # (1) approximate answers
+    res = {}
+    with Launches() as ln:
+        eng = src.planner.approx_engine()
+        t0 = time.perf_counter()
+        first = src.get_count(qa)
+        res["sketch_build_s"] = time.perf_counter() - t0
+        built = eng.store.stats()["partitions"]
+        exact = src.get_count(cql)
+        assert exact == int(m.sum()), (exact, int(m.sum()))
+        assert isinstance(first, ApproxCount), "no sketch answer"
+        assert abs(int(first) - exact) <= first.bound, (int(first), first.bound, exact)
+        log(f"approx count: {int(first)} +- {first.bound} (exact {exact}); "
+            f"first answer built {built} partition sketches in "
+            f"{res['sketch_build_s']:.3f} s (host scan) [{card_s}]")
+        fresh = DataStore(tmp, use_device_cache=True, device=dev).get_feature_source("gdelt")
+        feng = fresh.planner.approx_engine()
+        st = feng.store.stats()
+        feng.allow_build = False  # a build would now raise: the sidecar must serve
+        t0 = time.perf_counter()
+        again = fresh.get_count(qa)
+        res["sidecar_answer_s"] = time.perf_counter() - t0
+        assert isinstance(again, ApproxCount) and int(again) == int(first), again
+        assert again.bound == first.bound and st["sidecar_loaded"] == built, st
+        log(f"a fresh planner over the catalog loaded {st['sidecar_loaded']} "
+            f"sketches from the sidecar and answered with 0 builds in "
+            f"{res['sidecar_answer_s'] * 1e3:.3f} ms")
+        docs, _ = wire_drive(ds, [
+            {"id": "a", "op": "count", "typeName": "gdelt", "cql": cql,
+             "tolerance": A4B_TOL},
+            {"id": "e", "op": "count", "typeName": "gdelt", "cql": cql}])
+        wa, we = docs["a"][0], docs["e"][0]
+        assert wa["approx"] is True and abs(wa["count"] - exact) <= wa["bound"], wa
+        assert wa["lo"] <= exact <= wa["hi"] and we["count"] == exact, (wa, we)
+        _, lat = time_calls({"approx": lambda: src.get_count(qa),
+                             "exact": lambda: src.get_count(cql)}, warm=A4B_WARM)
+    res.update(count=int(first), bound=int(first.bound), exact=exact,
+               sketches=built, approx_warm_p50_s=lat["approx"][1],
+               exact_warm_p50_s=lat["exact"][1], launches=ln.counts)
+    log(f"count warm p50: approx {lat['approx'][1] * 1e3:.3f} ms, exact "
+        f"{lat['exact'][1] * 1e3:.3f} ms; wire answer approx with lo/hi "
+        f"around the exact count [{card_s}]")
+    lap("approx count")
+
+    with Launches() as ln:
+        tq = Query("gdelt", cql, hints=QueryHints(topk_cells=A4B_TOPK))
+        top, tlat = time_calls({"topk": lambda: src.get_features(tq)}, warm=3)
+    top = top["topk"]
+    route = "dictionary (B3)" if ln.counts["zsparse_counts"] else "scatter"
+    got = [(c["row"], c["col"], c["count"]) for c in top.stats]
+    exp = world_topk(x, y, m, A4B_TOPK)
+    # the device grid bins the raw f32 mask: rows whose f32 BBOX test
+    # differs from the f64 one would move a cell (counted, none expected)
+    x32, y32 = x.astype(np.float32), y.astype(np.float32)
+    m32 = ((x32 >= BBOX[0]) & (x32 <= BBOX[2]) & (y32 >= BBOX[1])
+           & (y32 <= BBOX[3]) & (t > T0) & (t < T1))
+    flips = int((m32 != m).sum())
+    assert got == (exp if flips == 0 else world_topk(x, y, m32, A4B_TOPK)), (got, exp)
+    assert all(c["bound"] == 0 for c in top.stats) and not top.approx
+    res["topk"] = {"route": route, "cells": got, "f32_band_rows": flips,
+                   "cold_s": tlat["topk"][0], "warm_p50_s": tlat["topk"][1],
+                   "launches": ln.counts}
+    log(f"topkCells {A4B_TOPK}: exact fallback on the {route} route == a NumPy "
+        f"64x64 world binning of the written rows ({flips} f32 band rows); "
+        f"cold {tlat['topk'][0] * 1e3:.3f} ms, warm p50 "
+        f"{tlat['topk'][1] * 1e3:.3f} ms [{card_s}]")
+    a4b_record("approx", res)
+    lap("topk")
+
+    # (4) the columnar wire on this store
+    bx = FEATURE_BBOX
+    fcql = (f"BBOX(geom, {bx[0]}, {bx[1]}, {bx[2]}, {bx[3]}) AND dtg DURING "
+            f"{iso(T0)}/{iso(T1)} AND speed > 5.0")
+    qx, qy = a["qx"], a["qy"]
+    desc, kpay = colwire.knn_sections(qx, qy)
+    col = {}
+    with Launches() as ln:
+        docs, nbytes = wire_drive(ds, [
+            {"id": "h", "op": "hello", "wire": "columnar"},
+            {"id": "fc", "op": "query", "typeName": "gdelt", "cql": fcql,
+             "maxFeatures": FEATURE_LIMIT},
+            {"id": "fj", "op": "query", "typeName": "gdelt", "cql": fcql,
+             "maxFeatures": FEATURE_LIMIT, "wire": "json"},
+            {"id": "tc", "op": "query", "typeName": "gdelt", "cql": cql,
+             "topkCells": A4B_TOPK},
+            {"id": "kc", "op": "knn", "typeName": "gdelt", "cql": a["cql"],
+             "k": K, "frame": {"sections": desc}},
+            {"id": "kj", "op": "knn", "typeName": "gdelt", "cql": a["cql"],
+             "k": K, "x": qx.tolist(), "y": qy.tolist(), "wire": "json"}],
+            payloads={"kc": kpay})
+    hello = docs["h"][0]
+    assert hello["wire"] == ["json", "columnar"] and hello["wireMode"] == "columnar"
+    (fc, fpay), (fj, _) = docs["fc"], docs["fj"]
+    rows = colwire.decode_execute_payload(fpay)
+    assert rows == fj["features"] and fc["count"] == fj["count"], "feature frame"
+    tc, tpay = docs["tc"]
+    assert [(c["row"], c["col"], c["count"]) for c in colwire.decode_topk_payload(
+        tc["frame"], tpay)] == got, "topk frame"
+    assert docs["kc"][0]["dists"] == docs["kj"][0]["dists"], "kNN sections"
+    assert docs["kc"][0]["indices"] == docs["kj"][0]["indices"], "kNN sections"
+    assert ln.counts["chord_blockmin_sparse"] > 0, "the kNN frames never launched B1"
+    feats = src.get_features(Query("gdelt", fcql, max_features=FEATURE_LIMIT)).features
+    t0 = time.perf_counter()
+    _, fp2 = colwire.encode_execute_frame(feats, FEATURE_LIMIT)
+    enc_s = time.perf_counter() - t0
+    from geomesa_tpu_torch.serve.protocol import _rows_json
+    t0 = time.perf_counter()
+    jbytes = len(json.dumps(_rows_json(feats, FEATURE_LIMIT)))
+    json_s = time.perf_counter() - t0
+    col["features"] = {"rows": len(rows), "frame_bytes": len(fpay), "json_bytes": jbytes,
+                       "encode_s": enc_s, "json_encode_s": json_s}
+    col["topk"] = {"frame_bytes": len(tpay),
+                   "json_bytes": len(json.dumps(docs["tc"][0]))}
+    col["knn"] = {"request_bytes": len(kpay),
+                  "json_request_bytes": len(json.dumps({"x": qx.tolist(),
+                                                        "y": qy.tolist()})),
+                  "launches": ln.counts}
+    log(f"columnar wire: hello {hello['wire']}; {len(rows)} feature rows in a "
+        f"{len(fpay)}-byte Arrow frame (encode {enc_s * 1e3:.3f} ms) == the "
+        f"JSON rows ({jbytes} bytes, encode {json_s * 1e3:.3f} ms); topk frame "
+        f"{len(tpay)} bytes; a {Q}-query kNN as x/y sections ({len(kpay)} bytes) "
+        f"== its JSON request; B1/B2 {ln.counts} [{card_s}]")
+    lap("columnar frames")
+
+    # op=ingest of a 2^20-row Arrow IPC frame into a scratch store
+    rng = np.random.default_rng(15)
+    sft = ds.create_schema(SimpleFeatureType.from_spec(
+        "scratch", "speed:Double,dtg:Date,*geom:Point")).sft
+    batch = FeatureBatch.from_pydict(sft, {
+        "speed": rng.uniform(0, 30, INGEST_ROWS),
+        "dtg": rng.integers(T0, T1, INGEST_ROWS),
+        "geom": np.stack([rng.uniform(-180, 180, INGEST_ROWS),
+                          rng.uniform(-90, 90, INGEST_ROWS)], 1)})
+    t0 = time.perf_counter()
+    ipc = to_ipc_bytes(batch)
+    ipc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    docs, _ = wire_drive(ds, [
+        {"id": "w", "op": "ingest", "typeName": "scratch", "frame": {"kind": "ingest"}},
+        {"id": "n", "op": "count", "typeName": "scratch", "cql": "speed >= 0"}],
+        payloads={"w": ipc})
+    ingest_s = time.perf_counter() - t0
+    assert docs["w"][0] == {"id": "w", "ok": True, "rows": INGEST_ROWS,
+                            "batches": 1}, docs["w"][0]
+    assert docs["n"][0]["count"] == INGEST_ROWS, docs["n"][0]
+    col["ingest"] = {"rows": INGEST_ROWS, "frame_bytes": len(ipc),
+                     "encode_s": ipc_s, "ingest_and_count_s": ingest_s}
+    log(f"op=ingest: {INGEST_ROWS} rows in a {len(ipc)}-byte Arrow IPC frame "
+        f"(encode {ipc_s:.3f} s), written and counted in {ingest_s:.3f} s "
+        f"[{card_s}]")
+    a4b_record("columnar", col)
+    lap("ingest")
+
+    # (5) reprojection and the two properties
+    proj = {}
+    base = src.get_features(Query("gdelt", fcql, max_features=FEATURE_LIMIT,
+                                  sort_by=[("dtg", False)])).features
+    bxs, bys = np.asarray(base.columns["geom"].x), np.asarray(base.columns["geom"].y)
+    utm = crs.utm_zone_srid(10.0, 45.0)
+    for to in (3857, utm):
+        q = Query("gdelt", fcql, max_features=FEATURE_LIMIT, crs=to,
+                  sort_by=[("dtg", False)])
+        r, plat = time_calls({"f": lambda: src.get_features(q)}, warm=3)
+        g = r["f"].features.columns["geom"]
+        ex, ey = crs.transform(bxs, bys, 4326, to)
+        assert np.array_equal(g.x, ex) and np.array_equal(g.y, ey), to
+        if to == 3857:
+            mx = np.radians(bxs) * crs.R_MAJOR
+            my = crs.R_MAJOR * np.log(np.tan(np.pi / 4 + np.radians(bys) / 2))
+            assert np.allclose(g.x, mx, rtol=1e-12, atol=0)
+            assert np.allclose(g.y, my, rtol=1e-12, atol=0)
+        proj[f"EPSG:{to}"] = {"rows": len(g.x), "cold_s": plat["f"][0],
+                              "warm_p50_s": plat["f"][1]}
+    log(f"reprojection: {len(bxs)} feature rows to EPSG:3857 and EPSG:{utm} "
+        f"== the CPU transform bit for bit (3857 == the closed-form mercator); "
+        + ", ".join(f"{k} warm p50 {v['warm_p50_s'] * 1e3:.3f} ms"
+                    for k, v in proj.items()) + f" [{card_s}]")
+    lap("reprojection")
+
+    SystemProperties.set("geomesa.force.count", True)
+    try:
+        before = len(ds.audit.snapshot())
+        t0 = time.perf_counter()
+        n_all = src.get_count(Query("gdelt", "INCLUDE",
+                                    hints=QueryHints(exact_count=False)))
+        force_s = time.perf_counter() - t0
+        ran = len(ds.audit.snapshot()) - before
+    finally:
+        SystemProperties.clear("geomesa.force.count")
+    snap = src.storage.manifest_snapshot()
+    manifest_n = sum(int(e["count"]) for files in snap.values() for e in files)
+    assert n_all == manifest_n == len(x) and ran == 1, (n_all, manifest_n, ran)
+    proj["force_count"] = {"count": n_all, "s": force_s}
+    log(f"geomesa.force.count: the INCLUDE count ran on the card ({ran} query "
+        f"event) in {force_s:.3f} s and == the manifest count {manifest_n}")
+
+    SystemProperties.set("geomesa.coord.dtype", "float64")
+    try:
+        f64 = DataStore(tmp, use_device_cache=True, device=dev).get_feature_source("gdelt")
+    finally:
+        SystemProperties.clear("geomesa.coord.dtype")
+    assert f64.planner.coord_dtype == torch.float64
+    with Launches() as ln:
+        t0 = time.perf_counter()
+        n64 = f64.get_count(a["cql"])
+        up_s = time.perf_counter() - t0
+        d64, i64, _ = f64.knn(a["cql"], qx, qy, k=K)
+    d32, i32, _ = src.knn(a["cql"], qx, qy, k=K)
+    assert n64 == src.get_count(a["cql"]), n64
+    assert same_neighbours(i64, d64, i32, d32) and np.array_equal(d64, d32), "f64 kNN"
+    sb = f64.planner.cache.superbatch()
+    assert sb.dev["geom__x"].dtype == torch.float64
+    rbytes = sum(v.numel() * v.element_size() for v in sb.dev.values())
+    cbytes = sb.dev["geom__x"].numel() * 16
+    proj["coord_f64"] = {"count": n64, "upload_and_count_s": up_s,
+                         "resident_bytes": rbytes, "coordinate_bytes": cbytes,
+                         "resident_rows": len(sb.batch), "launches": ln.counts}
+    log(f"geomesa.coord.dtype=float64: a second DataStore over the kNN catalog "
+        f"holds {len(sb.batch)} rows in {rbytes} bytes ({cbytes} of f64 "
+        f"coordinates), upload + count {up_s:.3f} s; north-star count {n64} and "
+        f"sparse kNN (neighbour sets, meters bit-identical) == the f32 store's "
+        f"[{card_s}]")
+    del f64, sb
+    torch.cuda.empty_cache()
+    a4b_record("reprojection and properties", dict(proj, split_s=lap.seconds))
+
+
+def a4b_density_store(torch, dev, ds, src, cql: str, dq, card_s: str) -> None:
+    """Phase 15 on phase 5's store: the 512x512 density as one columnar
+    f64 frame, equal to the direct grid and to the JSON answer's total;
+    density_grid_slotted timed beside density_grid at the path's shapes,
+    and equal to it bit for bit over a tile-aligned envelope."""
+    from geomesa_tpu_torch.engine.density import density_grid, density_grid_slotted
+    from geomesa_tpu_torch.serve import columnar as colwire
+
+    dens = {"bbox": list(ENV), "width": GRID, "height": GRID}
+    with Launches() as ln:
+        docs, _ = wire_drive(ds, [
+            {"id": "c", "op": "query", "typeName": "taxi", "cql": cql,
+             "density": dens, "wire": "columnar"},
+            {"id": "j", "op": "query", "typeName": "taxi", "cql": cql,
+             "density": dens}], config=None)
+    (cd, pay), (jd, _) = docs["c"], docs["j"]
+    grid = colwire.decode_density_payload(cd["frame"], pay)
+    direct = src.get_features(dq(cql)).grid
+    assert np.array_equal(grid, np.asarray(direct, np.float64)), "density frame"
+    # the answers' total is the f32 grid's own sum, as in the reference
+    assert cd["total"] == jd["total"] == float(direct.sum()), (cd["total"], jd["total"])
+    assert cd["shape"] == jd["shape"] == list(grid.shape)
+    t0 = time.perf_counter()
+    colwire.encode_density_frame(direct)
+    enc_s = time.perf_counter() - t0
+    res = {"frame_bytes": len(pay), "json_bytes": len(json.dumps(jd)),
+           "encode_s": enc_s, "launches": ln.counts}
+    log(f"columnar density: a {GRID}x{GRID} grid in one {len(pay)}-byte f64 frame "
+        f"(encode {enc_s * 1e3:.3f} ms) == the direct grid and the JSON total "
+        f"(the JSON answer, {len(json.dumps(jd))} bytes, carries no cells); "
+        f"launches {ln.counts} [{card_s}]")
+    # density_grid_slotted at the path's shapes (plain PyTorch: the envelope
+    # as a device tensor), beside density_grid on the same inputs
+    sb = src.planner.cache.superbatch()
+    x, y, v = sb.dev["geom__x"], sb.dev["geom__y"], sb.dev["__valid__"]
+    ones = torch.ones_like(x)
+    slot = torch.tensor(ENV, dtype=torch.float32, device=dev)
+    a = density_grid_slotted(x, y, ones, v, slot, GRID, GRID)
+    b = density_grid(x, y, ones, v, ENV, GRID, GRID)
+    agree = int((a == b).all())
+    # over an envelope whose cell sizes round-trip f32 (0.5 / 512 = 2^-10)
+    # the two binnings are the same arithmetic, so the grids are equal
+    aligned = (-74.25, 40.5, -73.75, 41.0)
+    a = density_grid_slotted(x, y, ones, v, torch.tensor(
+        aligned, dtype=torch.float32, device=dev), GRID, GRID)
+    b = density_grid(x, y, ones, v, aligned, GRID, GRID)
+    assert torch.equal(a, b), "density_grid_slotted != density_grid (aligned)"
+    del a, b
+    ms = timed_ms(torch, lambda: density_grid_slotted(x, y, ones, v, slot, GRID, GRID), 5)
+    plain = timed_ms(torch, lambda: density_grid(x, y, ones, v, ENV, GRID, GRID), 5)
+    n = x.shape[0]
+    bound = (n * (4 + 4 + 4 + 1) + GRID * GRID * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"density_grid_slotted: {ms:.3f} ms over {n} points (density_grid "
+        f"{plain:.3f} ms on the same inputs, grids equal over the NYC envelope: "
+        f"{bool(agree)}, over the aligned one: True), bound {bound:.3f} ms by "
+        f"bytes [{card_s}]")
+    A4B_OPS.append({"name": "density_grid_slotted",
+                    "replaces": "geomesa_tpu/engine/density.py:221",
+                    "source": "geomesa_tpu_torch/engine/density.py",
+                    "route": "torch", "launches": 0, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound, "bound_by": "bytes", "rows": n,
+                    "equal_to_density_grid": bool(agree),
+                    "equal_on_aligned_envelope": True})
+    a4b_record("columnar density", res)
+
+
+def a4b_distinct(torch, src, x, y, t, codes, card_s: str) -> None:
+    """Phase 15 on phase 8's TubeSelect store: distinct vessels with a
+    tolerance (the HyperLogLog tier under INCLUDE) and without (exact),
+    under INCLUDE and a BBOX + window filter."""
+    from geomesa_tpu_torch import Query, QueryHints
+    from geomesa_tpu_torch.approx import ApproxCount
+
+    bb, win = CODEC_BBOX, CODEC_WIN
+    fcql = (f"BBOX(geom, {bb[0]}, {bb[1]}, {bb[2]}, {bb[3]}) AND dtg > "
+            f"{iso(win[0])} AND dtg < {iso(win[1])}")
+    fm = ((x >= bb[0]) & (x <= bb[2]) & (y >= bb[1]) & (y <= bb[3])
+          & (t > win[0]) & (t < win[1]))
+    exp = {"INCLUDE": len(np.unique(codes)), fcql: len(np.unique(codes[fm]))}
+    res = {}
+    with Launches() as ln:
+        for cql, label in (("INCLUDE", "include"), (fcql, "filtered")):
+            for tol in (0.1, None):
+                q = Query("ais", cql, hints=QueryHints(distinct="vessel",
+                                                       tolerance=tol))
+                t0 = time.perf_counter()
+                n = src.get_count(q)
+                s = time.perf_counter() - t0
+                approx = isinstance(n, ApproxCount)
+                assert approx == (tol is not None and cql == "INCLUDE"), (label, tol)
+                if approx:
+                    assert abs(int(n) - exp[cql]) <= n.bound, (int(n), n.bound, exp[cql])
+                else:
+                    assert int(n) == exp[cql], (label, int(n), exp[cql])
+                key = (f"{label} {'hll' if approx else 'exact'}"
+                       + (f" (tolerance {tol})" if tol and not approx else ""))
+                res[key] = {"count": int(n), "bound": int(getattr(n, "bound", 0)),
+                            "exact": exp[cql], "s": s}
+                log(f"distinct vessels {key}: {int(n)}"
+                    + (f" +- {n.bound}" if approx else "")
+                    + f" (NumPy {exp[cql]}) in {s:.3f} s [{card_s}]")
+    res["launches"] = ln.counts
+    a4b_record("distinct", res)
+
+
+def vis_rows(torch, dev, n: int):
+    """The visibility store's rows: phase 4's shapes (world-uniform
+    points in Morton order, its 115 days) from a seed, with `vis` codes
+    over VIS_VOCAB (the last is null) and speed."""
+    rng = np.random.default_rng(16)
+    x = rng.uniform(-180, 180, n)
+    y = rng.uniform(-90, 90, n)
+    order = morton_order(torch, torch.from_numpy(x).to(dev),
+                         torch.from_numpy(y).to(dev))
+    x, y = x[order], y[order]
+    t = rng.integers(1_590_000_000_000, 1_600_000_000_000, n)
+    speed = rng.uniform(0, 30, n)
+    codes = rng.integers(0, len(VIS_VOCAB), n).astype(np.int32)
+    return x, y, t, speed, codes
+
+
+class WeekWindow:
+    """A rewrite interceptor: ANDs a seven-day window onto every query."""
+
+    def __init__(self, start_ms: int):
+        self.start, self.calls = start_ms, 0
+
+    def cql(self) -> str:
+        return f"dtg DURING {iso(self.start)}/{iso(self.start + WEEK_MS)}"
+
+    def __call__(self, query):
+        import dataclasses
+
+        from geomesa_tpu_torch.cql import ast
+
+        self.calls += 1
+        return dataclasses.replace(
+            query, filter=f"({ast.to_cql(query.filter_ast)}) AND {self.cql()}")
+
+
+def a4b_visibility(torch, dev, card_s: str) -> None:
+    """Phase 15, parts 2 and 3: a 2^24-row store with feature-level
+    visibility and a protected attribute; counts, kNN, features, the
+    attribute refusal, a density and one ring serving two auths classes;
+    then the interceptors on its catalog."""
+    from geomesa_tpu_torch import DataStore, FeatureBatch, Query, QueryHints, SimpleFeatureType
+    from geomesa_tpu_torch.core.columnar import DictColumn, GeometryColumn
+    from geomesa_tpu_torch.plan.interceptor import QueryGuardException
+    from geomesa_tpu_torch.plan.planner import RingIneligible
+    from geomesa_tpu_torch.plan.runner import allow_table, gather_allow
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+    from geomesa_tpu_torch.serve.scheduler import ServeRequest
+    from geomesa_tpu_torch.utils.config import SystemProperties
+
+    lap = Laps()
+    x, y, t, speed, codes = vis_rows(torch, dev, VIS_ROWS)
+    cql = (f"BBOX(geom, {BBOX[0]}, {BBOX[1]}, {BBOX[2]}, {BBOX[3]}) "
+           f"AND dtg > {iso(T0)} AND dtg < {iso(T1)} AND speed > 5.0")
+    zone = zone_polygon()
+    pcql = f"INTERSECTS(geom, {zone}) AND speed > 5.0"
+    m = ((x >= BBOX[0]) & (x <= BBOX[2]) & (y >= BBOX[1]) & (y <= BBOX[3])
+         & (t > T0) & (t < T1) & (speed > 5.0))
+    pm = f64_polygon_mask(torch, dev, x, y, zone) & (speed > 5.0)
+    truth = {a: np.array([VIS_TRUTH[v][i] for v in VIS_VOCAB])[codes]
+             for i, a in enumerate(VIS_AUTHS)}
+    rng = np.random.default_rng(17)
+    qx, qy = rng.uniform(-30, 30, Q), rng.uniform(30, 60, Q)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = DataStore(tmp, use_device_cache=True, device=dev)
+        sft = SimpleFeatureType.from_spec("sec", VIS_SPEC)
+        src = ds.create_schema(sft)
+        t0 = time.perf_counter()
+        src.write(FeatureBatch(sft, {
+            "vis": DictColumn(np.where(codes == len(VIS_VOCAB) - 1, -1, codes)
+                              .astype(np.int32), VIS_VOCAB[:-1]),
+            "speed": speed, "dtg": t, "geom": GeometryColumn.from_points(x, y)}))
+        res["ingest_s"] = time.perf_counter() - t0
+        log(f"ingest: {VIS_ROWS} rows with visibility in {res['ingest_s']:.3f} s "
+            f"[{card_s}]")
+        lap("ingest")
+
+        def q(c, auths, **kw):
+            return Query("sec", c, hints=QueryHints(auths=auths, **kw))
+
+        with Launches() as ln:
+            for auths in VIS_AUTHS:
+                vm = truth[auths]
+                got, lat = time_calls({
+                    "count": lambda: src.get_count(q(cql, auths)),
+                    "polygon count": lambda: src.get_count(q(pcql, auths)),
+                    "knn sparse": lambda: src.knn(q(cql, auths), qx, qy, k=K),
+                    "knn fullscan": lambda: src.knn(q(cql, auths), qx, qy, k=K,
+                                                    impl="fullscan")}, warm=3)
+                assert got["count"] == int((m & vm).sum()), (auths, got["count"])
+                assert got["polygon count"] == int((pm & vm).sum()), auths
+                exp = oracle_knn(x, y, m & vm, qx[:16], qy[:16], K)
+                for impl in ("knn sparse", "knn fullscan"):
+                    d, i, b = got[impl]
+                    ok = np.all(np.abs(np.sort(d[:16], 1) - exp)
+                                <= np.maximum(1.0, 1e-4 * exp))
+                    assert ok, (auths, impl)
+                    vcol = b.columns["vis"]
+                    seen = {vcol.vocab[c] if c >= 0 else None
+                            for c in np.asarray(vcol.codes)[i.ravel()]}
+                    assert all(VIS_TRUTH[v][VIS_AUTHS.index(auths)]
+                               for v in seen), (impl, seen)
+                assert same_neighbours(got["knn sparse"][1], got["knn sparse"][0],
+                                       got["knn fullscan"][1], got["knn fullscan"][0])
+                feats = src.get_features(Query(
+                    "sec", cql, max_features=1000,
+                    hints=QueryHints(auths=auths))).features
+                sp = np.asarray(feats.columns["speed"])
+                assert np.isnan(sp).all() == ("admin" not in auths), auths
+                assert ("admin" in auths) == bool(np.isfinite(sp).all())
+                res[",".join(auths)] = {
+                    "count": got["count"], "polygon_count": got["polygon count"],
+                    **{f"{k} warm_p50_s": v[1] for k, v in lat.items()}}
+                log(f"auths {auths}: count {got['count']} and polygon count "
+                    f"{got['polygon count']} == the f64 oracle AND the written "
+                    f"visibility; sparse/fullscan kNN within the bench rule of "
+                    f"the oracle over visible rows; speed "
+                    f"{'returned' if 'admin' in auths else 'redacted'}; warm p50 "
+                    + ", ".join(f"{k} {v[1] * 1e3:.3f} ms" for k, v in lat.items())
+                    + f" [{card_s}]")
+            try:
+                src.get_features(q(cql, ("user",), stats_string="MinMax(speed)"))
+                raise AssertionError("stats over a protected attribute ran")
+            except PermissionError as e:
+                log(f"stats on speed without admin refused typed: {e}")
+            dh = dict(density_bbox=BBOX, density_width=GRID, density_height=GRID)
+            try:
+                # the cached route, the one the card takes by default
+                src.get_features(q(cql, ("user",), density_weight="speed", **dh))
+                raise AssertionError("a density weighted by speed ran")
+            except PermissionError as e:
+                log(f"density weighted by speed without admin refused typed on "
+                    f"the cached route: {e}")
+            with Launches() as dl:
+                dgrid = src.get_features(q(cql, ("user",), **dh)).grid
+            # the grid bins the raw f32 mask: rows whose f32 BBOX test
+            # differs from the f64 one may move (counted)
+            x32, y32 = x.astype(np.float32), y.astype(np.float32)
+            flips = int(((x32 >= BBOX[0]) & (x32 <= BBOX[2]) & (y32 >= BBOX[1])
+                         & (y32 <= BBOX[3]) != (x >= BBOX[0]) & (x <= BBOX[2])
+                         & (y >= BBOX[1]) & (y <= BBOX[3])).sum())
+            mass = int(round(float(dgrid.sum())))
+            assert abs(mass - int((m & truth[("user",)]).sum())) <= flips, mass
+            res["density"] = {"mass": mass, "f32_band_rows": flips,
+                              "route": "dictionary (B3)" if dl.counts[
+                                  "zsparse_counts"] else "scatter"}
+            log(f"density under auths ('user',): mass {mass} == the visible "
+                f"matching rows on the {res['density']['route']} route")
+        res["launches"] = ln.counts
+        assert ln.counts["pip_crossing"] and ln.counts["pip_band"], ln.counts
+        assert ln.counts["chord_blockmin"] and ln.counts["chord_blockmin_sparse"]
+        lap("queries and gates")
+
+        # the allow table's gather at the store's shapes
+        sb = src.planner.cache.superbatch()
+        vcodes = sb.dev["vis"]
+        table = allow_table(sb.batch.columns["vis"].vocab, ("user",))
+        ms = timed_ms(torch, lambda: gather_allow(table, vcodes), 5)
+        n = vcodes.shape[0]
+        bound = n * (4 + 1) / HBM_BYTES_PER_S * 1e3
+        A4B_OPS.append({"name": "gather_allow", "replaces":
+                        "geomesa_tpu/security/visibility.py:149 (host allow_mask)",
+                        "source": "geomesa_tpu_torch/plan/runner.py",
+                        "route": "torch", "launches": 0, "ms": ms,
+                        "bound_ms": bound, "bound_by": "bytes", "rows": n})
+        log(f"gather_allow: {ms:.3f} ms over {n} codes, bound {bound:.3f} ms "
+            f"by bytes [{card_s}]")
+
+        # one ring, two auths classes with one CQL
+        with Launches() as ln:
+            svc = QueryService(ds, ServeConfig(max_wait_ms=1.0))
+            answers = {}
+            try:
+                for i in range(VIS_RING_WINDOWS):
+                    for auths in VIS_AUTHS:
+                        req = ServeRequest(kind="knn", query=q(cql, auths),
+                                           qx=qx[i:i + 1], qy=qy[i:i + 1], k=K)
+                        served = svc.submit(req).result(timeout=600)
+                        serial = src.knn(q(cql, auths), qx[i:i + 1], qy[i:i + 1], k=K)
+                        assert np.array_equal(served[0], serial[0]), auths
+                        assert np.array_equal(served[1], serial[1]), auths
+                        answers[(i, auths)] = served[1]
+                ring = svc.stats()["pipeline"]["ring"]
+            finally:
+                svc.close(drain=True)
+        assert ring["programs"] == 2 and ring["fallbacks"] == {}, ring
+        assert ring["windows"] == VIS_RING_WINDOWS * len(VIS_AUTHS), ring
+        differ = sum(not np.array_equal(answers[(i, VIS_AUTHS[0])],
+                                        answers[(i, VIS_AUTHS[1])])
+                     for i in range(VIS_RING_WINDOWS))
+        assert differ > 0, "the two auths classes answered alike"
+        res["ring"] = {"programs": ring["programs"], "windows": ring["windows"],
+                       "classes_differ": differ, "launches": ln.counts}
+        log(f"ring: {ring['programs']} programs for the two auths classes of one "
+            f"CQL, {ring['windows']} windows, each == its serial answer, "
+            f"{differ} of {VIS_RING_WINDOWS} points answered differently")
+        lap("ring")
+        a4b_record("visibility", dict(res, split_s=dict(lap.seconds)))
+
+        # (3) interceptors on this catalog
+        ic = {}
+        SystemProperties.set("geomesa.scan.block.full.table", True)
+        try:
+            docs, _ = wire_drive(ds, [
+                {"id": "c", "op": "count", "typeName": "sec", "cql": "INCLUDE"},
+                {"id": "a", "op": "count", "typeName": "sec", "cql": "INCLUDE",
+                 "tolerance": 0.5}])
+            guard = docs["c"][0]
+            for d, _ in docs.values():
+                assert d["ok"] is False and "full-table scan blocked" in d["message"], d
+            n_s = src.get_count(Query("sec", "INCLUDE", hints=QueryHints(
+                sampling=1024, auths=VIS_AUTHS[1])))
+            assert n_s == -(-len(x) // 1024), n_s
+            try:
+                src.get_count(Query("sec", "INCLUDE"))
+                raise AssertionError("the guard let an INCLUDE count through")
+            except QueryGuardException:
+                pass
+        finally:
+            SystemProperties.clear("geomesa.scan.block.full.table")
+        ic["guard"] = {"wire": guard["message"], "sampled_count": n_s}
+        log(f"geomesa.scan.block.full.table: INCLUDE counts, exact and with a "
+            f"tolerance, answered on the wire {guard['error']!r} "
+            f"({guard['message'][:60]}...); a sampled INCLUDE counted {n_s}")
+        w0 = T0 + 10 * 86_400_000
+        rw = WeekWindow(w0)
+        src.planner.interceptors.append(rw)
+        auths = VIS_AUTHS[1]
+        wm = m & (t > w0) & (t < w0 + WEEK_MS)
+        try:
+            with Launches() as ln:
+                n_rw = src.get_count(q(cql, auths))
+                assert rw.calls == 1 and n_rw == int(wm.sum()), (n_rw, int(wm.sum()))
+                d, i, _ = src.knn(q(cql, auths), qx, qy, k=K)
+                exp = oracle_knn(x, y, wm, qx[:16], qy[:16], K)
+                assert np.all(np.abs(np.sort(d[:16], 1) - exp)
+                              <= np.maximum(1.0, 1e-4 * exp)), "rewritten kNN"
+                try:
+                    src.planner.ring_arm(q(cql, auths), q_padded=8, k=K)
+                    raise AssertionError("ring armed over interceptors")
+                except RingIneligible as e:
+                    assert e.reason == "interceptors", e.reason
+                svc = QueryService(ds, ServeConfig(max_wait_ms=1.0))
+                try:
+                    for j in range(3):
+                        served = svc.submit(ServeRequest(
+                            kind="knn", query=q(cql, auths), qx=qx[j:j + 1],
+                            qy=qy[j:j + 1], k=K)).result(timeout=600)
+                        direct = src.knn(q(cql, auths), qx[j:j + 1], qy[j:j + 1], k=K)
+                        assert np.array_equal(served[0], direct[0])
+                        assert np.array_equal(served[1], direct[1])
+                    ring = svc.stats()["pipeline"].get("ring", {})
+                finally:
+                    svc.close(drain=True)
+        finally:
+            src.planner.interceptors.remove(rw)
+        assert ring.get("windows", 0) == 0 and ring["fallbacks"].get("interceptors"), ring
+        ic["rewrite"] = {"count": n_rw, "ring_fallbacks": ring["fallbacks"],
+                         "launches": ln.counts}
+        log(f"rewrite interceptor (a 7-day window): count {n_rw} and kNN == the "
+            f"oracle of the rewritten query; ring_arm refused 'interceptors'; "
+            f"served kNN on the pipelined route == direct ({ring['fallbacks']})")
+        lap("interceptors")
+        a4b_record("interceptors", dict(ic, split_s=dict(lap.seconds)))
+
+
 def main() -> int:
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
@@ -4348,6 +5109,8 @@ def main() -> int:
     PHASES["config2 sql"], b7, sql_ops = config2_sql(torch, dev, n2, card_s,
                                                      region_counts)
     ops += sql_ops
+    torch.cuda.empty_cache()
+    a4b_visibility(torch, dev, card_s)
     for row in rows:
         if row["name"] == "pip_assign":  # phase 6's launches, then phase 11's
             row["launches_by_phase"] = {"6": row["launches"], "11": b7}
@@ -4367,6 +5130,14 @@ def main() -> int:
             row["launches_by_phase"] = {"5": row["launches"],
                                         "14": GEO_LAUNCHES[row["name"]]}
             row["launches"] += GEO_LAUNCHES[row["name"]]
+    ops += A4B_OPS
+    for row in rows:
+        if row["name"] in A4B_LAUNCHES:  # then phase 15's
+            row["launches_by_phase"]["15"] = A4B_LAUNCHES[row["name"]]
+            row["launches"] += A4B_LAUNCHES[row["name"]]
+    log(f"phase-15 launches: {A4B_LAUNCHES}")
+    assert all(A4B_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
+                                         "pip_crossing", "pip_band")), A4B_LAUNCHES
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))

@@ -1,8 +1,6 @@
 """Version-exact result cache for the serve layer.
 
-A copy of the reference package's `approx/cache.py`. The port's queries
-carry no tolerance hint and no output CRS until their slices (ROADMAP A4),
-so neither enters the key here.
+A copy of the reference package's `approx/cache.py`.
 
 Keys are (kind, typeName, CANONICAL CQL, hints, result-shape extras,
 `manifest_snapshot()` version) — so invalidation is exact BY
@@ -14,8 +12,7 @@ and old-version entries age out through normal eviction.
 
 The canonical-CQL discipline is load-bearing: keying on raw filter text
 would miss-storm on equivalent spellings ("a=1 AND b=2" vs
-"a = 1 AND b = 2") — lint rule GT21 (docs/ANALYSIS.md) flags insertion
-sites that bypass `result_key` with raw `.cql` text.
+"a = 1 AND b = 2").
 """
 
 from __future__ import annotations
@@ -31,11 +28,14 @@ def result_key(kind: str, query, version: Optional[int]
                ) -> Optional[tuple]:
     """The cache key for one (kind, query, manifest version), or None
     when the query is uncacheable: no committed version to pin
-    (live/Kafka stores) or an unparseable filter. The filter ALWAYS
-    canonicalizes through the AST (GT21)."""
+    (live/Kafka stores), a tolerance hint (approx answers are already
+    microseconds and bound-dependent), or an unparseable filter. The
+    filter ALWAYS canonicalizes through the AST."""
     if version is None or kind == "knn":
         return None
     h = query.hints
+    if h.tolerance is not None:
+        return None
     try:
         from geomesa_tpu_torch.cql import ast
 
@@ -48,7 +48,7 @@ def result_key(kind: str, query, version: Optional[int]
     attrs = tuple(query.attributes) if query.attributes is not None else None
     sort = tuple(query.sort_by) if query.sort_by else None
     return ("execute", query.type_name, cql, str(h), attrs, sort,
-            query.max_features, int(version))
+            query.max_features, query.crs, int(version))
 
 
 class ResultCache:

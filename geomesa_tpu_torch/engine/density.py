@@ -43,6 +43,11 @@ def bin_cells(x, y, mask, bbox: BBox, width: int, height: int):
     Infinite and out-of-range values stay out of bounds."""
     xmin, dx, ymin, dy = (torch.tensor(v, device=x.device)
                           for v in grid_consts(bbox, width, height))
+    return _bin(x, y, mask, xmin, dx, ymin, dy, width, height)
+
+
+def _bin(x, y, mask, xmin, dx, ymin, dy, width: int, height: int):
+    """`bin_cells` over envelope constants given as 0-d device tensors."""
     colf = torch.floor((x - xmin) / dx)
     rowf = torch.floor((y - ymin) / dy)
     zero = torch.zeros((), dtype=colf.dtype, device=x.device)
@@ -63,12 +68,34 @@ def density_grid(x, y, weights, mask, bbox: BBox, width: int,
     the card the scatter's atomics add in no fixed order, so weighted
     cells carry f32 summation-order noise; unit-weight counts are exact.
     """
-    cell, inb = bin_cells(x, y, mask, bbox, width, height)
+    return _scatter(*bin_cells(x, y, mask, bbox, width, height), weights,
+                    width, height)
+
+
+def _scatter(cell, inb, weights, width: int, height: int) -> torch.Tensor:
     w = torch.where(inb, weights.to(torch.float32),
-                    torch.zeros((), dtype=torch.float32, device=x.device))
-    flat = torch.zeros(height * width, dtype=torch.float32, device=x.device)
+                    torch.zeros((), dtype=torch.float32, device=cell.device))
+    flat = torch.zeros(height * width, dtype=torch.float32,
+                       device=cell.device)
     flat.index_add_(0, cell, w)
     return flat.reshape(height, width)
+
+
+def density_grid_slotted(x, y, weights, mask, bbox_slot: torch.Tensor,
+                         width: int, height: int) -> torch.Tensor:
+    """`density_grid` with the envelope as a DEVICE [4] f32 tensor (xmin,
+    ymin, xmax, ymax), so one captured program could serve every envelope
+    without a rebuild. The cell sizes are f32 divisions on the device
+    here, against the static path's f64-then-f32 constants, so the two
+    agree bit for bit only where the envelope's cell sizes round-trip f32
+    (the tile-aligned case). No serve route calls it: the ring dispatches
+    kNN windows only."""
+    xmin, ymin, xmax, ymax = bbox_slot.to(torch.float32).unbind()
+    w = torch.tensor(width, dtype=torch.float32, device=bbox_slot.device)
+    h = torch.tensor(height, dtype=torch.float32, device=bbox_slot.device)
+    cell, inb = _bin(x, y, mask, xmin, (xmax - xmin) / w, ymin,
+                     (ymax - ymin) / h, width, height)
+    return _scatter(cell, inb, weights, width, height)
 
 
 def density_grid_auto(x, y, weights, mask, bbox: BBox, width: int,

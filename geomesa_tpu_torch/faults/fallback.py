@@ -11,9 +11,9 @@ errors.
 
 Supported kinds: count, plain feature execute, knn. Aggregation hints
 (density/stats) have device-shaped outputs this path cannot reproduce;
-those surface the original OOM as a typed error instead. The port has no
-query interceptors and no feature-level visibility yet (ROADMAP A4 and
-the security slice), so the query runs as given.
+those surface the original OOM as a typed error instead. The type's
+interceptor chain runs as on the device path, and feature-level
+visibility masks the rows on the host (`security.visibility.allow_mask`).
 """
 
 from __future__ import annotations
@@ -26,10 +26,17 @@ from geomesa_tpu_torch.faults.errors import PermanentError
 
 
 def _intercepted(source, query):
-    """The reference runs the type's QueryInterceptor chain here; the
-    port has no interceptors until ROADMAP A4, so the query is returned
-    unchanged."""
-    return query
+    """Run the planner's QueryInterceptor chain as the device path does
+    (plan() -> run_interceptors): a guard or rewrite configured on the
+    type binds on the host path too. The chain marks the query, so it
+    applies exactly once."""
+    interceptors = getattr(getattr(source, "planner", None),
+                           "interceptors", None)
+    if not interceptors:
+        return query
+    from geomesa_tpu_torch.plan.interceptor import run_interceptors
+
+    return run_interceptors(query, interceptors)
 
 
 def _host_scan(source, query):
@@ -45,9 +52,17 @@ def _host_scan(source, query):
 
 
 def _host_mask(source, query, batch) -> np.ndarray:
+    from geomesa_tpu_torch.core.columnar import DictColumn
     from geomesa_tpu_torch.cql.hosteval import eval_filter_host
+    from geomesa_tpu_torch.plan.runner import VIS_ATTR_KEY
+    from geomesa_tpu_torch.security.visibility import allow_mask
 
-    return eval_filter_host(query.filter_ast, batch)
+    mask = eval_filter_host(query.filter_ast, batch)
+    vis_attr = (source.sft.user_data or {}).get(VIS_ATTR_KEY)
+    col = batch.columns.get(vis_attr) if vis_attr else None
+    if isinstance(col, DictColumn):
+        mask = mask & allow_mask(col.vocab, col.codes, query.hints.auths)
+    return mask
 
 
 def host_count(source, query) -> int:

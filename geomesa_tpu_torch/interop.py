@@ -9,7 +9,12 @@ polygon layer's CSR geometry column included) becomes the port's through
 `feature_batch_from`, read by attribute, so nothing of the reference is
 imported. Catalogs on disk need no conversion: both packages read and
 write the same format under every partition scheme, WKT geometry columns
-and the stats sketches' `stats.json` included.
+and the stats sketches' `stats.json` included, and so does the
+approximate tier's sketch sidecar (`<store>/.approx_sketches.json`,
+`approx/sketches.py`): a sidecar either package wrote is loaded by the
+other with no partition rebuild and answers the same approximate counts
+and bounds. The device cache's manifest records the coordinate dtype
+(`geomesa.coord.dtype`) as the reference's does.
 """
 
 from __future__ import annotations

@@ -20,6 +20,12 @@ card: it raises `CudaUnavailableError` when there is none (pass
 device="cpu" to run on the CPU). `audit` collects a QueryEvent per
 executed query and, under `serve.QueryService`, a ServeEvent per served
 request (an in-memory `AuditWriter` by default, as in the reference).
+
+Each type's planner loads the interceptors its schema names
+(`geomesa.query.interceptors`, `plan/interceptor.py`) and stages
+coordinates in the `geomesa.coord.dtype` dtype, on both routes.
+`write_batch` is the columnar bulk ingest (Arrow record batches or IPC
+bytes, the wire's `op=ingest`).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from geomesa_tpu_torch.core.columnar import FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.engine.device import resolve_device
+from geomesa_tpu_torch.plan.interceptor import load_interceptors
 from geomesa_tpu_torch.plan.audit import AuditWriter
 from geomesa_tpu_torch.plan.explain import Explainer
 from geomesa_tpu_torch.plan.planner import QueryPlanner, QueryResult
@@ -104,10 +111,14 @@ class DataStore:
         self._lock = threading.Lock()
 
     def _source(self, storage: FileSystemStorage) -> FeatureSource:
-        cache = (DeviceCacheManager(storage, self.device)
-                 if self.use_device_cache else None)
-        return FeatureSource(storage, QueryPlanner(
-            storage, self.device, cache=cache, audit=self.audit))
+        planner = QueryPlanner(storage, self.device, audit=self.audit)
+        planner.interceptors.extend(load_interceptors(storage.sft))
+        if self.use_device_cache:
+            # the scan path's coordinate dtype, or the routes' results
+            # diverge for points near predicate boundaries
+            planner.cache = DeviceCacheManager(
+                storage, self.device, coord_dtype=planner.coord_dtype)
+        return FeatureSource(storage, planner)
 
     def get_type_names(self) -> List[str]:
         return [name for name in sorted(os.listdir(self.catalog))
@@ -129,6 +140,29 @@ class DataStore:
         with self._lock:
             self._sources[sft.name] = src
         return src
+
+    def write_batch(self, type_name: str, data) -> "tuple[int, int]":
+        """Columnar bulk ingest: `data` is a pyarrow RecordBatch, a list
+        of them, or Arrow IPC stream bytes (the wire's `op=ingest`
+        payload). Column buffers decode as NumPy views, with no
+        per-feature dicts between the wire and the store. Returns (rows,
+        batches) written."""
+        from geomesa_tpu_torch.core.arrow_io import (
+            from_arrow, ipc_feature_batches)
+
+        src = self.get_feature_source(type_name)
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            fbs = ipc_feature_batches(bytes(data), src.sft)
+        elif isinstance(data, (list, tuple)):
+            fbs = (from_arrow(rb, src.sft) for rb in data)
+        else:
+            fbs = (from_arrow(data, src.sft),)
+        rows = batches = 0
+        for fb in fbs:
+            src.write(fb)
+            rows += len(fb)
+            batches += 1
+        return rows, batches
 
     def get_feature_source(self, name: str) -> FeatureSource:
         with self._lock:

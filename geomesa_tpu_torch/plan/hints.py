@@ -1,12 +1,10 @@
 """Per-query hints.
 
-Parity: geomesa-index-api QueryHints [upstream, unverified], as the
-reference package's `plan/hints.py` models them, restricted to the hints
-the port reads: the density, stats, bin and arrow aggregations
-(DensityScan, StatsScan, BinAggregatingScan, ArrowScan), sampling, loose
-bbox and the exact count. Approximate answers and authorizations come
-with their slices: a query cannot carry them here, so it cannot silently
-ignore them.
+Parity: geomesa-index-api QueryHints [upstream, unverified] — the same hint
+vocabulary (DENSITY_*, BIN_*, STATS_STRING, SAMPLING, LOOSE_BBOX,
+EXACT_COUNT, QUERY_INDEX) as a typed dataclass. A hint changes *what the
+scan computes* (aggregation push-down), not *which features match*
+(`auths` excepted). A copy of the reference package's `plan/hints.py`.
 """
 
 from __future__ import annotations
@@ -41,13 +39,15 @@ class QueryHints:
     stats_string: Optional[str] = None
 
     # arrow aggregation (ArrowScan): results as Arrow IPC stream bytes with
-    # dictionary-encoded strings. include_fid pins the schema (fids
-    # synthesized when the store kept none, stripped when False) so empty
-    # and non-empty shard results always merge
+    # dictionary-encoded strings (upstream: ARROW_ENCODE + ARROW_* hints).
+    # include_fid pins the schema deterministically (synthesized row fids
+    # when the store persisted none; stripped when False) so empty and
+    # non-empty shard results always merge
     arrow_encode: bool = False
     arrow_include_fid: bool = True
-    # sorted-delta protocol: each shard's batch pre-sorted by this field,
-    # the sort stamped in the schema metadata for merge_sorted_ipc
+    # ArrowScan sorted-delta protocol (upstream ARROW_SORT hints): each
+    # shard emits its batch pre-sorted by this field with the sort stamped
+    # in schema metadata; client-side merge_sorted_ipc verifies + merges
     arrow_sort_field: Optional[str] = None
     arrow_sort_reverse: bool = False
 
@@ -62,12 +62,39 @@ class QueryHints:
     # exact count: force full evaluation for counts instead of estimates
     exact_count: bool = True
 
-    # index override (upstream: QUERY_INDEX); recorded by explain only
+    # approximate-answer tier:
+    # the client's accuracy contract — a count/density answer may be
+    # served from sketches IFF its a-priori error bound fits
+    # `bound <= tolerance * answer`; None (default) demands exactness.
+    # Answers served under it carry approx/bound/confidence.
+    tolerance: Optional[float] = None
+    # top-k densest sketch-grid cells intersecting the query bbox — a
+    # sketch-native aggregation (QueryResult kind "topk_cells"); with
+    # no/unfit tolerance it computes exactly via a device density scan
+    topk_cells: Optional[int] = None
+    # DISTINCT count of one attribute's values. With a tolerance hint
+    # the answer may resolve at admission from per-partition
+    # HyperLogLog sketches (stats/sketches.py Cardinality merged under
+    # the manifest snapshot — approx/engine.py fast_distinct) with a
+    # typed [lo, hi] bound on the wire; otherwise it pays an exact
+    # feature scan + host unique count
+    distinct: Optional[str] = None
+
+    # index override (upstream: QUERY_INDEX)
     query_index: Optional[str] = None
 
-    # internal: the caller only needs a match count, so execution keeps
-    # every mask on the device and fetches a reduced scalar (set by
-    # QueryPlanner.count)
+    # security context: the querying user's authorizations (upstream: the
+    # AuthorizationsProvider SPI resolved per request). With a visibility
+    # column configured (sft user_data `geomesa.vis.attr`), features whose
+    # expression these auths do not satisfy are masked out of EVERY result
+    # kind; attributes carrying a `visibility` option are redacted to null
+    # in feature/arrow results (per-attribute visibility, SURVEY.md:464)
+    auths: Tuple[str, ...] = ()
+
+    # internal: the caller only needs a match count, so execution may keep
+    # every mask on device and fetch a single reduced scalar (set by
+    # QueryPlanner.count; the analog of the reference's count-optimized
+    # stats/EXACT_COUNT path)
     count_only: bool = False
 
     @property

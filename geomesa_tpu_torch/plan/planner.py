@@ -42,8 +42,17 @@ and after the scan or the kNN mask ("scan") raise the typed
 given; `knn` and `knn_launch` do not, as in the reference. Every
 `execute` writes a `QueryEvent` into the store's audit writer.
 
-Query interceptors, approximate answers and the mesh route come with
-later slices.
+Query interceptors (`plan/interceptor.py`) run once per query at the
+head of `plan`; the rewritten query is authoritative from there on, and a
+planner with interceptors refuses the ring ("interceptors"). Feature-level
+visibility (`geomesa.vis.attr`) folds the `auths` hint's allow mask into
+every mask: the allow table over the visibility vocabulary is made on the
+host and gathered on the device by code (`plan.runner.visibility_mask`).
+A `tolerance` hint routes count, density and `topk_cells` through the
+sketch engine (`approx/`) when its a-priori bound fits; a miss, and
+`topk_cells` without a tolerance, pay the exact device path. The device
+coordinate dtype follows `geomesa.coord.dtype` (`coord_dtype`). The mesh
+route comes with a later slice.
 """
 
 from __future__ import annotations
@@ -68,13 +77,14 @@ from geomesa_tpu_torch.engine.knn_scan import (
     capacity_bucket, count_match_tiles, knn_fullscan, knn_fullscan_tiled,
     knn_fullscan_tiled_body, knn_sparse_body, knn_sparse_launch,
     pad_scan_inputs, select_match_tiles)
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.faults import deadline_scope
 from geomesa_tpu_torch.plan.audit import AuditWriter, QueryEvent
 from geomesa_tpu_torch.plan.explain import Explainer
+from geomesa_tpu_torch.plan.interceptor import run_interceptors
 from geomesa_tpu_torch.plan.query import Query
 from geomesa_tpu_torch.plan.runner import (
-    CalibCache, aggregate, density_device_grid, query_mask_token, sample_mask)
+    CalibCache, _check_attr_auth, aggregate, density_device_grid,
+    query_mask_token, sample_mask, visibility_mask)
 from geomesa_tpu_torch.plan.stats_manager import StatsManager
 from geomesa_tpu_torch.store.cache import DeviceCacheManager
 from geomesa_tpu_torch.utils.padding import next_pow2
@@ -125,10 +135,10 @@ class QueryResult:
     [height, width] f32 grid and the match count, kind "stats" the
     evaluated Stat sequence and the match count, kind "arrow" the Arrow
     IPC bytes and kind "bin" the BIN records (each with the match count),
-    kind "count" only the count. `approx`,
-    `bound` and `confidence` are the reference's sketch-tier fields; the
-    port has no sketch tier yet (ROADMAP A4), so they stay False, 0.0 and
-    1.0."""
+    kind "topk_cells" the densest world-grid cells (in `stats`), kind
+    "count" only the count. A sketch-served answer sets `approx` and its
+    deterministic `bound` (the exact value lies within +- bound) with its
+    `confidence`."""
 
     kind: str
     features: Optional[FeatureBatch] = None
@@ -167,13 +177,16 @@ class QueryPlanner:
     def __init__(self, storage: FileSystemStorage, device: torch.device,
                  cache: Optional[DeviceCacheManager] = None,
                  audit: Optional[AuditWriter] = None):
-        if (storage.sft.user_data or {}).get("geomesa.vis.attr"):
-            raise NotPortedError("feature-level visibility (geomesa.vis.attr)",
-                                 "the security slice")
         self.storage = storage
         self.device = device
         self.cache = cache
         self.audit = audit
+        # QueryInterceptor SPI: callables Query -> Query run before
+        # planning (plan/interceptor.py)
+        self.interceptors: List = []
+        self.coord_dtype = (torch.float64
+                            if SystemProperties.COORD_DTYPE.get() == "float64"
+                            else torch.float32)
         # guards the compiled-filter cache, the kNN capacity cache and the
         # stats-manager singleton
         self._mutex = threading.Lock()
@@ -181,11 +194,13 @@ class QueryPlanner:
         self._knn_caps: dict = {}
         self._zcalib = CalibCache()
         self._stats_mgr: Optional[StatsManager] = None
+        self._approx_engine = None
 
     # -- planning ----------------------------------------------------------
 
     def plan(self, query: Query, explain: Optional[Explainer] = None) -> QueryPlan:
         e = explain or Explainer()
+        query = run_interceptors(query, self.interceptors, e)
         sft = self.storage.sft
         f = query.filter_ast
         cql = ast.to_cql(f)
@@ -342,7 +357,7 @@ class QueryPlanner:
             return None, None
         batch = FeatureBatch.concat(batches)
         batch = batch.pad_to(next_pow2(len(batch)))
-        return batch, to_device(batch, self.device)
+        return batch, to_device(batch, self.device, self.coord_dtype)
 
     @staticmethod
     def _raw_mask(plan: QueryPlan, dev, batch) -> torch.Tensor:
@@ -354,8 +369,10 @@ class QueryPlanner:
         """Residency (or scan) + the f64-exact filter mask: returns
         (sb, batch, dev, mask, is_empty); `sb` is None on the scan path.
         Band corrections are scattered in, ANDed with row validity and,
-        on the cached path, with the partition allowance. `resident`: the
-        caller's `_resident(plan)`, when it already has it.
+        on the cached path, with the partition allowance; the query's
+        visibility mask is folded last, so no row its auths cannot see is
+        anyone's neighbour. `resident`: the caller's `_resident(plan)`,
+        when it already has it.
 
         On the cached path the mask is built on a side stream ordered
         after the superbatch's build alone (`engine.device.side_stream`):
@@ -380,6 +397,10 @@ class QueryPlanner:
                                   & allowed[sb.host_pids(bidx)])
                         mask[upload(bidx, self.device)] = upload(
                             bexact, self.device)
+                vm = visibility_mask(self.storage.sft, batch, dev,
+                                     query.hints)
+                if vm is not None:
+                    mask &= vm
                 keep(mask)
         else:
             batch, dev = self._scan_batch(plan)
@@ -392,6 +413,9 @@ class QueryPlanner:
                 if len(bidx):
                     mask[torch.from_numpy(bidx).to(self.device)] = (
                         torch.from_numpy(bexact & batch.valid[bidx]).to(self.device))
+            vm = visibility_mask(self.storage.sft, batch, dev, query.hints)
+            if vm is not None:
+                mask &= vm
         return sb, batch, dev, mask, False
 
     # -- execute -----------------------------------------------------------
@@ -418,9 +442,30 @@ class QueryPlanner:
         t0 = time.perf_counter()
         check_timeout = _timeout_check(timeout_ms)
         plan = self.plan(query, explain)
+        # interceptors may have rewritten more than the filter: the
+        # rewritten query is authoritative from here on
+        query = plan.query
         t_plan = time.perf_counter()
         check_timeout("planning")
         hints = query.hints
+        if hints.is_density:
+            # both routes refuse a weight the auths cannot see (the
+            # reference checks it on the scan route only)
+            _check_attr_auth(self.storage.sft, hints, [hints.density_weight])
+        if hints.topk_cells or (hints.tolerance is not None
+                                and (hints.count_only or hints.is_density)):
+            # the sketch tier answers iff the a-priori bound fits; every
+            # miss (metered) pays the exact path below, on the device
+            result = None
+            if hints.tolerance is not None:
+                result = self.approx_engine().answer(plan, query)
+            if result is None and hints.topk_cells:
+                result = self._topk_exact(query, plan, timeout_ms)
+            if result is not None:
+                t_done = time.perf_counter()
+                self._record(query, plan, int(result.count), t0, t_plan,
+                             t_plan, t_done)
+                return result
         if (self.cache is not None and not hints.sampling
                 and not hints.loose_bbox):
             result, mask_count, t_scan = self._execute_cached(plan, query)
@@ -467,6 +512,10 @@ class QueryPlanner:
         if allowed is None:
             return self._empty_result(query), 0, t_scan
         allowed_rows = torch.from_numpy(allowed).to(self.device)[sb.pids]
+        vm = visibility_mask(self.storage.sft, sb.batch, sb.dev, hints)
+        if vm is not None:
+            # the band rows re-decided in f64 stay within the auths too
+            allowed_rows = allowed_rows & vm
         dev_mask = self._raw_mask(plan, sb.dev, sb.batch) & allowed_rows
         has_band = plan.compiled is not None and plan.compiled.has_band
 
@@ -514,12 +563,17 @@ class QueryPlanner:
         if batch is None:
             return self._empty_result(query), 0, t_scan
         dev_mask = self._raw_mask(plan, dev, batch)
+        vm = visibility_mask(self.storage.sft, batch, dev, hints)
+        if vm is not None:
+            # rows the auths cannot see are invisible to counts and to
+            # every aggregation
+            dev_mask = dev_mask & vm
         if hints.count_only and not hints.sampling:
-            r = self._count_result(plan, dev, batch, dev_mask)
+            r = self._count_result(plan, dev, batch, dev_mask, extra=vm)
             return r, r.count, t_scan
         (mask,) = fetch(dev_mask)
         if plan.compiled is not None and plan.compiled.has_band:
-            mask = plan.compiled.refine(mask, dev, batch)
+            mask = plan.compiled.refine(mask, dev, batch, extra=vm)
         if hints.sampling:
             groups = None
             if hints.sample_by:
@@ -570,41 +624,171 @@ class QueryPlanner:
             return QueryResult("bin", bin_bytes=b"")
         return QueryResult("features", features=None, count=0)
 
+    # -- approximate answers -------------------------------------------------
+
+    def approx_engine(self):
+        """The lazily-built sketch answer engine (one per planner, like
+        the stats manager; approx/engine.py)."""
+        with self._mutex:
+            if self._approx_engine is None:
+                from geomesa_tpu_torch.approx.engine import SketchAnswerEngine
+
+                self._approx_engine = SketchAnswerEngine(self)
+            return self._approx_engine
+
+    def _topk_exact(self, query: Query, plan: QueryPlan,
+                    timeout_ms: Optional[int]) -> QueryResult:
+        """Exact topk_cells: one device density over the sketch-aligned
+        world grid (the filter mask restricts it to matching rows), then
+        an exact host top-k ranked by (-count, row, col), with the same
+        cell geometry as the sketch path."""
+        from geomesa_tpu_torch.approx.sketches import DEFAULT_BINS
+
+        eng = self.approx_engine()
+        b = (eng.store.bins_per_dim if eng.store is not None
+             else DEFAULT_BINS)
+        k = int(query.hints.topk_cells)
+        dq = dataclasses.replace(query, hints=dataclasses.replace(
+            query.hints, topk_cells=None, tolerance=None, count_only=False,
+            density_bbox=(-180.0, -90.0, 180.0, 90.0),
+            density_width=b, density_height=b))
+        r = self._execute_deadlined(dq, None, timeout_ms)
+        cells: List[dict] = []
+        if r.grid is not None:
+            grid = np.asarray(r.grid)
+            for rr, cc in zip(*np.nonzero(grid)):
+                cells.append({
+                    "row": int(rr), "col": int(cc),
+                    "bbox": [-180.0 + cc * 360.0 / b,
+                             -90.0 + rr * 180.0 / b,
+                             -180.0 + (cc + 1) * 360.0 / b,
+                             -90.0 + (rr + 1) * 180.0 / b],
+                    "count": int(round(float(grid[rr, cc]))),
+                    "bound": 0,
+                })
+            cells.sort(key=lambda d: (-d["count"], d["row"], d["col"]))
+            cells = cells[:k]
+        return QueryResult("topk_cells", stats=cells,
+                           count=sum(c["count"] for c in cells),
+                           version=r.version)
+
+    def approx_count_result(self, query: Query) -> Optional[QueryResult]:
+        """Admission-time sketch peek (serve/service.py): the microsecond
+        count path only, over sketches already built; None on any miss, so
+        the caller queues the request for the exact path. A planner with
+        interceptors declines (the peek must not run a chain the queued
+        path runs again)."""
+        if query.hints.tolerance is None:
+            return None
+        if self.interceptors and not query.intercepted:
+            return None
+        # the property guard still judges the query: a blocked full-table
+        # count raises here, and the queued path then answers it typed
+        query = run_interceptors(query, [])
+        return self.approx_engine().fast_count(query, build=False)
+
     # -- count -------------------------------------------------------------
 
     def count(self, query: "Query | str",
               timeout_ms: Optional[int] = None) -> int:
         """Exact match count: `execute` with count_only, capped by
         max_features. With exact_count=False and INCLUDE, the manifest
-        row count. `timeout_ms` propagates into the nested execute."""
-        return int(self.count_result(query, timeout_ms=timeout_ms).count)
+        row count, unless geomesa.force.count is set. A sketch-served
+        answer (tolerance hint) returns an `ApproxCount`: an int carrying
+        `.bound` and `.confidence`. `timeout_ms` propagates into the
+        nested execute."""
+        r = self.count_result(query, timeout_ms=timeout_ms)
+        n = int(r.count)
+        if r.approx:
+            from geomesa_tpu_torch.approx.engine import ApproxCount
+
+            return ApproxCount(n, int(r.bound), r.confidence)
+        return n
 
     def count_result(self, query: "Query | str",
                      timeout_ms: Optional[int] = None) -> QueryResult:
         """`count` with provenance: a QueryResult(kind="count") carrying
         the committed manifest version the answer was pinned to (the
-        serve result cache's key, approx/cache.py). The serve batcher
-        calls this."""
+        serve result cache's key, approx/cache.py) and any approx bound.
+        The serve batcher calls this. The interceptor chain runs here,
+        once: the estimate shortcut must see the rewritten query, and the
+        nested execute's plan passes the marked query through."""
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
+        query = run_interceptors(query, self.interceptors)
+        if query.hints.distinct is not None:
+            self._validate_distinct(query.hints.distinct)
         if (not query.hints.exact_count
-                and isinstance(query.filter_ast, ast.Include)):
+                and not SystemProperties.FORCE_COUNT.get()
+                and isinstance(query.filter_ast, ast.Include)
+                # a manifest row count is not a distinct-value count
+                and query.hints.distinct is None
+                # a manifest count knows nothing about auths
+                and not (self.storage.sft.user_data or {}).get(
+                    "geomesa.vis.attr")):
             # one snapshot pins count AND version atomically
             snap = self.storage.manifest_snapshot()
             n = sum(int(e["count"]) for files in snap.values() for e in files)
-            version = snap.version
+            if query.max_features is not None:
+                n = min(n, query.max_features)
+            return QueryResult("count", count=n, version=snap.version)
+        if query.hints.tolerance is not None:
+            # the microsecond path: memoized sketch merge; a miss is
+            # metered and falls through to the exact path
+            r = self.approx_engine().fast_count(query)
+            if r is not None:
+                return r
+        if query.hints.distinct is not None:
+            return self._distinct_exact(query, timeout_ms=timeout_ms)
+        # tolerance stripped: fast_count above was the sketch attempt
+        r = self.execute(dataclasses.replace(
+            query, hints=dataclasses.replace(
+                query.hints, count_only=True, tolerance=None)),
+            timeout_ms=timeout_ms)
+        if r.kind == "features":
+            n = len(r.features) if r.features is not None else 0
         else:
-            r = self.execute(dataclasses.replace(
-                query, hints=dataclasses.replace(query.hints, count_only=True)),
-                timeout_ms=timeout_ms)
-            if r.kind == "features":
-                n = len(r.features) if r.features is not None else 0
-            else:
-                n = r.count
-            version = r.version
+            n = r.count
         if query.max_features is not None:
             n = min(n, query.max_features)
-        return QueryResult("count", count=n, version=version)
+        return QueryResult("count", count=n, version=r.version,
+                           approx=r.approx, bound=r.bound,
+                           confidence=r.confidence)
+
+    def _validate_distinct(self, attr: str) -> None:
+        """A bad `distinct` hint is the client's error: answer it typed,
+        not as a KeyError from a scan."""
+        from geomesa_tpu_torch.core.sft import GEOMETRY_TYPES
+
+        sft = self.storage.sft
+        if attr not in sft:
+            raise ValueError(
+                f"distinct attribute {attr!r} not in schema {sft.name!r}")
+        if sft.attribute(attr).type in GEOMETRY_TYPES:
+            raise ValueError(
+                f"distinct over geometry attribute {attr!r} is not "
+                f"supported")
+
+    def _distinct_exact(self, query: Query,
+                        timeout_ms: Optional[int] = None) -> QueryResult:
+        """Exact COUNT(DISTINCT attr): execute the query as features (the
+        device mask, visibility and interceptors included) and count the
+        named column's unique values on the host."""
+        attr = query.hints.distinct
+        q = dataclasses.replace(query, hints=dataclasses.replace(
+            query.hints, tolerance=None, distinct=None, count_only=False))
+        r = self.execute(q, timeout_ms=timeout_ms)
+        feats = r.features
+        n = 0
+        if feats is not None and len(feats):
+            col = feats.columns[attr]
+            if isinstance(col, DictColumn):
+                from geomesa_tpu_torch.approx.engine import present_values
+
+                n = len(np.unique(present_values(col).astype(str)))
+            else:
+                n = len(np.unique(np.asarray(col)))
+        return QueryResult("count", count=n, version=r.version)
 
     # -- kNN ---------------------------------------------------------------
 
@@ -654,6 +838,7 @@ class QueryPlanner:
         check_timeout = _timeout_check(timeout_ms)
         plan = self.plan(query)
         check_timeout("planning")
+        query = plan.query
         sft = self.storage.sft
         g = sft.default_geometry
         if g is None or g.type != "Point":
@@ -720,24 +905,27 @@ class QueryPlanner:
         (`registry.frozen_for`).
 
         Raises RingIneligible (typed: the serve loop keeps the pipelined
-        route) for storage without committed manifest versions
+        route) for a planner with interceptors ("interceptors": they must
+        run per request), storage without committed manifest versions
         ("no_version": staleness would be undetectable), no device cache
         ("no_device_cache"), a non-point geometry ("non_point") or no
-        resident matching rows ("empty"). The port has no query
-        interceptors yet (ROADMAP A4), so "interceptors" never applies;
-        the mesh reason comes with ROADMAP A7. A failed capture raises
-        GraphCaptureError (an OOM stays an OOM)."""
+        resident matching rows ("empty"); the mesh reason comes with
+        ROADMAP A7. A failed capture raises GraphCaptureError (an OOM
+        stays an OOM)."""
         from geomesa_tpu_torch.compilecache.registry import registry
         from geomesa_tpu_torch.engine import knn_scan
 
         if isinstance(query, str):
             query = Query(self.storage.sft.name, query)
+        if self.interceptors:
+            raise RingIneligible("interceptors")
         mv_fn = getattr(self.storage, "manifest_version", None)
         if mv_fn is None:
             raise RingIneligible("no_version")
         if self.cache is None:
             raise RingIneligible("no_device_cache")
         plan = self.plan(query)
+        query = plan.query
         g = self.storage.sft.default_geometry
         if g is None or g.type != "Point":
             raise RingIneligible("non_point")
@@ -745,7 +933,8 @@ class QueryPlanner:
         sb, allowed = self._resident(plan)
         if allowed is None:
             raise RingIneligible("empty")
-        cls = ring_class(query.type_name, plan.cql, plan.residual_cql)
+        cls = ring_class(query.type_name, plan.cql, plan.residual_cql,
+                         query.hints.auths)
         frozen = registry.frozen_for(self, cls, sb, mversion)
         if frozen is None:
             _, _, dev, mask, _ = self._knn_mask_setup(
@@ -817,11 +1006,13 @@ class QueryPlanner:
             return caps.get(key)
 
 
-def ring_class(type_name: str, cql: str, residual_cql: str) -> str:
+def ring_class(type_name: str, cql: str, residual_cql: str,
+               auths=()) -> str:
     """The digest of a ring window class's mask identity: the type, the
-    filter's CQL (which prunes partitions) and the residual's (which the
-    mask evaluates; loose bbox drops the BBOX from it)."""
-    text = "\x1f".join((type_name, cql, residual_cql))
+    filter's CQL (which prunes partitions), the residual's (which the
+    mask evaluates; loose bbox drops the BBOX from it) and the auths
+    (whose visibility mask is folded in)."""
+    text = "\x1f".join((type_name, cql, residual_cql) + tuple(auths))
     return hashlib.sha1(text.encode("utf-8")).hexdigest()[:16]
 
 
@@ -1097,6 +1288,11 @@ def _needed_columns(plan: QueryPlan, sft):
     query = plan.query
     hints = query.hints
     needed = set()
+    # the visibility column always rides the scan when configured:
+    # dropping it would silently disable the feature-level auth mask
+    vis_attr = (sft.user_data or {}).get("geomesa.vis.attr")
+    if vis_attr:
+        needed.add(vis_attr)
     for node in ast.walk(plan.filter):
         for field in ("prop", "left", "right"):
             v = getattr(node, field, None)

@@ -9,10 +9,17 @@ cell-dictionary route and its cross-query calibration cache,
 its reductions in `engine/stats.py`), to Arrow IPC bytes (`arrow_encode`,
 optionally a sorted DELTA batch), to BIN records (`bin_track`, packed on
 the device by `engine/bin.py`) or to the matching features, finished by
-`finish_features` (sort, max features, projection). `sample_mask` thins a
-mask for the sampling hint, and `query_mask_token` keys mask-dependent
-caches on the query. Attribute redaction and reprojection come with
-their slices.
+`finish_features` (sort, max features, attribute redaction, projection,
+output reprojection). `sample_mask` thins a mask for the sampling hint,
+and `query_mask_token` keys mask-dependent caches on the query.
+
+Visibility: `visibility_mask` is the feature-level allow mask of the
+query's `auths` (the allow table over the visibility column's vocabulary,
+evaluated on the host by `security/visibility.py` and gathered on the
+device from the resident int32 codes, failing closed as `allow_mask`
+does); `redact_attributes` nulls the attributes whose `visibility` option
+the auths do not satisfy; `_check_attr_auth` refuses aggregations (stats,
+bin, density weight) that would read such an attribute's values.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from geomesa_tpu_torch.cql import ast
 from geomesa_tpu_torch.curve.binned_time import TimePeriod, to_binned_time
 from geomesa_tpu_torch.engine.density import density_grid_auto
 from geomesa_tpu_torch.engine.density_zsparse import density_zsparse
-from geomesa_tpu_torch.engine.device import VALID, fetch
+from geomesa_tpu_torch.engine.device import VALID, fetch, upload
+from geomesa_tpu_torch.security.visibility import VisibilityEvaluator
 from geomesa_tpu_torch.utils.padding import next_pow2
 
 if TYPE_CHECKING:
@@ -199,15 +207,116 @@ def bin_bytes(sft: SimpleFeatureType, batch: FeatureBatch, dev,
     return encode_bin(packed, np.nonzero(mask)[0])
 
 
+VIS_ATTR_KEY = "geomesa.vis.attr"
+_EVALUATOR = VisibilityEvaluator()
+
+
+def allow_table(vocab, auths) -> np.ndarray:
+    """bool[|vocab|]: which visibility expressions `auths` satisfy (an
+    empty or null expression is public). |vocab| evaluations, not |rows|."""
+    aset = frozenset(auths)
+    return np.array([_EVALUATOR.parse(v).evaluate(aset) if v else True
+                     for v in vocab], dtype=bool)
+
+
+def gather_allow(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
+    """The allow table gathered by dictionary code on the codes' device,
+    bit for bit `security.visibility.allow_mask`: codes outside the
+    vocabulary are denied (fail closed) and -1 (null) is public."""
+    n = len(table)
+    if n == 0:
+        return codes < 0
+    t = upload(table, codes.device)
+    gathered = torch.index_select(t, 0, codes.clamp(0, n - 1))
+    return torch.where((codes >= 0) & (codes < n), gathered, codes < 0)
+
+
+def visibility_mask(sft: SimpleFeatureType, batch: FeatureBatch, dev,
+                    hints) -> Optional[torch.Tensor]:
+    """Feature-level visibility: the device bool mask of the rows whose
+    visibility expression the query's auths satisfy, or None when the
+    type configures no visibility column (user_data `geomesa.vis.attr`)."""
+    vis_attr = (sft.user_data or {}).get(VIS_ATTR_KEY)
+    if not vis_attr or vis_attr not in batch.columns:
+        return None
+    col = batch.columns[vis_attr]
+    if not isinstance(col, DictColumn):
+        raise ValueError(
+            f"visibility column {vis_attr!r} must be a String attribute")
+    return gather_allow(allow_table(col.vocab, hints.auths), dev[vis_attr])
+
+
+def redact_attributes(sel: FeatureBatch, hints) -> FeatureBatch:
+    """Per-attribute visibility: null out the columns whose `visibility`
+    option the query's auths do not satisfy, folded into the result
+    projection so every feature and arrow result redacts identically.
+    Strings become null codes, floats NaN, geometries NaN points (or
+    zero-ring features); int and temporal columns, which have no null,
+    are dropped from the result."""
+    vis_attrs = [a for a in sel.sft.attributes if a.options.get("visibility")]
+    if not vis_attrs:
+        return sel
+    from geomesa_tpu_torch.core.columnar import GeometryColumn
+
+    cols = dict(sel.columns)
+    changed = False
+    n = len(sel)
+    for a in vis_attrs:
+        if _EVALUATOR.can_see(a.options["visibility"], hints.auths):
+            continue
+        changed = True
+        col = cols[a.name]
+        if isinstance(col, DictColumn):
+            cols[a.name] = DictColumn(np.full(n, -1, np.int32), [])
+        elif isinstance(col, GeometryColumn):
+            if col.is_point:
+                cols[a.name] = GeometryColumn(
+                    col.kind, np.full(n, np.nan), np.full(n, np.nan))
+            else:
+                cols[a.name] = GeometryColumn(
+                    col.kind, np.full(n, np.nan), np.full(n, np.nan),
+                    np.zeros((0, 2), np.float64), np.zeros(1, np.int64),
+                    np.zeros(n + 1, np.int64), [[0]] * n,
+                    np.full((n, 4), np.nan))
+        else:
+            arr = np.asarray(col)
+            if arr.dtype.kind == "f":
+                cols[a.name] = np.full(n, np.nan)
+            else:
+                del cols[a.name]
+    if not changed:
+        return sel
+    if set(cols) != set(sel.columns):
+        kept = [a for a in sel.sft.attributes if a.name in cols]
+        sub = SimpleFeatureType(sel.sft.name, kept, sel.sft.user_data)
+        return FeatureBatch(sub, cols, sel.fids, sel.valid)
+    return dataclasses.replace(sel, columns=cols)
+
+
 def query_mask_token(query: "Query") -> tuple:
     """Everything that shapes the result mask for FIXED resident arrays:
-    the type, the canonical filter text, sampling and loose bbox (the
-    port has no auths). Keys mask-dependent plan caches such as the
-    zsparse calibration: equal tokens over the same arrays give identical
+    the type, the canonical filter text, the auths, sampling and loose
+    bbox. Keys mask-dependent plan caches such as the zsparse
+    calibration: equal tokens over the same arrays give identical
     masks."""
     h = query.hints
-    return (query.type_name, ast.to_cql(query.filter_ast), h.sampling,
-            h.sample_by, h.loose_bbox)
+    return (query.type_name, ast.to_cql(query.filter_ast), tuple(h.auths),
+            h.sampling, h.sample_by, h.loose_bbox)
+
+
+def _check_attr_auth(sft: SimpleFeatureType, hints, names) -> None:
+    """Aggregations (stats, bin, density weight) read attribute VALUES:
+    one naming a visibility-protected attribute the auths cannot see
+    raises PermissionError rather than stream protected data through
+    sketch, grid or record bytes."""
+    for name in names:
+        if not name or name not in sft:
+            continue
+        vis = sft.attribute(name).options.get("visibility")
+        if vis and not _EVALUATOR.can_see(vis, hints.auths):
+            raise PermissionError(
+                f"insufficient authorizations for attribute {name!r} "
+                f"(visibility {vis!r})")
 
 
 def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
@@ -215,17 +324,26 @@ def aggregate(sft: SimpleFeatureType, batch: FeatureBatch, dev,
     """A host row mask over `batch` to the query's result: the density
     grid, the stats, Arrow IPC bytes or BIN records when the hints ask for
     one (arrow before bin, as in the reference), else the matching
-    features. Returns (result, the mask's matching rows).
-
-    The reference first refuses aggregations over attributes that the
-    query's authorizations cannot see (`_check_attr_auth`). That check
-    comes with visibility (ROADMAP A4 b): the port has no auths hint, a
-    store with feature-level visibility is refused when its planner is
-    built, and per-attribute visibility options are not read yet (no
-    feature result redacts them either)."""
+    features. Returns (result, the mask's matching rows). The planner
+    has already folded the feature-level visibility mask into `mask`;
+    aggregations naming an attribute the auths cannot see refuse
+    (`_check_attr_auth`)."""
     from geomesa_tpu_torch.plan.planner import QueryResult
 
     hints = query.hints
+    if hints.is_stats:
+        from geomesa_tpu_torch.stats import parse_stats
+
+        names = []
+        for s in parse_stats(hints.stats_string).stats:
+            names.append(getattr(s, "attribute", None))
+            # a Z3 histogram reads a second attribute (the dtg column)
+            names.append(getattr(s, "dtg", None))
+        _check_attr_auth(sft, hints, names)
+    if hints.is_bin:
+        _check_attr_auth(sft, hints, [hints.bin_track, hints.bin_label])
+    if hints.is_density and hints.density_weight:
+        _check_attr_auth(sft, hints, [hints.density_weight])
     if hints.is_density:
         grid = density_device_grid(
             sft, batch, dev, torch.from_numpy(mask).to(dev[VALID].device),
@@ -327,13 +445,20 @@ def run_stats(batch: FeatureBatch, dev, mask: np.ndarray, expression: str):
 
 
 def finish_features(sel: FeatureBatch, query: "Query") -> FeatureBatch:
-    """The LocalQueryRunner tail: sort, max features, projection."""
+    """The LocalQueryRunner tail: sort, max features, attribute
+    redaction, projection, then reprojection to the query's `crs` (host
+    f64, `core/crs.py`)."""
     if query.sort_by:
         sel = sel.select(sort_order(sel, query.sort_by))
     if query.max_features is not None and len(sel) > query.max_features:
         sel = sel.select(np.arange(query.max_features))
+    sel = redact_attributes(sel, query.hints)
     if query.attributes is not None:
         sel = project(sel, query.attributes)
+    if query.crs is not None:
+        from geomesa_tpu_torch.core.crs import reproject_batch
+
+        sel = reproject_batch(sel, query.crs)
     return sel
 
 

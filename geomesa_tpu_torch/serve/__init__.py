@@ -8,9 +8,10 @@ over a DataStore (`service.py`), admission and deadlines
 with one (filter, k) stack into ONE launch of B1 or B2), the pipelined
 dispatch on CUDA streams and events (`pipeline.py`), the ring of
 captured CUDA graphs (`ringloop.py`), the JSON-lines wire
-(`protocol.serve_lines`) and the closed-loop, open-loop and sustained
-load generators (`loadgen.py`). The columnar wire (A4), standing queries
-(A6), sharded serving and fleets (A7) come later.
+(`protocol.serve_lines`, `protocol.serve_connection`) with its columnar
+framing and codecs (`columnar.py`), and the closed-loop, open-loop and
+sustained load generators (`loadgen.py`). Standing queries (A6),
+sharded serving and fleets (A7) come later.
 """
 
 from geomesa_tpu_torch.serve.scheduler import (

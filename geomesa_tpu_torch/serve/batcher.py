@@ -7,9 +7,8 @@ which launches B1 (`chord_blockmin_sparse`) or B2 (`chord_blockmin`) once
 for the whole stacked query axis. The pipelined route's cross-kind
 count fusion (`fused_count_key`), the ring's window-class key
 (`ring_key`) and the launch attribution (`note_launch_route`; its mesh
-fields stay empty until ROADMAP A7) are here; the port's planner never
-returns a sketch answer, so the approximate branch raises
-NotPortedError naming A4.
+fields stay empty until ROADMAP A7) are here; a sketch-served count
+answers its riders an `ApproxCount`.
 
 The engine kernels are already batched over query sets — `knn_sparse_scan`
 / `knn_fullscan_tiled` take [Q] query-point arrays and compute every row
@@ -41,7 +40,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from geomesa_tpu_torch.cql import ast
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.planner import QueryTimeout
 from geomesa_tpu_torch.serve.scheduler import ServeRequest
 from geomesa_tpu_torch.telemetry.trace import TRACER
@@ -331,11 +329,11 @@ def _execute_shared(source, reqs: List[ServeRequest],
     if lead.kind == "count":
         qr = source.planner.count_result(lead.query, timeout_ms=timeout_ms)
         if qr.approx:
-            # the reference answers an ApproxCount here; the port's
-            # planner has no sketch tier, so this cannot be reached
-            raise NotPortedError("sketch-served counts (ApproxCount)",
-                                 "ROADMAP A4")
-        out = int(qr.count)
+            from geomesa_tpu_torch.approx.engine import ApproxCount
+
+            out = ApproxCount(int(qr.count), int(qr.bound), qr.confidence)
+        else:
+            out = int(qr.count)
         provenance = qr
     else:
         out = source.planner.execute(lead.query, timeout_ms=timeout_ms)

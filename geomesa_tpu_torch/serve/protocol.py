@@ -24,14 +24,25 @@ rejected|timeout|error, "reason", "message"}. The reference's
 the connection's role and the wire it speaks, and `{"op": "drain"}` (on
 an admin connection) drains the service in place.
 
+Approximate answers: `"tolerance"` (the client's accuracy contract),
+`"topkCells"` (the densest world-grid cells) and `"distinct"` (count the
+distinct values of one attribute) become query hints; a sketch-served
+answer carries `approx`, `bound`, `confidence` and the pre-computed
+`lo`/`hi` of the exact value.
+
+Columnar wire (`serve/columnar.py`): the hello advertises `["json",
+"columnar"]`; a request (or the connection, via `{"op": "hello", "wire":
+"columnar"}`) opts into binary framing for bulk payloads: feature
+results as Arrow IPC, density and topk grids as raw f64 buffers, kNN
+query points (`x`/`y` sections) and `op=ingest` Arrow IPC frames inbound
+(`DataStore.write_batch`). A frame is a JSON header line whose `frame`
+announces `nbytes` of raw payload after it. A connection without a binary
+sink (`write_bytes`) is answered in JSON with a typed `"wireFallback"`.
+
 What a later slice brings answers typed instead of running another
 route: {"ok": false, "error": "error", "reason": "not_ported",
-"roadmap": item, "message"}. That covers the subscribe verbs (ROADMAP
-A6), ingest frames and the `tolerance`/`topkCells`/`distinct` hints (A4).
-The columnar wire waits for A4 with `core/arrow_io.py`: the hello
-advertises `["json"]`, and a `"wire": "columnar"` request is served as
-JSON with a typed `"wireFallback"` saying so, along the reference's own
-path for a missing codec.
+"roadmap": item, "message"}. That covers the subscribe verbs and
+`attach`/`detach` (ROADMAP A6).
 
 Errors are per-request, never fatal to the stream: a malformed line
 yields an ok=false response and the loop continues — one bad client
@@ -53,19 +64,12 @@ from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.hints import QueryHints
 from geomesa_tpu_torch.plan.planner import QueryTimeout
 from geomesa_tpu_torch.plan.query import Query
+from geomesa_tpu_torch.serve import columnar as colwire
 from geomesa_tpu_torch.serve.scheduler import (
     PRIORITIES, QueryRejected, ServeRequest)
 from geomesa_tpu_torch.serve.service import QueryService, ServeConfig
 
 MAX_FEATURE_ROWS = 10_000  # response-size guard for op=query
-
-WIRE_JSON = "json"
-WIRE_COLUMNAR = "columnar"
-# the hello's capability list: the columnar codec is ROADMAP A4
-WIRE_CAPABILITIES = [WIRE_JSON]
-# the typed downgrade reason of a columnar ask (the reference says
-# pyarrow_unavailable or no_binary_sink on its own missing-codec path)
-COLUMNAR_FALLBACK = "columnar wire not ported (ROADMAP A4)"
 
 SUBSCRIBE_OPS = ("subscribe", "unsubscribe", "poll", "subscriptions",
                  "export_subscription", "pause", "resume")
@@ -112,9 +116,20 @@ def _rows_json(batch, limit: int):
     return rows
 
 
+def _approx_fields(count: int, bound, confidence: float) -> dict:
+    """The typed error bound of a sketch-served answer: the exact value
+    lies in [lo, hi] = [count - bound, count + bound]."""
+    return {"approx": True, "bound": bound, "confidence": float(confidence),
+            "lo": max(0, count - int(bound)), "hi": count + int(bound)}
+
+
 def _payload(kind: str, result, limit: int) -> dict:
     if kind == "count":
-        return {"count": int(result)}
+        doc = {"count": int(result)}
+        if getattr(result, "approx", False):
+            doc.update(_approx_fields(int(result), result.bound,
+                                      result.confidence))
+        return doc
     if kind == "knn":
         dists, idx, _batch = result
         return {
@@ -131,32 +146,69 @@ def _payload(kind: str, result, limit: int) -> dict:
         out["total"] = float(result.grid.sum())
     elif result.kind == "stats":
         out["stats"] = str(result.stats)
+    elif result.kind == "topk_cells":
+        out["cells"] = result.stats
+    if getattr(result, "approx", False):
+        out.update(_approx_fields(int(result.count), float(result.bound),
+                                  result.confidence))
     return out
 
 
-def parse_request(doc: dict) -> ServeRequest:
+def _columnar_payload(kind: str, result, limit: int):
+    """(response fields, frame payload) for a columnar-mode request, or
+    (None, None) when this result kind has no columnar encoding
+    (count/kNN/stats answers are already small and stay JSON, unmarked).
+    The fields mirror `_payload` minus the bulk data in the frame."""
+    if kind in ("count", "knn"):
+        return None, None
+    out = {"kind": result.kind, "count": int(result.count)}
+    if result.kind == "features":
+        feats = result.features
+        out["count"] = len(feats) if feats is not None else 0
+        desc, payload = colwire.encode_execute_frame(feats, limit)
+    elif result.kind == "density" and result.grid is not None:
+        out["shape"] = list(result.grid.shape)
+        out["total"] = float(result.grid.sum())
+        desc, payload = colwire.encode_density_frame(result.grid)
+    elif result.kind == "topk_cells":
+        desc, payload = colwire.encode_topk_frame(result.stats)
+    else:
+        return None, None
+    out["frame"] = desc
+    if getattr(result, "approx", False):
+        out.update(_approx_fields(int(result.count), float(result.bound),
+                                  result.confidence))
+    return out, payload
+
+
+def parse_request(doc: dict,
+                  payload: Optional[bytes] = None) -> ServeRequest:
     op = doc.get("op", "query")
     kind = {"query": "execute", "execute": "execute",
             "count": "count", "knn": "knn"}.get(op)
     if kind is None:
         raise ValueError(f"unknown op {op!r}")
     type_name = doc["typeName"]
-    for field in ("tolerance", "topkCells", "distinct"):
-        if doc.get(field) is not None:
-            raise NotPortedError(f"the {field!r} request field "
-                                 "(approximate answers)", "ROADMAP A4")
-    if doc.get("frame"):
-        raise NotPortedError("binary request frames (columnar wire)",
-                             "ROADMAP A4")
     kw = {}
-    d = doc.get("density")
-    if d:
-        # a one-shot DensityScan window (the subscribe verb's spec shape)
+    if (doc.get("tolerance") is not None or doc.get("topkCells")
+            or doc.get("density") or doc.get("distinct")):
+        # aggregation and approximate-answer hints; density is a one-shot
+        # DensityScan window (the subscribe verb's spec shape)
+        hkw = {}
+        d = doc.get("density")
+        if d:
+            hkw.update(
+                density_bbox=tuple(float(v) for v in d["bbox"]),
+                density_width=int(d["width"]),
+                density_height=int(d["height"]),
+                density_weight=d.get("weight"))
         kw["hints"] = QueryHints(
-            density_bbox=tuple(float(v) for v in d["bbox"]),
-            density_width=int(d["width"]),
-            density_height=int(d["height"]),
-            density_weight=d.get("weight"))
+            tolerance=(float(doc["tolerance"])
+                       if doc.get("tolerance") is not None else None),
+            topk_cells=(int(doc["topkCells"])
+                        if doc.get("topkCells") else None),
+            distinct=doc.get("distinct"),
+            **hkw)
     query = Query(type_name, doc.get("cql", "INCLUDE"),
                   max_features=doc.get("maxFeatures"), **kw)
     priority = doc.get("priority", "normal")
@@ -171,8 +223,14 @@ def parse_request(doc: dict) -> ServeRequest:
     if timeout_ms:
         req.deadline = time.monotonic() + float(timeout_ms) / 1000.0
     if kind == "knn":
-        req.qx = np.asarray(doc["x"], np.float64)
-        req.qy = np.asarray(doc["y"], np.float64)
+        if payload is not None and doc.get("frame"):
+            # columnar request staging: the x/y sections decode as f64
+            # views straight into the batcher's stacking
+            req.qx, req.qy = colwire.decode_knn_sections(
+                doc["frame"], payload)
+        else:
+            req.qx = np.asarray(doc["x"], np.float64)
+            req.qy = np.asarray(doc["y"], np.float64)
         if req.qx.shape != req.qy.shape or req.qx.ndim != 1:
             raise ValueError("knn x/y must be equal-length 1-d arrays")
         req.k = int(doc.get("k", 10))
@@ -192,6 +250,60 @@ def _error_response(rid, exc) -> dict:
                 "reason": "not_ported", "roadmap": exc.later_slice,
                 "message": str(exc)}
     return {"id": rid, "ok": False, "error": "error", "message": str(exc)}
+
+
+class _WireState:
+    """Per-connection columnar-wire state: the negotiated session mode
+    and the byte writer, shared with the line writer under one lock
+    (frames and lines interleave on one stream and must never tear)."""
+
+    def __init__(self, write, write_bytes, out_lock):
+        self.write = write
+        self.write_bytes = write_bytes
+        self.out_lock = out_lock
+        self.mode = colwire.WIRE_JSON
+
+    def can_columnar(self) -> bool:
+        return self.write_bytes is not None and colwire.have_pyarrow()
+
+    def fallback_reason(self) -> str:
+        return ("pyarrow_unavailable" if not colwire.have_pyarrow()
+                else "no_binary_sink")
+
+    def request_mode(self, doc: dict) -> str:
+        """The wire mode one request resolved to (a per-request opt-in
+        overrides the session default)."""
+        return str(doc.get("wire", self.mode))
+
+    def write_buf(self, buf: bytes) -> None:
+        """One encoded frame onto the stream, under the response lock."""
+        with self.out_lock:
+            if self.write_bytes is not None:
+                self.write_bytes(buf)
+            else:
+                self.write(buf.decode("utf-8"))
+
+
+def _handle_ingest(store, rid, doc: dict, payload: Optional[bytes],
+                   respond) -> None:
+    """Columnar bulk ingest: `{"op": "ingest", "typeName": ..., "frame":
+    {...}}` + an Arrow IPC stream payload, written through
+    `DataStore.write_batch`. Raises for the caller's per-request error
+    isolation."""
+    if payload is None:
+        raise ValueError(
+            "op=ingest needs a binary frame payload (an Arrow IPC stream)")
+    if not colwire.have_pyarrow():
+        respond({"id": rid, "ok": False, "error": "rejected",
+                 "reason": "pyarrow_unavailable",
+                 "message": "columnar ingest needs pyarrow on the server"})
+        return
+    rows, batches = store.write_batch(doc["typeName"], payload)
+    from geomesa_tpu_torch.utils.metrics import metrics
+
+    metrics.counter("wire.ingest.rows", rows)
+    metrics.counter("wire.ingest.bytes", len(payload))
+    respond({"id": rid, "ok": True, "rows": rows, "batches": batches})
 
 
 def serve_lines(
@@ -216,11 +328,17 @@ def serve_lines(
 
 
 def serve_connection(store, svc: QueryService, lines: Iterable[str], write,
-                     admin: bool = False) -> int:
+                     admin: bool = False, write_bytes=None,
+                     read_bytes=None) -> int:
     """One JSON-lines conversation over a SHARED QueryService (the
     service outlives the connection — closing it is the caller's job;
     contrast `serve_lines`, which owns its service). `admin` seeds the
-    connection's role; a hello with role router/admin upgrades it."""
+    connection's role; a hello with role router/admin upgrades it.
+
+    `write_bytes`/`read_bytes` are the binary-frame transport (a socket's
+    raw write and exact read, or `columnar.MemoryWire.read_exact`):
+    without them the columnar wire downgrades typed to JSON and inbound
+    binary frames are refused."""
     out_lock = threading.Lock()
     processed = 0
     is_admin = admin
@@ -229,7 +347,9 @@ def serve_connection(store, svc: QueryService, lines: Iterable[str], write,
         with out_lock:
             write(json.dumps(doc) + "\n")
 
-    def on_done(rid, req, wire_fallback):
+    wire = _WireState(write, write_bytes, out_lock)
+
+    def on_done(rid, req):
         def cb(fut):
             # clock reads only when this request is traced
             r0_ns = perf_counter_ns() if req.trace is not None else 0
@@ -243,14 +363,33 @@ def serve_connection(store, svc: QueryService, lines: Iterable[str], write,
                 else:
                     limit = req.query.max_features or MAX_FEATURE_ROWS
                     doc = {"id": rid, "ok": True}
-                    doc.update(_payload(req.kind, fut.result(), limit))
-                    if wire_fallback is not None:
-                        doc["wireFallback"] = wire_fallback
+                    payload = None
+                    if req.wire == colwire.WIRE_COLUMNAR:
+                        e0_ns = (perf_counter_ns()
+                                 if req.trace is not None else 0)
+                        fields, payload = _columnar_payload(
+                            req.kind, fut.result(), limit)
+                        if payload is not None:
+                            doc.update(fields)
+                            if req.trace is not None:
+                                req.trace.record(
+                                    "wire.encode", e0_ns,
+                                    perf_counter_ns(), kind=req.kind)
+                    if payload is None:
+                        doc.update(_payload(req.kind, fut.result(), limit))
+                        fb = getattr(req, "wire_fallback", None)
+                        if fb is not None:
+                            doc["wireFallback"] = fb
                     if req.degraded:
                         doc["degraded"] = True
                     if req.cache_hit:
                         doc["cached"] = True
-                    respond(doc)
+                    if payload is not None:
+                        # one buffer, one locked write: the header line
+                        # and its payload never interleave with another
+                        wire.write_buf(colwire.frame_bytes(doc, payload))
+                    else:
+                        respond(doc)
             finally:
                 if req.trace is not None:
                     # serialization + line write, per rider (callbacks
@@ -269,15 +408,30 @@ def serve_connection(store, svc: QueryService, lines: Iterable[str], write,
             doc = json.loads(line)
             rid = doc.get("id", processed)
             op = doc.get("op")
+            payload = None
+            fr = doc.get("frame")
+            if fr and fr.get("nbytes"):
+                # inbound binary frame: its payload follows this header
+                # line and is consumed before the next line is read
+                if read_bytes is None:
+                    raise ValueError(
+                        "binary frames need a socket transport; this "
+                        "stream is text-only")
+                payload = read_bytes(int(fr["nbytes"]))
             if op == "hello":
                 role = str(doc.get("role", "client"))
                 if role in ADMIN_ROLES:
                     is_admin = True
                 out = {"id": rid, "ok": True, "role": role,
-                       "admin": is_admin, "wire": list(WIRE_CAPABILITIES)}
-                if doc.get("wire") == WIRE_COLUMNAR:
-                    out["wireMode"] = WIRE_JSON
-                    out["wireFallback"] = COLUMNAR_FALLBACK
+                       "admin": is_admin,
+                       "wire": colwire.wire_capabilities()}
+                if doc.get("wire") == colwire.WIRE_COLUMNAR:
+                    if wire.can_columnar():
+                        wire.mode = colwire.WIRE_COLUMNAR
+                        out["wireMode"] = colwire.WIRE_COLUMNAR
+                    else:
+                        out["wireMode"] = colwire.WIRE_JSON
+                        out["wireFallback"] = wire.fallback_reason()
                 respond(out)
                 continue
             if op == "drain":
@@ -291,19 +445,23 @@ def serve_connection(store, svc: QueryService, lines: Iterable[str], write,
                 respond({"id": rid, "ok": True, "state": "drained"})
                 continue
             if op == "ingest":
-                raise NotPortedError("op=ingest (columnar bulk ingest)",
-                                     "ROADMAP A4")
+                _handle_ingest(store, rid, doc, payload, respond)
+                continue
             if op in SUBSCRIBE_OPS or op in ("attach", "detach"):
                 raise NotPortedError(f"op={op} (standing queries)",
                                      "ROADMAP A6")
             if op == "stats":
                 respond({"id": rid, "ok": True, "stats": svc.stats()})
                 continue
-            req = parse_request(doc)
-            fallback = (COLUMNAR_FALLBACK
-                        if doc.get("wire") == WIRE_COLUMNAR else None)
+            req = parse_request(doc, payload)
+            if wire.request_mode(doc) == colwire.WIRE_COLUMNAR:
+                if wire.can_columnar():
+                    req.wire = colwire.WIRE_COLUMNAR
+                else:
+                    # typed downgrade: the JSON answer says why
+                    req.wire_fallback = wire.fallback_reason()
             fut = svc.submit(req)
-            fut.add_done_callback(on_done(rid, req, fallback))
+            fut.add_done_callback(on_done(rid, req))
         except Exception as e:  # noqa: BLE001 — per-request isolation
             respond(_error_response(rid if rid is not None else processed, e))
     return processed

@@ -31,9 +31,9 @@ Correctness contract:
 - **bit-identity**: the graphs run the serial route's kernels over the
   same frozen mask, tile list and capacity, the slot carries the same
   host f64->f32 cast, and sync is the serial route's sync;
-- **typed fallback**: only the reference's reasons (RingIneligible: no
-  manifest versions, no device cache, a non-point geometry, nothing
-  resident; interceptors come with ROADMAP A4 and the mesh with A7) and
+- **typed fallback**: only the reference's reasons (RingIneligible: a
+  planner with interceptors, no manifest versions, no device cache, a
+  non-point geometry, nothing resident; the mesh comes with A7) and
   a stale version send a window to the pipelined route, metered under
   `serve.ring.fallbacks`; a failed capture, build or launch fails the
   window typed (GraphCaptureError, KernelBuildError, KernelLaunchError)

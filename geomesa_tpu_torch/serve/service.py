@@ -33,8 +33,15 @@ service first downgrades hints (level 1: loose bbox — skip the exact
 residual re-check of the spatial primary; level 2: + 1-in-4 sampling),
 then sheds batch-class work, and the bounded queue rejects the rest.
 Responses from downgraded queries carry request.degraded = True. The
-reference's first rung, a sketch answer, needs the approximate tier
-(ROADMAP A4), so `_sketch_rung_ok` is False here.
+first rung, before loose bbox, is the sketch tier: an eligible count or
+unweighted density gets the `approx_degrade_tolerance` hint and is
+marked degraded only where a sketch answer is served
+(`_resolve_approx`, `_finish_window`).
+
+Approximate answers: a count with a `tolerance` hint answers at
+admission from the planner's sketches when the bound fits
+(`_approx_peek`, no queue, no dispatch); every miss is queued and pays
+the exact path on the card.
 
 Observability: per-request ServeEvents into the store's audit writer,
 queue-wait and end-to-end latency histograms (p50/p95/p99 via the
@@ -132,8 +139,8 @@ class ServeConfig:
     subscribe_outbox: int = 1024
     subscribe_rate: Optional[float] = None
     subscribe_poll_ms: Optional[float] = None
-    # approximate-answer tier (A4): the switch is kept; without a
-    # tolerance hint nothing consults it yet
+    # approximate-answer tier: the master switch (off strips every
+    # tolerance hint at admission) and the ladder's sketch-rung tolerance
     approx: bool = True
     approx_degrade_tolerance: float = 0.1
     # version-exact result cache: count/execute results keyed on
@@ -152,7 +159,6 @@ _LATER_FIELDS = {
     "subscribe_outbox": "ROADMAP A6",
     "subscribe_rate": "ROADMAP A6",
     "subscribe_poll_ms": "ROADMAP A6",
-    "approx_degrade_tolerance": "ROADMAP A4",
 }
 
 
@@ -356,6 +362,9 @@ class QueryService:
             hit, value = self._cache_peek(req)
             if hit:
                 return self._resolve_cached(req, value)
+            value = self._approx_peek(req)
+            if value is not None:
+                return self._resolve_approx(req, value)
             return self._enqueue(req)
         req.trace = trace
         try:
@@ -367,6 +376,10 @@ class QueryService:
             hit, value = self._cache_peek(req)
             if hit:
                 return self._resolve_cached(req, value)
+            with TRACER.scope(trace):
+                value = self._approx_peek(req)
+            if value is not None:
+                return self._resolve_approx(req, value)
             return self._enqueue(req)
         except BaseException as e:
             trace.finish(status="rejected", error=type(e).__name__)
@@ -403,6 +416,13 @@ class QueryService:
                 "shed", "sustained overload: batch class shed")
         if level >= 1 and self.config.degrade and req.allow_degraded:
             self._degrade(req, level)
+        # approximation off strips the tolerance hint: the request pays
+        # the exact path, never a silent approximation
+        if req.query.hints.tolerance is not None and not self._approx_ok():
+            req.query = dataclasses.replace(
+                req.query, hints=dataclasses.replace(
+                    req.query.hints, tolerance=None))
+            self._bump("approx_disabled")
         if req.kind in ("count", "execute") and self.result_cache is not None:
             # the batcher populates the cache with the version the
             # planner's plan actually pinned (exact-by-construction)
@@ -452,10 +472,72 @@ class QueryService:
         return self.config.approx
 
     def _sketch_rung_ok(self, req: ServeRequest) -> bool:
-        """Can the sketch tier answer this request? Never in the port:
-        its planner has no approx_engine until ROADMAP A4, so the ladder
-        keeps its legacy loose-bbox/sampling rung."""
-        return False
+        """Can the sketch tier plausibly answer this request? An
+        ELIGIBLE filter takes the sketch rung (typed bound), an
+        ineligible one keeps the loose-bbox/sampling rewrite. Memoized
+        filter parse, no sketch builds, no I/O."""
+        try:
+            source = self.store.get_feature_source(req.query.type_name)
+            eng = source.planner.approx_engine()
+            if eng.store is None:
+                return False
+            return bool(eng._parse_filter(req.query)[0])
+        except Exception:  # noqa: BLE001 — rung choice is best-effort
+            return False
+
+    def _approx_peek(self, req: ServeRequest):
+        """Admission-time sketch resolution: a tolerant COUNT answers on
+        the submit thread from already-built sketches. Returns the
+        ApproxCount or None (every miss pays the queued path, where the
+        planner retries the sketch tier and builds what is cold)."""
+        if req.kind != "count" or req.query.hints.tolerance is None:
+            return None
+        try:
+            source = self.store.get_feature_source(req.query.type_name)
+            qr = source.planner.approx_count_result(req.query)
+        except Exception:  # noqa: BLE001 — the queued path raises typed
+            return None
+        if qr is None:
+            return None
+        from geomesa_tpu_torch.approx.engine import ApproxCount
+
+        return ApproxCount(int(qr.count), int(qr.bound), qr.confidence)
+
+    def _resolve_approx(self, req: ServeRequest, value) -> Future:
+        """Resolve a sketch-served request at admission: full tier
+        bookkeeping (metrics, trace, audit), no queue, no dispatch."""
+        req.approx = True
+        if req.sketch_rung:
+            # the ladder's speculative rung actually served: now the
+            # request is a degraded answer (typed bound)
+            req.degraded = True
+            self._bump("degraded")
+            metrics.counter("serve.degraded")
+        self._bump("approx_served")
+        self._bump("completed")
+        metrics.counter("serve.requests", kind=req.kind, status="ok")
+        metrics.counter("serve.tier", tier="sketch")
+        metrics.histogram("serve.latency").update(0.0)
+        if req.future.set_running_or_notify_cancel():
+            req.future.set_result(value)
+        if req.trace is not None:
+            RECORDER.record(req.trace.finish(status="ok", approx=True))
+        if self.audit is not None:
+            self.audit.write(ServeEvent(
+                trace_id=(req.trace.trace_id
+                          if req.trace is not None else ""),
+                type_name=req.query.type_name,
+                kind=req.kind,
+                tenant=req.tenant,
+                priority=PRIORITIES[req.priority],
+                queue_ms=0.0,
+                exec_ms=0.0,
+                batch_size=1,
+                status="ok",
+                degraded=req.degraded,
+                approx=True,
+            ))
+        return req.future
 
     def _cache_key(self, req: ServeRequest):
         """The request's result-cache key at the CURRENT committed
@@ -534,14 +616,23 @@ class QueryService:
         sampling. Aggregations a rewrite would corrupt (stats, density)
         never degrade."""
         h = req.query.hints
-        if h.is_stats:
+        if h.is_stats or h.is_bin or h.is_arrow:
             return
         sketchable = (req.kind == "count"
                       or (req.kind == "execute" and h.is_density
                           and h.density_weight is None))
-        if sketchable and self._approx_ok() and self._sketch_rung_ok(req):
-            raise NotPortedError("the degradation ladder's sketch rung",
-                                 "ROADMAP A4")
+        if (sketchable and h.tolerance is None and self._approx_ok()
+                and self._sketch_rung_ok(req)):
+            # the rung is SPECULATIVE: it injects the tolerance hint and
+            # records the level; degraded accounting happens only where
+            # a sketch answer is served
+            if self.config.quarantine_after and req.quarantine_key is None:
+                req.quarantine_key = _quarantine_key(req)
+            req.query = dataclasses.replace(
+                req.query, hints=dataclasses.replace(
+                    h, tolerance=self.config.approx_degrade_tolerance))
+            req.sketch_rung = level
+            return
         if h.is_density:
             return  # loose-bbox/sampling would corrupt the grid
         # stash the PRE-degrade fingerprint: strikes must land on the
@@ -806,7 +897,16 @@ class QueryService:
                         self.quarantine.strike(key)
             else:
                 self._bump("completed")
-                metrics.counter("serve.tier", tier="exact")
+                if r.approx:
+                    self._bump("approx_served")
+                    if r.sketch_rung and not r.degraded:
+                        # a rung request sketch-served on the dispatch
+                        # path: degraded accounting lands with the serve
+                        r.degraded = True
+                        self._bump("degraded")
+                        metrics.counter("serve.degraded")
+                metrics.counter(
+                    "serve.tier", tier="sketch" if r.approx else "exact")
             metrics.counter("serve.requests", kind=r.kind, status=status)
             if r.tenant:
                 metrics.counter("serve.tenant.requests", tenant=r.tenant)
@@ -893,7 +993,7 @@ class QueryService:
         out["degrade_level"] = self.degrade_level()
         out["quarantine"] = self.quarantine.stats()
         # serving-tier shares: sketch / cached / exact out of everything
-        # completed (the sketch tier is ROADMAP A4, so it stays 0)
+        # completed
         sketch = out.get("approx_served", 0)
         cached = out.get("cache_hits", 0)
         completed = out.get("completed", 0)

@@ -1,8 +1,8 @@
 """st_* spatial functions.
 
 A copy of the reference package's `sql/functions.py` (host NumPy over the
-port's Geometry model). `st_transform` needs `core/crs.py`, which comes
-with a later slice: it raises `NotPortedError`.
+port's Geometry model); `st_transform` reprojects through the port's
+`core/crs.py`.
 
 Parity: geomesa-spark-jts o.l.g.spark.jts {constructors, accessors,
 predicates, processors} [upstream, unverified]. Semantics notes:
@@ -451,10 +451,20 @@ def st_transform(g: Geometry, from_srid, to_srid) -> Geometry:
     """Reproject between registered CRSs (EPSG:4326 <-> EPSG:3857; see
     core.crs). Accepts codes as ints or 'EPSG:NNNN' strings (upstream
     st_transform takes CRS names)."""
-    from geomesa_tpu_torch.errors import NotPortedError
+    from geomesa_tpu_torch.core.crs import transform as _crs_transform
 
-    raise NotPortedError("st_transform (core/crs.py)",
-                         "the reprojection slice (ROADMAP Queue A, A4)")
+    def _code(v):
+        if isinstance(v, str):
+            v = v.upper().replace("EPSG:", "")
+        return int(v)
+
+    src, dst = _code(from_srid), _code(to_srid)
+    rings = []
+    for r in g.rings:
+        a = np.asarray(r, np.float64)
+        x, y = _crs_transform(a[:, 0], a[:, 1], src, dst)
+        rings.append(np.stack([x, y], 1))
+    return Geometry(g.kind, rings, parts=list(g.parts))
 
 
 def st_translate(g: Geometry, dx: float, dy: float) -> Geometry:

@@ -89,9 +89,14 @@ class SuperBatch:
 class DeviceCacheManager:
     """Keeps partitions of a FileSystemStorage resident on `device`."""
 
-    def __init__(self, storage: FileSystemStorage, device: torch.device):
+    def __init__(self, storage: FileSystemStorage, device: torch.device,
+                 coord_dtype: Optional[torch.dtype] = None):
         self.storage = storage
         self.device = device
+        # the planner's coordinate dtype (geomesa.coord.dtype), so the
+        # cached and scan routes stage the same values; None stages f32
+        # and records no dtype in the manifest, as in the reference
+        self.coord_dtype = coord_dtype
         self._lock = threading.RLock()
         self._entries: Dict[str, CacheEntry] = {}
         self._super: Optional[SuperBatch] = None
@@ -104,6 +109,10 @@ class DeviceCacheManager:
         self._vocab: Dict[str, list] = {}
         self._flat = all((not a.is_geometry) or a.type == "Point"
                          for a in storage.sft.attributes)
+
+    @property
+    def _stage_dtype(self) -> torch.dtype:
+        return self.coord_dtype or torch.float32
 
     def _partition_files(self, name: str,
                          manifest: Optional[dict] = None) -> List[str]:
@@ -142,7 +151,7 @@ class DeviceCacheManager:
         dev = None
         if self._flat:
             padded = self._shared_vocab_recode(padded)
-            dev = to_device(padded, self.device)
+            dev = to_device(padded, self.device, self._stage_dtype)
             self.upload_count += 1
             self.upload_rows += len(padded)
         return CacheEntry(files=self._partition_files(name, manifest),
@@ -235,7 +244,8 @@ class DeviceCacheManager:
         always the coordinator)."""
         doc = {
             "layout_version": LAYOUT_VERSION,
-            "coord_dtype": None,
+            "coord_dtype": (str(self.coord_dtype).replace("torch.", "")
+                            if self.coord_dtype else None),
             "partitions": {
                 name: {"files": e.files, "count": e.count, "padded": e.padded}
                 for name, e in self._entries.items()
@@ -299,7 +309,7 @@ class DeviceCacheManager:
             dev = {k: torch.cat([e.dev[k] for e in entries])
                    for k in entries[0].dev}
         else:
-            dev = to_device(batch, self.device)
+            dev = to_device(batch, self.device, self._stage_dtype)
             self.upload_count += 1
             self.upload_rows += len(batch)
         pids = torch.cat([

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict
+import threading
+from typing import Callable, Dict, Optional
 
 
 @dataclasses.dataclass
@@ -44,6 +45,7 @@ class SystemProperty:
 
 
 _overrides: Dict[str, object] = {}
+_lock = threading.Lock()
 
 
 class SystemProperties:
@@ -62,6 +64,27 @@ class SystemProperties:
         "driven StrategyDecider analog; sparse pruning cannot win when "
         "nearly every data tile bears a match)",
     )
+    FORCE_COUNT = SystemProperty(
+        "geomesa.force.count", False, lambda s: s.lower() in ("1", "true"),
+        "exact counts by default (vs manifest estimates)",
+    )
+    COORD_DTYPE = SystemProperty(
+        "geomesa.coord.dtype", "float32", str,
+        "device coordinate dtype (float32|float64)",
+    )
+    SCAN_BLOCK_FULL_TABLE = SystemProperty(
+        "geomesa.scan.block.full.table", False,
+        lambda s: s.lower() in ("1", "true"),
+        "reject queries whose filter constrains nothing (full-table scans)",
+    )
+    LOAD_INTERCEPTORS = SystemProperty(
+        "geomesa.query.interceptors.load", False,
+        lambda s: s.lower() in ("1", "true"),
+        "allow dotted-path interceptor classes from SFT user_data to be "
+        "imported and instantiated (schema metadata round-trips through "
+        "converter configs and store manifests, so arbitrary-import is "
+        "opt-in; the built-in 'full-table-scan-guard' always loads)",
+    )
     QUERY_TIMEOUT_MS = SystemProperty(
         "geomesa.query.timeout", 0, int, "per-query timeout in ms; 0 = none"
     )
@@ -76,3 +99,16 @@ class SystemProperties:
         "materialization would exhaust host memory — push filters into "
         "the WHERE clause or raise the cap deliberately)",
     )
+
+    @staticmethod
+    def set(name: str, value: object) -> None:
+        with _lock:
+            _overrides[name] = value
+
+    @staticmethod
+    def clear(name: Optional[str] = None) -> None:
+        with _lock:
+            if name is None:
+                _overrides.clear()
+            else:
+                _overrides.pop(name, None)

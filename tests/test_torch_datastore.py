@@ -21,9 +21,14 @@ import torch
 from geomesa_tpu.core.columnar import FeatureBatch as RFB
 from geomesa_tpu.core.sft import SimpleFeatureType as RSFT
 from geomesa_tpu.plan import DataStore as RDataStore
+from geomesa_tpu.plan.hints import QueryHints as RHints
+from geomesa_tpu.plan.query import Query as RQuery
+from geomesa_tpu_torch.core.columnar import FeatureBatch as PFB
 from geomesa_tpu_torch.core.sft import SimpleFeatureType as PSFT
-from geomesa_tpu_torch.errors import CudaUnavailableError, NotPortedError
+from geomesa_tpu_torch.errors import CudaUnavailableError
 from geomesa_tpu_torch.plan import DataStore as PDataStore
+from geomesa_tpu_torch.plan.hints import QueryHints as PHints
+from geomesa_tpu_torch.plan.query import Query as PQuery
 
 REPO = Path(__file__).resolve().parents[1]
 SPEC = "speed:Double,dtg:Date,*geom:Point"
@@ -158,10 +163,25 @@ def test_later_slice_options_raise_typed(stores, tmp_path):
     # answers as the reference's does
     assert_same(s["ref"].knn(CQL, s["qx"], s["qy"], k=3, impl="auto"),
                 s["port"].knn(CQL, s["qx"], s["qy"], k=3, impl="auto"))
-    ds = PDataStore(str(tmp_path / "vis"), device="cpu")
-    with pytest.raises(NotPortedError, match="visibility"):
-        ds.create_schema(PSFT.from_spec(
-            "v", "vis:String,dtg:Date,*geom:Point;geomesa.vis.attr=vis"))
+    # a geomesa.vis.attr type is created on the port, and its counts
+    # under each auths set equal the reference's
+    vspec = "vis:String,dtg:Date,*geom:Point;geomesa.vis.attr=vis"
+    rng = np.random.default_rng(2)
+    n = 500
+    rows = {"vis": [["", "a", "b", "a&b", None][i]
+                    for i in rng.integers(0, 5, n)],
+            "dtg": rng.integers(T0, T0 + DAY, n),
+            "geom": np.stack([rng.uniform(-5, 5, n),
+                              rng.uniform(40, 50, n)], 1)}
+    pds = PDataStore(str(tmp_path / "vis"), device="cpu")
+    psrc = pds.create_schema(PSFT.from_spec("v", vspec))
+    psrc.write(PFB.from_pydict(psrc.sft, rows))
+    rsrc = RDataStore(str(tmp_path / "vis")).get_feature_source("v")
+    for auths in [(), ("a",), ("a", "b")]:
+        for cql in ("INCLUDE", "BBOX(geom, -2, 41, 4, 48)"):
+            assert psrc.get_count(PQuery("v", cql, hints=PHints(
+                auths=auths))) == rsrc.get_count(RQuery("v", cql, hints=RHints(
+                    auths=auths)))
 
 
 def test_default_device_is_the_card(tmp_path):
@@ -262,6 +282,16 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         svc.start()
         assert np.isfinite(fut.result(timeout=120)[0]).all()
         svc.close(drain=True)
+        import geomesa_tpu_torch.approx.engine  # noqa: F401
+        import geomesa_tpu_torch.approx.sketches  # noqa: F401
+        import geomesa_tpu_torch.core.crs  # noqa: F401
+        import geomesa_tpu_torch.plan.interceptor  # noqa: F401
+        import geomesa_tpu_torch.security.visibility  # noqa: F401
+        import geomesa_tpu_torch.serve.columnar  # noqa: F401
+        from geomesa_tpu_torch import QueryHints
+        world = "BBOX(geom, -180, -90, 180, 90)"
+        c = src.get_count(Query("t", world, hints=QueryHints(tolerance=0.1)))
+        assert getattr(c, "approx", False) and c == src.get_count(world)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]

@@ -569,8 +569,16 @@ def test_latency_histograms_exported(stores, services):
     ({"subscribe_max": 16}, "A6"),
     ({"subscribe_outbox": 64}, "A6"), ({"subscribe_rate": 5.0}, "A6"),
     ({"subscribe_poll_ms": 10.0}, "A6"),
-    ({"approx_degrade_tolerance": 0.2}, "A4")])
+    ({"approx_degrade_tolerance": 0.2}, None)])
 def test_later_options_raise_not_ported(stores, option, item):
+    """Options of later slices refuse typed; the sketch rung's tolerance
+    (item None) is ported and constructs."""
+    if item is None:
+        svc = pserve.QueryService(stores["port"], pserve.ServeConfig(**option),
+                                  autostart=False)
+        assert svc.config.approx_degrade_tolerance == 0.2
+        svc.close()
+        return
     with pytest.raises(NotPortedError) as ei:
         pserve.QueryService(stores["port"], pserve.ServeConfig(**option),
                             autostart=False)

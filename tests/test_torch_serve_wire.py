@@ -7,8 +7,8 @@ that the line iterator starts once every line is read: every request
 then queues before any dispatch, so windows, cache hits and the 1 ms
 deadline's expiry are the same in both runs. Responses are compared by
 id once the timing fields (a timeout's elapsed milliseconds) are
-removed. What the port does not carry yet answers typed "not ported",
-naming its ROADMAP item.
+removed. What the port does not carry yet (the standing-query verbs)
+answers typed "not ported", naming its ROADMAP item.
 """
 
 import json
@@ -140,14 +140,6 @@ NOT_PORTED = [
     ({"id": "s2", "op": "poll"}, "A6"),
     ({"id": "s3", "op": "unsubscribe", "subscription": "sub-1"}, "A6"),
     ({"id": "s4", "op": "attach", "subscription": "sub-1"}, "A6"),
-    ({"id": "i1", "op": "ingest", "typeName": "served",
-      "frame": {"nbytes": 0}}, "A4"),
-    ({"id": "a1", "op": "count", "typeName": "served", "cql": CQL,
-      "tolerance": 0.3}, "A4"),
-    ({"id": "a2", "op": "query", "typeName": "served", "cql": CQL,
-      "topkCells": 3}, "A4"),
-    ({"id": "a3", "op": "count", "typeName": "served", "cql": CQL,
-      "distinct": "name"}, "A4"),
 ]
 
 
@@ -159,23 +151,54 @@ def test_later_verbs_answer_not_ported(stores, doc, item):
     assert got["reason"] == "not_ported" and item in got["roadmap"]
 
 
+# the A4 request fields and verb: answered as the reference answers them
+A4_REQUESTS = [
+    {"id": "i1", "op": "ingest", "typeName": "served",
+     "frame": {"nbytes": 16}},
+    {"id": "a1", "op": "count", "typeName": "served", "cql": CQL,
+     "tolerance": 0.3},
+    {"id": "a2", "op": "query", "typeName": "served", "cql": CQL,
+     "topkCells": 3},
+    {"id": "a3", "op": "count", "typeName": "served", "cql": CQL,
+     "distinct": "name"},
+]
+
+
+@pytest.mark.parametrize("doc", A4_REQUESTS, ids=[d["id"] for d in A4_REQUESTS])
+def test_a4_fields_answer_as_reference(stores, doc):
+    """An ingest frame on a text-only stream is refused (the payload
+    cannot be read); a tolerance on a filter the sketches cannot bracket
+    is answered exactly; topk cells and distinct counts run exactly."""
+    got = {pkg: run_wire(pkg, stores[pkg], [doc])[doc["id"]]
+           for pkg in PACKAGES}
+    assert got["port"] == got["ref"]
+    p = got["port"]
+    if doc["op"] == "ingest":
+        assert p["ok"] is False and "socket transport" in p["message"]
+    else:
+        assert p["ok"] is True and "approx" not in p
+    if "topkCells" in doc:
+        assert p["kind"] == "topk_cells" and len(p["cells"]) == 3
+    if "distinct" in doc:
+        assert p["count"] == 3
+
+
 def test_columnar_downgrades_typed(stores):
-    """A columnar ask is served as JSON with a typed wireFallback, as the
-    reference does on its own missing-codec path; only the reason differs.
-    The hello advertises JSON only."""
+    """The hello advertises the columnar wire as the reference's does;
+    on a connection with no binary sink (this text stream) a columnar ask
+    is served as JSON with the reference's typed wireFallback."""
     docs = [{"id": "h", "op": "hello", "wire": "columnar"},
             {"id": "w", "op": "query", "typeName": "served",
              "cql": "score > 9", "maxFeatures": 3, "wire": "columnar"}]
     got = {pkg: run_wire(pkg, stores[pkg], docs) for pkg in PACKAGES}
     hello, resp = got["port"]["h"], got["port"]["w"]
-    assert hello["wire"] == ["json"] and hello["wireMode"] == "json"
-    assert "not ported" in hello["wireFallback"]
-    assert "not ported" in resp["wireFallback"]
-    ref = dict(got["ref"]["w"])
-    assert ref.pop("wireFallback") in ("no_binary_sink", "pyarrow_unavailable")
-    resp = dict(resp)
-    resp.pop("wireFallback")
-    assert resp == ref
+    assert hello["wire"] == ["json", "columnar"] and hello["wireMode"] == "json"
+    assert hello["wireFallback"] == resp["wireFallback"] == "no_binary_sink"
+    ref_hello = dict(got["ref"]["h"])
+    ref_hello.pop("rehome")  # the standing queries' capability (A6)
+    assert hello == ref_hello
+    assert resp == got["ref"]["w"]
+    assert len(resp["features"]) == 3
 
 
 def test_stats_and_drain_verbs(stores):
