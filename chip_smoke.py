@@ -273,6 +273,35 @@ and prints no result. Phases, each fatal on failure:
    ring_arm refuses "interceptors", served kNN on the pipelined route ==
    direct). Numbers under "a4b" in the {"phases"} line, the new device
    operations in the {"device_ops"} line.
+16. A5 (a) and (b), last in phase 4 on its store, with B1-B5's launches
+   reset before and read after (B1, B2, B4 and B5 must launch; their
+   rows gain "16" under "launches_by_phase"): (a) under an armed ring,
+   age_off of the store's first day, delete_features of a 1-degree BBOX
+   AND speed < 1.0, then a small write that gives several partitions a
+   second file and compact: after each, the rows deleted == a NumPy
+   oracle, the north-star count == the f64 oracle over the rows left,
+   sparse (B1) and fullscan (B2) kNN give the same neighbours by
+   coordinates, the next served window falls back "stale" and the one
+   after re-arms, both == src.knn bit for bit; compact leaves count and
+   kNN bit-identical and reports the files it removed; (b) a seeded
+   FaultPlan failing device.transfer and fs.read_partition on a schedule
+   over 64 kNN requests on each of the serial, pipelined and ring routes
+   (a small write first, so the first window reloads residency): every
+   answer == the fault-free answer, the ServeEvents' summed retries and
+   fault_injected == the harness's fire log; then device.transfer
+   failing every time opens the "device" breaker, the wire answers
+   {"error": "unavailable", "retryAfterS": ...}, and after the reset
+   time one half-open probe closes it; (c) 8 seeded GDELT 1.0 TSV files
+   (57 columns, 2^15 rows each) through jobs.ingest_files with
+   GDELT_CONVERTER on 8 workers (a second, resumed call skips all 8):
+   count and kNN (B1) == a store written directly from the same values;
+   export_partitions with a polygon filter (B4, B5 through mask_refined)
+   == an f64 oracle row for row; (d) the same rows as an Arrow IPC file
+   through ArrowDataStore: count and kNN == the converted store's; (e)
+   geomesa.scan.batch.size at 2^18: a scan-route feature query yields
+   no larger batch and the same rows; then remove_schema and a service
+   close bring torch.cuda.memory_allocated() back to its level before
+   the converted stores existed. Numbers in a {"lifecycle"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -591,6 +620,9 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         geometry_points_phase(torch, dev, src, dict(x=x, y=y, t=t, speed=speed),
                               card_s)
         a4b_knn_store(torch, dev, ds, src, tmp, dict(
+            x=x, y=y, t=t, speed=speed, qx=qx, qy=qy, cql=cql), card_s)
+        # phase 16 last: its deletes change nothing an earlier phase times
+        lifecycle_phase(torch, dev, ds, src, tmp, dict(
             x=x, y=y, t=t, speed=speed, qx=qx, qy=qy, cql=cql), card_s)
         return launches, inputs, knn_ops, serve, serve_dev
 
@@ -4351,11 +4383,15 @@ WEEK_MS = 7 * 86_400_000
 
 class Launches:
     """B1-B5's launch counts over a block: each reset on entry and read on
-    exit into `counts`, which phase 15's totals gather. Blocks nest: an
-    inner block hands its launches back to the outer one's counters, and
-    only the outermost adds to the totals."""
+    exit into `counts`, which the phase's totals (`into`: phase 15's by
+    default) gather. Blocks nest: an inner block hands its launches back
+    to the outer one's counters, and only the outermost adds to the
+    totals."""
 
     depth = 0
+
+    def __init__(self, into=None):
+        self.into = A4B_LAUNCHES if into is None else into
 
     def __enter__(self):
         from geomesa_tpu_torch.engine import density_zsparse as dz
@@ -4377,7 +4413,7 @@ class Launches:
             f.launches += before
         if Launches.depth == 0:
             for k, v in self.counts.items():
-                A4B_LAUNCHES[k] += v
+                self.into[k] += v
         return False
 
 
@@ -5040,6 +5076,570 @@ def a4b_visibility(torch, dev, card_s: str) -> None:
         a4b_record("interceptors", dict(ic, split_s=dict(lap.seconds)))
 
 
+# -- A5 (a) and (b): lifecycle, faults, converters, jobs, Arrow (phase 16) ------
+
+LIFE_KERNELS = A4B_KERNELS
+LIFE_LAUNCHES = {name: 0 for name in LIFE_KERNELS}
+LIFE_DELETE_BBOX = (10.0, 40.0, 11.0, 41.0)  # 1 degree: ~a third of the days
+LIFE_WRITE = 4096  # rows of the write that gives partitions a second file
+LIFE_WRITE_DAYS = 4
+LIFE_SERVED = 64  # kNN requests a route under the fault plan
+LIFE_FILES = 8  # GDELT 1.0 TSV files
+# rows a file: 2^18 in all, ~1.3 days of GDELT 1.0. Cut from 2^17 a file
+# (2^20 rows, ~5 days) for time: the converter runs per record on the host
+# and the converted store's host work grows with its unique event ids; at
+# 2^20 rows this section took 213 s of phase 16's 268 s (16,440 rows/s
+# converted; NVIDIA H100 80GB HBM3 at 700 W and its host)
+LIFE_FILE_ROWS = 1 << 15
+LIFE_WORKERS = 8
+LIFE_SCAN_BATCH = 1 << 18
+LIFE_SCAN_SMALL = 512  # below a data file's matching rows: it cuts batches
+LIFE_RESET_S = 1.0  # the device breaker's reset timeout in (b)
+LIFE_MEM_SLACK = 16 << 20  # bytes allowed to stay after remove_schema
+LIFE_POLY = ("POLYGON((-5 38, 12 36, 21 44, 16 55, 2 58, -8 50, -5 38))")
+LIFE_DAY0 = 20200601  # the converted events' first day
+
+
+def life_record(part: str, res: dict) -> None:
+    PHASES.setdefault("lifecycle", {})[part] = res
+
+
+def coord_sets(batch, idx):
+    """Each query's neighbours as a set of (x, y): row identity that a
+    delete (which shifts row indices) leaves alone."""
+    keys = neighbour_keys(batch, np.asarray(idx))
+    return [set(k.tolist()) for k in keys]
+
+
+def same_coord_sets(a, b) -> bool:
+    """Identical neighbour coordinates per query, swaps allowed between
+    rows at an equal distance."""
+    (da, ia, ba), (db, ib, bb) = a, b
+    ka, kb = coord_sets(ba, ia), coord_sets(bb, ib)
+    return all(sa == sb or np.array_equal(np.sort(x), np.sort(y))
+               for sa, sb, x, y in zip(ka, kb, np.asarray(da), np.asarray(db)))
+
+
+def lifecycle_phase(torch, dev, ds, src, tmp: str, a: dict, card_s: str) -> None:
+    """Phase 16 (module docstring): A5 (a) and (b) on phase 4's store and
+    on converted, direct and Arrow stores of GDELT events."""
+    import os
+
+    lap = Laps()
+    with Launches(LIFE_LAUNCHES) as ln:
+        life_served_lifecycle(torch, ds, src, a, card_s)
+        lap("lifecycle")
+        life_faults(torch, ds, src, a, card_s)
+        lap("faults")
+        life_convert(torch, dev, os.path.join(tmp, "life"), card_s)
+        lap("converters, jobs, Arrow")
+    life_record("laps_s", dict(lap.seconds, launches=ln.counts))
+    log(f"phase 16 laps: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                       lap.seconds.items()) + f" [{card_s}]")
+
+
+def life_served_lifecycle(torch, ds, src, a: dict, card_s: str) -> None:
+    """(a): age-off, delete, write + compact under an armed ring."""
+    from geomesa_tpu_torch import FeatureBatch
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+
+    x, y, t, speed = a["x"], a["y"], a["t"], a["speed"]
+    qx, qy, cql = a["qx"], a["qy"], a["cql"]
+    cols = {"x": x, "y": y, "t": t, "speed": speed}
+    keep = np.ones(len(x), bool)
+
+    def in_query(c):
+        return ((c["x"] >= BBOX[0]) & (c["x"] <= BBOX[2]) & (c["y"] >= BBOX[1])
+                & (c["y"] <= BBOX[3]) & (c["t"] > T0) & (c["t"] < T1)
+                & (c["speed"] > 5.0))
+
+    svc = QueryService(ds, ServeConfig(max_wait_ms=0.0))
+    served_i = [0]
+
+    def served():
+        i = served_i[0] % Q
+        served_i[0] += 1
+        got = svc.knn("gdelt", cql, qx[i:i + 1], qy[i:i + 1], k=K).result(timeout=600)
+        return i, got
+
+    def ring():
+        return svc.stats()["pipeline"]["ring"]
+
+    res = {}
+    try:
+        served()
+        served()
+        assert ring()["armed"] >= 1, ring()
+
+        def check(step, deleted, exp_deleted, mutate_s):
+            assert deleted == exp_deleted, (step, deleted, exp_deleted)
+            t0 = time.perf_counter()
+            n = src.get_count(cql)
+            count_s = time.perf_counter() - t0
+            exp = int((in_query(cols) & keep).sum())
+            assert n == exp, (step, n, exp)
+            sp = src.knn(cql, qx, qy, k=K, impl="sparse")
+            fs = src.knn(cql, qx, qy, k=K, impl="fullscan")
+            assert same_coord_sets(sp, fs), f"{step}: sparse and fullscan differ"
+            before = ring()
+            got = [served(), served()]
+            after = ring()
+            stale = after["fallbacks"].get("stale", 0) - before["fallbacks"].get("stale", 0)
+            assert stale == 1 and after["armed"] == before["armed"] + 1, (step, before, after)
+            for i, (d, ix, _) in got:
+                sd, six, _ = src.knn(cql, qx[i:i + 1], qy[i:i + 1], k=K)
+                assert np.array_equal(d, sd) and np.array_equal(ix, six), step
+            res[step] = {"deleted": int(deleted), "mutate_s": mutate_s,
+                         "count": n, "first_count_s": count_s,
+                         "version": src.storage.manifest_version(),
+                         "resident_partitions": len(src.planner.cache.resident())}
+            log(f"{step}: {deleted} rows in {mutate_s:.3f} s (== the NumPy "
+                f"oracle); count {n} == f64 oracle (first count {count_s:.3f} s, "
+                f"residency reloaded); sparse == fullscan neighbours; served "
+                f"window fell back stale then re-armed, both == src.knn [{card_s}]")
+            return sp
+
+        # 1. age off the store's first day
+        first = np.datetime64(int(t.min()), "ms").astype("datetime64[D]")
+        cut = int((first + 1).astype("datetime64[ms]").astype(np.int64))
+        exp = int((keep & (t < cut)).sum())
+        t0 = time.perf_counter()
+        n = src.age_off(cut)
+        age_s = time.perf_counter() - t0
+        keep &= t >= cut
+        check("age_off", n, exp, age_s)
+
+        # 2. delete a 1-degree BBOX AND speed < 1.0
+        b = LIFE_DELETE_BBOX
+        hit = (keep & (x >= b[0]) & (x <= b[2]) & (y >= b[1]) & (y <= b[3])
+               & (speed < 1.0))
+        files0 = sum(len(v) for v in src.storage.manifest_snapshot().values())
+        t0 = time.perf_counter()
+        n = src.delete_features(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]}) "
+                                "AND speed < 1.0")
+        del_s = time.perf_counter() - t0
+        keep &= ~hit
+        check("delete_features", n, int(hit.sum()), del_s)
+        res["delete_features"]["files_read"] = files0
+
+        # 3. a small write, then compact the partitions it gave two files
+        rng = np.random.default_rng(161)
+        w = LIFE_WRITE
+        wc = {"x": rng.uniform(-30, 30, w), "y": rng.uniform(30, 60, w),
+              "t": T0 + 1 + rng.integers(0, LIFE_WRITE_DAYS * 86_400_000, w),
+              "speed": rng.uniform(0, 30, w)}
+        t0 = time.perf_counter()
+        src.write(FeatureBatch.from_pydict(src.sft, {
+            "speed": wc["speed"], "dtg": wc["t"],
+            "geom": np.stack([wc["x"], wc["y"]], 1)}))
+        write_s = time.perf_counter() - t0
+        cols = {k: np.concatenate([cols[k], wc[k]]) for k in cols}
+        keep = np.concatenate([keep, np.ones(w, bool)])
+        n_w = src.get_count(cql)
+        assert n_w == int((in_query(cols) & keep).sum()), n_w
+        pre = src.knn(cql, qx, qy, k=K)
+        snap = src.storage.manifest_snapshot()
+        two = {p: len(v) for p, v in snap.items() if len(v) > 1}
+        assert len(two) >= 2, two
+        t0 = time.perf_counter()
+        removed = src.storage.compact()
+        compact_s = time.perf_counter() - t0
+        assert removed == sum(two.values()), (removed, two)
+        assert all(len(v) == 1 for v in src.storage.manifest_snapshot().values())
+        post_count = src.get_count(cql)
+        post = src.knn(cql, qx, qy, k=K)
+        assert post_count == n_w, (post_count, n_w)
+        assert np.array_equal(pre[0], post[0]) and np.array_equal(pre[1], post[1]), \
+            "compact changed the kNN answer"
+        sp = check("compact", 0, 0, compact_s)
+        res["compact"].update(files_removed=removed, partitions=len(two),
+                              write_rows=w, write_s=write_s)
+        d = np.asarray(sp[0])
+        m = in_query(cols) & keep
+        exp16 = oracle_knn(cols["x"], cols["y"], m, qx[:16], qy[:16], K)
+        assert within_oracle(d, exp16), "kNN after the lifecycle vs the f64 oracle"
+        res["ring"] = ring()
+    finally:
+        svc.close(drain=True)
+    life_record("served lifecycle", res)
+
+
+def fabric_cost(n: int = 100_000) -> dict:
+    """Host microseconds the recovery fabric adds with no fault plan
+    installed and every breaker closed: one transfer's retried-call wrapper
+    (over a no-op), and one window's attribution (recovery token and read,
+    breaker states), each net of the bare loop."""
+    import threading
+
+    from geomesa_tpu_torch import faults
+    from geomesa_tpu_torch.engine import device
+
+    assert faults.current() is None and all(
+        st == "closed" for st in faults.BREAKERS.states().values())
+    ident = threading.get_ident()
+
+    def noop():
+        return None
+
+    def attribution():
+        tok = faults.RECOVERY.token()
+        faults.RECOVERY.since(tok, thread_ident=ident)
+        faults.BREAKERS.states()
+
+    def per_call(fn, wrap):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            wrap(fn)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    bare = per_call(noop, lambda fn: fn())
+    return {"retried_call": per_call(noop, device._device_retry) - bare,
+            "window_attribution": per_call(attribution, lambda fn: fn()) - bare,
+            "calls": n}
+
+
+def life_faults(torch, ds, src, a: dict, card_s: str) -> None:
+    """(b): a seeded fault plan under the three routes, then an outage that
+    opens the device breaker, the wire's answer, and the probe."""
+    from geomesa_tpu_torch import FeatureBatch, faults
+    from geomesa_tpu_torch.plan.audit import ServeEvent
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+    from geomesa_tpu_torch.utils.metrics import metrics
+
+    qx, qy, cql = a["qx"], a["qy"], a["cql"]
+    rng = np.random.default_rng(162)
+    res = {"routes": {}, "fabric_us": fabric_cost()}
+    log(f"recovery fabric with no plan installed and every breaker closed: "
+        f"{res['fabric_us']['retried_call']:.3f} us a retried-call wrapper, "
+        f"{res['fabric_us']['window_attribution']:.3f} us a window's "
+        f"attribution (host) [{card_s}]")
+    for r, route in enumerate(("serial", "pipelined", "ring")):
+        day = T0 + (10 + r) * 86_400_000
+        src.write(FeatureBatch.from_pydict(src.sft, {
+            "speed": np.full(64, 10.0), "dtg": day + rng.integers(0, 3_600_000, 64),
+            "geom": np.stack([rng.uniform(-30, 30, 64), rng.uniform(30, 60, 64)], 1)}))
+        svc = QueryService(ds, ServeConfig(max_wait_ms=0.0, **DEV_ROUTES[route]))
+        plan = faults.FaultPlan(rules=[
+            faults.FaultRule(site="device.transfer", error="io", every=3),
+            faults.FaultRule(site="fs.read_partition", error="io", every=2)],
+            seed=16 + r)
+        n0 = len(ds.audit.snapshot())
+        try:
+            with faults.active(plan) as h:
+                got = [svc.knn("gdelt", cql, qx[i:i + 1], qy[i:i + 1], k=K
+                               ).result(timeout=600) for i in range(LIFE_SERVED)]
+                log_ = h.fire_log()
+        finally:
+            svc.close(drain=True)
+        events = [e for e in ds.audit.snapshot()[n0:] if isinstance(e, ServeEvent)]
+        retries = sum(e.retries for e in events)
+        fired = sum(e.fault_injected for e in events)
+        assert len(events) == LIFE_SERVED, len(events)
+        assert log_ and retries == fired == len(log_), (route, retries, fired, len(log_))
+        assert all(e.status == "ok" and e.breaker_state == "" for e in events), route
+        for i, (d, ix, _) in enumerate(got):
+            sd, six, _ = src.knn(cql, qx[i:i + 1], qy[i:i + 1], k=K)
+            assert np.array_equal(d, sd) and np.array_equal(ix, six), (route, i)
+        # a retried window against a clean one of the same route: the
+        # routes' windows differ, so only a gap within a route is a retry's
+        retried_ms = [e.exec_ms for e in events if e.retries]
+        clean_ms = [e.exec_ms for e in events if not e.retries]
+        p50 = lambda v: statistics.median(v) if v else None  # noqa: E731
+        sites = {}
+        for site, _, _ in log_:
+            sites[site] = sites.get(site, 0) + 1
+        res["routes"][route] = {"requests": LIFE_SERVED, "retries": retries,
+                                "faults": fired, "fire_log": len(log_),
+                                "by_site": sites,
+                                "retried_window_p50_ms": p50(retried_ms),
+                                "retried_windows": len(retried_ms),
+                                "clean_window_p50_ms": p50(clean_ms),
+                                "clean_windows": len(clean_ms)}
+        log(f"faults on the {route} route: {LIFE_SERVED} kNN answers == the "
+            f"fault-free answers; ServeEvents carry {retries} retries and "
+            f"{fired} injected faults == the fire log ({sites}); window exec "
+            f"p50 retried {p50(retried_ms)} ms over {len(retried_ms)}, clean "
+            f"{p50(clean_ms)} ms over {len(clean_ms)} [{card_s}]")
+
+    # an outage: device.transfer fails every time
+    names = ("open", "half_open", "close")
+    before = {n: metrics.counters.get(f"fault.breaker.device.{n}", 0.0) for n in names}
+    faults.BREAKERS.configure("device", failure_threshold=5,
+                              reset_timeout_s=LIFE_RESET_S)
+    try:
+        svc = QueryService(ds, ServeConfig(max_wait_ms=0.0))
+        outage = faults.FaultPlan(rules=[faults.FaultRule(
+            site="device.transfer", error="io", every=1)])
+        errors = []
+        try:
+            with faults.active(outage):
+                for i in range(3):
+                    try:
+                        svc.knn("gdelt", cql, qx[i:i + 1], qy[i:i + 1],
+                                k=K).result(timeout=600)
+                        errors.append(None)
+                    except Exception as e:  # noqa: BLE001 — typed, checked below
+                        assert faults.is_typed(e), repr(e)
+                        errors.append(type(e).__name__)
+                state = faults.BREAKERS.states()["device"]
+                knn = {"id": "u", "op": "knn", "typeName": "gdelt", "cql": cql,
+                       "x": [float(qx[0])], "y": [float(qy[0])], "k": K}
+                docs, _ = wire_drive(ds, [knn], binary=False)
+        finally:
+            svc.close(drain=True)
+        down = docs["u"][0]
+        assert state == "open" and errors[-1] == "BreakerOpen", (state, errors)
+        assert down["error"] == "unavailable" and not down["ok"], down
+        assert 0 < down["retryAfterS"] <= LIFE_RESET_S, down
+        time.sleep(LIFE_RESET_S + 0.1)
+        docs, _ = wire_drive(ds, [dict(knn, id="p")], binary=False)
+        up = docs["p"][0]
+        sd, six, _ = src.knn(cql, qx[:1], qy[:1], k=K)
+        assert up["ok"] and faults.BREAKERS.states()["device"] == "closed", up
+        assert np.array_equal(np.asarray(up["indices"]), six), "probe answer"
+    finally:
+        faults.BREAKERS.restore_config("device")
+    moved = {n: metrics.counters.get(f"fault.breaker.device.{n}", 0.0) - before[n]
+             for n in names}
+    assert moved["open"] >= 1 and moved["half_open"] >= 1 and moved["close"] >= 1, moved
+    res["outage"] = {"errors": errors, "state": state, "wire": {
+        k: down[k] for k in ("error", "reason", "retryAfterS")},
+        "transitions": moved, "probe_ok": True}
+    log(f"outage: device.transfer failing every time gave {errors}; the device "
+        f"breaker opened, the wire answered {res['outage']['wire']}; after "
+        f"{LIFE_RESET_S} s a half-open probe closed it and answered "
+        f"(transitions {moved}) [{card_s}]")
+    life_record("faults", res)
+
+
+def gdelt_tsv(path: str, n: int, seed: int):
+    """A GDELT 1.0 events TSV (57 columns) of `n` seeded events and the
+    values the converter must read from it."""
+    rng = np.random.default_rng(seed)
+    eid = np.char.mod("%d", 700_000_000 + seed * n + np.arange(n))
+    day = np.char.mod("%d", LIFE_DAY0 + rng.integers(0, 5, n))
+    a1 = np.array(["USA", "", "CHN", "RUS", "FRA", "GOV"])[rng.integers(0, 6, n)]
+    a2 = np.array(["", "MIL", "BUS", "UNITED NATIONS"])[rng.integers(0, 4, n)]
+    code = np.char.mod("%03d", rng.integers(10, 200, n))
+    gold = np.char.mod("%.1f", rng.uniform(-10, 10, n))
+    ment = np.char.mod("%d", rng.integers(1, 80, n))
+    lat = np.char.mod("%.4f", rng.uniform(-60, 70, n))
+    lon = np.char.mod("%.4f", rng.uniform(-180, 180, n))
+    gap = lambda k: "\t" * k  # noqa: E731
+    fmt = ("{}\t{}" + gap(5) + "{}" + gap(10) + "{}" + gap(10) + "{}" + gap(4)
+           + "{}\t{}" + gap(22) + "{}\t{}" + gap(2) + "\n")
+    with open(path, "w") as f:
+        f.writelines(fmt.format(*v) for v in zip(
+            eid, day, a1, a2, code, gold, ment, lat, lon))
+    dmap = {d: int(np.datetime64(f"{d[:4]}-{d[4:6]}-{d[6:]}", "ms").astype(np.int64))
+            for d in np.unique(day).tolist()}
+    return {"GlobalEventID": eid.tolist(), "EventCode": code.tolist(),
+            "Actor1Name": np.where(a1 == "", "UNKNOWN", a1).tolist(),
+            "Actor2Name": np.where(a2 == "", "UNKNOWN", a2).tolist(),
+            "GoldsteinScale": gold.astype(np.float64),
+            "NumMentions": ment.astype(np.int32),
+            "dtg": np.array([dmap[d] for d in day.tolist()], np.int64),
+            "geom": np.stack([lon.astype(np.float64), lat.astype(np.float64)], 1)}
+
+
+def life_convert(torch, dev, root: str, card_s: str) -> None:
+    """(c)-(e): converter job, export, Arrow store, scan batch size, then
+    the stores' removal."""
+    import os
+    import threading
+
+    from geomesa_tpu_torch import DataStore, FeatureBatch, Query
+    from geomesa_tpu_torch.convert import converter_from_config
+    from geomesa_tpu_torch.convert.schemas import GDELT_CONVERTER, GDELT_SFT
+    from geomesa_tpu_torch.core.arrow_io import write_ipc
+    from geomesa_tpu_torch.jobs import export_partitions, ingest_files
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+    from geomesa_tpu_torch.store.arrow_store import ArrowDataStore
+    from geomesa_tpu_torch.utils.config import SystemProperties
+
+    os.makedirs(root, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    res = {}
+    lap = Laps()
+    t0 = time.perf_counter()
+    files, parts = [], []
+    for i in range(LIFE_FILES):
+        p = os.path.join(root, f"events-{i}.tsv")
+        parts.append(gdelt_tsv(p, LIFE_FILE_ROWS, i))
+        files.append(p)
+    gen_s = time.perf_counter() - t0
+    vals = {k: (sum((p[k] for p in parts), []) if isinstance(parts[0][k], list)
+                else np.concatenate([p[k] for p in parts])) for k in parts[0]}
+    n = len(vals["GlobalEventID"])
+    x, y = vals["geom"][:, 0], vals["geom"][:, 1]
+    fids = np.asarray(vals["GlobalEventID"])
+    lap("tsv")
+
+    conv = DataStore(os.path.join(root, "converted"), use_device_cache=True, device=dev)
+    csrc = conv.create_schema(GDELT_SFT)
+    factory = lambda: converter_from_config(GDELT_SFT, GDELT_CONVERTER)  # noqa: E731
+    t0 = time.perf_counter()
+    rep = ingest_files(csrc, factory, files, workers=LIFE_WORKERS)
+    ingest_s = time.perf_counter() - t0
+    lap("ingest")
+    again = ingest_files(csrc, factory, files, workers=LIFE_WORKERS)
+    lap("resume")
+    assert len(rep.files_ok) == LIFE_FILES and not rep.files_failed, rep.files_failed
+    assert rep.features == n and rep.records_failed == 0, (rep.features, n)
+    assert sorted(again.skipped) == sorted(files) and again.features == 0, again
+    res["ingest"] = {"files": LIFE_FILES, "rows": n, "seconds": ingest_s,
+                     "rows_per_s": n / ingest_s, "tsv_write_s": gen_s,
+                     "workers": LIFE_WORKERS, "resume_skipped": len(again.skipped)}
+    log(f"converter job: {LIFE_FILES} GDELT 1.0 TSV files, {n} rows, through "
+        f"GDELT_CONVERTER on {LIFE_WORKERS} workers in {ingest_s:.3f} s "
+        f"({n / ingest_s:.1f} rows/s; the files written in {gen_s:.3f} s); a "
+        f"resumed run skipped all {len(again.skipped)} [{card_s}]")
+
+    direct = DataStore(os.path.join(root, "direct"), use_device_cache=True, device=dev)
+    dsrc = direct.create_schema(GDELT_SFT)
+    batch = FeatureBatch.from_pydict(GDELT_SFT, {k: v for k, v in vals.items()},
+                                     fids=vals["GlobalEventID"])
+    dsrc.write(batch)
+    lap("direct write")
+    gq = "BBOX(geom, -30, 20, 40, 60) AND GoldsteinScale > 0.0"
+    gm = (x >= -30) & (x <= 40) & (y >= 20) & (y <= 60) & (vals["GoldsteinScale"] > 0)
+    rq = np.random.default_rng(163)
+    gx, gy = rq.uniform(-20, 30, Q), rq.uniform(25, 55, Q)
+    with Launches() as lk:
+        c_count, d_count = csrc.get_count(gq), dsrc.get_count(gq)
+        c_knn, d_knn = csrc.knn(gq, gx, gy, k=K), dsrc.knn(gq, gx, gy, k=K)
+    assert c_count == d_count == int(gm.sum()), (c_count, d_count, int(gm.sum()))
+    assert same_coord_sets(c_knn, d_knn), "converted vs direct kNN"
+    assert np.array_equal(np.sort(c_knn[0], 1), np.sort(d_knn[0], 1))
+    assert within_oracle(np.asarray(c_knn[0]), oracle_knn(x, y, gm, gx[:16], gy[:16], K))
+    assert lk.counts["chord_blockmin_sparse"] > 0, lk.counts
+    res["stores_agree"] = {"count": c_count, "launches": lk.counts}
+    lap("stores agree")
+    log(f"converted == direct: count {c_count} == f64 oracle, kNN (B1, Q={Q}, "
+        f"k={K}) neighbour sets equal and within the bench rule [{card_s}]")
+
+    # export with a polygon filter through mask_refined
+    wkt = LIFE_POLY
+    exported, lock = {}, threading.Lock()
+
+    def writer(name, b):
+        got = sorted(b.fids.vocab[c] for c in b.fids.codes)
+        with lock:
+            exported[name] = got
+
+    with Launches() as le:
+        t0 = time.perf_counter()
+        names = export_partitions(csrc, writer, f"INTERSECTS(geom, {wkt})",
+                                  workers=LIFE_WORKERS)
+        export_s = time.perf_counter() - t0
+    inside = f64_polygon_mask(torch, dev, x, y, wkt)
+    day = np.datetime_as_string(vals["dtg"].astype("datetime64[ms]"), unit="D")
+    oracle = {}
+    for d in np.unique(day[inside]):
+        oracle[d.replace("-", "/")] = sorted(fids[inside & (day == d)].tolist())
+    lap("export")
+    assert exported == oracle and sorted(names) == sorted(oracle), "export vs f64 oracle"
+    assert le.counts["pip_crossing"] > 0 and le.counts["pip_band"] > 0, le.counts
+    res["export"] = {"partitions": len(names), "rows": int(inside.sum()),
+                     "seconds": export_s, "launches": le.counts}
+    log(f"export_partitions: {len(names)} partitions, {int(inside.sum())} rows in "
+        f"the polygon in {export_s:.3f} s (B4 {le.counts['pip_crossing']}, B5 "
+        f"{le.counts['pip_band']} launches from {LIFE_WORKERS} threads) == the f64 "
+        f"oracle row for row [{card_s}]")
+
+    # served kNN on the converted store, so its ring captures exist
+    svc = QueryService(conv, ServeConfig(max_wait_ms=0.0))
+    try:
+        for i in range(3):
+            d, ix, b = svc.knn("gdelt", gq, gx[i:i + 1], gy[i:i + 1], k=K).result(timeout=600)
+            sd, six, _ = csrc.knn(gq, gx[i:i + 1], gy[i:i + 1], k=K)
+            assert np.array_equal(d, sd) and np.array_equal(ix, six)
+        armed = svc.stats()["pipeline"]["ring"]["armed"]
+    finally:
+        svc.close(drain=True)
+    lap("export oracle, served")
+
+    # (d) the same rows as an Arrow IPC file
+    path = os.path.join(root, "events.arrow")
+    t0 = time.perf_counter()
+    write_ipc(path, [batch])
+    asrc = ArrowDataStore(path, device=dev).get_feature_source()
+    open_s = time.perf_counter() - t0
+    with Launches() as la:
+        a_count = asrc.get_count(gq)
+        a_knn = asrc.knn(gq, gx, gy, k=K)
+    assert a_count == c_count and same_coord_sets(a_knn, c_knn), "Arrow store"
+    assert la.counts["chord_blockmin_sparse"] > 0, la.counts
+    lap("arrow")
+    res["arrow"] = {"rows": len(asrc), "write_and_open_s": open_s, "count": a_count,
+                    "launches": la.counts}
+    log(f"ArrowDataStore: {len(asrc)} rows written and opened in {open_s:.3f} s; "
+        f"count and kNN (B1) == the converted store's [{card_s}]")
+
+    # (e) geomesa.scan.batch.size on the scan route
+    scan_ds = DataStore(os.path.join(root, "converted"), device=dev)
+    ssrc = scan_ds.get_feature_source("gdelt")
+    sizes = []
+    real = ssrc.storage.scan
+
+    def counted(*args, **kw):
+        for b in real(*args, **kw):
+            sizes.append(len(b))
+            yield b
+
+    fq = Query("gdelt", "BBOX(geom, -60, -50, 60, 65) AND GoldsteinScale > -5.0")
+
+    def fids_of(r):
+        f = r.features
+        return sorted(f.fids.vocab[c] for c in f.fids.codes)
+
+    ssrc.storage.scan = counted
+    try:
+        base = fids_of(ssrc.get_features(fq))
+        by_size = {"default": list(sizes)}
+        for size in (LIFE_SCAN_BATCH, LIFE_SCAN_SMALL):
+            sizes.clear()
+            SystemProperties.set("geomesa.scan.batch.size", size)
+            try:
+                assert fids_of(ssrc.get_features(fq)) == base, size
+            finally:
+                SystemProperties.clear("geomesa.scan.batch.size")
+            assert sizes and max(sizes) <= size, (size, max(sizes))
+            by_size[size] = list(sizes)
+    finally:
+        ssrc.storage.scan = real
+    # the small size cuts the row groups' batches; the default does not
+    assert len(by_size[LIFE_SCAN_SMALL]) > len(by_size["default"]), by_size
+    lap("scan batch")
+    res["scan_batch"] = {str(k): {"batches": len(v), "largest": max(v)}
+                         for k, v in by_size.items()}
+    res["scan_batch"]["rows"] = len(base)
+    log("geomesa.scan.batch.size: the scan route's " + "; ".join(
+        f"{k}: {len(v)} batches, the largest {max(v)} rows"
+        for k, v in by_size.items()) + f"; the same {len(base)} rows each "
+        f"[{card_s}]")
+
+    # remove the stores: residency and captures leave the card
+    del asrc, a_knn, c_knn, d_knn, ssrc, scan_ds, svc, batch, b, d, ix
+    conv.remove_schema("gdelt")
+    direct.remove_schema("gdelt")
+    del csrc, dsrc, conv, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    assert mem1 - mem0 <= LIFE_MEM_SLACK, (mem0, mem1)
+    lap("remove")
+    res["memory"] = {"before": mem0, "after": mem1, "ring_armed": armed}
+    res["laps_s"] = lap.seconds
+    log("converters laps: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                        lap.seconds.items()))
+    log(f"remove_schema + service close: memory_allocated {mem1} bytes after, "
+        f"{mem0} before the stores existed [{card_s}]")
+    life_record("converters", res)
+
+
 def main() -> int:
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
@@ -5138,6 +5738,15 @@ def main() -> int:
     log(f"phase-15 launches: {A4B_LAUNCHES}")
     assert all(A4B_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
                                          "pip_crossing", "pip_band")), A4B_LAUNCHES
+    for row in rows:
+        if row["name"] in LIFE_LAUNCHES:  # then phase 16's
+            row.setdefault("launches_by_phase", {"4": row["launches"]})
+            row["launches_by_phase"]["16"] = LIFE_LAUNCHES[row["name"]]
+            row["launches"] += LIFE_LAUNCHES[row["name"]]
+    log(f"phase-16 launches: {LIFE_LAUNCHES}")
+    assert all(LIFE_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
+                                          "pip_crossing", "pip_band")), LIFE_LAUNCHES
+    print(json.dumps({"lifecycle": PHASES.pop("lifecycle")}))
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))

@@ -14,8 +14,11 @@ results, TubeSelect, and `process.KNearestNeighborSearchProcess` on every
 route, with the write-path stats sketches (`stats/`) that resolve its
 default `impl="auto"`, and the serve stack's host half (`serve/`:
 `QueryService` futures with coalesced kNN windows, deadlines and the
-JSON-lines wire, on the serial route). Entry points run on the card
-unless the caller passes device="cpu".
+JSON-lines wire, on the serial, pipelined and ring routes), the storage
+lifecycle (deletes, age-off, compaction, ORC) under the fault fabric
+(`faults/`), converters (`convert/`), ingest/export jobs (`jobs.py`) and
+the Arrow IPC store (`store/arrow_store.py`). Entry points run on the
+card unless the caller passes device="cpu".
 """
 
 from geomesa_tpu_torch.core.columnar import FeatureBatch

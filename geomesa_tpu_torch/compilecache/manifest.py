@@ -39,6 +39,12 @@ import os
 import threading
 from typing import Dict, List, Optional, Union
 
+from geomesa_tpu_torch.faults import harness as _faults_harness
+
+# registered for the fault catalog; save() fires it by name
+_faults_harness.site(
+    "compilecache.manifest.write", "warmup manifest atomic save")
+
 MANIFEST_VERSION = 1
 
 
@@ -114,12 +120,23 @@ class WarmupManifest:
                 "entries": [e.to_json() for e in self.entries]}
 
     def save(self, path: str) -> None:
-        """Write atomically (tmp file + rename: never a torn file)."""
-        tmp = f"{path}.tmp{os.getpid()}"
-        with open(tmp, "w", encoding="utf-8") as f:
-            json.dump(self.to_json(), f, indent=1, sort_keys=True)
-            f.write("\n")
-        os.replace(tmp, path)
+        """Write atomically (tmp file + rename: never a torn file); a
+        transient failure retries (the `compilecache.manifest.write`
+        fault site)."""
+        from geomesa_tpu_torch.faults import RetryPolicy, retry_call
+        from geomesa_tpu_torch.faults import harness as _faults
+
+        def attempt():
+            _faults.inject("compilecache.manifest.write")
+            tmp = f"{path}.tmp{os.getpid()}"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(self.to_json(), f, indent=1, sort_keys=True)
+                f.write("\n")
+            os.replace(tmp, path)  # atomic: never a torn file
+
+        retry_call(attempt, label="compilecache",
+                   policy=RetryPolicy(max_attempts=3, base_ms=5.0,
+                                      cap_ms=100.0))
 
     @classmethod
     def from_json(cls, doc: dict) -> "WarmupManifest":

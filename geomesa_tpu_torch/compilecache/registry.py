@@ -282,6 +282,11 @@ class CaptureRegistry:
             self._users.pop(id(owner), None)
         self._drop_owner_captures(id(owner))
 
+    def drop_owner(self, owner) -> None:
+        """Drop every capture made over `owner` now (its store is gone),
+        whatever ring loops still hold it."""
+        self._drop_owner_captures(id(owner))
+
     def _drop_owner_captures(self, oid: int) -> None:
         with self._lock:
             for kk in [kk for kk, c in self._captures.items()

@@ -19,7 +19,8 @@ ambiguity band of a polygon's edges) can land on the other side of the
 edge than their f64 values. Three routes re-decide them in f64 on the
 host: `band_corrections` returns them with their exact membership, for
 the caller to scatter into a device mask; `refine` patches a fetched host
-mask; `band_count_correction` corrects a device count. Each takes an
+mask (`mask_refined` fetches and patches); `band_count_correction`
+corrects a device count. Each takes an
 `extra` device mask (the partition allowance) that is ANDed into the band
 before anything is fetched.
 """
@@ -103,6 +104,12 @@ class CompiledFilter:
         mask = mask.copy()
         mask[idx] = eval_filter_host(self.filter_ast, batch.select(idx))
         return mask
+
+    def mask_refined(self, dev: DeviceBatch, batch: FeatureBatch) -> np.ndarray:
+        """The host mask with the f32 boundary band's rows re-evaluated
+        exactly in f64 (`refine` over the fetched device mask)."""
+        (mask,) = fetch(self.mask(dev, batch))
+        return self.refine(mask, dev, batch)
 
     def band_count_correction(self, dev: DeviceBatch, batch: FeatureBatch,
                               m=None, extra=None) -> int:

@@ -24,6 +24,14 @@ slots: pinned host buffers, non_blocking copies on one copy stream, an
 event the compute stream waits on), `upload` (a pinned, non_blocking
 host-to-device copy) and `side_stream` (work whose host reads must not
 wait for the kernels already queued on the caller's stream).
+
+Host-to-device transfers (`to_device`, `QueryStager.stage`) run under the
+recovery fabric, as the reference's do: the `device.transfer` fault site
+fires on the host before any copy, and a transient failure retries with
+a tiny backoff against the "device" circuit breaker. An OOM
+(`torch.OutOfMemoryError`) and a CUDA runtime error are never retried
+and never charged to the breaker; a transfer to the card never falls
+back to the host.
 """
 
 from __future__ import annotations
@@ -38,10 +46,25 @@ import torch
 
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryColumn
 from geomesa_tpu_torch.errors import CudaUnavailableError
+from geomesa_tpu_torch.faults import BREAKERS, RetryPolicy, retry_call
+from geomesa_tpu_torch.faults import harness as _faults
 
 DeviceBatch = Dict[str, torch.Tensor]
 
 VALID = "__valid__"
+
+# the backoff is deliberately TINY (worst case ~37 ms of sleep in all):
+# the residency swaps call to_device under the device cache's lock, and
+# the retry fabric must not add meaningful lock-held sleep on top of the
+# upload itself
+_TRANSFER_SITE = _faults.site(
+    "device.transfer", "host->device batch transfer (engine.device)")
+_DEVICE_RETRY = RetryPolicy(max_attempts=3, base_ms=2.0, cap_ms=25.0)
+
+
+def _device_retry(fn, *args):
+    return retry_call(fn, *args, policy=_DEVICE_RETRY, label="device",
+                      breaker=BREAKERS.get("device"))
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -60,7 +83,14 @@ def to_device(batch: FeatureBatch, device: torch.device,
     """Transfer a FeatureBatch to tensors on `device` (module docstring).
     Coordinates are cast to `coord_dtype` on the host before the copy, as
     the reference does, so both packages see the same values (f32 by
-    default; the process paths pass torch.float64)."""
+    default; the process paths pass torch.float64). Transient transfer
+    failures retry against the "device" breaker; an OOM propagates."""
+    return _device_retry(_to_device_impl, batch, device, coord_dtype)
+
+
+def _to_device_impl(batch: FeatureBatch, device: torch.device,
+                    coord_dtype: torch.dtype) -> DeviceBatch:
+    _TRANSFER_SITE.fire()
     out: DeviceBatch = {}
     np_coord = torch.empty(0, dtype=coord_dtype).numpy().dtype
 
@@ -299,7 +329,8 @@ class QueryStager:
     On a card a slot's host pair is pinned memory and its device pair is
     written by a `non_blocking` copy on one copy stream; the current
     (compute) stream waits on the copy's event, so the transfer overlaps
-    the previous window's kernels instead of queueing behind them. Before
+    the previous window's kernels instead of queueing behind them. The
+    transfer runs under the recovery fabric, as `to_device` does. Before
     a slot is written again the stager waits for its last copy (the
     pinned buffer stays untouched until the copy has read it) and the copy
     stream waits for the slot's `consumed` event (no launch still reads
@@ -344,11 +375,18 @@ class QueryStager:
             ring = self.ring(key, len(qx32))
         slot = ring.next()
         note_device_op()
-        if self.device.type == "cuda":
-            self._copy(slot, qx32, qy32)
-        else:
-            slot.qx = torch.from_numpy(qx32)
-            slot.qy = torch.from_numpy(qy32)
+
+        def _put():
+            # the fault fires on the host before any copy: never inside a
+            # graph capture, never with the slot half written
+            _TRANSFER_SITE.fire()
+            if self.device.type == "cuda":
+                self._copy(slot, qx32, qy32)
+            else:
+                slot.qx = torch.from_numpy(qx32)
+                slot.qy = torch.from_numpy(qy32)
+
+        _device_retry(_put)
         with self._lock:
             self._staged_total += 1
         return slot
@@ -376,6 +414,16 @@ class QueryStager:
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {"keys": len(self._rings), "staged": self._staged_total}
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's `launches` under a lock, so launches
+    from worker threads (an export's partitions) are never lost."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check_kernel_inputs(*tensors: torch.Tensor, dtypes) -> None:

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from geomesa_tpu_torch.engine.device import check_kernel_inputs, fetch
+from geomesa_tpu_torch.engine.device import check_kernel_inputs, count_launch, fetch
 from geomesa_tpu_torch.engine.geodesy import haversine_m
 from geomesa_tpu_torch.engine.knn import _topk_smallest, _twolevel_smallest, _unit3
 from geomesa_tpu_torch.errors import KernelLaunchError
@@ -186,7 +186,7 @@ def chord_blockmin(qx, qy, x, y, maskf, blk: int = BLK,
         raise ValueError(f"chord_blockmin runs on cuda or cpu, not {x.device}")
     aug, c = _aug_q(qx, qy)
     out = _launch_dense(aug, c, x, y, maskf, blk)
-    chord_blockmin.launches += 1
+    count_launch(chord_blockmin)
     return out, c
 
 
@@ -211,7 +211,7 @@ def chord_blockmin_sparse(qx, qy, x, y, maskf, tile_ids, n_sel,
     aug, c = _aug_q(qx, qy)
     out = _launch_sparse(aug, c, x, y, maskf, tile_ids, n_sel.reshape(1), blk,
                          data_tile)
-    chord_blockmin_sparse.launches += 1
+    count_launch(chord_blockmin_sparse)
     return out, c
 
 

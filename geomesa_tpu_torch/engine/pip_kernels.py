@@ -34,7 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.engine.device import check_kernel_inputs
+from geomesa_tpu_torch.engine.device import check_kernel_inputs, count_launch
 
 # elements of one [chunk, E] block in the plain versions (~64 MB f32)
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -217,7 +217,7 @@ def pip_crossing(px, py, x1, y1, x2, y2):
     if px.shape[0] == 0:  # nothing to launch
         return torch.zeros(0, dtype=torch.bool, device=px.device)
     out = _launch("pip_crossing", px, py, x1, y1, x2, y2)
-    pip_crossing.launches += 1
+    count_launch(pip_crossing)
     return out
 
 
@@ -233,7 +233,7 @@ def pip_band(px, py, x1, y1, x2, y2, eps: float):
     if px.shape[0] == 0:  # nothing to launch
         return torch.zeros(0, dtype=torch.bool, device=px.device)
     out = _launch("pip_band", px, py, x1, y1, x2, y2, float(eps))
-    pip_band.launches += 1
+    count_launch(pip_band)
     return out
 
 

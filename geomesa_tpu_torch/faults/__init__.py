@@ -1,29 +1,46 @@
-"""geomesa_tpu_torch.faults — what the serial serve route needs of the
-reference package's fault fabric.
+"""geomesa_tpu_torch.faults — fault injection + recovery fabric.
 
-- `errors.py`: the typed transient/permanent/OOM taxonomy (`classify`);
-  a CUDA OOM is `torch.OutOfMemoryError`, and nothing else is an OOM.
-- `context.py`: the per-thread request deadline (`deadline_scope`) the
-  planner's entry points run inside.
-- `quarantine.py`: poison-query quarantine, keyed on the coalescing
-  fingerprint.
-- `fallback.py`: host evaluation for a request that runs out of memory
-  on a CPU store (the serve batcher's last rung there; a store on the
-  card fails the request with `DeviceOOM` instead). Loaded lazily, so
-  this package root stays import-light.
+The port of the reference package's `faults/`, in two halves:
 
-The injection harness and its plans, bounded retry, circuit breakers and
-the recovery meter come with the slices that give them a caller (ROADMAP
-A5 and A8); `chaos.py` with A8.
+1. **Injection harness** (`harness.py`, `plan.py`): named sites threaded
+   through the dependency boundaries (storage, device transfer, compile
+   cache), driven by a declarative seeded `FaultPlan` so failures are a
+   replayable INPUT. A single `is None` check when inactive.
+2. **Recovery fabric** (`errors.py`, `retry.py`, `breaker.py`,
+   `quarantine.py`, `context.py`): typed transient/permanent/OOM
+   taxonomy (a CUDA OOM is `torch.OutOfMemoryError`, a CUDA runtime
+   error is permanent), bounded deadline-aware retry with full-jitter
+   backoff, per-dependency circuit breakers, poison-query quarantine,
+   and the RecoveryMeter that attributes retries/faults to ServeEvents.
+
+`fallback.py` is host evaluation for a request that runs out of memory
+on a CPU store (a store on the card fails the request with `DeviceOOM`
+instead); it is loaded lazily, so this package root stays import-light
+and the engine and storage layers can register sites without cycles.
+The reference's `chaos.py` (the chaos CLI) comes with the tooling slice
+(ROADMAP A8).
 """
 
-from geomesa_tpu_torch.faults.context import current_deadline, deadline_scope
+from geomesa_tpu_torch.faults.breaker import BREAKERS, BreakerOpen, CircuitBreaker
+from geomesa_tpu_torch.faults.context import (
+    RECOVERY, current_deadline, deadline_scope)
 from geomesa_tpu_torch.faults.errors import (
-    DeviceOOM, PermanentError, TransientError, classify)
+    DeviceOOM, FaultInjected, PermanentError, TransientError, classify,
+    is_typed)
+from geomesa_tpu_torch.faults.harness import (
+    SITES, FaultHarness, FaultSite, active, current, inject, install,
+    site, uninstall)
+from geomesa_tpu_torch.faults.plan import FaultPlan, FaultRule
 from geomesa_tpu_torch.faults.quarantine import QuarantineRegistry
+from geomesa_tpu_torch.faults.retry import RetryPolicy, retry_call
 
 __all__ = [
-    "current_deadline", "deadline_scope",
-    "DeviceOOM", "PermanentError", "TransientError", "classify",
-    "QuarantineRegistry",
+    "BREAKERS", "BreakerOpen", "CircuitBreaker",
+    "RECOVERY", "current_deadline", "deadline_scope",
+    "DeviceOOM", "FaultInjected", "PermanentError", "TransientError",
+    "classify", "is_typed",
+    "SITES", "FaultHarness", "FaultSite", "active", "current", "inject",
+    "install", "site", "uninstall",
+    "FaultPlan", "FaultRule", "QuarantineRegistry",
+    "RetryPolicy", "retry_call",
 ]

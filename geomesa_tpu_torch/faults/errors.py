@@ -17,14 +17,25 @@ compile cache) classifies failures into three kinds:
   permanent  — bad input, schema drift, crashes: surfaced immediately,
                never retried, and counted toward poison-query quarantine.
 
-The reference's injected-fault classes (`FaultInjected` and the
-`Injected*` family) and `is_typed`, the chaos checker's test, come with
-the injection harness and the chaos runner (ROADMAP A5 and A8).
+A CUDA runtime error (`torch.AcceleratorError`, or the RuntimeError a
+failed launch raises) is permanent: a sticky CUDA error poisons the
+context, so a retry on the same card cannot succeed.
+
+The `FaultInjected` mixin marks exceptions raised by the injection
+harness so a chaos check can tell "an injected fault escaped typed" (a
+bug) from organic failures. Injected classes subclass the REAL exception
+families (OSError, ConnectionError, ...) so recovery code never
+special-cases injection: the fault path exercised under test is the path
+a real failure takes.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+class FaultInjected:
+    """Marker mixin: this exception was raised by the fault harness."""
 
 
 class TransientError(RuntimeError):
@@ -44,6 +55,40 @@ class DeviceOOM(MemoryError):
     failed to build is permanent."""
 
 
+class InjectedIOError(OSError, FaultInjected):
+    """Injected storage/file I/O failure (transient)."""
+
+
+class InjectedUnavailable(ConnectionError, FaultInjected):
+    """Injected dependency-unavailable failure (transient)."""
+
+
+class InjectedOOM(DeviceOOM, FaultInjected):
+    """Injected device out-of-memory (oom)."""
+
+
+class InjectedCrash(RuntimeError, FaultInjected):
+    """Injected hard crash (permanent; feeds poison-query quarantine)."""
+
+
+# FaultPlan `error` keys -> exception classes ("latency" injects delay
+# only and maps to None)
+ERROR_KINDS = {
+    "io": InjectedIOError,
+    "unavailable": InjectedUnavailable,
+    "oom": InjectedOOM,
+    "crash": InjectedCrash,
+    "latency": None,
+}
+
+TYPED_ERRORS = (TransientError, PermanentError, DeviceOOM, OSError,
+                ConnectionError)
+
+# a CUDA runtime error: sticky, so never worth a retry on the same card
+_CUDA_ERRORS = tuple(c for c in (getattr(torch, "AcceleratorError", None),)
+                     if c is not None)
+
+
 def classify(exc: BaseException) -> str:
     """Map an exception to "transient" | "oom" | "permanent".
 
@@ -52,7 +97,7 @@ def classify(exc: BaseException) -> str:
     deadline is the exact bug the fabric exists to prevent."""
     if isinstance(exc, (DeviceOOM, torch.OutOfMemoryError)):
         return "oom"
-    if isinstance(exc, PermanentError):
+    if isinstance(exc, PermanentError) or isinstance(exc, _CUDA_ERRORS):
         return "permanent"
     if isinstance(exc, TimeoutError) and hasattr(exc, "phase"):
         return "permanent"  # QueryTimeout: the budget is gone
@@ -71,3 +116,19 @@ def classify(exc: BaseException) -> str:
     if isinstance(exc, OSError):
         return "transient"
     return "permanent"
+
+
+def is_typed(exc: BaseException) -> bool:
+    """True when the exception is part of the serving error contract:
+    a client can act on it (retry, back off, fix the query). Used by a
+    chaos check to detect un-typed escapes."""
+    if isinstance(exc, TYPED_ERRORS) or isinstance(exc, FaultInjected):
+        return True
+    if isinstance(exc, torch.OutOfMemoryError):
+        return True
+    # serve-layer typed signals, duck-typed to avoid import cycles
+    if hasattr(exc, "reason"):  # QueryRejected / BreakerOpen
+        return True
+    if isinstance(exc, TimeoutError) and hasattr(exc, "phase"):
+        return True  # QueryTimeout
+    return False

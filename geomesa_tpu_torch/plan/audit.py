@@ -42,10 +42,10 @@ class ServeEvent:
     rode in, and how it ended — the numbers a tail-latency investigation
     starts from. Written by serve.service.QueryService per request.
 
-    The fields are the reference's. In the port these keep their
-    defaults until the ROADMAP item that fills them: `retries`,
-    `fault_injected` and `breaker_state` (A5), `mesh_shape` and `shards`
-    (A7)."""
+    The fields are the reference's. `retries`, `fault_injected` and
+    `breaker_state` come from the recovery fabric (`faults/`); in the
+    port `mesh_shape` and `shards` keep their defaults until the
+    multi-GPU tier (ROADMAP A7)."""
 
     type_name: str
     kind: str  # execute | count | knn

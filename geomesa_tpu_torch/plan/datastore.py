@@ -26,11 +26,18 @@ Each type's planner loads the interceptors its schema names
 coordinates in the `geomesa.coord.dtype` dtype, on both routes.
 `write_batch` is the columnar bulk ingest (Arrow record batches or IPC
 bytes, the wire's `op=ingest`).
+
+The lifecycle is the reference's: `FeatureSource.delete_features` and
+`age_off` rewrite the touched files (exact f64 host evaluation) and
+invalidate the stats sketches, which cannot un-observe a row;
+`DataStore.remove_schema` drops a type's files, its residency and its
+captured ring graphs.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 from typing import Dict, List, Optional, Union
 
@@ -78,6 +85,24 @@ class FeatureSource:
         write-path StatUpdater), so estimates are live with no analyze."""
         self.storage.write(batch)
         self.planner.update_stats(batch)
+
+    def delete_features(self, cql: str) -> int:
+        """Delete features matching an ECQL filter (the filter is
+        required: pass "INCLUDE" to delete everything). Sketch stats
+        cannot un-observe, so they are invalidated (estimates fall back
+        until the next analyze or write). Returns rows deleted."""
+        n = self.storage.delete_features(cql)
+        if n:
+            self.planner.stats_manager().invalidate()
+        return n
+
+    def age_off(self, older_than_ms: int) -> int:
+        """Delete features whose dtg is before the cutoff. Returns rows
+        deleted."""
+        n = self.storage.age_off(older_than_ms)
+        if n:
+            self.planner.stats_manager().invalidate()
+        return n
 
     def knn(self, query: "Query | str", qx, qy, k: int = 10,
             impl: str = "sparse"):
@@ -129,7 +154,7 @@ class DataStore:
                       encoding: str = "parquet") -> FeatureSource:
         """A new schema's store: `scheme` defaults to the dtg's days, or
         without a dtg to `_default_spatial_scheme`; `encoding` "parquet"
-        (ORC files raise NotPortedError)."""
+        or "orc"."""
         if scheme is None:
             scheme = (DateTimeScheme(dtg_attr=sft.default_dtg.name)
                       if sft.default_dtg is not None
@@ -176,6 +201,23 @@ class DataStore:
 
     def get_schema(self, name: str) -> SimpleFeatureType:
         return self.get_feature_source(name).sft
+
+    def remove_schema(self, name: str) -> None:
+        """Delete a type: its files, and with them its device residency
+        and the ring graphs captured over it (a service still open on it
+        releases its ring programs when it closes)."""
+        from geomesa_tpu_torch.compilecache.registry import registry
+
+        with self._lock:
+            src = self._sources.pop(name, None)
+        if src is not None:
+            registry.drop_owner(src.planner)
+            if src.planner.cache is not None:
+                src.planner.cache.invalidate()
+        path = os.path.join(self.catalog, name)
+        if not os.path.exists(os.path.join(path, METADATA)):
+            raise FileNotFoundError(f"no schema {name!r} in catalog")
+        shutil.rmtree(path)
 
 
 def _default_spatial_scheme(sft: SimpleFeatureType) -> PartitionScheme:

@@ -70,7 +70,7 @@ class PipelinedWindow:
     __slots__ = ("source", "live", "counts", "lead", "t0", "g0_ns",
                  "adopt_from", "wid", "running", "running_counts",
                  "qx", "qy", "offsets", "staged", "launch", "stalls",
-                 "seq", "prep_start_ns")
+                 "recovery", "seq", "prep_start_ns")
 
     def __init__(self, source, live, counts, lead, t0, g0_ns, adopt_from,
                  seq):
@@ -89,6 +89,7 @@ class PipelinedWindow:
         self.staged = None
         self.launch = None
         self.stalls: list = []
+        self.recovery: list = []
         self.prep_start_ns = 0
 
 
@@ -192,6 +193,7 @@ class DispatchPipeline:
         failure resolves member futures and completes the window's
         bookkeeping before returning."""
         from geomesa_tpu_torch.compilecache.stall import STALLS
+        from geomesa_tpu_torch.faults import RECOVERY
 
         self._ensure_started()
         # bounded-wait acquire: a dead completer must fail the dispatch
@@ -214,6 +216,7 @@ class DispatchPipeline:
         if lead.trace is not None:
             win.wid = new_span_id()
         stall_token = STALLS.token()
+        rec_token = RECOVERY.token()
         try:
             self._prepare(win)
             if win.running:
@@ -225,14 +228,14 @@ class DispatchPipeline:
                     self._transfer(win)
                     self._launch(win)
         except BaseException as e:  # noqa: BLE001 — serial-path parity
-            self._note_stalls(win, stall_token)
+            self._note_meters(win, stall_token, rec_token)
             self._fail(win, e)
             self._window_done(win)
             return
         finally:
             with self._lock:
                 self._dispatch_ns += perf_counter_ns() - t_start
-        self._note_stalls(win, stall_token)
+        self._note_meters(win, stall_token, rec_token)
         if not win.running:
             # every kNN member was cancelled between pop and prepare: the
             # fused counts still deserve their (serial) dispatch
@@ -249,13 +252,19 @@ class DispatchPipeline:
             return
         self._completions.put(win)
 
-    def _note_stalls(self, win: PipelinedWindow, token: int) -> None:
-        """Build and capture stalls this thread noted during the window's
-        stages are the window's (thread-scoped, like the serial path)."""
+    def _note_meters(self, win: PipelinedWindow, stall_token: int,
+                     rec_token: int) -> None:
+        """Build and capture stalls and recovery events (retried transfers
+        and reads, injected faults) this thread noted during the window's
+        stages are the window's (thread-scoped, like the serial path): the
+        dispatch thread's prepare/stage/launch (a ring slot write and
+        replay included) and the completer's sync each add their own."""
         from geomesa_tpu_torch.compilecache.stall import STALLS
+        from geomesa_tpu_torch.faults import RECOVERY
 
-        win.stalls.extend(STALLS.since(token,
-                                       thread_ident=threading.get_ident()))
+        ident = threading.get_ident()
+        win.stalls.extend(STALLS.since(stall_token, thread_ident=ident))
+        win.recovery.extend(RECOVERY.since(rec_token, thread_ident=ident))
 
     def _prepare(self, win: PipelinedWindow) -> None:
         """Host stacking/padding (batcher.stack_queries). Marks member
@@ -328,8 +337,10 @@ class DispatchPipeline:
         resolve fused counts — and the serial path's failure ladder when
         the window errors."""
         from geomesa_tpu_torch.compilecache.stall import STALLS
+        from geomesa_tpu_torch.faults import RECOVERY
 
         token = STALLS.token()
+        rec_token = RECOVERY.token()
         lead = win.lead
         try:
             with TRACER.scope(lead.trace, parent_id=win.wid):
@@ -340,7 +351,7 @@ class DispatchPipeline:
         except BaseException as e:  # noqa: BLE001 — fan out, serial parity
             self._fail(win, e)
         finally:
-            self._note_stalls(win, token)
+            self._note_meters(win, token, rec_token)
 
     def _resolve_counts(self, win: PipelinedWindow) -> None:
         if not win.running_counts:

@@ -17,9 +17,9 @@ answers immediately) — the id field is the correlation key:
 Optional request fields: tenant, priority (interactive|normal|batch),
 timeoutMs, allowDegraded. Responses: {"id", "ok": true, ...} with
 op-specific payload, or {"id", "ok": false, "error":
-rejected|timeout|error, "reason", "message"}. The reference's
-"unavailable" answer to an open circuit breaker comes with the breakers
-(ROADMAP A5): nothing in the port opens one.
+rejected|unavailable|timeout|error, "reason", "message"}: "unavailable"
+answers an open circuit breaker (a dependency outage, not the query)
+with `retryAfterS`, the seconds until the breaker lets a probe through.
 `{"op": "stats"}` answers the service's live counters, `{"op": "hello"}`
 the connection's role and the wire it speaks, and `{"op": "drain"}` (on
 an admin connection) drains the service in place.
@@ -61,6 +61,7 @@ from typing import Iterable, Optional
 import numpy as np
 
 from geomesa_tpu_torch.errors import NotPortedError
+from geomesa_tpu_torch.faults import BreakerOpen
 from geomesa_tpu_torch.plan.hints import QueryHints
 from geomesa_tpu_torch.plan.planner import QueryTimeout
 from geomesa_tpu_torch.plan.query import Query
@@ -242,6 +243,12 @@ def _error_response(rid, exc) -> dict:
     if isinstance(exc, QueryRejected):
         return {"id": rid, "ok": False, "error": "rejected",
                 "reason": exc.reason, "message": str(exc)}
+    if isinstance(exc, BreakerOpen):
+        # fail-fast dependency outage: tell the client WHEN to retry
+        return {"id": rid, "ok": False, "error": "unavailable",
+                "reason": exc.reason,
+                "retryAfterS": round(exc.retry_after_s, 3),
+                "message": str(exc)}
     if isinstance(exc, QueryTimeout):
         return {"id": rid, "ok": False, "error": "timeout",
                 "phase": exc.phase, "message": str(exc)}

@@ -67,7 +67,9 @@ import numpy as np
 from geomesa_tpu_torch.approx.cache import ResultCache, result_key
 from geomesa_tpu_torch.compilecache.stall import STALLS
 from geomesa_tpu_torch.errors import NotPortedError
-from geomesa_tpu_torch.faults import QuarantineRegistry, classify
+from geomesa_tpu_torch.faults import (
+    BREAKERS, RECOVERY, BreakerOpen, QuarantineRegistry, classify)
+from geomesa_tpu_torch.faults.breaker import _STATE_NUM
 from geomesa_tpu_torch.plan.audit import ServeEvent
 from geomesa_tpu_torch.plan.planner import QueryTimeout
 from geomesa_tpu_torch.plan.query import Query
@@ -780,6 +782,7 @@ class QueryService:
                                      adopt_from)
             return
         stall_token = STALLS.token()
+        rec_token = RECOVERY.token()
         if lead.trace is not None:
             with TRACER.scope(lead.trace):
                 with TRACER.span("dispatch", batch=len(live)):
@@ -787,10 +790,15 @@ class QueryService:
         else:
             self._run_window(live)
         t1 = time.monotonic()
-        # compile-stall attribution: what THIS thread noted during the
-        # window (a first-use build runs on the dispatch thread)
-        stalls = STALLS.since(stall_token, thread_ident=threading.get_ident())
-        self._finish_window(live, [], lead, t0, t1, adopt_from, stalls)
+        # compile-stall and recovery attribution: what THIS thread noted
+        # during the window (a first-use build, a retried transfer or read
+        # runs on the dispatch thread) is charged to the requests that
+        # rode it
+        ident = threading.get_ident()
+        stalls = STALLS.since(stall_token, thread_ident=ident)
+        recovery = RECOVERY.since(rec_token, thread_ident=ident)
+        self._finish_window(live, [], lead, t0, t1, adopt_from, stalls,
+                            recovery)
 
     def _dispatch_pipelined(self, live, counts, lead, t0, g0_ns,
                             adopt_from) -> None:
@@ -806,7 +814,7 @@ class QueryService:
                 if r.future.set_running_or_notify_cancel():
                     r.future.set_exception(e)
             self._finish_window(live, counts, lead, t0, time.monotonic(),
-                                adopt_from, [], pipelined=True)
+                                adopt_from, [], [], pipelined=True)
             return
         with self._state_lock:
             self._inflight += 1
@@ -831,20 +839,32 @@ class QueryService:
         finish bookkeeping, then release the window's inflight token."""
         try:
             self._finish_window(win.live, win.counts, win.lead, win.t0, t1,
-                                win.adopt_from, win.stalls, pipelined=True)
+                                win.adopt_from, win.stalls, win.recovery,
+                                pipelined=True)
         finally:
             with self._state_lock:
                 self._inflight -= 1
 
     def _finish_window(self, live, counts, lead, t0, t1, adopt_from,
-                       stalls, pipelined: bool = False) -> None:
+                       stalls, recovery, pipelined: bool = False) -> None:
         """Everything that happens after a window's futures are resolved:
-        stall attribution, counters, metrics, quarantine accounting, rider
-        trace adoption, audit events. Shared by the serial path (dispatch
-        thread) and the pipeline (completer thread). The reference also
-        charges recovery events (retries, injected faults, breaker
-        states) to its requests; nothing in the port notes them until
-        ROADMAP A5, so those ServeEvent fields keep their defaults."""
+        stall and recovery attribution, counters, metrics, quarantine
+        accounting, rider trace adoption, audit events. Shared by the
+        serial path (dispatch thread) and the pipeline (completer thread).
+        Every request of the window carries the window's `retries` and
+        `fault_injected` (the recovery events its threads noted) and the
+        non-closed breakers at completion (`breaker_state`)."""
+        retries = sum(1 for kind, _ in recovery if kind == "retry")
+        faults_seen = sum(1 for kind, _ in recovery if kind == "fault")
+        breaker_state = ",".join(
+            f"{name}={state}"
+            for name, state in sorted(BREAKERS.states().items())
+            if state != "closed")
+        if lead.trace is not None:
+            # retry/fault notes render as instants at the window's end
+            end_ns = time.perf_counter_ns()
+            for kind, label in recovery:
+                lead.trace.record(kind, end_ns, end_ns, label=label)
         compile_ms = sum(s for _, s in stalls) * 1000.0
         labels = list(dict.fromkeys(lbl for lbl, _ in stalls))
         compiled = ",".join(labels[:5])
@@ -881,12 +901,13 @@ class QueryService:
                 self._bump("failed")
                 # poison-query accounting: a crash (permanent/OOM after
                 # every recovery layer gave up) strikes the request's
-                # fingerprint ONCE per dispatch; shed/timeout/transient
-                # and OSError answers say nothing about the QUERY being
-                # poisonous
+                # fingerprint ONCE per dispatch; shed/timeout/transient,
+                # breaker-open and OSError answers say nothing about the
+                # QUERY being poisonous
                 if (self.config.quarantine_after
                         and not isinstance(exc, (QueryRejected,
                                                  QueryTimeout,
+                                                 BreakerOpen,
                                                  OSError))
                         and classify(exc) != "transient"):
                     key = (r.quarantine_key
@@ -943,6 +964,9 @@ class QueryService:
                     degraded=r.degraded,
                     compile_ms=compile_ms,
                     compiled=compiled,
+                    retries=retries,
+                    fault_injected=faults_seen,
+                    breaker_state=breaker_state,
                     mesh_shape=r.mesh_shape or lead.mesh_shape,
                     shards=r.shards or lead.shards,
                     approx=r.approx,
@@ -1016,8 +1040,8 @@ class QueryService:
         """Push point-in-time gauges (queue depth, degrade level,
         in-flight count, quarantine size) into the shared metrics
         registry, so a scrape sees NOW, not the last time a request
-        happened to update a gauge. The reference's breaker-state gauges
-        come with the breakers (ROADMAP A5)."""
+        happened to update a gauge, with a `fault.breaker.<name>` gauge
+        per breaker (0 closed, 1 half-open, 2 open)."""
         metrics.gauge("serve.queue.depth", float(len(self.queue)))
         for cls, depth in self.queue.depths().items():
             metrics.gauge("serve.queue.class_depth", float(depth),
@@ -1042,6 +1066,13 @@ class QueryService:
         q = self.quarantine.stats()
         metrics.gauge("fault.quarantine.active", float(q["quarantined"]))
         metrics.gauge("fault.quarantine.striking", float(q["striking"]))
+        try:
+            for name, state in BREAKERS.states().items():
+                metrics.gauge(f"fault.breaker.{name}", _STATE_NUM[state])
+        except Exception:  # noqa: BLE001 — gauge freshness is best-effort:
+            # a scrape renders what IS fresh rather than fail because one
+            # breaker-registry read raced a reconfigure
+            pass
 
 
 def self_check(verbose: bool = True, device=None) -> int:

@@ -1,5 +1,6 @@
-"""Storage of the port: the Parquet filesystem store, its partition
-schemes, and the single-device residency cache."""
+"""Storage of the port: the Parquet (or ORC) filesystem store with its
+lifecycle, its partition schemes, the single-device residency cache, and
+the Arrow IPC store (`arrow_store.py`, imported on use)."""
 
 from geomesa_tpu_torch.store.partition import (
     AttributeScheme, CompositeScheme, DateTimeScheme, PartitionScheme,

@@ -10,7 +10,9 @@ stay host-side and the superbatch is the full host concat, uploaded
 whole whenever residency changes.
 Queries mask pruned-out partitions by lane (`allowed[pids]`) instead of
 launching per partition. Residency follows the storage manifest: a
-partition whose file list changed is reloaded, the rest stay put.
+partition whose file list changed is reloaded (a delete can shrink its
+padded size), one the manifest no longer names (emptied by a delete or
+an age-off) is dropped at the next `ensure`, the rest stay put.
 
 The reference's lifecycle is here too: `refresh` (re-sync with the
 storage manifest, dropping removed partitions), `invalidate`, `get`,
@@ -161,7 +163,8 @@ class DeviceCacheManager:
     def ensure(self, partitions: Optional[List[str]] = None,
                manifest: Optional[dict] = None) -> List[str]:
         """Make the named partitions (default: all) resident, pinned to the
-        `manifest` snapshot; returns the partitions (re)loaded. A stale
+        `manifest` snapshot; returns the partitions (re)loaded, and those
+        dropped because a versioned snapshot no longer names them. A stale
         snapshot (older than one already applied) is replaced by a fresh
         one, so residency never rolls backward."""
         mv = getattr(manifest, "version", None)
@@ -172,6 +175,12 @@ class DeviceCacheManager:
             self._applied_mversion = max(self._applied_mversion, mv)
         names = partitions if partitions is not None else sorted(manifest)
         loaded = []
+        if mv is not None:
+            # a partition the committed manifest no longer names (emptied
+            # by a delete or an age-off) frees its device memory now
+            loaded = [n for n in self._entries if n not in manifest]
+            for n in loaded:
+                del self._entries[n]
         for name in names:
             cur = self._entries.get(name)
             if cur is not None and cur.files == self._partition_files(name, manifest):
@@ -193,14 +202,7 @@ class DeviceCacheManager:
     def refresh(self) -> List[str]:
         """Re-sync with the storage manifest: load new and changed
         partitions, drop removed ones. Returns the changed names."""
-        manifest = self.storage.manifest_snapshot()
-        dropped = [n for n in self._entries if n not in manifest]
-        for n in dropped:
-            del self._entries[n]
-        if dropped:
-            self._super = None
-            self._version += 1
-        return self.ensure(manifest=manifest) + dropped
+        return self.ensure(manifest=self.storage.manifest_snapshot())
 
     @_locked
     def invalidate(self, partition: Optional[str] = None) -> None:

@@ -9,9 +9,18 @@ on-disk format, so either package loads a catalog the other wrote:
 Point geometry is stored as x/y float64 columns named <attr>__x/__y (so
 row-group statistics prune on bbox); other geometries as WKT text plus
 per-feature bbox columns <attr>__xmin/__ymin/__xmax/__ymax; strings as
-dictionary columns, dates as int64 epoch millis. Compaction, deletes,
-age-off, ORC files and the fault-injection/retry hooks come with a later
-slice.
+dictionary columns, dates as int64 epoch millis. Data files are Parquet
+or ORC (`encoding`), as in the reference.
+
+The lifecycle is the reference's: `write` appends one file per touched
+partition, `compact` merges a partition's files into one, and
+`delete_features`/`age_off` rewrite each touched file without the
+matching rows (exact f64 host evaluation). Every mutation commits to the
+manifest in one step and bumps `manifest_version`, so residency, the
+result cache and armed ring programs see it. Reads and data-file writes
+retry transient I/O against the "storage" circuit breaker at the
+`fs.read_partition` and `fs.write_partition` fault sites; the manifest
+commit (`fs.write_manifest`) is deliberately not retried (below).
 """
 
 from __future__ import annotations
@@ -32,15 +41,31 @@ from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryCo
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.core.wkt import parse_wkt, to_wkt
 from geomesa_tpu_torch.cql.extract import BBox, Interval
-from geomesa_tpu_torch.errors import NotPortedError
+from geomesa_tpu_torch.faults import BREAKERS, RetryPolicy, retry_call
+from geomesa_tpu_torch.faults import harness as _faults
 from geomesa_tpu_torch.store.partition import PartitionScheme, scheme_from_config
 
 METADATA = "metadata.json"
 FID = "__fid__"
-# rows per scanned batch (the reference's geomesa.scan.batch.size default)
-SCAN_BATCH_SIZE = 1 << 20
 
-_STORE_SLICE = "the storage slice (ROADMAP Queue A, A5)"
+# fault-injection sites + retry policy for the storage boundary. Reads and
+# partition-file writes retry transient I/O against the "storage"
+# breaker. The manifest commit is DELIBERATELY non-retryable: it runs
+# under the manifest lock (sleeping there stalls every reader/writer) and
+# the tmp+os.replace swap is already all-or-nothing — a failed commit
+# leaves the previous manifest intact, never a torn one.
+_READ_SITE = _faults.site(
+    "fs.read_partition", "partition data file read (parquet/orc)")
+_WRITE_SITE = _faults.site(
+    "fs.write_partition", "partition data file write (staging)")
+_MANIFEST_SITE = _faults.site(
+    "fs.write_manifest", "metadata.json manifest commit (atomic swap)")
+_STORAGE_RETRY = RetryPolicy(max_attempts=4, base_ms=5.0, cap_ms=250.0)
+
+
+def _storage_retry(fn, *args):
+    return retry_call(fn, *args, policy=_STORAGE_RETRY, label="storage",
+                      breaker=BREAKERS.get("storage"))
 
 
 class ManifestSnapshot(Dict[str, List[dict]]):
@@ -126,13 +151,11 @@ def _table_to_batch(t: pa.Table, sft: SimpleFeatureType) -> FeatureBatch:
 
 
 class FileSystemStorage:
-    """A partitioned Parquet feature store."""
+    """A partitioned Parquet (or ORC) feature store."""
 
     def __init__(self, root: str, sft: SimpleFeatureType,
                  scheme: PartitionScheme, encoding: str = "parquet"):
-        if encoding == "orc":
-            raise NotPortedError("'orc' data files", _STORE_SLICE)
-        if encoding != "parquet":
+        if encoding not in ("parquet", "orc"):
             raise ValueError(f"unknown encoding {encoding!r}")
         self.root = root
         self.sft = sft
@@ -180,6 +203,9 @@ class FileSystemStorage:
             "manifest": self.manifest,
         }
         tmp = os.path.join(self.root, METADATA + ".tmp")
+        # a failure HERE (before or during the tmp write) must leave the
+        # previous manifest untouched: no torn manifest
+        _MANIFEST_SITE.fire()
         with open(tmp, "w") as f:
             json.dump(meta, f, indent=1)
         os.replace(tmp, os.path.join(self.root, METADATA))
@@ -193,7 +219,7 @@ class FileSystemStorage:
     # -- write -------------------------------------------------------------
 
     def write(self, batch: FeatureBatch) -> None:
-        """Partition the batch by the scheme and append one parquet file per
+        """Partition the batch by the scheme and append one data file per
         touched partition; the whole batch commits to the manifest in one
         step, so a reader sees all of it or none. Rows keep their order
         within each partition file."""
@@ -211,8 +237,11 @@ class FileSystemStorage:
             pdir = os.path.join(self.root, name)
             os.makedirs(pdir, exist_ok=True)
             fname = f"{uuid.uuid4().hex}.{self.encoding}"
-            pq.write_table(_batch_to_table(sub), os.path.join(pdir, fname),
-                           compression="zstd", row_group_size=64 * 1024)
+            # retryable: the file is not in the manifest yet, so a partial
+            # write from a failed attempt is an invisible orphan the
+            # successful attempt simply overwrites
+            _storage_retry(self._write_data_file, sub,
+                           os.path.join(pdir, fname))
             staged.append((name, fname, len(sub)))
         with self._lock:
             for name, fname, count in staged:
@@ -230,6 +259,137 @@ class FileSystemStorage:
                         self.manifest.pop(name, None)
                 raise
             self._mversion += 1
+
+    def compact(self) -> int:
+        """Merge each partition's files into one (the FS store's compact
+        command). Returns how many files were removed."""
+        with self._lock:
+            targets = list(self.manifest)
+        removed = 0
+        for name in targets:
+            with self._lock:
+                entries = list(self.manifest.get(name, []))
+            if len(entries) <= 1:
+                continue
+            tables = [self._read_file(os.path.join(self.root, name, e["file"]),
+                                      None, None)
+                      for e in entries]
+            merged = pa.concat_tables(tables, promote_options="permissive")
+            count = sum(e["count"] for e in entries)
+            fname = f"{uuid.uuid4().hex}.{self.encoding}"
+            _storage_retry(self._write_table, merged,
+                           os.path.join(self.root, name, fname))
+            # crash-safety ordering: write the merged file, point the
+            # manifest at it, persist — only then delete the old files
+            with self._lock:
+                # writes only APPEND, so the snapshot is a prefix of the
+                # live list: keep any entry a concurrent write() added
+                prev = self.manifest.get(name)
+                tail = self.manifest.get(name, [])[len(entries):]
+                self.manifest[name] = [{"file": fname, "count": count}] + tail
+                try:
+                    self._save_metadata()
+                except BaseException:
+                    # memory must never run ahead of the durable manifest:
+                    # the merged file becomes an unreferenced orphan and
+                    # the old files stay live
+                    self.manifest[name] = prev
+                    raise
+                self._mversion += 1
+            for entry in entries:
+                os.remove(os.path.join(self.root, name, entry["file"]))
+                removed += 1
+        return removed
+
+    def delete_features(self, cql: "str | object") -> int:
+        """Delete features matching an ECQL filter: each touched file is
+        rewritten without the matching rows (exact f64 host evaluation),
+        with compact's crash-safety ordering (new file + manifest first,
+        removals last). Returns rows deleted."""
+        from geomesa_tpu_torch.cql import ast, parse_cql
+        from geomesa_tpu_torch.cql.hosteval import eval_filter_host
+
+        f = parse_cql(cql) if isinstance(cql, str) else cql
+        if isinstance(f, ast.Include):
+            # delete-all: persist the emptied manifest FIRST, remove files
+            # last (a crash leaves orphans, never missing files)
+            total = self.count
+            with self._lock:
+                paths = [os.path.join(self.root, name, entry["file"])
+                         for name, entries in self.manifest.items()
+                         for entry in entries]
+                prev = self.manifest
+                self.manifest = {}
+                try:
+                    self._save_metadata()
+                except BaseException:
+                    self.manifest = prev
+                    raise
+                self._mversion += 1
+            for p in paths:
+                os.remove(p)
+            return total
+        deleted = 0
+        with self._lock:
+            names = list(self.manifest)
+        for name in names:
+            new_entries = []
+            removals = []
+            with self._lock:
+                entries = list(self.manifest.get(name, []))
+            for entry in entries:
+                batch = _table_to_batch(self._read_file(
+                    os.path.join(self.root, name, entry["file"]), None, None),
+                    self.sft)
+                hit = eval_filter_host(f, batch)
+                nh = int(hit.sum())
+                if nh == 0:
+                    new_entries.append(entry)
+                    continue
+                deleted += nh
+                removals.append(entry["file"])
+                keep = batch.select(~hit)
+                if len(keep):
+                    fname = f"{uuid.uuid4().hex}.{self.encoding}"
+                    _storage_retry(self._write_data_file, keep,
+                                   os.path.join(self.root, name, fname))
+                    new_entries.append({"file": fname, "count": len(keep)})
+            if not removals:
+                continue
+            with self._lock:
+                # preserve entries a concurrent write() appended after
+                # our snapshot (appends only: the snapshot is a prefix)
+                prev = self.manifest.get(name)
+                tail = self.manifest.get(name, [])[len(entries):]
+                if new_entries or tail:
+                    self.manifest[name] = new_entries + tail
+                else:
+                    del self.manifest[name]
+                try:
+                    self._save_metadata()
+                except BaseException:
+                    # a failed durable commit must not leave the deletion
+                    # visible in memory (a restart would resurrect it)
+                    if prev is not None:
+                        self.manifest[name] = prev
+                    else:
+                        self.manifest.pop(name, None)
+                    raise
+                self._mversion += 1
+            for fname in removals:
+                os.remove(os.path.join(self.root, name, fname))
+        return deleted
+
+    def age_off(self, older_than_ms: int) -> int:
+        """Delete features whose default dtg is strictly before
+        `older_than_ms`. Returns rows deleted."""
+        from geomesa_tpu_torch.cql import ast
+
+        d = self.sft.default_dtg
+        if d is None:
+            raise ValueError("age_off needs a dtg attribute")
+        return self.delete_features(ast.TemporalPredicate(
+            "BEFORE", ast.Property(d.name), int(older_than_ms), None))
 
     # -- read --------------------------------------------------------------
 
@@ -302,8 +462,11 @@ class FileSystemStorage:
              interval: Optional[Interval] = None,
              columns: Optional[Sequence[str]] = None,
              ) -> Iterator[FeatureBatch]:
-        """Yield batches from pruned partitions with parquet pushdown: a
-        covering superset (exact evaluation is the device mask's job)."""
+        """Yield batches from pruned partitions with pushdown: a covering
+        superset (exact evaluation is the device mask's job). No batch is
+        larger than `geomesa.scan.batch.size` rows."""
+        from geomesa_tpu_torch.utils.config import SystemProperties
+
         bbox = bbox if bbox is not None else BBox(-180.0, -90.0, 180.0, 90.0)
         interval = interval if interval is not None else Interval(None, None)
         expr = self._pushdown_expr(bbox, interval)
@@ -319,16 +482,15 @@ class FileSystemStorage:
                                   f"{c}__xmax", f"{c}__ymax"]
                 else:
                     phys_cols.append(c)
+        target = int(SystemProperties.SCAN_BATCH_SIZE.get())
         snap = self.manifest_snapshot()
         for name in self.prune_partitions(bbox, interval, manifest=snap):
             for entry in snap.get(name, []):
                 path = os.path.join(self.root, name, entry["file"])
                 cols = phys_cols
-                if phys_cols is not None and FID in pq.read_schema(path).names:
+                if phys_cols is not None and FID in self._file_schema_names(path):
                     cols = phys_cols + [FID]
-                scanner = pads.dataset(path, format="parquet").scanner(
-                    filter=expr, columns=cols, batch_size=SCAN_BATCH_SIZE)
-                for t in _bounded_tables(scanner.to_batches(), SCAN_BATCH_SIZE):
+                for t in self._stream_file(path, expr, cols, target):
                     if len(t):
                         yield _table_to_batch(t, self.sft)
 
@@ -340,9 +502,88 @@ class FileSystemStorage:
         snap = manifest if manifest is not None else self.manifest_snapshot()
         for name in names:
             for entry in snap.get(name, []):
-                t = pq.read_table(os.path.join(self.root, name, entry["file"]))
+                t = self._read_file(os.path.join(self.root, name, entry["file"]),
+                                    None, None)
                 if len(t):
                     yield _table_to_batch(t, self.sft)
+
+    def read_all(self) -> Optional[FeatureBatch]:
+        """Every row of the store in one batch (None when empty)."""
+        batches = list(self.scan())
+        return FeatureBatch.concat(batches) if batches else None
+
+    # -- data files ----------------------------------------------------------
+
+    def _write_data_file(self, sub: FeatureBatch, path: str) -> None:
+        """Encode + write one partition data file: one idempotent unit for
+        the retry fabric."""
+        self._write_table(_batch_to_table(sub), path)
+
+    def _write_table(self, table: pa.Table, path: str) -> None:
+        _WRITE_SITE.fire()
+        if self.encoding == "orc":
+            from pyarrow import orc
+
+            orc.write_table(_decode_dictionaries(table), path,
+                            compression="zstd")
+        else:
+            pq.write_table(table, path, compression="zstd",
+                           row_group_size=64 * 1024)
+
+    def _file_schema_names(self, path: str) -> List[str]:
+        if self.encoding == "orc":
+            from pyarrow import orc
+
+            return orc.ORCFile(path).schema.names
+        return pq.read_schema(path).names
+
+    def _read_file(self, path: str, expr, cols) -> pa.Table:
+        """Read one data file with predicate + column pushdown (ORC through
+        pyarrow.dataset). Transient failures retry against the storage
+        breaker: committed data files are immutable, so a re-read is
+        idempotent."""
+        return _storage_retry(self._read_file_once, path, expr, cols)
+
+    def _read_file_once(self, path: str, expr, cols) -> pa.Table:
+        _READ_SITE.fire()
+        if self.encoding == "orc":
+            return pads.dataset(path, format="orc").to_table(
+                filter=expr, columns=cols)
+        return pq.read_table(path, filters=expr, columns=cols)
+
+    def _stream_file(self, path: str, expr, cols, target: int):
+        """Tables of at most `target` rows from one file. Parquet streams
+        row groups with pushdown; ORC reads the whole file and slices it.
+        Only the open retries: a failure mid-stream surfaces typed rather
+        than replay rows already yielded."""
+        if self.encoding == "orc":
+            t = self._read_file(path, expr, cols)
+            for off in range(0, max(len(t), 1), target):
+                yield t.slice(off, target)
+            return
+
+        def _open():
+            _READ_SITE.fire()
+            return pads.dataset(path, format="parquet").scanner(
+                filter=expr, columns=cols, batch_size=target)
+
+        scanner = _storage_retry(_open)
+        yield from _bounded_tables(scanner.to_batches(), target)
+
+
+def _decode_dictionaries(table: pa.Table) -> pa.Table:
+    """ORC has no dictionary type: cast dict columns to their value type
+    (the read path re-encodes them into DictColumn)."""
+    fields = []
+    arrays = []
+    for field in table.schema:
+        col = table.column(field.name)
+        if pa.types.is_dictionary(field.type):
+            col = col.cast(field.type.value_type)
+            field = pa.field(field.name, field.type.value_type)
+        fields.append(field)
+        arrays.append(col)
+    return pa.Table.from_arrays(arrays, schema=pa.schema(fields))
 
 
 def _bounded_tables(batches, target: int):

@@ -88,6 +88,10 @@ class SystemProperties:
     QUERY_TIMEOUT_MS = SystemProperty(
         "geomesa.query.timeout", 0, int, "per-query timeout in ms; 0 = none"
     )
+    SCAN_BATCH_SIZE = SystemProperty(
+        "geomesa.scan.batch.size", 1 << 20, int,
+        "target features per device batch on the scan path",
+    )
     SCAN_RANGES_TARGET = SystemProperty(
         "geomesa.scan.ranges.target", 2000, int,
         "z-range decomposition budget (more ranges = tighter covering)",

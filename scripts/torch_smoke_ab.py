@@ -9,8 +9,9 @@ output goes to OUT/<i>_<label>.log, each line prefixed with the seconds
 since the run started. OUT/summary.json, also printed, holds for each run
 its exit code and wall seconds, the seconds at which the phases' marker
 lines appeared (MARKERS: the first line that starts with the prefix), and
-every "NAME: ... warm p50 X ms" line's X, plus the feature route's split
-from the {"phases": ...} line. It stops at the first run that fails.
+every "NAME: ... warm p50 X ms" line's X, each "serve ROUTE LOAD: Q served
+qps, p50 X ms" line's Q and X (phases 12-13), plus the feature route's
+split from the {"phases": ...} line. It stops at the first run that fails.
 Needs a CUDA card, as chip_smoke.py does.
 """
 
@@ -39,11 +40,13 @@ MARKERS = {
 }
 P50 = re.compile(r"^(?P<name>[^:\[{]+): (?:cold [0-9.]+ m?s, )?warm p50 "
                  r"(?P<p50>[0-9.]+) ms")
+SERVED = re.compile(r"^serve (?P<name>[^:]+): (?P<qps>[0-9.]+) served qps, "
+                    r"p50 (?P<p50>[0-9.]+) ms")
 
 
 def run_one(root: str, log_path: str, timeout_s: float) -> dict:
     t0 = time.perf_counter()
-    marks, p50, phases = {}, {}, None
+    marks, p50, served, phases = {}, {}, {}, None
     with open(log_path, "w") as log, subprocess.Popen(
             [sys.executable, "-u", "chip_smoke.py"], cwd=root,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) as proc:
@@ -57,6 +60,10 @@ def run_one(root: str, log_path: str, timeout_s: float) -> dict:
                 m = P50.match(line)
                 if m and m["name"] not in p50:
                     p50[m["name"]] = float(m["p50"])
+                m = SERVED.match(line)
+                if m and m["name"] not in served:
+                    served[m["name"]] = {"qps": float(m["qps"]),
+                                         "p50_ms": float(m["p50"])}
                 if line.startswith('{"phases"'):
                     phases = json.loads(line)["phases"]
                 if at > timeout_s:
@@ -65,7 +72,7 @@ def run_one(root: str, log_path: str, timeout_s: float) -> dict:
         finally:
             rc = proc.wait()
     out = {"root": root, "rc": rc, "wall_s": time.perf_counter() - t0,
-           "markers_s": marks, "warm_p50_ms": p50}
+           "markers_s": marks, "warm_p50_ms": p50, "served": served}
     if phases is not None:
         knn = phases.get("features knn store", {})
         out["features_split_s"] = {

@@ -292,6 +292,31 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         world = "BBOX(geom, -180, -90, 180, 90)"
         c = src.get_count(Query("t", world, hints=QueryHints(tolerance=0.1)))
         assert getattr(c, "approx", False) and c == src.get_count(world)
+        from geomesa_tpu_torch.faults import FaultPlan, FaultRule, active
+        import geomesa_tpu_torch.faults.harness  # noqa: F401
+        from geomesa_tpu_torch.convert import converter_from_config
+        from geomesa_tpu_torch.convert.schemas import GDELT_CONVERTER, GDELT_SFT
+        from geomesa_tpu_torch.jobs import export_partitions, ingest_files
+        from geomesa_tpu_torch.store.arrow_store import ArrowDataStore
+        from geomesa_tpu_torch.core.arrow_io import write_ipc
+        with active(FaultPlan(rules=[FaultRule(site="fs.read_partition",
+                                               error="io", nth_call=1)])) as h:
+            assert src.storage.read_all() is not None and h.fire_log()
+        gd = os.path.join({str(tmp_path)!r}, "g.tsv")
+        cols = [""] * 57
+        cols[0], cols[1], cols[53], cols[54] = "e1", "20200601", "45.0", "1.0"
+        with open(gd, "w") as fh:
+            fh.write("\\t".join(cols) + "\\n")
+        gsrc = ds.create_schema(GDELT_SFT)
+        rep = ingest_files(gsrc, lambda: converter_from_config(
+            GDELT_SFT, GDELT_CONVERTER), [gd], workers=2)
+        assert rep.features == 1 and gsrc.get_count("INCLUDE") == 1
+        assert export_partitions(src, lambda p, b: None, poly, workers=2)
+        assert src.delete_features("speed < 1") > 0 and src.storage.compact() >= 0
+        ipc = os.path.join({str(tmp_path)!r}, "t.arrow")
+        write_ipc(ipc, [src.storage.read_all()])
+        asrc = ArrowDataStore(ipc, device="cpu").get_feature_source()
+        assert asrc.get_count("speed > 5") == src.get_count("speed > 5")
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]
