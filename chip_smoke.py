@@ -55,9 +55,10 @@ and prints no result. Phases, each fatal on failure:
    over each set's pairs shuffled with a tenth of them twice, also in
    two launches: identical int32 outputs), then, with launch counts
    reset before and read after,
-   the host prep and a first query end to end, the warm p50 of
-   pip_layer_grouped (the device pass), pip_layer, pip_layer_assign,
-   pip_layer_join and pip_layer_sparse, torch.profiler breakdowns of
+   the host prep and a first query end to end, the warm p50 of 3 of
+   pip_layer_grouped (the device pass) and pip_layer_sparse and one warm
+   call of the host-bound pip_layer, pip_layer_assign and
+   pip_layer_join (8.6-13.2 s each), torch.profiler breakdowns of
    warm pip_layer and pip_layer_sparse calls, and the gates: zero mismatches against an
    independent all-edges f64 oracle over 256 sampled covered tiles plus
    every adversarial point, assignment ids equal to its per-polygon
@@ -126,7 +127,8 @@ and prints no result. Phases, each fatal on failure:
    the WKT parse on read and edge_table() timed apart; then SqlContext
    runs SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN
    regions r ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY
-   region once cold and as a warm p50 of 3, with B6-B9's launch counts
+   region once cold and once warm (a p50 of 3 before the smoke neared
+   its time limit), with B6-B9's launch counts
    reset before and read after (B7 must launch), and two calls split
    into the store reads, the WKT parse, edge_table(), the layer prep,
    the join (B7 plus the f64 refine) and the grouped aggregate; gated:
@@ -292,7 +294,7 @@ and prints no result. Phases, each fatal on failure:
    failing every time opens the "device" breaker, the wire answers
    {"error": "unavailable", "retryAfterS": ...}, and after the reset
    time one half-open probe closes it; (c) 8 seeded GDELT 1.0 TSV files
-   (57 columns, 2^15 rows each) through jobs.ingest_files with
+   (57 columns, 2^14 rows each) through jobs.ingest_files with
    GDELT_CONVERTER on 8 workers (a second, resumed call skips all 8):
    count and kNN (B1) == a store written directly from the same values;
    export_partitions with a polygon filter (B4, B5 through mask_refined)
@@ -302,6 +304,36 @@ and prints no result. Phases, each fatal on failure:
    no larger batch and the same rows; then remove_schema and a service
    close bring torch.cuda.memory_allocated() back to its level before
    the converted stores existed. Numbers in a {"lifecycle"} line.
+17. A5 (c) and (d), after phase 15 (d) on stores of its own, with B1-B5's
+   launches reset before and read after (each must launch; their rows
+   gain "17" under "launches_by_phase"), in at most 75 s: (a) a
+   KVDataStore on the card holding 2^20 GDELT-shaped rows (speed:Double,
+   code:String:index=true,dtg:Date,*geom:Point; 7 days, world-wide; the
+   id, z2, z3 and code indices), its write timed; explain chooses z3 for
+   phase 4's BBOX AND a two-day window AND speed > 5.0, z2 for the BBOX
+   alone, attr:code for an equality, z3 for a polygon INTERSECTS AND the
+   window (B4/B5 through mask_refined); each count == the f64 oracle
+   (cold, warm p50 of 3); a 32x16 density over the z3 query (B3),
+   unweighted == a NumPy binning, speed-weighted within f32 summation
+   noise, and a 512x512 one == a NumPy binning, each density with the
+   row tiles B3 took and those the scatter fallback took; 64 fids planned on the id index with 64 ranges and read by id;
+   under a seeded plan failing kvstore.scan every other call the answers
+   are unchanged and retries == the fire log, and a kvstore.write fault
+   propagates with no retry; (b) a KafkaDataStore of 2^17 vessel
+   positions (vtype:String:index=true,sog:Double,dtg:Date,*geom:Point):
+   the produce and the poll timed, then sparse (B1) and fullscan (B2)
+   kNN (Q=256, k=10) giving the same neighbours within max(1 m, 1e-4 d)
+   of the f64 oracle, again after 1% of the fleet moved and 1% was
+   deleted (the counts see exactly the new state); a layer view, a
+   polygon count (B4/B5) and a world density (B3) == their oracles; the
+   attribute fast path answers with no launch and an audit event; under
+   a kafka.poll plan the counts are unchanged and retries == the fire
+   log; (c) a LambdaDataStore on the live layer's broker persists the
+   older half (an explicit `now`) into its Parquet tier; 1,024 persisted
+   fids are written again; the merged read == the union with the
+   transient rows winning, and its density (B3) == the same density
+   over a single store of the merged rows == a NumPy binning. Numbers in
+   a {"kv_live"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1739,17 +1771,20 @@ def layer_path(torch, dev, n: int, card_s: str):
         "pip_layer_sparse": lambda: ps.pip_layer_sparse(
             *arrays, pl.pair_pt, pl.pair_et, **sk),
     }
+    # the host-bound calls (their f64 refine) are timed once: at 8.6-13.2 s
+    # a call, three each would cost the smoke ~67 s more
+    reps = {"pip_layer": 1, "pip_layer_assign": 1, "pip_layer_join": 1}
     lat = {}
     for name, fn in calls.items():
         out[name] = fn()  # warm
         times = []
-        for _ in range(3):
+        for _ in range(reps.get(name, 3)):
             t0 = time.perf_counter()
             out[name] = fn()
             times.append(time.perf_counter() - t0)
         lat[name] = statistics.median(times)
     launches = {w.__name__: w.launches for w in kernels}
-    log(f"config-2 launches: {launches} over 1 first query and 4 calls of each "
+    log(f"config-2 launches: {launches} over 1 first query and 2-4 calls of each "
         f"of {len(calls)} call types")
     assert all(launches.values()), "a kernel of the config-2 path never launched"
     for name, t in lat.items():
@@ -3411,7 +3446,7 @@ def stale_check(dev, path: str, cql: str, cfg: dict, card_s: str) -> dict:
 
 SQL_JOIN = ("SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN regions r "
             "ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY region")
-SQL_WARM = 3  # warm calls of the join (~16 s each on the card)
+SQL_WARM = 1  # warm calls of the join (~16 s each on the card)
 STATS_EXPR = ("Count();MinMax(dtg);Histogram(val,32,0,10);DescriptiveStats(val);"
               "Cardinality(val)")
 EVENTS_DAY0 = TUBE_DAY0  # one day of events: one partition keeps Morton order
@@ -5085,12 +5120,14 @@ LIFE_WRITE = 4096  # rows of the write that gives partitions a second file
 LIFE_WRITE_DAYS = 4
 LIFE_SERVED = 64  # kNN requests a route under the fault plan
 LIFE_FILES = 8  # GDELT 1.0 TSV files
-# rows a file: 2^18 in all, ~1.3 days of GDELT 1.0. Cut from 2^17 a file
+# rows a file: 2^17 in all, ~0.6 days of GDELT 1.0. Cut from 2^17 a file
 # (2^20 rows, ~5 days) for time: the converter runs per record on the host
 # and the converted store's host work grows with its unique event ids; at
 # 2^20 rows this section took 213 s of phase 16's 268 s (16,440 rows/s
-# converted; NVIDIA H100 80GB HBM3 at 700 W and its host)
-LIFE_FILE_ROWS = 1 << 15
+# converted), at 2^18 rows 61.7 s, when the whole smoke with phase 17
+# took about 1081 s of its 1200 s (NVIDIA H100 80GB HBM3 at 700 W and
+# its host)
+LIFE_FILE_ROWS = 1 << 14
 LIFE_WORKERS = 8
 LIFE_SCAN_BATCH = 1 << 18
 LIFE_SCAN_SMALL = 512  # below a data file's matching rows: it cuts batches
@@ -5640,6 +5677,409 @@ def life_convert(torch, dev, root: str, card_s: str) -> None:
     life_record("converters", res)
 
 
+KVL_KERNELS = A4B_KERNELS
+KVL_LAUNCHES = {name: 0 for name in KVL_KERNELS}
+# the key-value store: about one week of GDELT 1.0 events, world-wide
+KV_ROWS = 1 << 20
+KV_SPEC = "speed:Double,code:String:index=true,dtg:Date,*geom:Point"
+KV_T0 = 1_592_092_800_000  # 2020-06-14T00:00:00Z
+KV_DAYS = 7
+KV_CODES = [f"{c:03d}" for c in range(10, 210)]  # CAMEO-shaped event codes
+KV_WIN = (KV_T0 + 2 * 86_400_000, KV_T0 + 4 * 86_400_000)  # two days
+KV_POLY = "POLYGON((-50 25, 10 22, 55 40, 40 65, -20 68, -55 50, -50 25))"
+KV_GRID = (32, 16)  # a coarse heatmap: each row tile's cells fit B3's dictionary
+KV_FINE = (GRID, GRID)  # phase 5's heatmap: the resolution users ask for
+KV_IDS = 64  # feature ids looked up through the id index
+KV_WARM = 3
+# the live layer: the order of the world's AIS fleet, latest state a vessel
+LIVE_ROWS = 1 << 17
+LIVE_SPEC = "vtype:String:index=true,sog:Double,dtg:Date,*geom:Point"
+LIVE_TYPES = ["cargo", "tanker", "fishing", "passenger", "tug", "pleasure",
+              "sailing", "other"]
+LIVE_CQL = "BBOX(geom, -100, -60, 100, 60) AND sog > 5.0"
+LIVE_VIEW = "vtype = 'tanker' AND sog > 10.0"
+LIVE_MOVE = LIVE_ROWS // 100  # 1% upserted, 1% deleted
+LIVE_REWRITE = 1024  # persisted fids written again to the transient tier
+PHASE17_BUDGET_S = 75.0
+
+
+def kv_record(part: str, res: dict) -> None:
+    PHASES.setdefault("kv_live", {})[part] = res
+
+
+def grid_oracle(x, y, w, m, bbox, width: int, height: int):
+    """NumPy binning of the rows in `m` as the card bins them (f32
+    coordinates and constants, IEEE division): (counts, f64 weight sums)."""
+    from geomesa_tpu_torch.engine.density import grid_consts
+
+    x32, y32 = x[m].astype(np.float32), y[m].astype(np.float32)
+    xmin, dx, ymin, dy = grid_consts(bbox, width, height)
+    col = np.floor((x32 - xmin) / dx)
+    row = np.floor((y32 - ymin) / dy)
+    inb = (col >= 0) & (col < width) & (row >= 0) & (row < height)
+    cell = row[inb].astype(np.int64) * width + col[inb].astype(np.int64)
+    cnt = np.bincount(cell, minlength=width * height).reshape(height, width)
+    wsum = (np.bincount(cell, weights=w[m][inb].astype(np.float32),
+                        minlength=width * height).reshape(height, width)
+            if w is not None else None)
+    return cnt, wsum
+
+
+def tile_split(fn):
+    """fn() with the tile split of its zsparse densities: (fn's answer,
+    [(row tiles B3 took, row tiles the scatter fallback took), ...]);
+    tiles with no selected row take neither."""
+    from geomesa_tpu_torch.plan import runner
+
+    orig, splits = runner.density_zsparse, []
+
+    def recorded(*a, **kw):
+        grid, calib = orig(*a, **kw)
+        splits.append((len(calib.tile_ids), len(calib.dense_ids)))
+        return grid, calib
+
+    runner.density_zsparse = recorded
+    try:
+        return fn(), splits
+    finally:
+        runner.density_zsparse = orig
+
+
+def split_s(splits) -> str:
+    return "; ".join(f"B3 {b} tiles, fallback {f}" for b, f in splits)
+
+
+def faulted(faults, rule_site: str, seed: int, fn):
+    """fn() under a seeded plan failing `rule_site` every other call:
+    (fn's answer, faults fired, retries noted)."""
+    plan = faults.FaultPlan(rules=[faults.FaultRule(site=rule_site, error="io",
+                                                    every=2)], seed=seed)
+    tok = faults.RECOVERY.token()
+    with faults.active(plan) as h:
+        got = fn()
+        fired = len(h.fire_log())
+    retries = sum(1 for kind, _ in faults.RECOVERY.since(tok) if kind == "retry")
+    return got, fired, retries
+
+
+def kv_phase(torch, dev, card_s: str) -> dict:
+    """(a): the key-value store on the card."""
+    from geomesa_tpu_torch import FeatureBatch, Query, QueryHints, SimpleFeatureType, faults
+    from geomesa_tpu_torch.index import KVDataStore
+
+    rng = np.random.default_rng(171)
+    n = KV_ROWS
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    t = KV_T0 + rng.integers(0, KV_DAYS * 86_400_000, n)
+    speed = rng.uniform(0, 30, n)
+    p = 1.0 / np.arange(1, len(KV_CODES) + 1)
+    codes = rng.choice(len(KV_CODES), n, p=p / p.sum())
+    code_q = KV_CODES[7]
+    sft = SimpleFeatureType.from_spec("gdelt", KV_SPEC)
+    batch = FeatureBatch.from_pydict(sft, {
+        "speed": speed, "code": [KV_CODES[c] for c in codes], "dtg": t,
+        "geom": np.stack([x, y], 1)})
+    src = KVDataStore(device=dev).create_schema(sft)
+    t0 = time.perf_counter()
+    fids = src.write(batch)
+    write_s = time.perf_counter() - t0
+    log(f"kv write: {n} rows into {len(src.indices)} indices "
+        f"({', '.join(getattr(i, 'full_name', i.name) for i in src.indices)}) "
+        f"in {write_s:.3f} s [{card_s}]")
+
+    box = f"BBOX(geom, {BBOX[0]}, {BBOX[1]}, {BBOX[2]}, {BBOX[3]})"
+    win = f"dtg > {iso(KV_WIN[0])} AND dtg < {iso(KV_WIN[1])}"
+    inbox = (x >= BBOX[0]) & (x <= BBOX[2]) & (y >= BBOX[1]) & (y <= BBOX[3])
+    inwin = (t > KV_WIN[0]) & (t < KV_WIN[1])
+    poly_m = f64_polygon_mask(torch, dev, x, y, KV_POLY) & inwin
+    queries = {  # name: (cql, the index explain must choose, the f64 oracle)
+        "z3": (f"{box} AND {win} AND speed > 5.0", "z3", inbox & inwin & (speed > 5.0)),
+        "z2": (box, "z2", inbox),
+        "attr": (f"code = '{code_q}'", "attr:code", codes == 7),
+        "polygon": (f"INTERSECTS(geom, {KV_POLY}) AND {win}", "z3", poly_m),
+    }
+    res = {"write_s": write_s, "queries": {}}
+    for name, (cql, index, exp) in queries.items():
+        ex = src.explain(cql)
+        assert f"chose {index}" in ex, (name, ex)
+        res["queries"][name] = {"cql": cql, "index": index, "oracle": int(exp.sum()),
+                                "explain": ex.splitlines()[-2:]}
+    calls = {name: (lambda c=cql: src.get_count(c))
+             for name, (cql, _, _) in queries.items()}
+    dq = {"density": dict(density_bbox=BBOX, density_width=KV_GRID[0],
+                          density_height=KV_GRID[1]),
+          "density speed": dict(density_bbox=BBOX, density_width=KV_GRID[0],
+                                density_height=KV_GRID[1], density_weight="speed"),
+          "density fine": dict(density_bbox=BBOX, density_width=KV_FINE[0],
+                               density_height=KV_FINE[1])}
+    splits = {}
+
+    def density(name, h):
+        out, got = tile_split(lambda: src.get_features(Query(
+            "gdelt", queries["z3"][0], hints=QueryHints(**h))))
+        splits[name] = got or splits.get(name, [])
+        return out
+
+    for name, h in dq.items():
+        calls[name] = (lambda name=name, h=h: density(name, h))
+    out, lat = time_calls(calls, warm=KV_WARM)
+    for name, (cql, index, exp) in queries.items():
+        assert out[name] == int(exp.sum()), (name, out[name], int(exp.sum()))
+        res["queries"][name].update(count=out[name], cold_s=lat[name][0],
+                                    warm_p50_ms=lat[name][1] * 1e3)
+        log(f"kv {name} ({index}): {out[name]} == f64 oracle, cold "
+            f"{lat[name][0]:.3f} s, warm p50 {lat[name][1] * 1e3:.3f} ms [{card_s}]")
+    m = queries["z3"][2]
+    cnt, wsum = grid_oracle(x, y, speed, m, BBOX, *KV_GRID)
+    g = out["density"]
+    assert g.kind == "density" and np.array_equal(g.grid, cnt), "kv density"
+    assert g.grid.sum() == cnt.sum() == int(m.sum())
+    assert cell_bound(out["density speed"].grid, wsum, cnt), "kv weighted density"
+    fine, _ = grid_oracle(x, y, None, m, BBOX, *KV_FINE)
+    assert np.array_equal(out["density fine"].grid, fine), "kv fine density"
+    for name, h in dq.items():
+        (b3, fb), = splits[name]
+        res[name] = {"cold_s": lat[name][0], "warm_p50_ms": lat[name][1] * 1e3,
+                     "b3_tiles": b3, "fallback_tiles": fb}
+        log(f"kv {name} {h['density_width']}x{h['density_height']} over the z3 "
+            f"query: == NumPy binning, cold {lat[name][0]:.3f} s, warm p50 "
+            f"{lat[name][1] * 1e3:.3f} ms; {split_s(splits[name])} [{card_s}]")
+
+    ids = [fids[i] for i in rng.choice(n, KV_IDS, replace=False)]
+    id_cql = "__fid__ IN (" + ", ".join(f"'{f}'" for f in ids) + ")"
+    chosen = src.plan(id_cql)[2]
+    assert chosen is not None and chosen.name == "id" and len(chosen.ranges) == KV_IDS
+    t0 = time.perf_counter()
+    got = src.get_features_by_id(ids)
+    id_ms = (time.perf_counter() - t0) * 1e3
+    rows = [int(f.split("-")[1]) for f in got.fids.decode()]
+    assert sorted(got.fids.decode()) == sorted(ids)
+    assert np.array_equal(got.columns["geom"].x, x[rows])
+    res["ids"] = {"n": KV_IDS, "ms": id_ms}
+    log(f"kv id index: {KV_IDS} fids planned on 'id' with {KV_IDS} ranges, "
+        f"read by id in {id_ms:.3f} ms [{card_s}]")
+
+    clean = {name: out[name] for name in queries}
+    got, fired, retries = faulted(faults, "kvstore.scan", 17, lambda: {
+        name: src.get_count(cql) for name, (cql, _, _) in queries.items()})
+    assert got == clean and fired and retries == fired, (got, clean, fired, retries)
+    small = KVDataStore(device=dev).create_schema(sft)
+    plan = faults.FaultPlan(rules=[faults.FaultRule(site="kvstore.write", error="io",
+                                                    every=1)])
+    tok = faults.RECOVERY.token()
+    with faults.active(plan) as h:
+        try:
+            small.write(batch.select(np.arange(16)))
+            raise AssertionError("a kvstore.write fault did not propagate")
+        except OSError:
+            pass
+        wlog = h.fire_log()
+    assert len(wlog) == 1 and not [k for k, _ in faults.RECOVERY.since(tok)
+                                   if k == "retry"]
+    assert small.get_count("INCLUDE") == 0
+    res["faults"] = {"scan_fired": fired, "scan_retries": retries, "write_fired": 1}
+    log(f"kv faults: kvstore.scan failed {fired} times over the queries, "
+        f"{retries} retries, answers == fault-free; kvstore.write failed once "
+        f"and propagated, no retry")
+    return res
+
+
+def live_state_rows(rng, n: int):
+    return {"vtype": rng.choice(LIVE_TYPES, n).tolist(), "sog": rng.uniform(0, 25, n),
+            "dtg": KV_T0 + rng.integers(0, 86_400_000, n),
+            "geom": np.stack([rng.uniform(-180, 180, n), rng.uniform(-80, 80, n)], 1)}
+
+
+def live_phase(torch, dev, card_s: str):
+    """(b): the live layer on the card. Returns (its store, the sft, the
+    oracle state) for (c)."""
+    from geomesa_tpu_torch import FeatureBatch, Query, QueryHints, SimpleFeatureType, faults
+    from geomesa_tpu_torch.kafka import KafkaDataStore
+
+    rng = np.random.default_rng(172)
+    n = LIVE_ROWS
+    sft = SimpleFeatureType.from_spec("ais", LIVE_SPEC)
+    data = live_state_rows(rng, n)
+    fids = [f"mmsi-{200_000_000 + i}" for i in range(n)]
+    st = {"x": data["geom"][:, 0].copy(), "y": data["geom"][:, 1].copy(),
+          "sog": data["sog"].copy(), "vtype": np.asarray(data["vtype"]),
+          "alive": np.ones(n, bool), "fids": fids}
+    kds = KafkaDataStore(device=dev)
+    src = kds.create_schema(sft)
+    res = {}
+    t0 = time.perf_counter()
+    src.write(FeatureBatch.from_pydict(sft, data, fids=fids))
+    res["produce_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert src.get_count("INCLUDE") == n  # polls: kNN itself does not
+    res["poll_count_s"] = time.perf_counter() - t0
+    log(f"live: {n} Change messages produced in {res['produce_s']:.3f} s, polled "
+        f"and counted in {res['poll_count_s']:.3f} s [{card_s}]")
+
+    qx, qy = rng.uniform(-90, 90, Q), rng.uniform(-50, 50, Q)
+
+    def oracle_mask():
+        return (st["alive"] & (st["x"] >= -100) & (st["x"] <= 100) & (st["y"] >= -60)
+                & (st["y"] <= 60) & (st["sog"] > 5.0))
+
+    def knn_round(tag):
+        runs, lat = {}, {}
+        for impl in ("sparse", "fullscan"):
+            src.knn(LIVE_CQL, qx, qy, k=K, impl=impl)  # cold: calibration
+            t0 = time.perf_counter()
+            runs[impl] = src.knn(LIVE_CQL, qx, qy, k=K, impl=impl)
+            lat[impl] = (time.perf_counter() - t0) * 1e3
+        exp = oracle_knn(st["x"], st["y"], oracle_mask(), qx[:16], qy[:16], K)
+        (ds_, is_, _), (df, if_, _) = runs["sparse"], runs["fullscan"]
+        assert same_neighbours(is_, ds_, if_, df), f"{tag}: sparse != fullscan"
+        assert within_oracle(ds_, exp) and within_oracle(df, exp), f"{tag}: oracle"
+        log(f"live kNN {tag} (Q={Q}, k={K}): sparse {lat['sparse']:.3f} ms, "
+            f"fullscan {lat['fullscan']:.3f} ms warm, same neighbours, within "
+            f"max(1 m, 1e-4 d) of the f64 oracle [{card_s}]")
+        return lat
+
+    res["knn_ms"] = knn_round("after the first poll")
+    # 1% of the fleet moves (upserts), 1% leaves (deletes)
+    pick = rng.permutation(n)
+    moved, gone = pick[:LIVE_MOVE], pick[LIVE_MOVE:2 * LIVE_MOVE]
+    mv = live_state_rows(rng, LIVE_MOVE)
+    mv["vtype"] = st["vtype"][moved].tolist()
+    src.write(FeatureBatch.from_pydict(sft, mv, fids=[fids[i] for i in moved]))
+    for i in gone:
+        kds.delete("ais", fids[i])
+    st["x"][moved], st["y"][moved] = mv["geom"][:, 0], mv["geom"][:, 1]
+    st["sog"][moved] = mv["sog"]
+    st["alive"][gone] = False
+    t0 = time.perf_counter()
+    assert src.get_count("INCLUDE") == n - LIVE_MOVE
+    res["repoll_s"] = time.perf_counter() - t0
+    assert src.get_count(LIVE_CQL) == int(oracle_mask().sum())
+    res["knn_after_ms"] = knn_round("after 1% moved and 1% deleted")
+
+    view = kds.create_layer_view("tankers", "ais", LIVE_VIEW)
+    exp_view = int((st["alive"] & (st["vtype"] == "tanker") & (st["sog"] > 10.0)).sum())
+    assert view.get_count() == exp_view
+    poly = f"INTERSECTS(geom, {KV_POLY})"
+    exp_poly = int((f64_polygon_mask(torch, dev, st["x"], st["y"], KV_POLY)
+                    & st["alive"]).sum())
+    assert src.get_count(poly) == exp_poly
+    cnt, _ = grid_oracle(st["x"], st["y"], None, st["alive"], (-180.0, -90.0, 180.0, 90.0),
+                         *KV_GRID)
+    g, split = tile_split(lambda: src.get_features(Query("ais", "INCLUDE", hints=QueryHints(
+        density_bbox=(-180.0, -90.0, 180.0, 90.0), density_width=KV_GRID[0],
+        density_height=KV_GRID[1]))))
+    assert np.array_equal(g.grid, cnt), "live density"
+    cache = kds.cache("ais")
+    hits = cache.attr_index_hits
+    with Launches() as fast:
+        t0 = time.perf_counter()
+        r = src.get_features("vtype = 'tug'")
+        fast_ms = (time.perf_counter() - t0) * 1e3
+    assert not any(fast.counts.values()), fast.counts
+    assert cache.attr_index_hits == hits + 1
+    assert len(r.features) == int((st["alive"] & (st["vtype"] == "tug")).sum())
+    assert kds.audit.events[-1].hints == "attr-index-fast-path"
+    res.update(view=exp_view, polygon=exp_poly, fast_path_ms=fast_ms,
+               density_tiles=split)
+    log(f"live view '{LIVE_VIEW}': {exp_view}, polygon count {exp_poly}, world "
+        f"density == NumPy binning ({split_s(split)}; all == oracles); attribute fast path "
+        f"{len(r.features)} rows in {fast_ms:.3f} ms with no launch [{card_s}]")
+
+    more = rng.permutation(np.nonzero(st["alive"])[0])[:256]
+    mv = live_state_rows(rng, len(more))
+    mv["vtype"] = st["vtype"][more].tolist()
+    src.write(FeatureBatch.from_pydict(sft, mv, fids=[fids[i] for i in more]))
+    st["x"][more], st["y"][more] = mv["geom"][:, 0], mv["geom"][:, 1]
+    st["sog"][more] = mv["sog"]
+    got, fired, retries = faulted(faults, "kafka.poll", 171, lambda: [
+        src.get_count("INCLUDE"), src.get_count(LIVE_CQL), src.get_count(LIVE_CQL)])
+    assert got == [n - LIVE_MOVE] + [int(oracle_mask().sum())] * 2, got
+    assert fired and retries == fired, (fired, retries)
+    res["faults"] = {"poll_fired": fired, "poll_retries": retries}
+    log(f"live faults: kafka.poll failed {fired} times, {retries} retries, "
+        f"answers == oracle")
+    return kds, sft, st, res
+
+
+def lambda_phase(torch, dev, kds, sft, st, tmp: str, card_s: str) -> dict:
+    """(c): the lambda store over the live layer's topic."""
+    import os
+
+    from geomesa_tpu_torch import DataStore, FeatureBatch, Query, QueryHints
+    from geomesa_tpu_torch.lambda_store import LambdaDataStore
+
+    rng = np.random.default_rng(173)
+    lds = LambdaDataStore(os.path.join(tmp, "lambda"), persist_after_ms=60_000,
+                          broker=kds.broker, device=dev)
+    lds.create_schema(sft)
+    res = {}
+    t0 = time.perf_counter()
+    lds.transient.poll("ais")
+    stamps = sorted(lds.transient.cache("ais")._stamps.values())
+    now = stamps[len(stamps) // 2] + 60.0  # the older half is due
+    moved = lds.persist("ais", now=now)
+    res["persist_s"] = time.perf_counter() - t0
+    alive = int(st["alive"].sum())
+    assert moved == len(stamps) // 2 and len(lds.transient.cache("ais")) == alive - moved
+    persisted = lds.persistent.get_feature_source("ais").get_features(
+        Query("ais", "INCLUDE")).features
+    again = rng.choice(persisted.fids.decode(), LIVE_REWRITE, replace=False).tolist()
+    rw = live_state_rows(rng, LIVE_REWRITE)
+    idx = [int(f.split("-")[1]) - 200_000_000 for f in again]
+    rw["vtype"] = st["vtype"][idx].tolist()
+    lds.write("ais", FeatureBatch.from_pydict(sft, rw, fids=again))
+    st["x"][idx], st["y"][idx] = rw["geom"][:, 0], rw["geom"][:, 1]
+    t0 = time.perf_counter()
+    merged = lds.get_features(Query("ais", "INCLUDE")).features
+    res["merge_ms"] = (time.perf_counter() - t0) * 1e3
+    mf = merged.fids.decode()
+    want = {st["fids"][i] for i in np.nonzero(st["alive"])[0]}
+    assert len(mf) == len(set(mf)) == alive and set(mf) == want
+    pos = dict(zip(mf, zip(merged.columns["geom"].x, merged.columns["geom"].y)))
+    assert all(pos[f] == (st["x"][i], st["y"][i]) for f, i in zip(again, idx)), \
+        "transient-wins"
+    hints = dict(density_bbox=(-180.0, -90.0, 180.0, 90.0), density_width=KV_GRID[0],
+                 density_height=KV_GRID[1])
+    t0 = time.perf_counter()
+    g, split = tile_split(lambda: lds.get_features(Query("ais", "INCLUDE",
+                                                         hints=QueryHints(**hints))))
+    res["merged_density_ms"] = (time.perf_counter() - t0) * 1e3
+    single = DataStore(os.path.join(tmp, "single"), device=dev).create_schema(sft)
+    single.write(merged)
+    g1 = single.get_features(Query("ais", "INCLUDE", hints=QueryHints(**hints)))
+    cnt, _ = grid_oracle(st["x"], st["y"], None, st["alive"], hints["density_bbox"],
+                         *KV_GRID)
+    assert g.kind == "density" and g.count == alive
+    assert np.array_equal(g.grid, g1.grid) and np.array_equal(g.grid, cnt)
+    res.update(persisted=moved, rewritten=LIVE_REWRITE, merged=alive, density_tiles=split)
+    log(f"lambda: persisted {moved} of {alive} (the older half) in "
+        f"{res['persist_s']:.3f} s; merged read {res['merge_ms']:.3f} ms == the "
+        f"union, transient wins on {LIVE_REWRITE} fids in both tiers; merged "
+        f"density ({res['merged_density_ms']:.3f} ms; {split_s(split)}) == a "
+        f"single store's == NumPy [{card_s}]")
+    return res
+
+
+def kv_live_phase(torch, dev, card_s: str) -> None:
+    """Phase 17 (module docstring): A5 (c) and (d) on stores of its own."""
+    t_phase = time.perf_counter()
+    lap = Laps()
+    with Launches(KVL_LAUNCHES) as ln, tempfile.TemporaryDirectory() as tmp:
+        kv_record("kv", kv_phase(torch, dev, card_s))
+        lap("kv")
+        kds, sft, st, res = live_phase(torch, dev, card_s)
+        kv_record("live", res)
+        lap("live")
+        kv_record("lambda", lambda_phase(torch, dev, kds, sft, st, tmp, card_s))
+        lap("lambda")
+    total = time.perf_counter() - t_phase
+    kv_record("laps_s", dict(lap.seconds, total=total, launches=ln.counts))
+    log("phase 17 laps: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                      lap.seconds.items())
+        + f"; {total:.3f} s in all [{card_s}]")
+    assert total <= PHASE17_BUDGET_S, f"phase 17 took {total:.1f} s"
+
+
 def main() -> int:
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
@@ -5647,6 +6087,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1 << 26,
                     help="rows written to the store (default 2^26)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -5711,6 +6152,8 @@ def main() -> int:
     ops += sql_ops
     torch.cuda.empty_cache()
     a4b_visibility(torch, dev, card_s)
+    torch.cuda.empty_cache()
+    kv_live_phase(torch, dev, card_s)
     for row in rows:
         if row["name"] == "pip_assign":  # phase 6's launches, then phase 11's
             row["launches_by_phase"] = {"6": row["launches"], "11": b7}
@@ -5746,12 +6189,21 @@ def main() -> int:
     log(f"phase-16 launches: {LIFE_LAUNCHES}")
     assert all(LIFE_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
                                           "pip_crossing", "pip_band")), LIFE_LAUNCHES
+    for row in rows:
+        if row["name"] in KVL_LAUNCHES:  # then phase 17's
+            row.setdefault("launches_by_phase", {"4": row["launches"]})
+            row["launches_by_phase"]["17"] = KVL_LAUNCHES[row["name"]]
+            row["launches"] += KVL_LAUNCHES[row["name"]]
+    log(f"phase-17 launches: {KVL_LAUNCHES}")
+    assert all(KVL_LAUNCHES.values()), KVL_LAUNCHES
     print(json.dumps({"lifecycle": PHASES.pop("lifecycle")}))
+    print(json.dumps({"kv_live": PHASES.pop("kv_live")}))
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"serve_device": serve_dev}))
     print(json.dumps({"kernels": rows}))
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s [{card_s}]")
     print(card_s)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

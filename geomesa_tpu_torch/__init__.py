@@ -17,8 +17,10 @@ default `impl="auto"`, and the serve stack's host half (`serve/`:
 JSON-lines wire, on the serial, pipelined and ring routes), the storage
 lifecycle (deletes, age-off, compaction, ORC) under the fault fabric
 (`faults/`), converters (`convert/`), ingest/export jobs (`jobs.py`) and
-the Arrow IPC store (`store/arrow_store.py`). Entry points run on the
-card unless the caller passes device="cpu".
+the Arrow IPC store (`store/arrow_store.py`), the key-value index store
+(`index/`), the live layer (`kafka/`) and the lambda store
+(`lambda_store.py`). Entry points run on the card unless the caller
+passes device="cpu".
 """
 
 from geomesa_tpu_torch.core.columnar import FeatureBatch

@@ -171,6 +171,8 @@ class QueryPlan:
     # the residual's canonical CQL (what `compiled` evaluates): differs
     # from `cql` under loose bbox, which drops the BBOX from the residual
     residual_cql: str = ""
+    # the storage's partitions before pruning
+    total_partitions: int = 0
 
 
 class QueryPlanner:
@@ -211,10 +213,18 @@ class QueryPlanner:
         interval = extract_intervals(f, d.name) if d else Interval(None, None)
         e(f"Primary bbox: ({bbox.xmin}, {bbox.ymin}, {bbox.xmax}, {bbox.ymax})")
         e(f"Primary interval: [{interval.start}, {interval.end}]")
-        manifest = self.storage.manifest_snapshot()
-        partitions = self.storage.prune_partitions(bbox, interval,
-                                                   manifest=manifest)
-        e(f"Partitions: {len(partitions)} of {len(manifest)} after pruning")
+        # a storage without a manifest (the live layer's) prunes and
+        # counts its partitions itself, as in the reference
+        snapshot_fn = getattr(self.storage, "manifest_snapshot", None)
+        manifest = snapshot_fn() if snapshot_fn is not None else None
+        if manifest is not None:
+            partitions = self.storage.prune_partitions(bbox, interval,
+                                                       manifest=manifest)
+            total = len(manifest)
+        else:
+            partitions = self.storage.prune_partitions(bbox, interval)
+            total = len(self.storage.partitions())
+        e(f"Partitions: {len(partitions)} of {total} after pruning")
         est = self._stats_estimate(bbox, interval)
         if est is not None:
             e(f"Estimated matches (stats sketches): ~{est}")
@@ -242,7 +252,8 @@ class QueryPlanner:
             e(f"Aggregation: bin track={query.hints.bin_track}")
         e.pop()
         return QueryPlan(query, f, bbox, interval, partitions, compiled,
-                         manifest=manifest, cql=cql, residual_cql=residual_cql)
+                         manifest=manifest, cql=cql, residual_cql=residual_cql,
+                         total_partitions=total)
 
     def _compile_cached(self, residual: ast.Filter, key: str) -> CompiledFilter:
         """Reuse CompiledFilter across queries keyed on canonical CQL
@@ -495,7 +506,7 @@ class QueryPlanner:
                 compute_time_ms=(t_done - t_scan) * 1000,
                 result_count=mask_count,
                 partitions_scanned=len(plan.partitions),
-                partitions_total=len(plan.manifest or ()),
+                partitions_total=plan.total_partitions,
             ))
 
     def _execute_cached(self, plan: QueryPlan, query: Query):
@@ -726,12 +737,20 @@ class QueryPlanner:
                 # a manifest count knows nothing about auths
                 and not (self.storage.sft.user_data or {}).get(
                     "geomesa.vis.attr")):
-            # one snapshot pins count AND version atomically
-            snap = self.storage.manifest_snapshot()
-            n = sum(int(e["count"]) for files in snap.values() for e in files)
+            snap_fn = getattr(self.storage, "manifest_snapshot", None)
+            if snap_fn is not None:
+                # one snapshot pins count AND version atomically
+                snap = snap_fn()
+                n = sum(int(e["count"]) for files in snap.values()
+                        for e in files)
+                version = snap.version
+            else:
+                # no manifest, no version: nothing may cache this count
+                n = self.storage.count
+                version = None
             if query.max_features is not None:
                 n = min(n, query.max_features)
-            return QueryResult("count", count=n, version=snap.version)
+            return QueryResult("count", count=n, version=version)
         if query.hints.tolerance is not None:
             # the microsecond path: memoized sketch merge; a miss is
             # metered and falls through to the exact path

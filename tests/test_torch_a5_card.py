@@ -2,7 +2,9 @@
 only the port): a `device.transfer` fault on a card store's served
 window retries on the card and leaves the answer unchanged, on the
 pipelined and ring routes (the ring's slot write happens before the
-copy into its captured buffers, never inside a capture)."""
+copy into its captured buffers, never inside a capture); the key-value
+store's polygon count (B4/B5 through mask_refined) and the live layer's
+kNN (B1/B2) on the card equal their runs on the CPU."""
 
 import numpy as np
 import pytest
@@ -62,3 +64,35 @@ def test_card_transfer_fault_retries_and_the_answer_is_unchanged(tmp_path):
             np.testing.assert_array_equal(d, clean[0])
             np.testing.assert_array_equal(i, clean[1])
     assert pf.BREAKERS.states().get("device", "closed") == "closed"
+
+
+@pytest.mark.cuda
+def test_kv_polygon_count_and_live_knn_on_the_card_equal_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from geomesa_tpu_torch.index import KVDataStore
+    from geomesa_tpu_torch.kafka import KafkaDataStore
+
+    sft = PSFT.from_spec("kv", "code:String:index=true," + SPEC)
+    data = rows(1 << 14, 4)
+    data["code"] = [f"c{i % 50}" for i in range(1 << 14)]
+    batch = PFB.from_pydict(sft, data, fids=[f"f{i}" for i in range(1 << 14)])
+    poly = ("INTERSECTS(geom, POLYGON((-120 -50, 60 -60, 150 30, -20 75, "
+            "-120 -50))) AND score > 0")
+    qx, qy = np.array([1.0, -40.0, 120.0]), np.array([2.0, 10.0, -30.0])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        kv = KVDataStore(device=dev).create_schema(sft)
+        kv.write(batch)
+        live = KafkaDataStore(device=dev).create_schema(sft)
+        live.write(batch)
+        assert live.get_count("INCLUDE") == 1 << 14  # polls the topic
+        knn = {impl: live.knn(CQL, qx, qy, k=8, impl=impl)
+               for impl in ("sparse", "fullscan")}
+        out[dev] = (kv.get_count(poly), kv.get_count("code = 'c7'"), knn)
+    assert out["cuda"][:2] == out["cpu"][:2]
+    for impl in ("sparse", "fullscan"):
+        (cd, ci, _), (gd, gi, _) = out["cpu"][2][impl], out["cuda"][2][impl]
+        for q in range(len(qx)):
+            assert set(ci[q].tolist()) == set(gi[q].tolist())
+        np.testing.assert_array_equal(np.sort(gd, 1), np.sort(cd, 1))

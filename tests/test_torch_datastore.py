@@ -317,6 +317,29 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         write_ipc(ipc, [src.storage.read_all()])
         asrc = ArrowDataStore(ipc, device="cpu").get_feature_source()
         assert asrc.get_count("speed > 5") == src.get_count("speed > 5")
+        import time
+        from geomesa_tpu_torch.index import KVDataStore
+        from geomesa_tpu_torch.kafka import KafkaDataStore
+        from geomesa_tpu_torch.lambda_store import LambdaDataStore
+        from geomesa_tpu_torch.core.columnar import DictColumn
+        kb = src.storage.read_all()
+        kb = FeatureBatch(kb.sft, kb.columns,
+                          DictColumn.encode([f"k{{j}}" for j in range(len(kb))]), None)
+        kv = KVDataStore(device="cpu").create_schema(kb.sft)
+        kv.write(kb)
+        assert kv.get_count(poly + " AND speed > 5") == src.get_count(poly + " AND speed > 5")
+        lsrc = KafkaDataStore(device="cpu").create_schema(kb.sft)
+        lsrc.write(kb)
+        assert lsrc.get_count("INCLUDE") == len(kb)
+        d, i, _ = lsrc.knn("speed > 5", [0.0], [45.0], k=3)
+        assert np.isfinite(d).all()
+        lam = LambdaDataStore(os.path.join({str(tmp_path)!r}, "lam"),
+                              persist_after_ms=0, device="cpu")
+        lam.create_schema(kb.sft)
+        lam.write("t", kb.select(np.arange(100)))
+        assert lam.persist("t", now=time.time() + 1.0) == 100
+        lam.write("t", kb.select(np.arange(50, 150)))
+        assert lam.get_count(Query("t", "INCLUDE")) == 150
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]
