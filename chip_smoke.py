@@ -334,6 +334,32 @@ and prints no result. Phases, each fatal on failure:
    transient rows winning, and its density (B3) == the same density
    over a single store of the merged rows == a NumPy binning. Numbers in
    a {"kv_live"} line.
+18. A6, standing queries, last, on a store of its own, with B1-B5's
+   launches reset before and read after, leaving out the one-shot gates'
+   (B4 and B5 must launch once for each polygon bootstrap and each fused
+   polygon a fold, at least; their rows gain "18"), in at most 45 s: a KafkaDataStore of 2^17 vessels
+   (phase 17's spec and rows) and one SubscriptionManager at its default
+   capacity of 256: 128 BBOX, 64 single-point DWITHIN (50-1,500 km) and
+   48 polygon INTERSECTS (16-256 vertices) geofences on the lanes, 12
+   fused-remainder predicates (polygon AND sog: B4/B5 every poll; tanker
+   AND BBOX; BEYOND; OR of two boxes), three exact 256x128 world density
+   windows (unweighted, sog-weighted, decay 0.9) and one approximate
+   (tolerance 0.5), each bootstrapped over the full snapshot; 16 poll
+   windows of 1,310 moved, 128 gone and 128 new vessels, window 5's poll
+   failing (kafka.poll, 4 fires) and window 9's first evaluation failing
+   (subscribe.eval); gates: after the bootstrap and after the last window
+   every predicate's matched set == a fresh get_features of its CQL, its
+   frames replay to it, the exact windows == a NumPy binning (weighted
+   within f32 noise), the decayed window == an f64 replay of its folds,
+   the approximate total within its bound; then two
+   windows through the wire (8 subscriptions on one connection, attached
+   by a second in JSON and a third in columnar framing; poll, pause and
+   resume, export, unsubscribe), the mirrors' frames == the owner's ==
+   the in-process manager's, one encode a frame per wire mode; last, each
+   lane row on the card == the compiled mask of its predicate (B4/B5 for
+   polygons; raw rows outside the band, refined rows exactly) and each
+   lane class timed against its bound ({"device_ops"} line). Numbers in
+   a {"subscribe"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -4421,12 +4447,14 @@ class Launches:
     exit into `counts`, which the phase's totals (`into`: phase 15's by
     default) gather. Blocks nest: an inner block hands its launches back
     to the outer one's counters, and only the outermost adds to the
-    totals."""
+    totals. A `discard` block (an oracle's queries) keeps its launches in
+    its own `counts` and hands nothing back to anyone."""
 
     depth = 0
 
-    def __init__(self, into=None):
+    def __init__(self, into=None, discard: bool = False):
         self.into = A4B_LAUNCHES if into is None else into
+        self.discard = discard
 
     def __enter__(self):
         from geomesa_tpu_torch.engine import density_zsparse as dz
@@ -4445,8 +4473,8 @@ class Launches:
         Launches.depth -= 1
         self.counts = {f.__name__: f.launches for f in self.fns}
         for f, before in zip(self.fns, self.saved):
-            f.launches += before
-        if Launches.depth == 0:
+            f.launches = before if self.discard else f.launches + before
+        if Launches.depth == 0 and not self.discard:
             for k, v in self.counts.items():
                 self.into[k] += v
         return False
@@ -6080,6 +6108,495 @@ def kv_live_phase(torch, dev, card_s: str) -> None:
     assert total <= PHASE17_BUDGET_S, f"phase 17 took {total:.1f} s"
 
 
+SUB_LAUNCHES = {name: 0 for name in A4B_KERNELS}
+SUB_OPS: list = []
+# one AIS alerting deployment at the subscription table's default capacity
+SUB_LANES = {"bbox": 128, "dwithin": 64, "polygon": 48}
+SUB_WINDOWS = 16  # poll windows of traffic
+SUB_MOVE = LIVE_ROWS // 100  # vessels that report a new position a window
+SUB_CHURN = 128  # vessels leaving (and as many new ones arriving) a window
+SUB_POLL_FAULT = 5  # the window whose poll fails (kafka.poll, 4 fires)
+SUB_EVAL_FAULT = 9  # the window whose first evaluation fails (subscribe.eval)
+SUB_GRID = (256, 128)  # the density windows, world-wide
+SUB_WORLD = (-180.0, -90.0, 180.0, 90.0)
+SUB_WIRE_WINDOWS = 2  # windows the wire leg polls through its connection
+SUB_LANE_REPS = 10
+# elementwise operations a (geofence, point) pair costs in each lane (a
+# polygon: a (geofence, point, edge) triple), counted from engine/lanes.py
+SUB_LANE_OPS = {"bbox": 20, "dwithin": 20, "polygon": 30}
+# the reference's lane functions, by class
+SUB_LANE_REF = {"bbox": "geomesa_tpu/engine/lanes.py:51",
+                "dwithin": "geomesa_tpu/engine/lanes.py:74",
+                "polygon": "geomesa_tpu/engine/lanes.py:90"}
+PHASE18_BUDGET_S = 45.0
+
+
+def sub_record(part: str, res) -> None:
+    PHASES.setdefault("subscribe", {})[part] = res
+
+
+def sub_star(rng, n: int, cx: float, cy: float, r0: float, r1: float) -> str:
+    ang = np.sort(rng.uniform(0.0, 2 * np.pi, n))
+    r = rng.uniform(r0, r1, n)
+    pts = [(cx + a * np.cos(t), cy + a * np.sin(t)) for a, t in zip(r, ang)]
+    return "POLYGON(" + geo_wkt_ring(pts + pts[:1]) + ")"
+
+
+def sub_box(rng) -> tuple:
+    x0, y0 = rng.uniform(-170, 140), rng.uniform(-75, 55)
+    return (float(x0), float(y0), float(x0 + rng.uniform(2, 30)),
+            float(y0 + rng.uniform(2, 20)))
+
+
+def sub_predicates(rng) -> dict:
+    """The deployment's 252 predicates by class: 240 lane geofences and 12
+    fused-remainder predicates."""
+    bbox = ["BBOX(geom, %r, %r, %r, %r)" % sub_box(rng)
+            for _ in range(SUB_LANES["bbox"])]
+    dwithin = [f"DWITHIN(geom, POINT({rng.uniform(-170, 170)!r} "
+               f"{rng.uniform(-70, 70)!r}), {int(rng.uniform(50e3, 1.5e6))}, meters)"
+               for _ in range(SUB_LANES["dwithin"])]
+    polygon = ["INTERSECTS(geom, " + sub_star(
+        rng, int(rng.integers(16, 257)), rng.uniform(-150, 150), rng.uniform(-55, 55),
+        rng.uniform(2, 6), rng.uniform(8, 20)) + ")" for _ in range(SUB_LANES["polygon"])]
+    fused = [f"INTERSECTS(geom, {sub_star(rng, 64, rng.uniform(-150, 150), 0.0, 5, 15)}) "
+             f"AND sog > {rng.uniform(5, 15)!r}" for _ in range(4)]
+    fused += ["vtype = 'tanker' AND BBOX(geom, %r, %r, %r, %r)" % sub_box(rng)
+              for _ in range(4)]
+    fused += [f"BEYOND(geom, POINT({rng.uniform(-90, 90)!r} 0.0), 5000000, meters)"
+              for _ in range(2)]
+    fused += ["BBOX(geom, %r, %r, %r, %r) OR BBOX(geom, %r, %r, %r, %r)"
+              % (sub_box(rng) + sub_box(rng)) for _ in range(2)]
+    return {"bbox": bbox, "dwithin": dwithin, "polygon": polygon, "fused": fused}
+
+
+def replay_matched(frames) -> set:
+    """A subscription's frames in seq order (state, enter, exit) replayed
+    by the client: no duplicate enter, no phantom exit."""
+    state = set()
+    for f in sorted(frames, key=lambda f: f["seq"]):
+        ev = f.get("event")
+        if ev == "state":
+            state = set(f["fids"])
+        elif ev == "enter":
+            assert not state & set(f["fids"]), "duplicate enter"
+            state |= set(f["fids"])
+        elif ev == "exit":
+            assert set(f["fids"]) <= state, "phantom exit"
+            state -= set(f["fids"])
+    return state
+
+
+class SubFleet:
+    """The vessels' state on the host (the oracle) and the traffic."""
+
+    def __init__(self, rng, n: int, cap: int):
+        data = live_state_rows(rng, n)
+        self.rng = rng
+        self.x = np.zeros(cap)
+        self.y = np.zeros(cap)
+        self.sog = np.zeros(cap)
+        self.vtype = np.empty(cap, dtype=object)
+        self.alive = np.zeros(cap, bool)
+        self.fids = [f"mmsi-{300_000_000 + i}" for i in range(cap)]
+        self.n = n
+        self.first = data
+        self.written = []  # each window's new positions: (x, y)
+        self._set(np.arange(n), data)
+
+    def _set(self, idx, data):
+        self.x[idx], self.y[idx] = data["geom"][:, 0], data["geom"][:, 1]
+        self.sog[idx] = data["sog"]
+        self.vtype[idx] = data["vtype"]
+        self.alive[idx] = True
+
+    def window(self, fb, sft, kds, src) -> int:
+        """Produce one window: SUB_MOVE moved, SUB_CHURN gone, SUB_CHURN
+        new. Returns the messages produced."""
+        live = np.nonzero(self.alive)[0]
+        pick = self.rng.permutation(live)
+        moved, gone = pick[:SUB_MOVE], pick[SUB_MOVE:SUB_MOVE + SUB_CHURN]
+        new = np.arange(self.n, self.n + SUB_CHURN)
+        self.n += SUB_CHURN
+        idx = np.concatenate([moved, new])
+        data = live_state_rows(self.rng, len(idx))
+        data["vtype"] = list(self.vtype[moved]) + data["vtype"][len(moved):]
+        src.write(fb.from_pydict(sft, data, fids=[self.fids[i] for i in idx]))
+        for i in gone:
+            kds.delete("ais", self.fids[i])
+        self._set(idx, data)
+        self.alive[gone] = False
+        self.written.append((self.x[idx].copy(), self.y[idx].copy()))
+        return len(idx) + len(gone)
+
+
+def sub_lane_check(torch, dev, mgr, sft, fleet, card_s: str) -> dict:
+    """Each lane row on the card == the same predicate's compiled mask
+    (B4/B5 for polygons) over a delta of the path's shape: raw rows equal
+    outside the band (band rows where they differ counted), refined rows
+    equal; then each lane class timed against its bound."""
+    from geomesa_tpu_torch import FeatureBatch
+    from geomesa_tpu_torch.engine import lanes as lane_fns
+    from geomesa_tpu_torch.engine.device import VALID, to_device, upload
+
+    ev = mgr.evaluator
+    st = ev._state("ais")
+    alive = np.nonzero(fleet.alive)[0]
+    idx = fleet.rng.choice(alive, SUB_MOVE + SUB_CHURN, replace=False)
+    data = {"vtype": list(fleet.vtype[idx]), "sog": fleet.sog[idx],
+            "dtg": np.full(len(idx), KV_T0), "geom": np.stack([fleet.x[idx],
+                                                            fleet.y[idx]], 1)}
+    delta = FeatureBatch.from_pydict(sft, data, fids=[fleet.fids[i] for i in idx])
+    delta = delta.pad_to(1 << int(np.ceil(np.log2(len(delta)))))
+    d = to_device(delta, dev)
+    x, y, valid = d["geom__x"], d["geom__y"], d[VALID]
+    n = x.shape[0]
+    fids = [fleet.fids[i] for i in idx]
+    out = {"points": n, "band_rows_differing": 0, "rows_checked": 0}
+    per_cls = {}
+    for group in st.lanes.groups.values():
+        fn = getattr(lane_fns, f"lane_{group.cls}")
+        prm, act = upload(group.params, dev), upload(group.active, dev)
+        mask, band = (t.cpu().numpy() for t in fn(prm, act, x, y, valid))
+        for sid, row in group.rows.items():
+            sub = mgr.registry.get(sid)
+            f = ev._filter_for("ais", sub.cql, sft)
+            want = f.mask(d, delta).cpu().numpy()
+            wband = (f.band(d, delta).cpu().numpy() if f.has_band
+                     else np.zeros(n, bool))
+            assert np.array_equal(band[row], wband), sub.cql
+            amb = band[row]
+            assert np.array_equal(mask[row][~amb], want[~amb]), sub.cql
+            out["band_rows_differing"] += int((mask[row] != want)[amb].sum())
+            refined = ev._refine_mask(st, sub, mask[row], band[row], delta, fids)
+            assert np.array_equal(refined, f.mask_refined(d, delta)[:len(fids)]), sub.cql
+            out["rows_checked"] += 1
+        ms = timed_ms(torch, lambda: fn(prm, act, x, y, valid), SUB_LANE_REPS)
+        s, e = group.cap, group.ebucket or 1
+        nbytes = group.params.nbytes + group.cap + n * 9 + 2 * s * n
+        ops = SUB_LANE_OPS[group.cls] * s * n * e
+        c = per_cls.setdefault(group.cls, {"ms": 0.0, "bytes": 0, "ops": 0,
+                                           "rows": 0, "groups": 0})
+        c["ms"] += ms
+        c["bytes"] += nbytes
+        c["ops"] += ops
+        c["rows"] += s
+        c["groups"] += 1
+    for cls, c in per_cls.items():
+        bound, by = roofline_ms(c["ops"], c["bytes"])
+        SUB_OPS.append({"name": f"lane_{cls}",
+                        "replaces": SUB_LANE_REF[cls],
+                        "source": "geomesa_tpu_torch/engine/lanes.py", "route": "torch",
+                        "launches": 0, "ms": c["ms"], "bound_ms": bound, "bound_by": by,
+                        "rows": c["rows"], "groups": c["groups"], "points": n})
+        log(f"lane_{cls}: {c['ms']:.3f} ms over {c['rows']} rows in {c['groups']} "
+            f"table(s) x {n} points, bound {bound:.4f} ms by {by} [{card_s}]")
+    log(f"lanes == compiled masks on the card: {out['rows_checked']} rows, raw rows "
+        f"equal outside the band ({out['band_rows_differing']} band rows differ), "
+        f"refined rows equal [{card_s}]")
+    return out
+
+
+def sub_wire_leg(torch, dev, kds, src, fb, sft, fleet, preds, inproc, card_s: str) -> dict:
+    """Two more windows through the wire: connection A subscribes to 8 of
+    the in-process predicates, B attaches to them in JSON and C in
+    columnar framing; A polls, pauses and resumes one, exports one and
+    unsubscribes one. A's frames equal the in-process manager's for the
+    same predicates; B's and C's decode to A's."""
+    import queue
+    import threading
+
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+    from geomesa_tpu_torch.serve import columnar as colwire
+    from geomesa_tpu_torch.serve.protocol import serve_connection
+
+    svc = QueryService(kds, ServeConfig(max_wait_ms=0.0))
+    conns = []
+
+    class Conn:
+        def __init__(self):
+            self.lines, self.out, self.lock = queue.Queue(), bytearray(), threading.Lock()
+            self.t = threading.Thread(target=serve_connection, args=(
+                kds, svc, iter(self.lines.get, None), lambda s: self.put(s.encode())),
+                kwargs={"write_bytes": self.put}, daemon=True)
+            self.t.start()
+            conns.append(self)
+
+        def put(self, b):
+            with self.lock:
+                self.out.extend(b)
+
+        def docs(self):
+            with self.lock:
+                data = bytes(self.out)
+            return [colwire.decode_push(d, p) for d, p in colwire.parse_stream(data)]
+
+        def wait(self, cond, timeout_s=60.0):
+            deadline = time.monotonic() + timeout_s
+            while not cond(self.docs()):
+                assert time.monotonic() < deadline, "wire leg timed out"
+                time.sleep(0.002)
+            return self.docs()
+
+        def ask(self, doc):
+            self.lines.put(json.dumps(doc))
+            ds = self.wait(lambda ds: any(x.get("id") == doc["id"] for x in ds))
+            return next(x for x in ds if x.get("id") == doc["id"])
+
+    res = {}
+    try:
+        a, b, c = Conn(), Conn(), Conn()
+        picks = (preds["bbox"][:2] + preds["dwithin"][:2] + preds["polygon"][:2]
+                 + preds["fused"][:1])
+        wire_ids, t0 = {}, time.perf_counter()
+        for i, cql in enumerate(picks):
+            wire_ids[a.ask({"id": f"s{i}", "op": "subscribe", "typeName": "ais",
+                            "cql": cql})["subscription"]] = cql
+        dens = a.ask({"id": "sd", "op": "subscribe", "typeName": "ais", "density": {
+            "bbox": list(SUB_WORLD), "width": SUB_GRID[0], "height": SUB_GRID[1]}})
+        res["subscribe_s"] = time.perf_counter() - t0
+        all_ids = list(wire_ids) + [dens["subscription"]]
+        for sid in all_ids:
+            assert b.ask({"id": f"b{sid}", "op": "attach", "subscription": sid})["ok"]
+            at = c.ask({"id": f"c{sid}", "op": "attach", "subscription": sid,
+                        "wire": "columnar"})
+            assert at["ok"] and at["wireMode"] == "columnar" and at["sinks"] == 2
+        n_before = len([d for d in a.docs() if "event" in d])
+        mux0 = svc.wire_mux().stats()
+        mark = {s.cql: len(inproc["frames"].get(s.sub_id, [])) for s in inproc["subs"]}
+        paused, exported, dropped = all_ids[0], all_ids[1], all_ids[2]
+        for w in range(SUB_WIRE_WINDOWS):
+            fleet.window(fb, sft, kds, src)
+            if w == 1:
+                assert a.ask({"id": "pa", "op": "pause", "subscription": paused})["ok"]
+            t0 = time.perf_counter()
+            p = a.ask({"id": f"p{w}", "op": "poll"})
+            res[f"poll{w}_ms"] = (time.perf_counter() - t0) * 1e3
+            assert p["ok"] and p["applied"]["ais"] > 0, p
+            inproc["mgr"].flush(inproc["push"])
+            if w == 1:
+                re = a.ask({"id": "re", "op": "resume", "subscription": paused})
+                assert re["ok"] and re["status"] == "active"
+        by_cql = {s.cql: s for s in inproc["subs"]}
+        x = a.ask({"id": "x", "op": "export_subscription", "subscription": exported})
+        assert x["ok"] and set(x["handoff"]["matched"]) == \
+            by_cql[wire_ids[exported]].matched
+        u = a.ask({"id": "u", "op": "unsubscribe", "subscription": dropped})
+        assert u["ok"] and u["status"] == "cancelled"
+        owner = [d for d in a.docs() if "event" in d]
+        mirrored = owner[n_before:]  # every frame routed after the attaches
+        for conn in (b, c):
+            conn.wait(lambda ds: len([d for d in ds if "event" in d]) >= len(mirrored))
+        time.sleep(0.05)
+        for conn, tag in ((b, "json"), (c, "columnar")):
+            got = [d for d in conn.docs() if "event" in d]
+            assert got == mirrored, f"{tag} mirror != owner frames"
+        # the wire's frames for a predicate == the in-process manager's
+        for sid, cql in wire_ids.items():
+            sub = by_cql[cql]
+            mine = [(d["event"], d["fids"]) for d in owner if d.get("subscription") == sid
+                    and d["event"] in ("enter", "exit")]
+            theirs = [(f["event"], f["fids"]) for f in
+                      inproc["frames"].get(sub.sub_id, [])[mark[cql]:]
+                      if f["event"] in ("enter", "exit")]
+            frames = [d for d in owner if d.get("subscription") == sid]
+            if sid == paused:
+                assert replay_matched(frames) == sub.matched, cql
+            elif sid == dropped:
+                assert mine == theirs[:len(mine)], cql
+            else:
+                assert mine == theirs, f"wire frames != in-process frames: {cql}"
+                assert replay_matched(frames) == sub.matched, cql
+        mux = svc.wire_mux().stats()
+        frames_routed = mux["frames"] - mux0["frames"]
+        c_frames = len([d for d in c.docs() if "event" in d])
+        b_frames = len([d for d in b.docs() if "event" in d])
+        assert mux["encodes"] - mux0["encodes"] == frames_routed + c_frames, mux
+        assert mux["fanout"] - mux0["fanout"] == frames_routed + b_frames + c_frames
+        res.update(frames=frames_routed, encodes=mux["encodes"] - mux0["encodes"],
+                   fanout=mux["fanout"] - mux0["fanout"], mirrored=c_frames)
+        log(f"wire leg: 8 subscriptions on connection A in {res['subscribe_s']:.3f} s, "
+            f"attached by B (json) and C (columnar); {frames_routed} frames routed "
+            f"with {res['encodes']} encodes (one a wire mode) to {res['fanout']} sinks; "
+            f"frames == the in-process manager's; polls "
+            f"{res['poll0_ms']:.3f} / {res['poll1_ms']:.3f} ms [{card_s}]")
+    finally:
+        for conn in conns:
+            conn.lines.put(None)
+        for conn in conns:
+            conn.t.join(timeout=60.0)
+        svc.close(drain=True)
+    return res
+
+
+def subscribe_phase(torch, dev, card_s: str) -> None:
+    """Phase 18 (module docstring): standing queries over the live layer."""
+    from geomesa_tpu_torch import FeatureBatch, Query, SimpleFeatureType, faults
+    from geomesa_tpu_torch.engine.density import grid_consts
+    from geomesa_tpu_torch.kafka import KafkaDataStore
+    from geomesa_tpu_torch.subscribe import DensityWindow, SubscriptionManager
+
+    t_phase = time.perf_counter()
+    lap = Laps()
+    rng = np.random.default_rng(181)
+    sft = SimpleFeatureType.from_spec("ais", LIVE_SPEC)
+    cap = LIVE_ROWS + (SUB_WINDOWS + SUB_WIRE_WINDOWS) * SUB_CHURN
+    fleet = SubFleet(rng, LIVE_ROWS, cap)
+    preds = sub_predicates(rng)
+    res, parts = {}, {}
+    with Launches(SUB_LAUNCHES) as ln:
+        kds = KafkaDataStore(device=dev)
+        src = kds.create_schema(sft)
+        src.write(FeatureBatch.from_pydict(sft, fleet.first,
+                                           fids=fleet.fids[:LIVE_ROWS]))
+        assert src.get_count("INCLUDE") == LIVE_ROWS
+        lap("store")
+        mgr = SubscriptionManager(kds)
+        frames: dict = {}
+
+        def push(f):
+            frames.setdefault(f.get("subscription"), []).append(f)
+
+        subs, t0 = [], time.perf_counter()
+        with Launches() as parts["bootstrap"]:
+            for cls in ("bbox", "dwithin", "polygon", "fused"):
+                subs += [mgr.subscribe("ais", cql) for cql in preds[cls]]
+            windows = [DensityWindow(SUB_WORLD, *SUB_GRID),
+                       DensityWindow(SUB_WORLD, *SUB_GRID, weight_attr="sog"),
+                       DensityWindow(SUB_WORLD, *SUB_GRID, decay=0.9),
+                       DensityWindow(SUB_WORLD, *SUB_GRID, tolerance=0.5)]
+            dsubs = [mgr.subscribe("ais", density=w) for w in windows]
+        res["bootstrap_s"] = time.perf_counter() - t0
+        assert len(mgr.registry) == 256
+        mgr.flush(push)
+        lap("bootstrap")
+
+        def oneshot_gate(tag):
+            # the oracle's queries: their B4/B5 launches are not the path's
+            t0 = time.perf_counter()
+            with Launches(discard=True) as parts[f"gate {tag} (not counted)"]:
+                for s in subs:
+                    r = src.get_features(Query("ais", s.cql, attributes=["sog"]))
+                    want = (set() if r.features is None
+                            else set(r.features.fids.decode()))
+                    assert s.matched == want, f"{tag}: {s.cql} != one-shot"
+            return time.perf_counter() - t0
+
+        res["gate_bootstrap_s"] = oneshot_gate("bootstrap")
+        lap("gate")
+
+        ev0 = mgr.evaluator.stats()
+        lat, fault_ms, msgs = [], {}, 0
+        with Launches() as parts["windows"]:
+            for w in range(1, SUB_WINDOWS + 1):
+                msgs += fleet.window(FeatureBatch, sft, kds, src)
+                t0 = time.perf_counter()
+                if w == SUB_POLL_FAULT:
+                    plan = faults.FaultPlan(seed=185, rules=[faults.FaultRule(
+                        site="kafka.poll", error="unavailable", every=1, max_fires=4)])
+                    with faults.active(plan) as h:
+                        try:
+                            mgr.poll_now()
+                            raise AssertionError("the faulted poll answered")
+                        except ConnectionError:
+                            pass
+                        assert len(h.fire_log()) == 4
+                    faults.BREAKERS.reset("kafka")
+                if w == SUB_EVAL_FAULT:
+                    plan = faults.FaultPlan(seed=189, rules=[faults.FaultRule(
+                        site="subscribe.eval", error="io", nth_call=1)])
+                    with faults.active(plan) as h:
+                        mgr.poll_now()  # the fold fails: the buffer is kept
+                        assert len(h.fire_log()) == 1
+                    assert mgr.evaluator.stats()["eval_errors"] == ev0["eval_errors"] + 1
+                mgr.poll_now()
+                mgr.flush(push)
+                dt = (time.perf_counter() - t0) * 1e3
+                if w in (SUB_POLL_FAULT, SUB_EVAL_FAULT):
+                    fault_ms[w] = dt
+                else:
+                    lat.append(dt)
+        ev = mgr.evaluator.stats()
+        lap("windows")
+        res["gate_final_s"] = oneshot_gate("after the last window")
+        for s in subs:
+            assert replay_matched(frames.get(s.sub_id, [])) == s.matched, s.cql
+        alive = fleet.alive
+        cnt, _ = grid_oracle(fleet.x, fleet.y, None, alive, SUB_WORLD, *SUB_GRID)
+        assert np.array_equal(dsubs[0].grid, cnt), "exact density window"
+        xmin, dx, ymin, dy = grid_consts(SUB_WORLD, *SUB_GRID)
+        col = np.floor((fleet.x[alive].astype(np.float32) - xmin) / dx).astype(np.int64)
+        row = np.floor((fleet.y[alive].astype(np.float32) - ymin) / dy).astype(np.int64)
+        wsum = np.zeros(SUB_GRID[::-1])
+        np.add.at(wsum, (row, col), fleet.sog[alive])
+        werr = float(np.abs(dsubs[1].grid - wsum).max())
+        assert werr <= 1e-6 * max(1.0, float(wsum.max())), werr
+        # the fading window replayed in f64: the bootstrap's counts, then
+        # per fold grid *= 0.9 plus the window's new positions (a decayed
+        # window drops no old contribution)
+        xy0 = fleet.first["geom"]
+        fade = grid_oracle(xy0[:, 0], xy0[:, 1], None, np.ones(len(xy0), bool),
+                           SUB_WORLD, *SUB_GRID)[0].astype(np.float64)
+        for wx, wy in fleet.written[:SUB_WINDOWS]:
+            fade = fade * 0.9 + grid_oracle(wx, wy, None, np.ones(len(wx), bool),
+                                            SUB_WORLD, *SUB_GRID)[0]
+        derr = float(np.abs(dsubs[2].grid - fade).max())
+        assert derr <= 1e-6 * max(1.0, float(fade.max())), derr
+        approx = [f for f in frames.get(dsubs[3].sub_id, [])
+                  if f["event"] == "approx_density"][-1]
+        exact_total = int(alive.sum())
+        assert abs(approx["total"] - exact_total) <= approx["bound"], approx
+        polls = ev["folds"] - ev0["folds"]
+        res.update(
+            windows=SUB_WINDOWS, messages=msgs, folds=polls,
+            dispatches_per_poll=(ev["dispatches"] - ev0["dispatches"]) / polls,
+            lane_dispatches_per_poll=(ev["lane_dispatches"]
+                                      - ev0.get("lane_dispatches", 0)) / polls,
+            events=ev["events"] - ev0["events"],
+            events_per_s=(ev["events"] - ev0["events"]) / (sum(lat) / 1e3),
+            eval_push_p50_ms=float(np.percentile(lat, 50)),
+            eval_push_p99_ms=float(np.percentile(lat, 99)),
+            fault_window_ms=fault_ms, eval_errors=ev["eval_errors"] - ev0["eval_errors"],
+            weighted_max_err=werr, decay_max_err=derr, approx_bound=approx["bound"],
+            approx_error=abs(approx["total"] - exact_total),
+            lanes=mgr.stats()["lanes"]["classes"])
+        assert ev["fallbacks"] == ev0["fallbacks"] and polls == SUB_WINDOWS
+        log(f"subscribe: 256 subscriptions bootstrapped over {LIVE_ROWS} vessels in "
+            f"{res['bootstrap_s']:.3f} s; {SUB_WINDOWS} windows of {SUB_MOVE} moves + "
+            f"{SUB_CHURN} gone + {SUB_CHURN} new: eval+push p50 "
+            f"{res['eval_push_p50_ms']:.3f} ms, p99 {res['eval_push_p99_ms']:.3f} ms, "
+            f"{res['dispatches_per_poll']:.2f} dispatches a poll "
+            f"({res['lane_dispatches_per_poll']:.2f} lane), "
+            f"{res['events_per_s']:.0f} events/s; faulted windows {fault_ms} ms; "
+            f"one-shot gates {res['gate_bootstrap_s']:.3f} / {res['gate_final_s']:.3f} s; "
+            f"densities == oracles (weighted max err {werr:.3g}, decayed {derr:.3g}), "
+            f"approx |total - exact| "
+            f"{res['approx_error']:.3g} <= bound {approx['bound']:.3g} [{card_s}]")
+        lap("gates")
+        with Launches() as parts["wire"]:
+            res["wire"] = sub_wire_leg(torch, dev, kds, src, FeatureBatch, sft, fleet,
+                                       preds, {"mgr": mgr, "subs": subs, "frames": frames,
+                                               "push": push}, card_s)
+        lap("wire")
+    res["launches"] = ln.counts
+    res["launches_by_part"] = {k: v.counts for k, v in parts.items()}
+    res["lane_check"] = sub_lane_check(torch, dev, mgr, sft, fleet, card_s)
+    lap("lane check")
+    mgr.close()
+    total = time.perf_counter() - t_phase
+    res["laps_s"] = dict(lap.seconds, total=total)
+    sub_record("deployment", res)
+    log("phase 18 laps: " + ", ".join(f"{k} {v:.3f} s" for k, v in lap.seconds.items())
+        + f"; {total:.3f} s in all; launches {res['launches_by_part']} [{card_s}]")
+    # B4/B5 once per polygon bootstrap and per fused polygon a fold, at least
+    n_poly = sum("INTERSECTS" in s.cql for s in subs)
+    n_fused = sum("INTERSECTS" in c for c in preds["fused"])
+    for k in ("pip_crossing", "pip_band"):
+        assert parts["bootstrap"].counts[k] >= n_poly, res["launches_by_part"]
+        assert parts["windows"].counts[k] >= n_fused * SUB_WINDOWS, res["launches_by_part"]
+    assert total <= PHASE18_BUDGET_S, f"phase 18 took {total:.1f} s"
+
+
 def main() -> int:
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
@@ -6154,6 +6671,8 @@ def main() -> int:
     a4b_visibility(torch, dev, card_s)
     torch.cuda.empty_cache()
     kv_live_phase(torch, dev, card_s)
+    torch.cuda.empty_cache()
+    subscribe_phase(torch, dev, card_s)
     for row in rows:
         if row["name"] == "pip_assign":  # phase 6's launches, then phase 11's
             row["launches_by_phase"] = {"6": row["launches"], "11": b7}
@@ -6196,8 +6715,16 @@ def main() -> int:
             row["launches"] += KVL_LAUNCHES[row["name"]]
     log(f"phase-17 launches: {KVL_LAUNCHES}")
     assert all(KVL_LAUNCHES.values()), KVL_LAUNCHES
+    for row in rows:
+        if row["name"] in SUB_LAUNCHES:  # then phase 18's
+            row.setdefault("launches_by_phase", {"4": row["launches"]})
+            row["launches_by_phase"]["18"] = SUB_LAUNCHES[row["name"]]
+            row["launches"] += SUB_LAUNCHES[row["name"]]
+    log(f"phase-18 launches: {SUB_LAUNCHES}")
+    ops += SUB_OPS
     print(json.dumps({"lifecycle": PHASES.pop("lifecycle")}))
     print(json.dumps({"kv_live": PHASES.pop("kv_live")}))
+    print(json.dumps({"subscribe": PHASES.pop("subscribe")}))
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))

@@ -150,6 +150,12 @@ class CompiledFilter:
             eval_filter_host(self.filter_ast, batch.select(idx)), bool)
         return idx, exact
 
+    def mask_fn(self):
+        """The raw function (params, dev) -> mask, for callers that stack
+        several filters' masks in one call (the standing queries' fused
+        remainder); its band closure is `_band_fn`."""
+        return self._fn
+
     def __repr__(self):
         return f"CompiledFilter({self.cql!r})"
 

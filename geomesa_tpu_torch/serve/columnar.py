@@ -1,8 +1,6 @@
 """Columnar wire framing and codecs.
 
-A copy of the reference package's `serve/columnar.py` without its push
-fan-out (`PushMux` and `_PushSink` come with the standing queries,
-ROADMAP A6: their only callers are the subscribe verbs and `attach`).
+A copy of the reference package's `serve/columnar.py`.
 
 - **Framing.** A columnar response or request is a normal JSON header
   line whose `"frame"` object announces `nbytes` of RAW payload after
@@ -16,7 +14,15 @@ ROADMAP A6: their only callers are the subscribe verbs and `attach`).
 - **Codecs.** `execute` feature results ride Arrow record-batch IPC
   (`core/arrow_io.py`, the schema derived once per type); density grids
   are ONE contiguous f64 buffer; topk cells a [k, 8] f64 table. The
-  decoders rebuild payloads bit-identical to the JSON path.
+  decoders rebuild payloads bit-identical to the JSON path. Push
+  `enter`/`exit`/`state` frames carry their fid column as one utf8
+  buffer (`encode_push`).
+- **PushMux.** The push fan-out: each frame is encoded ONCE per wire
+  mode and the same immutable buffer fans to every subscriber sink.
+  Attached (mirror) sinks get a writer thread and a bounded queue each,
+  so one slow subscriber never stalls the flusher or its peers; the
+  subscription's OWNER connection writes synchronously and keeps the
+  bounded-outbox contract (a failed write requeues frames).
 - `MemoryWire` and `parse_stream` are the in-process request stream and
   the client-side decode loop that tests and `chip_smoke.py` drive.
 """
@@ -37,7 +43,7 @@ __all__ = [
     "encode_density_frame", "decode_density_payload",
     "encode_topk_frame", "decode_topk_payload",
     "encode_push", "decode_push", "knn_sections", "decode_knn_sections",
-    "MemoryWire", "parse_stream",
+    "PushMux", "MemoryWire", "parse_stream",
 ]
 
 WIRE_JSON = "json"
@@ -346,6 +352,255 @@ def _note_encode(kind: str, rows: int, nbytes: int, secs: float) -> None:
         metrics.histogram("wire.encode.latency", kind=kind).update(secs)
     except Exception:
         pass
+
+
+# -- push fan-out ----------------------------------------------------------
+
+
+class _PushSink:
+    """One subscriber endpoint. `threaded` sinks (socket connections)
+    get a dedicated writer thread draining a bounded queue, so a slow
+    peer backs up only its own queue; unthreaded sinks (the owner
+    connection, in-process benches) write synchronously on the
+    publisher's thread and keep the flush-requeue contract.
+
+    Lock discipline: queue, counters and lifecycle flags live under
+    ONE condition; the socket write itself always happens OUTSIDE it
+    (a wedged peer must never hold the sink lock against the
+    publisher)."""
+
+    __slots__ = ("sink_id", "write", "mode", "limit", "threaded",
+                 "_dead", "_sent", "_dropped", "_q", "_cond",
+                 "_thread", "_stopping")
+
+    def __init__(self, sink_id: str, write: Callable[[bytes], None],
+                 mode: str, limit: int, threaded: bool):
+        self.sink_id = sink_id
+        self.write = write
+        self.mode = mode
+        self.limit = limit
+        self.threaded = threaded
+        self._dead = False
+        self._stopping = False
+        self._sent = 0
+        self._dropped = 0
+        self._q: "deque[bytes]" = deque()
+        self._cond = threading.Condition()
+        self._thread: Optional[threading.Thread] = None
+        if threaded:
+            self._thread = threading.Thread(
+                target=self._drain_loop, daemon=True,
+                name=f"gmtpu-wire-push-{sink_id}")
+            self._thread.start()
+
+    @property
+    def dead(self) -> bool:
+        with self._cond:
+            return self._dead
+
+    def offer(self, buf: bytes) -> None:
+        """Enqueue (threaded) or write now (unthreaded). The queue is
+        BOUNDED: a sink past its limit drops the frame and counts it —
+        attached sinks are best-effort mirrors; the subscription's own
+        lag/resync contract lives in the owner's outbox."""
+        if not self.threaded:
+            # synchronous, write outside any lock: exceptions propagate
+            # to the flusher, which requeues undelivered frames
+            # (manager._flush_all)
+            with self._cond:
+                if self._dead:
+                    return
+            self.write(buf)
+            with self._cond:
+                self._sent += 1
+            return
+        with self._cond:
+            if self._dead:
+                return
+            if len(self._q) >= self.limit:
+                self._dropped += 1
+                return
+            self._q.append(buf)
+            self._cond.notify()
+
+    def _drain_loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._q and not self._stopping:
+                    # bounded wait (GT20 discipline): re-check the
+                    # stop flag so close() can always join
+                    self._cond.wait(timeout=0.25)
+                if self._stopping and not self._q:
+                    return
+                buf = self._q.popleft() if self._q else None
+            if buf is None:
+                continue
+            try:
+                self.write(buf)
+            except Exception:
+                # the peer vanished: the sink dies (dead flag, reaped by
+                # publish); the subscription's owner stream is unaffected
+                with self._cond:
+                    self._dead = True
+                    self._stopping = True
+                return
+            with self._cond:
+                self._sent += 1
+
+    def snapshot(self) -> "tuple[int, int, bool]":
+        with self._cond:
+            return self._sent, self._dropped, self._dead
+
+    def close(self) -> None:
+        with self._cond:
+            self._dead = True
+            self._stopping = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+
+
+class PushMux:
+    """Cross-connection push fan-out: serialize each frame ONCE per
+    wire mode, fan the same immutable buffer to every registered sink.
+
+    Routing: every connection with standing queries registers one sink
+    (its own outbox frames flow through it — the one-encode path holds
+    even for a single JSON subscriber); `attach(sink, subscription)`
+    mirrors one subscription's frames to additional connections, which
+    is the >10^3-subscriber story: ONE registered predicate, ONE
+    evaluation, ONE encode, N sockets (docs/SERVING.md "Columnar
+    wire")."""
+
+    def __init__(self, queue_limit: int = 1024):
+        self.queue_limit = queue_limit
+        self._lock = threading.Lock()
+        self._sinks: Dict[str, _PushSink] = {}
+        self._attached: Dict[str, set] = {}   # subscription -> sink ids
+        self._ids = 0
+        self.encodes = 0
+        self.frames = 0
+        self.fanout = 0
+
+    # -- membership --------------------------------------------------------
+
+    def register(self, write: Callable[[bytes], None],
+                 mode: str = WIRE_JSON, threaded: bool = True,
+                 sink_id: Optional[str] = None) -> str:
+        with self._lock:
+            if sink_id is None:
+                self._ids += 1
+                sink_id = f"sink-{self._ids}"
+            sink = _PushSink(sink_id, write, mode, self.queue_limit,
+                             threaded)
+            self._sinks[sink_id] = sink
+        return sink_id
+
+    def unregister(self, sink_id: str) -> None:
+        with self._lock:
+            sink = self._sinks.pop(sink_id, None)
+            for ids in self._attached.values():
+                ids.discard(sink_id)
+        if sink is not None:
+            sink.close()
+
+    def attach(self, sink_id: str, subscription_id: str) -> int:
+        """Mirror `subscription_id`'s frames onto `sink_id`. Returns
+        the subscription's sink count (owner excluded)."""
+        with self._lock:
+            if sink_id not in self._sinks:
+                raise KeyError(f"unknown sink {sink_id!r}")
+            ids = self._attached.setdefault(subscription_id, set())
+            ids.add(sink_id)
+            return len(ids)
+
+    def detach(self, sink_id: str, subscription_id: str) -> None:
+        with self._lock:
+            ids = self._attached.get(subscription_id)
+            if ids is not None:
+                ids.discard(sink_id)
+
+    # -- publishing --------------------------------------------------------
+
+    def route(self, frame: dict, owner: Optional[str] = None) -> int:
+        """Fan one frame to its owner sink + every sink attached to its
+        subscription. Returns deliveries offered."""
+        targets = set()
+        if owner is not None:
+            targets.add(owner)
+        sub = frame.get("subscription")
+        if sub is not None:
+            with self._lock:
+                targets |= self._attached.get(sub, set())
+        return self.publish(frame, sorted(targets))
+
+    def publish(self, frame: dict, sink_ids) -> int:
+        """Encode once per wire mode present among `sink_ids`, offer
+        the shared buffer to each sink. A synchronous (owner) sink's
+        write error propagates so the flusher can requeue; threaded
+        sinks fail independently and are reaped."""
+        with self._lock:
+            sinks = [self._sinks[s] for s in sink_ids
+                     if s in self._sinks]
+        # reap sinks whose writer thread died (peer vanished) so the
+        # table does not accumulate corpses across publishes
+        for s in [s for s in sinks if s.dead]:
+            self.unregister(s.sink_id)
+        sinks = [s for s in sinks if not s.dead]
+        if not sinks:
+            return 0
+        bufs: Dict[str, bytes] = {}
+        # encode-before-fan: every mode's buffer exists before any sink
+        # write, so a raising owner write cannot skew the encode count
+        for sink in sinks:
+            if sink.mode not in bufs:
+                bufs[sink.mode] = encode_push(frame, sink.mode)
+        with self._lock:
+            self.frames += 1
+            self.encodes += len(bufs)
+        try:
+            from geomesa_tpu_torch.utils.metrics import metrics
+
+            metrics.counter("wire.push.encodes", len(bufs))
+        except Exception:
+            pass  # metrics are best-effort: never drop a push frame
+        n = 0
+        # threaded mirrors first: the owner's synchronous write may
+        # raise (that is its flush-requeue contract) and must not
+        # starve the mirrors of a frame that was already encoded
+        for sink in sorted(sinks, key=lambda s: not s.threaded):
+            sink.offer(bufs[sink.mode])
+            n += 1
+        with self._lock:
+            self.fanout += n
+        return n
+
+    # -- introspection / lifecycle -----------------------------------------
+
+    def stats(self) -> dict:
+        with self._lock:
+            sinks = list(self._sinks.values())
+            attached = {k: len(v) for k, v in self._attached.items() if v}
+            frames, encodes, fanout = self.frames, self.encodes, self.fanout
+        snaps = [s.snapshot() for s in sinks]
+        return {
+            "sinks": len(sinks),
+            "attached": attached,
+            "frames": frames,
+            "encodes": encodes,
+            "fanout": fanout,
+            "sent": sum(sent for sent, _, _ in snaps),
+            "dropped": sum(d for _, d, _ in snaps),
+            "dead": sum(1 for _, _, dead in snaps if dead),
+        }
+
+    def close(self) -> None:
+        with self._lock:
+            sinks = list(self._sinks.values())
+            self._sinks.clear()
+            self._attached.clear()
+        for s in sinks:
+            s.close()
 
 
 # -- in-memory wire helpers (tests, smokes, benches) -----------------------

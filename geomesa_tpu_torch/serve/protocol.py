@@ -39,10 +39,33 @@ query points (`x`/`y` sections) and `op=ingest` Arrow IPC frames inbound
 announces `nbytes` of raw payload after it. A connection without a binary
 sink (`write_bytes`) is answered in JSON with a typed `"wireFallback"`.
 
+Standing queries (`geomesa_tpu_torch.subscribe`) ride the same stream
+against a live (Kafka) store:
+
+    {"id": "s1", "op": "subscribe", "typeName": "vessels",
+     "cql": "DWITHIN(geom, POINT(0 0), 50000, meters)", "ttlS": 600}
+    {"id": "s2", "op": "subscribe", "typeName": "vessels",
+     "density": {"bbox": [-180,-90,180,90], "width": 256, "height": 128}}
+    {"id": "p1", "op": "poll"}
+    {"id": "u1", "op": "unsubscribe", "subscription": "sub-1"}
+
+The subscribe response carries the subscription id; from then on the
+server interleaves PUSH FRAMES — JSON objects with an "event" field
+instead of an "id" — into the response stream as Kafka batches fold in:
+`enter`/`exit` (geofence transitions, fid lists), `density` and
+`approx_density` (window totals), `state` (full re-sync), and the typed
+`subscription_lagged` / `expired` / `quarantined` lifecycle frames.
+`poll` folds pending Kafka messages and flushes outboxes (the
+`subscribe_poll_ms` pump does it on a cadence otherwise); `pause`,
+`resume`, `export_subscription` (the handoff snapshot) and
+`subscriptions` (introspection) complete the verbs. `attach`/`detach`
+mirror another connection's subscription onto this one, in JSON or
+columnar framing: each push frame is encoded once per wire mode
+(`columnar.PushMux`).
+
 What a later slice brings answers typed instead of running another
 route: {"ok": false, "error": "error", "reason": "not_ported",
-"roadmap": item, "message"}. That covers the subscribe verbs and
-`attach`/`detach` (ROADMAP A6).
+"roadmap": item, "message"}.
 
 Errors are per-request, never fatal to the stream: a malformed line
 yields an ok=false response and the loop continues — one bad client
@@ -259,16 +282,249 @@ def _error_response(rid, exc) -> dict:
     return {"id": rid, "ok": False, "error": "error", "message": str(exc)}
 
 
-class _WireState:
-    """Per-connection columnar-wire state: the negotiated session mode
-    and the byte writer, shared with the line writer under one lock
-    (frames and lines interleave on one stream and must never tear)."""
+def _parse_density(doc: dict):
+    """The density window of a subscribe request, or None."""
+    d = doc.get("density")
+    if d is None:
+        return None
+    from geomesa_tpu_torch.subscribe import DensityWindow
 
-    def __init__(self, write, write_bytes, out_lock):
+    return DensityWindow(
+        bbox=tuple(float(v) for v in d["bbox"]),
+        width=int(d["width"]), height=int(d["height"]),
+        weight_attr=d.get("weight"), decay=d.get("decay"),
+        tolerance=(float(d["tolerance"])
+                   if d.get("tolerance") is not None else None))
+
+
+class _SubscribeSession:
+    """Per-connection standing-query state: lazily creates the
+    SubscriptionManager on the first subscribe verb (sharing the
+    QueryService's tenant buckets and quarantine tuning), runs the
+    auto-poll pump when configured, and flushes outboxes into the
+    response stream.
+
+    `push` is the PUSH-FRAME sink (events without an `id`): it routes
+    through the service's PushMux so each frame is encoded once and
+    fanned to this connection plus any attached mirrors — even the
+    single-subscriber JSON path takes the one-encode buffer
+    (docs/SERVING.md "Columnar wire"). `respond` stays the direct
+    request/response writer."""
+
+    def __init__(self, store, svc: QueryService, respond, push=None):
+        self.store = store
+        self.svc = svc
+        self.respond = respond
+        self.push = push if push is not None else respond
+        self.manager = None
+        self._stop = threading.Event()
+        self._pump = None
+
+    def _ensure(self):
+        if self.manager is not None:
+            return self.manager
+        if not hasattr(self.store, "poll"):
+            raise ValueError(
+                "standing queries need a live (Kafka) store; this "
+                "catalog is durable-only")
+        from geomesa_tpu_torch.subscribe import (
+            SubscribeConfig, SubscriptionManager)
+
+        cfg = self.svc.config
+        self.manager = SubscriptionManager(
+            self.store,
+            SubscribeConfig(
+                max_subscriptions=cfg.subscribe_max,
+                outbox_limit=cfg.subscribe_outbox,
+                rate=cfg.subscribe_rate,
+                quarantine_after=cfg.quarantine_after,
+                quarantine_ttl_s=cfg.quarantine_ttl_s,
+            ),
+            limiter=self.svc.limiter)
+        if self.svc.subscriptions is None:
+            # stats surface: first manager wins; close() clears it —
+            # a later connection must not shadow a live one, and a
+            # closed one must not keep reporting a dead registry
+            self.svc.subscriptions = self.manager
+        if cfg.subscribe_poll_ms:
+            self._pump = threading.Thread(
+                target=self._pump_loop, name="gmtpu-subscribe-pump",
+                daemon=True)
+            self._pump.start()
+        return self.manager
+
+    def _pump_loop(self):
+        interval = self.svc.config.subscribe_poll_ms / 1000.0
+        while not self._stop.wait(interval):
+            self.pump_once()
+
+    def pump_once(self) -> int:
+        """One poll + flush cycle. Typed broker errors surface as a
+        `poll_error` frame — the stream stays alive, the client knows
+        events are delayed, and the next cycle retries. The flush is
+        guarded too: one raising write must not silently kill the pump
+        thread and strand a live connection event-less."""
+        if self.manager is None:
+            return 0
+        try:
+            self.manager.poll_now()
+        except Exception as e:  # noqa: BLE001 — typed surface, stream lives
+            try:
+                self.push({"event": "poll_error",
+                           "error": type(e).__name__,
+                           "message": str(e)})
+            except Exception:
+                return 0  # sink broken: frames stay queued, retry next tick
+        try:
+            return self.manager.flush(self.push)
+        except Exception:  # noqa: BLE001 — pump thread must survive
+            # a raising sink loses the frame in flight (the connection
+            # is broken anyway); undrained frames stay in their bounded
+            # outboxes and the next cycle retries instead of the pump
+            # thread dying silently
+            return 0
+
+    def handle(self, rid, doc: dict) -> None:
+        op = doc["op"]
+        if self.manager is None and op != "subscribe":
+            # only `subscribe` instantiates the manager (and its
+            # auto-poll pump): a bare poll / introspection verb on a
+            # subscription-less connection answers cheaply, and works
+            # against durable-only catalogs too
+            if op == "poll":
+                self.respond({"id": rid, "ok": True, "applied": {},
+                              "frames": 0})
+            elif op == "subscriptions":
+                self.respond({"id": rid, "ok": True, "subscriptions": 0})
+            else:  # unsubscribe with nothing registered
+                self.respond({"id": rid, "ok": False, "error": "error",
+                              "message": "no such subscription"})
+            return
+        mgr = self._ensure()
+        if op == "subscribe":
+            # the manager runs `ack` under its flush lock, so the
+            # response (which tells the client the subscription id) is
+            # on the wire before any push frame referencing that id
+            mgr.subscribe(
+                doc["typeName"],
+                cql=doc.get("cql", "INCLUDE"),
+                density=_parse_density(doc),
+                tenant=doc.get("tenant", ""),
+                ttl_s=doc.get("ttlS"),
+                rate=doc.get("rate"),
+                outbox_limit=doc.get("outboxLimit"),
+                initial_state=bool(doc.get("initialState", True)),
+                handoff=doc.get("handoff"),
+                paused=bool(doc.get("paused", False)),
+                ack=lambda s: self.respond(
+                    {"id": rid, "ok": True,
+                     "subscription": s.sub_id, "mode": s.mode,
+                     "status": s.status}))
+            mgr.flush(self.push)  # deliver the initial state frame
+        elif op == "unsubscribe":
+            try:
+                sub = mgr.unsubscribe(doc["subscription"])
+            except KeyError:
+                # same typed answer as the manager-less branch — an
+                # unknown (or concurrently TTL-expired) id must not
+                # leak a bare KeyError message
+                self.respond({"id": rid, "ok": False, "error": "error",
+                              "message": "no such subscription"})
+                return
+            mgr.flush(self.push)  # parting frames
+            self.respond({"id": rid, "ok": True,
+                          "subscription": sub.sub_id,
+                          "status": sub.status})
+        elif op in ("pause", "resume"):
+            # lifecycle verbs for the fleet's re-home path (a paused
+            # subscription must land paused on the survivor) and for
+            # clients throttling their own streams
+            try:
+                sub = (mgr.pause if op == "pause"
+                       else mgr.resume)(doc["subscription"])
+            except KeyError:
+                self.respond({"id": rid, "ok": False, "error": "error",
+                              "message": "no such subscription"})
+                return
+            except ValueError as e:  # resume from non-paused, etc.
+                self.respond({"id": rid, "ok": False, "error": "error",
+                              "message": str(e)})
+                return
+            if op == "resume":
+                mgr.flush(self.push)  # the resume's state resync frame
+            self.respond({"id": rid, "ok": True,
+                          "subscription": sub.sub_id,
+                          "status": sub.status})
+        elif op == "poll":
+            applied = mgr.poll_now()
+            frames = mgr.flush(self.push)
+            self.respond({"id": rid, "ok": True, "applied": applied,
+                          "frames": frames})
+        elif op == "export_subscription":
+            # failover handoff (docs/ROBUSTNESS.md): serialize one
+            # predicate subscription's matched-set snapshot so the
+            # client can re-subscribe against another replica with
+            # `handoff` and continue its sequence numbers there
+            sub = mgr.registry.maybe(doc.get("subscription"))
+            if sub is None:
+                self.respond({"id": rid, "ok": False, "error": "error",
+                              "message": "no such subscription"})
+                return
+            try:
+                snap = sub.handoff_snapshot()
+            except ValueError as e:
+                self.respond({"id": rid, "ok": False, "error": "error",
+                              "message": str(e)})
+                return
+            self.respond({"id": rid, "ok": True,
+                          "subscription": sub.sub_id, "handoff": snap})
+        else:  # subscriptions: introspection
+            self.respond({"id": rid, "ok": True, **mgr.stats()})
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._pump is not None:
+            self._pump.join(timeout=5.0)
+        if self.manager is not None:
+            # final flush so cancelled/expired frames are not lost
+            try:
+                self.manager.flush(self.push)
+            except Exception:
+                # the stream is closing: a broken sink must not mask the
+                # manager close that releases subscriptions
+                pass
+            self.manager.close()
+            if self.svc.subscriptions is self.manager:
+                self.svc.subscriptions = None
+
+
+class _WireState:
+    """Per-connection columnar-wire state (docs/SERVING.md "Columnar
+    wire"): the negotiated session mode, the byte writer shared with
+    the line writer under one lock (frames and lines interleave on one
+    stream — the framing must never tear), and this connection's
+    PushMux sinks. The OWNER sink (its own subscriptions' frames) is
+    synchronous so the manager's flush-requeue contract holds; the
+    MIRROR sink (frames attached from other connections) is threaded —
+    a slow mirror backs up only its own bounded queue."""
+
+    def __init__(self, svc: QueryService, write, write_bytes, out_lock):
+        self.svc = svc
         self.write = write
         self.write_bytes = write_bytes
         self.out_lock = out_lock
         self.mode = colwire.WIRE_JSON
+        self.mux = None
+        # sink registration is reached from TWO threads (the reader
+        # thread's poll/subscribe flush and the --live-poll-ms pump):
+        # lazy init needs its own guard or a race registers an orphan
+        # sink that leaks in the service-wide mux
+        self._sink_lock = threading.Lock()
+        self.owner_sink: Optional[str] = None
+        # one mirror sink per wire MODE: a second attach asking for a
+        # different encoding gets its own sink, so the response's
+        # wireMode always states the encoding actually delivered
+        self.mirror_sinks: dict = {}
 
     def can_columnar(self) -> bool:
         return self.write_bytes is not None and colwire.have_pyarrow()
@@ -278,17 +534,66 @@ class _WireState:
                 else "no_binary_sink")
 
     def request_mode(self, doc: dict) -> str:
-        """The wire mode one request resolved to (a per-request opt-in
+        """The wire mode one request resolved to (per-request opt-in
         overrides the session default)."""
         return str(doc.get("wire", self.mode))
 
     def write_buf(self, buf: bytes) -> None:
-        """One encoded frame onto the stream, under the response lock."""
+        """One encoded frame/line onto the stream, under the same lock
+        as respond() — columnar JSON fallback sinks decode to the
+        identical text line the legacy path wrote."""
         with self.out_lock:
             if self.write_bytes is not None:
                 self.write_bytes(buf)
             else:
                 self.write(buf.decode("utf-8"))
+
+    def _mux(self):
+        if self.mux is None:
+            self.mux = self.svc.wire_mux()
+        return self.mux
+
+    def push(self, frame: dict) -> None:
+        """Push-frame sink: route through the mux so the frame is
+        encoded ONCE and fanned to this connection + attached mirrors
+        (the one-encode path holds even for a lone JSON subscriber)."""
+        mux = self._mux()
+        with self._sink_lock:
+            if self.owner_sink is None:
+                mode = (self.mode if self.can_columnar()
+                        else colwire.WIRE_JSON)
+                self.owner_sink = mux.register(
+                    self.write_buf, mode=mode, threaded=False)
+            owner = self.owner_sink
+        mux.route(frame, owner=owner)
+
+    def ensure_mirror(self, mode: str) -> str:
+        mux = self._mux()
+        with self._sink_lock:
+            sink = self.mirror_sinks.get(mode)
+            if sink is None:
+                sink = mux.register(
+                    self.write_buf, mode=mode, threaded=True)
+                self.mirror_sinks[mode] = sink
+            return sink
+
+    def mirror_detach(self, subscription_id: str) -> None:
+        """Detach every mode's mirror sink from one subscription."""
+        if self.mux is None:
+            return
+        with self._sink_lock:
+            sinks = list(self.mirror_sinks.values())
+        for sink in sinks:
+            self.mux.detach(sink, subscription_id)
+
+    def close(self) -> None:
+        if self.mux is None:
+            return
+        with self._sink_lock:
+            sinks = [self.owner_sink] + list(self.mirror_sinks.values())
+        for sink in sinks:
+            if sink is not None:
+                self.mux.unregister(sink)
 
 
 def _handle_ingest(store, rid, doc: dict, payload: Optional[bytes],
@@ -311,6 +616,36 @@ def _handle_ingest(store, rid, doc: dict, payload: Optional[bytes],
     metrics.counter("wire.ingest.rows", rows)
     metrics.counter("wire.ingest.bytes", len(payload))
     respond({"id": rid, "ok": True, "rows": rows, "batches": batches})
+
+
+def _handle_attach(svc: QueryService, wire: _WireState, rid, op: str,
+                   doc: dict, respond) -> None:
+    """`attach`/`detach`: mirror one subscription's push frames onto
+    THIS connection (the cross-connection fan-out — the subscription
+    itself lives on its owner connection's manager). One evaluation +
+    one encode serve every mirror (PushMux)."""
+    sub_id = doc.get("subscription")
+    mgr = svc.subscriptions
+    sub = mgr.registry.maybe(sub_id) if (mgr is not None
+                                         and sub_id) else None
+    if op == "detach":
+        if sub_id:
+            wire.mirror_detach(sub_id)
+        respond({"id": rid, "ok": True, "subscription": sub_id})
+        return
+    if sub is None:
+        respond({"id": rid, "ok": False, "error": "error",
+                 "message": "no such subscription"})
+        return
+    mode = wire.request_mode(doc)
+    out = {"id": rid, "ok": True, "subscription": sub_id}
+    if mode == colwire.WIRE_COLUMNAR and not wire.can_columnar():
+        mode = colwire.WIRE_JSON
+        out["wireFallback"] = wire.fallback_reason()
+    sink = wire.ensure_mirror(mode)
+    out["sinks"] = svc.wire_mux().attach(sink, sub_id)
+    out["wireMode"] = mode
+    respond(out)
 
 
 def serve_lines(
@@ -354,7 +689,8 @@ def serve_connection(store, svc: QueryService, lines: Iterable[str], write,
         with out_lock:
             write(json.dumps(doc) + "\n")
 
-    wire = _WireState(write, write_bytes, out_lock)
+    wire = _WireState(svc, write, write_bytes, out_lock)
+    subs = _SubscribeSession(store, svc, respond, push=wire.push)
 
     def on_done(rid, req):
         def cb(fut):
@@ -405,70 +741,86 @@ def serve_connection(store, svc: QueryService, lines: Iterable[str], write,
 
         return cb
 
-    for line in lines:
-        line = line.strip()
-        if not line:
-            continue
-        processed += 1
-        rid = None
-        try:
-            doc = json.loads(line)
-            rid = doc.get("id", processed)
-            op = doc.get("op")
-            payload = None
-            fr = doc.get("frame")
-            if fr and fr.get("nbytes"):
-                # inbound binary frame: its payload follows this header
-                # line and is consumed before the next line is read
-                if read_bytes is None:
-                    raise ValueError(
-                        "binary frames need a socket transport; this "
-                        "stream is text-only")
-                payload = read_bytes(int(fr["nbytes"]))
-            if op == "hello":
-                role = str(doc.get("role", "client"))
-                if role in ADMIN_ROLES:
-                    is_admin = True
-                out = {"id": rid, "ok": True, "role": role,
-                       "admin": is_admin,
-                       "wire": colwire.wire_capabilities()}
-                if doc.get("wire") == colwire.WIRE_COLUMNAR:
-                    if wire.can_columnar():
-                        wire.mode = colwire.WIRE_COLUMNAR
-                        out["wireMode"] = colwire.WIRE_COLUMNAR
-                    else:
-                        out["wireMode"] = colwire.WIRE_JSON
-                        out["wireFallback"] = wire.fallback_reason()
-                respond(out)
+    try:
+        for line in lines:
+            line = line.strip()
+            if not line:
                 continue
-            if op == "drain":
-                if not is_admin:
-                    respond({"id": rid, "ok": False, "error": "rejected",
-                             "reason": "admin_required",
-                             "message": "drain needs an admin connection "
-                                        "(hello with role router/admin)"})
+            processed += 1
+            rid = None
+            try:
+                doc = json.loads(line)
+                rid = doc.get("id", processed)
+                op = doc.get("op")
+                payload = None
+                fr = doc.get("frame")
+                if fr and fr.get("nbytes"):
+                    # inbound binary frame: its payload follows this header
+                    # line and is consumed before the next line is read
+                    if read_bytes is None:
+                        raise ValueError(
+                            "binary frames need a socket transport; this "
+                            "stream is text-only")
+                    payload = read_bytes(int(fr["nbytes"]))
+                if op == "hello":
+                    role = str(doc.get("role", "client"))
+                    if role in ADMIN_ROLES:
+                        is_admin = True
+                    out = {"id": rid, "ok": True, "role": role,
+                           "admin": is_admin,
+                           # capability flag: this server understands
+                           # subscribe(handoff=) re-homing
+                           "rehome": True,
+                           "wire": colwire.wire_capabilities()}
+                    if doc.get("wire") == colwire.WIRE_COLUMNAR:
+                        if wire.can_columnar():
+                            wire.mode = colwire.WIRE_COLUMNAR
+                            out["wireMode"] = colwire.WIRE_COLUMNAR
+                        else:
+                            out["wireMode"] = colwire.WIRE_JSON
+                            out["wireFallback"] = wire.fallback_reason()
+                    respond(out)
                     continue
-                svc.close(drain=True)
-                respond({"id": rid, "ok": True, "state": "drained"})
-                continue
-            if op == "ingest":
-                _handle_ingest(store, rid, doc, payload, respond)
-                continue
-            if op in SUBSCRIBE_OPS or op in ("attach", "detach"):
-                raise NotPortedError(f"op={op} (standing queries)",
-                                     "ROADMAP A6")
-            if op == "stats":
-                respond({"id": rid, "ok": True, "stats": svc.stats()})
-                continue
-            req = parse_request(doc, payload)
-            if wire.request_mode(doc) == colwire.WIRE_COLUMNAR:
-                if wire.can_columnar():
-                    req.wire = colwire.WIRE_COLUMNAR
-                else:
-                    # typed downgrade: the JSON answer says why
-                    req.wire_fallback = wire.fallback_reason()
-            fut = svc.submit(req)
-            fut.add_done_callback(on_done(rid, req))
-        except Exception as e:  # noqa: BLE001 — per-request isolation
-            respond(_error_response(rid if rid is not None else processed, e))
+                if op == "drain":
+                    if not is_admin:
+                        respond({"id": rid, "ok": False, "error": "rejected",
+                                 "reason": "admin_required",
+                                 "message": "drain needs an admin connection "
+                                            "(hello with role router/admin)"})
+                        continue
+                    svc.close(drain=True)
+                    respond({"id": rid, "ok": True, "state": "drained"})
+                    continue
+                if op == "ingest":
+                    _handle_ingest(store, rid, doc, payload, respond)
+                    continue
+                if op in ("attach", "detach"):
+                    _handle_attach(svc, wire, rid, op, doc, respond)
+                    continue
+                if op in SUBSCRIBE_OPS:
+                    subs.handle(rid, doc)
+                    continue
+                if op == "stats":
+                    stats = svc.stats()
+                    if subs.manager is not None:
+                        # handoff checkpoints of THIS connection's standing
+                        # queries (no new RPC); an unchanged subscription
+                        # ships nothing
+                        stats["subs_checkpoint"] = subs.manager.checkpoints()
+                    respond({"id": rid, "ok": True, "stats": stats})
+                    continue
+                req = parse_request(doc, payload)
+                if wire.request_mode(doc) == colwire.WIRE_COLUMNAR:
+                    if wire.can_columnar():
+                        req.wire = colwire.WIRE_COLUMNAR
+                    else:
+                        # typed downgrade: the JSON answer says why
+                        req.wire_fallback = wire.fallback_reason()
+                fut = svc.submit(req)
+                fut.add_done_callback(on_done(rid, req))
+            except Exception as e:  # noqa: BLE001 — per-request isolation
+                respond(_error_response(rid if rid is not None else processed, e))
+    finally:
+        subs.close()
+        wire.close()
     return processed

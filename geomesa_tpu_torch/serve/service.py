@@ -136,7 +136,9 @@ class ServeConfig:
     ring_depth: int = 4
     # sharded serving: None/"off" = one card (A7 brings a mesh)
     mesh: object = None
-    # standing queries: bounds of the subscribe wire verbs (A6)
+    # standing queries: bounds of the subscribe wire verbs (the table
+    # size, each outbox and each attached sink's queue, a subscription's
+    # push rate) and the auto-poll pump's period while subscriptions exist
     subscribe_max: int = 256
     subscribe_outbox: int = 1024
     subscribe_rate: Optional[float] = None
@@ -157,10 +159,6 @@ class ServeConfig:
 _LATER_FIELDS = {
     "slo": "ROADMAP A8",
     "profile": "ROADMAP A8",
-    "subscribe_max": "ROADMAP A6",
-    "subscribe_outbox": "ROADMAP A6",
-    "subscribe_rate": "ROADMAP A6",
-    "subscribe_poll_ms": "ROADMAP A6",
 }
 
 
@@ -224,6 +222,14 @@ class QueryService:
         self._state_lock = threading.Lock()
         self._counters: Dict[str, int] = {}
         self._worker: Optional[threading.Thread] = None
+        # standing-query manager (geomesa_tpu_torch.subscribe): attached
+        # by the wire layer when the first subscribe verb arrives, so
+        # stats() surfaces subscription state
+        self.subscriptions = None
+        # the columnar wire's push fan-out: ONE PushMux per service,
+        # shared by every connection so a subscription's frames can
+        # mirror onto attached connections; built by wire_mux()
+        self._push_mux = None
         # pipelined dispatch path (serve/pipeline.py): the default for
         # kNN windows; its completer thread starts on the first window
         self.pipeline = None
@@ -287,6 +293,10 @@ class QueryService:
             # windows already launched still sync (no torn responses);
             # runs after the dispatch thread stopped submitting
             self.pipeline.close()
+        with self._state_lock:
+            mux = self._push_mux
+        if mux is not None:
+            mux.close()  # joins the per-sink writer threads
         self._release_tracker()
 
     # -- warmup / compile management ---------------------------------------
@@ -1034,7 +1044,27 @@ class QueryService:
             out["pipeline"] = self.pipeline.stats()
         if self.tracker is not None:
             out["recompiles"] = self.tracker.total_recompiles()
+        subs = self.subscriptions  # racing close() may null the attr
+        if subs is not None:
+            out["subscriptions"] = subs.stats()
+        with self._state_lock:
+            mux = self._push_mux
+        if mux is not None:
+            out["wire"] = mux.stats()
         return out
+
+    def wire_mux(self):
+        """The service-wide push fan-out (serve/columnar.py PushMux):
+        one per service, built on the first push or attach — frames
+        encode once and fan to every connection sink attached to their
+        subscription."""
+        with self._state_lock:
+            if self._push_mux is None:
+                from geomesa_tpu_torch.serve.columnar import PushMux
+
+                self._push_mux = PushMux(
+                    queue_limit=self.config.subscribe_outbox)
+            return self._push_mux
 
     def export_gauges(self) -> None:
         """Push point-in-time gauges (queue depth, degrade level,

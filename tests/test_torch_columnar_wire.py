@@ -86,12 +86,7 @@ def drive(pkg, store, requests, payloads=None, binary=True, timeout_s=60.0):
 
 
 def both(stores, requests, **kw):
-    got = {pkg: drive(pkg, stores[pkg], requests, **kw) for pkg in PKG}
-    for doc, _ in got["ref"].values():
-        # the reference's hello also advertises subscription re-homing,
-        # a standing-query capability the port does not claim (A6)
-        doc.pop("rehome", None)
-    return got
+    return {pkg: drive(pkg, stores[pkg], requests, **kw) for pkg in PKG}
 
 
 # -- negotiation ----------------------------------------------------------------

@@ -340,6 +340,21 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         assert lam.persist("t", now=time.time() + 1.0) == 100
         lam.write("t", kb.select(np.arange(50, 150)))
         assert lam.get_count(Query("t", "INCLUDE")) == 150
+        import torch
+        from geomesa_tpu_torch.engine import lanes
+        from geomesa_tpu_torch.subscribe import SubscriptionManager
+        kds = KafkaDataStore(device="cpu")
+        live = kds.create_schema(kb.sft)
+        mgr = SubscriptionManager(kds)
+        sub = mgr.subscribe("t", "BBOX(geom, -180, -90, 180, 90)")
+        live.write(kb.select(np.arange(8)))
+        kds.poll("t")
+        assert len(sub.matched) == 8
+        mgr.close()
+        m, _ = lanes.lane_bbox(torch.zeros((1, 8)), torch.ones(1, dtype=torch.bool),
+                               torch.zeros(4), torch.zeros(4),
+                               torch.ones(4, dtype=torch.bool))
+        assert m.all()
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]
