@@ -56,9 +56,10 @@ and prints no result. Phases, each fatal on failure:
    two launches: identical int32 outputs), then, with launch counts
    reset before and read after,
    the host prep and a first query end to end, the warm p50 of 3 of
-   pip_layer_grouped (the device pass) and pip_layer_sparse and one warm
-   call of the host-bound pip_layer, pip_layer_assign and
-   pip_layer_join (8.6-13.2 s each), torch.profiler breakdowns of
+   pip_layer_grouped (the device pass) and pip_layer_sparse and one call,
+   after the first query and with no warm-up of its own, of the
+   host-bound pip_layer, pip_layer_assign and pip_layer_join (5-13 s
+   each), torch.profiler breakdowns of
    warm pip_layer and pip_layer_sparse calls, and the gates: zero mismatches against an
    independent all-edges f64 oracle over 256 sampled covered tiles plus
    every adversarial point, assignment ids equal to its per-polygon
@@ -360,6 +361,33 @@ and prints no result. Phases, each fatal on failure:
    polygons; raw rows outside the band, refined rows exactly) and each
    lane class timed against its bound ({"device_ops"} line). Numbers in
    a {"subscribe"} line.
+19. A7 (a), the device mesh on the served kNN path, with B1-B3's
+   launches reset before and read after each part (their rows gain
+   "19"), in at most 60 s together: the mesh is the first min(4, n)
+   cards when there are 2 or more, else four shards on cuda:0 (the
+   {"mesh"} line says which and whether copies between cards ran).
+   (a) Last in phase 4, on its store in the state phase 16 left it: the
+   single-card sparse kNN (Q=256, k=10), a call whose capacity forces
+   the B2 fallback, the count, unweighted and speed-weighted 512x512
+   densities and a 1-degree box's features; then ds.set_mesh (the
+   re-tier timed; its upload rows == the resident rows) and the same
+   calls over the mesh: neighbour sets identical and meters
+   bit-identical, B1 launched once a shard per sparse call and B2 once
+   a shard on the fallback, counts equal, unweighted grids equal and
+   weighted ones within the per-cell bound, features equal. (b) Last,
+   the engine at 2^22 points: knn_sparse_sharded (B1 once a shard),
+   knn_sharded, knn_ring and knn_compact_sharded (Q=64) against their
+   single-card counterparts, density_zsparse_sharded (B3 once a shard)
+   == density_zsparse on Morton-ordered NYC rows. (c) A 2^20-row store
+   of 8 day partitions on the mesh, a 9th day appended: the growth
+   uploads that day's rows plus the mesh padding, and count and kNN ==
+   a fresh full re-tier. (d) QueryService(ds, ServeConfig(mesh=mesh,
+   ring=False)) on the serial and pipelined routes: 64 requests each ==
+   the direct single-card answers, knn.mesh.dispatches > 0, a window
+   pruned to day 0 (shard 0 alone) through knn.mesh.local_dispatches,
+   ServeEvent mesh_shape "(4,)" and shards "0,1,2,3" (or "0"), then 8
+   clients closed for 3 s (qps, p50) and 1 s under torch.profiler (the
+   idle share). Numbers in a {"mesh"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -453,15 +481,17 @@ def morton_order(torch, x, y):
 
 
 def profile_calls(torch, name, fn, card_s: str, calls: int = 3,
-                  watch=()) -> None:
+                  watch=(), warm: bool = True) -> None:
     """Where one warm call's time goes: torch.profiler over `calls` calls,
     device busy time (sum of kernel self times) against the host wall,
     the top device operations, and any other kernel whose name holds one
     of the `watch` strings. The profiler's own overhead inflates the wall
-    it reports, so the latency lines above stay the metric."""
+    it reports, so the latency lines above stay the metric. `warm=False`
+    skips the warm-up call for a path the caller has already run."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -682,6 +712,8 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         # phase 16 last: its deletes change nothing an earlier phase times
         lifecycle_phase(torch, dev, ds, src, tmp, dict(
             x=x, y=y, t=t, speed=speed, qx=qx, qy=qy, cql=cql), card_s)
+        # phase 19 (a) after it, on the store in the state it left
+        mesh_store_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql), card_s)
         return launches, inputs, knn_ops, serve, serve_dev
 
 
@@ -1797,20 +1829,22 @@ def layer_path(torch, dev, n: int, card_s: str):
         "pip_layer_sparse": lambda: ps.pip_layer_sparse(
             *arrays, pl.pair_pt, pl.pair_et, **sk),
     }
-    # the host-bound calls (their f64 refine) are timed once: at 8.6-13.2 s
-    # a call, three each would cost the smoke ~67 s more
-    reps = {"pip_layer": 1, "pip_layer_assign": 1, "pip_layer_join": 1}
+    # the host-bound calls (their f64 refine, 5-13 s a call) are timed on
+    # one call with no warm-up of their own: the first query above ran the
+    # same prep, uploads and kernels, and each warm-up cost the smoke 5-15 s
+    host_bound = ("pip_layer", "pip_layer_assign", "pip_layer_join")
     lat = {}
     for name, fn in calls.items():
-        out[name] = fn()  # warm
+        if name not in host_bound:
+            out[name] = fn()  # warm
         times = []
-        for _ in range(reps.get(name, 3)):
+        for _ in range(1 if name in host_bound else 3):
             t0 = time.perf_counter()
             out[name] = fn()
             times.append(time.perf_counter() - t0)
         lat[name] = statistics.median(times)
     launches = {w.__name__: w.launches for w in kernels}
-    log(f"config-2 launches: {launches} over 1 first query and 2-4 calls of each "
+    log(f"config-2 launches: {launches} over 1 first query and 1-4 calls of each "
         f"of {len(calls)} call types")
     assert all(launches.values()), "a kernel of the config-2 path never launched"
     for name, t in lat.items():
@@ -1822,7 +1856,8 @@ def layer_path(torch, dev, n: int, card_s: str):
         f"refine_s {jinfo['refine_s']:.3f}; pip_layer_assign: flagged "
         f"{ainfo['flagged']}, refined {ainfo['refined']}, host_rows "
         f"{ainfo['host_rows']}")
-    profile_calls(torch, "pip_layer", calls["pip_layer"], card_s, calls=1)
+    profile_calls(torch, "pip_layer", calls["pip_layer"], card_s, calls=1,
+                  warm=False)
     profile_calls(torch, "pip_layer_sparse", calls["pip_layer_sparse"], card_s)
 
     # -- gates -------------------------------------------------------------
@@ -6597,6 +6632,386 @@ def subscribe_phase(torch, dev, card_s: str) -> None:
     assert total <= PHASE18_BUDGET_S, f"phase 18 took {total:.1f} s"
 
 
+# -- phase 19: A7 (a), the device mesh on the served kNN path -------------------
+
+MESH_LAUNCHES = {name: 0 for name in A4B_KERNELS}
+MESH_SHARDS = 4
+MESH_ENGINE_N = 1 << 22
+MESH_ENGINE_Q = 64  # queries of the plain-PyTorch folds (knn, ring, compact)
+MESH_GROW_ROWS = 1 << 20
+MESH_GROW_DAYS = 8
+MESH_GROW_T0 = 1_591_920_000_000  # 2020-06-12T00:00:00Z
+MESH_SERVED = 64  # single-point kNN requests a route
+MESH_LOAD_S = 3.0
+MESH_PROFILE_S = 1.0
+MESH_FEATURE_BOX = (20.0, 45.0, 21.0, 46.0)  # away from phase 16's deletes
+PHASE19_BUDGET_S = 60.0
+
+
+def mesh_record(part: str, res) -> None:
+    PHASES.setdefault("mesh", {})[part] = res
+
+
+def phase_mesh(torch):
+    """Phase 19's mesh: the first min(4, n) cards when there are 2 or
+    more, else four shards on cuda:0 (every per-shard launch and every
+    merge runs; no copy between cards)."""
+    from geomesa_tpu_torch.parallel.mesh import default_mesh
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        devs = [torch.device("cuda", i) for i in range(min(MESH_SHARDS, n))]
+    else:
+        devs = [torch.device("cuda", 0)] * MESH_SHARDS
+    mesh = default_mesh(devs)
+    info = {"devices": [str(d) for d in mesh.device_list],
+            "shape": str(tuple(mesh.devices.shape)),
+            "copies_between_cards": mesh.spans_devices,
+            # the store's columns and the filter mask stay whole on the
+            # lead card; only the x/y coordinates are placed per shard
+            "residency": "not sharded: columns and mask whole on the lead "
+                         "card, x/y per shard (ROADMAP A7 (b))"}
+    mesh_record("mesh", info)
+    return mesh
+
+
+def p50_s(fn, n: int = 5) -> float:
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
+    """Phase 19 (a), last in phase 4 on its store in the state phase 16
+    left it: the single-card answers, `ds.set_mesh`, the same calls over
+    the mesh tier, gated equal."""
+    from geomesa_tpu_torch import Query, QueryHints
+
+    t_phase = time.perf_counter()
+    mesh = phase_mesh(torch)
+    d = mesh.size
+    planner, cache = src.planner, src.planner.cache
+    cql, qx, qy = a["cql"], a["qx"], a["qy"]
+    box = (f"BBOX(geom, {MESH_FEATURE_BOX[0]}, {MESH_FEATURE_BOX[1]}, "
+           f"{MESH_FEATURE_BOX[2]}, {MESH_FEATURE_BOX[3]}) AND dtg > {iso(T0)}")
+    feats_q = Query("gdelt", box, attributes=["speed", "dtg", "geom"])
+
+    def dens(weight=None):
+        return src.get_features(Query("gdelt", cql, hints=QueryHints(
+            density_bbox=BBOX, density_width=GRID, density_height=GRID,
+            density_weight=weight))).grid
+
+    plan_cql = planner.plan(Query("gdelt", cql)).cql
+
+    def overflow_call(on_mesh):
+        key = (plan_cql, K) + ((("mesh", d),) if on_mesh else ())
+        assert key in planner._knn_caps, key
+        planner._knn_caps[key] = OVERFLOW_CAP
+        out = src.knn(cql, qx, qy, k=K)
+        assert key not in planner._knn_caps, "the forced overflow did not fall back"
+        return out
+
+    def answers():
+        out = {"sparse": src.knn(cql, qx, qy, k=K)}
+        out["overflow"] = overflow_call(cache.mesh is not None)
+        out["count"] = src.get_count(cql)
+        out["density"] = dens()
+        out["density_speed"] = dens("speed")
+        out["features"] = src.get_features(feats_q).features
+        return out
+
+    res = {}
+    with Launches(discard=True):  # the single-card oracle's launches
+        single = answers()
+        res["single_knn_p50_ms"] = p50_s(lambda: src.knn(cql, qx, qy, k=K)) * 1e3
+    resident = cache.stats()["padded_rows"]
+    up0 = cache.upload_rows
+    t0 = time.perf_counter()
+    ds.set_mesh(mesh)
+    sb = cache.superbatch()
+    torch.cuda.synchronize()
+    res["retier_s"] = time.perf_counter() - t0
+    res["upload_rows"] = cache.upload_rows - up0
+    res["resident_rows"] = len(sb.batch)
+    assert res["upload_rows"] == len(sb.batch) == -(-resident // d) * d, res
+    assert sb.mesh == mesh and sb.shard_rows * d == len(sb.batch)
+    with Launches(MESH_LAUNCHES) as ln_sparse:
+        got = {"sparse": src.knn(cql, qx, qy, k=K)}
+    with Launches(MESH_LAUNCHES) as ln_over:
+        got["overflow"] = overflow_call(True)
+    with Launches(MESH_LAUNCHES) as ln_rest:
+        got["count"] = src.get_count(cql)
+        got["density"] = dens()
+        got["density_speed"] = dens("speed")
+        got["features"] = src.get_features(feats_q).features
+        res["mesh_knn_p50_ms"] = p50_s(lambda: src.knn(cql, qx, qy, k=K)) * 1e3
+    assert ln_sparse.counts["chord_blockmin_sparse"] == d, ln_sparse.counts
+    assert ln_sparse.counts["chord_blockmin"] == 0, ln_sparse.counts
+    assert ln_over.counts["chord_blockmin"] == d, ln_over.counts
+    assert ln_over.counts["chord_blockmin_sparse"] == d, ln_over.counts
+    shards = sb.shards_for(planner.plan(Query("gdelt", cql)).partitions)
+    assert len(shards) > 1, shards  # the whole-mesh route, not affinity
+    for name in ("sparse", "overflow"):
+        (sd, si, _), (md, mi, _) = single[name], got[name]
+        assert same_neighbours(si, sd, mi, md), f"mesh {name} neighbours differ"
+        assert np.array_equal(sd, md), f"mesh {name} meters differ"
+    assert got["count"] == single["count"]
+    assert np.array_equal(got["density"], single["density"]), "density counts"
+    cnt = single["density"]
+    exp = single["density_speed"].astype(np.float64)
+    assert cell_bound(got["density_speed"], exp, cnt), "weighted density"
+    fa, fb = single["features"], got["features"]
+    assert rows_equal(fb, np.asarray(fa.columns["dtg"]),
+                      np.asarray(fa.columns["geom"].x),
+                      np.asarray(fa.columns["geom"].y),
+                      cols=[("speed", np.asarray(fa.columns["speed"]))])
+    res.update(count=got["count"], features=len(fa), shards=list(shards),
+               launches={"sparse": ln_sparse.counts, "overflow": ln_over.counts,
+                         "rest": ln_rest.counts},
+               seconds=time.perf_counter() - t_phase)
+    mesh_record("store", res)
+    log(f"mesh store ({d} shards on {', '.join(map(str, mesh.device_list))}): re-tier {res['retier_s']:.3f} s, "
+        f"{res['upload_rows']} rows uploaded == resident; sparse kNN (Q={Q}, k={K}) "
+        f"B1 x{ln_sparse.counts['chord_blockmin_sparse']}, the forced overflow B2 "
+        f"x{ln_over.counts['chord_blockmin']}: neighbours and meters == one card; "
+        f"warm p50 {res['mesh_knn_p50_ms']:.3f} ms on the mesh vs "
+        f"{res['single_knn_p50_ms']:.3f} ms on one card; count {got['count']}, "
+        f"512x512 densities and {len(fa)} features == one card "
+        f"({res['seconds']:.3f} s) [{card_s}]")
+
+
+def mesh_engine(torch, mesh, card_s: str) -> dict:
+    """Phase 19 (b): the engine's sharded functions at 2^22 points against
+    their single-card counterparts."""
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.engine import knn as kn
+    from geomesa_tpu_torch.engine import knn_scan as ks
+
+    dev = mesh.lead
+    n = MESH_ENGINE_N
+    rng = np.random.default_rng(191)
+    x = rng.uniform(-180, 180, n)
+    y = rng.uniform(-90, 90, n)
+    order = morton_order(torch, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    xt = torch.from_numpy(x[order].astype(np.float32)).to(dev)
+    yt = torch.from_numpy(y[order].astype(np.float32)).to(dev)
+    mt = ((xt >= BBOX[0]) & (xt <= BBOX[2]) & (yt >= BBOX[1]) & (yt <= BBOX[3])
+          & torch.from_numpy(rng.random(n) < 0.7).to(dev))
+    qx = torch.from_numpy(rng.uniform(-30, 30, Q).astype(np.float32)).to(dev)
+    qy = torch.from_numpy(rng.uniform(30, 60, Q).astype(np.float32)).to(dev)
+    res = {}
+
+    def check(name, got, want):
+        # every route ends in the same elementwise f32 haversine over the
+        # same coordinates, so equal neighbours carry equal bits
+        (gd, gi), (wd, wi) = [tuple(np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+                                    for t in pair) for pair in (got, want)]
+        assert same_neighbours(wi, wd, gi, gd), f"{name}: neighbours differ"
+        assert np.array_equal(gd, wd), f"{name}: meters differ"
+
+    with Launches(MESH_LAUNCHES) as ln:
+        cap = ks.capacity_bucket(int(ks.shard_match_tiles(mt, mesh.size)))
+        t0 = time.perf_counter()
+        md, mi, mov = ks.knn_sparse_sharded(mesh, qx, qy, xt, yt, mt, k=K,
+                                            tile_capacity=cap)
+        torch.cuda.synchronize()
+        res["knn_sparse_sharded_ms"] = (time.perf_counter() - t0) * 1e3
+    assert ln.counts["chord_blockmin_sparse"] == mesh.size and not bool(mov), ln.counts
+    with Launches(discard=True):
+        sd, si, _ = ks.knn_sparse_scan(qx, qy, xt, yt, mt, k=K,
+                                       tile_capacity=ks.capacity_bucket(
+                                           int(ks.count_match_tiles(mt))))
+    check("knn_sparse_sharded", (md, mi), (sd, si))
+    res["b1_launches"] = ln.counts["chord_blockmin_sparse"]
+    q = MESH_ENGINE_Q
+    qx2, qy2 = qx[:q], qy[:q]
+    base = kn.knn(qx2, qy2, xt, yt, mt, k=K)
+    t0 = time.perf_counter()
+    check("knn_sharded", kn.knn_sharded(mesh, qx2, qy2, xt, yt, mt, k=K), base)
+    rd, ri = kn.knn_ring(mesh, qx2, qy2, xt, yt, mt, k=K)
+    check("knn_ring", (rd.full(), ri.full()), base)
+    per = int(mt.reshape(mesh.size, -1).sum(1).max())
+    cd, ci, cov = kn.knn_compact_sharded(mesh, qx2, qy2, xt, yt, mt, k=K,
+                                         capacity=per)
+    assert not bool(cov)
+    wd, wi, _ = kn.knn_compact(qx2, qy2, xt, yt, mt, k=K,
+                               capacity=int(mt.sum()))
+    check("knn_compact_sharded", (cd, ci), (wd, wi))
+    torch.cuda.synchronize()
+    res["plain_folds_s"] = time.perf_counter() - t0
+    # phase 5's rows: the NYC envelope in Morton order, a 512x512 grid
+    dx = rng.uniform(ENV[0], ENV[2], n)
+    dy = rng.uniform(ENV[1], ENV[3], n)
+    o = morton_order(torch, torch.from_numpy(dx).to(dev), torch.from_numpy(dy).to(dev))
+    zx = torch.from_numpy(dx[o].astype(np.float32)).to(dev)
+    zy = torch.from_numpy(dy[o].astype(np.float32)).to(dev)
+    zm = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    with Launches(MESH_LAUNCHES) as lz:
+        t0 = time.perf_counter()
+        g = dz.density_zsparse_sharded(mesh, zx, zy, ones, zm, ENV, GRID, GRID)
+        torch.cuda.synchronize()
+        res["density_zsparse_sharded_ms"] = (time.perf_counter() - t0) * 1e3
+    assert lz.counts["zsparse_counts"] == mesh.size, lz.counts
+    with Launches(discard=True):
+        g1, _ = dz.density_zsparse(zx, zy, ones, zm, ENV, GRID, GRID)
+    assert torch.equal(g, g1) and g.sum().item() > 0, "sharded density counts differ"
+    res["b3_launches"] = lz.counts["zsparse_counts"]
+    log(f"mesh engine at {n} points: knn_sparse_sharded (B1 x{res['b1_launches']}) "
+        f"{res['knn_sparse_sharded_ms']:.3f} ms cold == knn_sparse_scan; knn_sharded, "
+        f"knn_ring, knn_compact_sharded (Q={q}) == one card in "
+        f"{res['plain_folds_s']:.3f} s; density_zsparse_sharded (B3 "
+        f"x{res['b3_launches']}) {res['density_zsparse_sharded_ms']:.3f} ms cold "
+        f"== density_zsparse [{card_s}]")
+    return res
+
+
+def mesh_grow_rows(rng, day: int, n: int) -> dict:
+    t = MESH_GROW_T0 + day * DAY_MS + rng.integers(0, DAY_MS, n)
+    return {"speed": rng.uniform(0, 30, n), "dtg": t,
+            "geom": np.stack([rng.uniform(-60, 60, n), rng.uniform(-50, 50, n)], 1)}
+
+
+def mesh_phase(torch, card_s: str) -> None:
+    """Phase 19 (b)-(d), last: the engine's sharded functions, the growth
+    of a mesh store, and sharded serving on both routes."""
+    from geomesa_tpu_torch import DataStore, FeatureBatch, Query, SimpleFeatureType
+    from geomesa_tpu_torch.plan.audit import ServeEvent
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig, run_closed_loop
+    from geomesa_tpu_torch.serve.scheduler import ServeRequest
+    from geomesa_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    lap = Laps()
+    mesh = phase_mesh(torch)
+    d = mesh.size
+    dev = mesh.lead
+    mesh_record("engine", mesh_engine(torch, mesh, card_s))
+    lap("engine")
+
+    def counter(name):
+        return json.loads(metrics.to_json())["counters"].get(name, 0.0)
+
+    rng = np.random.default_rng(193)
+    per_day = MESH_GROW_ROWS // MESH_GROW_DAYS
+    sft = SimpleFeatureType.from_spec("grow", "speed:Double,dtg:Date,*geom:Point")
+    cql = "BBOX(geom, -50, -40, 50, 40) AND speed > 5.0"
+    qx = rng.uniform(-40, 40, 16)
+    qy = rng.uniform(-30, 30, 16)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = DataStore(tmp, use_device_cache=True, device=dev, mesh=mesh)
+        src = ds.create_schema(sft)
+        parts = [mesh_grow_rows(rng, day, per_day) for day in range(MESH_GROW_DAYS + 1)]
+        src.write(FeatureBatch.from_pydict(sft, {
+            k: np.concatenate([p[k] for p in parts[:-1]]) for k in parts[0]}))
+        cache = src.planner.cache
+        with Launches(MESH_LAUNCHES):
+            src.get_count(cql)  # residency: the full upload
+        up0 = cache.upload_rows
+        src.write(FeatureBatch.from_pydict(sft, parts[-1]))
+        t0 = time.perf_counter()
+        with Launches(MESH_LAUNCHES):
+            grown = (src.get_count(cql), src.knn(cql, qx, qy, k=K))
+        res["growth_s"] = time.perf_counter() - t0
+        sb = cache.superbatch()
+        total = sum(e.padded for e in cache._entries.values())
+        pad = len(sb.batch) - total
+        res["growth_upload_rows"] = cache.upload_rows - up0
+        assert res["growth_upload_rows"] == per_day + pad, (res, per_day, pad)
+        with Launches(discard=True):
+            fresh = DataStore(tmp, use_device_cache=True, device=dev, mesh=mesh)
+            fsrc = fresh.get_feature_source("grow")
+            full = (fsrc.get_count(cql), fsrc.knn(cql, qx, qy, k=K))
+        assert grown[0] == full[0] and np.array_equal(grown[1][1], full[1][1])
+        assert np.array_equal(grown[1][0], full[1][0])
+        del fresh, fsrc
+        lap("growth")
+        log(f"mesh growth: a {per_day}-row day appended to {MESH_GROW_DAYS} days "
+            f"uploaded {res['growth_upload_rows']} rows ({per_day} + {pad} padding; "
+            f"{len(sb.batch)} resident); count and kNN == a fresh full re-tier "
+            f"[{card_s}]")
+
+        # -- serving: both routes, the affinity window, then load ---------
+        single = DataStore(tmp, use_device_cache=True, device=dev).get_feature_source("grow")
+        rq = np.random.default_rng(197).uniform(-40, 40, (MESH_SERVED, 2))
+        with Launches(discard=True):
+            direct = [single.knn(cql, rq[i:i + 1, 0], rq[i:i + 1, 1], k=K)
+                      for i in range(MESH_SERVED)]
+        day0 = (f"{cql} AND dtg DURING {iso(MESH_GROW_T0)}/"
+                f"{iso(MESH_GROW_T0 + DAY_MS - 1)}")
+        owners = sb.shards_for(["2020/06/12"])
+        assert owners == (0,), sb.owners
+        lap("direct answers")
+
+        def make(i):
+            r = ServeRequest(kind="knn", query=Query("grow", cql))
+            g = np.random.default_rng(1_000 + i)
+            r.qx, r.qy, r.k = g.uniform(-40, 40, 1), g.uniform(-30, 30, 1), K
+            return r
+
+        serve = {}
+        for route, pipeline in (("serial", False), ("pipelined", True)):
+            svc = QueryService(ds, ServeConfig(mesh=mesh, ring=False, pipeline=pipeline,
+                                               max_wait_ms=5.0), autostart=False)
+            try:
+                base = counter("knn.mesh.dispatches")
+                local = counter("knn.mesh.local_dispatches")
+                ev0 = len(ds.audit.events)
+                with Launches(MESH_LAUNCHES) as ln:
+                    futs = [svc.knn("grow", cql, rq[i:i + 1, 0], rq[i:i + 1, 1], k=K)
+                            for i in range(MESH_SERVED)]
+                    svc.start()
+                    outs = [f.result(timeout=60) for f in futs]
+                    aff = svc.knn("grow", day0, rq[:1, 0], rq[:1, 1], k=K).result(timeout=60)
+                for (dd, di, _), (ed, ei, _) in zip(outs, direct):
+                    assert np.array_equal(di, ei) and np.array_equal(dd, ed), route
+                with Launches(discard=True):
+                    ad, ai, _ = single.knn(day0, rq[:1, 0], rq[:1, 1], k=K)
+                assert np.array_equal(aff[1], ai) and np.array_equal(aff[0], ad)
+                disp = counter("knn.mesh.dispatches") - base
+                loc = counter("knn.mesh.local_dispatches") - local
+                assert disp > 0 and loc == 1, (disp, loc)
+                evs = [(e.mesh_shape, e.shards) for e in ds.audit.events[ev0:]
+                       if isinstance(e, ServeEvent)]
+                whole = (f"({d},)", ",".join(map(str, range(d))))
+                assert sorted(evs) == sorted([whole] * MESH_SERVED
+                                             + [(f"({d},)", "0")]), evs
+                lap(f"{route} gates")
+                rep = run_closed_loop(svc, make, concurrency=8, duration_s=MESH_LOAD_S)
+                assert rep.ok > 0 and rep.errors == 0, rep
+                lap(f"{route} load")
+                wall_ms, busy_ms = device_busy(torch, lambda: run_closed_loop(
+                    svc, make, concurrency=8, duration_s=MESH_PROFILE_S))
+                lap(f"{route} profile")
+            finally:
+                svc.close(drain=False, timeout_s=5.0)
+            serve[route] = {"dispatches": disp, "local_dispatches": loc,
+                            "launches": ln.counts, "served_qps": rep.throughput_qps,
+                            "p50_ms": rep.p50_ms, "p99_ms": rep.p99_ms,
+                            "idle_share": max(0.0, 1 - busy_ms / wall_ms)}
+            log(f"mesh serve {route}: {MESH_SERVED} requests == direct one-card answers "
+                f"in {disp:g} mesh windows, the day-0 window on shard 0 alone; "
+                f"ServeEvent mesh_shape ({d},), shards 0..{d - 1}; closed loop 8: "
+                f"{rep.throughput_qps:.1f} qps, p50 {rep.p50_ms:.3f} ms, p99 "
+                f"{rep.p99_ms:.3f} ms, idle share {serve[route]['idle_share']:.3f} "
+                f"[{card_s}]")
+        res["serve"] = serve
+    total = time.perf_counter() - t_phase
+    res["laps_s"] = dict(lap.seconds, total=total)
+    mesh_record("grow_serve", res)
+    store_s = PHASES["mesh"].get("store", {}).get("seconds", 0.0)
+    log("phase 19 laps: " + ", ".join(f"{k} {v:.3f} s" for k, v in lap.seconds.items())
+        + f"; {total:.3f} s here + {store_s:.3f} s in phase 4; launches "
+        f"{MESH_LAUNCHES} [{card_s}]")
+    assert total + store_s <= PHASE19_BUDGET_S, f"phase 19 took {total + store_s:.1f} s"
+
+
+
 def main() -> int:
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
@@ -6626,6 +7041,14 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
+    laps = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {', '.join(n + '.cu' for n in build.sources())} in "
@@ -6640,15 +7063,18 @@ def main() -> int:
     kernel_check(torch, ks, dev)
     density_kernel_check(torch, dev, wkt)
     layer_kernel_check(torch, dev)
+    lap("build, kernel checks")
     if args.rows != 1 << 26:
         log(f"kNN and density stores cut to {args.rows} rows by --rows")
     launches, inputs, knn_ops, serve, serve_dev = main_path(
         torch, ks, dev, args.rows, card_s)
     rows = kernel_rows(torch, ks, launches, inputs, card_s)
+    lap("phase 4 and the phases on its store")
     del inputs
     torch.cuda.empty_cache()
     launches, inputs = density_path(torch, dev, args.rows, card_s, wkt)
     rows += density_rows(torch, launches, inputs, card_s)
+    lap("phase 5 and the phases on its store")
     del inputs
     torch.cuda.empty_cache()
     n2 = min(args.rows, LAYER_POINTS)
@@ -6656,6 +7082,7 @@ def main() -> int:
         log(f"config-2 points cut to {n2} by --rows")
     launches, inputs, region_counts = layer_path(torch, dev, n2, card_s)
     rows += layer_rows(torch, launches, inputs, card_s)
+    lap("phase 6 and the phases on its layer")
     del inputs
     torch.cuda.empty_cache()
     ops = knn_ops + tube_engine(torch, dev, card_s)
@@ -6663,16 +7090,24 @@ def main() -> int:
     if n5 != TUBE_STORE_N:
         log(f"TubeSelect store cut to {n5} rows by --rows")
     ops.append(tube_process(torch, dev, n5, card_s))
+    lap("tube engine and process")
     torch.cuda.empty_cache()
     PHASES["config2 sql"], b7, sql_ops = config2_sql(torch, dev, n2, card_s,
                                                      region_counts)
     ops += sql_ops
+    lap("phase 11")
     torch.cuda.empty_cache()
     a4b_visibility(torch, dev, card_s)
+    lap("phase 15")
     torch.cuda.empty_cache()
     kv_live_phase(torch, dev, card_s)
+    lap("phase 17")
     torch.cuda.empty_cache()
     subscribe_phase(torch, dev, card_s)
+    lap("phase 18")
+    torch.cuda.empty_cache()
+    mesh_phase(torch, card_s)
+    lap("phase 19 (b-d)")
     for row in rows:
         if row["name"] == "pip_assign":  # phase 6's launches, then phase 11's
             row["launches_by_phase"] = {"6": row["launches"], "11": b7}
@@ -6721,16 +7156,26 @@ def main() -> int:
             row["launches_by_phase"]["18"] = SUB_LAUNCHES[row["name"]]
             row["launches"] += SUB_LAUNCHES[row["name"]]
     log(f"phase-18 launches: {SUB_LAUNCHES}")
+    for row in rows:
+        if row["name"] in MESH_LAUNCHES:  # then phase 19's
+            row.setdefault("launches_by_phase", {"4": row["launches"]})
+            row["launches_by_phase"]["19"] = MESH_LAUNCHES[row["name"]]
+            row["launches"] += MESH_LAUNCHES[row["name"]]
+    log(f"phase-19 launches: {MESH_LAUNCHES}")
+    assert all(MESH_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
+                                          "zsparse_counts")), MESH_LAUNCHES
     ops += SUB_OPS
     print(json.dumps({"lifecycle": PHASES.pop("lifecycle")}))
     print(json.dumps({"kv_live": PHASES.pop("kv_live")}))
     print(json.dumps({"subscribe": PHASES.pop("subscribe")}))
+    print(json.dumps({"mesh": PHASES.pop("mesh")}))
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"serve_device": serve_dev}))
     print(json.dumps({"kernels": rows}))
-    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s [{card_s}]")
+    log(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s [{card_s}]; "
+        f"laps (s): {laps}")
     print(card_s)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ width x height f32 weight grid over a query envelope. Points outside the
 envelope or the mask never contribute (a NaN coordinate bins to index 0,
 as the reference's binning makes it: `bin_cells`); the kernel-radius
 spread of DensityProcess is a separable gaussian blur of the final grid.
+`density_sharded` grids each shard of a mesh and adds the shards' grids.
 
 Binning arithmetic is the reference's: in `(x - xmin) / dx` the envelope
 constants meet an f32 column, so they are rounded to f32 first
@@ -123,3 +124,25 @@ def gaussian_blur(grid: torch.Tensor, radius_pixels: int) -> torch.Tensor:
         rows = F.conv1d(grid.unsqueeze(1), k, padding=r).squeeze(1)
         cols = F.conv1d(rows.t().unsqueeze(1), k, padding=r).squeeze(1)
     return cols.t().contiguous()
+
+
+# -- the mesh ---------------------------------------------------------------------
+
+
+def density_sharded(mesh, x, y, weights, mask, bbox: BBox, width: int,
+                    height: int) -> torch.Tensor:
+    """Sharded density: each shard scatters its own rows (`density_grid`,
+    under its device) and the shards' grids add on the lead device in
+    shard order (`parallel.mesh.psum`). Returns the [height, width] grid.
+    Counts are exact; weighted cells carry f32 summation-order noise as
+    on one device. Inputs are `Sharded` or whole tensors whose length
+    divides by the mesh size."""
+    from geomesa_tpu_torch.parallel.mesh import on_shard, psum, shards_of
+
+    cols = [shards_of(mesh, a) for a in (x, y, weights, mask)]
+    parts = []
+    for i, dev in enumerate(mesh.device_list):
+        with on_shard(dev):
+            parts.append(density_grid(*(c[i] for c in cols), bbox, width,
+                                      height))
+    return psum(mesh, parts)

@@ -19,6 +19,10 @@ with more distinct cells than `capd` go to the exact scatter fallback.
 they decide which tiles take that fallback. All S selected tiles go to
 one kernel launch (the reference chunks the tile list to fit TPU VMEM).
 
+`density_zsparse_sharded` runs the same plan shard by shard over a
+mesh: one global calibration, B3 on every shard's tiles, the shards'
+grids added.
+
 The kernel wrapper takes its plain PyTorch version only for tensors on
 the CPU; on a CUDA tensor it launches the kernel (built from
 `kernels/density_zsparse.cu` at first use) or raises. `launches` on the
@@ -100,13 +104,19 @@ def calibrate_density(x, y, mask, bbox: BBox, width: int, height: int,
             np.zeros(0, np.int32),
             torch.zeros((0, 8), dtype=torch.int32, device=x.device), 8,
             np.zeros(0, np.int32), nt)
-    capd = int(min(MAX_CAPD, max(8, 1 << int(np.ceil(np.log2(max(
-        float(np.median(dn[ids])) * slack, 2.0)))))))
+    capd = _capd(dn[ids], slack)
     fits = dn[ids] <= capd
     sel = ids[fits].astype(np.int32)
     at = torch.from_numpy(sel.astype(np.int64)).to(x.device)
     dicts = _tile_dicts(s[at], first[at], capd)
     return DensityCalib(sel, dicts, capd, ids[~fits].astype(np.int32), nt)
+
+
+def _capd(distinct: np.ndarray, slack: float) -> int:
+    """The dictionary width: a pow2 bucket of the median distinct count
+    of the live tiles x slack, between 8 and MAX_CAPD."""
+    return int(min(MAX_CAPD, max(8, 1 << int(np.ceil(np.log2(max(
+        float(np.median(distinct)) * slack, 2.0)))))))
 
 
 # -- kernel B3 ----------------------------------------------------------------
@@ -297,3 +307,69 @@ def density_zsparse(x, y, weights, mask, bbox: BBox, width: int, height: int,
             return density_zsparse(x, y, weights, mask, bbox, width, height,
                                    calib=None, data_tile=data_tile)
     return grid, calib
+
+
+# -- the mesh ---------------------------------------------------------------------
+
+
+def density_zsparse_sharded(mesh, x, y, weights, mask, bbox: BBox, width: int,
+                            height: int, data_tile: int = DATA_TILE,
+                            slack: float = 2.0) -> torch.Tensor:
+    """Data-parallel cell-dictionary density over a mesh: the [height,
+    width] grid on the lead device.
+
+    One GLOBAL calibration (the tiles' dictionaries are a property of the
+    row layout, not of the shard cut; the distinct counts of every shard
+    give one capd, as `calibrate_density` over the whole array would),
+    partitioned by shard: the rows split contiguously and a shard is a
+    whole number of tiles, so no tile crosses a shard. Each shard runs B3
+    (`zsparse_counts`) over its own tiles, the lists padded to a common
+    length with all -1 dictionaries (their rows match nothing and fold
+    into the sinks), its overflow tiles take the exact scatter, and the
+    shards' grids add on the lead device in shard order (`psum`). Inputs
+    are `Sharded` or whole tensors; n must split into shards of whole
+    data tiles."""
+    from geomesa_tpu_torch.parallel.mesh import on_shard, psum, shards_of
+
+    d = mesh.size
+    xs, ys, ws, ms = (shards_of(mesh, a) for a in (x, y, weights, mask))
+    per = int(xs[0].shape[0])
+    if per % data_tile:
+        raise ValueError(
+            f"shards of {per} rows do not split into data_tile={data_tile} "
+            "tiles (pad the batch; the planner's pow2 padding does)")
+    sorted_cells = []
+    for i, dev in enumerate(mesh.device_list):
+        with on_shard(dev):
+            xs[i], ys[i], ws[i] = xs[i].float(), ys[i].float(), ws[i].float()
+            sorted_cells.append(_tile_sorted_cells(
+                xs[i], ys[i], ms[i], bbox, width, height, data_tile))
+    dn = [fetch(c[2])[0] for c in sorted_cells]  # one read per shard
+    live = np.concatenate(dn)
+    live = live[live > 0]
+    capd = _capd(live, slack) if len(live) else 8
+    sel = [np.nonzero((v > 0) & (v <= capd))[0] for v in dn]
+    dense = [np.nonzero(v > capd)[0] for v in dn]
+    n_slots = max(max(len(t) for t in sel), 1)
+    parts = []
+    for i, dev in enumerate(mesh.device_list):
+        with on_shard(dev):
+            s, first, _ = sorted_cells[i]
+            ids = np.zeros(n_slots, np.int64)
+            ids[:len(sel[i])] = sel[i]
+            at = torch.from_numpy(ids).to(dev)
+            dicts = _tile_dicts(s[at], first[at], capd)
+            dicts[len(sel[i]):] = -1  # the padding slots match nothing
+            lw = torch.where(ms[i], ws[i], torch.zeros((), dtype=torch.float32,
+                                                       device=dev))
+            counts = zsparse_counts(xs[i], ys[i], lw, at.to(torch.int32),
+                                    dicts, bbox, width, height, data_tile)
+            grid = _fold_counts(counts, dicts, width, height)
+            if len(dense[i]):
+                did = torch.from_numpy(dense[i].astype(np.int64)).to(dev)
+                tiles = lambda a: a.reshape(-1, data_tile)[did].reshape(-1)  # noqa: E731
+                grid = grid + density_grid(tiles(xs[i]), tiles(ys[i]),
+                                           tiles(ws[i]), tiles(ms[i]), bbox,
+                                           width, height)
+            parts.append(grid)
+    return psum(mesh, parts)

@@ -185,10 +185,12 @@ class Readback:
 
     def __init__(self, tensors):
         tensors = tuple(tensors)
-        if any(t.is_cuda for t in tensors):
+        cuda = [t.device for t in tensors if t.is_cuda]
+        if cuda:
             self.host = tuple(t.to("cpu", non_blocking=True) for t in tensors)
             self.event = torch.cuda.Event()
-            self.event.record()
+            # the copies run on their tensors' card, whichever is current
+            self.event.record(torch.cuda.current_stream(cuda[0]))
         else:
             self.host = tensors
             self.event = None

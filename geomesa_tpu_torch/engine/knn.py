@@ -1,8 +1,7 @@
 """Brute-force kNN on the device: the exact haversine fold, the centred
 chord matmul with an exact refine, and kNN over a compacted mask.
 
-The counterpart of the reference package's `engine/knn.py` (single
-device; the sharded and ring variants come with the mesh slice):
+The counterpart of the reference package's `engine/knn.py`:
 
 - `knn`          exact kNN, queries in tiles, data in tiles folded into a
                  running top-k: memory O(query_tile * data_tile).
@@ -10,6 +9,9 @@ device; the sharded and ring variants come with the mesh slice):
                  a tile, full f32), then exact haversine over the M
                  candidates, with a per-query exactness certificate.
 - `knn_compact`  gathers the mask's matches first, then runs either.
+- `knn_sharded`, `knn_compact_sharded`: per-shard top-ks over a mesh's
+                 row shards, merged on the lead device; `knn_ring` shards
+                 the queries too and rotates the data shards past them.
 
 The reference writes these in `jax.jit` over `lax.map`/`lax.scan`, with no
 Pallas kernel; here they are plain PyTorch (loops over the same tiles).
@@ -356,3 +358,106 @@ def knn_compact(qx: torch.Tensor, qy: torch.Tensor, dx: torch.Tensor,
     else:
         fd, fi = knn(qx, qy, cx, cy, valid, k=k)
     return fd, idx[fi.long()].to(torch.int32), overflow
+
+
+# -- the mesh (single controller: one process drives every shard) -------------
+
+
+def knn_sharded(mesh, qx: torch.Tensor, qy: torch.Tensor, dx, dy, mask,
+                k: int, query_tile: int = 1024, debug_check: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN with the data sharded over the mesh: each shard's local
+    top-k (`knn`), then the all-gather merge on the lead device
+    (`parallel.mesh.merge_topk`). Returns (dists [Q, k], global indices
+    [Q, k]). The global top-k is a subset of the union of the shards'
+    top-ks, so the merge is exact.
+
+    The reference merges on every device and its `debug_check` asserts
+    that every device's merge is bitwise the same; here `debug_check`
+    runs the merge once on each shard's device and asserts the same."""
+    from geomesa_tpu_torch.parallel.mesh import merge_topk, on_shard, replicated, shards_of
+
+    xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
+    qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
+    shard_n = int(xs[0].shape[0])
+    fds, gis = [], []
+    for i, dev in enumerate(mesh.device_list):
+        with on_shard(dev):
+            d, ix = knn(qxs[i], qys[i], xs[i], ys[i], ms[i], k=k,
+                        query_tile=query_tile)
+            fds.append(d)
+            gis.append(ix.to(torch.int64) + i * shard_n)
+    md, gi = merge_topk(mesh, fds, gis, k)
+    if debug_check:
+        div = 0
+        for dev in mesh.device_list:
+            od, oi = merge_topk(mesh, fds, gis, k, device=dev)
+            # equality, not subtraction: inf - inf would read as divergence
+            div += int((od.to(md.device) != md).sum()
+                       + (oi.to(gi.device) != gi).sum())
+        if div:
+            raise AssertionError(
+                "knn_sharded replication invariant violated: devices "
+                f"disagree on the merged top-k (divergence {div})")
+    return md, gi.to(torch.int32)
+
+
+def knn_compact_sharded(mesh, qx: torch.Tensor, qy: torch.Tensor, dx, dy,
+                        mask, k: int, capacity: int, query_tile: int = 64):
+    """`knn_compact` under the data-sharded merge: each shard compacts its
+    own matches (`capacity` per shard) and runs the chord kNN over them;
+    the shards' top-ks merge as in `knn_sharded`. Returns (dists [Q, k],
+    global indices [Q, k], overflow: True if ANY shard's matches exceeded
+    `capacity`, and then the caller MUST fall back to the full sharded
+    scan)."""
+    from geomesa_tpu_torch.parallel.mesh import any_of, merge_topk, on_shard, replicated, shards_of
+
+    xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
+    qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
+    shard_n = int(xs[0].shape[0])
+    fds, gis, ovs = [], [], []
+    for i, dev in enumerate(mesh.device_list):
+        with on_shard(dev):
+            d, ix, ov = knn_compact(qxs[i], qys[i], xs[i], ys[i], ms[i], k=k,
+                                    capacity=capacity, query_tile=query_tile)
+            fds.append(d)
+            gis.append(ix.to(torch.int64) + i * shard_n)
+            ovs.append(ov)
+    md, gi = merge_topk(mesh, fds, gis, k)
+    return md, gi.to(torch.int32), any_of(mesh, ovs)
+
+
+def knn_ring(mesh, qx, qy, dx, dy, mask, k: int, query_tile: int = 1024):
+    """Exact kNN with BOTH the queries and the data sharded: the ring
+    top-k. Query shard i (on `devices[i]`) keeps a running top-k; at step
+    s the data shard owned by (i - s) % D visits it (on a repeated device
+    a view; across cards a copy, the reference's `ppermute`) and is
+    folded in, the running best first in the pool, so equal distances
+    keep the earlier candidate. Returns (dists, global indices), each
+    `Sharded` like the queries."""
+    from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard, shards_of
+
+    d_count = mesh.size
+    xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
+    qxs, qys = shards_of(mesh, qx), shards_of(mesh, qy)
+    shard_n = int(xs[0].shape[0])
+    dist_dtype = torch.promote_types(
+        torch.promote_types(qxs[0].dtype, xs[0].dtype), torch.float32)
+    out_d, out_i = [], []
+    for me, dev in enumerate(mesh.device_list):
+        with on_shard(dev):
+            tqx, tqy = qxs[me], qys[me]
+            q = tqx.shape[0]
+            bd = torch.full((q, k), float("inf"), dtype=dist_dtype, device=dev)
+            bi = torch.zeros((q, k), dtype=torch.int32, device=dev)
+            for step in range(d_count):
+                owner = (me - step) % d_count
+                ld, li = knn(tqx, tqy, xs[owner].to(dev), ys[owner].to(dev),
+                             ms[owner].to(dev), k=k, query_tile=query_tile)
+                gi = (li.to(torch.int64) + owner * shard_n).to(torch.int32)
+                nd, sel = _topk_smallest(torch.cat([bd, ld.to(dist_dtype)], 1), k)
+                bi = torch.take_along_dim(torch.cat([bi, gi], 1), sel, dim=1)
+                bd = nd
+            out_d.append(bd)
+            out_i.append(bi)
+    return Sharded(mesh, out_d), Sharded(mesh, out_i)

@@ -19,6 +19,10 @@ vector. Exactness needs m_blocks >= k (checked). BLK, DATA_TILE and
 PENALTY keep the reference's values: they fix the tile-capacity units,
 the overflow flag and the `blk_ok` threshold PENALTY/2.
 
+The mesh programs (`knn_sparse_sharded`, `make_knn_serve_sharded`,
+`make_knn_fullscan_sharded`) run the same scans on every shard's rows
+and merge the shards' top-ks exactly (`parallel/mesh.py`).
+
 Each kernel wrapper takes its plain PyTorch version only for tensors on
 the CPU; on a CUDA tensor it launches the kernel (built from
 `kernels/chord_blockmin.cu` at first use) or raises. `launches` on each
@@ -400,6 +404,123 @@ def knn_sparse_auto(qx, qy, x, y, mask, k: int,
         fd, fi, ov, qx, qy, x, y, mask, k=k, tile_capacity=tile_capacity,
         m_blocks=m_blocks)
     return fd, fi, cap
+
+
+# -- the mesh (single controller: one process drives every shard) -------------
+
+
+def _scan_shards(mesh, qx, qy, x, y, mask, scan):
+    """Run `scan(qx, qy, x, y, mask)` -> (fd, fi, ...) on every shard's rows
+    (`parallel.mesh.shards_of`), each under its own device with the
+    queries copied there, one shard after another with no host sync.
+    Returns (per-shard outputs, shard rows)."""
+    from geomesa_tpu_torch.parallel.mesh import on_shard, replicated, shards_of
+
+    xs, ys, ms = (shards_of(mesh, a) for a in (x, y, mask))
+    qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
+    outs = []
+    for i, dev in enumerate(mesh.device_list):
+        with on_shard(dev):
+            outs.append(scan(qxs[i], qys[i], xs[i], ys[i], ms[i]))
+    return outs, int(xs[0].shape[0])
+
+
+def _shard_merge_topk(mesh, fds, fis, shard_n: int, k: int):
+    """The mesh merge shared by the sparse program and its fullscan
+    overflow fallback: local indices lift to global (`local + shard *
+    shard_n`; the mesh superbatch keeps the serial layout, so the global
+    index IS the serial index), the shards' top-ks pool on the lead
+    device in shard order and one stable re-top-k keeps the k smallest
+    (`parallel.mesh.merge_topk`)."""
+    from geomesa_tpu_torch.parallel.mesh import merge_topk
+
+    gis = [fi.to(torch.int64) + i * shard_n for i, fi in enumerate(fis)]
+    return merge_topk(mesh, fds, gis, k)
+
+
+def knn_sparse_sharded(mesh, qx, qy, dx, dy, mask, k: int, tile_capacity: int,
+                       m_blocks: int = 64):
+    """`knn_sparse_scan` on every shard's rows (B1 once per shard, each
+    shard padding its rows to DATA_TILE on its own), merged exactly:
+    (dists [Q, k], global indices [Q, k], overflow: True if ANY shard
+    overflowed its `tile_capacity`, and then the caller MUST fall back to
+    the dense sharded scan). `dx`/`dy`/`mask` are `Sharded` or whole
+    tensors of a length that divides by the mesh size; results are on
+    the lead device. The serving program without its count."""
+    return make_knn_serve_sharded(mesh)(qx, qy, dx, dy, mask, k,
+                                        tile_capacity, m_blocks)
+
+
+def shard_match_tiles(mask, n_shards: int, data_tile: int = DATA_TILE
+                      ) -> torch.Tensor:
+    """The MAX over shards of the per-shard match-bearing tile count: the
+    mesh route's capacity calibration input (one scalar crosses to the
+    host, as `count_match_tiles` on one device). Each shard pads its
+    rows to `data_tile` on its own, as `knn_sparse_scan` does on it.
+    `mask` is `Sharded` or a whole tensor cut into `n_shards`."""
+    from geomesa_tpu_torch.parallel.mesh import Sharded
+
+    if isinstance(mask, Sharded):
+        lead = mask.mesh.lead
+        return torch.stack([count_match_tiles(m, data_tile).to(lead)
+                            for m in mask.shards]).max()
+    n = mask.shape[0]
+    s = n // n_shards
+    m = mask.to(torch.int32).reshape(n_shards, s)
+    pad = (-s) % data_tile
+    if pad:
+        m = F.pad(m, (0, pad))
+    per_shard = (m.reshape(n_shards, -1, data_tile).amax(dim=2) > 0).sum(
+        dim=1, dtype=torch.int32)
+    return per_shard.max()
+
+
+def make_knn_serve_sharded(mesh):
+    """The mesh-serving kNN program for `mesh`: every shard runs
+    `knn_sparse_scan` (B1) over its own rows, the top-ks merge on the
+    lead device, the overflow flags OR and, with `want_count`, the fused
+    count adds the shards' mask sums (`psum`). Global indices are
+    `local + shard * shard_rows`: under the mesh superbatch's serial
+    layout the results are the single-device kernel's. Returns
+    run(qx, qy, x, y, mask, k, tile_capacity, m_blocks, want_count) ->
+    (dists, indices, overflow[, count])."""
+    from geomesa_tpu_torch.parallel.mesh import any_of, psum
+
+    def run(qx, qy, x, y, mask, k, tile_capacity, m_blocks=64,
+            want_count=False):
+        def scan(qx, qy, lx, ly, lm):
+            fd, fi, ov = knn_sparse_scan(qx, qy, lx, ly, lm, k=k,
+                                         tile_capacity=tile_capacity,
+                                         m_blocks=m_blocks)
+            cnt = lm.sum(dtype=torch.int64) if want_count else None
+            return fd, fi, ov, cnt
+
+        outs, shard_n = _scan_shards(mesh, qx, qy, x, y, mask, scan)
+        md, gi = _shard_merge_topk(mesh, [o[0] for o in outs],
+                                   [o[1] for o in outs], shard_n, k)
+        ov_any = any_of(mesh, [o[2] for o in outs])
+        if want_count:
+            return md, gi, ov_any, psum(mesh, [o[3] for o in outs])
+        return md, gi, ov_any
+
+    return run
+
+
+def make_knn_fullscan_sharded(mesh):
+    """The dense mesh fallback of `make_knn_serve_sharded`'s overflow:
+    every shard runs the exact `knn_fullscan` (B2) over its rows and the
+    merge is the same, so the overflow path keeps the single-device
+    answers too. Returns run(qx, qy, x, y, mask, k, m_blocks) -> (dists,
+    indices)."""
+
+    def run(qx, qy, x, y, mask, k, m_blocks=64):
+        outs, shard_n = _scan_shards(
+            mesh, qx, qy, x, y, mask,
+            lambda *a: knn_fullscan(*a, k=k, m_blocks=m_blocks))
+        return _shard_merge_topk(mesh, [o[0] for o in outs],
+                                 [o[1] for o in outs], shard_n, k)
+
+    return run
 
 
 def knn_fullscan_tiled(qx, qy, x, y, mask, k: int, m_blocks: int = 64,

@@ -18,8 +18,9 @@ planner runs over `MemoryStorage`, which has no manifest: the planner
 prunes through `prune_partitions(bbox, interval)` and an INCLUDE count
 carries no version, as in the reference. As there, `get_features` and
 `get_count` poll the topic first and `knn` (FeatureSource's) does not,
-so a kNN sees the state of the last poll. The sharded live layer
-(`mesh=`) comes with the multi-GPU tier (ROADMAP A7).
+so a kNN sees the state of the last poll. `mesh=` reaches each type's
+planner, as in the reference (the live layer keeps no device cache, so
+its queries run on one device).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from geomesa_tpu_torch.core.wkt import Geometry, point
 from geomesa_tpu_torch.cql import ast, parse_cql
 from geomesa_tpu_torch.cql.extract import BBox, Interval
 from geomesa_tpu_torch.engine.device import resolve_device
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.faults import BREAKERS, RetryPolicy, retry_call
 from geomesa_tpu_torch.faults import harness as _faults
 from geomesa_tpu_torch.kafka.cache import KafkaFeatureCache
@@ -133,7 +133,8 @@ class KafkaFeatureSource(FeatureSource):
         state = store._state[name]
         super().__init__(
             state["storage"],
-            QueryPlanner(state["storage"], store.device, audit=store.audit),
+            QueryPlanner(state["storage"], store.device, audit=store.audit,
+                         mesh=store.mesh),
         )
 
     def write(self, batch: FeatureBatch) -> None:
@@ -271,10 +272,8 @@ class KafkaDataStore:
         mesh=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if mesh is not None:
-            raise NotPortedError("KafkaDataStore(mesh=...) (sharded live layer)",
-                                 "ROADMAP A7")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.broker = broker if broker is not None else InProcessBroker()
         self.audit = audit if audit is not None else AuditWriter()
         self._state: Dict[str, dict] = {}

@@ -13,8 +13,8 @@ expiry); call it from a host timer.
 A copy of the reference package's `lambda_store.py`, with both tiers on
 one device (`device=None`: the card). Aggregations over the merged rows
 (density: B3) run on that device with the store's own zsparse
-calibration cache. The sharded tiers (`mesh=`) come with the multi-GPU
-tier (ROADMAP A7).
+calibration cache. `mesh=` reaches both tiers' stores, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import torch
 from geomesa_tpu_torch.core.columnar import FeatureBatch
 from geomesa_tpu_torch.core.sft import SimpleFeatureType
 from geomesa_tpu_torch.engine.device import resolve_device, to_device
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.kafka.store import InProcessBroker, KafkaDataStore
 from geomesa_tpu_torch.plan.datastore import DataStore
 from geomesa_tpu_torch.plan.query import Query
@@ -45,12 +44,10 @@ class LambdaDataStore:
         mesh=None,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if mesh is not None:
-            raise NotPortedError("LambdaDataStore(mesh=...) (sharded tiers)",
-                                 "ROADMAP A7")
         self.device = resolve_device(device)
-        self.persistent = DataStore(catalog, device=self.device)
-        self.transient = KafkaDataStore(broker=broker, device=self.device)
+        self.persistent = DataStore(catalog, device=self.device, mesh=mesh)
+        self.transient = KafkaDataStore(broker=broker, device=self.device,
+                                        mesh=mesh)
         self.persist_after_ms = persist_after_ms
         # the zsparse calibrations of the merged aggregations
         self._calib = CalibCache()

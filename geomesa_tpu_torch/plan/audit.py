@@ -43,9 +43,9 @@ class ServeEvent:
     starts from. Written by serve.service.QueryService per request.
 
     The fields are the reference's. `retries`, `fault_injected` and
-    `breaker_state` come from the recovery fabric (`faults/`); in the
-    port `mesh_shape` and `shards` keep their defaults until the
-    multi-GPU tier (ROADMAP A7)."""
+    `breaker_state` come from the recovery fabric (`faults/`);
+    `mesh_shape` and `shards` from a mesh window's launch
+    (`serve.batcher.note_launch_route`)."""
 
     type_name: str
     kind: str  # execute | count | knn

@@ -32,6 +32,12 @@ The lifecycle is the reference's: `FeatureSource.delete_features` and
 invalidate the stats sketches, which cannot un-observe a row;
 `DataStore.remove_schema` drops a type's files, its residency and its
 captured ring graphs.
+
+`DataStore(catalog, use_device_cache=True, mesh=m)` or `ds.set_mesh(m)`
+(`parallel.mesh.Mesh`, e.g. `default_mesh(["cpu"] * 4)` here or every
+card there) makes a point store's residency the mesh tier: kNN windows
+run on every shard and merge (`plan/planner.py`), with the single-device
+answers.
 """
 
 from __future__ import annotations
@@ -124,11 +130,14 @@ class DataStore:
 
     def __init__(self, catalog: str, use_device_cache: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
-                 audit: Optional[AuditWriter] = None):
+                 audit: Optional[AuditWriter] = None, mesh=None):
         self.catalog = catalog
         self.device = resolve_device(device)
         self.audit = audit if audit is not None else AuditWriter()
         self.use_device_cache = use_device_cache
+        # the serving mesh (`parallel.mesh.Mesh`): with the device cache
+        # on, a point store's residency is the mesh tier (`set_mesh`)
+        self.mesh = mesh
         os.makedirs(catalog, exist_ok=True)
         self._sources: Dict[str, FeatureSource] = {}
         # one planner (and one device cache) per type, even when sources
@@ -136,14 +145,32 @@ class DataStore:
         self._lock = threading.Lock()
 
     def _source(self, storage: FileSystemStorage) -> FeatureSource:
-        planner = QueryPlanner(storage, self.device, audit=self.audit)
+        with self._lock:
+            mesh = self.mesh
+        planner = QueryPlanner(storage, self.device, audit=self.audit,
+                               mesh=mesh)
         planner.interceptors.extend(load_interceptors(storage.sft))
         if self.use_device_cache:
             # the scan path's coordinate dtype, or the routes' results
             # diverge for points near predicate boundaries
             planner.cache = DeviceCacheManager(
-                storage, self.device, coord_dtype=planner.coord_dtype)
+                storage, self.device, coord_dtype=planner.coord_dtype,
+                mesh=mesh)
         return FeatureSource(storage, planner)
+
+    def set_mesh(self, mesh) -> None:
+        """Install a serving mesh on this store (None clears it): new
+        sources take it at their planner's construction, existing ones
+        re-tier their device cache at the next superbatch
+        (`DeviceCacheManager.set_mesh`). `serve.QueryService` calls this
+        when `ServeConfig.mesh` resolves to a mesh."""
+        with self._lock:
+            self.mesh = mesh
+            sources = list(self._sources.values())
+        for src in sources:
+            src.planner.mesh = mesh
+            if src.planner.cache is not None:
+                src.planner.cache.set_mesh(mesh)
 
     def get_type_names(self) -> List[str]:
         return [name for name in sorted(os.listdir(self.catalog))

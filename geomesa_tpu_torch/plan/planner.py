@@ -38,6 +38,15 @@ f64-exact mask (`plan.runner.run_stats`).
 `timeout_ms` deadline: cooperative checks after planning ("planning")
 and after the scan or the kNN mask ("scan") raise the typed
 `QueryTimeout`, and the call runs inside `faults.deadline_scope`.
+On a mesh-resident superbatch (`DataStore.set_mesh`, `store/cache.py`)
+a kNN window runs as one sharded program over every shard's rows
+(`_knn_launch_mesh`: B1 on each shard, the merge on the lead device, the
+dense sharded B2 scan on overflow), or, when every allowed partition's
+rows live on one shard, as the single-device scan on that shard's rows
+(`_knn_launch_local`, shard affinity). Either way the indices are the
+serial ones, so sync and `_canonical_dists` run unchanged. A density
+grid on the mesh adds the shards' scatters (`density_sharded`).
+
 `execute` and `count` read `geomesa.query.timeout` when no timeout is
 given; `knn` and `knn_launch` do not, as in the reference. Every
 `execute` writes a `QueryEvent` into the store's audit writer.
@@ -51,8 +60,7 @@ host and gathered on the device by code (`plan.runner.visibility_mask`).
 A `tolerance` hint routes count, density and `topk_cells` through the
 sketch engine (`approx/`) when its a-priori bound fits; a miss, and
 `topk_cells` without a tolerance, pay the exact device path. The device
-coordinate dtype follows `geomesa.coord.dtype` (`coord_dtype`). The mesh
-route comes with a later slice.
+coordinate dtype follows `geomesa.coord.dtype` (`coord_dtype`).
 """
 
 from __future__ import annotations
@@ -178,11 +186,13 @@ class QueryPlan:
 class QueryPlanner:
     def __init__(self, storage: FileSystemStorage, device: torch.device,
                  cache: Optional[DeviceCacheManager] = None,
-                 audit: Optional[AuditWriter] = None):
+                 audit: Optional[AuditWriter] = None, mesh=None):
         self.storage = storage
         self.device = device
         self.cache = cache
         self.audit = audit
+        # the store's serving mesh; the device cache's decides the route
+        self.mesh = mesh
         # QueryInterceptor SPI: callables Query -> Query run before
         # planning (plan/interceptor.py)
         self.interceptors: List = []
@@ -541,7 +551,7 @@ class QueryPlanner:
             token = query_mask_token(query) + (tuple(sorted(plan.partitions)),)
             grid = density_device_grid(self.storage.sft, sb.batch, sb.dev,
                                        dev_mask, hints, self._zcalib,
-                                       mask_token=token)
+                                       mask_token=token, mesh=sb.mesh)
             grid, total = fetch(grid, dev_mask.sum(dtype=torch.int32))
             if int(total) == 0:
                 return self._empty_result(query), 0, t_scan
@@ -877,6 +887,11 @@ class QueryPlanner:
         y = dev[f"{g.name}__y"]
         kk = min(k, x.shape[0])
         mb = max(64, kk)
+        if sb is not None and sb.mesh is not None:
+            # the mesh tier: one sharded program over every shard, or the
+            # owning shard alone (shard affinity)
+            return self._knn_launch_mesh(plan, sb, qx, qy, k, kk, mb, mask,
+                                         batch, staged, want_mask_count)
         if staged is not None:
             jqx, jqy = staged
         else:
@@ -905,6 +920,112 @@ class QueryPlanner:
             launch.arm_dense(fd, fi)
         return launch
 
+    def _knn_launch_mesh(self, plan, sb, qx, qy, k, kk, mb, mask, batch,
+                         staged=None, want_mask_count: bool = False
+                         ) -> "KnnLaunch":
+        """The mesh route: one sharded program over the superbatch's mesh
+        (`knn_scan.make_knn_serve_sharded`: B1 on every shard's rows, the
+        merge on the lead device, the fused count summed over shards),
+        the capacity calibrated once per (filter, k, mesh shape) from the
+        largest shard's match tiles; an overflow falls back to the dense
+        sharded scan at sync. The mesh superbatch keeps the serial
+        layout, so the merged indices are the single-device ones. When
+        every allowed partition's rows live on ONE shard the window runs
+        there alone (`_knn_launch_local`)."""
+        from geomesa_tpu_torch.engine.knn_scan import (
+            make_knn_fullscan_sharded, make_knn_serve_sharded,
+            shard_match_tiles)
+        from geomesa_tpu_torch.parallel.mesh import on_shard
+
+        mesh = sb.mesh
+        shards = sb.shards_for(plan.partitions)
+        if len(shards) == 1:
+            return self._knn_launch_local(plan, sb, qx, qy, k, kk, mb, mask,
+                                          batch, shards[0], staged,
+                                          want_mask_count)
+        g = self.storage.sft.default_geometry
+        x = sb.placed[f"{g.name}__x"]
+        y = sb.placed[f"{g.name}__y"]
+        mesh_shape = (mesh.size,)
+        lead = mesh.lead
+        with on_shard(lead):
+            if staged is not None:
+                jqx, jqy = (t.to(lead) for t in staged)
+            else:
+                jqx, jqy = (upload(np.asarray(v, np.float32).ravel(), lead)
+                            for v in (qx, qy))
+            key = (plan.cql, kk, ("mesh",) + mesh_shape)
+            seed_cap = self._caps_seed(key)
+            if seed_cap is None:
+                # calibration: the one scalar read a cold key pays
+                seed_cap = capacity_bucket(int(shard_match_tiles(mask,
+                                                                 mesh.size)))
+            out = make_knn_serve_sharded(mesh)(
+                jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
+                m_blocks=mb, want_count=want_mask_count)
+            metrics.counter("knn.mesh.dispatches")
+            note_device_op()
+            launch = KnnLaunch(self, k=k, kk=kk, impl="mesh", batch=batch,
+                               count_dev=out[3] if want_mask_count else None,
+                               hq=_host_q(qx, qy))
+            launch.mesh_shape = mesh_shape
+            launch.shards = shards
+
+            def dense_fallback():
+                # the overflow: the dense sharded scan (B2 on every shard)
+                # over the host query copies cast as the stager casts them
+                hx, hy = (upload(h.astype(np.float32), lead) for h in launch._hq)
+                return make_knn_fullscan_sharded(mesh)(hx, hy, x, y, mask,
+                                                       k=kk, m_blocks=mb)
+
+            launch.arm_mesh(out[0], out[1], out[2], dense_fallback,
+                            cap=seed_cap, caps_key=key)
+        return launch
+
+    def _knn_launch_local(self, plan, sb, qx, qy, k, kk, mb, mask, batch,
+                          shard: int, staged=None,
+                          want_mask_count: bool = False) -> "KnnLaunch":
+        """The shard-affinity route: every allowed row lives on `shard`, so
+        the window runs the single-device sparse scan on that shard's rows
+        (its device's views), with no merge; sync lifts the local indices
+        by `shard * shard_rows` to the serial ones. The fused count sums
+        the shard's mask, which holds every allowed row."""
+        from geomesa_tpu_torch.parallel.mesh import on_shard, shard_view
+
+        mesh = sb.mesh
+        s_rows = sb.shard_rows
+        dev_s = mesh.devices[shard]
+        g = self.storage.sft.default_geometry
+        with on_shard(dev_s):
+            lx = shard_view(sb.placed[f"{g.name}__x"], shard, s_rows, dev_s)
+            ly = shard_view(sb.placed[f"{g.name}__y"], shard, s_rows, dev_s)
+            lm = shard_view(mask, shard, s_rows, dev_s)
+            if staged is not None:
+                jqx, jqy = (shard_view(t, 0, int(t.shape[0]), dev_s)
+                            for t in staged)
+            else:
+                jqx, jqy = (upload(np.asarray(v, np.float32).ravel(), dev_s)
+                            for v in (qx, qy))
+            launch = KnnLaunch(
+                self, k=k, kk=kk, impl="sparse", batch=batch,
+                count_dev=lm.sum(dtype=torch.int64) if want_mask_count else None,
+                hq=_host_q(qx, qy))
+            launch.mesh_shape = (mesh.size,)
+            launch.shards = (shard,)
+            launch.idx_offset = shard * s_rows
+            key = (plan.cql, kk, ("shard", shard))
+            seed_cap = self._caps_seed(key)
+            metrics.counter("knn.mesh.local_dispatches")
+            if seed_cap is None:
+                seed_cap = capacity_bucket(int(count_match_tiles(lm)))
+            fd, fi, ov, seed_cap = knn_sparse_launch(
+                jqx, jqy, lx, ly, lm, k=kk, tile_capacity=seed_cap,
+                m_blocks=mb)
+            note_device_op()
+            launch.arm_sparse(fd, fi, ov, lx, ly, lm, cap=seed_cap,
+                              caps_key=key, mb=mb)
+        return launch
+
     def ring_arm(self, query: "Query | str", q_padded: int, k: int = 10,
                  impl: str = "sparse", depth: int = 4) -> "RingProgram":
         """Arm ONE persistent serve program for a (type, canonical CQL,
@@ -927,10 +1048,10 @@ class QueryPlanner:
         route) for a planner with interceptors ("interceptors": they must
         run per request), storage without committed manifest versions
         ("no_version": staleness would be undetectable), no device cache
-        ("no_device_cache"), a non-point geometry ("non_point") or no
-        resident matching rows ("empty"); the mesh reason comes with
-        ROADMAP A7. A failed capture raises GraphCaptureError (an OOM
-        stays an OOM)."""
+        ("no_device_cache"), a non-point geometry ("non_point"), a
+        mesh-resident superbatch ("mesh": the ring's mesh programs come
+        with ROADMAP A7 (b)) or no resident matching rows ("empty"). A
+        failed capture raises GraphCaptureError (an OOM stays an OOM)."""
         from geomesa_tpu_torch.compilecache.registry import registry
         from geomesa_tpu_torch.engine import knn_scan
 
@@ -950,6 +1071,8 @@ class QueryPlanner:
             raise RingIneligible("non_point")
         mversion = int(mv_fn())
         sb, allowed = self._resident(plan)
+        if sb is not None and sb.mesh is not None:
+            raise RingIneligible("mesh")
         if allowed is None:
             raise RingIneligible("empty")
         cls = ring_class(query.type_name, plan.cql, plan.residual_cql,
@@ -1098,7 +1221,8 @@ class KnnLaunch:
     __slots__ = ("planner", "k", "kk", "impl", "batch", "mask_count",
                  "fused_ok", "ring", "_ready", "_rb", "_ov", "_cap",
                  "_caps_key", "_x", "_y", "_mask", "_mb",
-                 "_count_dev", "_hq", "_out")
+                 "_count_dev", "_hq", "_out", "_dense", "idx_offset",
+                 "mesh_shape", "shards")
 
     def __init__(self, planner, k, kk, impl, batch, count_dev=None, hq=None):
         self.planner = planner
@@ -1116,6 +1240,12 @@ class KnnLaunch:
         self._cap = self._caps_key = self._mb = None
         self._hq = hq
         self._out = None
+        self._dense = None  # the mesh route's overflow fallback
+        # the shard-affinity route's local -> serial index lift, and the
+        # routing attribution ServeEvents carry (mesh shape, shards)
+        self.idx_offset = 0
+        self.mesh_shape: tuple = ()
+        self.shards: tuple = ()
 
     @classmethod
     def ready(cls, planner, result, fused: bool = False) -> "KnnLaunch":
@@ -1144,6 +1274,15 @@ class KnnLaunch:
     def arm_dense(self, fd, fi) -> None:
         self._readback(fd, fi)
 
+    def arm_mesh(self, fd, fi, ov, dense_fallback, cap, caps_key) -> None:
+        """A mesh program's merged outputs and its any-shard overflow flag,
+        in one combined readback; `dense_fallback()` runs the dense
+        sharded scan when sync sees the overflow."""
+        self._ov = ov
+        self._dense = dense_fallback
+        self._cap, self._caps_key = cap, caps_key
+        self._readback(fd, fi, ov)
+
     def _readback(self, *out) -> None:
         extra = (self._count_dev,) if self._count_dev is not None else ()
         self._out = len(out)
@@ -1160,7 +1299,10 @@ class KnnLaunch:
         extra_host = got[self._out:]
         if self._ov is not None:
             cap = self._cap
-            if bool(got[2]):
+            if bool(got[2]) and self._dense is not None:
+                fd, fi = fetch(*self._dense())
+                cap = -1
+            elif bool(got[2]):
                 # the host f64 copies cast as the stager casts them: the
                 # staged f32 values, without re-reading a slot that may
                 # have been written since
@@ -1177,12 +1319,15 @@ class KnnLaunch:
                 else:
                     caps.pop(self._caps_key, None)
         fi = fi.astype(np.int32)
+        if self.idx_offset:
+            # the shard-affinity route: local rows -> serial rows
+            fi = fi + np.int32(self.idx_offset)
         dists, idx = _pad_to_k(np.asarray(fd), np.asarray(fi), self.k)
         dists = _canonical_dists(dists, idx, self.batch, self._hq)
         if extra_host:
             self.mask_count = int(extra_host[0])
         # drop the device refs: they are the window's device footprint
-        self._rb = self._ov = self._count_dev = None
+        self._rb = self._ov = self._count_dev = self._dense = None
         self._x = self._y = self._mask = None
         self._ready = (dists, idx, self.batch)
         return self._ready

@@ -103,14 +103,17 @@ def _zsparse_grid(xa, ya, w, dev_mask, bbox, width, height, cache: CalibCache,
 
 
 def density_device_grid(sft: SimpleFeatureType, batch, dev, dev_mask, hints,
-                        cache: CalibCache, mask_token=None) -> torch.Tensor:
+                        cache: CalibCache, mask_token=None,
+                        mesh=None) -> torch.Tensor:
     """Device density grid for one batch (weight column or ones), shared
     by the planner's cached and scan routes so weighting semantics cannot
     diverge between them. Point layers scatter per feature; extended
     geometries rasterize (`engine.raster.density_grid_geometry`): lines
     by in-cell length, polygons by cell-center coverage. The ones weight
-    is sized off the staged coordinates, as in the reference. The mesh
-    route comes with its slice."""
+    is sized off the staged coordinates, as in the reference. On a mesh
+    superbatch (`mesh`) a point layer takes the sharded scatter, as the
+    reference's mesh route does: each shard grids its rows and the grids
+    add (`engine.density.density_sharded`); counts stay exact."""
     g = sft.default_geometry
     x = dev[f"{g.name}__x"]
     y = dev[f"{g.name}__y"]
@@ -118,6 +121,11 @@ def density_device_grid(sft: SimpleFeatureType, batch, dev, dev_mask, hints,
          else torch.ones_like(x, dtype=torch.float32))
     bbox = tuple(hints.density_bbox)
     geom_col = batch.columns[g.name]
+    if mesh is not None and geom_col.is_point:
+        from geomesa_tpu_torch.engine.density import density_sharded
+
+        return density_sharded(mesh, x, y, w, dev_mask, bbox,
+                               hints.density_width, hints.density_height)
     if not geom_col.is_point:
         from geomesa_tpu_torch.engine.raster import density_grid_geometry
 

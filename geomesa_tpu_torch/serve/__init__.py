@@ -10,8 +10,9 @@ dispatch on CUDA streams and events (`pipeline.py`), the ring of
 captured CUDA graphs (`ringloop.py`), the JSON-lines wire
 (`protocol.serve_lines`, `protocol.serve_connection`) with its columnar
 framing and codecs (`columnar.py`), and the closed-loop, open-loop and
-sustained load generators (`loadgen.py`). Standing queries (A6),
-sharded serving and fleets (A7) come later.
+sustained load generators (`loadgen.py`). Sharded serving over a device
+mesh (`ServeConfig.mesh`) runs on the serial and pipelined routes; the
+ring over a mesh and the multi-process runtime come with A7 (b).
 """
 
 from geomesa_tpu_torch.serve.scheduler import (

@@ -6,8 +6,8 @@ planner: a coalesced kNN window is one `planner.knn_launch(...).sync()`,
 which launches B1 (`chord_blockmin_sparse`) or B2 (`chord_blockmin`) once
 for the whole stacked query axis. The pipelined route's cross-kind
 count fusion (`fused_count_key`), the ring's window-class key
-(`ring_key`) and the launch attribution (`note_launch_route`; its mesh
-fields stay empty until ROADMAP A7) are here; a sketch-served count
+(`ring_key`) and the launch attribution (`note_launch_route`: the mesh
+shape and the shards a mesh window ran on) are here; a sketch-served count
 answers its riders an `ApproxCount`.
 
 The engine kernels are already batched over query sets — `knn_sparse_scan`
@@ -112,8 +112,9 @@ def fused_count_key(req: ServeRequest) -> Optional[tuple]:
 
 def note_launch_route(reqs: List[ServeRequest], launch) -> None:
     """Stamp the launch's routing attribution (mesh topology + owning
-    shards) onto every member so ServeEvents report where the window ran.
-    One card runs no mesh until ROADMAP A7, so this stamps nothing yet."""
+    shards) onto every member so ServeEvents report where the window ran:
+    "(4,)" and "0,1,2,3" for a whole-mesh window, one shard id for the
+    shard-affinity route; nothing off the mesh tier."""
     mesh_shape = getattr(launch, "mesh_shape", ()) or ()
     shards = getattr(launch, "shards", ()) or ()
     if not mesh_shape and not shards:

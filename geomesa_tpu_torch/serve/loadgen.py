@@ -68,7 +68,7 @@ class LoadReport:
     # many fell back typed, and the per-window device-interaction count
     # (`serve.device.ops` delta / windows) — the number that compares the
     # ring with the pipelined route on identical work. The mesh's fields
-    # come with ROADMAP A7
+    # come with the tooling slice (ROADMAP A8)
     ring_windows: int = 0
     ring_fallbacks: int = 0
     dispatches_per_window: float = 0.0

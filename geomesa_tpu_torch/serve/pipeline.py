@@ -285,14 +285,26 @@ class DispatchPipeline:
 
     def _transfer(self, win: PipelinedWindow) -> None:
         """Stage the stacked queries into the next slot of the window's
-        key: the copy overlaps the previous window's kernels."""
+        key: the copy overlaps the previous window's kernels. On a mesh
+        the slot lives on the mesh's lead device (the sharded program
+        copies the queries to each shard; the shard-affinity route takes
+        them to the owning shard) and the mesh shape joins the key, so
+        mesh and single-device slots never alias. The gate is the
+        SOURCE's residency tier (`serving_mesh`), not the config: a store
+        the tier cannot shard stages for the single-device kernel it
+        will really run."""
         lead = win.lead
         planner = win.source.planner
+        cache = getattr(planner, "cache", None)
+        mesh = cache.serving_mesh() if cache is not None else None
         key = (lead.query.type_name, lead.k, lead.impl, len(win.qx))
+        device = planner.device
+        if mesh is not None:
+            key = key + ("mesh", (mesh.size,))
+            device = mesh.lead
         with TRACER.scope(lead.trace, parent_id=win.wid):
             with TRACER.span("device.transfer", rows=len(win.qx), staged=True):
-                win.staged = self.stager(planner.device).stage(
-                    key, win.qx, win.qy)
+                win.staged = self.stager(device).stage(key, win.qx, win.qy)
 
     def _launch(self, win: PipelinedWindow) -> None:
         """planner.knn_launch: plan -> mask -> launch + readback. The

@@ -33,7 +33,8 @@ Correctness contract:
   host f64->f32 cast, and sync is the serial route's sync;
 - **typed fallback**: only the reference's reasons (RingIneligible: a
   planner with interceptors, no manifest versions, no device cache, a
-  non-point geometry, nothing resident; the mesh comes with A7) and
+  non-point geometry, nothing resident, and a mesh-resident store until
+  A7 (b) brings the ring's mesh programs) and
   a stale version send a window to the pipelined route, metered under
   `serve.ring.fallbacks`; a failed capture, build or launch fails the
   window typed (GraphCaptureError, KernelBuildError, KernelLaunchError)

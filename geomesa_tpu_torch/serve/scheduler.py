@@ -1,8 +1,6 @@
 """Admission control for the query-serving layer.
 
-A copy of the reference package's `serve/scheduler.py`; only
-`shard_affinity` differs: the port has no mesh yet, so it raises
-NotPortedError naming ROADMAP A7.
+A copy of the reference package's `serve/scheduler.py`.
 
 The serving shape this targets: many small BBOX/kNN/count queries from
 concurrent clients against one device-resident store. The device executes
@@ -37,7 +35,6 @@ from collections import deque
 from concurrent.futures import Future
 from typing import Callable, Deque, Dict, List, Optional
 
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.query import Query
 
 # priority classes, highest first; index = scheduling order
@@ -159,11 +156,34 @@ class ServeRequest:
 
 
 def shard_affinity(source, req: ServeRequest) -> tuple:
-    """Admission-time shard affinity (which mesh shards own the tiles a
-    query touches). The port serves on one card until the sharded
-    serving slice."""
-    raise NotPortedError("shard-affinity admission (sharded serving)",
-                         "ROADMAP A7")
+    """Admission-time shard affinity: the mesh shards owning the rows of
+    the partitions `req`'s query touches, so a query lands where its
+    tiles live. Metadata only and best effort: bbox/interval extraction,
+    the manifest's partition pruning and the device cache's ownership map
+    (`DeviceCacheManager.shards_for`), with no planning and no device
+    work; a cold cache, a store without a mesh and any failure answer ()
+    (the planner's mesh dispatch recomputes the authoritative value)."""
+    planner = getattr(source, "planner", None)
+    cache = getattr(planner, "cache", None)
+    if cache is None or getattr(cache, "mesh", None) is None:
+        return ()
+    try:
+        from geomesa_tpu_torch.cql.extract import (
+            BBox, Interval, extract_bbox, extract_intervals)
+
+        sft = source.storage.sft
+        g = sft.default_geometry
+        d = sft.default_dtg
+        f = req.query.filter_ast
+        bbox = extract_bbox(f, g.name) if g else BBox(-180, -90, 180, 90)
+        interval = (extract_intervals(f, d.name) if d
+                    else Interval(None, None))
+        manifest = source.storage.manifest_snapshot()
+        parts = source.storage.prune_partitions(bbox, interval,
+                                                manifest=manifest)
+        return cache.shards_for(parts)
+    except Exception:  # noqa: BLE001 — a routing hint never fails admission
+        return ()
 
 
 class TokenBucket:

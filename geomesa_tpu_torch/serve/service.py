@@ -48,9 +48,15 @@ queue-wait and end-to-end latency histograms (p50/p95/p99 via the
 Prometheus export), dispatch/coalesce/shed counters — all through
 `geomesa_tpu_torch.utils.metrics` plus a per-instance `stats()` snapshot.
 
+Sharded serving: `ServeConfig.mesh` resolves through
+`parallel.mesh.serve_mesh` and is installed on the store (`set_mesh`);
+the serial and pipelined routes then serve kNN windows over the mesh
+tier (the planner's mesh and shard-affinity routes), and admission tags
+each request with the shards owning its partitions (`shard_affinity`).
+
 Not here yet, each a NotPortedError naming its ROADMAP item when asked
-for: a serving mesh and the mesh ring route (A7); SLOs and the
-continuous profiler's switch (A8).
+for: the ring route over a mesh (A7 (b)); SLOs and the continuous
+profiler's switch (A8).
 """
 
 from __future__ import annotations
@@ -134,7 +140,8 @@ class ServeConfig:
     # typed to the pipeline; ring=False disables the tier
     ring: bool = True
     ring_depth: int = 4
-    # sharded serving: None/"off" = one card (A7 brings a mesh)
+    # sharded serving: None = the store's own mesh (if any), "off" = one
+    # device, "auto" = every card when there are several, N, or a Mesh
     mesh: object = None
     # standing queries: bounds of the subscribe wire verbs (the table
     # size, each outbox and each attached sink's queue, a subscription's
@@ -174,9 +181,6 @@ def _check_ported(config: ServeConfig) -> None:
             or isinstance(config.pipeline_donate, bool)):
         raise ValueError(f"ServeConfig.pipeline_donate="
                          f"{config.pipeline_donate!r}: None, True or False")
-    if config.mesh not in (None, "off"):
-        raise NotPortedError("ServeConfig.mesh (sharded serving)",
-                             "ROADMAP A7")
 
 
 def _count_compat_key(req: ServeRequest):
@@ -200,6 +204,23 @@ class QueryService:
         self.store = store
         self.config = config or ServeConfig()
         _check_ported(self.config)
+        # sharded serving: resolve the spec once and install it on the
+        # store (existing sources re-tier, new ones inherit it). None
+        # inherits the store's mesh; "off" clears one. A mesh, asked for
+        # or inherited, refuses the ring route until its mesh programs
+        # are ported.
+        if self.config.mesh is not None:
+            from geomesa_tpu_torch.parallel.mesh import serve_mesh
+
+            self.mesh = serve_mesh(self.config.mesh)
+        else:
+            self.mesh = getattr(store, "mesh", None)
+        if self.mesh is not None and self.config.ring:
+            raise NotPortedError(
+                "a serving mesh with ServeConfig.ring=True (the ring route's "
+                "mesh programs; pass ring=False)", "ROADMAP A7 (b)")
+        if self.config.mesh is not None and hasattr(store, "set_mesh"):
+            store.set_mesh(self.mesh)
         self.queue = AdmissionQueue(self.config.max_queue)
         self.limiter = RateLimiter(
             self.config.tenant_rate, self.config.tenant_burst)
@@ -439,6 +460,20 @@ class QueryService:
             # the batcher populates the cache with the version the
             # planner's plan actually pinned (exact-by-construction)
             req.cache = self.result_cache
+        if self.mesh is not None:
+            # shard-affinity admission: tag the request with the shards
+            # owning its partitions (metadata only; the planner's mesh
+            # dispatch recomputes the authoritative value)
+            from geomesa_tpu_torch.serve.scheduler import shard_affinity
+
+            try:
+                source = self.store.get_feature_source(req.query.type_name)
+            except Exception:  # noqa: BLE001 — dispatch raises it typed
+                return
+            shards = shard_affinity(source, req)
+            if shards:
+                req.shards = ",".join(map(str, shards))
+                metrics.counter("serve.affinity.admitted", shards=req.shards)
 
     def _enqueue(self, req: ServeRequest) -> Future:
         try:
@@ -1042,6 +1077,8 @@ class QueryService:
             out["cache"] = self.result_cache.stats()
         if self.pipeline is not None:
             out["pipeline"] = self.pipeline.stats()
+        if self.mesh is not None:
+            out["mesh"] = {"shape": [self.mesh.size], "devices": self.mesh.size}
         if self.tracker is not None:
             out["recompiles"] = self.tracker.total_recompiles()
         subs = self.subscriptions  # racing close() may null the attr

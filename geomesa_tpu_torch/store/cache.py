@@ -20,9 +20,23 @@ storage manifest, dropping removed partitions), `invalidate`, `get`,
 (`_version`, bumped by every residency change and stamped on each
 superbatch) and the residency manifest (`save_manifest` / `resume`:
 a restarted server rebuilds identical residency, or reports the
-partitions whose files drifted). On one GPU this process is always the
-coordinator that writes the manifest. The mesh tier and its delta-tile
-growth come with the multi-GPU tier (ROADMAP A7).
+partitions whose files drifted). One process drives every device, so it
+is always the coordinator that writes the manifest.
+
+The mesh tier (`set_mesh`, flat stores only): the superbatch keeps the
+SERIAL row layout (partitions in sorted order, each pow2-padded) plus
+trailing invalid rows to a multiple of the mesh size, uploaded whole
+once per residency change (no per-partition segments, so residency is
+not held twice), so a row's global index is its single-device index and
+the sharded kNN answers are the single-device ones. Each shard's rows of
+the default geometry's coordinates are placed on its device
+(`SuperBatch.placed`: views where the shard's device is the store's);
+`owners` maps each partition to the shards holding its rows. A GROWTH
+(new partitions sorting after every resident one, the resident ones
+unchanged) uploads only the new rows and the fresh padding and re-places
+the old rows from the previous device tensors; any other change takes
+the full re-upload. The mask and every aggregate other than the kNN
+scans and the density grid stay on the store's device, whole.
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ import numpy as np
 import torch
 
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
-from geomesa_tpu_torch.engine.device import to_device
+from geomesa_tpu_torch.engine.device import to_device, upload
 from geomesa_tpu_torch.store.fs import FileSystemStorage
 from geomesa_tpu_torch.utils.padding import next_pow2
 
@@ -82,19 +96,39 @@ class SuperBatch:
     # on a card, the event after the superbatch's device build: work on
     # another stream reading `dev`/`pids` waits on it alone
     ready: Optional[object] = None
+    # the mesh tier: the mesh, rows per shard, the shards holding each
+    # partition's rows and the per-shard placements (`parallel.mesh.
+    # Sharded`) of the default geometry's coordinate columns
+    mesh: object = None
+    shard_rows: int = 0
+    owners: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    placed: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def host_pids(self, rows: np.ndarray) -> np.ndarray:
         """The partition id of each row in `rows`, from `starts`."""
         return np.searchsorted(self.starts, rows, side="right") - 1
+
+    def shards_for(self, partitions) -> tuple:
+        """Sorted ids of the shards holding any of `partitions`' rows
+        (empty off the mesh tier or when nothing matches)."""
+        out: set = set()
+        for name in partitions:
+            out.update(self.owners.get(name, ()))
+        return tuple(sorted(out))
 
 
 class DeviceCacheManager:
     """Keeps partitions of a FileSystemStorage resident on `device`."""
 
     def __init__(self, storage: FileSystemStorage, device: torch.device,
-                 coord_dtype: Optional[torch.dtype] = None):
+                 coord_dtype: Optional[torch.dtype] = None, mesh=None):
         self.storage = storage
         self.device = device
+        # the serving mesh (`parallel.mesh.Mesh`): with one, a flat
+        # store's superbatch is the mesh tier (module docstring)
+        self.mesh = mesh
+        # the last mesh superbatch's layout, for the growth path
+        self._mesh_prev: Optional[dict] = None
         # the planner's coordinate dtype (geomesa.coord.dtype), so the
         # cached and scan routes stage the same values; None stages f32
         # and records no dtype in the manifest, as in the reference
@@ -115,6 +149,47 @@ class DeviceCacheManager:
     @property
     def _stage_dtype(self) -> torch.dtype:
         return self.coord_dtype or torch.float32
+
+    # -- the mesh tier -------------------------------------------------------
+
+    def _mesh_active(self) -> bool:
+        return self.mesh is not None and self._flat
+
+    @_locked
+    def serving_mesh(self):
+        """The mesh a kNN window will really run on: the installed mesh
+        when the tier is active (a flat store), else None. The serve
+        pipeline keys its staging slots on this, not on the config."""
+        return self.mesh if self._mesh_active() else None
+
+    @_locked
+    def set_mesh(self, mesh) -> None:
+        """Install (or clear, with None) the serving mesh. A no-op for a
+        mesh equal to the installed one (by value: every service resolves
+        a fresh Mesh over the same devices). Otherwise residency is
+        rebuilt at the next superbatch: entries keep their host copies,
+        their single-device segments are dropped under a mesh (the mesh
+        upload would otherwise hold the rows twice), and the residency
+        version moves on."""
+        if mesh is self.mesh or (mesh is not None and self.mesh is not None
+                                 and mesh == self.mesh):
+            return
+        self.mesh = mesh
+        if self._mesh_active():
+            for e in self._entries.values():
+                e.dev = None
+        self._super = None
+        self._mesh_prev = None  # a new placement: the full re-upload
+        self._version += 1
+
+    @_locked
+    def shards_for(self, partitions) -> tuple:
+        """The shards holding the named partitions' rows under the CURRENT
+        mesh superbatch; a cold or stale cache answers () (no residency
+        work on the caller's thread)."""
+        if not self._mesh_active() or self._super is None:
+            return ()
+        return self._super.shards_for(partitions)
 
     def _partition_files(self, name: str,
                          manifest: Optional[dict] = None) -> List[str]:
@@ -153,6 +228,7 @@ class DeviceCacheManager:
         dev = None
         if self._flat:
             padded = self._shared_vocab_recode(padded)
+        if self._flat and not self._mesh_active():
             dev = to_device(padded, self.device, self._stage_dtype)
             self.upload_count += 1
             self.upload_rows += len(padded)
@@ -212,6 +288,7 @@ class DeviceCacheManager:
         else:
             self._entries.pop(partition, None)
         self._super = None
+        self._mesh_prev = None  # the growth path must not keep dropped rows
         self._version += 1
 
     @_locked
@@ -307,7 +384,9 @@ class DeviceCacheManager:
         names = sorted(self._entries)
         entries = [self._entries[n] for n in names]
         batch = FeatureBatch.concat([e.batch for e in entries])
-        if self._flat:
+        if self._mesh_active():
+            return self._mesh_superbatch(names, entries, batch)
+        if self._flat and all(e.dev is not None for e in entries):
             dev = {k: torch.cat([e.dev[k] for e in entries])
                    for k in entries[0].dev}
         else:
@@ -328,3 +407,84 @@ class DeviceCacheManager:
                 [[0], np.cumsum([e.padded for e in entries])]).astype(np.int64),
             ready=ready)
         return self._super
+
+    def _mesh_superbatch(self, names, entries, batch) -> SuperBatch:
+        """The mesh tier's superbatch (module docstring): the serial
+        layout plus trailing invalid rows to a multiple of the mesh size,
+        uploaded whole, or only its new rows on a growth."""
+        from geomesa_tpu_torch.parallel.mesh import Sharded, shards_of
+
+        mesh = self.mesh
+        d = mesh.size
+        total = len(batch)
+        padded_total = -(-total // d) * d
+        pids_host = np.concatenate([np.full(e.padded, i, np.int32)
+                                    for i, e in enumerate(entries)])
+        if padded_total > total:
+            batch = batch.pad_to(padded_total)
+            # the trailing rows carry the last partition's id; they are
+            # invalid, so inert in every kernel
+            pids_host = np.concatenate([
+                pids_host, np.full(padded_total - total, pids_host[-1], np.int32)])
+        prev = self._mesh_growth_prev(names)
+        if prev is not None:
+            old = prev["concat_rows"]
+            tail = batch.select(np.arange(old, padded_total))
+            tail_dev = to_device(tail, self.device, self._stage_dtype)
+            self.upload_count += 1
+            self.upload_rows += len(tail)
+            dev = {k: torch.cat([prev["dev"][k][:old], v])
+                   for k, v in tail_dev.items()}
+            pids = torch.cat([prev["pids"][:old],
+                              upload(pids_host[old:], self.device)])
+        else:
+            dev = to_device(batch, self.device, self._stage_dtype)
+            self.upload_count += 1
+            self.upload_rows += len(batch)
+            pids = upload(pids_host, self.device)
+        shard_rows = padded_total // d
+        owners: Dict[str, tuple] = {}
+        off = 0
+        for name, e in zip(names, entries):
+            lo, hi = off, off + e.padded
+            owners[name] = tuple(range(lo // shard_rows,
+                                       min((hi - 1) // shard_rows + 1, d)))
+            off = hi
+        g = self.storage.sft.default_geometry
+        placed = {k: Sharded(mesh, shards_of(mesh, dev[k]))
+                  for k in (f"{g.name}__x", f"{g.name}__y") if k in dev}
+        ready = None
+        if pids.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(pids.device))
+        starts = np.concatenate(
+            [[0], np.cumsum([e.padded for e in entries])]).astype(np.int64)
+        starts[-1] = padded_total  # the trailing rows are the last partition's
+        self._super = SuperBatch(
+            batch=batch, dev=dev, pids=pids,
+            ids={n: i for i, n in enumerate(names)}, version=self._version,
+            starts=starts, ready=ready, mesh=mesh, shard_rows=shard_rows,
+            owners=owners, placed=placed)
+        self._mesh_prev = {
+            "mesh": mesh, "names": tuple(names),
+            "meta": {n: (e.padded, tuple(e.files)) for n, e in zip(names, entries)},
+            "concat_rows": total, "dev": dev, "pids": pids}
+        return self._super
+
+    def _mesh_growth_prev(self, names) -> Optional[dict]:
+        """The previous mesh layout when the pending rebuild is a pure
+        GROWTH of it: the same mesh, its names a strict prefix of the new
+        sorted ones (a name sorting into the middle would shift every
+        later partition's rows), and every one of its entries unchanged
+        (padded length and files). Else None: the full re-upload."""
+        prev = self._mesh_prev
+        if prev is None or prev["mesh"] is not self.mesh:
+            return None
+        pn = prev["names"]
+        if len(names) <= len(pn) or tuple(names[:len(pn)]) != pn:
+            return None
+        for name in pn:
+            e = self._entries.get(name)
+            if e is None or (e.padded, tuple(e.files)) != prev["meta"][name]:
+                return None
+        return prev

@@ -207,6 +207,12 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
             "geom": np.stack([rng.uniform(-5, 5, n), rng.uniform(40, 50, n)], 1)}}))
         d, i, _ = src.knn("BBOX(geom, -4, 41, 4, 49) AND speed > 5", [0.0], [45.0], k=3)
         assert np.isfinite(d).all() and src.get_count("speed > 5") > 0
+        from geomesa_tpu_torch.parallel import default_mesh
+        mds = DataStore({str(tmp_path)!r}, use_device_cache=True, device="cpu",
+                        mesh=default_mesh(["cpu"] * 4))
+        md, mi, _ = mds.get_feature_source("t").knn(
+            "BBOX(geom, -4, 41, 4, 49) AND speed > 5", [0.0], [45.0], k=3)
+        assert np.array_equal(mi, i) and np.array_equal(md, d)
         from geomesa_tpu_torch.process import DensityProcess
         poly = "INTERSECTS(geom, POLYGON((-3 42, 3 42, 0 48, -3 42)))"
         grid = DensityProcess().execute(src, (-5, 40, 5, 50), 32, 32, poly,

@@ -35,6 +35,7 @@ from geomesa_tpu_torch.process import DensityProcess as PDensityProcess
 
 from test_torch_density import _morton, _off_edges, assert_weighted_close
 from test_torch_pip import edges_of, star_polygon_wkt
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 SPEC = "fare:Double,dtg:Date,*geom:Point"
 ENV = (-74.3, 40.5, -73.7, 41.0)

@@ -36,6 +36,7 @@ from geomesa_tpu.engine import knn as ref_knn
 from geomesa_tpu_torch.engine import grid_index as port_grid
 from geomesa_tpu_torch.engine import knn as port_knn
 from geomesa_tpu_torch.interop import grid_index_from_numpy
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 K = 5
 Q = 37

@@ -32,6 +32,7 @@ from geomesa_tpu_torch.errors import CudaUnavailableError
 from geomesa_tpu_torch.plan import DataStore as PDataStore
 from geomesa_tpu_torch.process import KNearestNeighborSearchProcess as PProc
 from geomesa_tpu_torch.store.fs import FileSystemStorage as PStorage
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 SPEC = "speed:Double,dtg:Date,*geom:Point"
 T0 = 1_600_000_000_000

@@ -43,7 +43,6 @@ from geomesa_tpu_torch.core.columnar import FeatureBatch as PFB
 from geomesa_tpu_torch.core.sft import SimpleFeatureType as PSFT
 from geomesa_tpu_torch.core.wkt import parse_wkt as pwkt
 from geomesa_tpu_torch.core.wkt import point as ppoint
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.kafka import messages as pmsg
 from geomesa_tpu_torch.kafka import KafkaDataStore as PKafka
 from geomesa_tpu_torch.kafka import KafkaFeatureCache as PCache
@@ -421,10 +420,35 @@ def test_kafka_poll_fault_retries_and_the_answers_are_unchanged():
 
 
 def test_mesh_is_refused_typed(tmp_path):
-    with pytest.raises(NotPortedError, match="A7"):
-        PKafka(mesh="any", device="cpu")
-    with pytest.raises(NotPortedError, match="A7"):
-        PLambda(str(tmp_path), mesh="any", device="cpu")
+    """`mesh=` is ported (A7): a live store and a lambda store over a
+    four-shard mesh (four `cpu` shards; the reference's 4 CPU devices)
+    reach their planners with it and count, and run kNN, as the
+    reference's do."""
+    import jax
+
+    from geomesa_tpu.parallel.mesh import default_mesh as rmesh
+    from geomesa_tpu_torch.parallel.mesh import default_mesh as pmesh
+
+    meshes = {"r": rmesh(jax.devices()[:4]), "p": pmesh(["cpu"] * 4)}
+    rb, pb = batches(data=rows(400, seed=9))
+    out = {}
+    for tag, kds_cls, lds_cls, kw, b, Q in (
+            ("r", RKafka, RLambda, {}, rb, RQuery),
+            ("p", PKafka, PLambda, {"device": "cpu"}, pb, PQuery)):
+        kds = kds_cls(mesh=meshes[tag], **kw)
+        src = kds.create_schema(b.sft)
+        src.write(b)
+        assert src.planner.mesh is meshes[tag]
+        lds = lds_cls(str(tmp_path / tag), mesh=meshes[tag], **kw)
+        lds.create_schema(b.sft)
+        lds.write("live", b.select(np.arange(0, 300)))
+        lds.persist("live", now=time.time() + 120.0)
+        lds.write("live", b.select(np.arange(250, 400)))
+        out[tag] = ([src.get_count(Q("live", c)) for c in FILTERS[:4]],
+                    [lds.get_count(Q("live", c)) for c in FILTERS[:4]],
+                    src.knn(KNN_CQL, QX, QY, k=5))
+    assert out["p"][:2] == out["r"][:2]
+    same_knn(out["r"][2], out["p"][2])
 
 
 # -- the lambda store ------------------------------------------------------------

@@ -28,6 +28,7 @@ from geomesa_tpu_torch.errors import CudaUnavailableError
 
 from test_pip_assign import assign_oracle
 from test_pip_sparse import make_layer, make_points, oracle
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 EPS = 1e-4
 T = P.POINT_TILE

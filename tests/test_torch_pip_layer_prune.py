@@ -46,6 +46,7 @@ from geomesa_tpu_torch.engine.pip_kernels import crossing_and_band, out_of_reach
 from test_torch_pip import eps_boundary_points
 from test_torch_pip_layer import assert_counts, ref_assign_tables
 from test_torch_pip_prune import ring_edges
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 EPS = 1e-4
 T = psk.TILE

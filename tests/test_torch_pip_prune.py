@@ -30,6 +30,7 @@ from geomesa_tpu_torch.engine import pip_kernels as pk
 from geomesa_tpu_torch.engine.pip import BAND_EPS
 
 from test_torch_pip import eps_boundary_points, morton_sorted
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 C = pk.CHUNK
 

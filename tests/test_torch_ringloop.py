@@ -562,8 +562,8 @@ def test_profiler_seen_from_any_thread():
     with torch.profiler.profile():
         t = threading.Thread(target=lambda: seen.append(profiler_active()))
         t.start()
-        t.join()
-    assert seen == [True] and not profiler_active()
+        t.join(timeout=30)
+    assert not t.is_alive() and seen == [True] and not profiler_active()
 
 
 # -- on the card: graph replays ---------------------------------------------

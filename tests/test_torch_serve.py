@@ -574,13 +574,20 @@ def test_latency_histograms_exported(stores, services):
     ({"approx_degrade_tolerance": 0.2}, None)])
 def test_later_options_raise_not_ported(stores, option, item):
     """Options of later slices refuse typed; the sketch rung's tolerance
-    (item None) and the standing queries' bounds (A6, ported) construct
-    and carry the value."""
-    if item in (None, "A6"):
+    (item None), the standing queries' bounds (A6) and the serving mesh
+    (A7, ported: "auto" on a host without two cards resolves to no mesh,
+    as the reference's does on one device) construct and carry the
+    value."""
+    if item in (None, "A6", "A7"):
         svc = pserve.QueryService(stores["port"], pserve.ServeConfig(**option),
                                   autostart=False)
         (name, value), = option.items()
         assert getattr(svc.config, name) == value
+        if item == "A7":
+            assert svc.mesh is None
+            from geomesa_tpu.parallel.mesh import serve_mesh as rserve_mesh
+
+            assert rserve_mesh("auto", devices=["only-one"]) is None
         svc.close()
         return
     with pytest.raises(NotPortedError) as ei:
@@ -591,14 +598,21 @@ def test_later_options_raise_not_ported(stores, option, item):
 
 def test_warmup_methods_raise_not_ported(stores, services):
     """The warm-up methods are ported (tests/test_torch_compilecache.py
-    holds them to the reference); what still raises is the serving
-    mesh's shard affinity (A7)."""
+    holds them to the reference), and so is the serving mesh's shard
+    affinity (A7): off a mesh, and for a source without a planner, both
+    packages answer ()."""
     svc = services("port", stores["port"])
     rec = svc.record_warmup()
     assert svc.warmup(rec.manifest()).ok
-    with pytest.raises(NotPortedError) as ei:
-        pserve.scheduler.shard_affinity(None, None)
-    assert "A7" in ei.value.later_slice
+    out = {}
+    for tag, pkg, store in (("ref", rserve, stores["ref"]),
+                            ("port", pserve, stores["port"])):
+        req = pkg.ServeRequest(kind="count",
+                               query=PKG[tag].Query("served", CQL))
+        src = store.get_feature_source("served")
+        out[tag] = (pkg.scheduler.shard_affinity(src, req),
+                    pkg.scheduler.shard_affinity(None, req))
+    assert out["port"] == out["ref"] == ((), ())
 
 
 def test_config_keeps_reference_fields_and_defaults():

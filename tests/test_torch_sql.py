@@ -40,6 +40,7 @@ from geomesa_tpu_torch.sql import SqlContext as PSql, SqlError as PSqlError
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the bench's seeded layer generator)
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 
 def ring(cx, cy, r, ne=24, reverse=False):

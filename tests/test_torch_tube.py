@@ -29,6 +29,7 @@ from geomesa_tpu_torch.engine import tube as ptube
 from geomesa_tpu_torch.engine.geodesy import haversine_m_np
 from geomesa_tpu_torch.plan import DataStore as PDataStore
 from geomesa_tpu_torch.process import tube as pproc
+from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
 
 DAY = 86_400_000
 
