@@ -41,7 +41,8 @@ and prints no result. Phases, each fatal on failure:
 5. the density path at full size (bench config 4: a 512x512 heatmap of
    NYC-taxi-shaped pickups, monthly partitions): get_features density
    (weighted, unweighted, scatter route), a zone-polygon get_count and
-   density, and DensityProcess with radius 2, each timed cold and warm,
+   density, and DensityProcess with radius 2, each timed cold and warm
+   (p50 of 5; of 2 for the ~1.4 s polygon count),
    with launch counts reset before and read after, checked against
    independent oracles (NumPy binning, an f64 crossing count on the card,
    the scatter route, the exact fallback on a shuffled copy), and
@@ -59,8 +60,9 @@ and prints no result. Phases, each fatal on failure:
    pip_layer_grouped (the device pass) and pip_layer_sparse and one call,
    after the first query and with no warm-up of its own, of the
    host-bound pip_layer, pip_layer_assign and pip_layer_join (5-13 s
-   each), torch.profiler breakdowns of
-   warm pip_layer and pip_layer_sparse calls, and the gates: zero mismatches against an
+   each), a torch.profiler breakdown of a warm pip_layer_sparse call
+   (pip_layer's, idle 1.000, went to keep the smoke inside its limit),
+   and the gates: zero mismatches against an
    independent all-edges f64 oracle over 256 sampled covered tiles plus
    every adversarial point, assignment ids equal to its per-polygon
    oracle, join pairs == the points inside, pip_layer_sparse ==
@@ -128,9 +130,11 @@ and prints no result. Phases, each fatal on failure:
    the WKT parse on read and edge_table() timed apart; then SqlContext
    runs SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN
    regions r ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY
-   region once cold and once warm (a p50 of 3 before the smoke neared
-   its time limit), with B6-B9's launch counts
-   reset before and read after (B7 must launch), and two calls split
+   region once cold and once warm (a p50 of 3, then 2 calls, before the
+   smoke neared its time limit; the warm number, `sql_warm_split_s`, is
+   now the split call's wall, its synchronised spans included, and does
+   not compare with earlier warm p50s), with B6-B9's launch counts
+   reset before and read after (B7 must launch), both calls split
    into the store reads, the WKT parse, edge_table(), the layer prep,
    the join (B7 plus the f64 refine) and the grouped aggregate; gated:
    the per-region counts equal the bincount of phase 6's gated
@@ -190,7 +194,7 @@ and prints no result. Phases, each fatal on failure:
    small_store shape (2^20 rows) a write moves manifest_version: the
    next ring window falls back "stale", sees the new rows and equals
    src.knn, the one after re-arms. Then run_closed_loop with 8 clients
-   and run_sustained with 64 outstanding, 5 s each, on the pipelined and
+   and run_sustained with 64 outstanding, 3 s each, on the pipelined and
    the ring route: served qps, p50/p99, windows, mean window size, B1
    launches a request, device ops a window, windows in flight at most,
    the dispatch thread's and the completer's host ms a window, the idle
@@ -369,12 +373,18 @@ and prints no result. Phases, each fatal on failure:
    (a) Last in phase 4, on its store in the state phase 16 left it: the
    single-card sparse kNN (Q=256, k=10), a call whose capacity forces
    the B2 fallback, the count, unweighted and speed-weighted 512x512
-   densities and a 1-degree box's features; then ds.set_mesh (the
-   re-tier timed; its upload rows == the resident rows) and the same
-   calls over the mesh: neighbour sets identical and meters
+   densities, a 1-degree box's features and a stats query (Count,
+   MinMax, Histogram and DescriptiveStats of speed); then ds.set_mesh (the
+   re-tier timed; its upload rows == the resident rows; every column
+   and the partition ids sharded, each shard its own allocation on its
+   device, the resident bytes by device beside the single tier's) and
+   the same calls over the mesh, with mesh.gathers 0: neighbour sets
+   identical and meters
    bit-identical, B1 launched once a shard per sparse call and B2 once
    a shard on the fallback, counts equal, unweighted grids equal and
-   weighted ones within the per-cell bound, features equal. (b) Last,
+   weighted ones within the per-cell bound, features equal, the stats
+   equal (the f64 moments within 1e-12 relative: each shard's reductions
+   run over its rows on its device, summed in shard order). (b) Last,
    the engine at 2^22 points: knn_sparse_sharded (B1 once a shard),
    knn_sharded, knn_ring and knn_compact_sharded (Q=64) against their
    single-card counterparts, density_zsparse_sharded (B3 once a shard)
@@ -388,6 +398,30 @@ and prints no result. Phases, each fatal on failure:
    ServeEvent mesh_shape "(4,)" and shards "0,1,2,3" (or "0"), then 8
    clients closed for 3 s (qps, p50) and 1 s under torch.profiler (the
    idle share). Numbers in a {"mesh"} line.
+20. A7 (b), the ring's mesh programs and the engine's other sharded
+   analytics, with B1-B3's launches reset before and read after each
+   part and B6's read around pip_layer_sharded (their rows gain "20"),
+   in at most 45 s together. (a) In phase 4 right after 19 (a), with the
+   mesh installed: 24 single-point kNN windows through the default
+   ServeConfig (the ring on the mesh: one CUDA graph a slot holding the
+   four shards' B1 and the merge on one card; per-card graphs and a
+   merge graph where the mesh spans cards), gated bit-identical to the
+   serial mesh route and to the same windows through the single-card
+   ring before the mesh (19 (a)), B1 4 a window, ServeEvents "(4,)" and
+   "0,1,2,3"; 8 clients closed for 3 s on the ring and on the pipelined
+   route (qps, p50/p99) and 1 s more on the ring with CUDA events around
+   each replay (the busy share); density_zsparse_sharded (B3 once a
+   shard) over the per-shard masks of phase 4's density query == the
+   single-card grid; mesh.gathers 0; set_mesh(None) frees at least the
+   mesh's resident bytes. (b) Last, at phase 19 (b)'s 2^22 points:
+   knn_indexed_sharded (the certified queries == knn_indexed),
+   stats_sharded (a count, a histogram and a Z3 occupancy == one card),
+   tube_select_sharded and tube_select_pruned_sharded at config 5's
+   track == tube_select, polygon_density_sharded of the config-2 layer
+   (phase 14's regions) at 512x512 == polygon_density, and
+   pip_layer_sharded over a 2^20-point Morton slice of config 2's points
+   against its 10,000 polygons (B6 once a shard) == pip_layer. Numbers
+   in the {"mesh"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -398,6 +432,7 @@ import argparse
 import faulthandler
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -712,8 +747,10 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         # phase 16 last: its deletes change nothing an earlier phase times
         lifecycle_phase(torch, dev, ds, src, tmp, dict(
             x=x, y=y, t=t, speed=speed, qx=qx, qy=qy, cql=cql), card_s)
-        # phase 19 (a) after it, on the store in the state it left
-        mesh_store_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql), card_s)
+        # phase 19 (a) after it, on the store in the state it left, then
+        # phase 20 (a) on the store with the mesh installed
+        single = mesh_store_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql), card_s)
+        mesh_ring_phase(torch, ds, src, dict(cql=cql), single, card_s)
         return launches, inputs, knn_ops, serve, serve_dev
 
 
@@ -1142,7 +1179,8 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
             out[name] = fn()
             cold = time.perf_counter() - t0
             times = []
-            for _ in range(5):
+            # the host-bound polygon count (~1.4 s a call) takes 2 warm calls
+            for _ in range(2 if name == "polygon count" else 5):
                 t0 = time.perf_counter()
                 out[name] = fn()
                 times.append(time.perf_counter() - t0)
@@ -1153,7 +1191,7 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
                     f"padded rows resident in {len(sb.ids)} partitions [{card_s}]")
         launches = {w.__name__: w.launches for w in kernels}
         log(f"density-path launches: {launches} over 6 calls of each of "
-            f"{len(calls)} call types")
+            f"{len(calls)} call types (3 of the polygon count)")
         assert all(launches.values()), "a kernel of the density path never launched"
         for name, (cold, warm) in lat.items():
             log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
@@ -1164,7 +1202,8 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
                       watch=watch)
         profile_calls(torch, "polygon density", calls["polygon density"], card_s,
                       watch=watch)
-        profile_calls(torch, "polygon count", calls["polygon count"], card_s, calls=1)
+        profile_calls(torch, "polygon count", calls["polygon count"], card_s, calls=1,
+                      warm=False)
 
         # -- oracles -------------------------------------------------------
         x32, y32 = x.astype(np.float32), y.astype(np.float32)
@@ -1856,8 +1895,8 @@ def layer_path(torch, dev, n: int, card_s: str):
         f"refine_s {jinfo['refine_s']:.3f}; pip_layer_assign: flagged "
         f"{ainfo['flagged']}, refined {ainfo['refined']}, host_rows "
         f"{ainfo['host_rows']}")
-    profile_calls(torch, "pip_layer", calls["pip_layer"], card_s, calls=1,
-                  warm=False)
+    # pip_layer is host-bound (its profile showed idle 1.000 for a ~7 s
+    # call): not profiled, to keep the smoke inside its limit
     profile_calls(torch, "pip_layer_sparse", calls["pip_layer_sparse"], card_s)
 
     # -- gates -------------------------------------------------------------
@@ -3134,7 +3173,7 @@ DEV_COUNTS = 64  # counts fused onto one pipelined kNN window
 DEV_WINDOW = 64
 DEV_STALE_ROWS = 1 << 20  # rows of the staleness store (phase 9's small_store)
 DEV_STALE_WRITE = 4096  # rows the write adds
-DEV_LOAD_S = 5.0
+DEV_LOAD_S = 3.0
 DEV_ROUTES = {"serial": dict(pipeline=False, ring=False),
               "pipelined": dict(ring=False), "ring": {}}
 
@@ -3507,7 +3546,6 @@ def stale_check(dev, path: str, cql: str, cfg: dict, card_s: str) -> dict:
 
 SQL_JOIN = ("SELECT r.name AS region, COUNT(*) AS n FROM events e JOIN regions r "
             "ON st_contains(r.geom, e.geom) GROUP BY r.name ORDER BY region")
-SQL_WARM = 1  # warm calls of the join (~16 s each on the card)
 STATS_EXPR = ("Count();MinMax(dtg);Histogram(val,32,0,10);DescriptiveStats(val);"
               "Cardinality(val)")
 EVENTS_DAY0 = TUBE_DAY0  # one day of events: one partition keeps Morton order
@@ -3624,7 +3662,7 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
             f"{out['events_write_s']:.3f} s; edge_table() of the layer "
             f"{out['edge_table_s']:.3f} s")
 
-        # -- the SQL join: cold with its split, warm p50 of SQL_WARM, then one split;
+        # -- the SQL join: cold and warm, each with its split;
         # the plain PyTorch reductions' calls are counted through the stats
         op_names = ("grouped_count", "grouped_sum", "grouped_min",
                     "grouped_max", "hll_registers", "z3_histogram")
@@ -3650,22 +3688,18 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
                 results.append(ctx.sql(SQL_JOIN))
                 wall = time.perf_counter() - t0
             splits[what] = dict(sp.seconds, wall=wall)
-            if what == "cold":
-                times = []
-                for _ in range(SQL_WARM):
-                    t0 = time.perf_counter()
-                    results.append(ctx.sql(SQL_JOIN))
-                    times.append(time.perf_counter() - t0)
-                out["sql_warm_p50_s"] = statistics.median(times)
+        # the warm call is the split one (its spans synchronise the card
+        # a few times; a separate warm call cost the smoke ~15 s)
+        out["sql_warm_split_s"] = splits["warm"]["wall"]
         launches = {w.__name__: w.launches for w in kernels}
         out["launches"] = launches
         out["sql_cold_s"] = splits["cold"]["wall"]
         out["split_cold_s"] = splits["cold"]
         out["split_warm_s"] = splits["warm"]
-        log(f"config-2 SQL join: cold {out['sql_cold_s']:.3f} s, warm p50 "
-            f"{out['sql_warm_p50_s'] * 1e3:.3f} ms over {SQL_WARM}, "
-            f"{n / out['sql_warm_p50_s']:.1f} points/sec; launches over "
-            f"{SQL_WARM + 2} queries {launches} [{card_s}]")
+        log(f"config-2 SQL join: cold {out['sql_cold_s']:.3f} s, warm (the split "
+            f"call, synchronised spans) {out['sql_warm_split_s'] * 1e3:.3f} ms, "
+            f"{n / out['sql_warm_split_s']:.1f} points/sec; launches over "
+            f"2 queries {launches} [{card_s}]")
         for what, sp in splits.items():
             log(f"config-2 SQL {what} split (synchronised spans): " + ", ".join(
                 f"{name} {sec:.3f} s" for name, sec in sp.items()))
@@ -6645,6 +6679,7 @@ MESH_SERVED = 64  # single-point kNN requests a route
 MESH_LOAD_S = 3.0
 MESH_PROFILE_S = 1.0
 MESH_FEATURE_BOX = (20.0, 45.0, 21.0, 46.0)  # away from phase 16's deletes
+MESH_STATS = "Count();MinMax(speed);Histogram(speed,32,0,100);DescriptiveStats(speed)"
 PHASE19_BUDGET_S = 60.0
 
 
@@ -6667,10 +6702,11 @@ def phase_mesh(torch):
     info = {"devices": [str(d) for d in mesh.device_list],
             "shape": str(tuple(mesh.devices.shape)),
             "copies_between_cards": mesh.spans_devices,
-            # the store's columns and the filter mask stay whole on the
-            # lead card; only the x/y coordinates are placed per shard
-            "residency": "not sharded: columns and mask whole on the lead "
-                         "card, x/y per shard (ROADMAP A7 (b))"}
+            # every row-axis column and the partition ids: shard i's rows
+            # in its own allocation on devices[i]; masks per shard
+            "residency": "sharded: every row-axis column and the partition "
+                         "ids, shard i's rows on devices[i] in their own "
+                         "allocation; masks, counts and grids per shard"}
     mesh_record("mesh", info)
     return mesh
 
@@ -6705,6 +6741,10 @@ def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
             density_bbox=BBOX, density_width=GRID, density_height=GRID,
             density_weight=weight))).grid
 
+    def stats():
+        return src.get_features(Query("gdelt", cql, hints=QueryHints(
+            stats_string=MESH_STATS))).stats.stats
+
     plan_cql = planner.plan(Query("gdelt", cql)).cql
 
     def overflow_call(on_mesh):
@@ -6722,13 +6762,24 @@ def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
         out["density"] = dens()
         out["density_speed"] = dens("speed")
         out["features"] = src.get_features(feats_q).features
+        t0 = time.perf_counter()
+        out["stats"] = stats()
+        out["stats_s"] = time.perf_counter() - t0
         return out
 
     res = {}
     with Launches(discard=True):  # the single-card oracle's launches
         single = answers()
+        res["single_stats_s"] = single["stats_s"]
         res["single_knn_p50_ms"] = p50_s(lambda: src.knn(cql, qx, qy, k=K)) * 1e3
+        # phase 20 (a)'s single-card ring windows, before the mesh
+        single["ring"] = ring_windows(ds, cql, "single")[0]
     resident = cache.stats()["padded_rows"]
+    res["single_resident_bytes"] = cache.resident_bytes()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(mesh.lead)
+    gathers0 = mesh_gathers()
     up0 = cache.upload_rows
     t0 = time.perf_counter()
     ds.set_mesh(mesh)
@@ -6739,6 +6790,15 @@ def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
     res["resident_rows"] = len(sb.batch)
     assert res["upload_rows"] == len(sb.batch) == -(-resident // d) * d, res
     assert sb.mesh == mesh and sb.shard_rows * d == len(sb.batch)
+    # sharded residency: every column a Sharded of per-shard allocations
+    # on the shards' devices; the single tier's segments dropped
+    res["resident_bytes"] = cache.resident_bytes()
+    res["allocated_change_bytes"] = torch.cuda.memory_allocated(mesh.lead) - mem0
+    for col in list(sb.dev.values()) + [sb.pids]:
+        assert len(col.shards) == d and all(
+            t.device == dv and t.untyped_storage().nbytes()
+            == sb.shard_rows * t.element_size()
+            for t, dv in zip(col.shards, mesh.device_list)), "a shard is not its own"
     with Launches(MESH_LAUNCHES) as ln_sparse:
         got = {"sparse": src.knn(cql, qx, qy, k=K)}
     with Launches(MESH_LAUNCHES) as ln_over:
@@ -6748,6 +6808,9 @@ def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
         got["density"] = dens()
         got["density_speed"] = dens("speed")
         got["features"] = src.get_features(feats_q).features
+        t0 = time.perf_counter()
+        got["stats"] = stats()
+        res["mesh_stats_s"] = time.perf_counter() - t0
         res["mesh_knn_p50_ms"] = p50_s(lambda: src.knn(cql, qx, qy, k=K)) * 1e3
     assert ln_sparse.counts["chord_blockmin_sparse"] == d, ln_sparse.counts
     assert ln_sparse.counts["chord_blockmin"] == 0, ln_sparse.counts
@@ -6759,11 +6822,20 @@ def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
         (sd, si, _), (md, mi, _) = single[name], got[name]
         assert same_neighbours(si, sd, mi, md), f"mesh {name} neighbours differ"
         assert np.array_equal(sd, md), f"mesh {name} meters differ"
+    res["gathers"] = mesh_gathers() - gathers0
+    assert res["gathers"] == 0, "a mesh query gathered a whole column"
     assert got["count"] == single["count"]
     assert np.array_equal(got["density"], single["density"]), "density counts"
     cnt = single["density"]
     exp = single["density_speed"].astype(np.float64)
     assert cell_bound(got["density_speed"], exp, cnt), "weighted density"
+    # stats shard by shard: the counts, min/max and histogram exact, the
+    # f64 moments to summation noise (added a shard at a time)
+    (sc, smm, sh, sd), (mc, mmm, mh, md) = single["stats"], got["stats"]
+    assert (mc.count == sc.count and mmm.to_json() == smm.to_json()
+            and mh.to_json() == sh.to_json() and md.count == sd.count), "mesh stats"
+    assert math.isclose(md.sum, sd.sum, rel_tol=1e-12), (md.sum, sd.sum)
+    assert math.isclose(md.sum_sq, sd.sum_sq, rel_tol=1e-12), (md.sum_sq, sd.sum_sq)
     fa, fb = single["features"], got["features"]
     assert rows_equal(fb, np.asarray(fa.columns["dtg"]),
                       np.asarray(fa.columns["geom"].x),
@@ -6775,13 +6847,19 @@ def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
                seconds=time.perf_counter() - t_phase)
     mesh_record("store", res)
     log(f"mesh store ({d} shards on {', '.join(map(str, mesh.device_list))}): re-tier {res['retier_s']:.3f} s, "
-        f"{res['upload_rows']} rows uploaded == resident; sparse kNN (Q={Q}, k={K}) "
+        f"{res['upload_rows']} rows uploaded == resident, sharded: resident bytes "
+        f"{res['resident_bytes']} (the single tier's {res['single_resident_bytes']}, "
+        f"segments and their concat), allocated {res['allocated_change_bytes']:+d} B "
+        f"across the re-tier; mesh.gathers {res['gathers']:g}; sparse kNN (Q={Q}, k={K}) "
         f"B1 x{ln_sparse.counts['chord_blockmin_sparse']}, the forced overflow B2 "
         f"x{ln_over.counts['chord_blockmin']}: neighbours and meters == one card; "
         f"warm p50 {res['mesh_knn_p50_ms']:.3f} ms on the mesh vs "
         f"{res['single_knn_p50_ms']:.3f} ms on one card; count {got['count']}, "
-        f"512x512 densities and {len(fa)} features == one card "
-        f"({res['seconds']:.3f} s) [{card_s}]")
+        f"512x512 densities, {len(fa)} features and the stats == one card "
+        f"(stats {res['mesh_stats_s']:.3f} s on the mesh, {res['single_stats_s']:.3f} s "
+        f"on one card; {res['seconds']:.3f} s) "
+        f"[{card_s}]")
+    return single
 
 
 def mesh_engine(torch, mesh, card_s: str) -> dict:
@@ -7012,6 +7090,325 @@ def mesh_phase(torch, card_s: str) -> None:
 
 
 
+# -- phase 20: A7 (b), the ring's mesh programs and the sharded analytics -------
+
+RING_LAUNCHES = {name: 0 for name in A4B_KERNELS}
+RING_B6 = [0]  # phase 20 (b)'s pip_layer_sharded launches of B6
+RING_SERVED = 24  # single-point ring windows a route (16 at least)
+RING_LOAD_S = 3.0
+RING_PROFILE_S = 1.0
+RING_LAYER_N = 1 << 20  # the Morton slice of config 2's points
+PHASE20_BUDGET_S = 45.0
+
+
+def mesh_gathers() -> float:
+    """The `mesh.gathers` counter: whole sharded columns gathered."""
+    from geomesa_tpu_torch.utils.metrics import metrics
+
+    return json.loads(metrics.to_json())["counters"].get("mesh.gathers", 0.0)
+
+
+def ring_requests(n: int = RING_SERVED):
+    """Phase 20's single-point kNN requests, inside phase 4's BBOX."""
+    rng = np.random.default_rng(211)
+    return rng.uniform(BBOX[0] + 5, BBOX[2] - 5, n), rng.uniform(BBOX[1] + 5, BBOX[3] - 5, n)
+
+
+def ring_windows(ds, cql: str, route: str):
+    """Phase 20's requests served one window each on `route` ("single" or
+    "ring": the default config, ring on; "serial": no pipeline, no ring):
+    (answers, the pipeline's stats with the mesh captures held before the
+    service closed under "captures", the windows' ServeEvents)."""
+    from geomesa_tpu_torch.compilecache.registry import registry
+    from geomesa_tpu_torch.plan.audit import ServeEvent
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+
+    cfg = dict(pipeline=False, ring=False) if route == "serial" else {}
+    qx, qy = ring_requests()
+    ev0 = len(ds.audit.events)
+    svc = QueryService(ds, ServeConfig(max_wait_ms=0.0, **cfg))
+    try:
+        out = [svc.knn("gdelt", cql, qx[i:i + 1], qy[i:i + 1], k=K).result(timeout=120)
+               for i in range(len(qx))]
+        st = svc.stats().get("pipeline", {})
+        st["captures"] = [c for c in registry.held() if c.mesh_parts is not None]
+    finally:
+        svc.close(drain=True)
+    events = [e for e in ds.audit.events[ev0:]
+              if isinstance(e, ServeEvent) and e.kind == "knn"]
+    return out, st, events
+
+
+def mesh_ring_phase(torch, ds, src, a: dict, single: dict, card_s: str) -> None:
+    """Phase 20 (a), after phase 19 (a) on phase 4's store with the mesh
+    installed: the ring on the mesh (its windows gated against the serial
+    mesh route and the single-card ring of phase 19 (a)), its launches a
+    window, 8 clients closed on the ring and the pipelined route, the
+    ring's busy share from CUDA events; B3 over the per-shard masks; then
+    `set_mesh(None)` frees the shards."""
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.compilecache.registry import registry
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.parallel.mesh import Sharded
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig, run_closed_loop
+    from geomesa_tpu_torch.serve.scheduler import ServeRequest
+
+    t_phase = time.perf_counter()
+    lap = Laps()
+    cache = src.planner.cache
+    mesh = cache.serving_mesh()
+    d = mesh.size
+    cql = a["cql"]
+    res = {}
+    g0 = mesh_gathers()
+    with Launches(RING_LAUNCHES) as ln:
+        ring, st, events = ring_windows(ds, cql, "ring")
+    lap("ring windows")
+    rs = st["ring"]
+    assert rs["windows"] == RING_SERVED and rs["fallbacks"] == {}, rs
+    assert ln.counts["chord_blockmin_sparse"] == d * RING_SERVED, ln.counts
+    assert ln.counts["chord_blockmin"] == 0, ln.counts
+    whole = (f"({d},)", ",".join(map(str, range(d))))
+    assert [(e.mesh_shape, e.shards) for e in events] == [whole] * RING_SERVED, events
+    caps = st.pop("captures")  # they pin the frozen superbatch: dropped below
+    assert caps and (mesh.lead.type != "cuda" or all(c.graphs for c in caps)), \
+        "the mesh ring replayed no graph"
+    with Launches(discard=True):
+        serial, _, _ = ring_windows(ds, cql, "serial")
+    for i, (r, s_, o) in enumerate(zip(ring, serial, single["ring"])):
+        for other in (s_, o):
+            assert np.array_equal(r[1], other[1]) and np.array_equal(r[0], other[0]), i
+    lap("gates")
+    res.update(windows=RING_SERVED, b1_a_window=ln.counts["chord_blockmin_sparse"] / RING_SERVED,
+               split_graphs=caps[0].split is not None, graphs=len(caps[0].graphs),
+               arm_launches=dict(caps[0].arm_launches), capture_s=caps[0].seconds)
+
+    def make(i):
+        r = ServeRequest(kind="knn", query=Query("gdelt", cql))
+        g = np.random.default_rng(2_000 + i)
+        r.qx = g.uniform(BBOX[0] + 5, BBOX[2] - 5, 1)
+        r.qy = g.uniform(BBOX[1] + 5, BBOX[3] - 5, 1)
+        r.k = K
+        return r
+
+    load = {}
+    with Launches(RING_LAUNCHES):
+        for route, cfg in (("ring", {}), ("pipelined", dict(ring=False))):
+            svc = QueryService(ds, ServeConfig(max_wait_ms=5.0, **cfg))
+            try:
+                rep = run_closed_loop(svc, make, concurrency=8, duration_s=RING_LOAD_S)
+                assert rep.ok > 0 and rep.errors == 0, rep
+                load[route] = {"served_qps": rep.throughput_qps, "p50_ms": rep.p50_ms,
+                               "p99_ms": rep.p99_ms}
+                if route == "ring":
+                    wall_ms, busy_ms = replay_busy(torch, lambda: run_closed_loop(
+                        svc, make, concurrency=8, duration_s=RING_PROFILE_S))
+                    load[route]["busy_share"] = busy_ms / wall_ms
+                    load[route]["ring"] = svc.stats()["pipeline"]["ring"]
+            finally:
+                svc.close(drain=True)
+            lap(f"{route} load")
+    res["load"] = load
+    # B3 over the planner's own per-shard masks of phase 4's density query
+    query = Query("gdelt", cql)
+    plan = src.planner.plan(query)
+    sb, allowed = src.planner._resident(plan)
+    masks, _ = src.planner._mesh_masks(plan, query.hints, sb, allowed)
+    x, y = sb.dev["geom__x"], sb.dev["geom__y"]
+    ones = x.map(lambda t: torch.ones_like(t, dtype=torch.float32))
+    with Launches(RING_LAUNCHES) as lz:
+        t0 = time.perf_counter()
+        grid = dz.density_zsparse_sharded(mesh, x, y, ones, Sharded(mesh, masks),
+                                          BBOX, GRID, GRID)
+        torch.cuda.synchronize()
+        res["density_zsparse_sharded_ms"] = (time.perf_counter() - t0) * 1e3
+    assert lz.counts["zsparse_counts"] == d, lz.counts
+    assert np.array_equal(grid.cpu().numpy(), single["density"]), "B3 over the shards"
+    res["gathers"] = mesh_gathers() - g0
+    assert res["gathers"] == 0, "the mesh ring gathered a whole column"
+    lap("B3 over the shards")
+    # clearing the mesh frees every shard
+    mesh_bytes = sum(cache.resident_bytes().values())
+    del sb, masks, x, y, ones, grid, caps
+    registry.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(mesh.lead)
+    ds.set_mesh(None)
+    gc.collect()
+    torch.cuda.synchronize()
+    res["freed_bytes"] = before - torch.cuda.memory_allocated(mesh.lead)
+    res["mesh_resident_bytes"] = mesh_bytes
+    assert res["freed_bytes"] >= mesh_bytes, res
+    lap("set_mesh(None)")
+    res["laps_s"] = dict(lap.seconds, total=time.perf_counter() - t_phase)
+    mesh_record("ring", res)
+    lr, lp = load["ring"], load["pipelined"]
+    log(f"mesh ring ({d} shards): {RING_SERVED} windows from "
+        f"{'split per-card' if res['split_graphs'] else 'one'} CUDA graph(s) a slot, "
+        f"B1 x{res['b1_a_window']:g} a window, == the serial mesh route and the "
+        f"single-card ring bit for bit; ServeEvents {whole}; closed loop 8: ring "
+        f"{lr['served_qps']:.1f} qps, p50 {lr['p50_ms']:.3f} ms, p99 {lr['p99_ms']:.3f} ms, "
+        f"busy share {lr['busy_share']:.3f} (CUDA events); pipelined {lp['served_qps']:.1f} "
+        f"qps, p50 {lp['p50_ms']:.3f} ms, p99 {lp['p99_ms']:.3f} ms; B3 x{d} over the "
+        f"shards' masks {res['density_zsparse_sharded_ms']:.3f} ms == one card; "
+        f"mesh.gathers 0; set_mesh(None) freed {res['freed_bytes']} B >= "
+        f"{mesh_bytes} B resident [{card_s}]")
+    log("phase 20 (a) laps: " + ", ".join(f"{k} {v:.3f} s" for k, v in lap.seconds.items())
+        + f" [{card_s}]")
+
+
+def timed_once(torch, fn):
+    """(result, ms) of one call after a warm one, synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_analytics_phase(torch, card_s: str) -> None:
+    """Phase 20 (b), last: the engine's other sharded functions at phase
+    19 (b)'s shapes, each against its single-card counterpart."""
+    from geomesa_tpu_torch.engine import grid_index as gi
+    from geomesa_tpu_torch.engine import pip_sparse as ps
+    from geomesa_tpu_torch.engine import pip_sparse_kernels as psk
+    from geomesa_tpu_torch.engine import raster
+    from geomesa_tpu_torch.engine import stats as est
+    from geomesa_tpu_torch.engine import tube as tb
+
+    t_phase = time.perf_counter()
+    lap = Laps()
+    mesh = phase_mesh(torch)
+    d = mesh.size
+    dev = mesh.lead
+    res = {}
+    rng = np.random.default_rng(221)
+    n = MESH_ENGINE_N
+    x = rng.uniform(-180, 180, n)
+    y = rng.uniform(-90, 90, n)
+    o = morton_order(torch, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    xt = torch.from_numpy(x[o].astype(np.float32)).to(dev)
+    yt = torch.from_numpy(y[o].astype(np.float32)).to(dev)
+    mt = ((xt >= BBOX[0]) & (xt <= BBOX[2]) & (yt >= BBOX[1]) & (yt <= BBOX[3])
+          & torch.from_numpy(rng.random(n) < 0.7).to(dev))
+    qx = torch.from_numpy(rng.uniform(-50, 50, Q).astype(np.float32)).to(dev)
+    qy = torch.from_numpy(rng.uniform(25, 65, Q).astype(np.float32)).to(dev)
+    # the grid index shards rows in write order (every shard spans the
+    # globe; Morton-contiguous shards would leave most queries without k
+    # candidates on 3 of 4 shards, uncertain), its grid sized to a shard
+    wx = torch.from_numpy(x.astype(np.float32)).to(dev)
+    wy = torch.from_numpy(y.astype(np.float32)).to(dev)
+    wm = mt[torch.from_numpy(np.argsort(o)).to(dev)]
+    g, slots = gi.auto_grid_params(int(wm.sum()) // d)
+    with Launches(RING_LAUNCHES):
+        (md, mi, unc), res["knn_indexed_sharded_ms"] = timed_once(
+            torch, lambda: gi.knn_indexed_sharded(mesh, qx, qy, wx, wy, wm, k=K, g=g,
+                                                  cell_slots=slots))
+        (sd, si), res["knn_indexed_ms"] = timed_once(
+            torch, lambda: gi.knn_indexed(qx, qy, wx, wy, wm, k=K, g=g, cell_slots=slots))
+    ok = ~unc.cpu().numpy()
+    res["knn_indexed_certified"] = int(ok.sum())
+    assert ok.sum() >= Q // 2, ok.sum()
+    assert np.array_equal(mi.cpu().numpy()[ok], si.cpu().numpy()[ok])
+    assert np.array_equal(md.cpu().numpy()[ok], sd.cpu().numpy()[ok])
+    lap("knn_indexed_sharded")
+    v = torch.from_numpy(rng.uniform(0, 30, n).astype(np.float32)).to(dev)
+    tbin = torch.from_numpy(rng.integers(0, 8, n).astype(np.int32)).to(dev)
+
+    def reduce(v, x, y, t, m):
+        return (est.masked_count(m), est.masked_histogram(v, m, 0.0, 30.0, 64),
+                est.z3_histogram(x, y, t, m, 8, 16))
+
+    got, res["stats_sharded_ms"] = timed_once(
+        torch, lambda: est.stats_sharded(mesh, reduce, v, xt, yt, tbin, mt))
+    one, res["stats_ms"] = timed_once(torch, lambda: reduce(v, xt, yt, tbin, mt))
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(got, one)), "stats_sharded"
+    lap("stats_sharded")
+    # config 5's track over its 2^22 points
+    trng = np.random.default_rng(223)
+    tx_, ty_, tt_ = tube_track(trng)
+    px_, py_, pt_ = tube_points(torch, dev, trng, TUBE_N)
+    f32 = lambda a_: torch.from_numpy(np.ascontiguousarray(a_, np.float32)).to(dev)  # noqa: E731
+    args = (f32(px_), f32(py_), torch.from_numpy(pt_).to(dev),
+            torch.ones(TUBE_N, dtype=torch.bool, device=dev), f32(tx_), f32(ty_),
+            torch.from_numpy(tt_).to(dev), TUBE_RADIUS, TUBE_WIN)
+    dense, res["tube_select_sharded_ms"] = timed_once(
+        torch, lambda: tb.tube_select_sharded(mesh, *args))
+    cap = tb.default_capacity(TUBE_N // d, tb.PRUNE_TILE)
+    (pruned, ov), res["tube_select_pruned_sharded_ms"] = timed_once(
+        torch, lambda: tb.tube_select_pruned_sharded(
+            mesh, *args, data_tile=tb.PRUNE_TILE, tile_capacity=cap))
+    base, res["tube_select_ms"] = timed_once(torch, lambda: tb.tube_select(*args))
+    assert not ov and torch.equal(dense.full(), base) and torch.equal(pruned.full(), base)
+    res["tube_hits"] = int(base.sum())
+    assert res["tube_hits"] > 0
+    lap("tube_select(_pruned)_sharded")
+    # config 2's layer: phase 14's regions' coverage, then the join
+    lrng = np.random.default_rng(29)
+    layer = gen_admin_layer(lrng, LAYER_POLYS)
+    x1, y1, x2, y2, pol = layer[:5]
+    ne = len(x1)
+    pad = (-ne) % d
+    edges = [torch.from_numpy(np.concatenate([a_, np.zeros(pad)]).astype(np.float32)).to(dev)
+             for a_ in (x1, y1, x2, y2)]
+    w = torch.ones(ne + pad, dtype=torch.float32, device=dev)
+    em = torch.arange(ne + pad, device=dev) < ne
+    env = LAYER_DENSITY_ENV
+    # phase 14's k and tile (the default 2048-edge tile launches ~100k
+    # small ops over 14.5 M edges: ~4.5 s a call)
+    k = raster._pow2(raster.polygon_rowspan_bound(y1, y2, env, GRID) + 1)
+    tile = raster._seg_tile(k)
+    cov, res["polygon_density_sharded_ms"] = timed_once(
+        torch, lambda: raster.polygon_density_sharded(mesh, *edges, w, em, env, GRID,
+                                                      GRID, k, seg_tile=tile))
+    cov1, res["polygon_density_ms"] = timed_once(
+        torch, lambda: raster.polygon_density(*edges, w, em, env, GRID, GRID, k,
+                                              seg_tile=tile))
+    assert torch.equal(cov, cov1) and cov.sum().item() > 0, "polygon_density_sharded"
+    lap("polygon_density_sharded")
+    lpx, lpy, _ = layer_points(torch, dev, lrng, LAYER_POINTS, layer)
+    s0 = (LAYER_POINTS - RING_LAYER_N) // 2
+    px, py = lpx[s0:s0 + RING_LAYER_N], lpy[s0:s0 + RING_LAYER_N]
+    t0 = time.perf_counter()
+    prep = ps.prepare_layer(px, py, x1, y1, x2, y2, pol)
+    res["layer_prep_s"] = time.perf_counter() - t0
+    b6 = psk.pip_grouped.launches
+    t0 = time.perf_counter()
+    inside, info = ps.pip_layer_sharded(mesh, px, py, x1, y1, x2, y2, pol, prep=prep)
+    res["pip_layer_sharded_s"] = time.perf_counter() - t0
+    RING_B6[0] = psk.pip_grouped.launches - b6
+    assert RING_B6[0] == d, RING_B6
+    with Launches(discard=True):
+        b6 = psk.pip_grouped.launches
+        t0 = time.perf_counter()
+        inside1, info1 = ps.pip_layer(px, py, x1, y1, x2, y2, pol, device=dev, prep=prep)
+        res["pip_layer_s"] = time.perf_counter() - t0
+        psk.pip_grouped.launches = b6  # the oracle's launch is not the path's
+    assert np.array_equal(inside, inside1) and info["pairs"] == info1["pairs"]
+    res["pip_layer_sharded_info"] = info
+    lap("pip_layer_sharded")
+    total = time.perf_counter() - t_phase
+    res["laps_s"] = dict(lap.seconds, total=total)
+    mesh_record("analytics", res)
+    log(f"mesh analytics ({d} shards): knn_indexed_sharded {res['knn_indexed_sharded_ms']:.3f} ms "
+        f"(one card {res['knn_indexed_ms']:.3f}; {res['knn_indexed_certified']} of {Q} "
+        f"certified == knn_indexed); stats_sharded {res['stats_sharded_ms']:.3f} ms "
+        f"({res['stats_ms']:.3f}) == one card; tube_select_sharded "
+        f"{res['tube_select_sharded_ms']:.3f} ms, pruned {res['tube_select_pruned_sharded_ms']:.3f} "
+        f"ms (one card dense {res['tube_select_ms']:.3f}) == one card, {res['tube_hits']} "
+        f"hits; polygon_density_sharded {res['polygon_density_sharded_ms']:.3f} ms "
+        f"({res['polygon_density_ms']:.3f}) == one card over {ne} edges; pip_layer_sharded "
+        f"{res['pip_layer_sharded_s']:.3f} s (B6 x{RING_B6[0]}; one card "
+        f"{res['pip_layer_s']:.3f} s), prep {res['layer_prep_s']:.3f} s, {info['pairs']} pairs, "
+        f"{info['flagged']} flagged == pip_layer [{card_s}]")
+    ring_s = PHASES["mesh"].get("ring", {}).get("laps_s", {}).get("total", 0.0)
+    log("phase 20 laps: " + ", ".join(f"{k} {v:.3f} s" for k, v in lap.seconds.items())
+        + f"; {total:.3f} s here + {ring_s:.3f} s in phase 4 [{card_s}]")
+    assert total + ring_s <= PHASE20_BUDGET_S, f"phase 20 took {total + ring_s:.1f} s"
+
+
 def main() -> int:
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
@@ -7108,6 +7505,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_phase(torch, card_s)
     lap("phase 19 (b-d)")
+    torch.cuda.empty_cache()
+    mesh_analytics_phase(torch, card_s)
+    lap("phase 20 (b)")
     for row in rows:
         if row["name"] == "pip_assign":  # phase 6's launches, then phase 11's
             row["launches_by_phase"] = {"6": row["launches"], "11": b7}
@@ -7164,6 +7564,16 @@ def main() -> int:
     log(f"phase-19 launches: {MESH_LAUNCHES}")
     assert all(MESH_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
                                           "zsparse_counts")), MESH_LAUNCHES
+    RING_LAUNCHES["pip_grouped"] = RING_B6[0]
+    for row in rows:
+        if row["name"] in RING_LAUNCHES:  # then phase 20's
+            first = "6" if row["name"] == "pip_grouped" else "4"
+            row.setdefault("launches_by_phase", {first: row["launches"]})
+            row["launches_by_phase"]["20"] = RING_LAUNCHES[row["name"]]
+            row["launches"] += RING_LAUNCHES[row["name"]]
+    log(f"phase-20 launches: {RING_LAUNCHES}")
+    assert all(RING_LAUNCHES[k] for k in ("chord_blockmin_sparse", "zsparse_counts",
+                                          "pip_grouped")), RING_LAUNCHES
     ops += SUB_OPS
     print(json.dumps({"lifecycle": PHASES.pop("lifecycle")}))
     print(json.dumps({"kv_live": PHASES.pop("kv_live")}))

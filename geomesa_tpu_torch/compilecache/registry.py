@@ -38,6 +38,20 @@ its warm-up run and of its captures back off the wrappers (they are arm
 launches, `stats()["arm_launches"]`), and `replay` adds the graph's
 launches per replay.
 
+A mesh window class (`mesh_parts`: the mesh, one body a shard, the merge)
+captures its shards and the merge together where the mesh repeats one
+card: one graph a slot holds every shard's launches and the merge. A
+CUDA graph belongs to one device, so where the mesh spans cards
+(`Mesh.spans_devices`) the capture splits: per slot one graph
+a card for that card's shards, reading the card's own static copy of
+the slot's queries and writing static per-shard outputs, and one graph
+on the lead card for the merge over static lead-side copies of those
+outputs. A replay then orders the cards by events: each card waits for
+the slot write, takes the queries, replays its graph; the lead waits
+for every card, copies the outputs across and replays the merge. The
+copies between cards stay outside the graphs. On one card the split
+design runs with no copy; between cards it is untried.
+
 A capture under an active `torch.profiler` is refused with
 GraphCaptureError (capturing while the profiler traces the card crashes
 the process): warm the window classes up before profiling.
@@ -67,7 +81,11 @@ def profiler_active() -> bool:
 
 def _tensors(obj):
     """The tensors in a (nested) dict/tuple/list of frozen inputs."""
-    if isinstance(obj, torch.Tensor):
+    from geomesa_tpu_torch.parallel.mesh import Sharded
+
+    if isinstance(obj, Sharded):
+        yield from obj.shards
+    elif isinstance(obj, torch.Tensor):
         yield obj
     elif isinstance(obj, dict):
         for v in obj.values():
@@ -80,11 +98,16 @@ def _tensors(obj):
 class RingCapture:
     """One captured ring window class (module docstring)."""
 
-    def __init__(self, name: str, slots: SlotRing, body: Callable,
+    def __init__(self, name: str, slots: SlotRing, body: Optional[Callable],
                  frozen: dict, wrappers: Sequence, q: int, k: int,
-                 capacity: int, owner_id: int = 0, cls: str = ""):
+                 capacity: int, owner_id: int = 0, cls: str = "",
+                 mesh_parts=None):
         self.name = name
         self.slots = slots
+        self.mesh_parts = mesh_parts
+        self.split = None  # the split mesh capture's per-slot state
+        if mesh_parts is not None:
+            body = _mesh_body(*mesh_parts)
         self.body = body
         self.frozen = frozen  # what the graphs read; kept alive here
         self.wrappers = tuple(wrappers)
@@ -122,6 +145,9 @@ class RingCapture:
                 s0 = self.slots.slots[0]
                 self.body(s0.qx, s0.qy)
             torch.cuda.current_stream(device).wait_stream(side)
+            if self._split_wanted():
+                self._capture_split(device)
+                return
             pool = torch.cuda.graph_pool_handle()
             for slot in self.slots.slots:
                 pre = {w.__name__: w.launches for w in self.wrappers}
@@ -146,6 +172,75 @@ class RingCapture:
                     self.arm_launches[w.__name__] = n
                     w.launches -= n
 
+    def _split_wanted(self) -> bool:
+        return (self.mesh_parts is not None
+                and self.mesh_parts[0].spans_devices)
+
+    def _capture_split(self, device: torch.device) -> None:
+        """The split mesh capture (module docstring): per slot, one graph
+        a card over that card's shards, then the lead's merge graph."""
+        from geomesa_tpu_torch.parallel.mesh import on_shard
+
+        mesh, shard_fns, merge = self.mesh_parts
+        devs = mesh.device_list
+        cards = list(dict.fromkeys(devs))
+        self.split = []
+        for slot in self.slots.slots:
+            pre = {w.__name__: w.launches for w in self.wrappers}
+            per_card = []
+            outs: list = [None] * len(devs)
+            for card in cards:
+                with on_shard(card):
+                    if card == device:
+                        q = (slot.qx, slot.qy)
+                    else:
+                        q = (torch.empty_like(slot.qx, device=card),
+                             torch.empty_like(slot.qy, device=card))
+                    mine = [i for i, d in enumerate(devs) if d == card]
+                    g = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                        got = [shard_fns[i](*q) for i in mine]
+                    for i, o in zip(mine, got):
+                        outs[i] = o
+                    per_card.append((card, q, g))
+            # the merge reads lead-side copies of the other cards' outputs
+            lead_in = [o if devs[i] == device else
+                       tuple(torch.empty_like(t, device=device) for t in o)
+                       for i, o in enumerate(outs)]
+            with on_shard(device):
+                mg = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(mg, capture_error_mode="thread_local"):
+                    out = merge(lead_in)
+            self.graphs.append(mg)
+            self.outputs.append(out)
+            self.split.append((per_card, outs, lead_in))
+            self.per_replay = {w.__name__: w.launches - pre[w.__name__]
+                               for w in self.wrappers}
+
+    def _replay_split(self, slot, device: torch.device) -> None:
+        per_card, outs, lead_in = self.split[slot.index]
+        lead_stream = torch.cuda.current_stream(device)
+        written = torch.cuda.Event()
+        written.record(lead_stream)
+        done = []
+        for card, q, g in per_card:
+            with torch.cuda.device(card):
+                stream = torch.cuda.current_stream(card)
+                stream.wait_event(written)
+                if card != device:
+                    q[0].copy_(slot.qx, non_blocking=True)
+                    q[1].copy_(slot.qy, non_blocking=True)
+                g.replay()
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                done.append(ev)
+        for ev in done:
+            lead_stream.wait_event(ev)
+        for dst, src in zip(lead_in, outs):
+            if dst is not src:
+                for a, b in zip(dst, src):
+                    a.copy_(b, non_blocking=True)
+
     def replay(self, slot):
         """The window's outputs: the slot's graph replayed (its launches
         added to the wrappers' counts), or on the CPU the body called."""
@@ -154,10 +249,27 @@ class RingCapture:
         if self.slots.slots[slot.index] is not slot:
             raise GraphCaptureError(f"{self.name}: slot {slot.index} is not "
                                     "one this capture was made over")
+        if self.split is not None:
+            self._replay_split(slot, slot.qx.device)
         self.graphs[slot.index].replay()
         for w in self.wrappers:
             w.launches += self.per_replay.get(w.__name__, 0)
         return self.outputs[slot.index]
+
+
+def _mesh_body(mesh, shard_fns, merge):
+    """The whole mesh window as one body: every shard's body under its
+    device over its copy of the queries, then the merge."""
+    from geomesa_tpu_torch.parallel.mesh import on_shard
+
+    def body(qx, qy):
+        outs = []
+        for fn, d in zip(shard_fns, mesh.device_list):
+            with on_shard(d):
+                outs.append(fn(qx.to(d), qy.to(d)))
+        return merge(outs)
+
+    return body
 
 
 class CaptureRegistry:
@@ -182,14 +294,17 @@ class CaptureRegistry:
         """The ring tier's name of a kernel: `<kernel>@ring{depth}`."""
         return f"{kernel}{self.RING_PREFIX}{int(depth)}"
 
-    def ring_capture(self, kernel: str, key, depth: int, body: Callable,
-                     frozen: dict, wrappers: Sequence, device: torch.device,
+    def ring_capture(self, kernel: str, key, depth: int,
+                     body: Optional[Callable], frozen: dict,
+                     wrappers: Sequence, device: torch.device,
                      q: int, k: int, capacity: int, owner, cls: str,
-                     stale: Optional[Callable[[RingCapture], bool]] = None
-                     ) -> RingCapture:
+                     stale: Optional[Callable[[RingCapture], bool]] = None,
+                     mesh_parts=None) -> RingCapture:
         """The capture of (`owner`, `cls`, `key`) (made now if absent).
         `stale` drops the captures it accepts first (a residency change
-        leaves a planner's older captures unreachable)."""
+        leaves a planner's older captures unreachable). `mesh_parts`
+        (mesh, one body a shard, merge) makes a mesh capture in place of
+        `body` (module docstring)."""
         name = self.ring_variant(kernel, depth)
         full = (name, id(owner), cls) + tuple(key)
         with self._lock:
@@ -203,7 +318,8 @@ class CaptureRegistry:
                     del self._captures[kk]
             self._watch(owner)
             cap = RingCapture(name, SlotRing(depth), body, frozen, wrappers,
-                              q, k, capacity, owner_id=id(owner), cls=cls)
+                              q, k, capacity, owner_id=id(owner), cls=cls,
+                              mesh_parts=mesh_parts)
             t0 = time.perf_counter()
             cap.capture(device)
             cap.seconds = time.perf_counter() - t0

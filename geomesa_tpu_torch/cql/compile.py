@@ -22,7 +22,9 @@ the caller to scatter into a device mask; `refine` patches a fetched host
 mask (`mask_refined` fetches and patches); `band_count_correction`
 corrects a device count. Each takes an
 `extra` device mask (the partition allowance) that is ANDed into the band
-before anything is fetched.
+before anything is fetched, and a `row_offset`: `dev` holds rows
+[row_offset, row_offset + N) of the host `batch` (one shard of a mesh
+superbatch; the band's rows are then local to `dev`).
 """
 
 from __future__ import annotations
@@ -90,7 +92,7 @@ class CompiledFilter:
         return torch.nonzero(b).flatten()
 
     def refine(self, mask: np.ndarray, dev: DeviceBatch, batch: FeatureBatch,
-               extra=None) -> np.ndarray:
+               extra=None, row_offset: int = 0) -> np.ndarray:
         """Patch an already-fetched host mask: the rows of the f32 boundary
         band are re-evaluated in f64 on the host. `extra` (a device bool
         mask the caller already ANDed into `mask`, such as the partition
@@ -101,6 +103,7 @@ class CompiledFilter:
         (idx,) = fetch(self._band_rows(dev, batch, extra))
         if not len(idx):
             return mask
+        idx = idx.astype(np.int64) + row_offset
         mask = mask.copy()
         mask[idx] = eval_filter_host(self.filter_ast, batch.select(idx))
         return mask
@@ -112,7 +115,7 @@ class CompiledFilter:
         return self.refine(mask, dev, batch)
 
     def band_count_correction(self, dev: DeviceBatch, batch: FeatureBatch,
-                              m=None, extra=None) -> int:
+                              m=None, extra=None, row_offset: int = 0) -> int:
         """(exact - approximate) match count over the band rows: add it to
         the device count of `m` (the filter mask ANDed with `extra`;
         computed here when None) to make that count f64-exact. `extra` is
@@ -129,16 +132,17 @@ class CompiledFilter:
         idx, approx = fetch(at, m[at].sum(dtype=torch.int64))
         if not len(idx):
             return 0
-        exact = int(eval_filter_host(self.filter_ast, batch.select(idx)).sum())
+        exact = int(eval_filter_host(
+            self.filter_ast, batch.select(idx.astype(np.int64) + row_offset)).sum())
         return exact - int(approx)
 
     def band_corrections(self, dev: DeviceBatch, batch: FeatureBatch,
-                         extra=None):
+                         extra=None, row_offset: int = 0):
         """Exact f64 membership of the rows inside the f32 boundary band
         (ANDed with `extra` on the device when given), as (idx int64 [m]
-        ascending, exact bool [m]). The caller scatters `exact` (ANDed
-        with any per-row components it owns) into its device mask at
-        `idx`."""
+        ascending, local to `dev`, exact bool [m]). The caller scatters
+        `exact` (ANDed with any per-row components it owns) into its
+        device mask at `idx`."""
         empty = (np.zeros(0, np.int64), np.zeros(0, bool))
         if self._band_fn is None or self.filter_ast is None:
             return empty
@@ -147,7 +151,8 @@ class CompiledFilter:
             return empty
         idx = idx.astype(np.int64)
         exact = np.asarray(
-            eval_filter_host(self.filter_ast, batch.select(idx)), bool)
+            eval_filter_host(self.filter_ast, batch.select(idx + row_offset)),
+            bool)
         return idx, exact
 
     def mask_fn(self):

@@ -88,13 +88,39 @@ def to_device(batch: FeatureBatch, device: torch.device,
     return _device_retry(_to_device_impl, batch, device, coord_dtype)
 
 
+def to_device_parts(parts, devices, coord_dtype: torch.dtype = torch.float32
+                    ) -> List[DeviceBatch]:
+    """`parts[i]` (host batches) onto `devices[i]`, through pinned memory
+    and non_blocking: ONE transfer (one retry scope and one firing of the
+    transfer fault site, as `to_device`), the parts' copies queued on
+    their devices without a wait between them."""
+    return _device_retry(_to_device_parts_impl, parts, devices, coord_dtype)
+
+
+def _to_device_parts_impl(parts, devices, coord_dtype) -> List[DeviceBatch]:
+    _TRANSFER_SITE.fire()
+    return [_transfer(b, d, coord_dtype, True) for b, d in zip(parts, devices)]
+
+
 def _to_device_impl(batch: FeatureBatch, device: torch.device,
                     coord_dtype: torch.dtype) -> DeviceBatch:
     _TRANSFER_SITE.fire()
+    return _transfer(batch, device, coord_dtype, False)
+
+
+def _transfer(batch: FeatureBatch, device: torch.device,
+              coord_dtype: torch.dtype, pinned: bool) -> DeviceBatch:
+    """The copies of `to_device`; `pinned` goes through pinned memory,
+    non_blocking (`upload`), each tensor its own allocation."""
     out: DeviceBatch = {}
     np_coord = torch.empty(0, dtype=coord_dtype).numpy().dtype
 
     def put(a: np.ndarray) -> torch.Tensor:
+        if pinned:
+            # its own allocation on the CPU too (never a view of the host
+            # batch), as on a card
+            return (upload(a, device) if device.type == "cuda"
+                    else torch.from_numpy(np.array(a)))
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     for attr in batch.sft.attributes:
@@ -181,16 +207,23 @@ class Readback:
     window does not also wait for kernels enqueued after it (a stream
     synchronisation would). On the CPU the tensors are the host copies."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "_more")
 
     def __init__(self, tensors):
         tensors = tuple(tensors)
-        cuda = [t.device for t in tensors if t.is_cuda]
+        cuda = list(dict.fromkeys(t.device for t in tensors if t.is_cuda))
+        self._more = ()
         if cuda:
             self.host = tuple(t.to("cpu", non_blocking=True) for t in tensors)
-            self.event = torch.cuda.Event()
-            # the copies run on their tensors' card, whichever is current
-            self.event.record(torch.cuda.current_stream(cuda[0]))
+            # the copies run on their tensors' cards, on each card's
+            # current stream: one event a card (the first is `event`)
+            events = []
+            for dev in cuda:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(dev))
+                events.append(ev)
+            self.event = events[0]
+            self._more = tuple(events[1:])
         else:
             self.host = tensors
             self.event = None
@@ -199,6 +232,8 @@ class Readback:
         """The host NumPy arrays, once every copy has landed."""
         if self.event is not None:
             self.event.synchronize()
+            for ev in self._more:
+                ev.synchronize()
         return tuple(h.numpy() for h in self.host)
 
 

@@ -1,8 +1,8 @@
 """Device-side grid index: one sort to build, per-query candidate pruning
 for kNN with an exactness certificate.
 
-The counterpart of the reference package's `engine/grid_index.py` (single
-device; the sharded variant comes with the mesh slice), in plain PyTorch:
+The counterpart of the reference package's `engine/grid_index.py`, in
+plain PyTorch (`knn_indexed_sharded` runs it shard by shard on a mesh):
 
   build:  cell(p) = (floor((lon+180)/360*G), floor((lat+90)/180*G)) on a
           G x G lon/lat grid; a stable sort of where(mask, cell, G*G)
@@ -160,3 +160,37 @@ def knn_indexed(qx, qy, dx, dy, mask, k: int, g: int = 128,
     kd[rows] = fd
     ki[rows] = fi
     return kd, ki
+
+
+def knn_indexed_sharded(mesh, qx, qy, dx, dy, mask, k: int, g: int = 128,
+                        ring_radius: int = 2, cell_slots: int = 256):
+    """Grid-index kNN with the data sharded over `mesh`: each shard builds
+    the grid index of ITS rows and runs the certified search for the
+    queries (copied to its device), local indices lift to global
+    (`local + shard * shard_rows`), and the shards' top-ks merge on the
+    lead device in the reference's pool order (`parallel.mesh.
+    merge_topk`). A query is uncertain if ANY shard's certificate failed
+    for it; callers re-run those on an exact sharded scan
+    (`knn.knn_sharded`). `dx`/`dy`/`mask` are `Sharded` or whole tensors
+    of a length that divides by the mesh size. Returns (dists [Q, k],
+    global indices [Q, k], uncertain [Q]) on the lead device."""
+    from geomesa_tpu_torch.parallel.mesh import (
+        merge_topk, on_shard, replicated, shards_of)
+
+    xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
+    qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
+    shard_n = int(xs[0].shape[0])
+    fds, gis, uns = [], [], []
+    for i, d in enumerate(mesh.device_list):
+        with on_shard(d):
+            index = build_grid_index(xs[i], ys[i], ms[i], g=g)
+            kd, ki, unc = knn_grid(qxs[i], qys[i], index, k=k,
+                                   ring_radius=ring_radius,
+                                   cell_slots=cell_slots)
+            fds.append(kd)
+            gis.append(ki.to(torch.int64) + i * shard_n)
+            uns.append(unc)
+    md, mi = merge_topk(mesh, fds, gis, k)
+    lead = mesh.lead
+    uncertain = torch.stack([u.to(lead) for u in uns]).any(dim=0)
+    return md, mi, uncertain

@@ -738,6 +738,75 @@ def pip_layer(
     }
 
 
+def pip_layer_sharded(
+    mesh,
+    px_np: np.ndarray,
+    py_np: np.ndarray,
+    x1: np.ndarray,
+    y1: np.ndarray,
+    x2: np.ndarray,
+    y2: np.ndarray,
+    poly_of_edge: np.ndarray,
+    eps: float = 1e-4,
+    refine_f64: bool = True,
+    prep: "LayerPrep | None" = None,
+):
+    """The polygon-layer join over a device mesh: the point tiles are
+    sharded (shard i holds tiles [i*T, (i+1)*T), T = ceil(tiles / D), the
+    last shard padded with 1e8 points), the padded edge table rides
+    replicated (every shard's device holds a copy). Each shard runs B6
+    once (`pip_layer_grouped`) over a CSR of ITS pairs with local tile
+    ids, then the same host parity finish and f64 band refine as
+    `pip_layer`. Returns (inside bool [N], info): the reference's
+    `pip_layer_sharded` keys, `cap` the pow2 class of the most pairs a
+    tile (the reference's one capacity class; B6 needs none)."""
+    from geomesa_tpu_torch.parallel.mesh import on_shard
+
+    n = len(px_np)
+    if prep is None:
+        prep = prepare_layer(px_np, py_np, x1, y1, x2, y2, poly_of_edge)
+    pl_ = prep.pairs
+    ex1, ey1, ex2, ey2 = prep.ex1, prep.ey1, prep.ex2, prep.ey2
+    n_etiles = prep.n_etiles
+    d = mesh.size
+    if len(pl_.pair_pt) == 0:
+        return np.zeros(n, bool), {
+            "pairs": 0, "refined": 0, "n_ptiles": prep.n_ptiles,
+            "n_etiles": n_etiles, "flagged": 0, "cap": 0, "shards": d}
+    nt = prep.n_ptiles
+    tpd = -(-nt // d)
+    pt = np.asarray(pl_.pair_pt, np.int64)
+    et = np.asarray(pl_.pair_et, np.int64)
+    most = int(np.bincount(pt).max())
+    cap = max(4, 1 << int(np.ceil(np.log2(max(most, 1)))))
+    pad_pts = tpd * d * POINT_TILE - len(prep.pxp)
+    pxp = np.concatenate([prep.pxp, np.full(pad_pts, 1e8)])
+    pyp = np.concatenate([prep.pyp, np.full(pad_pts, 1e8)])
+    outs = []
+    for i, dev in enumerate(mesh.device_list):
+        lo, hi = i * tpd, (i + 1) * tpd
+        mine = (pt >= lo) & (pt < hi)
+        rows = slice(lo * POINT_TILE, hi * POINT_TILE)
+        with on_shard(dev):
+            outs.extend(pip_layer_grouped(
+                pxp[rows], pyp[rows], ex1, ey1, ex2, ey2, pt[mine] - lo,
+                et[mine], n_ptiles=tpd, n_etiles=n_etiles, eps=eps,
+                device=dev))
+    got = fetch(*outs)
+    counts = np.concatenate(got[0::2])
+    band = np.concatenate(got[1::2])
+    inside = (counts[:n] % 2) == 1
+    flagged = np.nonzero(band[:n] > 0)[0]
+    refined = 0
+    if refine_f64 and len(flagged):
+        refined = _refine_band_f64(
+            px_np, py_np, ex1, ey1, ex2, ey2, pl_, inside, flagged)
+    return inside, {
+        "pairs": int(len(pt)), "refined": refined, "n_ptiles": nt,
+        "n_etiles": n_etiles, "flagged": int(len(flagged)), "cap": cap,
+        "shards": d}
+
+
 def pip_layer_assign(
     px_np: np.ndarray,
     py_np: np.ndarray,

@@ -261,6 +261,27 @@ def _polygon_density_signed(x1, y1, x2, y2, wedge, edgemask, bbox: BBox,
     return rev[:, 1:]
 
 
+def polygon_density_sharded(mesh, x1, y1, x2, y2, wedge, edgemask,
+                            bbox: BBox, width: int, height: int, k: int,
+                            seg_tile: int = 2048) -> torch.Tensor:
+    """`polygon_density` with the oriented EDGE table sharded over `mesh`:
+    each shard builds the signed winding grid of its edges under its
+    device (linear in the edges, so edges of one polygon may land on
+    different shards), the grids add on the lead device in shard order
+    (`parallel.mesh.psum`) and the sum is clamped ONCE (the clamp is not
+    linear). Edge arrays are `Sharded` or whole tensors of a length that
+    divides by the mesh size. Returns the [height, width] grid."""
+    from geomesa_tpu_torch.parallel.mesh import on_shard, psum, shards_of
+
+    cols = [shards_of(mesh, a) for a in (x1, y1, x2, y2, wedge, edgemask)]
+    parts = []
+    for i, d in enumerate(mesh.device_list):
+        with on_shard(d):
+            parts.append(_polygon_density_signed(
+                *(c[i] for c in cols), bbox, width, height, k, seg_tile))
+    return torch.clamp(psum(mesh, parts), min=0.0)
+
+
 def _pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 

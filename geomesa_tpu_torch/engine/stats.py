@@ -17,8 +17,9 @@ here they are plain PyTorch over tensors on any device:
 The hashes run in int64 tensors holding u32 values (torch has no full
 uint32 arithmetic); a 32-bit product is taken in 16-bit halves so no
 intermediate leaves int64. A float-to-int cast saturates and maps NaN to
-0 before the clamp, as XLA's convert does. The sharded merge
-(`stats_sharded`) comes with the multi-GPU slice.
+0 before the clamp, as XLA's convert does. `stats_sharded` runs a
+reduction on every shard of a mesh and adds its partials (`psum`, in
+shard order).
 """
 
 from __future__ import annotations
@@ -205,3 +206,52 @@ def z3_histogram(x: torch.Tensor, y: torch.Tensor, t_bin: torch.Tensor,
                       dtype=torch.int32, device=x.device)
     out.index_add_(0, flat, mask.to(torch.int32))
     return out.reshape(n_time_bins, bins_per_dim, bins_per_dim)
+
+
+def shard_partials(mesh, fn, *arrays) -> list:
+    """`fn(*local_arrays)` on every shard of `mesh` (under the shard's
+    device), one result a shard, each left on its shard's device. Each
+    array is `Sharded`, a whole tensor or a host array whose length
+    divides by the mesh size (a host array's rows go to their shard's
+    device)."""
+    import numpy as np
+
+    from geomesa_tpu_torch.parallel.mesh import on_shard, shards_of
+
+    devs = mesh.device_list
+    cols = []
+    for a in arrays:
+        if isinstance(a, np.ndarray):
+            s = len(a) // len(devs)
+            if s * len(devs) != len(a):
+                raise ValueError(f"length {len(a)} does not divide into "
+                                 f"{len(devs)} shards")
+            cols.append([torch.from_numpy(np.ascontiguousarray(
+                a[i * s:(i + 1) * s])).to(d) for i, d in enumerate(devs)])
+        else:
+            cols.append(shards_of(mesh, a))
+    outs = []
+    for i, d in enumerate(devs):
+        with on_shard(d):
+            outs.append(fn(*(c[i] for c in cols)))
+    return outs
+
+
+def stats_sharded(mesh, fn, *arrays):
+    """Run the masked reduction `fn(*local_arrays)` on every shard of
+    `mesh` (`shard_partials`) and add its partials leaf by leaf in shard
+    order on the lead device (`parallel.mesh.psum`): `fn` returns a
+    tensor, a tuple/list or a dict of summable partials (counts, sums,
+    histograms)."""
+    from geomesa_tpu_torch.parallel.mesh import psum
+
+    def merge(parts):
+        first = parts[0]
+        if isinstance(first, dict):
+            return {k: merge([p[k] for p in parts]) for k in first}
+        if isinstance(first, (tuple, list)):
+            return type(first)(merge([p[j] for p in parts])
+                               for j in range(len(first)))
+        return psum(mesh, parts)
+
+    return merge(shard_partials(mesh, fn, *arrays))

@@ -16,6 +16,10 @@ both passes are plain PyTorch:
                       over the gathered tiles, and more tiles than the
                       capacity fall back to the dense pass
 
+`tube_select_sharded` and `tube_select_pruned_sharded` run them shard by
+shard over data sharded on a mesh (the tube replicated, the hits sharded
+like the data).
+
 The pairwise test is the reference's chord-squared DIFFERENCE form: d <= r
 on the sphere iff |u_point - u_sample|^2 <= (2 sin(r / 2R))^2, with unit
 vectors and thresholds computed once per point and sample in the input
@@ -262,3 +266,69 @@ def tube_select_pruned(x, y, t, mask, tube_x, tube_y, tube_t, radius_m,
         return (tube_select(x, y, t, mask, tube_x, tube_y, tube_t,
                             radius_b, window_b), -1)
     return hits, tile_capacity
+
+
+def _tube_shards(mesh, x, y, t, mask, tube_x, tube_y, tube_t):
+    """Per shard: its rows of the data and its copy of the tube."""
+    from geomesa_tpu_torch.parallel.mesh import shards_of
+
+    data = [shards_of(mesh, a) for a in (x, y, t, mask)]
+    tube = [tuple(_on(a, d) for a in (tube_x, tube_y, tube_t))
+            for d in mesh.device_list]
+    return data, tube
+
+
+def tube_select_sharded(mesh, x, y, t, mask, tube_x, tube_y, tube_t,
+                        radius_m, half_window_ms,
+                        tube_tile: int = TUBE_CHUNK):
+    """`tube_select` with the data sharded over `mesh` and the tube (small)
+    replicated: every shard tests its own rows under its device; the hits
+    stay sharded like the data (`Sharded`; no merge). The radius passes
+    through f32, as the reference broadcasts it. Data arrays are
+    `Sharded` or whole tensors of a length that divides by the mesh
+    size."""
+    from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard
+
+    (xs, ys, ts, ms), tube = _tube_shards(mesh, x, y, t, mask, tube_x,
+                                          tube_y, tube_t)
+    T = int(tube[0][0].shape[0])
+    out = []
+    for i, d in enumerate(mesh.device_list):
+        with on_shard(d):
+            radius = _on(radius_m, d, torch.float32).broadcast_to((T,))
+            window = _on(half_window_ms, d, torch.int64).broadcast_to((T,))
+            out.append(tube_select(xs[i], ys[i], ts[i], ms[i], *tube[i],
+                                   radius, window, tube_tile=tube_tile))
+    return Sharded(mesh, out)
+
+
+def tube_select_pruned_sharded(mesh, x, y, t, mask, tube_x, tube_y, tube_t,
+                               radius_m, half_window_ms,
+                               data_tile: int = 8192,
+                               tile_capacity: int = 64):
+    """The tile-pruned tube select with the data sharded over `mesh` (the
+    tube replicated, the hits sharded like the data): each shard prunes
+    and tests its own tiles at `tile_capacity`. Returns (hits `Sharded`,
+    overflow: True if ANY shard had more reachable tiles than the
+    capacity; the caller MUST then fall back to `tube_select_sharded`,
+    and an overflowed shard's hits are all False)."""
+    from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard
+
+    margin_lon, margin_lat = tube_margins(tube_y, radius_m)
+    (xs, ys, ts, ms), tube = _tube_shards(mesh, x, y, t, mask, tube_x,
+                                          tube_y, tube_t)
+    T = int(tube[0][0].shape[0])
+    out, overflow = [], False
+    for i, d in enumerate(mesh.device_list):
+        with on_shard(d):
+            radius = _on(radius_m, d, torch.float32).broadcast_to((T,))
+            window = _on(half_window_ms, d, torch.int64).broadcast_to((T,))
+            hits, ov = _tube_pruned_call(
+                xs[i], ys[i], _on(ts[i], d, torch.int64), ms[i], *tube[i],
+                radius, window, margin_lon, margin_lat, data_tile=data_tile,
+                tile_capacity=tile_capacity)
+            if ov:
+                hits = torch.zeros(xs[i].shape[0], dtype=torch.bool, device=d)
+            overflow = overflow or ov
+            out.append(hits)
+    return Sharded(mesh, out), overflow

@@ -12,11 +12,17 @@ The port keeps the single-controller shape without a process group:
   The device list may repeat a device: four shards on `cpu`, or four on
   `cuda:0`, run every per-shard launch and every merge on one device.
 - A row-sharded array is `Sharded`: D tensors of equal length, shard i
-  holding rows [i*S, (i+1)*S) on `devices[i]`. Where a shard's device is
-  the device of the rows it is cut from, the shard is a view (no copy).
+  holding rows [i*S, (i+1)*S) on `devices[i]`. `shards_of` cuts a whole
+  tensor into shards (views where a shard's device is the tensor's own);
+  `shard_batch_host` uploads a host batch's rows shard by shard, each
+  straight from the host to its device as its own allocation (the
+  reference's `NamedSharding` placement), so no device ever holds more
+  than its shard, even where the mesh repeats a device.
 - The merges are explicit and run in shard order on the lead device
   (`devices[0]`): `merge_topk` is the all-gather + re-top-k of the
   sharded kNN programs, `psum` adds the shards' partial results.
+  Anything that must see a whole sharded column calls `gather`, which
+  counts itself under `mesh.gathers` with the column's name.
 
 Per-shard work is launched one shard after another with no host sync
 between them, each under its shard's device (`on_shard`), so on several
@@ -32,9 +38,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.core.columnar import FeatureBatch
-from geomesa_tpu_torch.engine.device import VALID, DeviceBatch, _indexed, to_device
+from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryColumn
+from geomesa_tpu_torch.engine.device import (
+    VALID, DeviceBatch, _indexed, to_device, to_device_parts)
 from geomesa_tpu_torch.errors import CudaUnavailableError
+from geomesa_tpu_torch.utils.metrics import metrics
 
 SHARD_AXIS = "shard"
 
@@ -170,6 +178,27 @@ class Sharded:
         device = self.mesh.lead if device is None else device
         return torch.cat([s.to(device) for s in self.shards])
 
+    def map(self, fn) -> "Sharded":
+        """`fn(shard)` on every shard, under its device: a `Sharded` of
+        the results (row-aligned maps only)."""
+        out = []
+        for s, dev in zip(self.shards, self.mesh.device_list):
+            with on_shard(dev):
+                out.append(fn(s))
+        return Sharded(self.mesh, out)
+
+
+def gather(arr, name: str) -> torch.Tensor:
+    """The whole of a sharded column on the lead device, for a caller
+    that must see every row at once; counted under `mesh.gathers` (and
+    per column, `mesh.gathers{column=...}`). A whole tensor passes
+    through uncounted."""
+    if not isinstance(arr, Sharded):
+        return arr
+    metrics.counter("mesh.gathers")
+    metrics.counter("mesh.gathers", column=name)
+    return arr.full()
+
 
 @contextlib.contextmanager
 def on_shard(device: torch.device):
@@ -201,7 +230,7 @@ def shard_view(arr, shard: int, shard_rows: int,
         if arr.shard_rows == shard_rows:
             out = arr.shards[shard]
             return out if device is None else out.to(device)
-        arr = arr.full()
+        arr = gather(arr, "shard_view")  # another layout: counted
     lo = shard * shard_rows
     out = arr[lo:lo + shard_rows]
     return out if device is None else out.to(device)
@@ -241,16 +270,78 @@ def shard_device_batch(dev: DeviceBatch, mesh: Mesh) -> dict:
     return out
 
 
+def host_rows(batch: FeatureBatch, lo: int, hi: int) -> FeatureBatch:
+    """Rows [lo, hi) of a batch: slices (views) of its array, dictionary
+    and point columns, a gather for anything else."""
+    if not all(isinstance(c, (np.ndarray, DictColumn))
+               or (isinstance(c, GeometryColumn) and c.is_point)
+               for c in batch.columns.values()):
+        return batch.select(np.arange(lo, hi))
+    cols = {}
+    for name, col in batch.columns.items():
+        if isinstance(col, np.ndarray):
+            cols[name] = col[lo:hi]
+        elif isinstance(col, DictColumn):
+            cols[name] = DictColumn(col.codes[lo:hi], col.vocab)
+        else:
+            cols[name] = GeometryColumn(col.kind, col.x[lo:hi], col.y[lo:hi])
+    fids = batch.fids.take(np.arange(lo, hi)) if batch.fids is not None else None
+    valid = batch.valid[lo:hi] if batch.valid is not None else None
+    return FeatureBatch(batch.sft, cols, fids, valid)
+
+
+def _flat(batch: FeatureBatch) -> bool:
+    """Every row-axis column is one value a row (no CSR tables)."""
+    return all(not isinstance(c, GeometryColumn) or c.is_point
+               for c in batch.columns.values())
+
+
+def upload_rows(batch: FeatureBatch, bounds, devices,
+                coord_dtype: torch.dtype = torch.float32) -> List[DeviceBatch]:
+    """Rows [lo, hi) of a flat host batch for each (lo, hi) of `bounds`,
+    on the matching device of `devices`: from the host straight to that
+    device (pinned memory, non_blocking on a card), each tensor its own
+    allocation, all in one transfer (`engine.device.to_device_parts`)."""
+    return to_device_parts([host_rows(batch, lo, hi) for lo, hi in bounds],
+                           devices, coord_dtype)
+
+
+def assemble(mesh: Mesh, parts: Sequence[DeviceBatch]) -> dict:
+    """Per-shard device batches (one a shard, same keys) as one dict of
+    `Sharded` columns."""
+    return {k: Sharded(mesh, [p[k] for p in parts]) for k in parts[0]}
+
+
 def shard_batch_host(batch: FeatureBatch, mesh: Mesh,
                      coord_dtype: torch.dtype = torch.float32) -> dict:
-    """Host FeatureBatch -> padded, sharded device batch (uploaded to the
-    lead device once, then placed shard by shard)."""
+    """Host FeatureBatch -> padded, sharded device batch. A flat batch
+    (points, no CSR tables) uploads each shard's rows from the host
+    straight to its device (`upload_rows`); a batch with CSR tables
+    uploads to the lead device once and is cut there
+    (`shard_device_batch`: the tables stay replicated)."""
     d = mesh.size
     n = len(batch)
     padded = batch.pad_to(((n + d - 1) // d) * d) if n % d else batch
     if padded.valid is None:
         padded = padded.pad_to(len(padded))  # force a validity mask
-    return shard_device_batch(to_device(padded, mesh.lead, coord_dtype), mesh)
+    if not _flat(padded):
+        return shard_device_batch(to_device(padded, mesh.lead, coord_dtype),
+                                  mesh)
+    s = len(padded) // d
+    return assemble(mesh, upload_rows(
+        padded, [(i * s, (i + 1) * s) for i in range(d)], mesh.device_list,
+        coord_dtype))
+
+
+def shard_dicts(mesh: Mesh, dev: dict) -> List[dict]:
+    """A sharded device batch (`Sharded` columns, replicated tuples) as
+    one plain device batch a shard: shard i's rows and its copy of every
+    replicated table, all on `mesh.devices[i]`."""
+    out = []
+    for i in range(mesh.size):
+        out.append({k: (v.shards[i] if isinstance(v, Sharded) else v[i])
+                    for k, v in dev.items()})
+    return out
 
 
 # -- the merges ----------------------------------------------------------------

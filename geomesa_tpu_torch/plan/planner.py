@@ -26,7 +26,9 @@ kNN masks the rows the same way and runs the fused scan:
 `ring_arm` freezes one window class for the serve ring (the plan, the
 mask, the tile list, the capacity, the fused count) and captures its
 body as CUDA graphs (`compilecache/registry.py`); `RingProgram.launch`
-replays one per window, with the same sync.
+replays one per window, with the same sync. On a mesh superbatch the
+frozen body is the mesh serving program (B1 on every shard's frozen
+tile list, the merge on the lead device).
 
 The write-path stats sketches (`plan/stats_manager.py`, updated by
 `FeatureSource.write`) give `explain` its estimate and resolve kNN's
@@ -44,8 +46,11 @@ a kNN window runs as one sharded program over every shard's rows
 dense sharded B2 scan on overflow), or, when every allowed partition's
 rows live on one shard, as the single-device scan on that shard's rows
 (`_knn_launch_local`, shard affinity). Either way the indices are the
-serial ones, so sync and `_canonical_dists` run unchanged. A density
-grid on the mesh adds the shards' scatters (`density_sharded`).
+serial ones, so sync and `_canonical_dists` run unchanged. Residency is
+sharded there, so every mask is built shard by shard on the shards'
+devices (`_mesh_knn_mask`, `_execute_mesh`): a count adds the shards'
+sums, a density grid adds the shards' scatters (`density_sharded`), and
+features and stats fetch the per-shard masks and concatenate them.
 
 `execute` and `count` read `geomesa.query.timeout` when no timeout is
 given; `knn` and `knn_launch` do not, as in the reference. Every
@@ -407,6 +412,9 @@ class QueryPlanner:
             if allowed is None:
                 return None, None, None, None, True
             batch, dev = sb.batch, sb.dev
+            if sb.mesh is not None:
+                return (sb, batch, dev,
+                        self._mesh_knn_mask(plan, query, sb, allowed), False)
             with side_stream(self.device, after=sb.ready) as keep:
                 mask = (self._raw_mask(plan, dev, batch)
                         & upload(allowed, self.device)[sb.pids])
@@ -438,6 +446,41 @@ class QueryPlanner:
             if vm is not None:
                 mask &= vm
         return sb, batch, dev, mask, False
+
+    def _mesh_knn_mask(self, plan: QueryPlan, query: Query, sb, allowed):
+        """`_knn_mask_setup`'s cached mask on a mesh superbatch, shard by
+        shard on the shards' devices (each on its side stream, after its
+        shard's build): the compiled mask, the partition allowance
+        gathered by the shard's partition ids, the band rows re-decided in
+        f64 and scattered into the shard (their rows local to it) and the
+        visibility mask. Returns the `Sharded` mask; no shard's rows leave
+        its device."""
+        from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard
+
+        mesh, s_rows = sb.mesh, sb.shard_rows
+        batch = sb.batch
+        has_band = plan.compiled is not None and plan.compiled.has_band
+        out = []
+        for i, (dv, d) in enumerate(zip(sb.shard_devs(), mesh.device_list)):
+            with on_shard(d), side_stream(d, after=sb.ready[i]) as keep:
+                m = (self._raw_mask(plan, dv, batch)
+                     & upload(allowed, d)[sb.pids.shards[i]])
+                note_device_op()
+                if has_band:
+                    off = i * s_rows
+                    bidx, bexact = plan.compiled.band_corrections(
+                        dv, batch, row_offset=off)
+                    if len(bidx):
+                        rows = bidx + off
+                        bexact = (bexact & batch.valid[rows]
+                                  & allowed[sb.host_pids(rows)])
+                        m[upload(bidx, d)] = upload(bexact, d)
+                vm = visibility_mask(self.storage.sft, batch, dv, query.hints)
+                if vm is not None:
+                    m &= vm
+                keep(m)
+            out.append(m)
+        return Sharded(mesh, out)
 
     # -- execute -----------------------------------------------------------
 
@@ -532,6 +575,8 @@ class QueryPlanner:
         t_scan = time.perf_counter()
         if allowed is None:
             return self._empty_result(query), 0, t_scan
+        if sb.mesh is not None:
+            return self._execute_mesh(plan, query, sb, allowed) + (t_scan,)
         allowed_rows = torch.from_numpy(allowed).to(self.device)[sb.pids]
         vm = visibility_mask(self.storage.sft, sb.batch, sb.dev, hints)
         if vm is not None:
@@ -570,6 +615,78 @@ class QueryPlanner:
         result, matched = aggregate(self.storage.sft, sb.batch, sb.dev, mask,
                                     query, self._zcalib)
         return result, matched, t_scan
+
+    def _mesh_masks(self, plan: QueryPlan, hints, sb, allowed):
+        """Each shard's f32 mask on its device: the compiled mask AND the
+        allowance gathered by the shard's partition ids AND the visibility
+        mask (no band correction). Returns (masks, extras), one a shard:
+        `extras` are the allowance AND visibility, which a band row
+        re-decided in f64 must also pass."""
+        from geomesa_tpu_torch.parallel.mesh import on_shard
+
+        masks, extras = [], []
+        for i, (dv, d) in enumerate(zip(sb.shard_devs(), sb.mesh.device_list)):
+            with on_shard(d):
+                ar = upload(allowed, d)[sb.pids.shards[i]]
+                vm = visibility_mask(self.storage.sft, sb.batch, dv, hints)
+                if vm is not None:
+                    # the band rows re-decided in f64 stay within the auths
+                    ar = ar & vm
+                masks.append(self._raw_mask(plan, dv, sb.batch) & ar)
+                extras.append(ar)
+        return masks, extras
+
+    def _execute_mesh(self, plan: QueryPlan, query: Query, sb, allowed):
+        """`_execute_cached` on a mesh superbatch, shard by shard: each
+        shard's mask (the compiled mask, the allowance gathered by its
+        partition ids and the visibility mask) on its device. A count adds
+        the shards' sums (`psum`) and each shard's f64 band correction; a
+        density grids the per-shard masks as they are; features and stats
+        fetch the per-shard masks (one read), concatenate them in shard
+        order and refine each shard's band rows. Returns (result, matching
+        rows)."""
+        from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard, psum
+
+        hints = query.hints
+        mesh, s_rows, batch = sb.mesh, sb.shard_rows, sb.batch
+        devs = sb.shard_devs()
+        masks, extras = self._mesh_masks(plan, hints, sb, allowed)
+        has_band = plan.compiled is not None and plan.compiled.has_band
+
+        def shard_sums():
+            return psum(mesh, [m.sum(dtype=torch.int64) for m in masks])
+
+        if hints.count_only and not hints.sampling:
+            (total,) = fetch(shard_sums())
+            total = int(total)
+            if has_band:
+                for i, (dv, d) in enumerate(zip(devs, mesh.device_list)):
+                    with on_shard(d):
+                        total += plan.compiled.band_count_correction(
+                            dv, batch, masks[i], extra=extras[i],
+                            row_offset=i * s_rows)
+            return QueryResult("count", count=total), total
+        if hints.is_density:
+            token = query_mask_token(query) + (tuple(sorted(plan.partitions)),)
+            grid = density_device_grid(self.storage.sft, batch, sb.dev,
+                                       Sharded(mesh, masks), hints,
+                                       self._zcalib, mask_token=token,
+                                       mesh=mesh)
+            grid, total = fetch(grid, shard_sums())
+            if int(total) == 0:
+                return self._empty_result(query), 0
+            return QueryResult("density", grid=grid, count=int(total)), int(total)
+        mask = np.concatenate(fetch(*masks))
+        if has_band:
+            for i, (dv, d) in enumerate(zip(devs, mesh.device_list)):
+                with on_shard(d):
+                    mask = plan.compiled.refine(mask, dv, batch,
+                                                extra=extras[i],
+                                                row_offset=i * s_rows)
+        if not mask.any():
+            return self._empty_result(query), 0
+        return aggregate(self.storage.sft, batch, sb.dev, mask, query,
+                         self._zcalib)
 
     def _execute_scan(self, plan: QueryPlan, query: Query, check_timeout):
         """Scan the pruned partitions into one padded batch. A count is the
@@ -944,8 +1061,8 @@ class QueryPlanner:
                                           batch, shards[0], staged,
                                           want_mask_count)
         g = self.storage.sft.default_geometry
-        x = sb.placed[f"{g.name}__x"]
-        y = sb.placed[f"{g.name}__y"]
+        x = sb.dev[f"{g.name}__x"]
+        y = sb.dev[f"{g.name}__y"]
         mesh_shape = (mesh.size,)
         lead = mesh.lead
         with on_shard(lead):
@@ -997,8 +1114,8 @@ class QueryPlanner:
         dev_s = mesh.devices[shard]
         g = self.storage.sft.default_geometry
         with on_shard(dev_s):
-            lx = shard_view(sb.placed[f"{g.name}__x"], shard, s_rows, dev_s)
-            ly = shard_view(sb.placed[f"{g.name}__y"], shard, s_rows, dev_s)
+            lx = shard_view(sb.dev[f"{g.name}__x"], shard, s_rows, dev_s)
+            ly = shard_view(sb.dev[f"{g.name}__y"], shard, s_rows, dev_s)
             lm = shard_view(mask, shard, s_rows, dev_s)
             if staged is not None:
                 jqx, jqy = (shard_view(t, 0, int(t.shape[0]), dev_s)
@@ -1048,10 +1165,11 @@ class QueryPlanner:
         route) for a planner with interceptors ("interceptors": they must
         run per request), storage without committed manifest versions
         ("no_version": staleness would be undetectable), no device cache
-        ("no_device_cache"), a non-point geometry ("non_point"), a
-        mesh-resident superbatch ("mesh": the ring's mesh programs come
-        with ROADMAP A7 (b)) or no resident matching rows ("empty"). A
-        failed capture raises GraphCaptureError (an OOM stays an OOM)."""
+        ("no_device_cache"), a non-point geometry ("non_point"), no
+        resident matching rows ("empty") or, on a mesh superbatch, a plan
+        whose rows live on one shard ("shard_affinity"; the mesh program
+        is `_ring_arm_mesh`). A failed capture raises GraphCaptureError
+        (an OOM stays an OOM)."""
         from geomesa_tpu_torch.compilecache.registry import registry
         from geomesa_tpu_torch.engine import knn_scan
 
@@ -1071,10 +1189,11 @@ class QueryPlanner:
             raise RingIneligible("non_point")
         mversion = int(mv_fn())
         sb, allowed = self._resident(plan)
-        if sb is not None and sb.mesh is not None:
-            raise RingIneligible("mesh")
         if allowed is None:
             raise RingIneligible("empty")
+        if sb.mesh is not None:
+            return self._ring_arm_mesh(plan, query, sb, allowed, q_padded, k,
+                                       depth, mversion)
         cls = ring_class(query.type_name, plan.cql, plan.residual_cql,
                          query.hints.auths)
         frozen = registry.frozen_for(self, cls, sb, mversion)
@@ -1127,16 +1246,109 @@ class QueryPlanner:
             kernel, key, depth, body, frozen,
             (knn_scan.chord_blockmin_sparse, knn_scan.chord_blockmin),
             self.device, q=int(q_padded), k=kk, capacity=cap, owner=self,
-            cls=cls,
-            stale=lambda c: (c.owner_id == id(self)
-                             and (c.frozen.get("sb") is not sb
-                                  or c.frozen.get("mversion") != mversion)))
+            cls=cls, stale=self._ring_stale(sb, mversion))
         metrics.counter("serve.ring.armed")
         return RingProgram(self, plan, sb, sb.batch, capture, k=k,
                            kk=kk, impl=impl, mb=mb, depth=depth,
                            mversion=mversion,
                            mask_count=frozen["mask_count"], cap=cap,
-                           caps_key=caps_key, ov=ov)
+                           caps_key=caps_key, ov=ov, device=self.device)
+
+    def _ring_stale(self, sb, mversion):
+        """The registry's staleness test for this planner's captures: a
+        capture over another superbatch or manifest version goes."""
+        return lambda c: (c.owner_id == id(self)
+                          and (c.frozen.get("sb") is not sb
+                               or c.frozen.get("mversion") != mversion))
+
+    def _ring_arm_mesh(self, plan, query, sb, allowed, q_padded, k, depth,
+                       mversion) -> "RingProgram":
+        """`ring_arm` on a mesh superbatch (the reference's mesh branch):
+        the window runs the mesh serving program, B1 on every shard over
+        its frozen tile list, the merge on the lead device. The per-shard
+        masks, padded columns and tile lists are frozen once per class;
+        the fused count is their `psum`, read once here; the capacity is
+        the mesh route's, keyed `(cql, k, ("mesh",) + shape)` and
+        calibrated from the largest shard. A plan whose rows live on one
+        shard (or none) is refused ("shard_affinity"): the pipelined
+        route's shard-affinity dispatch serves it. The capture is one CUDA
+        graph per slot holding every shard's launches and the merge where
+        the mesh repeats one card, one graph per card per slot plus the
+        lead's merge graph where it spans cards (`compilecache.registry`);
+        a dense sharded fallback (B2 on every shard) is armed for the
+        overflow, which the calibration makes unreachable."""
+        from geomesa_tpu_torch.compilecache.registry import registry
+        from geomesa_tpu_torch.engine import knn_scan
+        from geomesa_tpu_torch.engine.knn_scan import (
+            _shard_merge_topk, shard_match_tiles)
+        from geomesa_tpu_torch.parallel.mesh import any_of, on_shard, psum
+
+        mesh = sb.mesh
+        shards = sb.shards_for(plan.partitions)
+        if len(shards) <= 1:
+            raise RingIneligible("shard_affinity")
+        g = self.storage.sft.default_geometry
+        devs = mesh.device_list
+        cls = ring_class(query.type_name, plan.cql, plan.residual_cql,
+                         query.hints.auths)
+        frozen = registry.frozen_for(self, cls, sb, mversion)
+        if frozen is None:
+            _, _, dev, mask, _ = self._knn_mask_setup(
+                plan, query, resident=(sb, allowed))
+            x, y = dev[f"{g.name}__x"], dev[f"{g.name}__y"]
+            padded = []
+            for i, d in enumerate(devs):
+                with on_shard(d):
+                    padded.append(pad_scan_inputs(
+                        x.shards[i], y.shards[i], mask.shards[i]))
+            (mask_count,) = fetch(psum(mesh, [m.sum(dtype=torch.int64)
+                                              for m in mask.shards]))
+            frozen = dict(sb=sb, mversion=mversion, x=x, y=y, mask=mask,
+                          xf=[p[0] for p in padded], yf=[p[1] for p in padded],
+                          maskf=[p[2] for p in padded],
+                          mask_count=int(mask_count), tiles={})
+        x, y, mask = frozen["x"], frozen["y"], frozen["mask"]
+        s_rows = sb.shard_rows
+        kk = min(k, len(x))
+        mb = max(64, kk)
+        mesh_shape = (mesh.size,)
+        caps_key = (plan.cql, kk, ("mesh",) + mesh_shape)
+        cap = self._caps_seed(caps_key)
+        if cap is None:
+            cap = capacity_bucket(int(shard_match_tiles(mask, mesh.size)))
+        tiles, live = _frozen_shard_tiles(frozen, cap, mesh)
+        if live > tiles[0][0].shape[0]:
+            cap = capacity_bucket(live)
+            tiles, live = _frozen_shard_tiles(frozen, cap, mesh)
+        with on_shard(mesh.lead):
+            ov = any_of(mesh, [n_sel[0] > t.shape[0] for t, n_sel in tiles])
+        xf, yf, maskf = frozen["xf"], frozen["yf"], frozen["maskf"]
+
+        def shard_fn(i):
+            tile_ids, n_sel = tiles[i]
+
+            def run(qx, qy):
+                return knn_sparse_body(qx, qy, xf[i], yf[i], maskf[i],
+                                       tile_ids, n_sel, s_rows, kk, mb)
+            return run
+
+        def merge(outs):
+            return _shard_merge_topk(mesh, [o[0] for o in outs],
+                                     [o[1] for o in outs], s_rows, kk)
+
+        key = (id(sb), mversion, "mesh", int(q_padded), kk, cap, mb)
+        capture = registry.ring_capture(
+            "chord_blockmin_sparse", key, depth, None, frozen,
+            (knn_scan.chord_blockmin_sparse, knn_scan.chord_blockmin),
+            mesh.lead, q=int(q_padded), k=kk, capacity=cap, owner=self,
+            cls=cls, stale=self._ring_stale(sb, mversion),
+            mesh_parts=(mesh, [shard_fn(i) for i in range(mesh.size)], merge))
+        metrics.counter("serve.ring.armed")
+        return RingProgram(self, plan, sb, sb.batch, capture, k=k, kk=kk,
+                           impl="mesh", mb=mb, depth=depth, mversion=mversion,
+                           mask_count=frozen["mask_count"], cap=cap,
+                           caps_key=caps_key, ov=ov, device=mesh.lead,
+                           mesh_shape=mesh_shape, shards=shards)
 
     def _caps_seed(self, key):
         """The cached sparse capacity for `key` (None = cold, calibrate).
@@ -1156,6 +1368,23 @@ def ring_class(type_name: str, cql: str, residual_cql: str,
     (whose visibility mask is folded in)."""
     text = "\x1f".join((type_name, cql, residual_cql) + tuple(auths))
     return hashlib.sha1(text.encode("utf-8")).hexdigest()[:16]
+
+
+def _frozen_shard_tiles(frozen: dict, cap: int, mesh):
+    """[(tile_ids, n_sel)] a shard of the frozen per-shard masks at
+    capacity `cap`, and the most live tiles of any shard; selected once
+    per capacity and shared by the class's captures."""
+    from geomesa_tpu_torch.parallel.mesh import on_shard
+
+    got = frozen["tiles"].get(cap)
+    if got is None:
+        tiles = []
+        for m, d in zip(frozen["maskf"], mesh.device_list):
+            with on_shard(d):
+                tiles.append(select_match_tiles(m, cap))
+        live = fetch(*[n for _, n in tiles])
+        got = frozen["tiles"][cap] = (tiles, max(int(v[0]) for v in live))
+    return got
 
 
 def _frozen_tiles(frozen: dict, cap: int):
@@ -1364,10 +1593,11 @@ class RingProgram:
 
     __slots__ = ("planner", "plan", "sb", "batch", "capture", "k", "kk",
                  "impl", "mb", "depth", "mversion", "mask_count", "cap",
-                 "caps_key", "ov")
+                 "caps_key", "ov", "device", "mesh_shape", "shards")
 
     def __init__(self, planner, plan, sb, batch, capture, k, kk, impl, mb,
-                 depth, mversion, mask_count, cap, caps_key, ov=None):
+                 depth, mversion, mask_count, cap, caps_key, ov=None,
+                 device=None, mesh_shape=(), shards=()):
         self.planner = planner
         self.plan = plan
         self.sb = sb
@@ -1383,6 +1613,11 @@ class RingProgram:
         self.cap = cap
         self.caps_key = caps_key
         self.ov = ov  # the sparse overflow flag over the frozen tiles
+        # the device of the capture's slots (a mesh's lead device)
+        self.device = device if device is not None else planner.device
+        # a mesh program's attribution (impl "mesh"), as the mesh route's
+        self.mesh_shape = mesh_shape
+        self.shards = shards
 
     @property
     def slots(self):
@@ -1415,7 +1650,12 @@ class RingProgram:
             launch.mask_count = self.mask_count
         fd, fi = self.capture.replay(slot)
         note_device_op()
-        if self.impl == "sparse":
+        if self.impl == "mesh":
+            launch.mesh_shape, launch.shards = self.mesh_shape, self.shards
+            launch.arm_mesh(fd, fi, self.ov, self._dense_fallback(launch),
+                            cap=self.cap, caps_key=self.caps_key)
+            metrics.counter("knn.mesh.dispatches")
+        elif self.impl == "sparse":
             # the overflow is unreachable (the capacity was calibrated
             # from this frozen mask) but stays armed
             launch.arm_sparse(fd, fi, self.ov, f["x"], f["y"],
@@ -1426,6 +1666,23 @@ class RingProgram:
         slot.consumed = launch.event
         metrics.counter("serve.ring.windows")
         return launch
+
+    def _dense_fallback(self, launch):
+        """The mesh program's overflow fallback, built only when a window
+        sees the (unreachable) overflow: the dense sharded scan (B2 on
+        every shard) over the frozen columns and the host query copies
+        cast as the stager casts them, as the mesh route's."""
+        from geomesa_tpu_torch.engine.knn_scan import make_knn_fullscan_sharded
+
+        def run():
+            f = self.capture.frozen
+            mesh = self.sb.mesh
+            hx, hy = (upload(h.astype(np.float32), mesh.lead)
+                      for h in launch._hq)
+            return make_knn_fullscan_sharded(mesh)(
+                hx, hy, f["x"], f["y"], f["mask"], k=self.kk, m_blocks=self.mb)
+
+        return run
 
 
 def _loosen_bbox(f: ast.Filter, geom_name: str) -> ast.Filter:

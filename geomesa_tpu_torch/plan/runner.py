@@ -117,15 +117,19 @@ def density_device_grid(sft: SimpleFeatureType, batch, dev, dev_mask, hints,
     g = sft.default_geometry
     x = dev[f"{g.name}__x"]
     y = dev[f"{g.name}__y"]
-    w = (dev[hints.density_weight].to(torch.float32) if hints.density_weight
-         else torch.ones_like(x, dtype=torch.float32))
     bbox = tuple(hints.density_bbox)
     geom_col = batch.columns[g.name]
     if mesh is not None and geom_col.is_point:
         from geomesa_tpu_torch.engine.density import density_sharded
 
+        # the weights shard by shard, where their rows live
+        w = (dev[hints.density_weight].map(lambda t: t.to(torch.float32))
+             if hints.density_weight
+             else x.map(lambda t: torch.ones_like(t, dtype=torch.float32)))
         return density_sharded(mesh, x, y, w, dev_mask, bbox,
                                hints.density_width, hints.density_height)
+    w = (dev[hints.density_weight].to(torch.float32) if hints.density_weight
+         else torch.ones_like(x, dtype=torch.float32))
     if not geom_col.is_point:
         from geomesa_tpu_torch.engine.raster import density_grid_geometry
 
@@ -193,25 +197,40 @@ def bin_bytes(sft: SimpleFeatureType, batch: FeatureBatch, dev,
               mask: np.ndarray, hints) -> bytes:
     """BIN records of the masked rows: the lanes packed on the device over
     every staged row (track codes, dtg, lat, lon, optional label), one
-    fetch, then the selected rows serialized on the host."""
+    fetch, then the selected rows serialized on the host. Over a sharded
+    batch each shard packs its own rows on its device and the packed
+    rows concatenate in shard order (the packing is row by row)."""
     from geomesa_tpu_torch.engine.bin import bin_pack, encode_bin
+    from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard, shard_dicts
 
-    device = dev[VALID].device
+    g, d = sft.default_geometry, sft.default_dtg
+    vx = dev[f"{g.name}__x"]
+    if isinstance(vx, Sharded):
+        parts = [(dv, i * vx.shard_rows, dev_)
+                 for i, (dv, dev_) in enumerate(zip(shard_dicts(vx.mesh, dev),
+                                                    vx.mesh.device_list))]
+    else:
+        parts = [(dev, 0, dev[VALID].device)]
 
-    def track_codes(name):
+    def track_codes(name, lo, n, device):
         col = batch.columns[name]
         codes = (np.asarray(col.codes) if isinstance(col, DictColumn)
                  else np.asarray(col).astype(np.int32))
-        return torch.from_numpy(np.ascontiguousarray(codes)).to(device)
+        return torch.from_numpy(
+            np.ascontiguousarray(codes[lo:lo + n])).to(device)
 
-    g, d = sft.default_geometry, sft.default_dtg
-    x = dev[f"{g.name}__x"]
-    dtg = (dev[d.name] if d is not None
-           else torch.zeros_like(x, dtype=torch.int64))
-    label = track_codes(hints.bin_label) if hints.bin_label else None
-    packed = bin_pack(track_codes(hints.bin_track), dtg, dev[f"{g.name}__y"],
-                      x, label=label)
-    (packed,) = fetch(packed)
+    packed = []
+    for dv, lo, device in parts:
+        with on_shard(device):
+            x = dv[f"{g.name}__x"]
+            n = int(x.shape[0])
+            dtg = (dv[d.name] if d is not None
+                   else torch.zeros_like(x, dtype=torch.int64))
+            label = (track_codes(hints.bin_label, lo, n, device)
+                     if hints.bin_label else None)
+            packed.append(bin_pack(track_codes(hints.bin_track, lo, n, device),
+                                   dtg, dv[f"{g.name}__y"], x, label=label))
+    packed = np.concatenate(fetch(*packed))
     return encode_bin(packed, np.nonzero(mask)[0])
 
 
@@ -381,23 +400,55 @@ def run_stats(batch: FeatureBatch, dev, mask: np.ndarray, expression: str):
     reduction runs on the device of `dev` (`engine/stats.py`) over the
     batch's host columns, and folds into the sketch objects on the host.
     A Z3 histogram reads the device coordinates; vocabulary and time-bin
-    sizes are padded to powers of two, as in the reference."""
+    sizes are padded to powers of two, as in the reference. On a mesh
+    superbatch each reduction runs shard by shard over that shard's rows
+    of the columns and the mask, on its device: the sums through
+    `stats_sharded` (added in shard order), min/max and the HLL registers
+    merged by min/max on the lead; no column is whole on one card."""
     from geomesa_tpu_torch.engine import stats as est
     from geomesa_tpu_torch.stats import parse_stats
     from geomesa_tpu_torch.stats.sketches import (
         Cardinality, DescriptiveStats, EnumerationStat, Frequency, Histogram,
         MinMax, TopK, Z3HistogramStat)
 
-    device = dev[VALID].device
+    from geomesa_tpu_torch.parallel.mesh import Sharded
+
+    valid = dev[VALID]
+    mesh = valid.mesh if isinstance(valid, Sharded) else None
+    device = mesh.lead if mesh is not None else valid.device
     seq = parse_stats(expression)
-    tmask = torch.from_numpy(np.ascontiguousarray(mask, bool)).to(device)
+    mask = np.ascontiguousarray(mask, bool)
+    if mesh is not None:  # each shard's rows of the mask on its device
+        s_rows = len(mask) // mesh.size
+        tmask = Sharded(mesh, [
+            torch.from_numpy(mask[i * s_rows:(i + 1) * s_rows]).to(d)
+            for i, d in enumerate(mesh.device_list)])
+    else:
+        tmask = torch.from_numpy(mask).to(device)
 
     def tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    def reduce(fn, *cols):
+        """fn(*columns, mask): summed over the shards on a mesh."""
+        if mesh is not None:
+            return est.stats_sharded(mesh, fn, *(np.asarray(c) for c in cols),
+                                     tmask)
+        return fn(*(tensor(c) for c in cols), tmask)
+
+    def partials(fn, col) -> list:
+        """fn(column, mask) a shard (one whole part off a mesh), on the
+        lead device."""
+        if mesh is None:
+            return [fn(tensor(col), tmask)]
+        return [p.to(device) if isinstance(p, torch.Tensor)
+                else tuple(t.to(device) for t in p)
+                for p in est.shard_partials(mesh, fn, np.asarray(col), tmask)]
+
     def value_counts(col: DictColumn) -> np.ndarray:
-        (counts,) = fetch(est.masked_value_counts(
-            tensor(col.codes), tmask, next_pow2(max(len(col.vocab), 1))))
+        n = next_pow2(max(len(col.vocab), 1))
+        (counts,) = fetch(reduce(
+            lambda c, m: est.masked_value_counts(c, m, n), col.codes))
         return counts
 
     for s in seq.stats:
@@ -405,10 +456,19 @@ def run_stats(batch: FeatureBatch, dev, mask: np.ndarray, expression: str):
             bins, _ = to_binned_time(np.asarray(batch.columns[s.dtg]),
                                      TimePeriod.parse(s.period))
             ub, tb = np.unique(bins, return_inverse=True)
-            (grids,) = fetch(est.z3_histogram(
-                dev[f"{s.geom}__x"], dev[f"{s.geom}__y"],
-                tensor(tb.astype(np.int32)), tmask,
-                next_pow2(max(len(ub), 1)), s.bins_per_dim))
+            nt = next_pow2(max(len(ub), 1))
+            gx, gy = dev[f"{s.geom}__x"], dev[f"{s.geom}__y"]
+            if mesh is not None:
+                # over the sharded coordinates where they live: per-shard
+                # count grids, added (exact)
+                (grids,) = fetch(est.stats_sharded(
+                    mesh, lambda x, y, t, m: est.z3_histogram(
+                        x, y, t, m, nt, s.bins_per_dim),
+                    gx, gy, tb.astype(np.int32), tmask))
+            else:
+                (grids,) = fetch(est.z3_histogram(
+                    gx, gy, tensor(tb.astype(np.int32)), tmask, nt,
+                    s.bins_per_dim))
             for i, b in enumerate(ub):
                 s.observe_grid(int(b), grids[i])
             continue
@@ -418,15 +478,17 @@ def run_stats(batch: FeatureBatch, dev, mask: np.ndarray, expression: str):
             s.observe_counts(col.vocab, value_counts(col)[: len(col.vocab)])
         elif isinstance(s, MinMax) and col is not None and not is_dict:
             if mask.any():
-                mn, mx = fetch(*est.masked_minmax(tensor(col), tmask))
+                parts = partials(est.masked_minmax, col)
+                mn, mx = fetch(torch.stack([p[0] for p in parts]).amin(),
+                               torch.stack([p[1] for p in parts]).amax())
                 s.observe(np.array([float(mn), float(mx)]))
         elif isinstance(s, Histogram) and col is not None:
-            (h,) = fetch(est.masked_histogram(tensor(col), tmask, s.lo, s.hi,
-                                              s.bins))
+            (h,) = fetch(reduce(lambda v, m: est.masked_histogram(
+                v, m, s.lo, s.hi, s.bins), col))
             s.observe_counts(h)
         elif isinstance(s, DescriptiveStats):
             if s.attribute and col is not None and not is_dict:
-                c, sm, ssq = fetch(*est.masked_moments(tensor(col), tmask))
+                c, sm, ssq = fetch(*reduce(est.masked_moments, col))
                 s.observe_moments(int(c), float(sm), float(ssq))
             else:  # Count()
                 s.observe_moments(int(mask.sum()), 0.0, 0.0)
@@ -435,12 +497,13 @@ def run_stats(batch: FeatureBatch, dev, mask: np.ndarray, expression: str):
             present = [v for v, c in zip(col.vocab, value_counts(col)) if c > 0]
             s.observe(np.asarray(present, dtype=object))
         elif isinstance(s, Cardinality) and col is not None:
-            (regs,) = fetch(est.hll_registers(tensor(col), tmask, s.p))
+            parts = partials(lambda v, m: est.hll_registers(v, m, s.p), col)
+            (regs,) = fetch(torch.stack(parts).amax(0))
             s.observe_registers(regs)
         elif (isinstance(s, Frequency) and getattr(s, "numeric_keys", False)
               and col is not None and not is_dict):
-            (table,) = fetch(est.cms_table(tensor(col), tmask, s.width,
-                                           s.depth))
+            (table,) = fetch(reduce(lambda v, m: est.cms_table(
+                v, m, s.width, s.depth), col))
             s.observe_table(table)
         else:  # host fallback (e.g. MinMax over strings)
             if is_dict:

@@ -11,8 +11,8 @@ captured CUDA graphs (`ringloop.py`), the JSON-lines wire
 (`protocol.serve_lines`, `protocol.serve_connection`) with its columnar
 framing and codecs (`columnar.py`), and the closed-loop, open-loop and
 sustained load generators (`loadgen.py`). Sharded serving over a device
-mesh (`ServeConfig.mesh`) runs on the serial and pipelined routes; the
-ring over a mesh and the multi-process runtime come with A7 (b).
+mesh (`ServeConfig.mesh`) runs on the serial, pipelined and ring routes;
+the multi-process runtime comes with A7 (c).
 """
 
 from geomesa_tpu_torch.serve.scheduler import (

@@ -15,9 +15,11 @@ at arm time. On a card the capture is one CUDA graph per ring slot
 the replay before it, so each slot has its own graph, its own static
 query pair and its own outputs, and a slot comes round only after
 `depth` windows — above the pipeline's in-flight bound, and the slot
-write waits on the event of the window that last read it. On a CPU store
-the program calls the same frozen body without a graph. Per window the
-work is ONLY
+write waits on the event of the window that last read it. On a mesh the
+program is the mesh serving program over the frozen per-shard masks (B1
+a shard, the merge on the lead device; its slots live on the lead). On
+a CPU store the program calls the same frozen body without a graph. Per
+window the work is ONLY
 
     slot write     the stager's copy into the next slot's query pair
     dispatch       ONE graph replay
@@ -33,8 +35,8 @@ Correctness contract:
   host f64->f32 cast, and sync is the serial route's sync;
 - **typed fallback**: only the reference's reasons (RingIneligible: a
   planner with interceptors, no manifest versions, no device cache, a
-  non-point geometry, nothing resident, and a mesh-resident store until
-  A7 (b) brings the ring's mesh programs) and
+  non-point geometry, nothing resident, and on a mesh a window whose
+  rows live on one shard, which the shard-affinity route serves) and
   a stale version send a window to the pipelined route, metered under
   `serve.ring.fallbacks`; a failed capture, build or launch fails the
   window typed (GraphCaptureError, KernelBuildError, KernelLaunchError)
@@ -98,7 +100,7 @@ class RingLoop:
         prog = self._current_program(key, win)
         if prog is None:
             return False
-        stager = self.stager(prog.planner.device)
+        stager = self.stager(prog.device)
         with TRACER.scope(lead.trace, parent_id=win.wid):
             with prog.capture.lock:
                 with TRACER.span("ring.slot", q=int(len(win.qx)),

@@ -50,13 +50,13 @@ Prometheus export), dispatch/coalesce/shed counters — all through
 
 Sharded serving: `ServeConfig.mesh` resolves through
 `parallel.mesh.serve_mesh` and is installed on the store (`set_mesh`);
-the serial and pipelined routes then serve kNN windows over the mesh
-tier (the planner's mesh and shard-affinity routes), and admission tags
-each request with the shards owning its partitions (`shard_affinity`).
+the serial, pipelined and ring routes then serve kNN windows over the
+mesh tier (the planner's mesh and shard-affinity routes, the ring's mesh
+programs), and admission tags each request with the shards owning its
+partitions (`shard_affinity`).
 
 Not here yet, each a NotPortedError naming its ROADMAP item when asked
-for: the ring route over a mesh (A7 (b)); SLOs and the continuous
-profiler's switch (A8).
+for: SLOs and the continuous profiler's switch (A8).
 """
 
 from __future__ import annotations
@@ -206,19 +206,14 @@ class QueryService:
         _check_ported(self.config)
         # sharded serving: resolve the spec once and install it on the
         # store (existing sources re-tier, new ones inherit it). None
-        # inherits the store's mesh; "off" clears one. A mesh, asked for
-        # or inherited, refuses the ring route until its mesh programs
-        # are ported.
+        # inherits the store's mesh; "off" clears one. The ring serves a
+        # mesh through its mesh programs (planner `_ring_arm_mesh`).
         if self.config.mesh is not None:
             from geomesa_tpu_torch.parallel.mesh import serve_mesh
 
             self.mesh = serve_mesh(self.config.mesh)
         else:
             self.mesh = getattr(store, "mesh", None)
-        if self.mesh is not None and self.config.ring:
-            raise NotPortedError(
-                "a serving mesh with ServeConfig.ring=True (the ring route's "
-                "mesh programs; pass ring=False)", "ROADMAP A7 (b)")
         if self.config.mesh is not None and hasattr(store, "set_mesh"):
             store.set_mesh(self.mesh)
         self.queue = AdmissionQueue(self.config.max_queue)

@@ -25,18 +25,23 @@ is always the coordinator that writes the manifest.
 
 The mesh tier (`set_mesh`, flat stores only): the superbatch keeps the
 SERIAL row layout (partitions in sorted order, each pow2-padded) plus
-trailing invalid rows to a multiple of the mesh size, uploaded whole
-once per residency change (no per-partition segments, so residency is
-not held twice), so a row's global index is its single-device index and
-the sharded kNN answers are the single-device ones. Each shard's rows of
-the default geometry's coordinates are placed on its device
-(`SuperBatch.placed`: views where the shard's device is the store's);
+trailing invalid rows to a multiple of the mesh size, so a row's global
+index is its single-device index and the sharded answers are the
+single-device ones. Residency is sharded as the reference's
+`NamedSharding(mesh, P("shard"))` placement: shard i's rows [i*S,
+(i+1)*S) of EVERY row-axis column, and of the partition ids, go from the
+host straight to `mesh.devices[i]` (pinned, non_blocking), each shard
+its own allocation even where the mesh repeats a device, and no
+per-partition segments are kept (residency is not held twice). `dev`'s
+columns and `pids` are `parallel.mesh.Sharded`; the planner evaluates
+masks, counts and aggregates shard by shard on the shards' devices.
 `owners` maps each partition to the shards holding its rows. A GROWTH
 (new partitions sorting after every resident one, the resident ones
-unchanged) uploads only the new rows and the fresh padding and re-places
-the old rows from the previous device tensors; any other change takes
-the full re-upload. The mask and every aggregate other than the kNN
-scans and the density grid stay on the store's device, whole.
+unchanged) moves every shard boundary (S grows): each new shard is
+rebuilt from the old shards' rows, copied device to device in row
+order, and its part of the uploaded tail; only the tail is uploaded
+(and counted in `upload_rows`). Any other change, a new mesh and
+clearing the mesh take the full re-upload and drop every old shard.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import torch
 
 from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch
 from geomesa_tpu_torch.engine.device import to_device, upload
+from geomesa_tpu_torch.parallel.mesh import on_shard
 from geomesa_tpu_torch.store.fs import FileSystemStorage
 from geomesa_tpu_torch.utils.padding import next_pow2
 
@@ -94,15 +100,24 @@ class SuperBatch:
     # partition id without a device read (`host_pids`)
     starts: Optional[np.ndarray] = None
     # on a card, the event after the superbatch's device build: work on
-    # another stream reading `dev`/`pids` waits on it alone
+    # another stream reading `dev`/`pids` waits on it alone (on the mesh
+    # tier one event a shard, on its device)
     ready: Optional[object] = None
-    # the mesh tier: the mesh, rows per shard, the shards holding each
-    # partition's rows and the per-shard placements (`parallel.mesh.
-    # Sharded`) of the default geometry's coordinate columns
+    # the mesh tier: the mesh, rows per shard and the shards holding each
+    # partition's rows; `dev`'s columns and `pids` are then
+    # `parallel.mesh.Sharded`
     mesh: object = None
     shard_rows: int = 0
     owners: Dict[str, tuple] = dataclasses.field(default_factory=dict)
-    placed: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    def shard_devs(self) -> list:
+        """One plain device batch a shard (its rows of every column, on
+        its device); [dev] off the mesh tier."""
+        if self.mesh is None:
+            return [self.dev]
+        from geomesa_tpu_torch.parallel.mesh import shard_dicts
+
+        return shard_dicts(self.mesh, self.dev)
 
     def host_pids(self, rows: np.ndarray) -> np.ndarray:
         """The partition id of each row in `rows`, from `starts`."""
@@ -300,6 +315,38 @@ class DeviceCacheManager:
         return sorted(self._entries)
 
     @_locked
+    def resident_bytes(self) -> Dict[str, int]:
+        """Device bytes of the current residency by device: the
+        superbatch's columns and partition ids and the partitions' own
+        segments, each storage counted once."""
+        from geomesa_tpu_torch.parallel.mesh import Sharded
+
+        tensors = [e.dev for e in self._entries.values() if e.dev]
+        if self._super is not None:
+            tensors += [self._super.dev, self._super.pids]
+        seen, out = set(), {}
+
+        def add(t):
+            if isinstance(t, Sharded):
+                for x in t.shards:
+                    add(x)
+            elif isinstance(t, dict):
+                for x in t.values():
+                    add(x)
+            elif isinstance(t, (tuple, list)):
+                for x in t:
+                    add(x)
+            elif isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                key = (str(t.device), st.data_ptr())
+                if key not in seen:
+                    seen.add(key)
+                    out[key[0]] = out.get(key[0], 0) + st.nbytes()
+
+        add(tensors)
+        return dict(sorted(out.items()))
+
+    @_locked
     def stats(self) -> dict:
         return {
             "partitions": len(self._entries),
@@ -411,11 +458,15 @@ class DeviceCacheManager:
     def _mesh_superbatch(self, names, entries, batch) -> SuperBatch:
         """The mesh tier's superbatch (module docstring): the serial
         layout plus trailing invalid rows to a multiple of the mesh size,
-        uploaded whole, or only its new rows on a growth."""
-        from geomesa_tpu_torch.parallel.mesh import Sharded, shards_of
+        every row-axis column and the partition ids uploaded shard by
+        shard from the host to their devices, or, on a growth, each shard
+        rebuilt from the old shards' rows (device to device, in row order)
+        and its part of the uploaded tail."""
+        from geomesa_tpu_torch.parallel.mesh import Sharded, assemble, upload_rows
 
         mesh = self.mesh
         d = mesh.size
+        devs = mesh.device_list
         total = len(batch)
         padded_total = -(-total // d) * d
         pids_host = np.concatenate([np.full(e.padded, i, np.int32)
@@ -426,45 +477,52 @@ class DeviceCacheManager:
             # invalid, so inert in every kernel
             pids_host = np.concatenate([
                 pids_host, np.full(padded_total - total, pids_host[-1], np.int32)])
+        s = padded_total // d
         prev = self._mesh_growth_prev(names)
-        if prev is not None:
-            old = prev["concat_rows"]
-            tail = batch.select(np.arange(old, padded_total))
-            tail_dev = to_device(tail, self.device, self._stage_dtype)
-            self.upload_count += 1
-            self.upload_rows += len(tail)
-            dev = {k: torch.cat([prev["dev"][k][:old], v])
-                   for k, v in tail_dev.items()}
-            pids = torch.cat([prev["pids"][:old],
-                              upload(pids_host[old:], self.device)])
+        old = prev["concat_rows"] if prev is not None else 0
+        # the host rows each shard takes from the upload: past `old`
+        bounds = [(max(i * s, old), (i + 1) * s) for i in range(d)]
+        up = [i for i, (lo, hi) in enumerate(bounds) if hi > lo]
+        parts = upload_rows(batch, [bounds[i] for i in up],
+                            [devs[i] for i in up], self._stage_dtype)
+        tails = dict(zip(up, parts))
+        for i in up:
+            lo, hi = bounds[i]
+            tails[i]["__pids__"] = upload(pids_host[lo:hi], devs[i])
+        self.upload_count += 1
+        self.upload_rows += padded_total - old
+        if prev is None:
+            shard_dev = [tails[i] for i in range(d)]
         else:
-            dev = to_device(batch, self.device, self._stage_dtype)
-            self.upload_count += 1
-            self.upload_rows += len(batch)
-            pids = upload(pids_host, self.device)
-        shard_rows = padded_total // d
+            keys = list(parts[0])
+            old_cols = dict(prev["dev"], __pids__=prev["pids"])
+            shard_dev = []
+            for i in range(d):
+                with on_shard(devs[i]):
+                    pieces = {k: _old_rows(old_cols[k], i * s,
+                                           min((i + 1) * s, old), devs[i])
+                              for k in keys}
+                    for k, v in tails.get(i, {}).items():
+                        pieces[k].append(v)
+                    # torch.cat: a fresh allocation even for one piece
+                    shard_dev.append({k: torch.cat(v) for k, v in pieces.items()})
+        pids = Sharded(mesh, [p.pop("__pids__") for p in shard_dev])
+        dev = assemble(mesh, shard_dev)
         owners: Dict[str, tuple] = {}
         off = 0
         for name, e in zip(names, entries):
             lo, hi = off, off + e.padded
-            owners[name] = tuple(range(lo // shard_rows,
-                                       min((hi - 1) // shard_rows + 1, d)))
+            owners[name] = tuple(range(lo // s, min((hi - 1) // s + 1, d)))
             off = hi
-        g = self.storage.sft.default_geometry
-        placed = {k: Sharded(mesh, shards_of(mesh, dev[k]))
-                  for k in (f"{g.name}__x", f"{g.name}__y") if k in dev}
-        ready = None
-        if pids.is_cuda:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(pids.device))
+        ready = tuple(_ready_event(dv) for dv in devs)
         starts = np.concatenate(
             [[0], np.cumsum([e.padded for e in entries])]).astype(np.int64)
         starts[-1] = padded_total  # the trailing rows are the last partition's
         self._super = SuperBatch(
             batch=batch, dev=dev, pids=pids,
             ids={n: i for i, n in enumerate(names)}, version=self._version,
-            starts=starts, ready=ready, mesh=mesh, shard_rows=shard_rows,
-            owners=owners, placed=placed)
+            starts=starts, ready=ready, mesh=mesh, shard_rows=s,
+            owners=owners)
         self._mesh_prev = {
             "mesh": mesh, "names": tuple(names),
             "meta": {n: (e.padded, tuple(e.files)) for n, e in zip(names, entries)},
@@ -488,3 +546,25 @@ class DeviceCacheManager:
             if e is None or (e.padded, tuple(e.files)) != prev["meta"][name]:
                 return None
         return prev
+
+
+def _old_rows(col, lo: int, hi: int, device: torch.device) -> list:
+    """Global rows [lo, hi) of a previous superbatch's `Sharded` column,
+    as pieces in row order on `device` (device-to-device copies; none
+    when hi <= lo)."""
+    out = []
+    s0 = col.shard_rows
+    for j in range(lo // s0, -(-hi // s0)) if hi > lo else ():
+        a, b = max(lo, j * s0) - j * s0, min(hi, (j + 1) * s0) - j * s0
+        out.append(col.shards[j][a:b].to(device, non_blocking=True))
+    return out
+
+
+def _ready_event(device: torch.device):
+    """An event after the work queued so far on `device`'s current stream
+    (None off CUDA)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev

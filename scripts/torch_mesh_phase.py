@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Phase 19 of `chip_smoke.py` alone: the device mesh on the served kNN
-path, with B1-B3's launch counts read around each part.
+"""Phases 19 and 20 of `chip_smoke.py` alone: the device mesh on the
+served kNN path, the ring's mesh programs and the sharded analytics, with
+the kernels' launch counts read around each part.
 
     python3 scripts/torch_mesh_phase.py [--rows N]
 
 Builds the CUDA kernels of the checkout first (one nvcc each, in
 parallel), writes phase 4's kNN store (`--rows`, default 2^26, in phase
 4's Morton order; without phases 9-16 before it) and makes every
-partition resident, then runs `chip_smoke.mesh_store_phase` and
-`chip_smoke.mesh_phase` with every gate of the full smoke. The mesh is
+partition resident, then runs `chip_smoke.mesh_store_phase`,
+`chip_smoke.mesh_ring_phase`, `chip_smoke.mesh_phase` and
+`chip_smoke.mesh_analytics_phase` with every gate of the full smoke. The
+mesh is
 the first min(4, n) cards on a machine with 2 or more, else four shards
 on cuda:0. Prints the phase's lines, its {"mesh": ...} JSON line and the
 card's name and power limit last. Exits 1 without a CUDA device.
@@ -69,10 +72,15 @@ def main() -> int:
         src.knn(cql, qx, qy, k=cs.K)  # the capacity calibrated
         cs.log(f"store: {n} rows written and resident in "
                f"{time.perf_counter() - t0:.3f} s [{card_s}]")
-        cs.mesh_store_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql), card_s)
+        single = cs.mesh_store_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql),
+                                     card_s)
+        cs.mesh_ring_phase(torch, ds, src, dict(cql=cql), single, card_s)
     torch.cuda.empty_cache()
     cs.mesh_phase(torch, card_s)
     cs.log(f"phase-19 launches: {cs.MESH_LAUNCHES}")
+    torch.cuda.empty_cache()
+    cs.mesh_analytics_phase(torch, card_s)
+    cs.log(f"phase-20 launches: {cs.RING_LAUNCHES}, B6 {cs.RING_B6[0]}")
     print(json.dumps({"mesh": cs.PHASES["mesh"]}))
     print(card_s)
     return 0

@@ -213,6 +213,19 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         md, mi, _ = mds.get_feature_source("t").knn(
             "BBOX(geom, -4, 41, 4, 49) AND speed > 5", [0.0], [45.0], k=3)
         assert np.array_equal(mi, i) and np.array_equal(md, d)
+        import torch
+        from geomesa_tpu_torch.engine import pip_layer_sharded  # noqa: F401
+        from geomesa_tpu_torch.engine.grid_index import knn_indexed_sharded
+        from geomesa_tpu_torch.engine.raster import polygon_density_sharded  # noqa: F401
+        from geomesa_tpu_torch.engine.stats import stats_sharded
+        from geomesa_tpu_torch.engine.tube import (  # noqa: F401
+            tube_select_pruned_sharded, tube_select_sharded)
+        m4 = default_mesh(["cpu"] * 4)
+        assert int(stats_sharded(m4, lambda v: v.sum(), torch.arange(8))) == 28
+        gx = torch.linspace(-5, 5, 64)
+        gd, gi, _ = knn_indexed_sharded(m4, gx[:2], gx[:2] + 45, gx, gx + 45,
+                                        torch.ones(64, dtype=torch.bool), k=2)
+        assert gi.shape == (2, 2)
         from geomesa_tpu_torch.process import DensityProcess
         poly = "INTERSECTS(geom, POLYGON((-3 42, 3 42, 0 48, -3 42)))"
         grid = DensityProcess().execute(src, (-5, 40, 5, 50), 32, 32, poly,

@@ -9,7 +9,8 @@ the same mesh routes), and a single-device port store over the same
 files is the oracle: neighbour sets identical and meters bit-identical
 (`_canonical_dists`), counts identical, density counts exact, the
 `mesh_shape`/`shards` strings and the growth's upload rows equal to the
-reference's.
+reference's. The ring's mesh programs are held in
+tests/test_torch_mesh_ring.py.
 """
 
 import json
@@ -29,12 +30,10 @@ from geomesa_tpu.plan.hints import QueryHints as RHints
 from geomesa_tpu.plan.query import Query as RQuery
 from geomesa_tpu_torch.core.columnar import FeatureBatch as PFB
 from geomesa_tpu_torch.core.sft import SimpleFeatureType as PSFT
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.parallel.mesh import default_mesh
 from geomesa_tpu_torch.plan.audit import ServeEvent
 from geomesa_tpu_torch.plan.datastore import DataStore as PDataStore
 from geomesa_tpu_torch.plan.hints import QueryHints as PHints
-from geomesa_tpu_torch.plan.planner import RingIneligible
 from geomesa_tpu_torch.plan.query import Query as PQuery
 from geomesa_tpu_torch.utils.metrics import metrics
 from test_torch_threads import torch_cpu_share  # noqa: F401 (autouse)
@@ -297,10 +296,11 @@ def test_growth_uploads_delta_rows_as_the_reference(tmp_path):
 def test_set_mesh_retier_ring_refusal_and_value_equality(stores, services):
     """set_mesh is a no-op for an equal mesh (by value); a new mesh drops
     the single-device segments and re-tiers with one upload of every
-    resident row; the ring refuses a mesh superbatch typed ("mesh");
-    clearing the mesh re-uploads the whole concat and answers the same;
-    a service asking for a mesh with the ring, or inheriting the store's
-    mesh with the default ring, refuses naming A7 (b)."""
+    resident row, sharded; the ring arms on a mesh superbatch (the mesh
+    program over the four shards); clearing the mesh re-uploads the
+    whole concat and answers the same; a service asking for a mesh with
+    the ring, or inheriting the store's mesh with the default ring, now
+    constructs and keeps the ring on."""
     src = PDataStore(stores.root, use_device_cache=True,
                      device="cpu").get_feature_source("meshed")
     cache = src.planner.cache
@@ -315,10 +315,10 @@ def test_set_mesh_retier_ring_refusal_and_value_equality(stores, services):
     before = cache.upload_rows
     sb = cache.superbatch()
     assert cache.upload_rows - before == len(sb.batch) == D * ROWS_PER_DAY
-    assert cache.serving_mesh() is mesh and sb.placed["geom__x"].shard_rows == 256
-    with pytest.raises(RingIneligible) as ei:
-        src.planner.ring_arm(PQuery("meshed", CQL), 64, k=5)
-    assert ei.value.reason == "mesh"
+    assert cache.serving_mesh() is mesh and sb.dev["geom__x"].shard_rows == 256
+    prog = src.planner.ring_arm(PQuery("meshed", CQL), 64, k=5)
+    assert prog.impl == "mesh" and prog.shards == (0, 1, 2, 3)
+    assert prog.mesh_shape == (D,) and prog.device == mesh.lead
     q = np.array([3.0]), np.array([4.0])
     on_mesh = src.knn(CQL, *q, k=5)
     cache.set_mesh(None)  # back to one device: the whole concat uploads
@@ -326,13 +326,13 @@ def test_set_mesh_retier_ring_refusal_and_value_equality(stores, services):
     assert cache.superbatch().mesh is None
     assert cache.upload_rows - before == D * ROWS_PER_DAY
     assert_same(src.knn(CQL, *q, k=5), on_mesh)
-    with pytest.raises(NotPortedError) as ei:
-        pserve.QueryService(stores.mesh, pserve.ServeConfig(mesh=mesh),
-                            autostart=False)
-    assert "A7 (b)" in ei.value.later_slice
-    with pytest.raises(NotPortedError) as ei:
-        pserve.QueryService(PDataStore(stores.root, device="cpu", mesh=mesh),
-                            pserve.ServeConfig(), autostart=False)
-    assert "A7 (b)" in ei.value.later_slice
+    for store, cfg in ((stores.mesh, pserve.ServeConfig(mesh=mesh)),
+                       (PDataStore(stores.root, device="cpu", mesh=mesh),
+                        pserve.ServeConfig())):
+        svc = pserve.QueryService(store, cfg, autostart=False)
+        try:
+            assert svc.mesh == mesh and svc.config.ring
+        finally:
+            svc.close(drain=False, timeout_s=5.0)
     svc = services(stores.mesh)
     assert svc.mesh == mesh and svc.stats()["mesh"] == {"shape": [4], "devices": 4}
