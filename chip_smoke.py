@@ -42,7 +42,7 @@ and prints no result. Phases, each fatal on failure:
    NYC-taxi-shaped pickups, monthly partitions): get_features density
    (weighted, unweighted, scatter route), a zone-polygon get_count and
    density, and DensityProcess with radius 2, each timed cold and warm
-   (p50 of 5; of 2 for the ~1.4 s polygon count),
+   (p50 of 5; one warm call of the ~1.4 s polygon count),
    with launch counts reset before and read after, checked against
    independent oracles (NumPy binning, an f64 crossing count on the card,
    the scatter route, the exact fallback on a shuffled copy), and
@@ -163,7 +163,7 @@ and prints no result. Phases, each fatal on failure:
    512x512 density over the filter's BBOX (B3 must launch; the grid ==
    a NumPy binning) and a kNN with timeoutMs 1 (must answer timeout),
    each == the direct call; then run_closed_loop with 8 clients and
-   run_sustained with 64 outstanding, 5 s each, reporting served qps,
+   run_sustained with 64 outstanding, 3 s each, reporting served qps,
    p50/p99, windows, mean window size, B1 launches per request, the
    device's idle share (torch.profiler over 1 s more of each) and points/s
    (resident rows x served qps); serve.oom.halved, serve.oom.hosteval,
@@ -194,7 +194,7 @@ and prints no result. Phases, each fatal on failure:
    small_store shape (2^20 rows) a write moves manifest_version: the
    next ring window falls back "stale", sees the new rows and equals
    src.knn, the one after re-arms. Then run_closed_loop with 8 clients
-   and run_sustained with 64 outstanding, 3 s each, on the pipelined and
+   and run_sustained with 64 outstanding, 2 s each, on the pipelined and
    the ring route: served qps, p50/p99, windows, mean window size, B1
    launches a request, device ops a window, windows in flight at most,
    the dispatch thread's and the completer's host ms a window, the idle
@@ -208,7 +208,8 @@ and prints no result. Phases, each fatal on failure:
    phase's launches under "launches_by_phase" "13".
 14. geometry predicates, non-point density and codecs, with B4's and
    B5's launches reset before each part and read after, each query cold
-   once and as a warm p50 of 5: (a) inside phase 4, on its store,
+   once and as a warm p50 of 3 (5 before phase 21): (a) inside phase 4,
+   on its store,
    DWITHIN and BEYOND of POINT(10 45), 500 km with phase 4's window,
    DWITHIN of the config-5 track (256 samples, 20 km) and of phase 5's
    zone polygon (10 km; B4 must launch), each as get_count and
@@ -225,7 +226,7 @@ and prints no result. Phases, each fatal on failure:
    warm INTERSECTS count; the regions' 512x512 cell-centre coverage
    through DensityProcess, equal to the CPU path and to an f64 parity
    oracle on 4,096 sampled cells (profiled); a new XZ2 line layer
-   (vessel:String,sog:Double,dtg:Date,*geom:LineString: 65,536 seeded
+   (vessel:String,sog:Double,dtg:Date,*geom:LineString: 16,384 seeded
    AIS-shaped tracks of 128 vertices), its 512x512 line density unit and
    sog-weighted, equal to the CPU path within f32 summation noise and
    totalling each track's inside fraction; (c) inside phase 8, on its
@@ -396,7 +397,7 @@ and prints no result. Phases, each fatal on failure:
    the direct single-card answers, knn.mesh.dispatches > 0, a window
    pruned to day 0 (shard 0 alone) through knn.mesh.local_dispatches,
    ServeEvent mesh_shape "(4,)" and shards "0,1,2,3" (or "0"), then 8
-   clients closed for 3 s (qps, p50) and 1 s under torch.profiler (the
+   clients closed for 2 s (qps, p50) and 1 s under torch.profiler (the
    idle share). Numbers in a {"mesh"} line.
 20. A7 (b), the ring's mesh programs and the engine's other sharded
    analytics, with B1-B3's launches reset before and read after each
@@ -408,7 +409,7 @@ and prints no result. Phases, each fatal on failure:
    merge graph where the mesh spans cards), gated bit-identical to the
    serial mesh route and to the same windows through the single-card
    ring before the mesh (19 (a)), B1 4 a window, ServeEvents "(4,)" and
-   "0,1,2,3"; 8 clients closed for 3 s on the ring and on the pipelined
+   "0,1,2,3"; 8 clients closed for 2 s on the ring and on the pipelined
    route (qps, p50/p99) and 1 s more on the ring with CUDA events around
    each replay (the busy share); density_zsparse_sharded (B3 once a
    shard) over the per-shard masks of phase 4's density query == the
@@ -422,6 +423,34 @@ and prints no result. Phases, each fatal on failure:
    pip_layer_sharded over a 2^20-point Morton slice of config 2's points
    against its 10,000 polygons (B6 once a shard) == pip_layer. Numbers
    in the {"mesh"} line.
+21. A7 (c), the multi-process runtime, in phase 4 right after 20 (a), on
+   phase 4's store on disk, in at most 60 s. The parent writes phase 19
+   (a)'s and 20 (a)'s one-process mesh answers and the request stream to
+   a file and starts two ranks of this script (`--phase21-rank R
+   --phase21-config F`), each with the local devices ["cuda:0"] * 2,
+   gloo over a `file://` init: one mesh of four shards over two
+   processes on one card. A rank fails if a kernel library is missing
+   (the parent built them; ranks never build). Each rank, one at a time,
+   measures its CUDA context (the card's used memory by NVML just before
+   and after its first CUDA call). In every rank:
+   (a) `assert_uniform_runtime` and `smoke_step` on the card; (b) the
+   store read on the host, `set_mesh(global_mesh(...))` (per-rank
+   resident bytes, re-tier seconds), count, the density (scatter) and
+   density_zsparse_sharded (B3 once a local shard) over the per-shard
+   masks, sparse kNN (B1 2 a rank) and the forced overflow (B2 2 a
+   rank), each gated bit-identical to the one-process mesh, mesh.gathers
+   0, and the process mesh's warm kNN p50; (c) 16 ring windows from
+   identical streams, gated as in (b), B1 2 a window a rank from each
+   rank's own graph a slot, ServeEvents "(4,)" and "0,1,2,3", then one
+   closed client a rank for a fixed count of requests (qps, p50/p99,
+   the busy share from CUDA events around the graphs' replays, the
+   collective merge's host ms a window); (d) only rank 0 writes the
+   device-cache manifest. A rank that fails or outlives its timeout
+   fails the phase. (e) In the parent, once at the end:
+   `initialize(backend="nccl")` as one rank on cuda:0,
+   `assert_uniform_runtime` (an NCCL all-reduce) and the group torn
+   down. The ranks' launches join the kernels line as phase 21's;
+   numbers in a {"multiprocess"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -433,6 +462,7 @@ import faulthandler
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -751,6 +781,8 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         # phase 20 (a) on the store with the mesh installed
         single = mesh_store_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql), card_s)
         mesh_ring_phase(torch, ds, src, dict(cql=cql), single, card_s)
+        # phase 21 on the store on disk: two ranks of this script
+        mp_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql), single, tmp, card_s)
         return launches, inputs, knn_ops, serve, serve_dev
 
 
@@ -1179,8 +1211,8 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
             out[name] = fn()
             cold = time.perf_counter() - t0
             times = []
-            # the host-bound polygon count (~1.4 s a call) takes 2 warm calls
-            for _ in range(2 if name == "polygon count" else 5):
+            # the host-bound polygon count (~1.4 s a call) takes 1 warm call
+            for _ in range(1 if name == "polygon count" else 5):
                 t0 = time.perf_counter()
                 out[name] = fn()
                 times.append(time.perf_counter() - t0)
@@ -1191,7 +1223,7 @@ def density_path(torch, dev, rows: int, card_s: str, wkt: str):
                     f"padded rows resident in {len(sb.ids)} partitions [{card_s}]")
         launches = {w.__name__: w.launches for w in kernels}
         log(f"density-path launches: {launches} over 6 calls of each of "
-            f"{len(calls)} call types (3 of the polygon count)")
+            f"{len(calls)} call types (2 of the polygon count)")
         assert all(launches.values()), "a kernel of the density path never launched"
         for name, (cold, warm) in lat.items():
             log(f"{name}: cold {cold * 1e3:.3f} ms, warm p50 {warm * 1e3:.3f} ms, "
@@ -2849,7 +2881,7 @@ SERVE_FULL = 64  # impl="fullscan" requests (one window)
 # counts the keys it calibrated (phase 4 has already cached this one).
 CALIBRATION_B1 = 0
 SERVE_OOM = 8  # requests of the injected-OOM window (halved down to 1 each)
-SERVE_LOAD_S = 5.0
+SERVE_LOAD_S = 3.0  # cut from 5 s for phase 21's time
 SERVE_PROFILE_S = 1.0
 OOM_COUNTERS = ("serve.oom.halved", "serve.oom.hosteval", "serve.oom.failed")
 
@@ -3173,7 +3205,7 @@ DEV_COUNTS = 64  # counts fused onto one pipelined kNN window
 DEV_WINDOW = 64
 DEV_STALE_ROWS = 1 << 20  # rows of the staleness store (phase 9's small_store)
 DEV_STALE_WRITE = 4096  # rows the write adds
-DEV_LOAD_S = 3.0
+DEV_LOAD_S = 2.0  # cut from 3 s for phase 21's time
 DEV_ROUTES = {"serial": dict(pipeline=False, ring=False),
               "pipelined": dict(ring=False), "ring": {}}
 
@@ -3465,34 +3497,37 @@ def serve_device_phase(torch, ks, dev, ds, src, a: dict, serial_load: dict,
     return out
 
 
-def replay_busy(torch, fn):
+def replay_busy(torch, fn, method: str = "replay"):
     """(wall ms, device busy ms) of one call of fn on the ring route: the
     device time between CUDA events recorded on the replaying stream just
     before and just after each graph replay, summed (replays serialise on
     that stream; the slot copies and readbacks of a few KB are left out,
-    as the profiler's kernel sum leaves copies out)."""
+    as the profiler's kernel sum leaves copies out). `method` is the
+    `RingCapture` method timed: "_replay_split" on a process mesh's ring
+    (each rank's own graphs; the collective merge after them is host
+    work, outside)."""
     from geomesa_tpu_torch.compilecache.registry import RingCapture
 
-    real = RingCapture.replay
+    real = getattr(RingCapture, method)
     marks = []
 
-    def timed(self, slot):
+    def timed(self, *args):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = real(self, slot)
+        out = real(self, *args)
         b.record()
         marks.append((a, b))
         return out
 
-    RingCapture.replay = timed
+    setattr(RingCapture, method, timed)
     try:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        RingCapture.replay = real
+        setattr(RingCapture, method, real)
     return wall_ms, sum(a.elapsed_time(b) for a, b in marks)
 
 
@@ -3811,7 +3846,7 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
 
 # -- geometry predicates, non-point density and codecs (phase 14) -------------
 
-GEO_WARM = 5
+GEO_WARM = 3  # warm calls a phase-14 call type (cut from 5 for phase 21)
 GEO_CENTER = (10.0, 45.0)
 # FP64 operations per (row, segment) pair of point_to_segments_m as written:
 # 4 subtracts and 6 scalings (ax, ay, bx, by), 2 differences, 2 squares and
@@ -3832,7 +3867,7 @@ PARITY_OPS = 12
 # xc (2), the column (3), the bounds (3), the signed weight and the add
 LINE_OPS = 30
 POLY_OPS = 14
-LINE_TRACKS = 65_536
+LINE_TRACKS = 16_384  # cut from 65,536 for phase 21's time (its WKT is host-bound)
 LINE_VERTS = 128
 LINE_ENV = (-12.0, 33.0, 32.0, 67.0)
 LAYER_DENSITY_ENV = (-180.0, -90.0, 180.0, 90.0)
@@ -6676,7 +6711,7 @@ MESH_GROW_ROWS = 1 << 20
 MESH_GROW_DAYS = 8
 MESH_GROW_T0 = 1_591_920_000_000  # 2020-06-12T00:00:00Z
 MESH_SERVED = 64  # single-point kNN requests a route
-MESH_LOAD_S = 3.0
+MESH_LOAD_S = 2.0  # cut from 3 s for phase 21's time
 MESH_PROFILE_S = 1.0
 MESH_FEATURE_BOX = (20.0, 45.0, 21.0, 46.0)  # away from phase 16's deletes
 MESH_STATS = "Count();MinMax(speed);Histogram(speed,32,0,100);DescriptiveStats(speed)"
@@ -6859,6 +6894,12 @@ def mesh_store_phase(torch, ds, src, a: dict, card_s: str) -> None:
         f"(stats {res['mesh_stats_s']:.3f} s on the mesh, {res['single_stats_s']:.3f} s "
         f"on one card; {res['seconds']:.3f} s) "
         f"[{card_s}]")
+    # phase 21's oracle: the one-process mesh's own answers, kNN as
+    # (meters, neighbour coordinates), so no host batch of the mesh tier
+    # outlives it
+    single["mesh"] = {"count": got["count"], "density": got["density"],
+                      "sparse": knn_xy(got["sparse"]),
+                      "overflow": knn_xy(got["overflow"])}
     return single
 
 
@@ -7095,7 +7136,7 @@ def mesh_phase(torch, card_s: str) -> None:
 RING_LAUNCHES = {name: 0 for name in A4B_KERNELS}
 RING_B6 = [0]  # phase 20 (b)'s pip_layer_sharded launches of B6
 RING_SERVED = 24  # single-point ring windows a route (16 at least)
-RING_LOAD_S = 3.0
+RING_LOAD_S = 2.0  # cut from 3 s for phase 21's time
 RING_PROFILE_S = 1.0
 RING_LAYER_N = 1 << 20  # the Morton slice of config 2's points
 PHASE20_BUDGET_S = 45.0
@@ -7178,6 +7219,7 @@ def mesh_ring_phase(torch, ds, src, a: dict, single: dict, card_s: str) -> None:
     for i, (r, s_, o) in enumerate(zip(ring, serial, single["ring"])):
         for other in (s_, o):
             assert np.array_equal(r[1], other[1]) and np.array_equal(r[0], other[0]), i
+    single["mesh"]["ring"] = [knn_xy(r) for r in ring[:MP_WINDOWS]]
     lap("gates")
     res.update(windows=RING_SERVED, b1_a_window=ln.counts["chord_blockmin_sparse"] / RING_SERVED,
                split_graphs=caps[0].split is not None, graphs=len(caps[0].graphs),
@@ -7409,12 +7451,401 @@ def mesh_analytics_phase(torch, card_s: str) -> None:
     assert total + ring_s <= PHASE20_BUDGET_S, f"phase 20 took {total + ring_s:.1f} s"
 
 
+# -- phase 21: A7 (c), the multi-process runtime ---------------------------------
+
+MP_RANKS = 2
+MP_DEVICES = ["cuda:0"] * 2  # each rank's local devices: 2 x 2 = phase 19's D
+MP_WINDOWS = 16  # ring windows from identical streams (phase 20's first 16)
+MP_LOAD_N = 256  # requests of the closed client in each rank, ~3 s (a fixed
+#                  count, not a duration: the ranks stop together, as their
+#                  collectives must)
+MP_TIMEOUT_S = 300.0
+MP_LAUNCHES = {name: 0 for name in A4B_KERNELS}  # both ranks', in the parent
+MP_RANK_LAUNCHES = {name: 0 for name in A4B_KERNELS}  # one rank's, in the rank
+PHASE21_BUDGET_S = 60.0
+
+
+def knn_xy(res):
+    """(meters [Q, k], neighbour coordinates [Q, k, 2]) of a kNN answer."""
+    d, idx, batch = res
+    col = batch.columns["geom"]
+    return (np.asarray(d), np.stack([np.asarray(col.x)[idx],
+                                     np.asarray(col.y)[idx]], -1))
+
+
+def same_knn(a, b) -> bool:
+    """Meters bit-identical and each query's neighbour coordinates the
+    same set (ties may come in either order)."""
+    (da, xa), (db, xb) = a, b
+    if not np.array_equal(da, db):
+        return False
+    return all(sorted(map(tuple, p.tolist())) == sorted(map(tuple, q.tolist()))
+               for p, q in zip(xa, xb))
+
+
+def mp_phase(torch, ds, src, a: dict, single: dict, tmp: str, card_s: str) -> None:
+    """Phase 21 (module docstring), the parent's side: the one-process
+    mesh's answers (phase 19 (a)'s and 20 (a)'s) to a file, two ranks of
+    this script, their results gated and merged, then (e)."""
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "phase21")
+    os.makedirs(work, exist_ok=True)
+    qx, qy = ring_requests()
+    one = single["mesh"]
+    exp = {"density": one["density"], "count": np.asarray(one["count"])}
+    for name in ("sparse", "overflow"):
+        exp[f"{name}.d"], exp[f"{name}.xy"] = one[name]
+    for j in range(MP_WINDOWS):
+        exp[f"ring.{j}.d"], exp[f"ring.{j}.xy"] = one["ring"][j]
+    np.savez(os.path.join(work, "expected.npz"), **exp)
+    cfg = {"root": ds.catalog, "type": "gdelt", "cql": a["cql"],
+           "qx": a["qx"].tolist(), "qy": a["qy"].tolist(),
+           "ring_qx": qx[:MP_WINDOWS].tolist(), "ring_qy": qy[:MP_WINDOWS].tolist(),
+           "resident": src.planner.cache.resident(), "world": MP_RANKS,
+           "devices": MP_DEVICES, "init": "file://" + os.path.join(work, "init"),
+           "work": work}
+    path = os.path.join(work, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(MP_RANKS):
+        logf = open(os.path.join(work, f"rank{r}.log"), "w")
+        logs.append(logf)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase21-rank", str(r),
+             "--phase21-config", path], cwd=here, env=env, stdout=logf,
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            for q in procs:
+                q.wait()
+            rcs.append("timeout")
+    for f in logs:
+        f.close()
+    ranks_s = time.perf_counter() - t0
+    tails = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            tails.append(f.read()[-3000:])
+    assert rcs == [0] * MP_RANKS, f"phase 21 ranks failed: rcs {rcs}\n" + "\n----\n".join(tails)
+    got = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    for r, g in enumerate(got):
+        for line in g["log"]:
+            log(f"rank {r}: {line}")
+    ans = [np.load(os.path.join(work, f"rank{r}.npz")) for r in range(MP_RANKS)]
+    for k in ans[0].files:  # every rank holds the whole answer
+        assert np.array_equal(ans[0][k], ans[1][k]), f"ranks differ on {k}"
+    for g in got:
+        for k, v in g["launches"].items():
+            MP_LAUNCHES[k] += v
+    # (e) the NCCL path of initialize, once, as one rank on cuda:0
+    from geomesa_tpu_torch.parallel import distributed as dd
+
+    t0 = time.perf_counter()
+    backend = dd.initialize("file://" + os.path.join(work, "nccl_init"), 1, 0,
+                            backend="nccl")
+    try:
+        assert dd.backend() == "nccl" and dd.is_coordinator()
+        dd.assert_uniform_runtime()
+    finally:
+        dd.shutdown()
+    nccl_s = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    res = {"card": card_s, "backend": got[0]["backend"], "ranks": MP_RANKS,
+           "shards": len(MP_DEVICES) * MP_RANKS, "local_devices": MP_DEVICES,
+           "copies_between_cards": False, "nccl_between_ranks": False,
+           "ranks_wall_s": ranks_s, "nccl_start": {"backend": backend, "seconds": nccl_s},
+           "per_rank": [{k: v for k, v in g.items() if k != "log"} for g in got],
+           "seconds": total}
+    print(json.dumps({"multiprocess": res}))
+    log(f"phase 21: {MP_RANKS} ranks x {len(MP_DEVICES)} shards on cuda:0 over "
+        f"{got[0]['backend']} passed (a)-(d) in {ranks_s:.3f} s; launches "
+        f"{dict(MP_LAUNCHES)}; (e) initialize(backend='nccl') as one rank + the "
+        f"uniform-runtime all-reduce in {nccl_s:.3f} s; phase 21 {total:.3f} s [{card_s}]")
+    assert total <= PHASE21_BUDGET_S, f"phase 21 took {total:.1f} s"
+
+
+def nvml_used_bytes(index: int = 0) -> int:
+    """The card's used memory as NVML reads it (no CUDA context needed)."""
+    import ctypes
+
+    class Memory(ctypes.Structure):
+        _fields_ = [("total", ctypes.c_ulonglong), ("free", ctypes.c_ulonglong),
+                    ("used", ctypes.c_ulonglong)]
+
+    nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    handle, mem = ctypes.c_void_p(), Memory()
+    if (nvml.nvmlInit_v2()
+            or nvml.nvmlDeviceGetHandleByIndex_v2(index, ctypes.byref(handle))
+            or nvml.nvmlDeviceGetMemoryInfo(handle, ctypes.byref(mem))):
+        raise RuntimeError("NVML could not read the card's memory")
+    nvml.nvmlShutdown()
+    return int(mem.used)
+
+
+def context_bytes(torch) -> int:
+    """What this process's CUDA context costs on the card (cuda:0, the
+    one card): its used memory (NVML) just before and just after the
+    process's first CUDA call, less what the caching allocator reserved
+    (nothing yet). No other process may change the card's memory
+    meanwhile."""
+    before = nvml_used_bytes()
+    torch.cuda.mem_get_info(0)  # creates the context, allocates nothing
+    return nvml_used_bytes() - before - torch.cuda.memory_reserved(0)
+
+
+def mp_rank(rank: int, config: str) -> int:
+    """Phase 21's rank (module docstring): (a)-(d) in this process, its
+    results to `<work>/rank<R>.json` and `.npz`. Returns the exit code."""
+    import torch
+
+    from geomesa_tpu_torch.engine.kernels import build
+
+    with open(config) as f:
+        cfg = json.load(f)
+    missing = [n for n in build.sources() if not build.library_path(n).exists()]
+    if missing:  # the parent builds; a rank never builds concurrently
+        print(f"phase 21 rank {rank}: kernel libraries missing: {missing}",
+              file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from geomesa_tpu_torch.parallel import distributed as dd
+
+    t_rank = time.perf_counter()
+    # gloo: joining touches no card, so the context is measured after it
+    dd.initialize(cfg["init"], cfg["world"], rank, backend="gloo", timeout_s=120)
+    lines, out, arrays = [], {"rank": rank, "backend": dd.backend()}, {}
+    try:
+        for r in range(cfg["world"]):  # one rank at a time on the card
+            if r == rank:
+                out["context_bytes"] = context_bytes(torch)
+            dist.barrier()
+        for n in build.sources():
+            build.load(n)
+        mp_rank_body(torch, rank, cfg, lines, out, arrays)
+    finally:
+        out["seconds"] = time.perf_counter() - t_rank
+        out["log"] = lines
+        with open(os.path.join(cfg["work"], f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=float)
+        np.savez(os.path.join(cfg["work"], f"rank{rank}.npz"), **arrays)
+        dd.shutdown()
+    return 0
+
+
+def mp_rank_body(torch, rank: int, cfg: dict, lines: list, out: dict,
+                 arrays: dict) -> None:
+    import torch.distributed as dist
+
+    from geomesa_tpu_torch import DataStore, Query, QueryHints
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.parallel import distributed as dd
+    from geomesa_tpu_torch.parallel import mesh as mesh_mod
+    from geomesa_tpu_torch.parallel.launch import smoke_step
+    from geomesa_tpu_torch.plan.audit import ServeEvent
+    from geomesa_tpu_torch.serve import QueryService, ServeConfig
+
+    card_s = card()
+    exp = np.load(os.path.join(cfg["work"], "expected.npz"))
+    cql, name = cfg["cql"], cfg["type"]
+    qx, qy = np.asarray(cfg["qx"]), np.asarray(cfg["qy"])
+    lap = Laps()
+    # (a)
+    dd.assert_uniform_runtime()
+    smoke = smoke_step(cfg["devices"], verbose=False)
+    smoke.pop("grid")
+    out["smoke"] = smoke
+    lap("(a) uniform runtime, smoke_step")
+    # (b)
+    ds = DataStore(cfg["root"], use_device_cache=True, device=cfg["devices"][0])
+    src = ds.get_feature_source(name)
+    cache, planner = src.planner.cache, src.planner
+    cache.ensure(cfg["resident"])
+    lap("(b) store read on the host")
+    mesh = dd.global_mesh(cfg["devices"])
+    assert mesh.spans_processes and mesh.size == 4, mesh
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ds.set_mesh(mesh)
+    sb = cache.superbatch()
+    torch.cuda.synchronize()
+    out["retier_s"] = time.perf_counter() - t0
+    out["resident_bytes"] = cache.resident_bytes()
+    out["allocated_change_bytes"] = torch.cuda.memory_allocated() - mem0
+    out["upload_rows"] = cache.upload_rows
+    out["shard_rows"] = sb.shard_rows
+    assert [i for i, s in enumerate(sb.pids.shards) if s is not None] == list(mesh.local)
+    lap("(b) set_mesh")
+    g0 = mesh_gathers()
+    with Launches(MP_RANK_LAUNCHES) as ln_count:
+        out["count"] = int(src.get_count(cql))
+    assert out["count"] == int(exp["count"]), (out["count"], int(exp["count"]))
+    with Launches(MP_RANK_LAUNCHES) as ln_sparse:
+        got = knn_xy(src.knn(cql, qx, qy, k=K))
+    assert same_knn(got, (exp["sparse.d"], exp["sparse.xy"])), "sparse kNN"
+    arrays["sparse.d"], arrays["sparse.xy"] = got
+    key = (planner.plan(Query(name, cql)).cql, K, ("mesh", mesh.size))
+    planner._knn_caps[key] = OVERFLOW_CAP  # the same seed in every rank
+    with Launches(MP_RANK_LAUNCHES) as ln_over:
+        got = knn_xy(src.knn(cql, qx, qy, k=K))
+    assert key not in planner._knn_caps, "the forced overflow did not fall back"
+    assert same_knn(got, (exp["overflow.d"], exp["overflow.xy"])), "overflow kNN"
+    arrays["overflow.d"], arrays["overflow.xy"] = got
+    grid = src.get_features(Query(name, cql, hints=QueryHints(
+        density_bbox=BBOX, density_width=GRID, density_height=GRID))).grid
+    assert np.array_equal(grid, exp["density"]), "density (scatter)"
+    query = Query(name, cql)
+    plan = planner.plan(query)
+    sb, allowed = planner._resident(plan)
+    masks, _ = planner._mesh_masks(plan, query.hints, sb, allowed)
+    x, y = sb.dev["geom__x"], sb.dev["geom__y"]
+    ones = x.map(lambda t: torch.ones_like(t, dtype=torch.float32))
+    with Launches(MP_RANK_LAUNCHES) as ln_b3:
+        t0 = time.perf_counter()
+        zgrid = dz.density_zsparse_sharded(
+            mesh, x, y, ones, mesh_mod.Sharded.from_local(mesh, masks), BBOX, GRID, GRID)
+        torch.cuda.synchronize()
+        out["density_zsparse_sharded_ms"] = (time.perf_counter() - t0) * 1e3
+    assert np.array_equal(zgrid.cpu().numpy(), exp["density"]), "B3 over the shards"
+    arrays["density"] = zgrid.cpu().numpy()
+    del masks, x, y, ones, zgrid, sb
+    out["knn_p50_ms"] = p50_s(lambda: src.knn(cql, qx, qy, k=K)) * 1e3
+    out["gathers"] = mesh_gathers() - g0
+    assert out["gathers"] == 0, "a process-mesh query gathered a whole column"
+    nl = len(mesh.local)
+    assert ln_sparse.counts["chord_blockmin_sparse"] == nl, ln_sparse.counts
+    assert ln_over.counts["chord_blockmin"] == nl, ln_over.counts
+    assert ln_b3.counts["zsparse_counts"] == nl, ln_b3.counts
+    lap("(b) count, density, B3, kNN, overflow")
+    # (c) the ring on the process mesh
+    ev0 = len(ds.audit.events)
+    svc = QueryService(ds, ServeConfig(mesh=mesh, max_wait_ms=0.0))
+    rqx, rqy = np.asarray(cfg["ring_qx"]), np.asarray(cfg["ring_qy"])
+    try:
+        with Launches(MP_RANK_LAUNCHES) as ln_ring:
+            for j in range(MP_WINDOWS):
+                got = knn_xy(svc.knn(name, cql, rqx[j:j + 1], rqy[j:j + 1],
+                                     k=K).result(timeout=120))
+                assert same_knn(got, (exp[f"ring.{j}.d"], exp[f"ring.{j}.xy"])), j
+                arrays[f"ring.{j}.d"], arrays[f"ring.{j}.xy"] = got
+        rs = svc.stats()["pipeline"]["ring"]
+        assert rs["windows"] == MP_WINDOWS and rs["fallbacks"] == {}, rs
+        assert ln_ring.counts["chord_blockmin_sparse"] == nl * MP_WINDOWS, ln_ring.counts
+        events = [e for e in ds.audit.events[ev0:]
+                  if isinstance(e, ServeEvent) and e.kind == "knn"]
+        assert [(e.mesh_shape, e.shards) for e in events] == [
+            ("(4,)", "0,1,2,3")] * MP_WINDOWS, events
+        lap("(c) ring windows")
+        merge_s = []
+        real_merge = mesh_mod.merge_topk
+
+        def timed_merge(*args, **kw):
+            torch.cuda.current_stream().synchronize()  # the graphs are done
+            t0 = time.perf_counter()
+            res = real_merge(*args, **kw)
+            merge_s.append(time.perf_counter() - t0)
+            return res
+
+        g = np.random.default_rng(2_100)
+        lx = g.uniform(BBOX[0] + 5, BBOX[2] - 5, MP_LOAD_N)
+        ly = g.uniform(BBOX[1] + 5, BBOX[3] - 5, MP_LOAD_N)
+        lat = []
+
+        def closed():
+            for j in range(MP_LOAD_N):
+                t0 = time.perf_counter()
+                svc.knn(name, cql, lx[j:j + 1], ly[j:j + 1], k=K).result(timeout=120)
+                lat.append(time.perf_counter() - t0)
+
+        mesh_mod.merge_topk = timed_merge
+        try:
+            with Launches(MP_RANK_LAUNCHES) as ln_load:
+                wall_ms, busy_ms = replay_busy(torch, closed, "_replay_split")
+        finally:
+            mesh_mod.merge_topk = real_merge
+        out["ring"] = {
+            "windows": MP_WINDOWS, "b1_a_window": ln_ring.counts["chord_blockmin_sparse"] / MP_WINDOWS,
+            "closed_client": {"requests": MP_LOAD_N, "wall_s": wall_ms / 1e3,
+                              "served_qps": MP_LOAD_N / (wall_ms / 1e3),
+                              "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                              "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                              "busy_share": busy_ms / wall_ms,
+                              "merge_ms_a_window": float(np.median(merge_s) * 1e3),
+                              "merges": len(merge_s),
+                              "b1": ln_load.counts["chord_blockmin_sparse"]}}
+        assert ln_load.counts["chord_blockmin_sparse"] == nl * MP_LOAD_N, ln_load.counts
+    finally:
+        svc.close(drain=True)
+    lap("(c) closed client")
+    # (d) only rank 0 writes the device-cache manifest
+    mpath = cache.manifest_path
+
+    def mtime():
+        return os.stat(mpath).st_mtime_ns if os.path.exists(mpath) else None
+
+    dist.barrier()
+    before = mtime()
+    time.sleep(0.05)
+    if rank == 1:
+        cache.save_manifest()
+    dist.barrier()
+    after1 = mtime()
+    time.sleep(0.05)
+    if rank == 0:
+        cache.save_manifest()
+    dist.barrier()
+    after0 = mtime()
+    assert after1 == before and after0 is not None and after0 != before, (
+        before, after1, after0)
+    out["manifest_gate"] = "rank 1's save wrote nothing, rank 0's wrote the manifest"
+    lap("(d) gates")
+    out["launches"] = {k: v for k, v in MP_RANK_LAUNCHES.items()}
+    out["memory"] = {"allocated": torch.cuda.memory_allocated(),
+                     "reserved": torch.cuda.memory_reserved(),
+                     "card_used": int(torch.cuda.mem_get_info()[1]
+                                      - torch.cuda.mem_get_info()[0])}
+    out["laps_s"] = dict(lap.seconds)
+    c = out["ring"]["closed_client"]
+    lines.append(
+        f"(a) smoke_step count {smoke['count']}, mass {smoke['grid_mass']:g}; (b) read "
+        f"{lap.seconds['(b) store read on the host']:.3f} s, re-tier {out['retier_s']:.3f} s, "
+        f"{out['shard_rows']} rows a shard, local shards {list(mesh.local)}, resident "
+        f"{out['resident_bytes']}, CUDA context {out['context_bytes']} B; count "
+        f"{out['count']}, density (scatter and B3 "
+        f"x{nl} {out['density_zsparse_sharded_ms']:.3f} ms), sparse kNN (B1 x{nl}), "
+        f"overflow (B2 x{nl}) == the one-process mesh; mesh.gathers 0; warm kNN p50 "
+        f"{out['knn_p50_ms']:.3f} ms; (c) {MP_WINDOWS} ring windows == the one-process "
+        f"mesh, B1 {nl} a window; closed client {MP_LOAD_N} requests {c['served_qps']:.1f} "
+        f"qps, p50 {c['p50_ms']:.3f} ms, p99 {c['p99_ms']:.3f} ms, busy share "
+        f"{c['busy_share']:.3f} (CUDA events), merge {c['merge_ms_a_window']:.3f} ms a "
+        f"window; (d) only rank 0 wrote the manifest; laps "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in lap.seconds.items()) + f" [{card_s}]")
+
+
 def main() -> int:
     # a crash in native code prints every thread's Python stack
     faulthandler.enable()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
                     help="rows written to the store (default 2^26)")
+    ap.add_argument("--phase21-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # phase 21's ranks (the parent starts them)
+    ap.add_argument("--phase21-config", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -7432,6 +7863,8 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 1
+    if args.phase21_rank is not None:
+        return mp_rank(args.phase21_rank, args.phase21_config)
 
     card_s = card()
     log(card_s)
@@ -7574,6 +8007,14 @@ def main() -> int:
     log(f"phase-20 launches: {RING_LAUNCHES}")
     assert all(RING_LAUNCHES[k] for k in ("chord_blockmin_sparse", "zsparse_counts",
                                           "pip_grouped")), RING_LAUNCHES
+    for row in rows:
+        if MP_LAUNCHES.get(row["name"]):  # then phase 21's (both ranks)
+            row.setdefault("launches_by_phase", {"4": row["launches"]})
+            row["launches_by_phase"]["21"] = MP_LAUNCHES[row["name"]]
+            row["launches"] += MP_LAUNCHES[row["name"]]
+    log(f"phase-21 launches (both ranks): {MP_LAUNCHES}")
+    assert all(MP_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
+                                        "zsparse_counts")), MP_LAUNCHES
     ops += SUB_OPS
     print(json.dumps({"lifecycle": PHASES.pop("lifecycle")}))
     print(json.dumps({"kv_live": PHASES.pop("kv_live")}))

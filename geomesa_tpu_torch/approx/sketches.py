@@ -229,6 +229,13 @@ class PartitionSketchStore:
         """Persist every cached sketch with its version token. Snapshot
         under the lock, serialize+write outside it (the file I/O must
         not stall concurrent merges)."""
+        from geomesa_tpu_torch.parallel.distributed import is_coordinator
+
+        if not is_coordinator():
+            # multi-process: the coordinator owns the sidecar. Sketches
+            # are built from the shared store, so every process holds
+            # the same ones: dropping the write loses nothing
+            return None
         path = path or self.sidecar_path
         if path is None:
             return None

@@ -125,6 +125,13 @@ class WarmupManifest:
         fault site)."""
         from geomesa_tpu_torch.faults import RetryPolicy, retry_call
         from geomesa_tpu_torch.faults import harness as _faults
+        from geomesa_tpu_torch.parallel.distributed import is_coordinator
+
+        if not is_coordinator():
+            # every process of a mesh arms the same window classes, so
+            # the warm-up manifests would match byte for byte: one
+            # writer keeps shared directories race-free
+            return
 
         def attempt():
             _faults.inject("compilecache.manifest.write")

@@ -52,6 +52,13 @@ for every card, copies the outputs across and replays the merge. The
 copies between cards stay outside the graphs. On one card the split
 design runs with no copy; between cards it is untried.
 
+Where the mesh spans processes (`Mesh.spans_processes`) each process
+captures its own shards only (`mesh_parts` holds one body a local
+shard), split as above, and the merge is a collective over the process
+group, which no graph can hold: it runs after the replay, outside the
+graphs, on the static per-shard outputs (each rank's windows must then
+be the same windows, in the same order: `serve.ringloop`).
+
 A capture under an active `torch.profiler` is refused with
 GraphCaptureError (capturing while the profiler traces the card crashes
 the process): warm the window classes up before profiling.
@@ -84,7 +91,7 @@ def _tensors(obj):
     from geomesa_tpu_torch.parallel.mesh import Sharded
 
     if isinstance(obj, Sharded):
-        yield from obj.shards
+        yield from obj.local_shards
     elif isinstance(obj, torch.Tensor):
         yield obj
     elif isinstance(obj, dict):
@@ -174,15 +181,18 @@ class RingCapture:
 
     def _split_wanted(self) -> bool:
         return (self.mesh_parts is not None
-                and self.mesh_parts[0].spans_devices)
+                and (self.mesh_parts[0].spans_devices
+                     or self.mesh_parts[0].spans_processes))
 
     def _capture_split(self, device: torch.device) -> None:
         """The split mesh capture (module docstring): per slot, one graph
-        a card over that card's shards, then the lead's merge graph."""
+        a card over that card's shards, then the lead's merge graph (none
+        on a mesh that spans processes: the collective merge runs at
+        replay)."""
         from geomesa_tpu_torch.parallel.mesh import on_shard
 
         mesh, shard_fns, merge = self.mesh_parts
-        devs = mesh.device_list
+        devs = [mesh.devices[i] for i in mesh.local]  # one a shard_fn
         cards = list(dict.fromkeys(devs))
         self.split = []
         for slot in self.slots.slots:
@@ -207,12 +217,16 @@ class RingCapture:
             lead_in = [o if devs[i] == device else
                        tuple(torch.empty_like(t, device=device) for t in o)
                        for i, o in enumerate(outs)]
-            with on_shard(device):
-                mg = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(mg, capture_error_mode="thread_local"):
-                    out = merge(lead_in)
-            self.graphs.append(mg)
-            self.outputs.append(out)
+            if mesh.spans_processes:
+                self.graphs.append(None)
+                self.outputs.append(None)
+            else:
+                with on_shard(device):
+                    mg = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(mg, capture_error_mode="thread_local"):
+                        out = merge(lead_in)
+                self.graphs.append(mg)
+                self.outputs.append(out)
             self.split.append((per_card, outs, lead_in))
             self.per_replay = {w.__name__: w.launches - pre[w.__name__]
                                for w in self.wrappers}
@@ -251,20 +265,24 @@ class RingCapture:
                                     "one this capture was made over")
         if self.split is not None:
             self._replay_split(slot, slot.qx.device)
-        self.graphs[slot.index].replay()
         for w in self.wrappers:
             w.launches += self.per_replay.get(w.__name__, 0)
+        if self.graphs[slot.index] is None:
+            # a mesh that spans processes: the collective merge, after the
+            # shards' graphs, over their static outputs
+            return self.mesh_parts[2](self.split[slot.index][2])
+        self.graphs[slot.index].replay()
         return self.outputs[slot.index]
 
 
 def _mesh_body(mesh, shard_fns, merge):
-    """The whole mesh window as one body: every shard's body under its
-    device over its copy of the queries, then the merge."""
+    """The whole mesh window as one body: every local shard's body under
+    its device over its copy of the queries, then the merge."""
     from geomesa_tpu_torch.parallel.mesh import on_shard
 
     def body(qx, qy):
         outs = []
-        for fn, d in zip(shard_fns, mesh.device_list):
+        for fn, d in zip(shard_fns, [mesh.devices[i] for i in mesh.local]):
             with on_shard(d):
                 outs.append(fn(qx.to(d), qy.to(d)))
         return merge(outs)
@@ -327,7 +345,8 @@ class CaptureRegistry:
             while len(self._captures) > self.MAX_CAPTURES:
                 self._captures.pop(next(iter(self._captures)))
             self._made += 1
-            self._graphs += len(cap.graphs)
+            self._graphs += (sum(g is not None for g in cap.graphs)
+                             or sum(len(s[0]) for s in cap.split or ()))
             self._seconds += cap.seconds
             for n, v in cap.arm_launches.items():
                 self._arm_launches[n] = self._arm_launches.get(n, 0) + v

@@ -137,11 +137,11 @@ def density_sharded(mesh, x, y, weights, mask, bbox: BBox, width: int,
     Counts are exact; weighted cells carry f32 summation-order noise as
     on one device. Inputs are `Sharded` or whole tensors whose length
     divides by the mesh size."""
-    from geomesa_tpu_torch.parallel.mesh import on_shard, psum, shards_of
+    from geomesa_tpu_torch.parallel.mesh import my_shards, on_shard, psum, shards_of
 
     cols = [shards_of(mesh, a) for a in (x, y, weights, mask)]
     parts = []
-    for i, dev in enumerate(mesh.device_list):
+    for i, dev in my_shards(mesh):
         with on_shard(dev):
             parts.append(density_grid(*(c[i] for c in cols), bbox, width,
                                       height))

@@ -329,22 +329,24 @@ def density_zsparse_sharded(mesh, x, y, weights, mask, bbox: BBox, width: int,
     shards' grids add on the lead device in shard order (`psum`). Inputs
     are `Sharded` or whole tensors; n must split into shards of whole
     data tiles."""
-    from geomesa_tpu_torch.parallel.mesh import on_shard, psum, shards_of
+    from geomesa_tpu_torch.parallel.mesh import (
+        exchange, my_shards, on_shard, psum, shards_of)
 
-    d = mesh.size
     xs, ys, ws, ms = (shards_of(mesh, a) for a in (x, y, weights, mask))
-    per = int(xs[0].shape[0])
+    per = int(xs[mesh.local[0]].shape[0])
     if per % data_tile:
         raise ValueError(
             f"shards of {per} rows do not split into data_tile={data_tile} "
             "tiles (pad the batch; the planner's pow2 padding does)")
-    sorted_cells = []
-    for i, dev in enumerate(mesh.device_list):
+    sorted_cells: list = [None] * mesh.size
+    for i, dev in my_shards(mesh):
         with on_shard(dev):
             xs[i], ys[i], ws[i] = xs[i].float(), ys[i].float(), ws[i].float()
-            sorted_cells.append(_tile_sorted_cells(
-                xs[i], ys[i], ms[i], bbox, width, height, data_tile))
-    dn = [fetch(c[2])[0] for c in sorted_cells]  # one read per shard
+            sorted_cells[i] = _tile_sorted_cells(
+                xs[i], ys[i], ms[i], bbox, width, height, data_tile)
+    # every shard's distinct counts (one read; from every process where
+    # the mesh spans them): the one global calibration
+    dn = list(fetch(*exchange(mesh, [sorted_cells[i][2] for i in mesh.local])))
     live = np.concatenate(dn)
     live = live[live > 0]
     capd = _capd(live, slack) if len(live) else 8
@@ -352,7 +354,7 @@ def density_zsparse_sharded(mesh, x, y, weights, mask, bbox: BBox, width: int,
     dense = [np.nonzero(v > capd)[0] for v in dn]
     n_slots = max(max(len(t) for t in sel), 1)
     parts = []
-    for i, dev in enumerate(mesh.device_list):
+    for i, dev in my_shards(mesh):
         with on_shard(dev):
             s, first, _ = sorted_cells[i]
             ids = np.zeros(n_slots, np.int64)

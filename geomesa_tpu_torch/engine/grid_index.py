@@ -175,13 +175,13 @@ def knn_indexed_sharded(mesh, qx, qy, dx, dy, mask, k: int, g: int = 128,
     of a length that divides by the mesh size. Returns (dists [Q, k],
     global indices [Q, k], uncertain [Q]) on the lead device."""
     from geomesa_tpu_torch.parallel.mesh import (
-        merge_topk, on_shard, replicated, shards_of)
+        exchange, my_shards, merge_topk, on_shard, replicated, shards_of)
 
     xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
     qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
-    shard_n = int(xs[0].shape[0])
+    shard_n = int(xs[mesh.local[0]].shape[0])
     fds, gis, uns = [], [], []
-    for i, d in enumerate(mesh.device_list):
+    for i, d in my_shards(mesh):
         with on_shard(d):
             index = build_grid_index(xs[i], ys[i], ms[i], g=g)
             kd, ki, unc = knn_grid(qxs[i], qys[i], index, k=k,
@@ -191,6 +191,5 @@ def knn_indexed_sharded(mesh, qx, qy, dx, dy, mask, k: int, g: int = 128,
             gis.append(ki.to(torch.int64) + i * shard_n)
             uns.append(unc)
     md, mi = merge_topk(mesh, fds, gis, k)
-    lead = mesh.lead
-    uncertain = torch.stack([u.to(lead) for u in uns]).any(dim=0)
+    uncertain = torch.stack(exchange(mesh, uns)).any(dim=0)
     return md, mi, uncertain

@@ -360,7 +360,7 @@ def knn_compact(qx: torch.Tensor, qy: torch.Tensor, dx: torch.Tensor,
     return fd, idx[fi.long()].to(torch.int32), overflow
 
 
-# -- the mesh (single controller: one process drives every shard) -------------
+# -- the mesh (each process drives its own shards) ------------------------------
 
 
 def knn_sharded(mesh, qx: torch.Tensor, qy: torch.Tensor, dx, dy, mask,
@@ -375,13 +375,14 @@ def knn_sharded(mesh, qx: torch.Tensor, qy: torch.Tensor, dx, dy, mask,
     The reference merges on every device and its `debug_check` asserts
     that every device's merge is bitwise the same; here `debug_check`
     runs the merge once on each shard's device and asserts the same."""
-    from geomesa_tpu_torch.parallel.mesh import merge_topk, on_shard, replicated, shards_of
+    from geomesa_tpu_torch.parallel.mesh import (
+        my_shards, merge_topk, on_shard, replicated, shards_of)
 
     xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
     qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
-    shard_n = int(xs[0].shape[0])
+    shard_n = int(xs[mesh.local[0]].shape[0])
     fds, gis = [], []
-    for i, dev in enumerate(mesh.device_list):
+    for i, dev in my_shards(mesh):
         with on_shard(dev):
             d, ix = knn(qxs[i], qys[i], xs[i], ys[i], ms[i], k=k,
                         query_tile=query_tile)
@@ -390,7 +391,7 @@ def knn_sharded(mesh, qx: torch.Tensor, qy: torch.Tensor, dx, dy, mask,
     md, gi = merge_topk(mesh, fds, gis, k)
     if debug_check:
         div = 0
-        for dev in mesh.device_list:
+        for _, dev in my_shards(mesh):
             od, oi = merge_topk(mesh, fds, gis, k, device=dev)
             # equality, not subtraction: inf - inf would read as divergence
             div += int((od.to(md.device) != md).sum()
@@ -410,13 +411,14 @@ def knn_compact_sharded(mesh, qx: torch.Tensor, qy: torch.Tensor, dx, dy,
     global indices [Q, k], overflow: True if ANY shard's matches exceeded
     `capacity`, and then the caller MUST fall back to the full sharded
     scan)."""
-    from geomesa_tpu_torch.parallel.mesh import any_of, merge_topk, on_shard, replicated, shards_of
+    from geomesa_tpu_torch.parallel.mesh import (
+        any_of, my_shards, merge_topk, on_shard, replicated, shards_of)
 
     xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
     qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
-    shard_n = int(xs[0].shape[0])
+    shard_n = int(xs[mesh.local[0]].shape[0])
     fds, gis, ovs = [], [], []
-    for i, dev in enumerate(mesh.device_list):
+    for i, dev in my_shards(mesh):
         with on_shard(dev):
             d, ix, ov = knn_compact(qxs[i], qys[i], xs[i], ys[i], ms[i], k=k,
                                     capacity=capacity, query_tile=query_tile)
@@ -434,9 +436,20 @@ def knn_ring(mesh, qx, qy, dx, dy, mask, k: int, query_tile: int = 1024):
     a view; across cards a copy, the reference's `ppermute`) and is
     folded in, the running best first in the pool, so equal distances
     keep the earlier candidate. Returns (dists, global indices), each
-    `Sharded` like the queries."""
+    `Sharded` like the queries.
+
+    On a mesh that spans processes the ring would pass data shards
+    between processes; it raises `RemoteShardError` there instead (the
+    port does not move shards across processes; `knn_sharded` answers
+    the same queries with a collective merge)."""
+    from geomesa_tpu_torch.errors import RemoteShardError
     from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard, shards_of
 
+    if mesh.spans_processes:
+        raise RemoteShardError(
+            "knn_ring visits every data shard from every query shard; on a "
+            f"mesh that spans processes ({mesh}) that moves shards between "
+            "processes: use knn_sharded")
     d_count = mesh.size
     xs, ys, ms = (shards_of(mesh, a) for a in (dx, dy, mask))
     qxs, qys = shards_of(mesh, qx), shards_of(mesh, qy)

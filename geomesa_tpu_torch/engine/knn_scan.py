@@ -406,23 +406,24 @@ def knn_sparse_auto(qx, qy, x, y, mask, k: int,
     return fd, fi, cap
 
 
-# -- the mesh (single controller: one process drives every shard) -------------
+# -- the mesh (each process drives its own shards) ------------------------------
 
 
 def _scan_shards(mesh, qx, qy, x, y, mask, scan):
-    """Run `scan(qx, qy, x, y, mask)` -> (fd, fi, ...) on every shard's rows
-    (`parallel.mesh.shards_of`), each under its own device with the
-    queries copied there, one shard after another with no host sync.
-    Returns (per-shard outputs, shard rows)."""
-    from geomesa_tpu_torch.parallel.mesh import on_shard, replicated, shards_of
+    """Run `scan(qx, qy, x, y, mask)` -> (fd, fi, ...) on every local
+    shard's rows (`parallel.mesh.shards_of`), each under its own device
+    with the queries copied there, one shard after another with no host
+    sync. Returns (per-local-shard outputs, shard rows)."""
+    from geomesa_tpu_torch.parallel.mesh import (
+        my_shards, on_shard, replicated, shards_of)
 
     xs, ys, ms = (shards_of(mesh, a) for a in (x, y, mask))
     qxs, qys = replicated(mesh, qx), replicated(mesh, qy)
     outs = []
-    for i, dev in enumerate(mesh.device_list):
+    for i, dev in my_shards(mesh):
         with on_shard(dev):
             outs.append(scan(qxs[i], qys[i], xs[i], ys[i], ms[i]))
-    return outs, int(xs[0].shape[0])
+    return outs, int(xs[mesh.local[0]].shape[0])
 
 
 def _shard_merge_topk(mesh, fds, fis, shard_n: int, k: int):
@@ -434,7 +435,7 @@ def _shard_merge_topk(mesh, fds, fis, shard_n: int, k: int):
     (`parallel.mesh.merge_topk`)."""
     from geomesa_tpu_torch.parallel.mesh import merge_topk
 
-    gis = [fi.to(torch.int64) + i * shard_n for i, fi in enumerate(fis)]
+    gis = [fi.to(torch.int64) + i * shard_n for i, fi in zip(mesh.local, fis)]
     return merge_topk(mesh, fds, gis, k)
 
 
@@ -457,13 +458,19 @@ def shard_match_tiles(mask, n_shards: int, data_tile: int = DATA_TILE
     mesh route's capacity calibration input (one scalar crosses to the
     host, as `count_match_tiles` on one device). Each shard pads its
     rows to `data_tile` on its own, as `knn_sparse_scan` does on it.
-    `mask` is `Sharded` or a whole tensor cut into `n_shards`."""
-    from geomesa_tpu_torch.parallel.mesh import Sharded
+    `mask` is `Sharded` or a whole tensor cut into `n_shards`; on a mesh
+    that spans processes the MAX is taken over them (`parallel.mesh.
+    pmax`), so every process sizes the same program."""
+    from geomesa_tpu_torch.parallel.mesh import Sharded, pmax
 
     if isinstance(mask, Sharded):
-        lead = mask.mesh.lead
-        return torch.stack([count_match_tiles(m, data_tile).to(lead)
-                            for m in mask.shards]).max()
+        mesh = mask.mesh
+        local = torch.stack([count_match_tiles(m, data_tile).to(mesh.lead)
+                             for m in mask.local_shards]).max()
+        if not mesh.spans_processes:
+            return local
+        return torch.tensor(pmax(mesh, int(local.item())), dtype=local.dtype,
+                            device=mesh.lead)
     n = mask.shape[0]
     s = n // n_shards
     m = mask.to(torch.int32).reshape(n_shards, s)

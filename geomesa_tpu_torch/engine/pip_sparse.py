@@ -759,8 +759,12 @@ def pip_layer_sharded(
     ids, then the same host parity finish and f64 band refine as
     `pip_layer`. Returns (inside bool [N], info): the reference's
     `pip_layer_sharded` keys, `cap` the pow2 class of the most pairs a
-    tile (the reference's one capacity class; B6 needs none)."""
-    from geomesa_tpu_torch.parallel.mesh import on_shard
+    tile (the reference's one capacity class; B6 needs none). On a mesh
+    that spans processes each process runs its own shards and the
+    per-shard counts and band flags are all-gathered (`parallel.mesh.
+    exchange`), so every process returns the whole answer, as the
+    reference's replicated result."""
+    from geomesa_tpu_torch.parallel.mesh import exchange, my_shards, on_shard
 
     n = len(px_np)
     if prep is None:
@@ -783,18 +787,19 @@ def pip_layer_sharded(
     pxp = np.concatenate([prep.pxp, np.full(pad_pts, 1e8)])
     pyp = np.concatenate([prep.pyp, np.full(pad_pts, 1e8)])
     outs = []
-    for i, dev in enumerate(mesh.device_list):
+    for i, dev in my_shards(mesh):
         lo, hi = i * tpd, (i + 1) * tpd
         mine = (pt >= lo) & (pt < hi)
         rows = slice(lo * POINT_TILE, hi * POINT_TILE)
         with on_shard(dev):
-            outs.extend(pip_layer_grouped(
+            outs.append(pip_layer_grouped(
                 pxp[rows], pyp[rows], ex1, ey1, ex2, ey2, pt[mine] - lo,
                 et[mine], n_ptiles=tpd, n_etiles=n_etiles, eps=eps,
                 device=dev))
-    got = fetch(*outs)
-    counts = np.concatenate(got[0::2])
-    band = np.concatenate(got[1::2])
+    got = fetch(*exchange(mesh, [o[0] for o in outs]),
+                *exchange(mesh, [o[1] for o in outs]))
+    counts = np.concatenate(got[:d])
+    band = np.concatenate(got[d:])
     inside = (counts[:n] % 2) == 1
     flagged = np.nonzero(band[:n] > 0)[0]
     refined = 0

@@ -271,11 +271,11 @@ def polygon_density_sharded(mesh, x1, y1, x2, y2, wedge, edgemask,
     (`parallel.mesh.psum`) and the sum is clamped ONCE (the clamp is not
     linear). Edge arrays are `Sharded` or whole tensors of a length that
     divides by the mesh size. Returns the [height, width] grid."""
-    from geomesa_tpu_torch.parallel.mesh import on_shard, psum, shards_of
+    from geomesa_tpu_torch.parallel.mesh import my_shards, on_shard, psum, shards_of
 
     cols = [shards_of(mesh, a) for a in (x1, y1, x2, y2, wedge, edgemask)]
     parts = []
-    for i, d in enumerate(mesh.device_list):
+    for i, d in my_shards(mesh):
         with on_shard(d):
             parts.append(_polygon_density_signed(
                 *(c[i] for c in cols), bbox, width, height, k, seg_tile))

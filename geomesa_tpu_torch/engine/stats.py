@@ -209,14 +209,14 @@ def z3_histogram(x: torch.Tensor, y: torch.Tensor, t_bin: torch.Tensor,
 
 
 def shard_partials(mesh, fn, *arrays) -> list:
-    """`fn(*local_arrays)` on every shard of `mesh` (under the shard's
-    device), one result a shard, each left on its shard's device. Each
-    array is `Sharded`, a whole tensor or a host array whose length
-    divides by the mesh size (a host array's rows go to their shard's
-    device)."""
+    """`fn(*local_arrays)` on every local shard of `mesh` (under the
+    shard's device), one result a local shard, each left on its shard's
+    device. Each array is `Sharded`, a whole tensor or a host array whose
+    length divides by the mesh size (a host array's rows go to their
+    shard's device)."""
     import numpy as np
 
-    from geomesa_tpu_torch.parallel.mesh import on_shard, shards_of
+    from geomesa_tpu_torch.parallel.mesh import my_shards, on_shard, shards_of
 
     devs = mesh.device_list
     cols = []
@@ -226,12 +226,15 @@ def shard_partials(mesh, fn, *arrays) -> list:
             if s * len(devs) != len(a):
                 raise ValueError(f"length {len(a)} does not divide into "
                                  f"{len(devs)} shards")
-            cols.append([torch.from_numpy(np.ascontiguousarray(
-                a[i * s:(i + 1) * s])).to(d) for i, d in enumerate(devs)])
+            col: list = [None] * len(devs)
+            for i, d in my_shards(mesh):
+                col[i] = torch.from_numpy(np.ascontiguousarray(
+                    a[i * s:(i + 1) * s])).to(d)
+            cols.append(col)
         else:
             cols.append(shards_of(mesh, a))
     outs = []
-    for i, d in enumerate(devs):
+    for i, d in my_shards(mesh):
         with on_shard(d):
             outs.append(fn(*(c[i] for c in cols)))
     return outs
@@ -240,9 +243,9 @@ def shard_partials(mesh, fn, *arrays) -> list:
 def stats_sharded(mesh, fn, *arrays):
     """Run the masked reduction `fn(*local_arrays)` on every shard of
     `mesh` (`shard_partials`) and add its partials leaf by leaf in shard
-    order on the lead device (`parallel.mesh.psum`): `fn` returns a
-    tensor, a tuple/list or a dict of summable partials (counts, sums,
-    histograms)."""
+    order on the lead device (`parallel.mesh.psum`, a collective where
+    the mesh spans processes): `fn` returns a tensor, a tuple/list or a
+    dict of summable partials (counts, sums, histograms)."""
     from geomesa_tpu_torch.parallel.mesh import psum
 
     def merge(parts):

@@ -269,12 +269,14 @@ def tube_select_pruned(x, y, t, mask, tube_x, tube_y, tube_t, radius_m,
 
 
 def _tube_shards(mesh, x, y, t, mask, tube_x, tube_y, tube_t):
-    """Per shard: its rows of the data and its copy of the tube."""
+    """Per shard: its rows of the data and its copy of the tube (None for
+    another process's shard)."""
     from geomesa_tpu_torch.parallel.mesh import shards_of
 
     data = [shards_of(mesh, a) for a in (x, y, t, mask)]
     tube = [tuple(_on(a, d) for a in (tube_x, tube_y, tube_t))
-            for d in mesh.device_list]
+            if o == mesh.rank else None
+            for d, o in zip(mesh.device_list, mesh.owners)]
     return data, tube
 
 
@@ -287,19 +289,19 @@ def tube_select_sharded(mesh, x, y, t, mask, tube_x, tube_y, tube_t,
     through f32, as the reference broadcasts it. Data arrays are
     `Sharded` or whole tensors of a length that divides by the mesh
     size."""
-    from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard
+    from geomesa_tpu_torch.parallel.mesh import Sharded, my_shards, on_shard
 
     (xs, ys, ts, ms), tube = _tube_shards(mesh, x, y, t, mask, tube_x,
                                           tube_y, tube_t)
-    T = int(tube[0][0].shape[0])
+    T = int(tube[mesh.local[0]][0].shape[0])
     out = []
-    for i, d in enumerate(mesh.device_list):
+    for i, d in my_shards(mesh):
         with on_shard(d):
             radius = _on(radius_m, d, torch.float32).broadcast_to((T,))
             window = _on(half_window_ms, d, torch.int64).broadcast_to((T,))
             out.append(tube_select(xs[i], ys[i], ts[i], ms[i], *tube[i],
                                    radius, window, tube_tile=tube_tile))
-    return Sharded(mesh, out)
+    return Sharded.from_local(mesh, out)
 
 
 def tube_select_pruned_sharded(mesh, x, y, t, mask, tube_x, tube_y, tube_t,
@@ -311,15 +313,16 @@ def tube_select_pruned_sharded(mesh, x, y, t, mask, tube_x, tube_y, tube_t,
     and tests its own tiles at `tile_capacity`. Returns (hits `Sharded`,
     overflow: True if ANY shard had more reachable tiles than the
     capacity; the caller MUST then fall back to `tube_select_sharded`,
-    and an overflowed shard's hits are all False)."""
-    from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard
+    and an overflowed shard's hits are all False). On a mesh that spans
+    processes the flag is their MAX, so every process falls back."""
+    from geomesa_tpu_torch.parallel.mesh import Sharded, my_shards, on_shard, pmax
 
     margin_lon, margin_lat = tube_margins(tube_y, radius_m)
     (xs, ys, ts, ms), tube = _tube_shards(mesh, x, y, t, mask, tube_x,
                                           tube_y, tube_t)
-    T = int(tube[0][0].shape[0])
+    T = int(tube[mesh.local[0]][0].shape[0])
     out, overflow = [], False
-    for i, d in enumerate(mesh.device_list):
+    for i, d in my_shards(mesh):
         with on_shard(d):
             radius = _on(radius_m, d, torch.float32).broadcast_to((T,))
             window = _on(half_window_ms, d, torch.int64).broadcast_to((T,))
@@ -331,4 +334,4 @@ def tube_select_pruned_sharded(mesh, x, y, t, mask, tube_x, tube_y, tube_t,
                 hits = torch.zeros(xs[i].shape[0], dtype=torch.bool, device=d)
             overflow = overflow or ov
             out.append(hits)
-    return Sharded(mesh, out), overflow
+    return Sharded.from_local(mesh, out), bool(pmax(mesh, int(bool(overflow))))

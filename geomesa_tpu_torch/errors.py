@@ -10,6 +10,9 @@ the port never falls back to the CPU on its own.
 a card store raises when a kernel library fails to build, a launch is
 refused, or a ring window class fails to capture: the serve stack fails
 the window with them and never answers it from another route.
+
+`RemoteShardError` is what a mesh that spans processes raises where a
+caller would need rows that live in another process.
 """
 
 from __future__ import annotations
@@ -38,3 +41,11 @@ class KernelLaunchError(RuntimeError):
 
 class GraphCaptureError(RuntimeError):
     """A ring window class could not be captured as CUDA graphs."""
+
+
+class RemoteShardError(RuntimeError):
+    """A whole sharded column (or a result built from one) was asked for
+    on a mesh that spans processes: the other processes' shards are not
+    in this one, and the port does not assemble them behind the caller's
+    back. Counts, densities, kNN and the served ring merge through
+    collectives instead; feature, Arrow and BIN queries refuse."""

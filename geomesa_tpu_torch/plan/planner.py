@@ -455,13 +455,15 @@ class QueryPlanner:
         f64 and scattered into the shard (their rows local to it) and the
         visibility mask. Returns the `Sharded` mask; no shard's rows leave
         its device."""
-        from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard
+        from geomesa_tpu_torch.parallel.mesh import Sharded, my_shards, on_shard
 
         mesh, s_rows = sb.mesh, sb.shard_rows
         batch = sb.batch
         has_band = plan.compiled is not None and plan.compiled.has_band
-        out = []
-        for i, (dv, d) in enumerate(zip(sb.shard_devs(), mesh.device_list)):
+        out: list = [None] * mesh.size
+        devs = sb.shard_devs()
+        for i, d in my_shards(mesh):
+            dv = devs[i]
             with on_shard(d), side_stream(d, after=sb.ready[i]) as keep:
                 m = (self._raw_mask(plan, dv, batch)
                      & upload(allowed, d)[sb.pids.shards[i]])
@@ -479,7 +481,7 @@ class QueryPlanner:
                 if vm is not None:
                     m &= vm
                 keep(m)
-            out.append(m)
+            out[i] = m
         return Sharded(mesh, out)
 
     # -- execute -----------------------------------------------------------
@@ -622,10 +624,12 @@ class QueryPlanner:
         mask (no band correction). Returns (masks, extras), one a shard:
         `extras` are the allowance AND visibility, which a band row
         re-decided in f64 must also pass."""
-        from geomesa_tpu_torch.parallel.mesh import on_shard
+        from geomesa_tpu_torch.parallel.mesh import my_shards, on_shard
 
         masks, extras = [], []
-        for i, (dv, d) in enumerate(zip(sb.shard_devs(), sb.mesh.device_list)):
+        devs = sb.shard_devs()
+        for i, d in my_shards(sb.mesh):
+            dv = devs[i]
             with on_shard(d):
                 ar = upload(allowed, d)[sb.pids.shards[i]]
                 vm = visibility_mask(self.storage.sft, sb.batch, dv, hints)
@@ -644,8 +648,16 @@ class QueryPlanner:
         density grids the per-shard masks as they are; features and stats
         fetch the per-shard masks (one read), concatenate them in shard
         order and refine each shard's band rows. Returns (result, matching
-        rows)."""
-        from geomesa_tpu_torch.parallel.mesh import Sharded, on_shard, psum
+        rows).
+
+        On a mesh that spans processes a count and a density merge through
+        collectives (`psum`, and the band corrections' `host_sum`) and
+        every process gets the answer; features, Arrow, BIN and stats need
+        every row's mask in one process, which would gather other
+        processes' shards: they raise `RemoteShardError`, as the
+        reference raises on a mesh with non-addressable devices."""
+        from geomesa_tpu_torch.parallel.mesh import (
+            Sharded, gather, host_sum, my_shards, on_shard, psum)
 
         hints = query.hints
         mesh, s_rows, batch = sb.mesh, sb.shard_rows, sb.batch
@@ -660,28 +672,32 @@ class QueryPlanner:
             (total,) = fetch(shard_sums())
             total = int(total)
             if has_band:
-                for i, (dv, d) in enumerate(zip(devs, mesh.device_list)):
+                corr = 0
+                for (i, d), m, ex in zip(my_shards(mesh), masks, extras):
                     with on_shard(d):
-                        total += plan.compiled.band_count_correction(
-                            dv, batch, masks[i], extra=extras[i],
+                        corr += plan.compiled.band_count_correction(
+                            devs[i], batch, m, extra=ex,
                             row_offset=i * s_rows)
+                total += host_sum(mesh, corr)
             return QueryResult("count", count=total), total
         if hints.is_density:
             token = query_mask_token(query) + (tuple(sorted(plan.partitions)),)
             grid = density_device_grid(self.storage.sft, batch, sb.dev,
-                                       Sharded(mesh, masks), hints,
+                                       Sharded.from_local(mesh, masks), hints,
                                        self._zcalib, mask_token=token,
                                        mesh=mesh)
             grid, total = fetch(grid, shard_sums())
             if int(total) == 0:
                 return self._empty_result(query), 0
             return QueryResult("density", grid=grid, count=int(total)), int(total)
+        if mesh.spans_processes:
+            gather(Sharded.from_local(mesh, masks), "mask")  # counted, refused
         mask = np.concatenate(fetch(*masks))
         if has_band:
-            for i, (dv, d) in enumerate(zip(devs, mesh.device_list)):
+            for (i, d), ex in zip(my_shards(mesh), extras):
                 with on_shard(d):
-                    mask = plan.compiled.refine(mask, dv, batch,
-                                                extra=extras[i],
+                    mask = plan.compiled.refine(mask, devs[i], batch,
+                                                extra=ex,
                                                 row_offset=i * s_rows)
         if not mask.any():
             return self._empty_result(query), 0
@@ -1072,7 +1088,7 @@ class QueryPlanner:
                 jqx, jqy = (upload(np.asarray(v, np.float32).ravel(), lead)
                             for v in (qx, qy))
             key = (plan.cql, kk, ("mesh",) + mesh_shape)
-            seed_cap = self._caps_seed(key)
+            seed_cap = self._caps_seed(key, mesh)
             if seed_cap is None:
                 # calibration: the one scalar read a cold key pays
                 seed_cap = capacity_bucket(int(shard_match_tiles(mask,
@@ -1276,19 +1292,25 @@ class QueryPlanner:
         the mesh repeats one card, one graph per card per slot plus the
         lead's merge graph where it spans cards (`compilecache.registry`);
         a dense sharded fallback (B2 on every shard) is armed for the
-        overflow, which the calibration makes unreachable."""
+        overflow, which the calibration makes unreachable.
+
+        On a mesh that spans processes each process captures its own
+        shards' launches (one graph a slot) and the merge, a collective,
+        runs after the replay outside the graph; the capacity and the
+        live tiles are MAXed over the processes, so every process arms
+        the same program."""
         from geomesa_tpu_torch.compilecache.registry import registry
         from geomesa_tpu_torch.engine import knn_scan
         from geomesa_tpu_torch.engine.knn_scan import (
             _shard_merge_topk, shard_match_tiles)
-        from geomesa_tpu_torch.parallel.mesh import any_of, on_shard, psum
+        from geomesa_tpu_torch.parallel.mesh import (
+            any_of, my_shards, on_shard, psum)
 
         mesh = sb.mesh
         shards = sb.shards_for(plan.partitions)
         if len(shards) <= 1:
             raise RingIneligible("shard_affinity")
         g = self.storage.sft.default_geometry
-        devs = mesh.device_list
         cls = ring_class(query.type_name, plan.cql, plan.residual_cql,
                          query.hints.auths)
         frozen = registry.frozen_for(self, cls, sb, mversion)
@@ -1296,13 +1318,13 @@ class QueryPlanner:
             _, _, dev, mask, _ = self._knn_mask_setup(
                 plan, query, resident=(sb, allowed))
             x, y = dev[f"{g.name}__x"], dev[f"{g.name}__y"]
-            padded = []
-            for i, d in enumerate(devs):
+            padded: list = [(None, None, None)] * mesh.size
+            for i, d in my_shards(mesh):
                 with on_shard(d):
-                    padded.append(pad_scan_inputs(
-                        x.shards[i], y.shards[i], mask.shards[i]))
+                    padded[i] = pad_scan_inputs(
+                        x.shards[i], y.shards[i], mask.shards[i])
             (mask_count,) = fetch(psum(mesh, [m.sum(dtype=torch.int64)
-                                              for m in mask.shards]))
+                                              for m in mask.local_shards]))
             frozen = dict(sb=sb, mversion=mversion, x=x, y=y, mask=mask,
                           xf=[p[0] for p in padded], yf=[p[1] for p in padded],
                           maskf=[p[2] for p in padded],
@@ -1313,15 +1335,16 @@ class QueryPlanner:
         mb = max(64, kk)
         mesh_shape = (mesh.size,)
         caps_key = (plan.cql, kk, ("mesh",) + mesh_shape)
-        cap = self._caps_seed(caps_key)
+        cap = self._caps_seed(caps_key, mesh)
         if cap is None:
             cap = capacity_bucket(int(shard_match_tiles(mask, mesh.size)))
         tiles, live = _frozen_shard_tiles(frozen, cap, mesh)
-        if live > tiles[0][0].shape[0]:
+        if live > tiles[mesh.local[0]][0].shape[0]:
             cap = capacity_bucket(live)
             tiles, live = _frozen_shard_tiles(frozen, cap, mesh)
         with on_shard(mesh.lead):
-            ov = any_of(mesh, [n_sel[0] > t.shape[0] for t, n_sel in tiles])
+            ov = any_of(mesh, [tiles[i][1][0] > tiles[i][0].shape[0]
+                               for i in mesh.local])
         xf, yf, maskf = frozen["xf"], frozen["yf"], frozen["maskf"]
 
         def shard_fn(i):
@@ -1342,7 +1365,7 @@ class QueryPlanner:
             (knn_scan.chord_blockmin_sparse, knn_scan.chord_blockmin),
             mesh.lead, q=int(q_padded), k=kk, capacity=cap, owner=self,
             cls=cls, stale=self._ring_stale(sb, mversion),
-            mesh_parts=(mesh, [shard_fn(i) for i in range(mesh.size)], merge))
+            mesh_parts=(mesh, [shard_fn(i) for i in mesh.local], merge))
         metrics.counter("serve.ring.armed")
         return RingProgram(self, plan, sb, sb.batch, capture, k=k, kk=kk,
                            impl="mesh", mb=mb, depth=depth, mversion=mversion,
@@ -1350,14 +1373,23 @@ class QueryPlanner:
                            caps_key=caps_key, ov=ov, device=mesh.lead,
                            mesh_shape=mesh_shape, shards=shards)
 
-    def _caps_seed(self, key):
+    def _caps_seed(self, key, mesh=None):
         """The cached sparse capacity for `key` (None = cold, calibrate).
-        A miss against an oversized cache clears it (bounded memory)."""
+        A miss against an oversized cache clears it (bounded memory). On a
+        mesh that spans processes the cache is each process's own, so the
+        answer is the MAX over the processes (one collective): they then
+        all calibrate, or none does."""
         with self._mutex:
             caps = self._knn_caps
             if key not in caps and len(caps) > 256:
                 caps.clear()
-            return caps.get(key)
+            cap = caps.get(key)
+        if mesh is not None and mesh.spans_processes:
+            from geomesa_tpu_torch.parallel.mesh import pmax
+
+            cap = pmax(mesh, -1 if cap is None else cap)
+            cap = None if cap < 0 else cap
+        return cap
 
 
 def ring_class(type_name: str, cql: str, residual_cql: str,
@@ -1372,18 +1404,20 @@ def ring_class(type_name: str, cql: str, residual_cql: str,
 
 def _frozen_shard_tiles(frozen: dict, cap: int, mesh):
     """[(tile_ids, n_sel)] a shard of the frozen per-shard masks at
-    capacity `cap`, and the most live tiles of any shard; selected once
+    capacity `cap` (None for another process's shard), and the most live
+    tiles of any shard (over every process of the mesh); selected once
     per capacity and shared by the class's captures."""
-    from geomesa_tpu_torch.parallel.mesh import on_shard
+    from geomesa_tpu_torch.parallel.mesh import my_shards, on_shard, pmax
 
     got = frozen["tiles"].get(cap)
     if got is None:
-        tiles = []
-        for m, d in zip(frozen["maskf"], mesh.device_list):
+        tiles: list = [None] * mesh.size
+        for i, d in my_shards(mesh):
             with on_shard(d):
-                tiles.append(select_match_tiles(m, cap))
-        live = fetch(*[n for _, n in tiles])
-        got = frozen["tiles"][cap] = (tiles, max(int(v[0]) for v in live))
+                tiles[i] = select_match_tiles(frozen["maskf"][i], cap)
+        live = fetch(*[tiles[i][1] for i in mesh.local])
+        got = frozen["tiles"][cap] = (
+            tiles, pmax(mesh, max(int(v[0]) for v in live)))
     return got
 
 

@@ -18,6 +18,11 @@ query pair and its own outputs, and a slot comes round only after
 write waits on the event of the window that last read it. On a mesh the
 program is the mesh serving program over the frozen per-shard masks (B1
 a shard, the merge on the lead device; its slots live on the lead). On
+a mesh that spans processes each process replays its own shards' graphs
+and the merge, a collective over the process group, runs after the
+replay outside the graphs: every process must then feed the same
+windows in the same order (the same requests, one closed client a
+process), since the order of windows is the order of collectives. On
 a CPU store the program calls the same frozen body without a graph. Per
 window the work is ONLY
 

@@ -55,6 +55,14 @@ mesh tier (the planner's mesh and shard-affinity routes, the ring's mesh
 programs), and admission tags each request with the shards owning its
 partitions (`shard_affinity`).
 
+A mesh that spans processes (`parallel.distributed.global_mesh`) is
+served by one `QueryService` in each process, every merge a collective
+over the process group. The contract, as the reference's: every process
+submits the same requests in the same order, and each window holds the
+same requests in every process (one closed client a process, with
+identical request streams, keeps it). Shard affinity is off there: every
+window runs the whole mesh.
+
 Not here yet, each a NotPortedError naming its ROADMAP item when asked
 for: SLOs and the continuous profiler's switch (A8).
 """
@@ -142,6 +150,9 @@ class ServeConfig:
     ring_depth: int = 4
     # sharded serving: None = the store's own mesh (if any), "off" = one
     # device, "auto" = every card when there are several, N, or a Mesh
+    # (a process-spanning one from `parallel.distributed.global_mesh`:
+    # then every process serves the same requests in the same order and
+    # the same windows, or the collectives of the merges mismatch)
     mesh: object = None
     # standing queries: bounds of the subscribe wire verbs (the table
     # size, each outbox and each attached sink's queue, a subscription's

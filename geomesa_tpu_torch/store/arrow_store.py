@@ -110,9 +110,11 @@ class ArrowFeatureSource(FeatureSource):
         )
         self._pending = []
         tmp = self.path + ".tmp"
-        # single-writer store by contract: the rewrite is the ingest path,
-        # which runs before a store is served
         write_ipc(tmp, [self.storage.batch])
+        # not gated on is_coordinator: a single-writer store by contract
+        # (the Arrow IPC rewrite is the ingest path, which runs before a
+        # store is served; multi-process feeding uses the FS store with
+        # disjoint partitions a process via process_partitions())
         os.replace(tmp, self.path)
 
 

@@ -20,8 +20,8 @@ storage manifest, dropping removed partitions), `invalidate`, `get`,
 (`_version`, bumped by every residency change and stamped on each
 superbatch) and the residency manifest (`save_manifest` / `resume`:
 a restarted server rebuilds identical residency, or reports the
-partitions whose files drifted). One process drives every device, so it
-is always the coordinator that writes the manifest.
+partitions whose files drifted). In a process group only the
+coordinator writes the manifest (`parallel.distributed.is_coordinator`).
 
 The mesh tier (`set_mesh`, flat stores only): the superbatch keeps the
 SERIAL row layout (partitions in sorted order, each pow2-padded) plus
@@ -42,6 +42,15 @@ rebuilt from the old shards' rows, copied device to device in row
 order, and its part of the uploaded tail; only the tail is uploaded
 (and counted in `upload_rows`). Any other change, a new mesh and
 clearing the mesh take the full re-upload and drop every old shard.
+
+On a mesh that spans processes (`parallel.distributed.global_mesh`)
+every process reads the whole superbatch on the host, as the
+reference's processes do, and uploads only its own shards' rows; the
+upload counters and `resident_bytes` are this process's. A growth
+rebuilds this process's shards, copying the old rows device to device
+where this process held them and uploading them otherwise. `owners` is
+not used for shard affinity there: `shards_for` answers the whole mesh,
+so every window runs the whole mesh's collective program.
 """
 
 from __future__ import annotations
@@ -125,7 +134,12 @@ class SuperBatch:
 
     def shards_for(self, partitions) -> tuple:
         """Sorted ids of the shards holding any of `partitions`' rows
-        (empty off the mesh tier or when nothing matches)."""
+        (empty off the mesh tier or when nothing matches). On a mesh that
+        spans processes every shard: shard affinity is off there, so that
+        every process runs the same collective program (a window routed
+        to one shard would leave the other processes out of its merge)."""
+        if self.mesh is not None and self.mesh.spans_processes:
+            return tuple(range(self.mesh.size))
         out: set = set()
         for name in partitions:
             out.update(self.owners.get(name, ()))
@@ -366,8 +380,16 @@ class DeviceCacheManager:
     @_locked
     def save_manifest(self) -> None:
         """Write which partition files are resident, under which layout,
-        atomically, in the reference's format (one GPU: this process is
-        always the coordinator)."""
+        atomically, in the reference's format; only the coordinator
+        process writes."""
+        from geomesa_tpu_torch.parallel.distributed import is_coordinator
+
+        if not is_coordinator():
+            # multi-process: residency is the same in every process
+            # (every process computes the same superbatch layout), so
+            # the manifests would be byte-identical; one writer is the
+            # contract anyway
+            return
         doc = {
             "layout_version": LAYOUT_VERSION,
             "coord_dtype": (str(self.coord_dtype).replace("torch.", "")
@@ -480,24 +502,35 @@ class DeviceCacheManager:
         s = padded_total // d
         prev = self._mesh_growth_prev(names)
         old = prev["concat_rows"] if prev is not None else 0
-        # the host rows each shard takes from the upload: past `old`
-        bounds = [(max(i * s, old), (i + 1) * s) for i in range(d)]
-        up = [i for i, (lo, hi) in enumerate(bounds) if hi > lo]
+        # the host rows each local shard takes from the upload: past
+        # `old`, unless an old row it needs is in another process
+        s0 = prev["pids"].shard_rows if prev is not None else 1
+        bounds = {}
+        for i in mesh.local:
+            lo = max(i * s, old)
+            held = all(prev["pids"].shards[j] is not None
+                       for j in range(i * s // s0, -(-min((i + 1) * s, old) // s0))
+                       ) if prev is not None else True
+            bounds[i] = (lo if held else i * s, (i + 1) * s)
+        up = [i for i in mesh.local if bounds[i][1] > bounds[i][0]]
         parts = upload_rows(batch, [bounds[i] for i in up],
-                            [devs[i] for i in up], self._stage_dtype)
+                            [devs[i] for i in up], self._stage_dtype) if up else []
         tails = dict(zip(up, parts))
         for i in up:
             lo, hi = bounds[i]
             tails[i]["__pids__"] = upload(pids_host[lo:hi], devs[i])
         self.upload_count += 1
-        self.upload_rows += padded_total - old
+        self.upload_rows += sum(max(0, hi - lo) for lo, hi in bounds.values())
         if prev is None:
-            shard_dev = [tails[i] for i in range(d)]
+            shard_dev = [tails[i] for i in mesh.local]
         else:
-            keys = list(parts[0])
+            keys = list(prev["dev"]) + ["__pids__"]
             old_cols = dict(prev["dev"], __pids__=prev["pids"])
             shard_dev = []
-            for i in range(d):
+            for i in mesh.local:
+                if bounds[i][0] == i * s:  # uploaded whole
+                    shard_dev.append(tails[i])
+                    continue
                 with on_shard(devs[i]):
                     pieces = {k: _old_rows(old_cols[k], i * s,
                                            min((i + 1) * s, old), devs[i])
@@ -506,7 +539,10 @@ class DeviceCacheManager:
                         pieces[k].append(v)
                     # torch.cat: a fresh allocation even for one piece
                     shard_dev.append({k: torch.cat(v) for k, v in pieces.items()})
-        pids = Sharded(mesh, [p.pop("__pids__") for p in shard_dev])
+        pids_l: list = [None] * d
+        for i, p in zip(mesh.local, shard_dev):
+            pids_l[i] = p.pop("__pids__")
+        pids = Sharded(mesh, pids_l)
         dev = assemble(mesh, shard_dev)
         owners: Dict[str, tuple] = {}
         off = 0
@@ -514,7 +550,8 @@ class DeviceCacheManager:
             lo, hi = off, off + e.padded
             owners[name] = tuple(range(lo // s, min((hi - 1) // s + 1, d)))
             off = hi
-        ready = tuple(_ready_event(dv) for dv in devs)
+        ready = tuple(_ready_event(dv) if o == mesh.rank else None
+                      for dv, o in zip(devs, mesh.owners))
         starts = np.concatenate(
             [[0], np.cumsum([e.padded for e in entries])]).astype(np.int64)
         starts[-1] = padded_total  # the trailing rows are the last partition's

@@ -194,6 +194,15 @@ class FileSystemStorage:
     def _save_metadata(self):
         """Persist metadata + manifest atomically (tmp file + rename).
         Mutation paths hold self._lock."""
+        from geomesa_tpu_torch.parallel.distributed import is_coordinator
+
+        if not is_coordinator():
+            # multi-process runtimes READ the FS store (each process
+            # feeds from the shared files); mutation is single-writer
+            # before serving. The gate keeps a non-coordinator process
+            # from clobbering the shared manifest with its partial view
+            # of the partition set
+            return
         meta = {
             "version": 1,
             "name": self.sft.name,

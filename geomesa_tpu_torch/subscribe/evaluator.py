@@ -133,6 +133,9 @@ class _TypeState:
         self.approx_grid = None
         self.approx_cells: Dict[str, Tuple[int, int]] = {}
         self.approx_seeded = False
+        # the last bootstrapped snapshot with its padded upload and fids
+        # (`DeltaEvaluator._boot_inputs`); eval-lock confined
+        self.boot = None
 
 
 class DeltaEvaluator:
@@ -303,12 +306,22 @@ class DeltaEvaluator:
         compiled = self._filter_for(sub.type_name, sub.cql, sft)
         matched: set = set()
         if snap is not None and len(snap):
-            padded, dev = self._upload(snap)
+            padded, dev, fids = self._boot_inputs(sub.type_name, snap)
             with _typed_oom():
                 mask = compiled.mask_refined(dev, padded)[: len(snap)]
-            fids = _batch_fids(snap)
             matched = {fids[j] for j in np.nonzero(mask)[0]}
         sub.matched = matched
+
+    def _boot_inputs(self, type_name: str, snap):
+        """(padded batch, its upload, fids) of a snapshot, kept until the
+        snapshot changes (it is immutable, and rebuilt on a change): N
+        subscriptions bootstrapped over one snapshot upload and decode
+        it once, not N times."""
+        st = self._state(type_name)
+        if st.boot is None or st.boot[0] is not snap:
+            padded, dev = self._upload(snap)
+            st.boot = (snap, padded, dev, _batch_fids(snap))
+        return st.boot[1:]
 
     def _filter_for(self, type_name: str, cql: str, sft):
         key = (type_name, cql)

@@ -135,7 +135,14 @@ class FlightRecorder:
             doc["reason"] = reason
         doc["pid"] = os.getpid()
         doc["dumped_at"] = time.time()
+        from geomesa_tpu_torch.parallel.distributed import process_suffix
+
         path = path or self._default_dump_path()
+        root, ext = os.path.splitext(path)
+        # a flight dump is per-process forensics: a coordinator gate would
+        # throw away every other process's evidence, so instead each
+        # process of a group writes its own file (one process: no-op)
+        path = f"{root}{process_suffix()}{ext}"
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(doc, f)

@@ -307,6 +307,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
         import geomesa_tpu_torch.plan.interceptor  # noqa: F401
         import geomesa_tpu_torch.security.visibility  # noqa: F401
         import geomesa_tpu_torch.serve.columnar  # noqa: F401
+        import geomesa_tpu_torch.parallel.distributed  # noqa: F401
+        import geomesa_tpu_torch.parallel.launch  # noqa: F401
+        from geomesa_tpu_torch.parallel import global_mesh, is_coordinator
+        assert is_coordinator() and global_mesh(["cpu"] * 2).size == 2
         from geomesa_tpu_torch import QueryHints
         world = "BBOX(geom, -180, -90, 180, 90)"
         c = src.get_count(Query("t", world, hints=QueryHints(tolerance=0.1)))

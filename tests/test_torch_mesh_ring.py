@@ -169,6 +169,8 @@ def test_one_shard_plan_refuses_shard_affinity(stores):
     assert counter("knn.mesh.local_dispatches") - base == 3
     assert all((e.mesh_shape, e.shards) == ("(4,)", "2") for e in events)
     single = stores.single.get_feature_source("meshed")
+    # the same residency as the mesh's: kNN indices count resident rows
+    single.get_count(CQL)
     for i in range(3):
         same(got[i], single.knn(CQL_DAY3, pts[i:i + 1, 0], pts[i:i + 1, 1],
                                 k=6))
