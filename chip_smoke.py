@@ -163,7 +163,7 @@ and prints no result. Phases, each fatal on failure:
    512x512 density over the filter's BBOX (B3 must launch; the grid ==
    a NumPy binning) and a kNN with timeoutMs 1 (must answer timeout),
    each == the direct call; then run_closed_loop with 8 clients and
-   run_sustained with 64 outstanding, 3 s each, reporting served qps,
+   run_sustained with 64 outstanding, 2 s each, reporting served qps,
    p50/p99, windows, mean window size, B1 launches per request, the
    device's idle share (torch.profiler over 1 s more of each) and points/s
    (resident rows x served qps); serve.oom.halved, serve.oom.hosteval,
@@ -194,8 +194,8 @@ and prints no result. Phases, each fatal on failure:
    small_store shape (2^20 rows) a write moves manifest_version: the
    next ring window falls back "stale", sees the new rows and equals
    src.knn, the one after re-arms. Then run_closed_loop with 8 clients
-   and run_sustained with 64 outstanding, 2 s each, on the pipelined and
-   the ring route: served qps, p50/p99, windows, mean window size, B1
+   and run_sustained with 64 outstanding, 1.5 s each, on the pipelined
+   and the ring route: served qps, p50/p99, windows, mean window size, B1
    launches a request, device ops a window, windows in flight at most,
    the dispatch thread's and the completer's host ms a window, the idle
    share over 1 s more (torch.profiler on the pipelined route; on the
@@ -259,8 +259,8 @@ and prints no result. Phases, each fatal on failure:
    DataStore under geomesa.coord.dtype=float64 (its north-star count and
    sparse kNN == the f32 store's, its resident bytes printed); (b)
    inside phase 5, the 512x512 density as one columnar f64 frame ==
-   the direct grid, and density_grid_slotted timed beside density_grid
-   and equal to it over a tile-aligned envelope;
+   the direct grid, and density_grid_slotted equal to density_grid over
+   a tile-aligned envelope (its timing went for phase 22's time);
    (c) inside phase 8, distinct vessels with tolerance 0.1 (HLL) and
    without (exact), under INCLUDE and a filter, gated against NumPy;
    (d) after phase 11, a 2^24-row store of vis:String,speed:Double:
@@ -350,7 +350,7 @@ and prints no result. Phases, each fatal on failure:
    fused-remainder predicates (polygon AND sog: B4/B5 every poll; tanker
    AND BBOX; BEYOND; OR of two boxes), three exact 256x128 world density
    windows (unweighted, sog-weighted, decay 0.9) and one approximate
-   (tolerance 0.5), each bootstrapped over the full snapshot; 16 poll
+   (tolerance 0.5), each bootstrapped over the full snapshot; 12 poll
    windows of 1,310 moved, 128 gone and 128 new vessels, window 5's poll
    failing (kafka.poll, 4 fires) and window 9's first evaluation failing
    (subscribe.eval); gates: after the bootstrap and after the last window
@@ -397,7 +397,7 @@ and prints no result. Phases, each fatal on failure:
    the direct single-card answers, knn.mesh.dispatches > 0, a window
    pruned to day 0 (shard 0 alone) through knn.mesh.local_dispatches,
    ServeEvent mesh_shape "(4,)" and shards "0,1,2,3" (or "0"), then 8
-   clients closed for 2 s (qps, p50) and 1 s under torch.profiler (the
+   clients closed for 1.5 s (qps, p50) and 1 s under torch.profiler (the
    idle share). Numbers in a {"mesh"} line.
 20. A7 (b), the ring's mesh programs and the engine's other sharded
    analytics, with B1-B3's launches reset before and read after each
@@ -409,7 +409,7 @@ and prints no result. Phases, each fatal on failure:
    merge graph where the mesh spans cards), gated bit-identical to the
    serial mesh route and to the same windows through the single-card
    ring before the mesh (19 (a)), B1 4 a window, ServeEvents "(4,)" and
-   "0,1,2,3"; 8 clients closed for 2 s on the ring and on the pipelined
+   "0,1,2,3"; 8 clients closed for 1.5 s on the ring and on the pipelined
    route (qps, p50/p99) and 1 s more on the ring with CUDA events around
    each replay (the busy share); density_zsparse_sharded (B3 once a
    shard) over the per-shard masks of phase 4's density query == the
@@ -451,6 +451,29 @@ and prints no result. Phases, each fatal on failure:
    `assert_uniform_runtime` (an NCCL all-reduce) and the group torn
    down. The ranks' launches join the kernels line as phase 21's;
    numbers in a {"multiprocess"} line.
+22. A8 (a), telemetry and profiling, last in phase 4 on its store, with
+   B1-B5's launches reset before and read after (B1's and B3's rows gain
+   "22"), in about 30 s: (a) 128 single-point kNN requests (two windows
+   of 64) untraced on the pipelined route, then with trace=True,
+   profile=True and an SLO spec on the pipelined route and on the ring,
+   gated bit for bit equal to the untraced answers, the continuous
+   profiler's knn_sparse family folded once a pipelined window and its
+   knn_ring family once a ring window; (b) the gap report's
+   device-facing share of the dispatch windows, and 8 clients closed for
+   1 s on each route with tracing off and on (qps and p50 side by side);
+   (c) a MetricsServer on 127.0.0.1 over the ring's service answering
+   /metrics, /debug/prof and /debug/slo, and a sentinel baseline from the
+   first traced run, compared with itself (exit 0, gated) and with a
+   second traced run (verdicts printed, ungated); (d) one 64x32 density
+   of the north-star filter (B3's dictionaries hold its tiles), untraced,
+   then as an execute under geomesa.profile.dir: refused typed (ProfileRefused)
+   while the ring's service holds captured graphs, then, with every
+   service closed, written as a torch.profiler trace whose CUDA kernel
+   events name zsparse_kernel (B3), its grid equal to the untraced one.
+   For its time, phases 12, 13, 19 (d) and 20 (a) load for 2 / 1.5 /
+   1.5 / 1.5 s (from 3 / 2 / 2 / 2), phases 14 and 17 time 2 warm calls
+   (from 3), phase 18 polls 12 windows (from 16) and phase 15 no longer
+   times density_grid_slotted. Numbers in a {"telemetry"} line.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -458,6 +481,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import faulthandler
 import gc
 import json
@@ -783,6 +807,9 @@ def main_path(torch, ks, dev, rows: int, card_s: str):
         mesh_ring_phase(torch, ds, src, dict(cql=cql), single, card_s)
         # phase 21 on the store on disk: two ranks of this script
         mp_phase(torch, ds, src, dict(qx=qx, qy=qy, cql=cql), single, tmp, card_s)
+        # phase 22 last: telemetry and profiling over the served windows
+        PHASES["telemetry"] = telemetry_phase(torch, ds, src, dict(cql=cql),
+                                              tmp, card_s)
         return launches, inputs, knn_ops, serve, serve_dev
 
 
@@ -2881,7 +2908,7 @@ SERVE_FULL = 64  # impl="fullscan" requests (one window)
 # counts the keys it calibrated (phase 4 has already cached this one).
 CALIBRATION_B1 = 0
 SERVE_OOM = 8  # requests of the injected-OOM window (halved down to 1 each)
-SERVE_LOAD_S = 3.0  # cut from 5 s for phase 21's time
+SERVE_LOAD_S = 2.0  # cut from 5 s for phase 21's time, from 3 s for 22's
 SERVE_PROFILE_S = 1.0
 OOM_COUNTERS = ("serve.oom.halved", "serve.oom.hosteval", "serve.oom.failed")
 
@@ -3205,7 +3232,7 @@ DEV_COUNTS = 64  # counts fused onto one pipelined kNN window
 DEV_WINDOW = 64
 DEV_STALE_ROWS = 1 << 20  # rows of the staleness store (phase 9's small_store)
 DEV_STALE_WRITE = 4096  # rows the write adds
-DEV_LOAD_S = 2.0  # cut from 3 s for phase 21's time
+DEV_LOAD_S = 1.5  # cut from 3 s for phase 21's time, from 2 s for 22's
 DEV_ROUTES = {"serial": dict(pipeline=False, ring=False),
               "pipelined": dict(ring=False), "ring": {}}
 
@@ -3846,7 +3873,7 @@ def config2_sql(torch, dev, n: int, card_s: str, exp_counts):
 
 # -- geometry predicates, non-point density and codecs (phase 14) -------------
 
-GEO_WARM = 3  # warm calls a phase-14 call type (cut from 5 for phase 21)
+GEO_WARM = 2  # warm calls a phase-14 call type (cut from 5 for phase 21, 3 for 22)
 GEO_CENTER = (10.0, 45.0)
 # FP64 operations per (row, segment) pair of point_to_segments_m as written:
 # 4 subtracts and 6 scalings (ax, ay, bx, by), 2 differences, 2 squares and
@@ -4875,8 +4902,8 @@ def a4b_knn_store(torch, dev, ds, src, tmp: str, a: dict, card_s: str) -> None:
 def a4b_density_store(torch, dev, ds, src, cql: str, dq, card_s: str) -> None:
     """Phase 15 on phase 5's store: the 512x512 density as one columnar
     f64 frame, equal to the direct grid and to the JSON answer's total;
-    density_grid_slotted timed beside density_grid at the path's shapes,
-    and equal to it bit for bit over a tile-aligned envelope."""
+    density_grid_slotted beside density_grid at the path's shapes, equal
+    to it bit for bit over a tile-aligned envelope."""
     from geomesa_tpu_torch.engine.density import density_grid, density_grid_slotted
     from geomesa_tpu_torch.serve import columnar as colwire
 
@@ -4904,14 +4931,15 @@ def a4b_density_store(torch, dev, ds, src, cql: str, dq, card_s: str) -> None:
         f"(the JSON answer, {len(json.dumps(jd))} bytes, carries no cells); "
         f"launches {ln.counts} [{card_s}]")
     # density_grid_slotted at the path's shapes (plain PyTorch: the envelope
-    # as a device tensor), beside density_grid on the same inputs
+    # as a device tensor), beside density_grid on the same inputs; its
+    # timing went for phase 22's time (nothing on the path calls it)
     sb = src.planner.cache.superbatch()
     x, y, v = sb.dev["geom__x"], sb.dev["geom__y"], sb.dev["__valid__"]
     ones = torch.ones_like(x)
     slot = torch.tensor(ENV, dtype=torch.float32, device=dev)
     a = density_grid_slotted(x, y, ones, v, slot, GRID, GRID)
     b = density_grid(x, y, ones, v, ENV, GRID, GRID)
-    agree = int((a == b).all())
+    agree = bool((a == b).all())
     # over an envelope whose cell sizes round-trip f32 (0.5 / 512 = 2^-10)
     # the two binnings are the same arithmetic, so the grids are equal
     aligned = (-74.25, 40.5, -73.75, 41.0)
@@ -4920,21 +4948,10 @@ def a4b_density_store(torch, dev, ds, src, cql: str, dq, card_s: str) -> None:
     b = density_grid(x, y, ones, v, aligned, GRID, GRID)
     assert torch.equal(a, b), "density_grid_slotted != density_grid (aligned)"
     del a, b
-    ms = timed_ms(torch, lambda: density_grid_slotted(x, y, ones, v, slot, GRID, GRID), 5)
-    plain = timed_ms(torch, lambda: density_grid(x, y, ones, v, ENV, GRID, GRID), 5)
-    n = x.shape[0]
-    bound = (n * (4 + 4 + 4 + 1) + GRID * GRID * 4) / HBM_BYTES_PER_S * 1e3
-    log(f"density_grid_slotted: {ms:.3f} ms over {n} points (density_grid "
-        f"{plain:.3f} ms on the same inputs, grids equal over the NYC envelope: "
-        f"{bool(agree)}, over the aligned one: True), bound {bound:.3f} ms by "
-        f"bytes [{card_s}]")
-    A4B_OPS.append({"name": "density_grid_slotted",
-                    "replaces": "geomesa_tpu/engine/density.py:221",
-                    "source": "geomesa_tpu_torch/engine/density.py",
-                    "route": "torch", "launches": 0, "ms": ms, "plain_ms": plain,
-                    "bound_ms": bound, "bound_by": "bytes", "rows": n,
-                    "equal_to_density_grid": bool(agree),
-                    "equal_on_aligned_envelope": True})
+    res["slotted_equal"] = agree
+    log(f"density_grid_slotted over {x.shape[0]} points: grids equal to "
+        f"density_grid over the NYC envelope: {agree}, over the aligned one: "
+        f"True [{card_s}]")
     a4b_record("columnar density", res)
 
 
@@ -5822,7 +5839,7 @@ KV_POLY = "POLYGON((-50 25, 10 22, 55 40, 40 65, -20 68, -55 50, -50 25))"
 KV_GRID = (32, 16)  # a coarse heatmap: each row tile's cells fit B3's dictionary
 KV_FINE = (GRID, GRID)  # phase 5's heatmap: the resolution users ask for
 KV_IDS = 64  # feature ids looked up through the id index
-KV_WARM = 3
+KV_WARM = 2  # cut from 3 for phase 22's time
 # the live layer: the order of the world's AIS fleet, latest state a vessel
 LIVE_ROWS = 1 << 17
 LIVE_SPEC = "vtype:String:index=true,sog:Double,dtg:Date,*geom:Point"
@@ -6216,7 +6233,7 @@ SUB_LAUNCHES = {name: 0 for name in A4B_KERNELS}
 SUB_OPS: list = []
 # one AIS alerting deployment at the subscription table's default capacity
 SUB_LANES = {"bbox": 128, "dwithin": 64, "polygon": 48}
-SUB_WINDOWS = 16  # poll windows of traffic
+SUB_WINDOWS = 12  # poll windows of traffic (cut from 16 for phase 22's time)
 SUB_MOVE = LIVE_ROWS // 100  # vessels that report a new position a window
 SUB_CHURN = 128  # vessels leaving (and as many new ones arriving) a window
 SUB_POLL_FAULT = 5  # the window whose poll fails (kafka.poll, 4 fires)
@@ -6711,7 +6728,7 @@ MESH_GROW_ROWS = 1 << 20
 MESH_GROW_DAYS = 8
 MESH_GROW_T0 = 1_591_920_000_000  # 2020-06-12T00:00:00Z
 MESH_SERVED = 64  # single-point kNN requests a route
-MESH_LOAD_S = 2.0  # cut from 3 s for phase 21's time
+MESH_LOAD_S = 1.5  # cut from 3 s for phase 21's time, from 2 s for 22's
 MESH_PROFILE_S = 1.0
 MESH_FEATURE_BOX = (20.0, 45.0, 21.0, 46.0)  # away from phase 16's deletes
 MESH_STATS = "Count();MinMax(speed);Histogram(speed,32,0,100);DescriptiveStats(speed)"
@@ -7136,7 +7153,7 @@ def mesh_phase(torch, card_s: str) -> None:
 RING_LAUNCHES = {name: 0 for name in A4B_KERNELS}
 RING_B6 = [0]  # phase 20 (b)'s pip_layer_sharded launches of B6
 RING_SERVED = 24  # single-point ring windows a route (16 at least)
-RING_LOAD_S = 2.0  # cut from 3 s for phase 21's time
+RING_LOAD_S = 1.5  # cut from 3 s for phase 21's time, from 2 s for 22's
 RING_PROFILE_S = 1.0
 RING_LAYER_N = 1 << 20  # the Morton slice of config 2's points
 PHASE20_BUDGET_S = 45.0
@@ -7577,6 +7594,260 @@ def mp_phase(torch, ds, src, a: dict, single: dict, tmp: str, card_s: str) -> No
     assert total <= PHASE21_BUDGET_S, f"phase 21 took {total:.1f} s"
 
 
+TELE_LAUNCHES = {name: 0 for name in A4B_KERNELS}
+TELE_KNN = 128  # single-point kNN requests a service (two windows of 64)
+TELE_WINDOW = 64
+TELE_LOAD_S = 1.0  # each closed loop of 8 clients (tracing off and on)
+# the profiled density: an overview heatmap of the north-star window,
+# coarse enough that B3's cell dictionaries hold its tiles. A day
+# partition's 4096-row tile spans ~280 square degrees, so at 256x128 about
+# half of them overflow the dictionaries and at 512x512 most do; then the
+# planner takes the scatter after its first call (plan/runner.py)
+TELE_GRID = (64, 32)
+TELE_SLO = {
+    "slo": {"fast_window_s": 60.0, "slow_window_s": 300.0},
+    "objective": {
+        "knn_p99": {"kind": "latency", "threshold_ms": 50.0, "goal": 0.99,
+                    "query_kind": "knn", "degrade": True},
+        "availability": {"kind": "availability", "goal": 0.999},
+    }}
+TELE_ROUTES = ("/metrics", "/debug/prof", "/debug/slo")
+
+
+def telemetry_phase(torch, ds, src, a: dict, tmp: str, card_s: str) -> dict:
+    """Phase 22 (module docstring, 22), last in phase 4 on its store: the
+    served kNN windows traced and profiled against the untraced answers,
+    the gap report, tracing's cost in qps, the MetricsServer's routes and
+    the sentinel, then one density execute under geomesa.profile.dir (and
+    its refusal while the ring holds captured graphs). Returns the
+    {"telemetry": ...} numbers."""
+    import urllib.request
+
+    from geomesa_tpu_torch import Query, QueryHints
+    from geomesa_tpu_torch.compilecache.registry import registry
+    from geomesa_tpu_torch.engine import density_zsparse as dz
+    from geomesa_tpu_torch.errors import ProfileRefused
+    from geomesa_tpu_torch.serve import (
+        QueryService, ServeConfig, knn_request_factory, run_closed_loop)
+    from geomesa_tpu_torch.telemetry import (
+        PROFILER, RECORDER, TRACER, MetricsServer, gap_report, render_prof,
+        render_slo, sentinel)
+    from geomesa_tpu_torch.utils.config import SystemProperties
+
+    t_phase = time.perf_counter()
+    cql = a["cql"]
+    make = knn_request_factory("gdelt", cql, extent=(20.0, 60.0), k=K, seed=22)
+    base = dict(max_batch=TELE_WINDOW, max_wait_ms=2.0, max_queue=2048)
+    out = {"card": card_s}
+    services = []
+
+    def service(**cfg):
+        svc = QueryService(ds, ServeConfig(**{**base, **cfg}), autostart=False)
+        services.append(svc)
+        return svc
+
+    def serve(svc):
+        """TELE_KNN requests submitted before the start: (answers, windows)."""
+        futs = [svc.submit(r) for r in serve_requests(make, TELE_KNN)]
+        svc.start()
+        got = [f.result(timeout=300) for f in futs]
+        return got, svc.stats()["dispatches"]
+
+    def same(got, want):
+        return all(np.array_equal(i, wi) and np.array_equal(d, wd)
+                   for (d, i, _), (wd, wi, _) in zip(got, want))
+
+    def family(name):
+        rec = PROFILER.snapshot()["kernels"].get(name)
+        return rec["device"]["n"] if rec else 0
+
+    def load(svc, traced):
+        (TRACER.enable if traced else TRACER.disable)()
+        rep = run_closed_loop(svc, make, concurrency=8, duration_s=TELE_LOAD_S)
+        assert rep.ok > 0 and rep.errors == 0 and rep.timeouts == 0, rep
+        return rep
+
+    def gap_line(label):
+        g = gap_report(RECORDER.traces())
+        dg = g["dispatch_gap"]
+        share = dg["device_ms"] / dg["exec_ms"] if dg["exec_ms"] else 0.0
+        log(f"gap report, {label}: {g['traces']} traces, {dg['windows']} "
+            f"windows, exec {dg['exec_ms']:.3f} ms, device-facing "
+            f"{dg['device_ms']:.3f} ms (share {share:.3f}), host gap "
+            f"{dg['host_gap_ms']:.3f} ms, root coverage {g['coverage']:.4f} "
+            f"[{card_s}]")
+        return {"traces": g["traces"], "windows": dg["windows"],
+                "exec_ms": dg["exec_ms"], "device_ms": dg["device_ms"],
+                "device_share": share, "host_gap_ms": dg["host_gap_ms"],
+                "gap_fraction": dg["gap_fraction"], "coverage": g["coverage"],
+                "ring": g["ring"]}
+
+    prof_dir = os.path.join(tmp, "telemetry_profile")
+    dq = Query("gdelt", cql, hints=QueryHints(
+        density_bbox=BBOX, density_width=TELE_GRID[0],
+        density_height=TELE_GRID[1]))
+    TRACER.disable()
+    PROFILER.reset()
+    try:
+        with Launches(into=TELE_LAUNCHES) as ln:
+            # (a) the answers: untraced, then traced and profiled on the
+            # pipelined route and on the ring
+            want, _ = serve(service(ring=False))
+            PROFILER.reset()
+            RECORDER.clear()
+            pipe = service(ring=False, trace=True, profile=True, slo=TELE_SLO)
+            got, windows = serve(pipe)
+            assert same(got, want), "traced pipelined answers != untraced"
+            assert family("knn_sparse") == windows, (family("knn_sparse"), windows)
+            out["gap_pipelined"] = gap_line("pipelined")
+            RECORDER.clear()
+            ring = service(trace=True, profile=True, slo=TELE_SLO)
+            got, ring_windows = serve(ring)
+            assert same(got, want), "traced ring answers != untraced"
+            rs = ring.stats()["pipeline"]["ring"]
+            assert rs["windows"] == ring_windows and rs["fallbacks"] == {}, rs
+            assert family("knn_ring") == ring_windows, (family("knn_ring"), ring_windows)
+            out["gap_ring"] = gap_line("ring")
+            out["windows"] = {"pipelined": windows, "ring": ring_windows}
+            log(f"correct: {TELE_KNN} kNN answers traced and profiled == "
+                f"untraced, bit for bit, on the pipelined route ({windows} "
+                f"windows, knn_sparse folded {windows}) and the ring "
+                f"({ring_windows} windows, knn_ring folded {ring_windows}) "
+                f"[{card_s}]")
+
+            # (b) tracing's cost: 8 clients closed, off then on, one service
+            # a route; (c) the sentinel's baseline from the first traced
+            # pipelined run, a second traced run against it
+            qps = {}
+            for route, svc in (("pipelined", pipe), ("ring", ring)):
+                # a short untimed loop first: the ring captures the load's
+                # Q bucket here, not inside a measured run
+                run_closed_loop(svc, make, concurrency=8, duration_s=0.3)
+                off = load(svc, False)
+                PROFILER.reset()
+                on = load(svc, True)
+                qps[route] = {"off_qps": off.throughput_qps,
+                              "on_qps": on.throughput_qps,
+                              "off_p50_ms": off.p50_ms, "on_p50_ms": on.p50_ms}
+                log(f"serve {route}, 8 clients closed {TELE_LOAD_S:g} s: "
+                    f"tracing off {off.throughput_qps:.1f} qps (p50 "
+                    f"{off.p50_ms:.3f} ms), on (spans, profiler, SLO) "
+                    f"{on.throughput_qps:.1f} qps (p50 {on.p50_ms:.3f} ms): "
+                    f"{on.throughput_qps / off.throughput_qps:.3f}x [{card_s}]")
+                if route == "pipelined":
+                    path = os.path.join(tmp, "telemetry_baseline.json")
+                    sentinel.save_baseline(path, sentinel.baseline_from_profile(
+                        PROFILER.snapshot(include_samples=True),
+                        latency_samples_ms=on.samples_ms))
+                    baseline = sentinel.load_baseline(path)
+                    self_rep = sentinel.compare(baseline, baseline)
+                    assert sentinel.exit_code(self_rep) == 0, self_rep["counts"]
+                    PROFILER.reset()
+                    again = load(svc, True)
+                    second = sentinel.compare(baseline, sentinel.baseline_from_profile(
+                        PROFILER.snapshot(include_samples=True),
+                        latency_samples_ms=again.samples_ms))
+                    log(f"sentinel: the baseline against itself exits 0 "
+                        f"({self_rep['counts']}); a second traced run against "
+                        f"it (ungated) exits {sentinel.exit_code(second)}:\n"
+                        f"{sentinel.render_verdicts(second)}")
+                    out["sentinel"] = {"self_counts": self_rep["counts"],
+                                       "second_counts": second["counts"],
+                                       "second_exit": sentinel.exit_code(second)}
+            out["qps"] = qps
+            log(render_prof(PROFILER.snapshot()))
+
+            # (c) the live endpoint over the ring's service
+            server = MetricsServer(port=0, stats_fn=ring.stats,
+                                   pre_scrape=ring.export_gauges,
+                                   slo_fn=ring.slo.report)
+            ring.metrics_port = server.start()
+            try:
+                bodies = {}
+                for route in TELE_ROUTES:
+                    with urllib.request.urlopen(server.url + route, timeout=10) as r:
+                        assert r.status == 200, route
+                        bodies[route] = r.read().decode()
+            finally:
+                server.stop()
+            assert 'slo_budget_remaining{objective="knn_p99"}' in bodies["/metrics"]
+            assert "serve_latency_seconds_p99" in bodies["/metrics"]
+            prof_doc = json.loads(bodies["/debug/prof"])
+            assert prof_doc["kernels"]["knn_ring"]["device"]["n"] > 0, prof_doc["kernels"]
+            slo_doc = json.loads(bodies["/debug/slo"])
+            assert slo_doc["enabled"], slo_doc
+            log(f"MetricsServer on 127.0.0.1:{ring.metrics_port}: "
+                f"{', '.join(TELE_ROUTES)} answer 200 ({len(bodies['/metrics'])} "
+                f"bytes of Prometheus text, {prof_doc['traces']} traces folded)")
+            log(render_slo(slo_doc))
+            out["slo"] = {n: {"state": o["state"], "burn_rate": o["burn_rate"],
+                              "budget_remaining": o["budget_remaining"]}
+                          for n, o in slo_doc["objectives"].items()}
+            TRACER.disable()
+            PROFILER.disable()
+
+            # (d) one density execute under geomesa.profile.dir: refused
+            # while the ring's service holds captured graphs, traced once
+            # it is closed
+            plain = src.get_features(dq).grid
+            SystemProperties.set("geomesa.profile.dir", prof_dir)
+            try:
+                src.get_features(dq)
+                raise AssertionError("geomesa.profile.dir ran under a live ring")
+            except ProfileRefused as e:
+                log(f"C2 guard: {type(e).__name__}: {e}")
+            assert not os.path.exists(prof_dir)
+            for svc in services:
+                svc.close(drain=True)
+            services.clear()
+            left = registry.held()
+            if left:
+                log(f"captures still held after every ring service closed: "
+                    f"{[c.name for c in left]} (dropped)")
+                registry.clear()
+            out["captures_left"] = len(left)
+            b3 = dz.zsparse_counts.launches
+            t0 = time.perf_counter()
+            grid = src.get_features(dq).grid
+            out["profiled_density_s"] = time.perf_counter() - t0
+            b3 = dz.zsparse_counts.launches - b3
+            assert np.array_equal(grid, plain), "the profiled density differs"
+            assert b3 >= 1, "the profiled density did not launch B3"
+            runs = os.listdir(prof_dir)
+            assert len(runs) == 1, runs
+            path = os.path.join(prof_dir, runs[0], "trace.json")
+            with open(path) as f:
+                doc = json.load(f)
+            kernels = collections.Counter(
+                e["name"] for e in doc["traceEvents"]
+                if e.get("cat") == "kernel")
+            assert any("zsparse_kernel" in n for n in kernels), kernels
+            top = kernels.most_common(6)
+            out["profile_trace"] = {"bytes": os.path.getsize(path),
+                                    "events": len(doc["traceEvents"]),
+                                    "kernel_events": sum(kernels.values()),
+                                    "b3_launches": b3}
+            log(f"geomesa.profile.dir: one density execute ({TELE_GRID[0]}x"
+                f"{TELE_GRID[1]}, B3 {b3} launch(es)) in {out['profiled_density_s']:.3f} s wrote "
+                f"{runs[0]}/trace.json ({out['profile_trace']['bytes']} bytes, "
+                f"{len(doc['traceEvents'])} events); CUDA kernel events {top}, "
+                f"zsparse_kernel among them; the grid == the untraced one "
+                f"[{card_s}]")
+        out["launches"] = ln.counts
+    finally:
+        SystemProperties.clear("geomesa.profile.dir")
+        TRACER.disable()
+        PROFILER.disable()
+        PROFILER.reset()
+        for svc in services:
+            svc.close(drain=False, timeout_s=5.0)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"telemetry phase: launches {out['launches']}, {out['seconds']:.3f} s")
+    assert out["launches"]["chord_blockmin_sparse"] > 0, out["launches"]
+    assert out["launches"]["zsparse_counts"] > 0, out["launches"]
+    return out
+
+
 def nvml_used_bytes(index: int = 0) -> int:
     """The card's used memory as NVML reads it (no CUDA context needed)."""
     import ctypes
@@ -8015,11 +8286,20 @@ def main() -> int:
     log(f"phase-21 launches (both ranks): {MP_LAUNCHES}")
     assert all(MP_LAUNCHES[k] for k in ("chord_blockmin", "chord_blockmin_sparse",
                                         "zsparse_counts")), MP_LAUNCHES
+    for row in rows:
+        if TELE_LAUNCHES.get(row["name"]):  # then phase 22's
+            row.setdefault("launches_by_phase", {"4": row["launches"]})
+            row["launches_by_phase"]["22"] = TELE_LAUNCHES[row["name"]]
+            row["launches"] += TELE_LAUNCHES[row["name"]]
+    log(f"phase-22 launches: {TELE_LAUNCHES}")
+    assert all(TELE_LAUNCHES[k] for k in ("chord_blockmin_sparse",
+                                          "zsparse_counts")), TELE_LAUNCHES
     ops += SUB_OPS
     print(json.dumps({"lifecycle": PHASES.pop("lifecycle")}))
     print(json.dumps({"kv_live": PHASES.pop("kv_live")}))
     print(json.dumps({"subscribe": PHASES.pop("subscribe")}))
     print(json.dumps({"mesh": PHASES.pop("mesh")}))
+    print(json.dumps({"telemetry": PHASES.pop("telemetry")}))
     print(json.dumps({"phases": PHASES}))
     print(json.dumps({"device_ops": ops}))
     print(json.dumps({"serve": serve}))

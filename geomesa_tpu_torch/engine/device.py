@@ -48,6 +48,7 @@ from geomesa_tpu_torch.core.columnar import DictColumn, FeatureBatch, GeometryCo
 from geomesa_tpu_torch.errors import CudaUnavailableError
 from geomesa_tpu_torch.faults import BREAKERS, RetryPolicy, retry_call
 from geomesa_tpu_torch.faults import harness as _faults
+from geomesa_tpu_torch.telemetry.trace import TRACER
 
 DeviceBatch = Dict[str, torch.Tensor]
 
@@ -85,7 +86,8 @@ def to_device(batch: FeatureBatch, device: torch.device,
     the reference does, so both packages see the same values (f32 by
     default; the process paths pass torch.float64). Transient transfer
     failures retry against the "device" breaker; an OOM propagates."""
-    return _device_retry(_to_device_impl, batch, device, coord_dtype)
+    with TRACER.span("device.transfer", rows=len(batch)):
+        return _device_retry(_to_device_impl, batch, device, coord_dtype)
 
 
 def to_device_parts(parts, devices, coord_dtype: torch.dtype = torch.float32
@@ -94,7 +96,9 @@ def to_device_parts(parts, devices, coord_dtype: torch.dtype = torch.float32
     and non_blocking: ONE transfer (one retry scope and one firing of the
     transfer fault site, as `to_device`), the parts' copies queued on
     their devices without a wait between them."""
-    return _device_retry(_to_device_parts_impl, parts, devices, coord_dtype)
+    with TRACER.span("device.transfer", rows=sum(len(b) for b in parts)):
+        return _device_retry(_to_device_parts_impl, parts, devices,
+                             coord_dtype)
 
 
 def _to_device_parts_impl(parts, devices, coord_dtype) -> List[DeviceBatch]:
@@ -423,7 +427,8 @@ class QueryStager:
                 slot.qx = torch.from_numpy(qx32)
                 slot.qy = torch.from_numpy(qy32)
 
-        _device_retry(_put)
+        with TRACER.span("device.transfer", rows=int(len(qx32)), staged=True):
+            _device_retry(_put)
         with self._lock:
             self._staged_total += 1
         return slot

@@ -13,6 +13,10 @@ the window with them and never answers it from another route.
 
 `RemoteShardError` is what a mesh that spans processes raises where a
 caller would need rows that live in another process.
+
+`ProfileRefused` is what `utils.profiling.device_trace` raises instead of
+opening a torch.profiler trace while a ring program of the process holds
+captured CUDA graphs (a replay under the profiler crashed on the card).
 """
 
 from __future__ import annotations
@@ -49,3 +53,10 @@ class RemoteShardError(RuntimeError):
     in this one, and the port does not assemble them behind the caller's
     back. Counts, densities, kNN and the served ring merge through
     collectives instead; feature, Arrow and BIN queries refuse."""
+
+
+class ProfileRefused(RuntimeError):
+    """A `geomesa.profile.dir` trace was asked for while the serve ring
+    holds captured CUDA graphs: torch.profiler traces the whole process,
+    and a graph replay under it crashed on the card. Close the ring
+    service (or serve with ring=False) to profile."""

@@ -27,8 +27,9 @@ Host data feeding follows the reference's: every process reads the
 whole superbatch on the host (a shared filesystem) and uploads only its
 shards' rows; `process_partitions` is the per-process partition split
 for writers. Shared-storage writes (store metadata, the device-cache
-and warm-up manifests, sketch sidecars) are gated on `is_coordinator`;
-per-process debug artifacts take `process_suffix`.
+and warm-up manifests, sketch sidecars, sentinel baselines) are gated on
+`is_coordinator`; per-process debug artifacts (flight dumps,
+`geomesa.profile.dir` traces) take `process_suffix`.
 """
 
 from __future__ import annotations
@@ -177,7 +178,8 @@ def is_coordinator() -> bool:
     one check).
 
     This is the gate for shared-storage side effects: store metadata,
-    device-cache manifests, sketch sidecars, warm-up manifests. Exactly
+    device-cache manifests, sketch sidecars, warm-up manifests, sentinel
+    baselines. Exactly
     one process may perform them, or N processes race identical (or
     worse, divergent) writes into one file. Per-partition data writes
     stay per-process by design (`process_partitions`) and are waived,

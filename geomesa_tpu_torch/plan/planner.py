@@ -66,6 +66,15 @@ A `tolerance` hint routes count, density and `topk_cells` through the
 sketch engine (`approx/`) when its a-priori bound fits; a miss, and
 `topk_cells` without a tolerance, pay the exact device path. The device
 coordinate dtype follows `geomesa.coord.dtype` (`coord_dtype`).
+
+Telemetry: the planner opens the reference's spans at the same seams
+(`plan`; `residency`; `scan` on the scan route, which has no streaming
+count here; `kernel.dispatch` with `kernel="filter.mask"`, `"knn_sparse"`,
+`"knn_fullscan"` or `"knn_mesh"`; `device.sync`, with `shards` and `ring`
+on a kNN read; `aggregate`). They are host clocks, no-ops without a
+scoped trace, and add no device op or host wait. Under
+`geomesa.profile.dir` each `execute` route runs inside
+`utils.profiling.device_trace("query")`, a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -101,7 +110,9 @@ from geomesa_tpu_torch.plan.runner import (
 from geomesa_tpu_torch.plan.stats_manager import StatsManager
 from geomesa_tpu_torch.store.cache import DeviceCacheManager
 from geomesa_tpu_torch.utils.padding import next_pow2
+from geomesa_tpu_torch.utils.profiling import device_trace
 from geomesa_tpu_torch.store.fs import FileSystemStorage
+from geomesa_tpu_torch.telemetry.trace import TRACER
 from geomesa_tpu_torch.utils.config import SystemProperties
 from geomesa_tpu_torch.utils.metrics import metrics, note_device_op
 
@@ -216,6 +227,12 @@ class QueryPlanner:
     # -- planning ----------------------------------------------------------
 
     def plan(self, query: Query, explain: Optional[Explainer] = None) -> QueryPlan:
+        # telemetry seam: interceptors, bounds, pruning and the residual's
+        # compile as one span (a no-op for an unscoped caller)
+        with TRACER.span("plan"):
+            return self._plan(query, explain)
+
+    def _plan(self, query: Query, explain: Optional[Explainer]) -> QueryPlan:
         e = explain or Explainer()
         query = run_interceptors(query, self.interceptors, e)
         sft = self.storage.sft
@@ -361,8 +378,9 @@ class QueryPlanner:
         """Make the plan's partitions resident: (superbatch, allowed), with
         `allowed` a bool per resident partition that the plan keeps, or
         None when no resident row can match."""
-        self.cache.ensure(plan.partitions, manifest=plan.manifest)
-        sb = self.cache.superbatch()
+        with TRACER.span("residency"):
+            self.cache.ensure(plan.partitions, manifest=plan.manifest)
+            sb = self.cache.superbatch()
         if sb is None:
             return None, None
         allowed = np.zeros(max(len(sb.ids), 1), bool)
@@ -376,9 +394,10 @@ class QueryPlanner:
         """The plan's partitions read into one batch padded to a power of
         two (only the columns the query needs), and its device tensors;
         (None, None) when nothing is read."""
-        batches = list(self.storage.scan(
-            plan.bbox, plan.interval,
-            columns=_needed_columns(plan, self.storage.sft)))
+        with TRACER.span("scan"):
+            batches = list(self.storage.scan(
+                plan.bbox, plan.interval,
+                columns=_needed_columns(plan, self.storage.sft)))
         if not batches:
             return None, None
         batch = FeatureBatch.concat(batches)
@@ -416,8 +435,9 @@ class QueryPlanner:
                 return (sb, batch, dev,
                         self._mesh_knn_mask(plan, query, sb, allowed), False)
             with side_stream(self.device, after=sb.ready) as keep:
-                mask = (self._raw_mask(plan, dev, batch)
-                        & upload(allowed, self.device)[sb.pids])
+                with TRACER.span("kernel.dispatch", kernel="filter.mask"):
+                    mask = (self._raw_mask(plan, dev, batch)
+                            & upload(allowed, self.device)[sb.pids])
                 note_device_op()
                 if plan.compiled is not None and plan.compiled.has_band:
                     bidx, bexact = plan.compiled.band_corrections(dev, batch)
@@ -435,7 +455,8 @@ class QueryPlanner:
             batch, dev = self._scan_batch(plan)
             if batch is None:
                 return None, None, None, None, True
-            mask = self._raw_mask(plan, dev, batch) & dev[VALID]
+            with TRACER.span("kernel.dispatch", kernel="filter.mask"):
+                mask = self._raw_mask(plan, dev, batch) & dev[VALID]
             note_device_op()
             if plan.compiled is not None and plan.compiled.has_band:
                 bidx, bexact = plan.compiled.band_corrections(dev, batch)
@@ -462,26 +483,27 @@ class QueryPlanner:
         has_band = plan.compiled is not None and plan.compiled.has_band
         out: list = [None] * mesh.size
         devs = sb.shard_devs()
-        for i, d in my_shards(mesh):
-            dv = devs[i]
-            with on_shard(d), side_stream(d, after=sb.ready[i]) as keep:
-                m = (self._raw_mask(plan, dv, batch)
-                     & upload(allowed, d)[sb.pids.shards[i]])
-                note_device_op()
-                if has_band:
-                    off = i * s_rows
-                    bidx, bexact = plan.compiled.band_corrections(
-                        dv, batch, row_offset=off)
-                    if len(bidx):
-                        rows = bidx + off
-                        bexact = (bexact & batch.valid[rows]
-                                  & allowed[sb.host_pids(rows)])
-                        m[upload(bidx, d)] = upload(bexact, d)
-                vm = visibility_mask(self.storage.sft, batch, dv, query.hints)
-                if vm is not None:
-                    m &= vm
-                keep(m)
-            out[i] = m
+        with TRACER.span("kernel.dispatch", kernel="filter.mask"):
+            for i, d in my_shards(mesh):
+                dv = devs[i]
+                with on_shard(d), side_stream(d, after=sb.ready[i]) as keep:
+                    m = (self._raw_mask(plan, dv, batch)
+                         & upload(allowed, d)[sb.pids.shards[i]])
+                    note_device_op()
+                    if has_band:
+                        off = i * s_rows
+                        bidx, bexact = plan.compiled.band_corrections(
+                            dv, batch, row_offset=off)
+                        if len(bidx):
+                            rows = bidx + off
+                            bexact = (bexact & batch.valid[rows]
+                                      & allowed[sb.host_pids(rows)])
+                            m[upload(bidx, d)] = upload(bexact, d)
+                    vm = visibility_mask(self.storage.sft, batch, dv, query.hints)
+                    if vm is not None:
+                        m &= vm
+                    keep(m)
+                out[i] = m
         return Sharded(mesh, out)
 
     # -- execute -----------------------------------------------------------
@@ -532,12 +554,15 @@ class QueryPlanner:
                 self._record(query, plan, int(result.count), t0, t_plan,
                              t_plan, t_done)
                 return result
-        if (self.cache is not None and not hints.sampling
-                and not hints.loose_bbox):
-            result, mask_count, t_scan = self._execute_cached(plan, query)
-        else:
-            result, mask_count, t_scan = self._execute_scan(
-                plan, query, check_timeout)
+        # geomesa.profile.dir: a torch.profiler trace of the route (a
+        # no-op when unset; utils/profiling.py)
+        with device_trace("query", self.device):
+            if (self.cache is not None and not hints.sampling
+                    and not hints.loose_bbox):
+                result, mask_count, t_scan = self._execute_cached(plan, query)
+            else:
+                result, mask_count, t_scan = self._execute_scan(
+                    plan, query, check_timeout)
         self._record(query, plan, mask_count, t0, t_plan, t_scan,
                      time.perf_counter())
         if result.version is None and plan.manifest is not None:
@@ -579,12 +604,13 @@ class QueryPlanner:
             return self._empty_result(query), 0, t_scan
         if sb.mesh is not None:
             return self._execute_mesh(plan, query, sb, allowed) + (t_scan,)
-        allowed_rows = torch.from_numpy(allowed).to(self.device)[sb.pids]
-        vm = visibility_mask(self.storage.sft, sb.batch, sb.dev, hints)
-        if vm is not None:
-            # the band rows re-decided in f64 stay within the auths too
-            allowed_rows = allowed_rows & vm
-        dev_mask = self._raw_mask(plan, sb.dev, sb.batch) & allowed_rows
+        with TRACER.span("kernel.dispatch", kernel="filter.mask"):
+            allowed_rows = torch.from_numpy(allowed).to(self.device)[sb.pids]
+            vm = visibility_mask(self.storage.sft, sb.batch, sb.dev, hints)
+            if vm is not None:
+                # the band rows re-decided in f64 stay within the auths too
+                allowed_rows = allowed_rows & vm
+            dev_mask = self._raw_mask(plan, sb.dev, sb.batch) & allowed_rows
         has_band = plan.compiled is not None and plan.compiled.has_band
 
         if hints.count_only and not hints.sampling:
@@ -608,14 +634,16 @@ class QueryPlanner:
         # stats and features: one mask fetch; the band rows of the
         # allowed partitions take their f64 value (the rest keep the
         # device mask, which already holds the allowance)
-        (mask,) = fetch(dev_mask)
+        with TRACER.span("device.sync"):
+            (mask,) = fetch(dev_mask)
         if has_band:
             mask = plan.compiled.refine(mask, sb.dev, sb.batch,
                                         extra=allowed_rows)
         if not mask.any():
             return self._empty_result(query), 0, t_scan
-        result, matched = aggregate(self.storage.sft, sb.batch, sb.dev, mask,
-                                    query, self._zcalib)
+        with TRACER.span("aggregate"):
+            result, matched = aggregate(self.storage.sft, sb.batch, sb.dev,
+                                        mask, query, self._zcalib)
         return result, matched, t_scan
 
     def _mesh_masks(self, plan: QueryPlan, hints, sb, allowed):
@@ -662,14 +690,16 @@ class QueryPlanner:
         hints = query.hints
         mesh, s_rows, batch = sb.mesh, sb.shard_rows, sb.batch
         devs = sb.shard_devs()
-        masks, extras = self._mesh_masks(plan, hints, sb, allowed)
+        with TRACER.span("kernel.dispatch", kernel="filter.mask"):
+            masks, extras = self._mesh_masks(plan, hints, sb, allowed)
         has_band = plan.compiled is not None and plan.compiled.has_band
 
         def shard_sums():
             return psum(mesh, [m.sum(dtype=torch.int64) for m in masks])
 
         if hints.count_only and not hints.sampling:
-            (total,) = fetch(shard_sums())
+            with TRACER.span("device.sync"):
+                (total,) = fetch(shard_sums())
             total = int(total)
             if has_band:
                 corr = 0
@@ -692,7 +722,8 @@ class QueryPlanner:
             return QueryResult("density", grid=grid, count=int(total)), int(total)
         if mesh.spans_processes:
             gather(Sharded.from_local(mesh, masks), "mask")  # counted, refused
-        mask = np.concatenate(fetch(*masks))
+        with TRACER.span("device.sync"):
+            mask = np.concatenate(fetch(*masks))
         if has_band:
             for (i, d), ex in zip(my_shards(mesh), extras):
                 with on_shard(d):
@@ -701,8 +732,9 @@ class QueryPlanner:
                                                 row_offset=i * s_rows)
         if not mask.any():
             return self._empty_result(query), 0
-        return aggregate(self.storage.sft, batch, sb.dev, mask, query,
-                         self._zcalib)
+        with TRACER.span("aggregate"):
+            return aggregate(self.storage.sft, batch, sb.dev, mask, query,
+                             self._zcalib)
 
     def _execute_scan(self, plan: QueryPlan, query: Query, check_timeout):
         """Scan the pruned partitions into one padded batch. A count is the
@@ -716,7 +748,8 @@ class QueryPlanner:
         check_timeout("scan")
         if batch is None:
             return self._empty_result(query), 0, t_scan
-        dev_mask = self._raw_mask(plan, dev, batch)
+        with TRACER.span("kernel.dispatch", kernel="filter.mask"):
+            dev_mask = self._raw_mask(plan, dev, batch)
         vm = visibility_mask(self.storage.sft, batch, dev, hints)
         if vm is not None:
             # rows the auths cannot see are invisible to counts and to
@@ -725,7 +758,8 @@ class QueryPlanner:
         if hints.count_only and not hints.sampling:
             r = self._count_result(plan, dev, batch, dev_mask, extra=vm)
             return r, r.count, t_scan
-        (mask,) = fetch(dev_mask)
+        with TRACER.span("device.sync"):
+            (mask,) = fetch(dev_mask)
         if plan.compiled is not None and plan.compiled.has_band:
             mask = plan.compiled.refine(mask, dev, batch, extra=vm)
         if hints.sampling:
@@ -735,8 +769,9 @@ class QueryPlanner:
                 groups = (np.asarray(col.codes) if isinstance(col, DictColumn)
                           else np.asarray(col))
             mask = sample_mask(mask, hints.sampling, groups)
-        result, matched = aggregate(self.storage.sft, batch, dev, mask, query,
-                                    self._zcalib)
+        with TRACER.span("aggregate"):
+            result, matched = aggregate(self.storage.sft, batch, dev, mask,
+                                        query, self._zcalib)
         return result, matched, t_scan
 
     @staticmethod
@@ -745,7 +780,8 @@ class QueryPlanner:
         """The device sum of `dev_mask` (which holds `extra`), corrected
         in f64 over the band rows within `extra`: one scalar read and
         one small fetch instead of the mask."""
-        (total,) = fetch(dev_mask.sum(dtype=torch.int64))
+        with TRACER.span("device.sync"):
+            (total,) = fetch(dev_mask.sum(dtype=torch.int64))
         total = int(total)
         if plan.compiled is not None and plan.compiled.has_band:
             total += plan.compiled.band_count_correction(
@@ -1038,17 +1074,23 @@ class QueryPlanner:
         if impl == "sparse":
             key = (plan.cql, kk)
             seed_cap = self._caps_seed(key)
-            if seed_cap is None:
-                # calibration: the one scalar read a cold (filter, k) pays
-                seed_cap = capacity_bucket(int(count_match_tiles(mask)))
-            fd, fi, ov, seed_cap = knn_sparse_launch(
-                jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
-                m_blocks=mb)
+            with TRACER.span("kernel.dispatch", kernel="knn_sparse",
+                             q=int(jqx.shape[0]), k=kk):
+                if seed_cap is None:
+                    # calibration: the one scalar read a cold (filter, k)
+                    # pays
+                    seed_cap = capacity_bucket(int(count_match_tiles(mask)))
+                fd, fi, ov, seed_cap = knn_sparse_launch(
+                    jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
+                    m_blocks=mb)
             note_device_op()
             launch.arm_sparse(fd, fi, ov, x, y, mask, cap=seed_cap,
                               caps_key=key, mb=mb)
         else:
-            fd, fi = knn_fullscan_tiled(jqx, jqy, x, y, mask, k=kk, m_blocks=mb)
+            with TRACER.span("kernel.dispatch", kernel="knn_fullscan",
+                             q=int(jqx.shape[0]), k=kk):
+                fd, fi = knn_fullscan_tiled(jqx, jqy, x, y, mask, k=kk,
+                                            m_blocks=mb)
             note_device_op()
             launch.arm_dense(fd, fi)
         return launch
@@ -1089,13 +1131,16 @@ class QueryPlanner:
                             for v in (qx, qy))
             key = (plan.cql, kk, ("mesh",) + mesh_shape)
             seed_cap = self._caps_seed(key, mesh)
-            if seed_cap is None:
-                # calibration: the one scalar read a cold key pays
-                seed_cap = capacity_bucket(int(shard_match_tiles(mask,
-                                                                 mesh.size)))
-            out = make_knn_serve_sharded(mesh)(
-                jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
-                m_blocks=mb, want_count=want_mask_count)
+            with TRACER.span("kernel.dispatch", kernel="knn_mesh",
+                             q=int(jqx.shape[0]), k=kk, mesh=mesh.size,
+                             shards=",".join(map(str, shards))):
+                if seed_cap is None:
+                    # calibration: the one scalar read a cold key pays
+                    seed_cap = capacity_bucket(int(shard_match_tiles(
+                        mask, mesh.size)))
+                out = make_knn_serve_sharded(mesh)(
+                    jqx, jqy, x, y, mask, k=kk, tile_capacity=seed_cap,
+                    m_blocks=mb, want_count=want_mask_count)
             metrics.counter("knn.mesh.dispatches")
             note_device_op()
             launch = KnnLaunch(self, k=k, kk=kk, impl="mesh", batch=batch,
@@ -1149,11 +1194,13 @@ class QueryPlanner:
             key = (plan.cql, kk, ("shard", shard))
             seed_cap = self._caps_seed(key)
             metrics.counter("knn.mesh.local_dispatches")
-            if seed_cap is None:
-                seed_cap = capacity_bucket(int(count_match_tiles(lm)))
-            fd, fi, ov, seed_cap = knn_sparse_launch(
-                jqx, jqy, lx, ly, lm, k=kk, tile_capacity=seed_cap,
-                m_blocks=mb)
+            with TRACER.span("kernel.dispatch", kernel="knn_sparse",
+                             q=int(jqx.shape[0]), k=kk, shards=str(shard)):
+                if seed_cap is None:
+                    seed_cap = capacity_bucket(int(count_match_tiles(lm)))
+                fd, fi, ov, seed_cap = knn_sparse_launch(
+                    jqx, jqy, lx, ly, lm, k=kk, tile_capacity=seed_cap,
+                    m_blocks=mb)
             note_device_op()
             launch.arm_sparse(fd, fi, ov, lx, ly, lm, cap=seed_cap,
                               caps_key=key, mb=mb)
@@ -1557,36 +1604,41 @@ class KnnLaunch:
         if self._ready is not None:
             return self._ready
         note_device_op()  # the one combined read
-        got = self._rb.wait()
-        fd, fi = got[0], got[1]
-        extra_host = got[self._out:]
-        if self._ov is not None:
-            cap = self._cap
-            if bool(got[2]) and self._dense is not None:
-                fd, fi = fetch(*self._dense())
-                cap = -1
-            elif bool(got[2]):
-                # the host f64 copies cast as the stager casts them: the
-                # staged f32 values, without re-reading a slot that may
-                # have been written since
-                dev = self._x.device
-                qx, qy = (upload(h.astype(np.float32), dev) for h in self._hq)
-                fd, fi = fetch(*knn_fullscan(qx, qy, self._x, self._y,
-                                             self._mask, k=self.kk,
-                                             m_blocks=self._mb))
-                cap = -1
-            with self.planner._mutex:
-                caps = self.planner._knn_caps
-                if cap > 0:
-                    caps[self._caps_key] = cap
-                else:
-                    caps.pop(self._caps_key, None)
-        fi = fi.astype(np.int32)
-        if self.idx_offset:
-            # the shard-affinity route: local rows -> serial rows
-            fi = fi + np.int32(self.idx_offset)
-        dists, idx = _pad_to_k(np.asarray(fd), np.asarray(fi), self.k)
-        dists = _canonical_dists(dists, idx, self.batch, self._hq)
+        attrs = {"shards": ",".join(map(str, self.shards))
+                 if self.shards else ""}
+        if self.ring:
+            attrs["ring"] = True
+        with TRACER.span("device.sync", **attrs):
+            got = self._rb.wait()
+            fd, fi = got[0], got[1]
+            extra_host = got[self._out:]
+            if self._ov is not None:
+                cap = self._cap
+                if bool(got[2]) and self._dense is not None:
+                    fd, fi = fetch(*self._dense())
+                    cap = -1
+                elif bool(got[2]):
+                    # the host f64 copies cast as the stager casts them: the
+                    # staged f32 values, without re-reading a slot that may
+                    # have been written since
+                    dev = self._x.device
+                    qx, qy = (upload(h.astype(np.float32), dev) for h in self._hq)
+                    fd, fi = fetch(*knn_fullscan(qx, qy, self._x, self._y,
+                                                 self._mask, k=self.kk,
+                                                 m_blocks=self._mb))
+                    cap = -1
+                with self.planner._mutex:
+                    caps = self.planner._knn_caps
+                    if cap > 0:
+                        caps[self._caps_key] = cap
+                    else:
+                        caps.pop(self._caps_key, None)
+            fi = fi.astype(np.int32)
+            if self.idx_offset:
+                # the shard-affinity route: local rows -> serial rows
+                fi = fi + np.int32(self.idx_offset)
+            dists, idx = _pad_to_k(np.asarray(fd), np.asarray(fi), self.k)
+            dists = _canonical_dists(dists, idx, self.batch, self._hq)
         if extra_host:
             self.mask_count = int(extra_host[0])
         # drop the device refs: they are the window's device footprint

@@ -303,8 +303,7 @@ class DispatchPipeline:
             key = key + ("mesh", (mesh.size,))
             device = mesh.lead
         with TRACER.scope(lead.trace, parent_id=win.wid):
-            with TRACER.span("device.transfer", rows=len(win.qx), staged=True):
-                win.staged = self.stager(device).stage(key, win.qx, win.qy)
+            win.staged = self.stager(device).stage(key, win.qx, win.qy)
 
     def _launch(self, win: PipelinedWindow) -> None:
         """planner.knn_launch: plan -> mask -> launch + readback. The
@@ -356,8 +355,7 @@ class DispatchPipeline:
         lead = win.lead
         try:
             with TRACER.scope(lead.trace, parent_id=win.wid):
-                with TRACER.span("device.sync", ring=bool(win.launch.ring)):
-                    dists, idx, batch = win.launch.sync()
+                dists, idx, batch = win.launch.sync()
                 split_knn_results(win.running, win.offsets, dists, idx, batch)
             self._resolve_counts(win)
         except BaseException as e:  # noqa: BLE001 — fan out, serial parity

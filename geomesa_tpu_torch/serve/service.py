@@ -47,6 +47,15 @@ Observability: per-request ServeEvents into the store's audit writer,
 queue-wait and end-to-end latency histograms (p50/p95/p99 via the
 Prometheus export), dispatch/coalesce/shed counters — all through
 `geomesa_tpu_torch.utils.metrics` plus a per-instance `stats()` snapshot.
+`trace=True` turns the process-wide span tracer on (each request's trace
+lands in the flight recorder, `telemetry/recorder.py`); `profile=True`
+folds every recorded trace into the continuous profiler
+(`telemetry/prof.py`); `slo` loads an SLO engine (`telemetry/slo.py`)
+that every resolved request feeds, whose burn rate is a second input of
+the degradation ladder and whose spent exactness budget routes tolerant
+requests exact. A `telemetry.export.MetricsServer` built over
+`stats`/`export_gauges` serves it all over HTTP (set `metrics_port` to
+the port it bound).
 
 Sharded serving: `ServeConfig.mesh` resolves through
 `parallel.mesh.serve_mesh` and is installed on the store (`set_mesh`);
@@ -62,9 +71,6 @@ submits the same requests in the same order, and each window holds the
 same requests in every process (one closed client a process, with
 identical request streams, keeps it). Shard affinity is off there: every
 window runs the whole mesh.
-
-Not here yet, each a NotPortedError naming its ROADMAP item when asked
-for: SLOs and the continuous profiler's switch (A8).
 """
 
 from __future__ import annotations
@@ -80,7 +86,6 @@ import numpy as np
 
 from geomesa_tpu_torch.approx.cache import ResultCache, result_key
 from geomesa_tpu_torch.compilecache.stall import STALLS
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.faults import (
     BREAKERS, RECOVERY, BreakerOpen, QuarantineRegistry, classify)
 from geomesa_tpu_torch.faults.breaker import _STATE_NUM
@@ -92,15 +97,15 @@ from geomesa_tpu_torch.serve.batcher import (
     fused_count_key, split_expired)
 from geomesa_tpu_torch.serve.scheduler import (
     PRIORITIES, AdmissionQueue, QueryRejected, RateLimiter, ServeRequest)
+from geomesa_tpu_torch.telemetry.prof import PROFILER
 from geomesa_tpu_torch.telemetry.recorder import RECORDER
+from geomesa_tpu_torch.telemetry.slo import SloEngine, SloSpec
 from geomesa_tpu_torch.telemetry.trace import TRACER
 from geomesa_tpu_torch.utils.metrics import metrics
 
 @dataclasses.dataclass
 class ServeConfig:
-    """The reference's fields and defaults. A field of a later route
-    (`_LATER_FIELDS`) raises NotPortedError at construction unless it
-    keeps its default."""
+    """The reference's fields and defaults."""
 
     max_queue: int = 128        # admission bound (backpressure, not buffer)
     max_batch: int = 64         # coalescing cap per dispatch
@@ -129,8 +134,15 @@ class ServeConfig:
     # path for this process
     trace: bool = False
     flight_dump: Optional[str] = None
-    # SLO engine and the continuous profiler's switch (A8)
+    # SLO engine: a spec path (.toml/.json), a spec dict, an SloSpec, or
+    # a ready SloEngine (tests inject one with a fake clock). Every
+    # resolved request feeds its sliding windows, `slo.*` gauges export
+    # at scrape time, and with `degrade` on the ladder takes the engine's
+    # burn-rate boost beside queue occupancy
     slo: object = None
+    # continuous profiler: fold every recorded trace into the process-
+    # lifetime distributions (needs trace=True to have traces to fold;
+    # the flag flips the process-wide PROFILER switch)
     profile: bool = False
     # pipelined dispatch: kNN windows run prepare/transfer/launch on the
     # dispatch thread and the sync on a completer thread, up to
@@ -172,22 +184,8 @@ class ServeConfig:
     result_cache: int = 256
 
 
-# Fields the reference reads on routes this slice does not run, with the
-# ROADMAP item that brings each: any value but the default raises.
-_LATER_FIELDS = {
-    "slo": "ROADMAP A8",
-    "profile": "ROADMAP A8",
-}
-
-
-def _check_ported(config: ServeConfig) -> None:
-    """Refuse, typed, every option whose route a later slice brings: none
-    of them may silently run another route or be silently ignored."""
-    for f in dataclasses.fields(config):
-        item = _LATER_FIELDS.get(f.name)
-        if item is not None and getattr(config, f.name) != f.default:
-            raise NotPortedError(
-                f"ServeConfig.{f.name}={getattr(config, f.name)!r}", item)
+def _check_config(config: ServeConfig) -> None:
+    """Refuse, typed, a donate switch the port cannot honour."""
     if not (config.pipeline_donate is None
             or isinstance(config.pipeline_donate, bool)):
         raise ValueError(f"ServeConfig.pipeline_donate="
@@ -214,7 +212,7 @@ class QueryService:
                  autostart: bool = True):
         self.store = store
         self.config = config or ServeConfig()
-        _check_ported(self.config)
+        _check_config(self.config)
         # sharded serving: resolve the spec once and install it on the
         # store (existing sources re-tier, new ones inherit it). None
         # inherits the store's mesh; "off" clears one. The ring serves a
@@ -243,6 +241,20 @@ class QueryService:
             TRACER.enable()
         if self.config.flight_dump:
             RECORDER.auto_dump_path = self.config.flight_dump
+        if self.config.profile:
+            PROFILER.enable()
+        # SLO engine: a path, dict, SloSpec or a ready engine
+        self.slo = None
+        if self.config.slo is not None:
+            spec = self.config.slo
+            if isinstance(spec, SloEngine):
+                self.slo = spec
+            else:
+                if isinstance(spec, str):
+                    spec = SloSpec.load(spec)
+                elif isinstance(spec, dict):
+                    spec = SloSpec.from_dict(spec)
+                self.slo = SloEngine(spec)
         self._closed = False
         self._stop = threading.Event()
         self._inflight = 0
@@ -257,6 +269,10 @@ class QueryService:
         # shared by every connection so a subscription's frames can
         # mirror onto attached connections; built by wire_mux()
         self._push_mux = None
+        # the bound port of a MetricsServer its owner started for this
+        # service (port=0 lets the OS pick, so the bound value is kept
+        # here and reported by stats())
+        self.metrics_port: Optional[int] = None
         # pipelined dispatch path (serve/pipeline.py): the default for
         # kNN windows; its completer thread starts on the first window
         self.pipeline = None
@@ -397,14 +413,18 @@ class QueryService:
             "query", kind=req.kind, type=req.query.type_name,
             tenant=req.tenant)
         if trace is None:
-            self._admit(req)
-            hit, value = self._cache_peek(req)
-            if hit:
-                return self._resolve_cached(req, value)
-            value = self._approx_peek(req)
-            if value is not None:
-                return self._resolve_approx(req, value)
-            return self._enqueue(req)
+            try:
+                self._admit(req)
+                hit, value = self._cache_peek(req)
+                if hit:
+                    return self._resolve_cached(req, value)
+                value = self._approx_peek(req)
+                if value is not None:
+                    return self._resolve_approx(req, value)
+                return self._enqueue(req)
+            except QueryRejected:
+                self._observe_slo(req, "rejected", 0.0)
+                raise
         req.trace = trace
         try:
             # the admit span must CLOSE before the request becomes
@@ -421,6 +441,8 @@ class QueryService:
                 return self._resolve_approx(req, value)
             return self._enqueue(req)
         except BaseException as e:
+            if isinstance(e, QueryRejected):
+                self._observe_slo(req, "rejected", 0.0)
             trace.finish(status="rejected", error=type(e).__name__)
             RECORDER.record(trace)
             raise
@@ -455,13 +477,20 @@ class QueryService:
                 "shed", "sustained overload: batch class shed")
         if level >= 1 and self.config.degrade and req.allow_degraded:
             self._degrade(req, level)
-        # approximation off strips the tolerance hint: the request pays
-        # the exact path, never a silent approximation
+        # approximation off, or a spent SLO exactness budget, strips the
+        # tolerance hint: the request pays the exact path, never a silent
+        # approximation. The two count apart: "budget_exact" means the
+        # governor acted, so a disabled tier never reads as perpetual
+        # budget exhaustion
         if req.query.hints.tolerance is not None and not self._approx_ok():
             req.query = dataclasses.replace(
                 req.query, hints=dataclasses.replace(
                     req.query.hints, tolerance=None))
-            self._bump("approx_disabled")
+            if not self.config.approx:
+                self._bump("approx_disabled")
+            else:
+                self._bump("approx_budget_exact")
+                metrics.counter("approx.budget_exact")
         if req.kind in ("count", "execute") and self.result_cache is not None:
             # the batcher populates the cache with the version the
             # planner's plan actually pinned (exact-by-construction)
@@ -520,9 +549,13 @@ class QueryService:
     # -- result cache ------------------------------------------------------
 
     def _approx_ok(self) -> bool:
-        """Sketch serving allowed right now? The config switch (the SLO
-        exactness budget comes with ROADMAP A8)."""
-        return self.config.approx
+        """Sketch serving allowed right now? The config switch AND the
+        SLO exactness budget (a spent budget routes exact)."""
+        if not self.config.approx:
+            return False
+        if self.slo is None:
+            return True
+        return not self.slo.exactness_spent()
 
     def _sketch_rung_ok(self, req: ServeRequest) -> bool:
         """Can the sketch tier plausibly answer this request? An
@@ -571,6 +604,7 @@ class QueryService:
         metrics.counter("serve.requests", kind=req.kind, status="ok")
         metrics.counter("serve.tier", tier="sketch")
         metrics.histogram("serve.latency").update(0.0)
+        self._observe_slo(req, "ok", 0.0)
         if req.future.set_running_or_notify_cancel():
             req.future.set_result(value)
         if req.trace is not None:
@@ -627,7 +661,9 @@ class QueryService:
         self._bump("completed")
         metrics.counter("serve.requests", kind=req.kind, status="ok")
         metrics.counter("serve.tier", tier="cached")
-        metrics.histogram("serve.latency").update(queue_ms / 1000.0)
+        latency_s = queue_ms / 1000.0
+        metrics.histogram("serve.latency").update(latency_s)
+        self._observe_slo(req, "ok", latency_s)
         if req.future.set_running_or_notify_cancel():
             req.future.set_result(value)
         if req.trace is not None:
@@ -653,16 +689,22 @@ class QueryService:
 
     def degrade_level(self) -> int:
         """0 = nominal; 1 = hint downgrades; 2 = + shed batch class, from
-        queue occupancy (a pure function, so the ladder releases the
-        moment the backlog drains)."""
+        queue occupancy (so the ladder releases the moment the backlog
+        drains) and, with an SLO engine, its burn-rate boost: a
+        degrade-marked objective breaching the multi-window burn threshold
+        engages the ladder even with an empty queue, and releases as the
+        breach ages out of the fast window."""
         if not self.config.degrade:
             return 0
         occ = len(self.queue) / self.config.max_queue
+        level = 0
         if occ >= self.config.shed_watermark:
-            return 2
-        if occ >= self.config.degrade_watermark:
-            return 1
-        return 0
+            level = 2
+        elif occ >= self.config.degrade_watermark:
+            level = 1
+        if self.slo is not None and level < 2:
+            level = max(level, self.slo.degrade_boost())
+        return level
 
     def _degrade(self, req: ServeRequest, level: int) -> None:
         """Rewrite hints toward cheaper execution: loose bbox, then 1-in-4
@@ -700,6 +742,17 @@ class QueryService:
         req.degraded = True
         self._bump("degraded")
         metrics.counter("serve.degraded")
+
+    def _observe_slo(self, req: ServeRequest, status: str,
+                     latency_s: float) -> None:
+        """Feed one resolved request into the SLO engine's sliding windows
+        (a no-op without a spec). A sketch-served answer spends the
+        exactness budget like a ladder-degraded one: approximation is
+        budgeted, and the closed loop (exactness_spent -> tolerance
+        stripped) keeps it from becoming silent degradation."""
+        if self.slo is not None:
+            self.slo.observe(req.kind, status, latency_s,
+                             degraded=req.degraded or req.approx)
 
     # -- dispatch loop -----------------------------------------------------
 
@@ -795,6 +848,7 @@ class QueryService:
         for r in dead:
             self._bump("timeout")
             metrics.counter("serve.timeout")
+            self._observe_slo(r, "timeout", time.monotonic() - r.enqueued_at)
             if r.trace is not None:
                 r.trace.record("queue.wait", r.enqueued_ns, g1_ns)
                 RECORDER.record(r.trace.finish(status="timeout"))
@@ -979,6 +1033,13 @@ class QueryService:
                         metrics.counter("serve.degraded")
                 metrics.counter(
                     "serve.tier", tier="sketch" if r.approx else "exact")
+            # rejection is not failure for the SLOs, even where the wire
+            # status says error: a window failed by shutdown fans
+            # QueryRejected out, and shedding must not burn the
+            # availability budget it protects
+            self._observe_slo(
+                r, "rejected" if isinstance(exc, QueryRejected) else status,
+                t1 - r.enqueued_at)
             metrics.counter("serve.requests", kind=r.kind, status=status)
             if r.tenant:
                 metrics.counter("serve.tenant.requests", tenant=r.tenant)
@@ -1081,6 +1142,8 @@ class QueryService:
         }
         if self.result_cache is not None:
             out["cache"] = self.result_cache.stats()
+        if self.metrics_port is not None:
+            out["metrics_port"] = self.metrics_port
         if self.pipeline is not None:
             out["pipeline"] = self.pipeline.stats()
         if self.mesh is not None:
@@ -1094,6 +1157,8 @@ class QueryService:
             mux = self._push_mux
         if mux is not None:
             out["wire"] = mux.stats()
+        if self.slo is not None:
+            out["slo"] = self.slo.report()
         return out
 
     def wire_mux(self):
@@ -1123,6 +1188,8 @@ class QueryService:
         with self._state_lock:
             inflight = self._inflight
         metrics.gauge("serve.inflight", float(inflight))
+        if self.slo is not None:
+            self.slo.export_gauges()
         if self.pipeline is not None:
             p = self.pipeline.stats()
             metrics.gauge("serve.pipeline.inflight", float(p["inflight"]))

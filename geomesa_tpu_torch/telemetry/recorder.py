@@ -2,12 +2,12 @@
 fault-fabric events, dumpable on demand or on crash.
 
 A copy of the reference package's `telemetry/recorder.py`, kept in the
-port so that it imports nothing of the reference, without the reference's
-hook into its continuous profiler (`telemetry/prof.py` comes with ROADMAP
-A8). The port runs in one process, so a dump's path takes no per-process
-suffix.
+port so that it imports nothing of the reference. Every recorded trace
+also folds into the continuous profiler (`telemetry/prof.py`) while it
+is enabled. Each process of a group dumps to its own path
+(`parallel.distributed.process_suffix`).
 
-The postmortem story for the recovery fabric (docs/ROBUSTNESS.md): when
+The postmortem story for the recovery fabric: when
 a dispatch dies with an un-typed error, the question is never "what was
 THIS request" — the audit log has that — but "what were the last N
 requests doing, and what was the breaker/quarantine fabric seeing while
@@ -25,8 +25,8 @@ recorded trace keeps no live references into the serve layer) and
 Crash dumps: `crash_dump(reason)` writes the full snapshot as JSON to
 `auto_dump_path` (or `GEOMESA_TPU_FLIGHT_DUMP`, or a pid-qualified file
 in the system temp dir) and returns the path. The serve dispatch loop
-calls it on un-typed dispatcher errors; `gmtpu serve` wires SIGTERM-free
-shutdown dumps via `--flight-dump`.
+calls it on un-typed dispatcher errors; `ServeConfig.flight_dump` sets
+the path.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import threading
 import time
 from typing import List, Optional
 
+from geomesa_tpu_torch.telemetry.prof import PROFILER
 from geomesa_tpu_torch.telemetry.trace import Trace
 
 __all__ = ["FlightRecorder", "RECORDER"]
@@ -72,6 +73,12 @@ class FlightRecorder:
         with self._lock:
             self._traces.append(doc)
             self._trace_count += 1
+        # continuous profiler (telemetry/prof.py): every recorded trace
+        # folds into the lifetime distributions when the profiler is on
+        # — one attribute read when off. Outside the ring lock: the
+        # fold takes the profiler's own lock and must not couple scrape
+        # readers of the ring to fold latency.
+        PROFILER.maybe_fold(doc)
 
     def note_event(self, kind: str, **detail) -> None:
         """Record one fault-fabric event (breaker transition, quarantine

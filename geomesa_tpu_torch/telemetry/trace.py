@@ -1,8 +1,10 @@
 """Span-tracing core: where a query's wall time actually goes.
 
 A copy of the reference package's `telemetry/trace.py`, kept in the
-port so that it imports nothing of the reference. The port's planner and
-kernels record no spans yet; the serve layer's spans are the reference's.
+port so that it imports nothing of the reference. The port opens the
+reference's spans at the same seams: the serve layer's, and the
+planner's and device layer's (plan, residency, scan, kernel.dispatch
+with its `kernel` family, device.transfer, device.sync, aggregate).
 
 The serve path is dispatch-bound (BENCH r03: 0.101s dispatch RTT vs
 0.066s kernel time), and the only per-request evidence so far is the

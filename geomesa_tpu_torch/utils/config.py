@@ -96,6 +96,11 @@ class SystemProperties:
         "geomesa.scan.ranges.target", 2000, int,
         "z-range decomposition budget (more ranges = tighter covering)",
     )
+    PROFILE_DIR = SystemProperty(
+        "geomesa.profile.dir", "", str,
+        "write a torch.profiler trace per query execution into this "
+        "directory",
+    )
     SQL_JOIN_MAX_ROWS = SystemProperty(
         "geomesa.sql.join.max.rows", 1 << 25, int,
         "per-side row cap for SQL joins (the join itself is a host-side "

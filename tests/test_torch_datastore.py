@@ -378,6 +378,39 @@ def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
                                torch.zeros(4), torch.zeros(4),
                                torch.ones(4, dtype=torch.bool))
         assert m.all()
+        import geomesa_tpu_torch.telemetry.export  # noqa: F401
+        import geomesa_tpu_torch.telemetry.gap  # noqa: F401
+        import geomesa_tpu_torch.telemetry.prof  # noqa: F401
+        import geomesa_tpu_torch.telemetry.sentinel  # noqa: F401
+        import geomesa_tpu_torch.telemetry.slo  # noqa: F401
+        import geomesa_tpu_torch.utils.profiling  # noqa: F401
+        from geomesa_tpu_torch.telemetry import (
+            PROFILER, MetricsServer, SloEngine, SloSpec, gap_report,
+            to_perfetto)
+        from geomesa_tpu_torch.serve import QueryService, ServeConfig
+        tsvc = QueryService(ds, ServeConfig(
+            pipeline=False, ring=False, trace=True, profile=True,
+            slo={{"objective": {{"a": {{"kind": "availability"}}}}}}))
+        tsrv = MetricsServer(port=0, stats_fn=tsvc.stats,
+                             pre_scrape=tsvc.export_gauges,
+                             slo_fn=tsvc.slo.report)
+        tsrv.start()
+        tsvc.count("t", "speed > 5").result(timeout=120)
+        import urllib.request
+        with urllib.request.urlopen(tsrv.url + "/debug/prof", timeout=10) as r:
+            assert r.status == 200
+        tsrv.stop()
+        tsvc.close(drain=True)
+        PROFILER.disable()
+        from geomesa_tpu_torch.telemetry import RECORDER
+        assert gap_report(RECORDER.traces())["traces"] >= 1
+        assert to_perfetto(RECORDER.traces())["traceEvents"]
+        from geomesa_tpu_torch.utils.config import SystemProperties
+        SystemProperties.set("geomesa.profile.dir",
+                             os.path.join({str(tmp_path)!r}, "prof"))
+        assert src.get_count("speed > 5") >= 0
+        SystemProperties.clear("geomesa.profile.dir")
+        assert os.listdir(os.path.join({str(tmp_path)!r}, "prof"))
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "geomesa_tpu."))
                or m == "geomesa_tpu"]

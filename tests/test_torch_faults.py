@@ -320,6 +320,8 @@ def test_oom_on_a_card_store_fails_typed_never_on_the_host(stores, services,
     assert delta == {"serve.oom.halved": 7 if kind == "knn" else 0,
                      "serve.oom.hosteval": 0,
                      "serve.oom.failed": 8 if kind == "knn" else 1}
+    # the futures resolve before the dispatcher's bookkeeping: drain first
+    svc.close(drain=True)
     assert svc.stats()["dispatches"] == 1
     assert svc.stats()["failed"] == len(futs)
 
@@ -348,6 +350,8 @@ def test_non_oom_error_fans_out_without_the_ladder(stores, services,
             f.result(timeout=60)
     assert counter("serve.oom.halved") == halved
     assert counter("serve.oom.hosteval") == hosteval
+    # the futures resolve before the dispatcher's bookkeeping: drain first
+    svc.close(drain=True)
     assert svc.stats()["failed"] == 8
 
 

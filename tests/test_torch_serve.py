@@ -33,7 +33,6 @@ from geomesa_tpu.plan.planner import QueryTimeout as RQueryTimeout
 from geomesa_tpu.plan.query import Query as RQuery
 from geomesa_tpu.utils.metrics import Histogram as RHistogram
 from geomesa_tpu.utils.metrics import metrics as rmetrics
-from geomesa_tpu_torch.errors import NotPortedError
 from geomesa_tpu_torch.plan.audit import ServeEvent as PServeEvent
 from geomesa_tpu_torch.plan.datastore import DataStore as PDataStore
 from geomesa_tpu_torch.plan.hints import QueryHints as PHints
@@ -573,27 +572,35 @@ def test_latency_histograms_exported(stores, services):
     ({"subscribe_poll_ms": 10.0}, "A6"),
     ({"approx_degrade_tolerance": 0.2}, None)])
 def test_later_options_raise_not_ported(stores, option, item):
-    """Options of later slices refuse typed; the sketch rung's tolerance
-    (item None), the standing queries' bounds (A6) and the serving mesh
-    (A7, ported: "auto" on a host without two cards resolves to no mesh,
-    as the reference's does on one device) construct and carry the
-    value."""
-    if item in (None, "A6", "A7"):
-        svc = pserve.QueryService(stores["port"], pserve.ServeConfig(**option),
-                                  autostart=False)
-        (name, value), = option.items()
-        assert getattr(svc.config, name) == value
-        if item == "A7":
-            assert svc.mesh is None
-            from geomesa_tpu.parallel.mesh import serve_mesh as rserve_mesh
-
-            assert rserve_mesh("auto", devices=["only-one"]) is None
-        svc.close()
+    """Every option of a later slice is ported now (the name is kept from
+    when they were not): the sketch rung's tolerance (item None), the
+    standing queries' bounds (A6) and the profiler's switch (A8) construct
+    and carry the value; the serving mesh (A7: "auto" on a host without
+    two cards) resolves to no mesh, as the reference's does on one
+    device; an SLO spec without objectives (A8) refuses with the
+    reference's ValueError."""
+    if "slo" in option:
+        for pkg in ("ref", "port"):
+            with pytest.raises(ValueError, match="no \\[objective"):
+                PKG[pkg].serve.QueryService(
+                    stores[pkg], PKG[pkg].serve.ServeConfig(**option),
+                    autostart=False)
         return
-    with pytest.raises(NotPortedError) as ei:
-        pserve.QueryService(stores["port"], pserve.ServeConfig(**option),
-                            autostart=False)
-    assert item in ei.value.later_slice
+    svc = pserve.QueryService(stores["port"], pserve.ServeConfig(**option),
+                              autostart=False)
+    (name, value), = option.items()
+    assert getattr(svc.config, name) == value
+    if item == "A7":
+        assert svc.mesh is None
+        from geomesa_tpu.parallel.mesh import serve_mesh as rserve_mesh
+
+        assert rserve_mesh("auto", devices=["only-one"]) is None
+    if name == "profile":
+        from geomesa_tpu_torch.telemetry.prof import PROFILER
+
+        assert PROFILER.enabled
+        PROFILER.disable()
+    svc.close()
 
 
 def test_warmup_methods_raise_not_ported(stores, services):
